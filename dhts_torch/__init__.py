@@ -9,7 +9,8 @@ counterpart does:
     dhts_torch.models    vehicle parameters, scene builder, network state and
                          step, hybrid conversion
     dhts_torch.utils     running statistics
-    dhts_torch.apps      the ITSCP signal-control environment and controller
+    dhts_torch.apps      the ITSCP signal-control environment, controller,
+                         trainer and training CLI
 
 The port imports ``torch`` and ``numpy`` only. Every entry point takes an
 explicit ``device``; it defaults to ``cuda`` and raises when no GPU is

@@ -13,11 +13,11 @@
   test of speed below ``static_speed``.
 
 The episode is an eager PyTorch loop over the T steps; each step is
-vectorised over lanes, cells and vehicles. In hard mode
-(``differentiable=False``) it is the CPU specification of the hand-written
-CUDA kernel in :mod:`dhts_torch.ops.cuda.itscp_hybrid_episode`. The running
-means that sharpen the soft sigmoids are detached ``(sum, count)`` states
-updated once per step.
+vectorised over lanes, cells and vehicles. In every gate mode (hard, soft,
+straight-through) it is the specification of the hand-written CUDA kernel
+in :mod:`dhts_torch.ops.cuda.itscp_hybrid_episode`, and autograd through it
+that of the kernel's backward. The running means that sharpen the soft
+sigmoids are detached ``(sum, count)`` states updated once per step.
 
 Randomness is host numpy at ``reset`` (the same draws, in the same order,
 as ``dhts``) and one ``rand[T, L]`` tensor per episode, drawn with an
@@ -37,7 +37,7 @@ from dhts_torch.device import resolve_device
 from dhts_torch.models import conversion, network
 from dhts_torch.models.scene import SceneSpec
 from dhts_torch.models.vehicle import default_params
-from dhts_torch.ops import arz
+from dhts_torch.ops import arz, dmath
 from dhts_torch.ops.dmath import soft_sigmoid
 from dhts_torch.utils import rms
 
@@ -252,8 +252,8 @@ def _make_episode_fn(spec: SceneSpec, meta: LaneMeta, config,
         # ---- micro boundary: green leader vs red stop-at-end
         pd_g, sd_g = network.find_micro_leader(spec, state)
         head = network.micro_head_info(spec, state)
-        red_pd = torch.clamp(
-            spec.length - head["position"] - head["length"] * 0.5, min=0.0)
+        red_pd = dmath.maximum(
+            spec.length - head["position"] - head["length"] * 0.5, 0.0)
 
         R = state.micro.route.shape[2]
         ridx = head["route_idx"]
@@ -290,8 +290,8 @@ def _make_episode_fn(spec: SceneSpec, meta: LaneMeta, config,
         blend_mask = head["exists"] & ~spec.is_macro
         if diff:
             signal_ms = rms.update_mean_masked(signal_ms, fsig, blend_mask)
-            const = 32.0 * gsc / torch.clamp(
-                torch.abs(rms.mean_of(signal_ms, 1.0)), min=1e-6)
+            const = arz.rdiv(32.0 * gsc, dmath.maximum(
+                torch.abs(rms.mean_of(signal_ms, 1.0)), 1e-6))
             fs = stg(fsig >= 0.5, soft_sigmoid(fsig - 0.5, const))
             pd = pd_g * fs + red_pd * (1.0 - fs)
             sd = sd_g * fs  # red speed delta is 0
@@ -323,8 +323,8 @@ def _make_episode_fn(spec: SceneSpec, meta: LaneMeta, config,
             is_static_ms = rms.update_mean_masked(
                 is_static_ms, static_speed - state.micro.speed, veh_m)
         if diff:
-            const = 16.0 / torch.clamp(
-                torch.abs(rms.mean_of(is_static_ms, 1.0)), min=1e-6)
+            const = arz.rdiv(16.0, dmath.maximum(
+                torch.abs(rms.mean_of(is_static_ms, 1.0)), 1e-6))
             stat_c = stg(u_cells < static_speed,
                          soft_sigmoid(static_speed - u_cells, const))
         else:
@@ -412,7 +412,8 @@ class ItscpEnv:
         self.grid: grid_scene.GridScene | None = None
         self._episode_soft = None
         self._episode_hard = None
-        self._fused = None  # (fused episode fn, its leader window)
+        # {differentiable: (fused episode fn, its leader window)}
+        self._fused = {}
 
     # -- sizes ------------------------------------------------------------
 
@@ -508,7 +509,7 @@ class ItscpEnv:
                                                   True)
             self._episode_hard = _make_episode_fn(self.spec, self.meta, c,
                                                   False)
-            self._fused = None
+            self._fused = {}
         # the leader walk's window bound: it depends on the fresh pools
         from dhts_torch.ops.cuda.itscp_hybrid_episode import leader_window
         is_macro = self.spec.is_macro.cpu().numpy()
@@ -550,9 +551,9 @@ class ItscpEnv:
 
         ``rand`` (f32 ``[T, L]``) is the injection stream; without it one is
         drawn from ``generator``. With ``config["use_fused_episode"]`` the
-        hard episode runs through the fused kernel (the hand-written CUDA
-        kernel on a GPU, its plain version on the CPU); the differentiable
-        fused episode needs the kernel's backward, which is not ported yet.
+        episode runs through the fused kernel K1 (the hand-written CUDA
+        kernels on a GPU, their plain version on the CPU); differentiable
+        episodes then back-propagate through K1's backward kernel.
         """
         action = torch.as_tensor(action, dtype=torch.float32,
                                  device=self.device)
@@ -564,15 +565,15 @@ class ItscpEnv:
         fn = self._episode_soft if differentiable else self._episode_hard
         return fn(action, self.data, self.base_state, rand)
 
-    def _fused_episode_one(self, differentiable: bool = False):
-        """Return ``one(action_flat, data, rand) -> EpisodeResult`` through
-        the fused episode (built once per scene and leader window; hard
-        mode only until the kernel's backward is ported)."""
+    def _fused_episode_fn(self, differentiable: bool):
+        """The fused episode of this scene in the given mode, rebuilt when a
+        reset needs a wider leader window."""
         from dhts_torch.ops.cuda.itscp_hybrid_episode import \
             make_fused_itscp_episode
 
         win = self._fused_win_needed
-        if differentiable or self._fused is None or win > self._fused[1]:
+        built = self._fused.get(differentiable)
+        if built is None or win > built[1]:
             V = self.base_state.micro.position.shape[1]
             R = self.base_state.micro.route.shape[2]
             P = self.data.inj_routes.shape[1]
@@ -581,8 +582,17 @@ class ItscpEnv:
                                           V, R, P, P2,
                                           differentiable=differentiable,
                                           window=win)
-            self._fused = (fn, win)
-        fn = self._fused[0]
+            self._fused[differentiable] = built = (fn, win)
+        return built[0]
+
+    def fused_plan(self, differentiable: bool = False):
+        """The fused kernel's :class:`EpisodePlan` for this scene."""
+        return self._fused_episode_fn(differentiable).plan
+
+    def _fused_episode_one(self, differentiable: bool = False):
+        """Return ``one(action_flat, data, rand) -> EpisodeResult`` through
+        the fused episode (built once per scene, mode and leader window)."""
+        fn = self._fused_episode_fn(differentiable)
         n_phases = self.n_phases
         pool = self.base_state.route_pool
 

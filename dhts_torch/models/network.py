@@ -234,9 +234,9 @@ def micro_lane_macro_state(spec: SceneSpec, state: NetworkState,
         speed_sum = speed_sum + torch.sum(mem * mic.speed[nc], dim=1)
         weight = weight + torch.sum(mem, dim=1)
 
-    density = torch.clamp(density, max=1.0)
+    density = dmath.minimum(density, 1.0)
     speed = torch.where(weight > 0,
-                        speed_sum / torch.clamp(weight, min=1e-12),
+                        speed_sum / dmath.maximum(weight, 1e-12),
                         torch.full_like(weight, spec.speed_limit))
     return density, speed
 
@@ -302,8 +302,8 @@ def find_micro_leader(spec: SceneSpec, state: NetworkState):
     tail_len = mic.params.length[lead_lane, 0]
 
     pd = torch.where(leader_found,
-                     torch.clamp(cur_delta + tail_pos - tail_len * 0.5,
-                                 min=0.0),
+                     dmath.maximum(cur_delta + tail_pos - tail_len * 0.5,
+                                   0.0),
                      torch.full_like(tail_pos, DEFAULT_HEAD_POSITION_DELTA))
     sd = torch.where(leader_found, head["speed"] - tail_vel,
                      torch.full_like(tail_pos, DEFAULT_HEAD_SPEED_DELTA))

@@ -20,6 +20,8 @@ from typing import NamedTuple
 
 import torch
 
+from dhts_torch.ops.dmath import maximum
+
 GAMMA = 0.5
 EPSILON = 1e-5
 
@@ -47,13 +49,13 @@ def rdiv(n, x):
 
 def compute_u_eq(r, u_max):
     """Equilibrium speed ``u_max * (1 - sqrt(max(r, 0) + eps))``."""
-    r = torch.clamp(r, min=0.0)
+    r = maximum(r, 0.0)
     return u_max * (1.0 - sqrt(r + EPSILON))
 
 
 def compute_u_eq_prime(r, u_max):
     """d(u_eq)/dr with the ``max(r, eps)`` clamp: ``-u_max/2 / sqrt(r)``."""
-    r = torch.clamp(r, min=EPSILON)
+    r = maximum(r, EPSILON)
     return (-u_max * GAMMA) * sqrt(r).reciprocal()
 
 
@@ -64,7 +66,7 @@ def compute_y(r, u, u_max):
 
 def compute_u(r, y, u_max):
     """Speed ``u = y / max(r, eps) + u_eq(max(r, eps))``."""
-    r = torch.clamp(r, min=EPSILON)
+    r = maximum(r, EPSILON)
     return y / r + compute_u_eq(r, u_max)
 
 
@@ -102,7 +104,7 @@ def riemann_solve(r_l, y_l, u_l, r_r, u_r, u_max) -> RiemannSolution:
     """
     u_eq_l = compute_u_eq(r_l, u_max)
     lam0_l = lambda0(r_l, u_l, u_max)
-    r_l_pow = sqrt(torch.clamp(r_l, min=EPSILON))
+    r_l_pow = sqrt(maximum(r_l, EPSILON))
 
     # middle state (Rankine-Hugoniot / rarefaction invariant)
     r_m = torch.square(r_l_pow + div(u_l - u_r, u_max))
@@ -126,8 +128,7 @@ def riemann_solve(r_l, y_l, u_l, r_r, u_r, u_max) -> RiemannSolution:
     taken = taken | shock
     rare = (~taken) & (u_max + u_l - u_eq_l > u_r)
 
-    shock_speed = (flux_r_m - r_l * u_l) / torch.clamp(r_m - r_l,
-                                                       min=EPSILON)
+    shock_speed = (flux_r_m - r_l * u_l) / maximum(r_m - r_l, EPSILON)
     half_lam_m = (lam0_l + lam0_m) * 0.5
     half_lam_vac = (lam0_l + u_vac) * 0.5
 

@@ -5,5 +5,6 @@ built with ``nvcc`` at first launch (:mod:`dhts_torch.ops.cuda._build`) and
 bound with ``ctypes``. Importing these modules touches no GPU and needs no
 compiler.
 
-    itscp_hybrid_episode   K1 forward: the fused ITSCP hybrid episode
+    itscp_hybrid_episode   K1: the fused ITSCP hybrid episode, forward (hard,
+                           soft, straight-through) and backward
 """

@@ -13,6 +13,7 @@ from typing import NamedTuple
 import torch
 
 from dhts_torch.ops.arz import div, sqrt
+from dhts_torch.ops.dmath import maximum
 
 IDM_DELTA = 4.0
 POSITION_DELTA_EPS = 1e-5
@@ -34,7 +35,7 @@ def idm_acceleration(accel_max, accel_pref, speed, target_speed,
                            (speed * speed_delta) /
                            (2.0 * sqrt(accel_max * accel_pref)))
     clipped_spacing = optimal_spacing_raw < 0.0
-    optimal_spacing = torch.clamp(optimal_spacing_raw, min=0.0)
+    optimal_spacing = maximum(optimal_spacing_raw, 0.0)
 
     speed_ratio_4 = torch.square(torch.square(speed / target_speed))
     acc_raw = accel_max * (1.0 - speed_ratio_4 -
@@ -95,7 +96,7 @@ def micro_lane_step(position, speed, accel_max, accel_pref, target_speed,
     zero = torch.zeros_like(pos_delta)
     pos_delta = torch.where(collided, zero, pos_delta)
     spd_delta = torch.where(collided, zero, spd_delta)
-    pos_delta = torch.clamp(pos_delta, min=POSITION_DELTA_EPS)
+    pos_delta = maximum(pos_delta, POSITION_DELTA_EPS)
 
     res = idm_acceleration(accel_max, accel_pref, speed, target_speed,
                            pos_delta, spd_delta, min_space, time_pref,

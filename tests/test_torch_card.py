@@ -1,4 +1,4 @@
-"""The port's CUDA kernel on the card (skipped without a CUDA device).
+"""The port's CUDA kernels on the card (skipped without a CUDA device).
 
 This file imports nothing of JAX, so it also runs on a machine that has
 only PyTorch; there, skip the repository's conftest (which sets JAX up):
@@ -6,9 +6,12 @@ only PyTorch; there, skip the repository's conftest (which sets JAX up):
     python -m pytest --noconftest -q tests/test_torch_card.py
 
 Tolerances as in chip_smoke.py: events[T, 8] exact (the kernel repeats the
-plain version's IEEE float32 ops), reward rel 1e-4, queues abs 1e-4.
+plain version's IEEE float32 ops), reward rel 1e-4, queues abs 1e-4; the
+backward's gradient cosine > 0.999 and allclose(rtol 2e-2, atol 2e-3 *
+max|g|) against autograd of the plain version.
 """
 
+import numpy as np
 import pytest
 import torch
 
@@ -41,8 +44,7 @@ def cuda():
 def card_env(cfg, dev, schedule_fn=problem.problem_1):
     env = ItscpEnv(config=cfg, schedule_fn=schedule_fn, device=dev)
     env.reset()
-    env._fused_episode_one(False)
-    return env, env._fused[0].plan
+    return env, env.fused_plan(False)
 
 
 def inputs_for(env, a, seed):
@@ -83,8 +85,45 @@ def test_env_runs_on_the_card_by_default(cuda):
     assert k1.itscp_hybrid_episode_fwd.launches == before + 1
     assert res.reward.device.type == "cuda"
     assert torch.isfinite(res.reward)
-    with pytest.raises(NotImplementedError, match="not ported yet"):
-        env.episode(action, True)
+    # the differentiable episode runs K1's soft forward and its backward
+    counts = (k1.itscp_hybrid_episode_fwd_soft.launches,
+              k1.itscp_hybrid_episode_bwd.launches)
+    a = action.clone().requires_grad_(True)
+    env.episode(a, True, generator=torch.Generator(
+        device=cuda).manual_seed(0)).reward.backward()
+    assert (k1.itscp_hybrid_episode_fwd_soft.launches,
+            k1.itscp_hybrid_episode_bwd.launches) == (counts[0] + 1,
+                                                     counts[1] + 1)
+    assert torch.isfinite(a.grad).all() and float(a.grad.norm()) > 0
+
+
+@pytest.mark.parametrize("gate_mode", ["soft", "st"])
+def test_soft_kernels_match_plain_version(cuda, gate_mode):
+    """The soft/st forward (events exact, reward rel 1e-4, queues abs 1e-4)
+    and the backward (cosine > 0.999, allclose(rtol 2e-2, atol 2e-3 *
+    max|g|)) against the plain version and its autograd, on the card."""
+    env = ItscpEnv(config=dict(EMISSION_CFG, gate_mode=gate_mode),
+                   schedule_fn=problem.problem_1, device=cuda)
+    env.reset()
+    plan = env.fused_plan(True)
+    inputs = list(inputs_for(env, 0.5, 3))
+    # off the signal-progress grid, where the st gradient is not all zero
+    action = np.random.default_rng(1).uniform(0.3, 0.7, env.action_size())
+    inputs[0] = torch.as_tensor(action, dtype=torch.float32,
+                                device=cuda).reshape(env.n_phases, -1)
+    kr, kq, ke = k1.itscp_hybrid_episode_fwd_soft(plan, *inputs)
+    with torch.no_grad():
+        pr, pq, pe = k1.plain_episode(plan, *inputs)
+    assert torch.equal(ke, pe)
+    assert float(kr) == pytest.approx(float(pr), rel=1e-4)
+    assert float((kq - pq).abs().max()) <= 1e-4
+    w = torch.full((plan.T,), -1.0, device=cuda)
+    got = k1.itscp_hybrid_episode_bwd(plan, w, *inputs).double().flatten()
+    ref = k1.plain_episode_bwd(plan, w, *inputs).double().flatten()
+    assert torch.isfinite(got).all() and float(got.norm()) > 0
+    assert float(got @ ref / (got.norm() * ref.norm())) > 0.999
+    assert torch.allclose(got, ref, rtol=2e-2,
+                          atol=2e-3 * float(ref.abs().max()))
 
 
 def test_wrapper_rejects_bad_inputs_on_the_card(cuda):

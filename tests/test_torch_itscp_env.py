@@ -114,8 +114,8 @@ def test_episode_matches_dhts(envs, differentiable, a):
 
 
 def test_episode_gradient_is_finite(envs):
-    """The eager differentiable episode back-propagates (forward values are
-    held against dhts above; this slice does not compare gradients)."""
+    """The eager differentiable episode back-propagates (its gradient is
+    held against dhts in test_torch_itscp_grad.py)."""
     _, tenv, _, _, _, rand = envs
     action = torch.full((tenv.action_size(),), 0.55, requires_grad=True)
     res = tenv.episode(action, True, rand=torch.as_tensor(rand))
@@ -125,7 +125,10 @@ def test_episode_gradient_is_finite(envs):
 
 
 def test_fused_episode_on_cpu_matches_dhts(envs):
-    """``use_fused_episode`` on the CPU runs K1's plain version."""
+    """``use_fused_episode`` on the CPU runs K1's plain version: the hard
+    episode matches dhts, and the differentiable one's action gradient
+    matches ``jax.grad`` of the dhts episode (cosine > 0.999,
+    ``allclose(rtol=2e-2, atol=2e-3 * max|g|)``, soft gates)."""
     jenv, _, _, _, key, rand = envs
     tenv = ItscpEnv(config=dict(EMISSION_CFG, use_fused_episode=True),
                     schedule_fn=problem.problem_1, device="cpu")
@@ -135,9 +138,17 @@ def test_fused_episode_on_cpu_matches_dhts(envs):
     got = tenv.episode(torch.as_tensor(action), False,
                        rand=torch.as_tensor(rand))
     check_episode(ref, got)
-    with pytest.raises(NotImplementedError, match="not ported yet"):
-        tenv.episode(torch.as_tensor(action), True,
-                     rand=torch.as_tensor(rand))
+    g_ref = np.asarray(jax.grad(lambda a: jenv.episode(a, True, key).reward)(
+        jnp.asarray(action)))
+    a = torch.tensor(action, requires_grad=True)
+    res = tenv.episode(a, True, rand=torch.as_tensor(rand))
+    res.reward.backward()
+    g = a.grad.numpy()
+    assert np.all(np.isfinite(g)) and np.linalg.norm(g) > 0
+    cos = float(g @ g_ref / (np.linalg.norm(g) * np.linalg.norm(g_ref)))
+    assert cos > 0.999
+    np.testing.assert_allclose(g, g_ref, rtol=2e-2,
+                               atol=2e-3 * np.abs(g_ref).max())
 
 
 def test_full_preset_hard_episode_matches_dhts():

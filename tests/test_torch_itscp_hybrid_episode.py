@@ -48,8 +48,7 @@ def port_env(cfg, schedule_fn=problem.problem_1):
     env = ItscpEnv(config=dict(cfg, use_fused_episode=True),
                    schedule_fn=schedule_fn, device="cpu")
     env.reset()
-    env._fused_episode_one(False)
-    return env, env._fused[0].plan
+    return env, env.fused_plan(False)
 
 
 def k1_inputs(env, action_value, rand):

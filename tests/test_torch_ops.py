@@ -242,3 +242,34 @@ def test_dmath_gradients_match_dhts():
     out.backward()
     close(a.grad.numpy(), ga)
     close(b.grad.numpy(), gb)
+
+
+@pytest.mark.parametrize("x,expect", [(16.0, 0.5), (-16.0, 0.5), (3.0, 1.0),
+                                      (17.0, 0.0), (-20.0, 0.0)])
+def test_clip_gradient_at_bound_matches_jax(x, expect):
+    """At a bound (x == +-16, where a straight-through gate of exactly 0 or
+    1 puts soft_sigmoid(gate - 0.5, 32)) jnp.clip passes half the gradient;
+    torch.clamp would pass all of it. Exact."""
+    ref = float(jax.grad(lambda v: jnp.clip(v, -16.0, 16.0))(
+        jnp.float32(x)))
+    xt = torch.tensor(x, requires_grad=True)
+    (got,) = torch.autograd.grad(dmath.clip(xt, -16.0, 16.0), xt)
+    assert ref == expect and float(got) == expect
+    xt = torch.tensor(x, requires_grad=True)
+    (g_max,) = torch.autograd.grad(dmath.maximum(xt, 16.0), xt)
+    (g_min,) = torch.autograd.grad(dmath.minimum(xt, -16.0), xt)
+    assert float(g_max) == float(jax.grad(
+        lambda v: jnp.maximum(v, 16.0))(jnp.float32(x)))
+    assert float(g_min) == float(jax.grad(
+        lambda v: jnp.minimum(v, -16.0))(jnp.float32(x)))
+
+
+def test_soft_sigmoid_gradient_at_clip_bound_matches_jax():
+    """soft_sigmoid(+-0.5, 32) sits exactly on the clip bound: its gradient
+    is JAX's (half of sigmoid'(16) * 32), rel 1e-6."""
+    for v in (0.5, -0.5):
+        ref = float(jax.grad(lambda a: jdmath.soft_sigmoid(a, 32.0))(
+            jnp.float32(v)))
+        xt = torch.tensor(v, requires_grad=True)
+        (got,) = torch.autograd.grad(dmath.soft_sigmoid(xt, 32.0), xt)
+        assert float(got) == pytest.approx(ref, rel=1e-6)

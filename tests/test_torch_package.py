@@ -48,6 +48,8 @@ def test_port_module_list_is_complete():
                 "dhts_torch/models/conversion.py",
                 "dhts_torch/apps/control/itscp/env.py",
                 "dhts_torch/ops/cuda/itscp_hybrid_episode.py",
+                "dhts_torch/apps/control/trainer.py",
+                "dhts_torch/apps/control/itscp/run.py",
                 "chip_smoke.py"):
         assert mod in names, mod
 
