@@ -58,7 +58,13 @@ SMEM_PER_BLOCK = 232448  # bytes of shared memory one Hopper block can use
 # from csrc/itscp_hybrid_episode.cu (riemann, comp_u and the flux update)
 OPS_PER_INTERFACE = 60
 OPS_PER_CELL = 14
-DUAL_OPS_PER_OP = 3  # float ops per dual-number op, rounded down
+# d(loss)/d(action) is one vector-Jacobian product, which reverse mode
+# computes for a small constant multiple of the function's own operations,
+# its forward sweep included (the cheap gradient principle: Griewank and
+# Walther, Evaluating Derivatives, 2nd ed., SIAM 2008). The
+# backward's bound takes 3x the forward's operations, whatever the kernel's
+# own design (forward-mode tangents, one episode per action entry) does.
+VJP_OPS_MULTIPLE = 3
 PRESET = dict(num_intersection=3, num_lane=1, lane_length=5, speed_limit=60,
               policy_length=20, signal_length=4, simulation_frequency=30,
               mode="hybrid", use_fused_episode=True)
@@ -166,10 +172,13 @@ def main() -> int:
     from dhts_torch.apps.control.trainer import Trainer
     from dhts_torch.ops.cuda import itscp_hybrid_episode as k1
 
-    kfn = k1.itscp_hybrid_episode_fwd
-    kfn_soft = k1.itscp_hybrid_episode_fwd_soft
+    kfn = k1.itscp_hybrid_episode_fwd  # counts launches per gate mode
     kfn_bwd = k1.itscp_hybrid_episode_bwd
     dev = torch.device("cuda")
+
+    def reset_counts():
+        kfn.launches.update(dict.fromkeys(kfn.launches, 0))
+        kfn_bwd.launches = 0
 
     # ---- 3. K1 against its plain version, same inputs, on the card
     phase("k1_vs_plain")
@@ -236,7 +245,7 @@ def main() -> int:
         soft_env[mode] = e
         p = e.fused_plan(True)
         inputs = k1_inputs(torch.full((e.action_size(),), 0.55, device=dev))
-        kr, kq, ke = kfn_soft(p, *inputs)
+        kr, kq, ke = kfn(p, *inputs)
         torch.cuda.synchronize()
         t0 = time.perf_counter()
         with torch.no_grad():
@@ -305,7 +314,7 @@ def main() -> int:
                             device=dev)
     low, high = env.action_bounds()
     served = []
-    kfn.launches = kfn_soft.launches = kfn_bwd.launches = 0
+    reset_counts()
     for seed in (3, 4, 5):
         obs = env.reset(seed)
         with torch.no_grad():
@@ -326,7 +335,7 @@ def main() -> int:
         if not ok:
             report(served=served, status="FAIL")
             raise SystemExit(f"serve failed for seed {seed}")
-    serve_launches = kfn.launches
+    serve_launches = kfn.launches[k1.HARD]
     if serve_launches != 3:
         report(served=served, launches=serve_launches, status="FAIL")
         raise SystemExit(f"expected 3 kernel launches, saw {serve_launches}")
@@ -339,14 +348,15 @@ def main() -> int:
     tenv.reset()
     trainer = Trainer(tenv, lr=1e-4, seed=3)
     before = [x.detach().clone() for x in trainer.model.parameters()]
-    kfn.launches = kfn_soft.launches = kfn_bwd.launches = 0
+    reset_counts()
     losses = [trainer.train_step(1) for _ in range(3)]
     # the evaluation's logs and checkpoint go beside the built kernels
     eval_reward = trainer.evaluate(
         3, 1, str(_build.BUILD_DIR / "smoke_train"), False)
     torch.cuda.synchronize()
-    train_launches = dict(fwd_soft=kfn_soft.launches, bwd=kfn_bwd.launches,
-                          fwd_hard=kfn.launches)
+    train_launches = dict(
+        fwd_soft=kfn.launches[k1.SOFT] + kfn.launches[k1.ST],
+        bwd=kfn_bwd.launches, fwd_hard=kfn.launches[k1.HARD])
     changed = any(not torch.equal(a, b.detach()) for a, b in
                   zip(before, trainer.model.parameters()))
     ok = (all(math.isfinite(x) for x in losses) and changed and
@@ -363,9 +373,9 @@ def main() -> int:
     plan = env.fused_plan(False)
     splan = soft_env["soft"].fused_plan(True)
     inputs = k1_inputs(torch.full((env.action_size(),), 0.5, device=dev))
-    counts = (kfn.launches, kfn_soft.launches, kfn_bwd.launches)
+    counts = (dict(kfn.launches), kfn_bwd.launches)
     runs = {"fwd": lambda: kfn(plan, *inputs),
-            "fwd_soft": lambda: kfn_soft(splan, *inputs),
+            "fwd_soft": lambda: kfn(splan, *inputs),
             "bwd": lambda: kfn_bwd(splan, w, *inputs)}
     for fn in runs.values():
         for _ in range(2):
@@ -373,7 +383,8 @@ def main() -> int:
     torch.cuda.synchronize()
     times = {name: cuda_ms(fn, 10) for name, fn in runs.items()}
     # timing launches are not the main path
-    kfn.launches, kfn_soft.launches, kfn_bwd.launches = counts
+    kfn.launches.update(counts[0])
+    kfn_bwd.launches = counts[1]
     plain_ms = cuda_ms(lambda: k1.plain_episode(plan, *inputs), 3)
     in_bytes = sum(x.numel() * x.element_size() for x in
                    (*inputs, plan.prog, plan.lane_i, plan.lane_f))
@@ -383,12 +394,10 @@ def main() -> int:
                          plan.C * OPS_PER_CELL)
     n_act = plan.n_phases * plan.n_inter
     # the backward reads the forward's inputs and the loss weights, writes
-    # the gradient, and carries one tangent beside every value in each of
-    # its n_act blocks (a dual multiply is 3 float ops, an add 2)
+    # the gradient, and does one vector-Jacobian product's operations
     work = {"fwd": (in_bytes + out_bytes, ops),
             "fwd_soft": (in_bytes + out_bytes, ops),
-            "bwd": (in_bytes + 4 * T + 4 * n_act,
-                    n_act * ops * DUAL_OPS_PER_OP)}
+            "bwd": (in_bytes + 4 * T + 4 * n_act, ops * VJP_OPS_MULTIPLE)}
     bounds = {}
     for name, (nbytes, nops) in work.items():
         bytes_ms = nbytes / HBM_BYTES_PER_S * 1e3
@@ -398,6 +407,7 @@ def main() -> int:
                             bound_by="bytes" if bytes_ms >= ops_ms
                             else "operations")
     report(kernel_ms=times, plain_ms=plain_ms, bounds=bounds,
+           ms_over_bound={n: times[n] / bounds[n]["bound_ms"] for n in times},
            fwd_bwd_episodes_per_s=1e3 / (times["fwd_soft"] + times["bwd"]),
            speedup_vs_plain=plain_ms / times["fwd"], nvidia_smi=smi)
 

@@ -85,8 +85,8 @@ def build_parser():
                    help="sharpen the soft signal gates by this factor "
                         "(training only; hard eval unchanged)")
     p.add_argument("--warm_start", type=str, default=None, metavar="JSON",
-                   help="warm-start the controller head from a CMA-ES floor "
-                        "solution (cma_per_int_best_x)")
+                   help="with --anneal_gates: warm-start the controller head "
+                        "from a CMA-ES floor solution (cma_per_int_best_x)")
     p.add_argument("--eval_every", type=int, default=0, metavar="N",
                    help="hard-eval every N epochs (0 = n_episode // 10)")
     p.add_argument("--carry", choices=["last", "best"], default="last",
@@ -170,8 +170,6 @@ def main(argv=None):
     for trial in range(args.n_trial):
         env.reset(seed=trial_seed(trial))
         trainer = _trainer(args, env, args.seed + trial, args.n_episode + 1)
-        if args.warm_start:
-            _warm_start_params(trainer.model, args.warm_start, env)
         log_path = os.path.join(run_name, f"trial_{trial}")
         trainer.train(max(1, args.ep_per_epoch), args.n_episode + 1,
                       (args.eval_every if args.eval_every > 0 else

@@ -679,9 +679,15 @@ __global__ void itscp_hybrid_episode_kernel(
           const S q2 = q * q;
           const S z = os / pdel;
           const S acc_raw = S(k.amax) * ((S(1.0f) - q2 * q2) - z * z);
-          const S acc = vmax(acc_raw, -sp / S(k.dt));
+          const S acc_floor = -sp / S(k.dt);
+          const S acc = vmax(acc_raw, acc_floor);
           s.pos[l * V + v] = p + S(k.dt) * sp;
-          s.vel[l * V + v] = sp + S(k.dt) * acc;
+          const S nv = sp + S(k.dt) * acc;
+          // stopped by the floor: sp + dt * (-sp / dt) does not depend on
+          // sp, so its tangent is 0 (summing the tangents would leave a
+          // rounding residue of sp's tangent; dhts_torch/ops/idm.py
+          // detaches the same speed)
+          s.vel[l * V + v] = val(acc_raw) < val(acc_floor) ? detached(nv) : nv;
         }
       }
     }

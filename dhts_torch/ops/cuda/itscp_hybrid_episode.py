@@ -6,14 +6,14 @@ of a hybrid, micro or macro scene from the empty network state, returning
 straight-through (``st``) gate mode, and its gradient with respect to the
 action.
 
-* :func:`itscp_hybrid_episode_fwd` (hard mode) and
-  :func:`itscp_hybrid_episode_fwd_soft` (soft and ``st``) are the forward
-  wrappers, :func:`itscp_hybrid_episode_bwd` the backward's. On CUDA
+* :func:`itscp_hybrid_episode_fwd` is the forward's wrapper (any gate
+  mode) and :func:`itscp_hybrid_episode_bwd` the backward's. On CUDA
   tensors each launches the hand-written kernel of
   ``csrc/itscp_hybrid_episode.cu`` (built with ``nvcc`` by
   :mod:`dhts_torch.ops.cuda._build`, bound with ``ctypes``) and counts the
-  launch in its own ``launches``; on CPU tensors each calls its plain
-  version. There is no fallback from the card to the plain version.
+  launch in its ``launches`` (the forward's per gate mode); on CPU tensors
+  each calls its plain version. There is no fallback from the card to the
+  plain version.
 * :func:`plain_episode` is the plain PyTorch version of the forward: the
   eager ``boundary_and_step`` of :mod:`dhts_torch.apps.control.itscp.env`
   in a Python loop over T, each step vectorised over lanes, cells and
@@ -259,49 +259,23 @@ def _device_of(action2d):
 
 def itscp_hybrid_episode_fwd(plan: EpisodePlan, action2d, schedule, mnext,
                              mprev, rand, inj_routes, emit_routes):
-    """``(-qsum, queues[T], events[T, 8])`` of one hard-mode episode.
-
-    CPU tensors go to :func:`plain_episode`; CUDA tensors launch the kernel
-    (one launch per episode) or raise.
-    """
-    if plan.mode != HARD:
-        raise ValueError("itscp_hybrid_episode_fwd runs hard mode; use "
-                         "itscp_hybrid_episode_fwd_soft for soft/st plans")
-    inputs = (action2d, schedule, mnext, mprev, rand, inj_routes,
-              emit_routes)
-    if _device_of(action2d).type == "cpu":
-        return plain_episode(plan, *inputs)
-    out = _launch_fwd(plan, inputs)
-    itscp_hybrid_episode_fwd.launches += 1
-    return out
-
-
-itscp_hybrid_episode_fwd.launches = 0
-
-
-def itscp_hybrid_episode_fwd_soft(plan: EpisodePlan, action2d, schedule,
-                                  mnext, mprev, rand, inj_routes,
-                                  emit_routes):
-    """``(-qsum, queues[T], events[T, 8])`` of one soft or straight-through
-    episode (``plan.mode``), without a graph for autograd (that is
+    """``(-qsum, queues[T], events[T, 8])`` of one episode in ``plan.mode``
+    (hard, soft or straight-through), without a graph for autograd (that is
     :class:`FusedEpisodeFunction`).
 
     CPU tensors go to :func:`plain_episode`; CUDA tensors launch the kernel
-    or raise.
+    (one launch per episode, counted in ``launches[plan.mode]``) or raise.
     """
-    if plan.mode == HARD:
-        raise ValueError("itscp_hybrid_episode_fwd_soft needs a soft or st "
-                         "plan (make_plan(..., differentiable=True))")
     inputs = (action2d, schedule, mnext, mprev, rand, inj_routes,
               emit_routes)
     if _device_of(action2d).type == "cpu":
         return plain_episode(plan, *inputs)
     out = _launch_fwd(plan, inputs)
-    itscp_hybrid_episode_fwd_soft.launches += 1
+    itscp_hybrid_episode_fwd.launches[plan.mode] += 1
     return out
 
 
-itscp_hybrid_episode_fwd_soft.launches = 0
+itscp_hybrid_episode_fwd.launches = {HARD: 0, SOFT: 0, ST: 0}
 
 
 def itscp_hybrid_episode_bwd(plan: EpisodePlan, q_weight, action2d,
@@ -347,8 +321,8 @@ class FusedEpisodeFunction(torch.autograd.Function):
 
     @staticmethod
     def forward(ctx, action2d, plan, *inputs):
-        reward, queues, events = itscp_hybrid_episode_fwd_soft(
-            plan, action2d, *inputs)
+        reward, queues, events = itscp_hybrid_episode_fwd(plan, action2d,
+                                                          *inputs)
         ctx.plan = plan
         ctx.save_for_backward(action2d, *inputs)
         ctx.mark_non_differentiable(events)

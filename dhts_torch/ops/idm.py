@@ -104,6 +104,11 @@ def micro_lane_step(position, speed, accel_max, accel_pref, target_speed,
     acc = torch.where(active, res.acceleration, zero)
 
     new_pos, new_speed = euler_step(position, speed, acc, delta_time)
+    # stopped by the acceleration floor: speed + dt * (-speed / dt) does not
+    # depend on speed, so its derivative is 0; autograd of the sum would
+    # leave a rounding residue of the incoming gradient instead
+    new_speed = torch.where(active & res.clipped_acceleration,
+                            new_speed.detach(), new_speed)
     new_pos = torch.where(active, new_pos, position)
     new_speed = torch.where(active, new_speed, speed)
     return MicroStepResult(position=new_pos, speed=new_speed,

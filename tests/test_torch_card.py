@@ -11,6 +11,8 @@ backward's gradient cosine > 0.999 and allclose(rtol 2e-2, atol 2e-3 *
 max|g|) against autograd of the plain version.
 """
 
+import json
+
 import numpy as np
 import pytest
 import torch
@@ -63,11 +65,11 @@ def test_kernel_matches_plain_version(cuda, cfg, a):
     env, plan = card_env(cfg, cuda, problem.problem_1 if cfg is EMISSION_CFG
                          else problem.random_schedule)
     inputs = inputs_for(env, a, 3)
-    before = k1.itscp_hybrid_episode_fwd.launches
+    before = k1.itscp_hybrid_episode_fwd.launches[k1.HARD]
     kr, kq, ke = k1.itscp_hybrid_episode_fwd(plan, *inputs)
     pr, pq, pe = k1.plain_episode(plan, *inputs)
     torch.cuda.synchronize()
-    assert k1.itscp_hybrid_episode_fwd.launches == before + 1
+    assert k1.itscp_hybrid_episode_fwd.launches[k1.HARD] == before + 1
     assert torch.equal(ke, pe)
     assert float(kr) == pytest.approx(float(pr), rel=1e-4)
     assert float((kq - pq).abs().max()) <= 1e-4
@@ -79,19 +81,19 @@ def test_env_runs_on_the_card_by_default(cuda):
     assert env.device.type == "cuda"
     env.reset()
     action = torch.full((env.action_size(),), 0.6, device=cuda)
-    before = k1.itscp_hybrid_episode_fwd.launches
+    before = k1.itscp_hybrid_episode_fwd.launches[k1.HARD]
     res = env.episode(action, False, generator=torch.Generator(
         device=cuda).manual_seed(0))
-    assert k1.itscp_hybrid_episode_fwd.launches == before + 1
+    assert k1.itscp_hybrid_episode_fwd.launches[k1.HARD] == before + 1
     assert res.reward.device.type == "cuda"
     assert torch.isfinite(res.reward)
     # the differentiable episode runs K1's soft forward and its backward
-    counts = (k1.itscp_hybrid_episode_fwd_soft.launches,
+    counts = (k1.itscp_hybrid_episode_fwd.launches[k1.SOFT],
               k1.itscp_hybrid_episode_bwd.launches)
     a = action.clone().requires_grad_(True)
     env.episode(a, True, generator=torch.Generator(
         device=cuda).manual_seed(0)).reward.backward()
-    assert (k1.itscp_hybrid_episode_fwd_soft.launches,
+    assert (k1.itscp_hybrid_episode_fwd.launches[k1.SOFT],
             k1.itscp_hybrid_episode_bwd.launches) == (counts[0] + 1,
                                                      counts[1] + 1)
     assert torch.isfinite(a.grad).all() and float(a.grad.norm()) > 0
@@ -111,7 +113,7 @@ def test_soft_kernels_match_plain_version(cuda, gate_mode):
     action = np.random.default_rng(1).uniform(0.3, 0.7, env.action_size())
     inputs[0] = torch.as_tensor(action, dtype=torch.float32,
                                 device=cuda).reshape(env.n_phases, -1)
-    kr, kq, ke = k1.itscp_hybrid_episode_fwd_soft(plan, *inputs)
+    kr, kq, ke = k1.itscp_hybrid_episode_fwd(plan, *inputs)
     with torch.no_grad():
         pr, pq, pe = k1.plain_episode(plan, *inputs)
     assert torch.equal(ke, pe)
@@ -124,6 +126,38 @@ def test_soft_kernels_match_plain_version(cuda, gate_mode):
     assert float(got @ ref / (got.norm() * ref.norm())) > 0.999
     assert torch.allclose(got, ref, rtol=2e-2,
                           atol=2e-3 * float(ref.abs().max()))
+
+
+@pytest.mark.parametrize("signal_length", [2, 8])
+@pytest.mark.parametrize("a", [0.45, 0.5, 0.55])
+def test_st_gradient_on_the_progress_grid_matches_plain_version(
+        cuda, a, signal_length):
+    """A constant action on the signal-progress grid: at the tied step
+    both hard gates of an intersection are red. The backward's gradient
+    equals autograd of the plain version to allclose(rtol 2e-2, atol 2e-3
+    * max|g|), so it is exactly 0 where the plain one is, with cosine >
+    0.999 where the plain one is nonzero. On the CPU, at signal_length 2
+    (progress k / 20) the plain gradient is 0 at these points, at 8
+    (k / 80) it is not. Prints both norms (``pytest -s``)."""
+    env = ItscpEnv(config=dict(EMISSION_CFG, gate_mode="st",
+                               signal_length=signal_length),
+                   schedule_fn=problem.problem_1, device=cuda)
+    env.reset()
+    plan = env.fused_plan(True)
+    inputs = inputs_for(env, a, 3)
+    assert bool((plan.prog == inputs[0][0, 0]).any())  # a grid point
+    w = torch.full((plan.T,), -1.0, device=cuda)
+    got = k1.itscp_hybrid_episode_bwd(plan, w, *inputs).double().flatten()
+    ref = k1.plain_episode_bwd(plan, w, *inputs).double().flatten()
+    print(json.dumps({"st_on_grid": a, "signal_length": signal_length,
+                      "kernel_norm": float(got.norm()),
+                      "plain_norm": float(ref.norm()),
+                      "max_abs_diff": float((got - ref).abs().max())}))
+    assert torch.isfinite(got).all()
+    assert torch.allclose(got, ref, rtol=2e-2,
+                          atol=2e-3 * float(ref.abs().max()))
+    if float(ref.norm()) > 0:
+        assert float(got @ ref / (got.norm() * ref.norm())) > 0.999
 
 
 def test_wrapper_rejects_bad_inputs_on_the_card(cuda):

@@ -16,14 +16,21 @@ and nonzero.
 In ``st`` mode the forward values are the hard gates' and the gradients
 come from soft gates saturated at the clip bound (``sigmoid'(16)``), so
 they are small. Before the clip-tie repair the port's ``st`` gradient was
-2.000x JAX's. The action is drawn off the signal-progress grid from
-``default_rng(1)``; at the draws of ``default_rng(0)`` and
-``default_rng(2)`` JAX's ``st`` gradient has tiny entries (up to a few
-per cent of its largest) where the port's is 0: a blended gate whose
-straight-through value ``soft + (hard - soft)`` rounds to one float32 ulp
-off its hard value in one framework and exactly onto it in the other
-(their float32 sigmoids differ by ulps) opens a saturated sigmoid's
-gradient in one of them only. The soft mode agrees at every draw tried.
+2.000x JAX's.
+
+Both modes are also held at every one of fourteen action draws
+(``default_rng(0)`` to ``default_rng(13)``). In ``st`` mode the reference
+for these is JAX's gradient with the acceleration floor's derivative
+made exact: a vehicle stopped by the floor gets ``sp + dt * (-sp / dt)``,
+which does not depend on ``sp``, but reverse mode returns ``g - (g * dt) /
+dt``, a rounding residue of the incoming gradient ``g``. The port gives
+that speed a zero gradient (``dhts_torch/ops/idm.py``); JAX's residue,
+amplified by the soft queue gates, is as large as the whole
+straight-through gradient and made 10 of the 14 draws miss the tolerance
+(cosine down to 0.889). The test wraps ``dhts.ops.idm.euler_step`` while
+it traces JAX's gradient, so that the new speed of a vehicle whose
+acceleration equals the floor gets ``stop_gradient``; the values are
+unchanged.
 """
 
 import jax
@@ -106,3 +113,60 @@ def test_fused_plain_pair_gradient_matches_jax_fused_kernel(case):
     assert env.fused_plan(True).mode == (2 if cfg["gate_mode"] == "st"
                                          else 1)
     check_grad(port_grad(env, action, rand), g_ref)
+
+
+DRAWS = range(14)
+
+
+def _euler_step_exact_floor(position, speed, acceleration, delta_time):
+    """``dhts.ops.idm.euler_step`` whose new speed has a zero gradient
+    where the acceleration floor ``-speed / dt`` binds."""
+    new_speed = speed + delta_time * acceleration
+    stopped = acceleration == (-speed) / delta_time
+    return (position + delta_time * speed,
+            jnp.where(stopped, jax.lax.stop_gradient(new_speed), new_speed))
+
+
+def draws_pair(mode):
+    """``pair(seed) -> (port gradient, JAX gradient)`` at the action drawn
+    from ``default_rng(seed)``, float64. In ``st`` mode JAX's gradient is
+    traced and compiled with the exact floor derivative."""
+    from dhts.ops import idm as jidm
+
+    cfg = dict(EMISSION_CFG, gate_mode=mode)
+    jenv = JaxEnv(config=cfg, schedule_fn=jproblem.problem_1)
+    jenv.reset()
+    key = jax.random.PRNGKey(0)
+    rand = np.array(jax.random.uniform(key, (jenv.num_timestep,
+                                               jenv.spec.num_lanes)))
+    like = jnp.zeros(jenv.action_size(), jnp.float32)
+    with pytest.MonkeyPatch.context() as mp:
+        if mode == "st":
+            mp.setattr(jidm, "euler_step", _euler_step_exact_floor)
+        grad = jax.jit(jax.grad(lambda a: jenv.episode(a, True, key).reward)
+                       ).lower(like).compile()
+    env = ItscpEnv(config=cfg, schedule_fn=problem.problem_1, device="cpu")
+    env.reset()
+
+    def pair(seed):
+        action = np.random.default_rng(seed).uniform(
+            0.3, 0.7, jenv.action_size()).astype(np.float32)
+        return (port_grad(env, action, rand).astype(np.float64),
+                np.asarray(grad(jnp.asarray(action)), dtype=np.float64))
+
+    return pair
+
+
+@pytest.fixture(scope="module", params=["soft", "st"])
+def draws(request):
+    return draws_pair(request.param)
+
+
+@pytest.mark.parametrize("seed", DRAWS)
+def test_episode_gradient_matches_dhts_over_draws(draws, seed):
+    got, ref = draws(seed)
+    if not np.any(ref):
+        # every straight-through path is clipped at this action
+        np.testing.assert_array_equal(got, ref)
+        return
+    check_grad(got, ref)

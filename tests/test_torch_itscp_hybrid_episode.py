@@ -152,7 +152,7 @@ def test_wrapper_runs_plain_version_for_cpu_tensors():
     env, plan = port_env(EMISSION_CFG)
     rand = env.draw_rand(torch.Generator().manual_seed(1))
     inputs = k1_inputs(env, 0.6, rand)
-    before = k1.itscp_hybrid_episode_fwd.launches
+    before = dict(k1.itscp_hybrid_episode_fwd.launches)
     got = k1.itscp_hybrid_episode_fwd(plan, *inputs)
     ref = k1.plain_episode(plan, *inputs)
     assert k1.itscp_hybrid_episode_fwd.launches == before  # no kernel

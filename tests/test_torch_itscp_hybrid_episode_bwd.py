@@ -23,14 +23,15 @@ scene with two signal phases: the host runs the grid's blocks one after
 another, so fewer action entries keep the test short.
 
 Straight-through gradients are small, and forward and reverse mode round
-differently. At the action of ``default_rng(11)`` the ``st`` comparison
-fails (cosine 0.9976): a colliding vehicle stopped by the acceleration
-floor gets the new speed ``sp + dt * (-sp / dt)``, whose derivative is 0;
-forward mode leaves a one-ulp residue of the large speed tangent where
-reverse mode happens to cancel exactly, and a soft queue gate turns it into
-gradient as large as the straight-through gradient itself. The draws of
-``default_rng(12)`` (used here) and ``default_rng(13)`` agree in both modes,
-as do two actions at the full 3x3 preset (T = 600).
+differently. Where the acceleration floor stops a vehicle, its new speed
+``sp + dt * (-sp / dt)`` does not depend on ``sp``; the kernel gives it a
+zero tangent and the plain version detaches it. Summed in either mode it
+left a one-ulp residue of a large speed tangent or gradient, which a soft
+queue gate turned into gradient as large as the straight-through gradient
+(cosine 0.9976 at the draw of ``default_rng(11)``; a kernel gradient of 0
+against a plain one of 3.2e-8 at the grid point 0.55 on the card). The
+``st`` backward is held over fourteen draws and on the progress grid in
+``test_torch_itscp_hybrid_episode_bwd_st.py``.
 """
 
 import ctypes

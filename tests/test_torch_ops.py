@@ -198,6 +198,30 @@ def test_micro_lane_step_matches_dhts(seed):
     close(got.acceleration.numpy(), ref.acceleration, scale=1e3)
 
 
+def test_speed_stopped_by_acceleration_floor_has_zero_gradient():
+    """A vehicle stopped by the acceleration floor gets ``sp + dt * (-sp /
+    dt)``, which does not depend on ``sp``: its gradient is exactly 0 for
+    any incoming gradient (autograd of the sum left rounding residues of
+    it), and the forward values are unchanged."""
+    rng = np.random.default_rng(3)
+    L, V = 16, 64
+    pos = np.cumsum(np.full((L, V), 4.0), axis=1)  # 4 m gaps, 5 m vehicles
+    vel = t(rng.uniform(0.0, 10.0, (L, V))).requires_grad_(True)
+    ones = torch.ones((L, V))
+    res = idm.micro_lane_step(
+        t(pos), vel, 2.0 * ones, 3.0 * ones, 20.0 * ones, 2.0 * ones,
+        ones, 5.0 * ones, torch.full((L,), 100.0), torch.zeros(L),
+        torch.ones((L, V), dtype=torch.bool), 1.0 / 30)
+    stopped = res.collided
+    assert int(stopped.sum()) == L * (V - 1)  # every vehicle but the head
+    w = t(rng.uniform(0.0, 1000.0, (L, V)))
+    (g,) = torch.autograd.grad(torch.sum(res.speed * w), vel)
+    assert torch.count_nonzero(g[stopped]) == 0
+    _, euler = idm.euler_step(t(pos), vel.detach(),
+                              res.acceleration.detach(), 1.0 / 30)
+    assert torch.equal(res.speed.detach(), euler)
+
+
 @pytest.mark.parametrize("name", ["soft_sigmoid", "hard_indicator",
                                   "indicator_soft", "indicator_hard",
                                   "straight_through", "grad_carrier",
