@@ -87,7 +87,7 @@ def load(name: str) -> ctypes.CDLL:
 
 def build_cpu_emulation(name: str, out_dir, timeout: float = 300.0) -> Path:
     """Compile ``csrc/<name>.cu`` with the host C++ compiler against
-    ``csrc/cpu_emulation.h`` (one host thread per CUDA thread, a barrier for
+    ``csrc/cpu_emulation.h`` (one fiber per CUDA thread, switched at
     ``__syncthreads``), so the kernel's own code runs on a machine without a
     GPU. For tests: it checks the kernel's logic, not the card's compiler."""
     cxx = shutil.which("g++") or shutil.which("c++")

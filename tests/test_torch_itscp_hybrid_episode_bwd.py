@@ -2,8 +2,8 @@
 the host, against the plain PyTorch version.
 
 The CUDA source is built with g++ against ``csrc/cpu_emulation.h`` (one
-host thread per CUDA thread, the blocks of a grid one after another) and
-called through the same C launchers as on the card.
+fiber per CUDA thread, the blocks of a grid one after another) and called
+through the same C launchers as on the card.
 
 * Forward in ``soft`` and ``st`` mode: events[T, 8] bit-equal to the plain
   version's (the same float32 ops in the same order; the gates' sigmoid is
