@@ -5,8 +5,10 @@
 Drives the port's serving and training paths on the 3x3 hybrid ITSCP
 preset of ``run_itscp_hybrid.sh`` (144 lanes, T = 600 steps at 30 Hz),
 through the hand-written CUDA kernels of the fused episode (K1: hard
-forward, soft/straight-through forward, backward), and nothing of the JAX
-package. Each phase prints one JSON line with its wall seconds:
+forward, soft/straight-through forward, backward), and the inverse
+initial-state benchmarks at their CLI defaults through the fused rollouts
+(K2: ARZ macro lane, K3: IDM platoon, forward and backward), and nothing of
+the JAX package. Each phase prints one JSON line with its wall seconds:
 
 1. ``device``  card name and power limit (``nvidia-smi``), PyTorch/CUDA
 2. ``build``   every ``dhts_torch/ops/cuda/csrc/*.cu`` compiled with nvcc,
@@ -25,10 +27,32 @@ package. Each phase prints one JSON line with its wall seconds:
 7. ``train``   the Trainer (seed 3, one episode per step, lr 1e-4) takes 3
                steps and 1 evaluation: losses finite, parameters changed,
                the soft forward and the backward launched 3 times each
-8. ``timing``  each kernel's ms per launch (CUDA events, median of 10 after
-               a warm-up), fwd+bwd episodes per second, and the plain hard
-               version's ms (median of 3)
-9. ``kernels`` the per-kernel record (launches, error, times, bound)
+8. ``k2_vs_plain``  K2 at the macro defaults (C = 10, T = 500, dt 0.01,
+               dx 5, u_max 30), B = 12 seeded scenarios: forward
+               allclose(rtol 1e-6, atol 1e-6); backward against autograd of
+               the plain version, cosine > 0.9999, allclose(rtol 5e-3, atol
+               5e-4 * max|g|), finite, nonzero (the right ghost density's
+               gradient is 0 on both sides); the segmented rollout (chunk
+               128) bit-equal to one call
+9. ``k3_vs_plain``  K3 at the micro defaults (V = 10, T = 500), B = 12, half
+               the platoons dense: the same, atol 1e-5 * max|g|; prints the
+               acceleration-floor hits, which must be > 0
+10. ``inverse``  MacroInverseProblem and MicroInverseProblem at the CLI
+               defaults with the fused rollout, 1 trial, 100 episodes, all
+               four methods: errors finite, GD's last end error below its
+               first, and K2's and K3's launches, counted from 0 in this
+               phase, equal to what the solvers imply (the target roll, one
+               forward and one backward per GD episode, one forward per
+               CMA-ES generation and per scipy evaluation)
+11. ``inverse_hybrid``  HybridInverseProblem (n_cell 10, T = 500), GD, 2
+               episodes, on the card: vehicles emitted and absorbed, errors
+               finite, the estimate moved
+12. ``timing``  each K1 kernel's ms per launch (CUDA events, median of 10
+               after a warm-up), fwd+bwd episodes per second, the plain hard
+               version's ms (median of 3); K2 and K3 forward and backward ms
+               at B = 1, 12, 128 with their bounds, and their plain
+               versions' ms at B = 1
+13. ``kernels`` the per-kernel record (launches, error, times, bound)
 
 then the card's name and power limit, and as the last line
 ``{"ok": true, "device": {...}}``. Any failure exits non-zero without that
@@ -42,6 +66,7 @@ import math
 import os
 import subprocess
 import sys
+import tempfile
 import threading
 import time
 from concurrent.futures import ThreadPoolExecutor
@@ -65,6 +90,15 @@ OPS_PER_CELL = 14
 # backward's bound takes 3x the forward's operations, whatever the kernel's
 # own design (forward-mode tangents, one episode per action entry) does.
 VJP_OPS_MULTIPLE = 3
+# float32 operations of one IDM + Euler update of a vehicle, counted from
+# csrc/dhts_scalar.cuh (idm_step) and csrc/micro_rollout.cu (gap, speed
+# difference): K3's per vehicle-step work
+OPS_PER_VEHICLE = 30
+# the inverse benchmarks at their CLI defaults (dhts_torch/apps/inverse)
+MACRO = dict(u_max=30.0, dt=0.01, dx=5.0, T=500, C=10)
+MICRO = dict(u_max=30.0, dt=0.01, T=500, V=10)
+INVERSE_EPISODES = 100
+ROLLOUT_BATCHES = (1, 12, 128)
 PRESET = dict(num_intersection=3, num_lane=1, lane_length=5, speed_limit=60,
               policy_length=20, signal_length=4, simulation_frequency=30,
               mode="hybrid", use_fused_episode=True)
@@ -121,6 +155,311 @@ def cuda_ms(fn, repeats: int):
         times.append(start.elapsed_time(end))
     times.sort()
     return times[len(times) // 2]
+
+
+def bound_of(nbytes: float, nops: float) -> dict:
+    """The least time of a kernel: the larger of its bytes over the card's
+    memory rate and its float32 operations over the card's peak rate."""
+    bytes_ms = nbytes / HBM_BYTES_PER_S * 1e3
+    ops_ms = nops / FP32_OPS_PER_S * 1e3
+    return dict(bytes=nbytes, ops=nops, bytes_ms=bytes_ms, ops_ms=ops_ms,
+                bound_ms=max(bytes_ms, ops_ms),
+                bound_by="bytes" if bytes_ms >= ops_ms else "operations")
+
+
+def cosine(a, b) -> float:
+    a, b = a.double().flatten(), b.double().flatten()
+    return float(a @ b / (a.norm() * b.norm()))
+
+
+def macro_inputs(B: int, seed: int, dev):
+    """Seeded scenarios of the macro benchmark: densities and speeds drawn
+    as the inverse problem draws its truth, ``y0`` from them."""
+    import torch
+
+    from dhts_torch.ops import arz
+
+    rng = np.random.default_rng(seed)
+    t = lambda x: torch.as_tensor(x, dtype=torch.float32, device=dev)
+    C, u_max = MACRO["C"], MACRO["u_max"]
+    r0 = t(rng.uniform(0, 1, (B, C)))
+    y0 = arz.compute_y(r0, t(rng.uniform(0, u_max, (B, C))),
+                       u_max).contiguous()
+    ghosts = [t(rng.uniform(0, hi, B)) for hi in (1.0, u_max, 1.0, u_max)]
+    return (r0, y0, *ghosts)
+
+
+def micro_inputs(B: int, seed: int, dev):
+    """Seeded platoons of the micro benchmark (about four lengths apart,
+    0.3-0.7 of the speed limit); from scenario B // 2 on, dense and slow
+    platoons (gaps of -1 to 0.6 m, speeds under 3 m/s), where the
+    acceleration floor stops vehicles and some collide."""
+    import torch
+
+    rng = np.random.default_rng(seed)
+    V, u_max = MICRO["V"], MICRO["u_max"]
+    gap = 20.0 + rng.uniform(0, 10.0, (B, V))
+    vel = (0.3 + 0.4 * rng.uniform(0, 1, (B, V))) * u_max
+    dense = slice(B // 2, B)
+    gap[dense] = rng.uniform(4.0, 5.6, gap[dense].shape)
+    vel[dense] = rng.uniform(0.0, 3.0, vel[dense].shape)
+    t = lambda x: torch.as_tensor(x, dtype=torch.float32, device=dev)
+    return t(np.cumsum(gap, axis=1)), t(vel)
+
+
+def check_k2(dev) -> dict:
+    """K2 forward, backward and the segmented rollout against the plain
+    version at the macro defaults, B = 12; raises on a failed check."""
+    import torch
+
+    from dhts_torch.ops.cuda import macro_rollout as k2
+
+    B, C = 12, MACRO["C"]
+    consts = k2.MacroConsts(MACRO["u_max"], MACRO["dt"], MACRO["dx"],
+                            MACRO["T"])
+    inputs = macro_inputs(B, 12, dev)
+    out = k2.macro_rollout_fwd(consts, *inputs)
+    ref = k2.plain_macro_rollout(consts, *inputs)
+    torch.cuda.synchronize()
+    fwd_err = max(float((a - b).abs().max()) for a, b in zip(out, ref))
+    fwd_ok = all(bool(torch.isfinite(a).all()) and
+                 bool(torch.allclose(a, b, rtol=1e-6, atol=1e-6))
+                 for a, b in zip(out, ref))
+    rng = np.random.default_rng(13)
+    cot = [torch.as_tensor(rng.normal(size=(B, C)), dtype=torch.float32,
+                           device=dev) for _ in range(2)]
+    got = k2.macro_rollout_bwd(consts, *inputs, *cot)
+    want = k2.plain_macro_rollout_bwd(consts, *inputs, *cot)
+    torch.cuda.synchronize()
+    grads, bwd_err, bwd_ok = {}, 0.0, True
+    for name, a, b in zip(("r0", "y0", "bl_r", "bl_u", "br_r", "br_u"),
+                          got, want):
+        err = float((a - b).abs().max())
+        bwd_err = max(bwd_err, err)
+        scale = float(b.abs().max())
+        rec = dict(max_abs_err=err, max_abs_ref=scale,
+                   finite=bool(torch.isfinite(a).all()))
+        if name == "br_r":
+            # the right ghost density enters only the right-vacuum test of
+            # the Riemann solver: its gradient is 0 on both sides
+            ok = rec["finite"] and scale == 0.0 and err == 0.0
+        else:
+            rec["cos"] = cosine(a, b)
+            ok = (rec["finite"] and scale > 0 and rec["cos"] > 0.9999 and
+                  bool(torch.allclose(a, b, rtol=5e-3, atol=5e-4 * scale)))
+        grads[name] = dict(rec, ok=ok)
+        bwd_ok = bwd_ok and ok
+    args = (MACRO["u_max"], MACRO["dt"], MACRO["dx"], MACRO["T"], C, B)
+    one = k2.make_fused_macro_rollout(*args, device=dev)(*inputs)
+    seg = k2.make_segmented_macro_rollout(*args, chunk=128,
+                                          device=dev)(*inputs)
+    seg_equal = all(bool(torch.equal(a, b)) for a, b in zip(one, seg))
+    rec = dict(B=B, forward_max_abs_err=fwd_err, forward_ok=fwd_ok,
+               max_wave=float(out[2].max()), grads=grads,
+               segmented_bit_equal=seg_equal,
+               tolerance=dict(forward="allclose(rtol 1e-6, atol 1e-6)",
+                              backward="cos > 0.9999, allclose(rtol 5e-3, "
+                                       "atol 5e-4 * max|g_plain|)"))
+    if not (fwd_ok and bwd_ok and seg_equal):
+        report(**rec, status="FAIL")
+        raise SystemExit("k2_vs_plain failed")
+    report(**rec)
+    return dict(max_abs_err=max(fwd_err, bwd_err), fwd_err=fwd_err,
+                bwd_err=bwd_err)
+
+
+def check_k3(dev) -> dict:
+    """K3 forward and backward against the plain version at the micro
+    defaults, B = 12, half of the platoons dense; raises on a failed
+    check."""
+    import torch
+
+    from dhts_torch.models.vehicle import default_params
+    from dhts_torch.ops.cuda import micro_rollout as k3
+
+    B, V = 12, MICRO["V"]
+    consts = k3.micro_consts(default_params(MICRO["u_max"], (V,)), 1000.0,
+                             0.0, MICRO["dt"], MICRO["T"], dev)
+    inputs = micro_inputs(B, 14, dev)
+    out = k3.micro_rollout_fwd(consts, *inputs)
+    ref = k3.plain_micro_rollout(consts, *inputs)
+    hits = k3.floor_hits(consts, *inputs)
+    torch.cuda.synchronize()
+    fwd_err = max(float((a - b).abs().max()) for a, b in zip(out, ref))
+    fwd_ok = all(bool(torch.isfinite(a).all()) and
+                 bool(torch.allclose(a, b, rtol=1e-6, atol=1e-6))
+                 for a, b in zip(out, ref))
+    rng = np.random.default_rng(15)
+    cot = [torch.as_tensor(rng.normal(size=(B, V)), dtype=torch.float32,
+                           device=dev) for _ in range(2)]
+    got = k3.micro_rollout_bwd(consts, *inputs, *cot)
+    want = k3.plain_micro_rollout_bwd(consts, *inputs, *cot)
+    torch.cuda.synchronize()
+    grads, bwd_err, bwd_ok = {}, 0.0, True
+    for name, a, b in zip(("pos0", "vel0"), got, want):
+        err = float((a - b).abs().max())
+        bwd_err = max(bwd_err, err)
+        scale = float(b.abs().max())
+        rec = dict(max_abs_err=err, max_abs_ref=scale, cos=cosine(a, b),
+                   finite=bool(torch.isfinite(a).all()))
+        ok = (rec["finite"] and scale > 0 and rec["cos"] > 0.9999 and
+              bool(torch.allclose(a, b, rtol=5e-3, atol=1e-5 * scale)))
+        grads[name] = dict(rec, ok=ok)
+        bwd_ok = bwd_ok and ok
+    rec = dict(B=B, forward_max_abs_err=fwd_err, forward_ok=fwd_ok,
+               floor_hits=hits.tolist(), grads=grads,
+               tolerance=dict(forward="allclose(rtol 1e-6, atol 1e-6)",
+                              backward="cos > 0.9999, allclose(rtol 5e-3, "
+                                       "atol 1e-5 * max|g_plain|)"))
+    if not (fwd_ok and bwd_ok and int(hits.sum()) > 0):
+        report(**rec, status="FAIL")
+        raise SystemExit("k3_vs_plain failed")
+    report(**rec)
+    return dict(max_abs_err=max(fwd_err, bwd_err), fwd_err=fwd_err,
+                bwd_err=bwd_err)
+
+
+def run_inverse(dev, log_root: str) -> dict:
+    """The macro and micro inverse benchmarks at the CLI defaults through
+    the fused rollouts: one trial, 100 episodes, all four methods. Returns
+    the kernels' launches in this run; raises if a check fails."""
+    from dhts_torch.apps.inverse.macro import MacroInverseProblem
+    from dhts_torch.apps.inverse.micro import MicroInverseProblem
+    from dhts_torch.ops.cuda import macro_rollout as k2
+    from dhts_torch.ops.cuda import micro_rollout as k3
+
+    counters = {"k2_fwd": k2.macro_rollout_fwd, "k2_bwd": k2.macro_rollout_bwd,
+                "k3_fwd": k3.micro_rollout_fwd, "k3_bwd": k3.micro_rollout_bwd}
+    E = INVERSE_EPISODES
+    common = dict(num_trial=1, num_timestep=MACRO["T"], num_episode=E,
+                  delta_time=0.01, speed_limit=30.0, log_root=log_root,
+                  seed=3, fused_rollout=True, device=dev)
+    problems = {
+        "macro": MacroInverseProblem(run_name="macro", num_cell=10,
+                                     cell_length=5.0, **common),
+        "micro": MicroInverseProblem(run_name="micro", num_vehicle=10,
+                                     vehicle_length=5.0, **common)}
+    for fn in counters.values():
+        fn.launches = 0
+    results, expected = {}, {}
+    for kind, prob in problems.items():
+        t0 = time.perf_counter()
+        beg, end = prob.evaluate(verbose=False)
+        seconds = time.perf_counter() - t0
+        n = 2 * prob.num_cell if kind == "macro" else 2 * prob.num_vehicle
+        popsize = 4 + int(3 * np.log(n))
+        generations = math.ceil(E / popsize)
+        scipy_n = dict(prob.scipy_evaluations)
+        # the target roll, one forward per GD episode, one per CMA-ES
+        # generation (B = popsize), one per scipy evaluation; one backward
+        # per GD episode
+        fwd = 1 + E + generations + sum(scipy_n.values())
+        k = "k2" if kind == "macro" else "k3"
+        expected[f"{k}_fwd"], expected[f"{k}_bwd"] = fwd, E
+        results[kind] = dict(
+            seconds=seconds, popsize=popsize, cma_generations=generations,
+            scipy_evaluations=scipy_n,
+            first_end={mt: v[0][0] for mt, v in end.items()},
+            last_end={mt: v[0][-1] for mt, v in end.items()},
+            finite=all(np.isfinite(v[0]).all() for v in end.values()),
+            gd_improved=end["gd"][0][-1] < end["gd"][0][0])
+    launches = {name: fn.launches for name, fn in counters.items()}
+    ok = (launches == expected and
+          all(r["finite"] and r["gd_improved"] for r in results.values()))
+    report(problems=results, launches=launches, expected_launches=expected,
+           status="ok" if ok else "FAIL")
+    if not ok:
+        raise SystemExit("inverse failed")
+    return launches
+
+
+def run_inverse_hybrid(dev, log_root: str):
+    """The hybrid chain at n_cell 10, T = 500 on the card: GD, 2 episodes,
+    through the port's eager network step (no kernel). The second
+    episode's error is finite only if the first episode's gradient was
+    (Adam carries a NaN into the state), and the estimate moves only if it
+    was nonzero."""
+    from dhts_torch.apps.inverse.hybrid import HybridInverseProblem
+
+    prob = HybridInverseProblem(1, MACRO["T"], 2, 0.01, 30.0, "hybrid", 10,
+                                5.0,
+                                log_root=log_root, seed=3, device=dev)
+    rng = np.random.default_rng(3)
+    prob.initialize(rng)
+    target_conv = [int(x) for x in prob.conversions]
+    est0 = prob.random_initial_state(rng)
+    beg, end = prob.solve_gd(est0)
+    conv = [int(x) for x in prob.conversions]
+    ok = (all(math.isfinite(x) for x in beg + end) and beg[1] != beg[0] and
+          min(target_conv) >= 1 and min(conv) >= 1)
+    report(beg=beg, end=end, emitted_absorbed_target=target_conv,
+           emitted_absorbed_last_gd=conv, status="ok" if ok else "FAIL")
+    if not ok:
+        raise SystemExit("inverse_hybrid failed")
+
+
+def time_rollouts(dev) -> dict:
+    """K2 and K3 ms per launch, forward and backward, at B = 1, 12, 128
+    (CUDA events, median of 10 after two warm-up launches), each with its
+    bound; the plain versions' ms at B = 1 (one run each). Timing launches
+    are not the main path's: the counters are restored."""
+    import torch
+
+    from dhts_torch.models.vehicle import default_params
+    from dhts_torch.ops.cuda import macro_rollout as k2
+    from dhts_torch.ops.cuda import micro_rollout as k3
+
+    C, V, T = MACRO["C"], MICRO["V"], MACRO["T"]
+    mc = k2.MacroConsts(MACRO["u_max"], MACRO["dt"], MACRO["dx"], T)
+    uc = k3.micro_consts(default_params(MICRO["u_max"], (V,)), 1000.0, 0.0,
+                         MICRO["dt"], MICRO["T"], dev)
+    saved = [(fn, fn.launches) for fn in (
+        k2.macro_rollout_fwd, k2.macro_rollout_bwd, k3.micro_rollout_fwd,
+        k3.micro_rollout_bwd)]
+    ms, bounds, plain = {}, {}, {}
+    for B in ROLLOUT_BATCHES:
+        mi = macro_inputs(B, 21, dev)
+        ui = micro_inputs(B, 22, dev)
+        mcot = [torch.ones((B, C), device=dev)] * 2
+        ucot = [torch.ones((B, V), device=dev)] * 2
+        runs = {"k2_fwd": lambda: k2.macro_rollout_fwd(mc, *mi),
+                "k2_bwd": lambda: k2.macro_rollout_bwd(mc, *mi, *mcot),
+                "k3_fwd": lambda: k3.micro_rollout_fwd(uc, *ui),
+                "k3_bwd": lambda: k3.micro_rollout_bwd(uc, *ui, *ucot)}
+        for fn in runs.values():
+            fn()
+            fn()
+        torch.cuda.synchronize()
+        for name, fn in runs.items():
+            ms.setdefault(name, {})[B] = cuda_ms(fn, 10)
+        # bytes: each input read once, each output written once; ops: the
+        # Riemann solves and cell updates (K2) or IDM updates (K3) of T
+        # steps, 3x for a vector-Jacobian product
+        k2_ops = T * B * ((C + 1) * OPS_PER_INTERFACE + C * OPS_PER_CELL)
+        k3_ops = T * B * V * OPS_PER_VEHICLE
+        k2_in, k3_in = (2 * C + 4) * B * 4, (2 * V * B + 6 * V) * 4
+        work = {"k2_fwd": (k2_in + (2 * C + 1) * B * 4, k2_ops),
+                "k2_bwd": (k2_in + 2 * C * B * 4 + (2 * C + 4) * B * 4,
+                           k2_ops * VJP_OPS_MULTIPLE),
+                "k3_fwd": (k3_in + 2 * V * B * 4, k3_ops),
+                "k3_bwd": (k3_in + 4 * V * B * 4,
+                           k3_ops * VJP_OPS_MULTIPLE)}
+        for name, (nbytes, nops) in work.items():
+            bounds.setdefault(name, {})[B] = bound_of(nbytes, nops)
+        if B == 1:
+            plain = {
+                "k2_fwd": cuda_ms(lambda: k2.plain_macro_rollout(mc, *mi), 1),
+                "k2_bwd": cuda_ms(lambda: k2.plain_macro_rollout_bwd(
+                    mc, *mi, *mcot), 1),
+                "k3_fwd": cuda_ms(lambda: k3.plain_micro_rollout(uc, *ui), 1),
+                "k3_bwd": cuda_ms(lambda: k3.plain_micro_rollout_bwd(
+                    uc, *ui, *ucot), 1)}
+    for fn, n in saved:
+        fn.launches = n
+    ms_over_bound = {name: {B: ms[name][B] / bounds[name][B]["bound_ms"]
+                            for B in ROLLOUT_BATCHES} for name in ms}
+    return dict(ms=ms, bounds=bounds, plain_ms=plain,
+                ms_over_bound=ms_over_bound)
 
 
 def main() -> int:
@@ -367,6 +706,19 @@ def main() -> int:
     if not ok:
         raise SystemExit("train failed")
 
+    # ---- 8-11. slice 3: the inverse benchmarks through K2 and K3
+    t_slice3 = time.perf_counter()
+    phase("k2_vs_plain")
+    k2_check = check_k2(dev)
+    phase("k3_vs_plain")
+    k3_check = check_k3(dev)
+    with tempfile.TemporaryDirectory() as log_root:
+        phase("inverse")
+        inverse_launches = run_inverse(dev, log_root)
+        phase("inverse_hybrid")
+        run_inverse_hybrid(dev, log_root)
+    slice3_seconds = time.perf_counter() - t_slice3
+
     # ---- 5. timing at the preset's shapes
     phase("timing")
     env.reset(3)
@@ -406,10 +758,14 @@ def main() -> int:
                             ops_ms=ops_ms, bound_ms=max(bytes_ms, ops_ms),
                             bound_by="bytes" if bytes_ms >= ops_ms
                             else "operations")
+    t0 = time.perf_counter()
+    rollouts = time_rollouts(dev)
+    slice3_seconds += time.perf_counter() - t0
     report(kernel_ms=times, plain_ms=plain_ms, bounds=bounds,
            ms_over_bound={n: times[n] / bounds[n]["bound_ms"] for n in times},
            fwd_bwd_episodes_per_s=1e3 / (times["fwd_soft"] + times["bwd"]),
-           speedup_vs_plain=plain_ms / times["fwd"], nvidia_smi=smi)
+           speedup_vs_plain=plain_ms / times["fwd"], rollouts=rollouts,
+           nvidia_smi=smi)
 
     # ---- 6. per-kernel record
     phase("kernels")
@@ -428,7 +784,29 @@ def main() -> int:
                 "bound_ms": bounds[name]["bound_ms"],
                 "bound_by": bounds[name]["bound_by"], "library_ms": None}
                for name in ("fwd", "fwd_soft", "bwd")]
-    report(total_seconds=time.perf_counter() - t_start)
+    # K2 and K3 at B = 1, the shape of the GD episodes and scipy
+    # evaluations that make most of the inverse path's launches
+    from dhts_torch.ops.cuda import macro_rollout as k2
+    from dhts_torch.ops.cuda import micro_rollout as k3
+
+    errors = {"k2_fwd": k2_check["fwd_err"], "k2_bwd": k2_check["bwd_err"],
+              "k3_fwd": k3_check["fwd_err"], "k3_bwd": k3_check["bwd_err"]}
+    names = {"k2_fwd": ("macro_rollout_fwd", k2.SOURCE, k2.REPLACES_FWD),
+             "k2_bwd": ("macro_rollout_bwd", k2.SOURCE, k2.REPLACES_BWD),
+             "k3_fwd": ("micro_rollout_fwd", k3.SOURCE, k3.REPLACES_FWD),
+             "k3_bwd": ("micro_rollout_bwd", k3.SOURCE, k3.REPLACES_BWD)}
+    for key, (name, source, replaces) in names.items():
+        b1 = rollouts["bounds"][key][1]
+        kernels.append({
+            "name": name, "route": "cuda", "source": source,
+            "replaces": replaces, "launches": inverse_launches[key],
+            "max_abs_err": errors[key], "ms": rollouts["ms"][key][1],
+            "plain_ms": rollouts["plain_ms"][key],
+            "bound_ms": b1["bound_ms"], "bound_by": b1["bound_by"],
+            "library_ms": None, "batch": 1,
+            "ms_by_batch": rollouts["ms"][key]})
+    report(total_seconds=time.perf_counter() - t_start,
+           slice3_seconds=slice3_seconds)
     print(json.dumps({"kernels": kernels}), flush=True)
     print(smi, flush=True)
     print(json.dumps({"ok": True, "device": {

@@ -7,10 +7,11 @@ counterpart does:
                          logic, and ``ops.cuda`` — hand-written CUDA kernels
                          with their plain PyTorch versions
     dhts_torch.models    vehicle parameters, scene builder, network state and
-                         step, hybrid conversion
-    dhts_torch.utils     running statistics
+                         step, hybrid conversion, single-lane rollouts
+    dhts_torch.utils     running statistics, CMA-ES
     dhts_torch.apps      the ITSCP signal-control environment, controller,
-                         trainer and training CLI
+                         trainer and training CLI; the inverse initial-state
+                         benchmarks (macro, micro, hybrid) and their CLIs
 
 The port imports ``torch`` and ``numpy`` only. Every entry point takes an
 explicit ``device``; it defaults to ``cuda`` and raises when no GPU is

@@ -130,6 +130,93 @@ def _ar(n, device):
 
 
 # ---------------------------------------------------------------------------
+# state setters: out of place (a row select with torch.where), so that a
+# gradient flows from the values set into the state
+# ---------------------------------------------------------------------------
+
+
+def _set_row(x, lane_id, row):
+    """``x`` with row ``lane_id`` (first axis) replaced by ``row``."""
+    sel = _ar(x.shape[0], x.device) == int(lane_id)
+    sel = sel.reshape((-1,) + (1,) * (x.dim() - 1))
+    return torch.where(sel, torch.as_tensor(row, dtype=x.dtype,
+                                            device=x.device), x)
+
+
+def set_macro_lane_state(state: NetworkState, lane_id, r, u,
+                         spec: SceneSpec) -> NetworkState:
+    """Set a macro lane's cells from (density, speed) vectors ``[n]``,
+    zero-padded to ``C``; ``y = compute_y(r, u)``."""
+    pad = spec.max_cells - r.shape[-1]
+    r = torch.nn.functional.pad(r, (0, pad))
+    u = torch.nn.functional.pad(u, (0, pad))
+    y = arz.compute_y(r, u, spec.speed_limit)
+    mac = state.macro
+    return state._replace(macro=mac._replace(r=_set_row(mac.r, lane_id, r),
+                                             y=_set_row(mac.y, lane_id, y)))
+
+
+def set_external_boundary(state: NetworkState, lane_id, left_r=None,
+                          left_u=None, right_r=None,
+                          right_u=None) -> NetworkState:
+    """Set the persistent external ghost cells of a lane; ``None`` keeps a
+    value."""
+    mac = state.macro
+    upd = {}
+    for name, v in (("ext_left_r", left_r), ("ext_left_u", left_u),
+                    ("ext_right_r", right_r), ("ext_right_u", right_u)):
+        if v is not None:
+            upd[name] = _set_row(getattr(mac, name), lane_id, v)
+    return state._replace(macro=mac._replace(**upd))
+
+
+def set_micro_lane_vehicles(state: NetworkState, lane_id, position, speed,
+                            routes=None, params: VehicleParams | None = None,
+                            spec: SceneSpec | None = None) -> NetworkState:
+    """Place ``n`` vehicles on a micro lane (tail -> head = ascending
+    position), replacing its contents. ``position``/``speed``: ``[n]``;
+    ``routes``: optional ``i32[n, R]`` (default: the single-lane route
+    ``[lane_id]``); ``params``: ``[n]`` vectors (default: the speed limit's
+    default vehicle)."""
+    mic = state.micro
+    dev = mic.position.device
+    V, R = mic.position.shape[1], mic.route.shape[2]
+    n = position.shape[-1]
+
+    def pad(x, fill, dtype):
+        x = torch.as_tensor(x, device=dev).to(dtype)
+        return torch.cat([x, torch.full((V - n,), fill, dtype=dtype,
+                                        device=dev)])
+
+    if routes is None:
+        routes = torch.full((n, R), -1, dtype=torch.int32, device=dev)
+        routes[:, 0] = int(lane_id)
+    routes = torch.cat([torch.as_tensor(routes, dtype=torch.int32,
+                                        device=dev),
+                        torch.full((V - n, R), -1, dtype=torch.int32,
+                                   device=dev)])
+    if params is None:
+        sl = spec.speed_limit if spec is not None else 30.0
+        params = default_params(sl, (n,), device=dev)
+    new_params = VehicleParams(*(
+        _set_row(full, lane_id, torch.cat([
+            torch.as_tensor(row, device=dev).to(torch.float32),
+            full[int(lane_id), n:]]))
+        for row, full in zip(params, mic.params)))
+    micro = mic._replace(
+        position=_set_row(mic.position, lane_id,
+                          pad(position, 0.0, torch.float32)),
+        speed=_set_row(mic.speed, lane_id, pad(speed, 0.0, torch.float32)),
+        params=new_params,
+        count=_set_row(mic.count, lane_id, n),
+        route=_set_row(mic.route, lane_id, routes),
+        route_idx=_set_row(mic.route_idx, lane_id, 0),
+        vid=_set_row(mic.vid, lane_id,
+                     pad(torch.arange(n, device=dev), -1, torch.int32)))
+    return state._replace(micro=micro)
+
+
+# ---------------------------------------------------------------------------
 # boundary resolution
 # ---------------------------------------------------------------------------
 

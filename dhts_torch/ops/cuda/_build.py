@@ -2,10 +2,11 @@
 
 Each ``csrc/<name>.cu`` has a plain C interface and includes no PyTorch
 header; it is compiled at first use into a shared library named by the
-SHA-256 of its source and flags, under ``dhts_torch/ops/cuda/build/``, and
-loaded with ``ctypes``. There is no lock file: the library is written under
-a temporary name and moved into place with ``os.replace``, so a concurrent
-or interrupted build never leaves a half-written library behind.
+SHA-256 of its source, the headers of ``csrc/`` it includes and the flags,
+under ``dhts_torch/ops/cuda/build/``, and loaded with ``ctypes``. There is
+no lock file: the library is written under a temporary name and moved into
+place with ``os.replace``, so a concurrent or interrupted build never
+leaves a half-written library behind.
 """
 
 from __future__ import annotations
@@ -13,6 +14,7 @@ from __future__ import annotations
 import ctypes
 import hashlib
 import os
+import re
 import shutil
 import subprocess
 import time
@@ -26,6 +28,8 @@ BUILD_DIR = Path(__file__).resolve().parent / "build"
 # rounding of its plain PyTorch version op for op
 NVCC_FLAGS = ("-O3", "-gencode", "arch=compute_90a,code=sm_90a",
               "-std=c++17", "-shared", "-Xcompiler", "-fPIC", "-fmad=false")
+
+_INCLUDE = re.compile(r'\s*#\s*include\s+"([^"]+)"')
 
 # seconds each library took to build in this process (0.0 when cached)
 build_seconds: dict[str, float] = {}
@@ -46,11 +50,32 @@ def find_nvcc() -> str:
     raise RuntimeError("nvcc not found (PATH, CUDA_HOME, /usr/local/cuda)")
 
 
-def library_path(name: str) -> Path:
-    """Where the library of ``csrc/<name>.cu`` goes, named by content."""
-    src = (CSRC / f"{name}.cu").read_bytes()
-    digest = hashlib.sha256(src + "\0".join(NVCC_FLAGS).encode()).hexdigest()
-    return BUILD_DIR / f"lib{name}_{digest[:16]}.so"
+def _included(src: Path, csrc: Path, seen: set) -> list[Path]:
+    """``src`` and every header under ``csrc`` that it includes with
+    ``#include "..."``, recursively, each once, in the order included."""
+    if src in seen or not src.exists():
+        return []
+    seen.add(src)
+    files = [src]
+    for line in src.read_text().splitlines():
+        m = _INCLUDE.match(line)
+        if m:
+            files += _included(csrc / m.group(1), csrc, seen)
+    return files
+
+
+def library_path(name: str, csrc: Path = CSRC) -> Path:
+    """Where the library of ``<csrc>/<name>.cu`` goes, named by the content
+    of the source, of every header of ``csrc`` it includes, and of the
+    flags: an edited header names a new library."""
+    src = Path(csrc) / f"{name}.cu"
+    if not src.exists():
+        raise FileNotFoundError(src)
+    h = hashlib.sha256()
+    for f in _included(src, Path(csrc), set()):
+        h.update(f.name.encode() + b"\0" + f.read_bytes() + b"\0")
+    h.update("\0".join(NVCC_FLAGS).encode())
+    return BUILD_DIR / f"lib{name}_{h.hexdigest()[:16]}.so"
 
 
 def build(name: str, timeout: float = 600.0) -> Path:

@@ -66,16 +66,10 @@
 // its inputs and outputs are a few MB, so it is latency-bound, far above
 // the bytes / 3.35 TB/s floor.
 
-#ifdef DHTS_CPU_EMULATION
-#include "cpu_emulation.h"
-#else
-#include <cuda_runtime.h>
-#define DHTS_DYNAMIC_SMEM(name) extern __shared__ __align__(16) char name[]
-#endif
+#include "dhts_scalar.cuh"
 
 namespace {
 
-constexpr float EPS = 1e-5f;
 constexpr int MAXC = 16;  // cells per macro lane held in registers
 constexpr int NEV = 7;    // integer event rows
 constexpr int INF_ID = 1 << 30;
@@ -95,59 +89,10 @@ struct Dims {
 };
 
 // ---------------------------------------------------------------------------
-// scalars: float (forward) and Dual (value and tangent, backward). Every
-// Dual operation computes its value with exactly the float operation the
-// forward uses.
+// soft gates (the scalars, the ARZ solver and the IDM step are in
+// dhts_scalar.cuh)
 // ---------------------------------------------------------------------------
 
-struct Dual {
-  float v, d;
-  __device__ Dual() {}
-  __device__ Dual(float v_) : v(v_), d(0.0f) {}
-  __device__ Dual(float v_, float d_) : v(v_), d(d_) {}
-};
-
-__device__ __forceinline__ Dual operator+(Dual a, Dual b) {
-  return Dual(a.v + b.v, a.d + b.d);
-}
-__device__ __forceinline__ Dual operator-(Dual a, Dual b) {
-  return Dual(a.v - b.v, a.d - b.d);
-}
-__device__ __forceinline__ Dual operator-(Dual a) { return Dual(-a.v, -a.d); }
-__device__ __forceinline__ Dual operator*(Dual a, Dual b) {
-  return Dual(a.v * b.v, a.d * b.v + a.v * b.d);
-}
-__device__ __forceinline__ Dual operator/(Dual a, Dual b) {
-  const float q = a.v / b.v;
-  return Dual(q, (a.d - q * b.d) / b.v);
-}
-
-__device__ __forceinline__ float val(float x) { return x; }
-__device__ __forceinline__ float val(Dual x) { return x.v; }
-__device__ __forceinline__ float tangent(float) { return 0.0f; }
-__device__ __forceinline__ float tangent(Dual x) { return x.d; }
-
-// max/min with a tie splitting the tangent 0.5/0.5 (jnp.maximum, and
-// torch.maximum between tensors)
-__device__ __forceinline__ float vmax(float a, float b) { return fmaxf(a, b); }
-__device__ __forceinline__ float vmin(float a, float b) { return fminf(a, b); }
-__device__ __forceinline__ Dual vmax(Dual a, Dual b) {
-  return Dual(fmaxf(a.v, b.v),
-              a.v > b.v ? a.d : (a.v < b.v ? b.d : 0.5f * (a.d + b.d)));
-}
-__device__ __forceinline__ Dual vmin(Dual a, Dual b) {
-  return Dual(fminf(a.v, b.v),
-              a.v < b.v ? a.d : (a.v > b.v ? b.d : 0.5f * (a.d + b.d)));
-}
-__device__ __forceinline__ float vabs(float a) { return fabsf(a); }
-__device__ __forceinline__ Dual vabs(Dual a) {
-  return Dual(fabsf(a.v), a.v > 0.0f ? a.d : (a.v < 0.0f ? -a.d : 0.0f));
-}
-__device__ __forceinline__ float vsqrt(float a) { return sqrtf(a); }
-__device__ __forceinline__ Dual vsqrt(Dual a) {
-  const float r = sqrtf(a.v);
-  return Dual(r, a.d == 0.0f ? 0.0f : a.d / (2.0f * r));
-}
 // float64 sigmoid rounded once (dhts_torch.ops.dmath.sigmoid)
 __device__ __forceinline__ float vsigmoid(float z) {
   return (float)(1.0 / (1.0 + exp(-(double)z)));
@@ -171,8 +116,6 @@ __device__ __forceinline__ float grad_carrier(float value, float src) {
 __device__ __forceinline__ Dual grad_carrier(float value, Dual src) {
   return Dual((value + src.v) - src.v, src.d);
 }
-__device__ __forceinline__ float detached(float x) { return x; }
-__device__ __forceinline__ Dual detached(Dual x) { return Dual(x.v); }
 // x - detach(x - clip(x, lo, hi)): the clipped value, x's tangent
 __device__ __forceinline__ float st_clip(float x, float hi) {
   return x - (x - fminf(fmaxf(x, EPS), hi));
@@ -202,106 +145,6 @@ __device__ __forceinline__ S soft(S x, float c) {
 template <class S>
 __device__ __forceinline__ S stg(bool hard, S soft_val, int mode) {
   return mode == ST ? st_value(soft_val, hard ? 1.0f : 0.0f) : soft_val;
-}
-
-// ---------------------------------------------------------------------------
-// ARZ physics (dhts_torch.ops.arz)
-// ---------------------------------------------------------------------------
-
-template <class S>
-__device__ __forceinline__ S u_eq(S r, float u_max) {
-  r = vmax(r, S(0.0f));
-  return S(u_max) * (S(1.0f) - vsqrt(r + S(EPS)));
-}
-
-template <class S>
-__device__ __forceinline__ S u_eq_prime(S r, float u_max) {
-  r = vmax(r, S(EPS));
-  return S(-(u_max * 0.5f)) * (S(1.0f) / vsqrt(r));
-}
-
-template <class S>
-__device__ __forceinline__ S comp_y(S r, S u, float u_max) {
-  return r * (u - u_eq(r, u_max));
-}
-
-template <class S>
-__device__ __forceinline__ S comp_u(S r, S y, float u_max) {
-  r = vmax(r, S(EPS));
-  return y / r + u_eq(r, u_max);
-}
-
-template <class S>
-__device__ __forceinline__ S lambda0(S r, S u, float u_max) {
-  return u + r * u_eq_prime(r, u_max);
-}
-
-// exact ARZ Riemann solver (dhts_torch.ops.arz.riemann_solve): interface
-// fluxes, and the interface's largest wave speed (a value, for the events)
-template <class S>
-__device__ __forceinline__ void riemann(S rl, S yl, S ul, S rr, S ur,
-                                        const Consts& k, S& fr, S& fy,
-                                        float& wave) {
-  const float u_max = k.u_max;
-  const S u_eq_l = u_eq(rl, u_max);
-  const S lam0_l = lambda0(rl, ul, u_max);
-  const S r_l_pow = vsqrt(vmax(rl, S(EPS)));
-
-  const S tm = r_l_pow + (ul - ur) / S(u_max);
-  const S r_m = tm * tm;
-  const S u_m = ur;
-  const S lam0_m = lambda0(r_m, u_m, u_max);
-  const S flux_r_m = r_m * u_m;
-
-  const S u_vac = (S(u_max) + ul) - u_eq_l;
-
-  const S inv = ul + S(u_max) * r_l_pow;
-  const S tc = inv / S(k.rare_den);
-  const S r_c = tc * tc;
-  const S u_c = S(k.third) * inv;
-
-  const bool vac_l = val(rl) < EPS;
-  const bool vac_r = !vac_l && (val(rr) < EPS);
-  bool taken = vac_l || vac_r;
-  const bool equal = !taken && (fabsf(val(ul) - val(ur)) < EPS);
-  taken = taken || equal;
-  const bool shock = !taken && (val(ul) > val(ur));
-  taken = taken || shock;
-  const bool rare = !taken && (val(u_vac) > val(ur));
-
-  const S shock_speed = (flux_r_m - rl * ul) / vmax(r_m - rl, S(EPS));
-  const S half_lam_m = (lam0_l + lam0_m) * S(0.5f);
-  const S half_lam_vac = (lam0_l + u_vac) * S(0.5f);
-
-  float speed0, speed1;
-  int c;
-  const int l_or_c = val(lam0_l) >= 0.0f ? 0 : 2;
-  if (vac_l) {
-    speed0 = 0.0f; speed1 = val(ul); c = 0;
-  } else if (vac_r) {
-    speed0 = val(half_lam_vac); speed1 = val(half_lam_vac); c = l_or_c;
-  } else if (equal) {
-    speed0 = 0.0f; speed1 = val(ur); c = 0;
-  } else if (shock) {
-    speed0 = val(shock_speed); speed1 = val(ur);
-    c = val(shock_speed) >= 0.0f ? 0 : 1;
-  } else if (rare) {
-    speed0 = val(half_lam_m); speed1 = val(ur);
-    c = val(lam0_l) >= 0.0f ? 0 : (val(lam0_m) <= 0.0f ? 1 : 2);
-  } else {
-    speed0 = val(half_lam_vac); speed1 = val(ur); c = l_or_c;
-  }
-  S r0, u0, y0;
-  if (c == 1) {
-    r0 = r_m; u0 = u_m; y0 = comp_y(r0, u0, u_max);
-  } else if (c == 2) {
-    r0 = r_c; u0 = u_c; y0 = comp_y(r0, u0, u_max);
-  } else {
-    r0 = rl; u0 = ul; y0 = yl;
-  }
-  fr = r0 * u0;
-  fy = y0 * u0;
-  wave = fmaxf(fabsf(speed0), fabsf(speed1));
 }
 
 // entry j of the route with id `rid` (-1 for no route / out of range)
@@ -644,13 +487,14 @@ __global__ void itscp_hybrid_episode_kernel(
           S fr, fy;
           float wave;
           if (i == 0)
-            riemann(bl_r, left_y, bl_u, rp[0], up[0], k, fr, fy, wave);
+            riemann(bl_r, left_y, bl_u, rp[0], up[0], u_max, k.rare_den,
+                    k.third, fr, fy, wave);
           else if (i == C)
-            riemann(rp[C - 1], yp[C - 1], up[C - 1], br_r, br_u, k, fr, fy,
-                    wave);
+            riemann(rp[C - 1], yp[C - 1], up[C - 1], br_r, br_u, u_max,
+                    k.rare_den, k.third, fr, fy, wave);
           else
-            riemann(rp[i - 1], yp[i - 1], up[i - 1], rp[i], up[i], k, fr,
-                    fy, wave);
+            riemann(rp[i - 1], yp[i - 1], up[i - 1], rp[i], up[i], u_max,
+                    k.rare_den, k.third, fr, fy, wave);
           lane_wave = i == 0 ? wave : fmaxf(lane_wave, wave);
           if (i > 0 && i - 1 < num_cell) {
             s.r[l * C + i - 1] = rp[i - 1] + (fr_prev - fr) * S(coeff);
@@ -670,24 +514,11 @@ __global__ void itscp_hybrid_episode_kernel(
                    S((k.veh_len + k.veh_len) * 0.5f);
             sdel = sp - s.vel[l * V + v + 1];
           }
-          if (val(pdel) < 0.0f) { pdel = 0.0f; sdel = 0.0f; }
-          pdel = vmax(pdel, S(EPS));
-          const S os = vmax((S(k.min_space) + sp * S(k.time_pref)) +
-                                (sp * sdel) / S(idm_den),
-                            S(0.0f));
-          const S q = sp / S(k.tgt);
-          const S q2 = q * q;
-          const S z = os / pdel;
-          const S acc_raw = S(k.amax) * ((S(1.0f) - q2 * q2) - z * z);
-          const S acc_floor = -sp / S(k.dt);
-          const S acc = vmax(acc_raw, acc_floor);
-          s.pos[l * V + v] = p + S(k.dt) * sp;
-          const S nv = sp + S(k.dt) * acc;
-          // stopped by the floor: sp + dt * (-sp / dt) does not depend on
-          // sp, so its tangent is 0 (summing the tangents would leave a
-          // rounding residue of sp's tangent; dhts_torch/ops/idm.py
-          // detaches the same speed)
-          s.vel[l * V + v] = val(acc_raw) < val(acc_floor) ? detached(nv) : nv;
+          S np_, nv_;
+          idm_step(p, sp, pdel, sdel, k.amax, k.tgt, k.min_space,
+                   k.time_pref, idm_den, k.dt, np_, nv_);
+          s.pos[l * V + v] = np_;
+          s.vel[l * V + v] = nv_;
         }
       }
     }

@@ -35,6 +35,9 @@ import numpy as np
 import torch
 
 from dhts_torch.models.vehicle import default_params
+from dhts_torch.ops.cuda._launch import check as _check
+from dhts_torch.ops.cuda._launch import device_of as _device_of
+from dhts_torch.ops.cuda._launch import stream as _stream
 
 SOURCE = "dhts_torch/ops/cuda/csrc/itscp_hybrid_episode.cu"
 REPLACES_FWD = "dhts/ops/pallas/itscp_hybrid_episode.py:2130"
@@ -185,20 +188,6 @@ def _library() -> ctypes.CDLL:
     return lib
 
 
-def _check(name, x, shape, dtype, dev):
-    if not isinstance(x, torch.Tensor):
-        raise TypeError(f"{name}: expected a tensor, got {type(x)}")
-    if x.device != dev:
-        raise ValueError(f"{name} is on {x.device}, expected {dev}")
-    if x.dtype != dtype:
-        raise TypeError(f"{name} has dtype {x.dtype}, expected {dtype}")
-    if tuple(x.shape) != tuple(shape):
-        raise ValueError(f"{name} has shape {tuple(x.shape)}, expected "
-                         f"{tuple(shape)}")
-    if not x.is_contiguous():
-        raise ValueError(f"{name} is not contiguous")
-
-
 def kernel_args(plan: EpisodePlan, inputs, outputs, stream) -> tuple:
     """A C launcher's arguments: the seven inputs of the episode, the plan's
     tables and the outputs as pointers, then the plan's sizes, gate mode and
@@ -230,11 +219,6 @@ def _check_inputs(plan: EpisodePlan, inputs):
     return dev
 
 
-def _stream(dev):
-    with torch.cuda.device(dev):
-        return torch.cuda.current_stream(dev).cuda_stream
-
-
 def _launch_fwd(plan: EpisodePlan, inputs):
     dev = _check_inputs(plan, inputs)
     lib = _library()
@@ -248,13 +232,6 @@ def _launch_fwd(plan: EpisodePlan, inputs):
         raise RuntimeError(f"itscp_hybrid_episode forward launch failed: "
                            f"CUDA error {err}")
     return reward, queues, events
-
-
-def _device_of(action2d):
-    dev = action2d.device
-    if dev.type not in ("cpu", "cuda"):
-        raise ValueError(f"unsupported device {dev}")
-    return dev
 
 
 def itscp_hybrid_episode_fwd(plan: EpisodePlan, action2d, schedule, mnext,
