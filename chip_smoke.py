@@ -50,8 +50,9 @@ the JAX package. Each phase prints one JSON line with its wall seconds:
 12. ``timing``  each K1 kernel's ms per launch (CUDA events, median of 10
                after a warm-up), fwd+bwd episodes per second, the plain hard
                version's ms (median of 3); K2 and K3 forward and backward ms
-               at B = 1, 12, 128 with their bounds, and their plain
-               versions' ms at B = 1
+               at B = 1, 12, 128 (median of 5 runs of 20 launches back to
+               back) with their bounds, and their plain versions' ms at
+               B = 1
 13. ``kernels`` the per-kernel record (launches, error, times, bound)
 
 then the card's name and power limit, and as the last line
@@ -139,9 +140,12 @@ def nvidia_smi() -> str:
     return out.stdout.strip().splitlines()[0]
 
 
-def cuda_ms(fn, repeats: int):
+def cuda_ms(fn, repeats: int, launches: int = 1):
     """Median milliseconds of ``fn()`` over ``repeats`` runs, each timed by
-    CUDA events on the current stream."""
+    CUDA events on the current stream around ``launches`` calls back to
+    back and divided by their number. Back to back, the host enqueues the
+    next call while the card runs the last, so a short kernel's time is
+    not its wrapper's host time."""
     import torch
 
     times = []
@@ -149,10 +153,11 @@ def cuda_ms(fn, repeats: int):
         start = torch.cuda.Event(enable_timing=True)
         end = torch.cuda.Event(enable_timing=True)
         start.record()
-        fn()
+        for _ in range(launches):
+            fn()
         end.record()
         end.synchronize()
-        times.append(start.elapsed_time(end))
+        times.append(start.elapsed_time(end) / launches)
     times.sort()
     return times[len(times) // 2]
 
@@ -400,9 +405,10 @@ def run_inverse_hybrid(dev, log_root: str):
 
 def time_rollouts(dev) -> dict:
     """K2 and K3 ms per launch, forward and backward, at B = 1, 12, 128
-    (CUDA events, median of 10 after two warm-up launches), each with its
-    bound; the plain versions' ms at B = 1 (one run each). Timing launches
-    are not the main path's: the counters are restored."""
+    (CUDA events, median of 5 runs of 20 back-to-back launches after two
+    warm-up launches), each with its bound; the plain versions' ms at B = 1
+    (one run each). Timing launches are not the main path's: the counters
+    are restored."""
     import torch
 
     from dhts_torch.models.vehicle import default_params
@@ -431,7 +437,7 @@ def time_rollouts(dev) -> dict:
             fn()
         torch.cuda.synchronize()
         for name, fn in runs.items():
-            ms.setdefault(name, {})[B] = cuda_ms(fn, 10)
+            ms.setdefault(name, {})[B] = cuda_ms(fn, 5, launches=20)
         # bytes: each input read once, each output written once; ops: the
         # Riemann solves and cell updates (K2) or IDM updates (K3) of T
         # steps, 3x for a vector-Jacobian product
