@@ -8,7 +8,10 @@ through the hand-written CUDA kernels of the fused episode (K1: hard
 forward, soft/straight-through forward, backward), and the inverse
 initial-state benchmarks at their CLI defaults through the fused rollouts
 (K2: ARZ macro lane, K3: IDM platoon, forward and backward), and nothing of
-the JAX package. Each phase prints one JSON line with its wall seconds:
+the JAX package, and the 3x3 preset's training on the fused spatial step
+of a one-device mesh (``run --mesh 1,1 --mesh_fused``: K6's STEP body as a
+forward and a forward-mode derivative kernel, one launch per simulation
+step). Each phase prints one JSON line with its wall seconds:
 
 1. ``device``  card name and power limit (``nvidia-smi``), PyTorch/CUDA
 2. ``build``   every ``dhts_torch/ops/cuda/csrc/*.cu`` compiled with nvcc,
@@ -47,13 +50,36 @@ the JAX package. Each phase prints one JSON line with its wall seconds:
 11. ``inverse_hybrid``  HybridInverseProblem (n_cell 10, T = 500), GD, 2
                episodes, on the card: vehicles emitted and absorbed, errors
                finite, the estimate moved
-12. ``timing``  each K1 kernel's ms per launch (CUDA events, median of 10
+12. ``spatial_vs_plain``  the STEP forward at the preset, hard and soft, B =
+               1 and 4 episodes per launch: at every 50th step the kernel's
+               carry goes through one plain step on the card (integers
+               equal, floats allclose(rtol 1e-6, atol 1e-6)); each whole
+               episode against K1 on the same draws (reward rel 1e-5, queues
+               abs 1e-4, per-step injected/emitted/absorbed equal, emitted
+               > 0)
+13. ``spatial_bwd_vs_plain``  the STEP derivative against autograd of the
+               plain episode over the first 60 steps only (cut to keep the
+               phase short; cosine > 0.9999, allclose(rtol 2e-2, atol 2e-3 *
+               max|g|)) and against K1's backward at T = 600 (cosine >
+               0.99999), finite
+14. ``spatial_train``  ``python -m dhts_torch.apps.control.itscp.run
+               --mesh 1,1 --mesh_fused`` at the ``run_itscp_hybrid.sh``
+               flags, problem 1, 2 epochs with an evaluation each, the CLI's
+               own one episode per epoch: losses finite, and the STEP
+               kernels' launches, counted from 0 in this phase, equal to T
+               per train step plus T per evaluation (forward) and T per
+               train step (derivative)
+15. ``spatial_timing``  STEP forward and derivative ms per launch at B = 1
+               and 4 (CUDA events, median of 5 runs of 50 launches back to
+               back) and per episode (T launches), with their bounds, and
+               the plain step's ms at B = 1
+16. ``timing``  each K1 kernel's ms per launch (CUDA events, median of 10
                after a warm-up), fwd+bwd episodes per second, the plain hard
                version's ms (median of 3); K2 and K3 forward and backward ms
                at B = 1, 12, 128 (median of 5 runs of 20 launches back to
                back) with their bounds, and their plain versions' ms at
                B = 1
-13. ``kernels`` the per-kernel record (launches, error, times, bound)
+17. ``kernels`` the per-kernel record (launches, error, times, bound)
 
 then the card's name and power limit, and as the last line
 ``{"ok": true, "device": {...}}``. Any failure exits non-zero without that
@@ -468,6 +494,266 @@ def time_rollouts(dev) -> dict:
                 ms_over_bound=ms_over_bound)
 
 
+def spatial_inputs(env, B: int, seed: int, action):
+    """The STEP kernels' inputs for B episodes of ``env``'s scene: the
+    action as ``[n_phases, n_inter]``, B seeded draws, the scene's data."""
+    import torch
+
+    from dhts_torch.ops.cuda import itscp_spatial_step as k6
+
+    gen = torch.Generator(device=env.device)
+    gen.manual_seed(seed)
+    rand = torch.stack([env.draw_rand(gen) for _ in range(B)])
+    a = torch.as_tensor(action, dtype=torch.float32, device=env.device)
+    d = env.data
+    return (a.reshape(env.n_phases, -1).contiguous(), rand, d.schedule,
+            d.mroute_next, d.mroute_prev,
+            k6.route_table(d.inj_routes, env.base_state.route_pool))
+
+
+def check_spatial_fwd(env) -> dict:
+    """STEP forward, hard and soft, B = 1 and 4: every 50th step against
+    the plain step on the card, each episode against K1; raises on a failed
+    check. Returns the largest error and the mean vehicles per step."""
+    import torch
+
+    from dhts_torch.ops.cuda import itscp_hybrid_episode as k1
+    from dhts_torch.ops.cuda import itscp_spatial_step as k6
+
+    dev = env.device
+    checks, max_err, veh_steps = [], 0.0, []
+    for differentiable in (False, True):
+        plan = k6.make_plan(env, differentiable)
+        g = k6.geometry(plan, dev)
+        p1 = env.fused_plan(differentiable)
+        for B in (1, 4):
+            ins = spatial_inputs(env, B, 100 + B, np.full(
+                env.action_size(), 0.55))
+            fb, ib = k6.empty_state(plan, B, dev)
+            q = torch.zeros((B, plan.T), device=dev)
+            ev = torch.zeros((B, plan.T, 3), dtype=torch.int32, device=dev)
+            w = torch.zeros((B, plan.T), device=dev)
+            step_err, step_ok, n_veh = 0.0, True, 0
+            for t in range(plan.T):
+                check = t % 50 == 0
+                if check:
+                    carry, sg, ss = k6.unpack(plan, fb, ib)
+                    carry = tuple(x.clone() for x in carry)
+                    sg, ss = sg.clone(), ss.clone()
+                k6.spatial_step_fwd(plan, fb, ib, t, 1, ins, q, ev, w)
+                if check:
+                    out = k6.plain_spatial_step(
+                        plan, carry, sg, ss, t, ins[0], ins[1][:, t],
+                        ins[2][t], ins[3][t], ins[4][t], ins[5], g)
+                    f2, i2 = k6.pack(plan, out.carry, out.sg_ms, out.ss_ms)
+                    step_err = max(step_err, float((f2 - fb).abs().max()),
+                                   float((out.queue - q[:, t]).abs().max()))
+                    step_ok = (step_ok and bool(torch.equal(i2, ib)) and
+                               bool(torch.allclose(f2, fb, rtol=1e-6,
+                                                   atol=1e-6)) and
+                               bool(torch.equal(out.events, ev[:, t])) and
+                               bool(torch.allclose(out.queue, q[:, t],
+                                                   rtol=1e-6, atol=1e-6)))
+                    n_veh += int(ib[0, :plan.L].sum())
+            veh_steps.append(n_veh * 50 / plan.T)
+            ep_ok, ep_err = True, 0.0
+            for b in range(B):
+                r1, q1, e1 = k1.itscp_hybrid_episode_fwd(
+                    p1, ins[0], ins[2], ins[3], ins[4], ins[1][b],
+                    env.data.inj_routes, env.base_state.route_pool)
+                reward = -float(q[b].sum())
+                rel = abs(reward - float(r1)) / max(abs(float(r1)), 1e-30)
+                err = float((q[b] - q1).abs().max())
+                ep_err = max(ep_err, err)
+                ep_ok = (ep_ok and bool(torch.equal(ev[b].float(),
+                                                    e1[:, :3])) and
+                         rel <= 1e-5 and err <= 1e-4)
+            tot = ev.sum((0, 1)).tolist()
+            rec = dict(mode="soft" if differentiable else "hard", B=B,
+                       step_checks_ok=step_ok, step_max_abs_err=step_err,
+                       k1_ok=ep_ok, k1_queues_max_abs_err=ep_err,
+                       injected=tot[0], emitted=tot[1], absorbed=tot[2],
+                       finite=bool(torch.isfinite(q).all()))
+            checks.append(rec)
+            max_err = max(max_err, step_err, ep_err)
+            if not (step_ok and ep_ok and tot[1] > 0 and rec["finite"]):
+                report(checks=checks, status="FAIL")
+                raise SystemExit(f"spatial_vs_plain failed: {rec}")
+    report(checks=checks, tolerance=dict(
+        step="integers equal, floats allclose(rtol 1e-6, atol 1e-6)",
+        vs_k1="events equal, reward rel 1e-5, queues abs 1e-4"))
+    return dict(max_abs_err=max_err,
+                vehicles_per_step=sum(veh_steps) / len(veh_steps))
+
+
+def check_spatial_bwd(env) -> dict:
+    """STEP derivative against autograd of the plain episode over the first
+    60 steps (B = 2) and against K1's backward at T = 600 (B = 1); raises on
+    a failed check. Returns the errors and the plain derivative's ms per
+    step."""
+    import torch
+
+    from dhts_torch.ops.cuda import itscp_hybrid_episode as k1
+    from dhts_torch.ops.cuda import itscp_spatial_step as k6
+
+    dev, T60 = env.device, 60
+    rng = np.random.default_rng(3)
+    plan = k6.make_plan(env, True)
+    p60 = plan._replace(T=T60)
+    ins = list(spatial_inputs(env, 2, 200, rng.uniform(
+        0.3, 0.7, env.action_size())))
+    ins[1] = ins[1][:, :T60].contiguous()
+    ins[2:5] = [x[:T60].contiguous() for x in ins[2:5]]
+    w = torch.as_tensor(rng.uniform(-1, 1, (2, T60)), dtype=torch.float32,
+                        device=dev)
+    got = k6.spatial_episode_bwd(p60, w, *ins).double().flatten()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    ref = k6.plain_spatial_episode_bwd(p60, w, *ins).double().flatten()
+    torch.cuda.synchronize()
+    plain_step_ms = (time.perf_counter() - t0) * 1e3 / (2 * T60)
+    scale = float(ref.abs().max())
+    rec60 = dict(T=T60, B=2, cos=cosine(got, ref),
+                 max_abs_err=float((got - ref).abs().max()),
+                 max_abs_ref=scale, finite=bool(torch.isfinite(got).all()))
+    ok60 = (rec60["finite"] and scale > 0 and rec60["cos"] > 0.9999 and
+            bool(torch.allclose(got, ref, rtol=2e-2, atol=2e-3 * scale)))
+    ins = spatial_inputs(env, 1, 201, rng.uniform(0.3, 0.7,
+                                                  env.action_size()))
+    wf = torch.full((1, plan.T), -1.0, device=dev)
+    got = k6.spatial_episode_bwd(plan, wf, *ins).double().flatten()
+    ref = k1.itscp_hybrid_episode_bwd(
+        env.fused_plan(True), wf[0], ins[0], ins[2], ins[3], ins[4],
+        ins[1][0], env.data.inj_routes,
+        env.base_state.route_pool).double().flatten()
+    torch.cuda.synchronize()
+    rec600 = dict(T=plan.T, B=1, cos=cosine(got, ref),
+                  max_abs_err=float((got - ref).abs().max()),
+                  max_abs_ref=float(ref.abs().max()),
+                  finite=bool(torch.isfinite(got).all()))
+    ok600 = rec600["finite"] and rec600["cos"] > 0.99999
+    report(vs_plain_autograd=rec60, vs_k1_backward=rec600,
+           note="the plain autograd check runs the first 60 of 600 steps "
+                "to keep the phase short",
+           tolerance=dict(vs_plain="cos > 0.9999, allclose(rtol 2e-2, atol "
+                                   "2e-3 * max|g_plain|)",
+                          vs_k1="cos > 0.99999"),
+           status="ok" if ok60 and ok600 else "FAIL")
+    if not (ok60 and ok600):
+        raise SystemExit("spatial_bwd_vs_plain failed")
+    return dict(max_abs_err=rec60["max_abs_err"],
+                plain_step_ms=plain_step_ms)
+
+
+def run_spatial_train(log_root: str) -> dict:
+    """The training CLI on the fused spatial step at the preset, 2 epochs
+    with an evaluation each; the STEP launches, counted from 0 here, must
+    equal what the run implies. Raises on a failed check."""
+    from dhts_torch.apps.control.itscp import run
+    from dhts_torch.ops.cuda import itscp_spatial_step as k6
+
+    argv = ["--mode", "hybrid", "--problem", "1", "--n_trial", "1",
+            "--n_intersection", "3", "--n_lane", "1", "--lane_length", "5",
+            "--speed_limit", "60", "--simulation_length", "20",
+            "--signal_length", "4", "--lr", "1e-4", "--seed", "3",
+            "--n_episode", "1", "--mesh", "1,1", "--mesh_fused",
+            "--log_root", log_root]
+    k6.launches.update(fwd=0, bwd=0)
+    run.main(argv)
+    launches = dict(k6.launches)
+    (metrics,) = Path(log_root).glob("hybrid_*/trial_0/metrics.jsonl")
+    rows = [json.loads(x) for x in metrics.read_text().splitlines()]
+    losses = [r["loss_train"] for r in rows if "loss_train" in r]
+    evals = [r["reward_eval"] for r in rows if "reward_eval" in r]
+    T, steps, ep_per_epoch = 600, len(losses), 1
+    expected = dict(fwd=T * (steps * ep_per_epoch + len(evals)),
+                    bwd=T * steps)
+    ok = (steps == 2 and len(evals) == 2 and launches == expected and
+          all(math.isfinite(x) for x in losses + evals))
+    report(argv=argv, episodes_per_epoch=ep_per_epoch, losses=losses,
+           eval_rewards=evals, launches=launches, expected_launches=expected,
+           status="ok" if ok else "FAIL")
+    if not ok:
+        raise SystemExit("spatial_train failed")
+    return launches
+
+
+def time_spatial(env, vehicles_per_step: float) -> dict:
+    """STEP forward and derivative ms per launch at B = 1 and 4 (median of
+    5 runs of 50 launches back to back, after a warm-up) and per episode (T
+    launches, state set-up included), with bounds; the plain step's ms at B
+    = 1. Timing launches are not the main path's: the counters are
+    restored."""
+    import torch
+
+    from dhts_torch.ops.cuda import itscp_spatial_step as k6
+
+    saved = dict(k6.launches)
+    dev = env.device
+    soft, hard = k6.make_plan(env, True), k6.make_plan(env, False)
+    T, L, C = soft.T, soft.L, soft.C
+    n_act = soft.n_phases * soft.n_inter
+    n_macro = int(env.spec.is_macro.sum())
+    fo, io = k6.float_layout(soft), k6.int_layout(soft)
+    # one step of one episode: the Riemann solves and cell updates of the
+    # macro lanes and the IDM updates of this run's vehicles
+    step_ops = (n_macro * ((C + 1) * OPS_PER_INTERFACE + C * OPS_PER_CELL) +
+                vehicles_per_step * OPS_PER_VEHICLE)
+    ms, per_episode, bounds = {}, {}, {}
+    for B in (1, 4):
+        ins = spatial_inputs(env, B, 300 + B, np.full(env.action_size(),
+                                                      0.55))
+        fb, ib = k6.empty_state(hard, B, dev)
+        q = torch.zeros((B, T), device=dev)
+        ev = torch.zeros((B, T, 3), dtype=torch.int32, device=dev)
+        w = torch.zeros((B, T), device=dev)
+        db_f, db_d, db_i = k6.dual_state(soft, B, dev)
+        g64 = torch.zeros(db_f.shape[0], dtype=torch.float64, device=dev)
+        wq = torch.ones((B, T), device=dev)
+        # time steps 100 to 149 of states that have run the first 100
+        k6.spatial_step_fwd(hard, fb, ib, 0, 100, ins, q, ev, w)
+        k6.spatial_step_bwd(soft, db_f, db_d, db_i, 0, 100, ins, wq, g64)
+        runs = {"fwd": lambda: k6.spatial_step_fwd(hard, fb, ib, 100, 50,
+                                                   ins, q, ev, w),
+                "bwd": lambda: k6.spatial_step_bwd(soft, db_f, db_d, db_i,
+                                                   100, 50, ins, wq, g64)}
+        for fn in runs.values():
+            fn()
+        torch.cuda.synchronize()
+        for name, fn in runs.items():
+            ms.setdefault(name, {})[B] = cuda_ms(fn, 5) / 50
+        per_episode.setdefault("fwd", {})[B] = cuda_ms(
+            lambda: k6.spatial_episode_fwd(hard, *ins), 3)
+        per_episode.setdefault("bwd", {})[B] = cuda_ms(
+            lambda: k6.spatial_episode_bwd(soft, wq, *ins), 3)
+        # bytes: the carry read and written, the step's rows of the draws
+        # and scene data, the static tables, the outputs; the derivative
+        # reads the forward's inputs and the loss weight and writes the
+        # gradient, and does one vector-Jacobian product's operations
+        carry = 2 * B * (fo["size"] + io["size"]) * 4
+        step_in = (B * L + 3 * L + n_act) * 4 + sum(
+            x.numel() * x.element_size() for x in
+            (soft.lane_i, soft.lane_f, soft.prog))
+        nbytes = carry + step_in + B * 5 * 4
+        bounds.setdefault("fwd", {})[B] = bound_of(nbytes, B * step_ops)
+        bounds.setdefault("bwd", {})[B] = bound_of(
+            carry + step_in + B * 4 + B * n_act * 8,
+            B * step_ops * VJP_OPS_MULTIPLE)
+    ins = spatial_inputs(env, 1, 310, np.full(env.action_size(), 0.55))
+    carry, sg, ss = k6.initial_carry(soft, 1, dev)
+    g = k6.geometry(soft, dev)
+    plain_ms = cuda_ms(lambda: k6.plain_spatial_step(
+        soft, carry, sg, ss, 100, ins[0], ins[1][:, 100], ins[2][100],
+        ins[3][100], ins[4][100], ins[5], g), 5)
+    k6.launches.update(saved)
+    smem = k6._library().itscp_spatial_step_smem
+    return dict(ms=ms, ms_per_episode=per_episode, bounds=bounds,
+                plain_step_ms=plain_ms,
+                smem_bytes=dict(fwd=smem(L, 0), bwd=smem(L, 1)),
+                ms_over_bound={n: {B: ms[n][B] / bounds[n][B]["bound_ms"]
+                                   for B in ms[n]} for n in ms})
+
+
 def main() -> int:
     if not (HERE / "dhts_torch" / "ops" / "cuda" / "csrc").is_dir():
         print("chip_smoke.py: the dhts_torch package is not beside this "
@@ -725,6 +1011,22 @@ def main() -> int:
         run_inverse_hybrid(dev, log_root)
     slice3_seconds = time.perf_counter() - t_slice3
 
+    # ---- 12-15. slice 4: training on the fused spatial step (mesh 1,1)
+    t_slice4 = time.perf_counter()
+    phase("spatial_vs_plain")
+    env.reset(3)
+    spatial_fwd = check_spatial_fwd(env)
+    phase("spatial_bwd_vs_plain")
+    spatial_bwd = check_spatial_bwd(soft_env["soft"])
+    with tempfile.TemporaryDirectory() as log_root:
+        phase("spatial_train")
+        spatial_launches = run_spatial_train(log_root)
+    phase("spatial_timing")
+    env.reset(3)
+    spatial_times = time_spatial(env, spatial_fwd["vehicles_per_step"])
+    report(**spatial_times, nvidia_smi=smi)
+    slice4_seconds = time.perf_counter() - t_slice4
+
     # ---- 5. timing at the preset's shapes
     phase("timing")
     env.reset(3)
@@ -811,8 +1113,26 @@ def main() -> int:
             "bound_ms": b1["bound_ms"], "bound_by": b1["bound_by"],
             "library_ms": None, "batch": 1,
             "ms_by_batch": rollouts["ms"][key]})
+    # the STEP kernels at B = 1, the CLI's episodes per launch at mesh 1,1
+    from dhts_torch.ops.cuda import itscp_spatial_step as k6
+
+    for key, replaces, err, plain_ms in (
+            ("fwd", k6.REPLACES_FWD, spatial_fwd["max_abs_err"],
+             spatial_times["plain_step_ms"]),
+            ("bwd", k6.REPLACES_BWD, spatial_bwd["max_abs_err"],
+             spatial_bwd["plain_step_ms"])):
+        b1 = spatial_times["bounds"][key][1]
+        kernels.append({
+            "name": f"itscp_spatial_step_{key}", "route": "cuda",
+            "source": k6.SOURCE, "replaces": replaces,
+            "body": k6.REPLACES_STEP, "launches": spatial_launches[key],
+            "max_abs_err": err, "ms": spatial_times["ms"][key][1],
+            "plain_ms": plain_ms, "bound_ms": b1["bound_ms"],
+            "bound_by": b1["bound_by"], "library_ms": None, "batch": 1,
+            "ms_by_batch": spatial_times["ms"][key],
+            "ms_per_episode": spatial_times["ms_per_episode"][key]})
     report(total_seconds=time.perf_counter() - t_start,
-           slice3_seconds=slice3_seconds)
+           slice3_seconds=slice3_seconds, slice4_seconds=slice4_seconds)
     print(json.dumps({"kernels": kernels}), flush=True)
     print(smi, flush=True)
     print(json.dumps({"ok": True, "device": {

@@ -9,6 +9,7 @@ counterpart does:
     dhts_torch.models    vehicle parameters, scene builder, network state and
                          step, hybrid conversion, single-lane rollouts
     dhts_torch.utils     running statistics, CMA-ES
+    dhts_torch.parallel  the one-device (data, lane) mesh
     dhts_torch.apps      the ITSCP signal-control environment, controller,
                          trainer and training CLI; the inverse initial-state
                          benchmarks (macro, micro, hybrid) and their CLIs

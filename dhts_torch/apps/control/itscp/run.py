@@ -9,9 +9,17 @@ K1's forward and backward::
         --speed_limit 60 --simulation_length 20 --signal_length 4 \\
         --n_episode 100 --lr 1e-4 --fused_episode
 
+``--mesh 1,1 --mesh_fused`` trains through the fused spatial step (K6's
+STEP body, one launch per simulation step, forward and derivative) on a
+one-device ``(data, lane)`` mesh, one episode per data shard per epoch, as
+the JAX CLI does; a mesh of more than one device, and ``--mesh`` without
+``--mesh_fused`` (the sharded scan step), raise ``NotImplementedError``. The
+spatial step has soft gates only: ``--gate_mode st`` with ``--mesh_fused``
+trains soft, as in JAX, and says so.
+
 ``--device cpu`` runs the plain PyTorch path on the CPU. Not offered yet:
-``--mesh``, ``--mesh_fused`` (sharding) and ``--packed`` (scenario
-batching); ``--wide_ops`` is a TPU layout switch with no counterpart here.
+``--packed`` (scenario batching); ``--wide_ops`` is a TPU layout switch
+with no counterpart here.
 """
 
 from __future__ import annotations
@@ -19,6 +27,7 @@ from __future__ import annotations
 import argparse
 import json
 import os
+import sys
 import time
 
 import numpy as np
@@ -103,6 +112,12 @@ def build_parser():
     p.add_argument("--fused_episode", action="store_true",
                    help="train through the fused episode kernel K1 (forward "
                         "and backward on the card)")
+    p.add_argument("--mesh", type=str, default=None, metavar="D,L",
+                   help="train on a (data, lane) device mesh; the port runs "
+                        "one device: 1,1")
+    p.add_argument("--mesh_fused", action="store_true",
+                   help="with --mesh: run each step as the fused spatial "
+                        "step kernel (forward and derivative on the card)")
     p.add_argument("--device", type=str, default="cuda",
                    help="cuda (default; raises without a GPU) or cpu")
     return p
@@ -119,9 +134,10 @@ def _env(args, scale):
         schedule_fn=PROBLEMS[args.problem], device=args.device)
 
 
-def _trainer(args, env, seed, schedule_epochs):
+def _trainer(args, env, seed, schedule_epochs, mesh=None):
     return Trainer(env, lr=args.lr, seed=seed,
                    network_size=tuple(args.network_size),
+                   mesh=mesh, mesh_fused=args.mesh_fused,
                    lr_schedule=args.lr_schedule,
                    schedule_epochs=schedule_epochs,
                    grad_clip=args.grad_clip)
@@ -129,10 +145,22 @@ def _trainer(args, env, seed, schedule_epochs):
 
 def main(argv=None):
     args = build_parser().parse_args(argv)
+    mesh = None
+    if args.mesh:
+        from dhts_torch.parallel.mesh import make_mesh
+
+        d, l = (int(x) for x in args.mesh.split(","))
+        mesh = make_mesh({"data": d, "lane": l}, args.device)
+        if args.mesh_fused and args.gate_mode == "st":
+            print("--gate_mode st: the fused spatial step has soft gates "
+                  "only; training soft", file=sys.stderr)
     run_name = os.path.join(args.log_root, f"{args.mode}_{int(time.time())}")
     trial_seed = lambda trial: args.seed + trial if args.seed > 0 else None
 
     if args.anneal_gates:
+        if mesh is not None:
+            raise ValueError("--anneal_gates supports the single-device "
+                             "paths only")
         stages = [(float(s.split(":")[0]), int(s.split(":")[1]))
                   for s in args.anneal_gates.split(",")]
         cadence = (args.eval_every if args.eval_every > 0 else
@@ -169,9 +197,13 @@ def main(argv=None):
     env = _env(args, args.soft_gate_scale)
     for trial in range(args.n_trial):
         env.reset(seed=trial_seed(trial))
-        trainer = _trainer(args, env, args.seed + trial, args.n_episode + 1)
+        trainer = _trainer(args, env, args.seed + trial, args.n_episode + 1,
+                           mesh)
         log_path = os.path.join(run_name, f"trial_{trial}")
-        trainer.train(max(1, args.ep_per_epoch), args.n_episode + 1,
+        # one episode per data shard per epoch on a mesh, as in JAX
+        ep_per_epoch = (mesh.shape["data"] if mesh is not None
+                        else max(1, args.ep_per_epoch))
+        trainer.train(ep_per_epoch, args.n_episode + 1,
                       (args.eval_every if args.eval_every > 0 else
                        max(1, args.n_episode // 10)),
                       max(1, args.n_eval_episode), log_path)

@@ -8,15 +8,21 @@ evaluate every ``num_eval_epoch`` epochs in hard mode on fixed draws, append
 controller and optimiser state (``torch.save``).
 
 On the card a differentiable fused episode (``use_fused_episode``) runs
-kernel K1's soft/straight-through forward and its backward kernel; the
-controller, the action squash and Adam are PyTorch. Randomness comes from
+kernel K1's soft/straight-through forward and its backward kernel; with a
+one-device ``mesh`` and ``mesh_fused`` the episodes of a step run through
+the fused spatial step instead (K6's STEP body: the B episodes of the step
+in each launch, T launches forward and T derivative launches per step,
+:mod:`dhts_torch.ops.cuda.itscp_spatial_step`), and the evaluation through
+its hard forward. The controller, the action squash and Adam are
+PyTorch. Randomness comes from
 explicit ``torch.Generator``s: ``seed + 1`` for the training draws and
 ``seed + 2`` for the fixed evaluation draws, in the roles of the JAX
 trainer's keys (the two give different numbers; parity tests pass the
 draws in).
 
-Not ported yet: ``multi_scenario``/``packed`` (scenario batching), ``mesh``
-and ``mesh_fused`` (sharding), ``render_eval`` and TensorBoard logging.
+Not ported yet: ``multi_scenario``/``packed`` (scenario batching), a
+``mesh`` of more than one device and ``mesh`` without ``mesh_fused`` (the
+sharded scan step), ``render_eval`` and TensorBoard logging.
 """
 
 from __future__ import annotations
@@ -77,12 +83,12 @@ class Trainer:
         for name, val, where in (
                 ("multi_scenario", multi_scenario, "scenario batching"),
                 ("packed", packed, "scenario batching"),
-                ("mesh", mesh is not None, "sharding"),
-                ("mesh_fused", mesh_fused, "sharding"),
+                ("mesh without mesh_fused", mesh is not None and
+                 not mesh_fused, "multi-device"),
                 ("render_eval", render_eval, "tooling")):
             if val:
                 raise NotImplementedError(
-                    f"Trainer({name}=...) belongs to the {where} slice of "
+                    f"Trainer({name}) belongs to the {where} slice of "
                     f"the port, which is not ported yet")
         if lr_schedule not in ("const", "cosine"):
             raise ValueError(f"unknown lr_schedule {lr_schedule!r}")
@@ -105,6 +111,21 @@ class Trainer:
         self.generator.manual_seed(self.seed + 1)
         self.best_eval_reward = -float("inf")
         self.grad_norm = None  # before clipping, when grad_clip is set
+        self.mesh = mesh
+        self._spatial = None
+        if mesh is not None:
+            from dhts_torch.ops.cuda.itscp_spatial_step import \
+                make_fused_spatial_episode
+
+            if set(mesh.axis_names) != {"data", "lane"}:
+                raise ValueError(f"mesh axes {mesh.axis_names} must be "
+                                 f"('data', 'lane')")
+            if mesh.device != self.device:
+                raise ValueError(f"mesh on {mesh.device}, env on "
+                                 f"{self.device}")
+            self._spatial = {
+                d: make_fused_spatial_episode(env, mesh, differentiable=d)
+                for d in (True, False)}
 
     # -- one update ----------------------------------------------------------
 
@@ -128,8 +149,15 @@ class Trainer:
             rand = torch.stack([self.env.draw_rand(self.generator)
                                 for _ in range(max(1, num_episode))])
         action = self.action()
-        rewards = torch.stack([self.env.episode(action, True, rand=r).reward
-                               for r in rand])
+        if self._spatial is not None:
+            d = self.mesh.shape["data"]
+            if rand.shape[0] % d:
+                raise ValueError(f"{rand.shape[0]} episodes per step must be "
+                                 f"a multiple of the mesh's data axis ({d})")
+            rewards = self._spatial[True](action, rand=rand).reward
+        else:
+            rewards = torch.stack([
+                self.env.episode(action, True, rand=r).reward for r in rand])
         loss = -torch.mean(rewards)
         self.opt.zero_grad(set_to_none=True)
         loss.backward()
@@ -178,9 +206,11 @@ class Trainer:
     def evaluate(self, epoch, num_episode, log_path, verbose=True):
         """Mean hard-mode reward over the fixed draws; appends ``eval.txt``
         and ``metrics.jsonl`` and saves ``best/model.pt`` on a new best."""
+        episode = (self._spatial[False] if self._spatial is not None else
+                   lambda a, rand: self.env.episode(a, False, rand=rand))
         with torch.no_grad():
             action = self.action()
-            rewards = [float(self.env.episode(action, False, rand=r).reward)
+            rewards = [float(episode(action, rand=r).reward)
                        for r in self.eval_rand(num_episode)]
         avg = sum(rewards) / len(rewards)
         os.makedirs(log_path, exist_ok=True)

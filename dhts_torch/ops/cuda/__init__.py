@@ -11,6 +11,12 @@ compiler.
                            inverse-macro benchmark, forward and backward
     micro_rollout          K3: the fused IDM platoon rollout of the
                            inverse-micro benchmark, forward and backward
+    itscp_spatial_step     K6's STEP body: one step of the fused spatial
+                           ITSCP episode on one lane shard, forward (hard,
+                           soft) and forward-mode derivative, one launch per
+                           step, B episodes per launch
+    dkernel                K5: the differentiable kernel op template
+                           (CUDA forward and derivative, plain body)
 
 The sources share ``csrc/dhts_scalar.cuh`` (the dual number of the
 forward-mode backwards, the ARZ Riemann solver, the IDM step).

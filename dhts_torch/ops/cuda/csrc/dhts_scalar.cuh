@@ -1,6 +1,6 @@
 // Scalars and physics shared by the port's CUDA kernels: the dual number
-// of the forward-mode backwards, the ARZ Riemann solver of the macro lanes
-// (dhts_torch.ops.arz) and the IDM step of a micro vehicle
+// of the forward-mode backwards, the soft gates, the ARZ Riemann solver of
+// the macro lanes (dhts_torch.ops.arz) and the IDM step of a micro vehicle
 // (dhts_torch.ops.idm). Every function is a template on its scalar type:
 // `float` in a forward kernel, `Dual` (value, tangent) in a backward one.
 // Every Dual operation computes its value with exactly the float operation
@@ -75,6 +75,59 @@ __device__ __forceinline__ Dual vsqrt(Dual a) {
 }
 __device__ __forceinline__ float detached(float x) { return x; }
 __device__ __forceinline__ Dual detached(Dual x) { return Dual(x.v); }
+
+// ---------------------------------------------------------------------------
+// soft gates and gradient plumbing (dhts_torch.ops.dmath)
+// ---------------------------------------------------------------------------
+
+// float64 sigmoid rounded once (dhts_torch.ops.dmath.sigmoid)
+__device__ __forceinline__ float vsigmoid(float z) {
+  return (float)(1.0 / (1.0 + exp(-(double)z)));
+}
+// its tangent is y * (1 - y) of the rounded y (dmath.sigmoid's gradient)
+__device__ __forceinline__ Dual vsigmoid(Dual z) {
+  const float y = vsigmoid(z.v);
+  return Dual(y, z.d * (y * (1.0f - y)));
+}
+// sigmoid(clip(x * c, -16, 16)) (dmath.soft_sigmoid)
+template <class S>
+__device__ __forceinline__ S soft(S x, float c) {
+  return vsigmoid(vmin(vmax(x * S(c), S(-16.0f)), S(16.0f)));
+}
+// (value + src) - detach(src): the value, with src's tangent
+__device__ __forceinline__ float grad_carrier(float value, float src) {
+  return (value + src) - src;
+}
+__device__ __forceinline__ Dual grad_carrier(float value, Dual src) {
+  return Dual((value + src.v) - src.v, src.d);
+}
+// x - detach(x - clip(x, lo, hi)): the clipped value, x's tangent
+__device__ __forceinline__ float st_clip(float x, float hi) {
+  return x - (x - fminf(fmaxf(x, EPS), hi));
+}
+__device__ __forceinline__ Dual st_clip(Dual x, float hi) {
+  return Dual(x.v - (x.v - fminf(fmaxf(x.v, EPS), hi)), x.d);
+}
+// the action entry as a scalar; a backward block differentiates with
+// respect to the entry it seeds
+template <class S>
+__device__ __forceinline__ S action_at(float a, bool seeded);
+template <>
+__device__ __forceinline__ float action_at<float>(float a, bool) {
+  return a;
+}
+template <>
+__device__ __forceinline__ Dual action_at<Dual>(float a, bool seeded) {
+  return Dual(a, seeded ? 1.0f : 0.0f);
+}
+
+// carve n elements of T out of the shared-memory block at `off`
+template <class T>
+__host__ __device__ inline void carve(T** p, size_t n, char* base,
+                                      size_t& off) {
+  if (base) *p = reinterpret_cast<T*>(base + off);
+  off += ((n * sizeof(T) + 15) / 16) * 16;
+}
 
 // ---------------------------------------------------------------------------
 // ARZ physics (dhts_torch.ops.arz)

@@ -89,57 +89,16 @@ struct Dims {
 };
 
 // ---------------------------------------------------------------------------
-// soft gates (the scalars, the ARZ solver and the IDM step are in
-// dhts_scalar.cuh)
+// straight-through gates (the scalars, the soft gates, the ARZ solver and
+// the IDM step are in dhts_scalar.cuh)
 // ---------------------------------------------------------------------------
 
-// float64 sigmoid rounded once (dhts_torch.ops.dmath.sigmoid)
-__device__ __forceinline__ float vsigmoid(float z) {
-  return (float)(1.0 / (1.0 + exp(-(double)z)));
-}
-// its tangent is y * (1 - y) of the rounded y (dmath.sigmoid's gradient)
-__device__ __forceinline__ Dual vsigmoid(Dual z) {
-  const float y = vsigmoid(z.v);
-  return Dual(y, z.d * (y * (1.0f - y)));
-}
 // straight-through value: soft + (hard - soft), the soft gate's tangent
 __device__ __forceinline__ float st_value(float soft, float hard) {
   return soft + (hard - soft);
 }
 __device__ __forceinline__ Dual st_value(Dual soft, float hard) {
   return Dual(soft.v + (hard - soft.v), soft.d);
-}
-// (value + src) - detach(src): the value, with src's tangent
-__device__ __forceinline__ float grad_carrier(float value, float src) {
-  return (value + src) - src;
-}
-__device__ __forceinline__ Dual grad_carrier(float value, Dual src) {
-  return Dual((value + src.v) - src.v, src.d);
-}
-// x - detach(x - clip(x, lo, hi)): the clipped value, x's tangent
-__device__ __forceinline__ float st_clip(float x, float hi) {
-  return x - (x - fminf(fmaxf(x, EPS), hi));
-}
-__device__ __forceinline__ Dual st_clip(Dual x, float hi) {
-  return Dual(x.v - (x.v - fminf(fmaxf(x.v, EPS), hi)), x.d);
-}
-// the action entry as a scalar; block `seed` of the backward differentiates
-// with respect to entry `seed`
-template <class S>
-__device__ __forceinline__ S action_at(float a, bool seeded);
-template <>
-__device__ __forceinline__ float action_at<float>(float a, bool) {
-  return a;
-}
-template <>
-__device__ __forceinline__ Dual action_at<Dual>(float a, bool seeded) {
-  return Dual(a, seeded ? 1.0f : 0.0f);
-}
-
-// sigmoid(clip(x * c, -16, 16)) (dmath.soft_sigmoid)
-template <class S>
-__device__ __forceinline__ S soft(S x, float c) {
-  return vsigmoid(vmin(vmax(x * S(c), S(-16.0f)), S(16.0f)));
 }
 // straight-through gate (env `stg`): soft value in soft mode
 template <class S>
@@ -167,14 +126,6 @@ struct Smem {
   int *rid, *ridx, *count, *inj_left, *cursor;
   int *want, *mn_c, *hn_c, *hs_rid, *hs_ridx, *best, *dep_best, *red_ev;
 };
-
-// carve n elements of T out of the shared-memory block at `off`
-template <class T>
-__host__ __device__ inline void carve(T** p, size_t n, char* base,
-                                      size_t& off) {
-  if (base) *p = reinterpret_cast<T*>(base + off);
-  off += ((n * sizeof(T) + 15) / 16) * 16;
-}
 
 template <class S>
 __host__ __device__ inline size_t smem_bytes(const Dims& d, Smem<S>* s,
