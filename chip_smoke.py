@@ -694,11 +694,26 @@ def time_spatial(env, vehicles_per_step: float) -> dict:
     T, L, C = soft.T, soft.L, soft.C
     n_act = soft.n_phases * soft.n_inter
     n_macro = int(env.spec.is_macro.sum())
-    fo, io = k6.float_layout(soft), k6.int_layout(soft)
+    li = soft.lane_i.cpu().numpy()
+    K = soft.K
+    is_macro, num_cell, nxt = li[0] != 0, li[1], li[8 + K:8 + 2 * K]
+    n_cells = int(num_cell[is_macro].sum())
+    # capacitor slots a step fills: macro lane toward a micro lane
+    n_caps = int(sum(((nxt[q] >= 0) & is_macro &
+                      ~is_macro[np.clip(nxt[q], 0, L - 1)]).sum()
+                     for q in range(K)))
     # one step of one episode: the Riemann solves and cell updates of the
     # macro lanes and the IDM updates of this run's vehicles
     step_ops = (n_macro * ((C + 1) * OPS_PER_INTERFACE + C * OPS_PER_CELL) +
                 vehicles_per_step * OPS_PER_VEHICLE)
+    # the state one step of one episode must read and write: r, y of the
+    # macro lanes' cells; pos, vel, av, five IDM parameters, length, route
+    # id and index of this run's vehicles; those capacitors; the lane
+    # counters (vehicles, waiting pool, emission cursor); the two running
+    # means. The empty vehicle slots, and the vehicle slots of macro lanes,
+    # which never hold a vehicle, need not move.
+    state = 2 * 4 * (2 * n_cells + 11 * vehicles_per_step + n_caps +
+                     3 * L + 4)
     ms, per_episode, bounds = {}, {}, {}
     for B in (1, 4):
         ins = spatial_inputs(env, B, 300 + B, np.full(env.action_size(),
@@ -726,18 +741,18 @@ def time_spatial(env, vehicles_per_step: float) -> dict:
             lambda: k6.spatial_episode_fwd(hard, *ins), 3)
         per_episode.setdefault("bwd", {})[B] = cuda_ms(
             lambda: k6.spatial_episode_bwd(soft, wq, *ins), 3)
-        # bytes: the carry read and written, the step's rows of the draws
-        # and scene data, the static tables, the outputs; the derivative
-        # reads the forward's inputs and the loss weight and writes the
-        # gradient, and does one vector-Jacobian product's operations
-        carry = 2 * B * (fo["size"] + io["size"]) * 4
+        # bytes: that state, the step's rows of the draws and scene data,
+        # the static tables, the outputs; the derivative reads the
+        # forward's inputs and the loss weight and writes the gradient, and
+        # does one vector-Jacobian product's operations. The route entries
+        # the leader walks read depend on the data and are not counted.
         step_in = (B * L + 3 * L + n_act) * 4 + sum(
             x.numel() * x.element_size() for x in
             (soft.lane_i, soft.lane_f, soft.prog))
-        nbytes = carry + step_in + B * 5 * 4
+        nbytes = B * state + step_in + B * 5 * 4
         bounds.setdefault("fwd", {})[B] = bound_of(nbytes, B * step_ops)
         bounds.setdefault("bwd", {})[B] = bound_of(
-            carry + step_in + B * 4 + B * n_act * 8,
+            B * state + step_in + B * 4 + B * n_act * 8,
             B * step_ops * VJP_OPS_MULTIPLE)
     ins = spatial_inputs(env, 1, 310, np.full(env.action_size(), 0.55))
     carry, sg, ss = k6.initial_carry(soft, 1, dev)
@@ -748,7 +763,7 @@ def time_spatial(env, vehicles_per_step: float) -> dict:
     k6.launches.update(saved)
     smem = k6._library().itscp_spatial_step_smem
     return dict(ms=ms, ms_per_episode=per_episode, bounds=bounds,
-                plain_step_ms=plain_ms,
+                state_bytes_per_episode=state, plain_step_ms=plain_ms,
                 smem_bytes=dict(fwd=smem(L, 0), bwd=smem(L, 1)),
                 ms_over_bound={n: {B: ms[n][B] / bounds[n][B]["bound_ms"]
                                    for B in ms[n]} for n in ms})

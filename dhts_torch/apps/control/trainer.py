@@ -111,21 +111,15 @@ class Trainer:
         self.generator.manual_seed(self.seed + 1)
         self.best_eval_reward = -float("inf")
         self.grad_norm = None  # before clipping, when grad_clip is set
-        self.mesh = mesh
-        self._spatial = None
+        self._spatial_step = self._spatial_eval = None
         if mesh is not None:
-            from dhts_torch.ops.cuda.itscp_spatial_step import \
-                make_fused_spatial_episode
+            from dhts_torch.ops.cuda import itscp_spatial_step as k6
 
-            if set(mesh.axis_names) != {"data", "lane"}:
-                raise ValueError(f"mesh axes {mesh.axis_names} must be "
-                                 f"('data', 'lane')")
-            if mesh.device != self.device:
-                raise ValueError(f"mesh on {mesh.device}, env on "
-                                 f"{self.device}")
-            self._spatial = {
-                d: make_fused_spatial_episode(env, mesh, differentiable=d)
-                for d in (True, False)}
+            self._spatial_step = k6.make_fused_spatial_train_step_2d(
+                env, self.model, self.apply_update, mesh, self.obs,
+                self.low, self.high)
+            self._spatial_eval = k6.make_fused_spatial_episode(
+                env, mesh, differentiable=False)
 
     # -- one update ----------------------------------------------------------
 
@@ -141,24 +135,9 @@ class Trainer:
         """The controller's squashed action for the env's observation."""
         return squash_action(self.model(self.obs), self.low, self.high)
 
-    def train_step(self, num_episode: int = 1, rand=None) -> float:
-        """One Adam update on the mean soft reward of ``num_episode``
-        episodes; ``rand`` (``[E, T, L]``) replaces the generator's draws.
-        Returns the loss."""
-        if rand is None:
-            rand = torch.stack([self.env.draw_rand(self.generator)
-                                for _ in range(max(1, num_episode))])
-        action = self.action()
-        if self._spatial is not None:
-            d = self.mesh.shape["data"]
-            if rand.shape[0] % d:
-                raise ValueError(f"{rand.shape[0]} episodes per step must be "
-                                 f"a multiple of the mesh's data axis ({d})")
-            rewards = self._spatial[True](action, rand=rand).reward
-        else:
-            rewards = torch.stack([
-                self.env.episode(action, True, rand=r).reward for r in rand])
-        loss = -torch.mean(rewards)
+    def apply_update(self, loss):
+        """Backpropagate ``loss`` and take one Adam step (after the
+        optional global-norm clip, at the scheduled learning rate)."""
         self.opt.zero_grad(set_to_none=True)
         loss.backward()
         if self.grad_clip:
@@ -168,6 +147,22 @@ class Trainer:
             group["lr"] = self.learning_rate(self.step_count)
         self.opt.step()
         self.step_count += 1
+
+    def train_step(self, num_episode: int = 1, rand=None) -> float:
+        """One Adam update on the mean soft reward of ``num_episode``
+        episodes; ``rand`` (``[E, T, L]``) replaces the generator's draws.
+        Returns the loss. With a mesh, the fused spatial train step
+        (``make_fused_spatial_train_step_2d``) runs the E episodes."""
+        if rand is None:
+            rand = torch.stack([self.env.draw_rand(self.generator)
+                                for _ in range(max(1, num_episode))])
+        if self._spatial_step is not None:
+            return self._spatial_step(rand)
+        action = self.action()
+        rewards = torch.stack([
+            self.env.episode(action, True, rand=r).reward for r in rand])
+        loss = -torch.mean(rewards)
+        self.apply_update(loss)
         return float(loss.detach())
 
     # -- training loop -------------------------------------------------------
@@ -206,7 +201,7 @@ class Trainer:
     def evaluate(self, epoch, num_episode, log_path, verbose=True):
         """Mean hard-mode reward over the fixed draws; appends ``eval.txt``
         and ``metrics.jsonl`` and saves ``best/model.pt`` on a new best."""
-        episode = (self._spatial[False] if self._spatial is not None else
+        episode = (self._spatial_eval if self._spatial_eval is not None else
                    lambda a, rand: self.env.episode(a, False, rand=rand))
         with torch.no_grad():
             action = self.action()

@@ -30,6 +30,9 @@
 // after arbitration, and after the conversion (before the block
 // reductions); the soft modes add two syncs around each running-mean
 // reduction.
+// The per-lane phases are in itscp_step.cuh, shared with the fused spatial
+// step (itscp_spatial_step.cu), which addresses the same state in global
+// memory.
 //   arbitration  pull form: each destination scans its predecessor list
 //                and takes the lowest source id that wants in; no atomics.
 //   reductions   queue, event counts, max wave speed and the running-mean
@@ -66,54 +69,11 @@
 // its inputs and outputs are a few MB, so it is latency-bound, far above
 // the bytes / 3.35 TB/s floor.
 
-#include "dhts_scalar.cuh"
+#include "itscp_step.cuh"
 
 namespace {
 
-constexpr int MAXC = 16;  // cells per macro lane held in registers
-constexpr int NEV = 7;    // integer event rows
-constexpr int INF_ID = 1 << 30;
-constexpr int HARD = 0, ST = 2;  // gate modes; 1 is soft
-
-struct Consts {
-  float u_max, dt, veh_len, static_speed;
-  float rare_den;  // (GAMMA + 1) * u_max, rounded once from double
-  float third;     // GAMMA / (GAMMA + 1), rounded once from double
-  float amax, apref, tgt, min_space, time_pref;  // default vehicle
-  float rho_hi;    // 1 - 1e-5, rounded once from double
-  float gate32;    // 32 * soft_gate_scale, rounded once from double
-};
-
-struct Dims {
-  int T, L, C, V, R, P, P2, K, W, nsf, n_phases, n_inter, mode;
-};
-
-// ---------------------------------------------------------------------------
-// straight-through gates (the scalars, the soft gates, the ARZ solver and
-// the IDM step are in dhts_scalar.cuh)
-// ---------------------------------------------------------------------------
-
-// straight-through value: soft + (hard - soft), the soft gate's tangent
-__device__ __forceinline__ float st_value(float soft, float hard) {
-  return soft + (hard - soft);
-}
-__device__ __forceinline__ Dual st_value(Dual soft, float hard) {
-  return Dual(soft.v + (hard - soft.v), soft.d);
-}
-// straight-through gate (env `stg`): soft value in soft mode
-template <class S>
-__device__ __forceinline__ S stg(bool hard, S soft_val, int mode) {
-  return mode == ST ? st_value(soft_val, hard ? 1.0f : 0.0f) : soft_val;
-}
-
-// entry j of the route with id `rid` (-1 for no route / out of range)
-__device__ __forceinline__ int route_at(const int* __restrict__ inj,
-                                        const int* __restrict__ emit,
-                                        int rid, int j, const Dims& d) {
-  if (rid < 0 || j < 0 || j >= d.R) return -1;
-  const int n_inj = d.L * d.P;
-  return rid < n_inj ? inj[rid * d.R + j] : emit[(rid - n_inj) * d.R + j];
-}
+constexpr int NEV = 7;  // integer event rows
 
 template <class S>
 struct Smem {
@@ -124,7 +84,7 @@ struct Smem {
   double *red_sum;       // [2 L] running-mean partial sums per lane
   int *red_cnt;          // [2 L] running-mean partial counts per lane
   int *rid, *ridx, *count, *inj_left, *cursor;
-  int *want, *mn_c, *hn_c, *hs_rid, *hs_ridx, *best, *dep_best, *red_ev;
+  int *want, *mn, *hn, *hs_rid, *hs_ridx, *best, *dep_best, *red_ev;
 };
 
 template <class S>
@@ -148,7 +108,7 @@ __host__ __device__ inline size_t smem_bytes(const Dims& d, Smem<S>* s,
   carve(&t->rid, LV, b, off); carve(&t->ridx, LV, b, off);
   carve(&t->count, L, b, off); carve(&t->inj_left, L, b, off);
   carve(&t->cursor, L, b, off); carve(&t->want, L, b, off);
-  carve(&t->mn_c, L, b, off); carve(&t->hn_c, L, b, off);
+  carve(&t->mn, L, b, off); carve(&t->hn, L, b, off);
   carve(&t->hs_rid, L, b, off); carve(&t->hs_ridx, L, b, off);
   carve(&t->best, L, b, off); carve(&t->dep_best, L, b, off);
   carve(&t->red_ev, NEV * L, b, off);
@@ -172,13 +132,11 @@ __device__ __forceinline__ float fold_mean(const Smem<S>& s, int L,
   return ms[1] > 0.0f ? ms[0] / fmaxf(ms[1], 1.0f) : 1.0f;
 }
 
-// want bits published for arbitration
-constexpr int W_EMIT = 1, W_TRANSFER = 2, W_DEPOSIT = 4;
-
 // One episode per block. S = float: the forward (outputs reward, queues,
 // events; `q_weight`/`out_grad` unused). S = Dual: the backward; block j
 // seeds action entry j and writes out_grad[j] = sum_t q_weight[t] *
-// d(queue_t)/d(action_j) (the forward outputs are unused).
+// d(queue_t)/d(action_j) (the forward outputs are unused). The per-lane
+// phases are those of itscp_step.cuh on the state in shared memory.
 template <class S>
 __global__ void itscp_hybrid_episode_kernel(
     const float* __restrict__ action, const float* __restrict__ sched,
@@ -199,33 +157,16 @@ __global__ void itscp_hybrid_episode_kernel(
   const int seed = blockIdx.x;
   const bool lane = l < L;
   const float u_max = k.u_max;
+  const Scene sc{lane_i, lane_f, inj_routes, emit_routes};
+  LaneState<S, S*, false> st{s.r, s.y, s.pos, s.vel, s.av, s.cap,
+                      {nullptr, nullptr, nullptr, nullptr, nullptr, nullptr},
+                      s.rid, s.ridx, s.count, s.inj_left, s.cursor,
+                      C, 1, V, 1, K, 1};
+  set_defaults(st, k);
 
-  // this lane's static geometry (lane_i rows: is_macro, num_cell,
-  // approaching, is_we, inter, has_prev, num_prev, num_next, prev[K],
-  // next[K]; lane_f rows: length, cell_length)
-  int is_macro = 0, num_cell = 0, approaching = 0, is_we = 0, inter = 0;
-  int has_prev = 0, num_prev = 0, num_next = 0, prev0 = -1, next0 = -1;
-  float length = 1.0f, cell_len = 1.0f;
-  if (lane) {
-    is_macro = lane_i[0 * L + l];
-    num_cell = lane_i[1 * L + l];
-    approaching = lane_i[2 * L + l];
-    is_we = lane_i[3 * L + l];
-    inter = lane_i[4 * L + l];
-    has_prev = lane_i[5 * L + l];
-    num_prev = lane_i[6 * L + l];
-    num_next = lane_i[7 * L + l];
-    prev0 = lane_i[8 * L + l];
-    next0 = lane_i[(8 + K) * L + l];
-    length = lane_f[0 * L + l];
-    cell_len = lane_f[1 * L + l];
-  }
-  auto geom_macro = [&](int j) { return lane_i[0 * L + j] != 0; };
-  auto geom_len = [&](int j) { return lane_f[0 * L + j]; };
+  const LaneGeom g = lane ? lane_geom(sc, L, K, l) : LaneGeom();
   auto clampL = [&](int j) { return min(max(j, 0), L - 1); };
-  const float coeff = k.dt / cell_len;
-  const int last = min(max(num_cell - 1, 0), C - 1);
-  const float idm_den = 2.0f * sqrtf(k.amax * k.apref);
+  const int last = min(max(g.num_cell - 1, 0), C - 1);
 
   // ---- initial (empty) state
   if (lane) {
@@ -237,7 +178,7 @@ __global__ void itscp_hybrid_episode_kernel(
     }
     for (int q = 0; q < K; ++q) s.cap[l * K + q] = 0.0f;
     s.count[l] = 0;
-    s.inj_left[l] = (!has_prev && !is_macro) ? d.P : 0;
+    s.inj_left[l] = (!g.has_prev && !g.is_macro) ? d.P : 0;
     s.cursor[l] = 0;
   }
   if (threadIdx.x == 0)
@@ -252,87 +193,23 @@ __global__ void itscp_hybrid_episode_kernel(
     int ev_inj = 0;
     float incoming = -1.0f;
     if (lane) {
-      const int phase = min(t / d.nsf, d.n_phases - 1);
-      const int ai = phase * d.n_inter + inter;
-      const S a = action_at<S>(action[ai], ai == seed);
-      const float progress = prog[t % d.nsf];
-      const bool hard_g = is_we ? (val(a) > progress) : (progress > val(a));
-      S g;
-      if (mode == HARD) {
-        g = hard_g ? 1.0f : 0.0f;
-      } else {
-        g = soft(is_we ? a - S(progress) : S(progress) - a, k.gate32);
-        g = stg(hard_g, g, mode);
-      }
-      s.sig[l] = approaching ? g : S(1.0f);
-      incoming = has_prev ? -1.0f : sched[tl];
-
-      if (!is_macro) {
-        int n = s.count[l];
-        const float free_sp =
-            n > 0 ? val(s.pos[l * V]) - 0.5f * k.veh_len : length;
-        const bool inject = !has_prev && (free_sp > 0.5f * k.veh_len) &&
-                            (rand[tl] < incoming) && (s.inj_left[l] > 0) &&
-                            (n < V);
-        if (inject) {
-          const int pool_idx = min(max(d.P - s.inj_left[l], 0), d.P - 1);
-          for (int v = V - 1; v > 0; --v) {
-            s.pos[l * V + v] = s.pos[l * V + v - 1];
-            s.vel[l * V + v] = s.vel[l * V + v - 1];
-            s.av[l * V + v] = s.av[l * V + v - 1];
-            s.rid[l * V + v] = s.rid[l * V + v - 1];
-            s.ridx[l * V + v] = s.ridx[l * V + v - 1];
-          }
-          s.pos[l * V] = 0.0f; s.vel[l * V] = 0.0f; s.av[l * V] = k.veh_len;
-          s.rid[l * V] = l * d.P + pool_idx; s.ridx[l * V] = 0;
-          s.count[l] = n + 1;
-          s.inj_left[l] -= 1;
-          ev_inj = 1;
-        }
-      }
-      // edge cells other lanes read as boundary values
-      const S rl = s.r[l * C + last], yl = s.y[l * C + last];
-      const S rf = s.r[l * C], yf = s.y[l * C];
-      s.r_last[l] = rl; s.u_last[l] = comp_u(rl, yl, u_max);
-      s.r_first[l] = rf; s.u_first[l] = comp_u(rf, yf, u_max);
+      s.sig[l] = lane_signal<S>(action, prog, d, k, g, t, seed);
+      incoming = g.has_prev ? -1.0f : sched[tl];
+      ev_inj = inject<S>(st, g, d, k, l, rand[tl], incoming) ? 1 : 0;
+      publish_edges<S>(st, s, l, last, u_max);
     }
     __syncthreads();
 
     // ================= B1: ghosts, leader walk (reads only) ============
-    S bl_r = 0.f, bl_u = 0.f, br_r = 0.f, br_u = 0.f, hpd = 0.f, hsd = 0.f;
+    Ghosts<S> gh{0.f, 0.f, 0.f, 0.f};
+    S hpd = 0.f, hsd = 0.f;
     // soft micro blend: the green leader, the red stop, the blended signal
     S pd_g = 0.f, sd_g = 0.f, red_pd = 0.f, fsig = 0.f;
     bool blend = false;
     if (lane) {
-      const int mp = mprev[tl], mn = mnext[tl];
-      // left ghost: the upstream neighbour's last cell
-      const int adjp = num_prev == 1 ? prev0 : mp;
-      const int adjp_c = clampL(adjp);
-      const bool use_l = (num_prev > 0) && (adjp >= 0) && geom_macro(adjp_c);
-      S gl_r = use_l ? s.r_last[adjp_c] : S(0.0f);
-      S gl_u = use_l ? s.u_last[adjp_c] : S(u_max);
-      if (!has_prev) { gl_r = incoming; gl_u = u_eq(S(incoming), u_max); }
-      const S prev_sig = !has_prev ? S(1.0f)
-                                   : (mp < 0 ? S(0.0f) : s.sig[clampL(mp)]);
-      bl_r = gl_r * prev_sig;
-      bl_u = gl_u * prev_sig + S(u_max) * (S(1.0f) - prev_sig);
-      // right ghost: the downstream neighbour's first cell, or a red wall
-      const int adjn = num_next == 1 ? next0 : mn;
-      const int adjn_c = clampL(adjn);
-      const bool use_r = (num_next > 0) && (adjn >= 0) && geom_macro(adjn_c);
-      const S gr_r = use_r ? s.r_first[adjn_c] : S(0.0f);
-      const S gr_u = use_r ? s.u_first[adjn_c] : S(u_max);
-      const S sig_l = s.sig[l];
-      S sg;
-      if (mode == HARD) {
-        sg = val(sig_l) > 0.5f ? 1.0f : 0.0f;
-      } else {
-        sg = stg(val(sig_l) > 0.5f, soft(sig_l - S(0.5f), k.gate32), mode);
-      }
-      br_r = gr_r * sg + S(1.0f) * (S(1.0f) - sg);
-      br_u = gr_u * sg;
-
-      if (!is_macro) {
+      gh = ghosts<S>(s, sc, g, L, l, mprev[tl], mnext[tl], incoming, mode,
+                     k);
+      if (!g.is_macro) {
         // virtual leader: walk the head vehicle's route
         const int n = s.count[l];
         const bool exists = n > 0;
@@ -345,13 +222,13 @@ __global__ void itscp_hybrid_episode_kernel(
         for (int o = 1; o <= d.W; ++o) {
           const int w = route_at(inj_routes, emit_routes, hrid, hridx + o, d);
           if (w < 0) { any_term = true; break; }
-          if (geom_macro(w)) { any_term = true; break; }
+          if (sc.macro_at(w)) { any_term = true; break; }
           if (s.count[w] > 0) {
             any_term = true; occupied = true; lead = w; break;
           }
-          crossed += (double)geom_len(w);
+          crossed += (double)sc.length_at(w);
         }
-        const S cur_delta = (S(length) - hpos) - S(k.veh_len * 0.5f) +
+        const S cur_delta = (S(g.length) - hpos) - S(k.veh_len * 0.5f) +
                             S((float)crossed);
         const bool found = exists && any_term && occupied;
         pd_g = found ? vmax((cur_delta + s.pos[lead * V]) -
@@ -359,7 +236,7 @@ __global__ void itscp_hybrid_episode_kernel(
                      : S(1000.0f);
         sd_g = found ? hvel - s.vel[lead * V] : S(0.0f);
         // the signal of the lane the head is on
-        red_pd = vmax((S(length) - hpos) - S(k.veh_len * 0.5f), S(0.0f));
+        red_pd = vmax((S(g.length) - hpos) - S(k.veh_len * 0.5f), S(0.0f));
         const int curr = route_at(inj_routes, emit_routes, hrid,
                                   min(max(hridx, 0), d.R - 1), d);
         if (mode == HARD) {
@@ -384,9 +261,9 @@ __global__ void itscp_hybrid_episode_kernel(
           S p_sc = prev_exist ? stg(false, soft(-hpos, 16.0f), mode)
                               : S(0.0f);
           S c_sc = stg(true, soft(hpos, 16.0f) *
-                                 soft(S(length) - hpos, 16.0f), mode);
+                                 soft(S(g.length) - hpos, 16.0f), mode);
           S n_sc = next_exist
-                       ? stg(false, soft(hpos - S(length), 16.0f), mode)
+                       ? stg(false, soft(hpos - S(g.length), 16.0f), mode)
                        : S(0.0f);
           const S ssum = (p_sc + c_sc) + n_sc;
           p_sc = p_sc / ssum; c_sc = c_sc / ssum; n_sc = n_sc / ssum;
@@ -424,235 +301,44 @@ __global__ void itscp_hybrid_episode_kernel(
     // ================= B2: Godunov (macro) and IDM (micro) =============
     float lane_wave = 0.0f;
     if (lane) {
-      if (is_macro) {
-        const S right_y = comp_y(br_r, br_u, u_max);
-        const S left_y = comp_y(bl_r, bl_u, u_max);
-        S rp[MAXC], yp[MAXC], up[MAXC];
-        for (int c = 0; c < C; ++c) {
-          rp[c] = c < num_cell ? s.r[l * C + c] : br_r;
-          yp[c] = c < num_cell ? s.y[l * C + c] : right_y;
-          up[c] = comp_u(rp[c], yp[c], u_max);
-        }
-        S fr_prev = 0.f, fy_prev = 0.f;
-        for (int i = 0; i <= C; ++i) {
-          S fr, fy;
-          float wave;
-          if (i == 0)
-            riemann(bl_r, left_y, bl_u, rp[0], up[0], u_max, k.rare_den,
-                    k.third, fr, fy, wave);
-          else if (i == C)
-            riemann(rp[C - 1], yp[C - 1], up[C - 1], br_r, br_u, u_max,
-                    k.rare_den, k.third, fr, fy, wave);
-          else
-            riemann(rp[i - 1], yp[i - 1], up[i - 1], rp[i], up[i], u_max,
-                    k.rare_den, k.third, fr, fy, wave);
-          lane_wave = i == 0 ? wave : fmaxf(lane_wave, wave);
-          if (i > 0 && i - 1 < num_cell) {
-            s.r[l * C + i - 1] = rp[i - 1] + (fr_prev - fr) * S(coeff);
-            s.y[l * C + i - 1] = yp[i - 1] + (fy_prev - fy) * S(coeff);
-          }
-          fr_prev = fr; fy_prev = fy;
-        }
-      } else {
-        const int n = s.count[l];
-        for (int v = 0; v < n; ++v) {
-          const S p = s.pos[l * V + v], sp = s.vel[l * V + v];
-          S pdel, sdel;
-          if (v == n - 1) {
-            pdel = hpd; sdel = hsd;
-          } else {
-            pdel = vabs(s.pos[l * V + v + 1] - p) -
-                   S((k.veh_len + k.veh_len) * 0.5f);
-            sdel = sp - s.vel[l * V + v + 1];
-          }
-          S np_, nv_;
-          idm_step(p, sp, pdel, sdel, k.amax, k.tgt, k.min_space,
-                   k.time_pref, idm_den, k.dt, np_, nv_);
-          s.pos[l * V + v] = np_;
-          s.vel[l * V + v] = nv_;
-        }
-      }
+      if (g.is_macro)
+        lane_wave = godunov_lane<S>(st, g, l, C, gh, k);
+      else
+        idm_lane<S>(st, l, hpd, hsd, k);
     }
     __syncthreads();
 
     // ================= C1: conversion requests ==========================
-    int want = 0, slot = 0, mn_c = 0, hn_c = 0, hnext = -1;
-    bool exit_none = false;
-    S cap_v = 0.0f;
-    if (lane) {
-      const int mn = mnext[tl];
-      mn_c = clampL(mn);
-      const bool next_is_micro = is_macro && mn >= 0 && !geom_macro(mn_c);
-      const S rl = s.r[l * C + last];
-      const S ul = comp_u(rl, s.y[l * C + last], u_max);
-      const S inc = next_is_micro ? rl * ul * S(k.dt) : S(0.0f);
-      slot = 0;
-      for (int q = 0; q < K; ++q)
-        if (lane_i[(8 + K + q) * L + l] == mn) { slot = q; break; }
-      cap_v = s.cap[l * K + slot] + inc;
-      const int dest_n = s.count[mn_c];
-      const float free_sp = dest_n > 0
-                                ? val(s.pos[mn_c * V]) - 0.5f * k.veh_len
-                                : geom_len(mn_c);
-      if (next_is_micro && val(cap_v) >= k.veh_len && free_sp >= k.veh_len &&
-          dest_n < V)
-        want |= W_EMIT;
-
-      const int n = s.count[l];
-      const bool exists = n > 0;
-      const int h = min(max(n - 1, 0), V - 1);
-      const S hpos = s.pos[l * V + h];
-      const int hrid = s.rid[l * V + h], hridx = s.ridx[l * V + h];
-      hnext = hridx + 1 < d.R
-                  ? route_at(inj_routes, emit_routes, hrid,
-                             min(max(hridx + 1, 0), d.R - 1), d)
-                  : -1;
-      hn_c = clampL(hnext);
-      const bool past_end = exists && val(hpos) >= length;
-      exit_none = past_end && hnext < 0;
-      const bool nxt_micro = hnext >= 0 && !geom_macro(hn_c);
-      const bool nxt_macro = hnext >= 0 && geom_macro(hn_c);
-      if (past_end && nxt_micro && s.count[hn_c] < V) want |= W_TRANSFER;
-      if (exists && nxt_macro && val(hpos) > length + k.veh_len)
-        want |= W_DEPOSIT;
-
-      s.want[l] = want; s.mn_c[l] = mn_c; s.hn_c[l] = hn_c;
-      s.cap_val[l] = cap_v; s.u_last[l] = ul;
-      s.hs_pos[l] = hpos; s.hs_vel[l] = s.vel[l * V + h];
-      s.hs_a[l] = s.av[l * V + h]; s.hs_rid[l] = hrid; s.hs_ridx[l] = hridx;
-    }
+    Request<S> rq;
+    if (lane) rq = request<S>(st, s, sc, g, d, k, l, mnext[tl], last);
     __syncthreads();
 
     // ================= C2: arbitration (pull, lowest source id) ========
-    if (lane) {
-      int best = INF_ID, dep_best = INF_ID;
-      for (int q = 0; q < K; ++q) {
-        const int p = lane_i[(8 + q) * L + l];
-        if (p < 0) continue;
-        const int pw = s.want[p];
-        if (((pw & W_EMIT) && s.mn_c[p] == l) ||
-            ((pw & W_TRANSFER) && s.hn_c[p] == l))
-          best = min(best, p);
-        if ((pw & W_DEPOSIT) && s.hn_c[p] == l) dep_best = min(dep_best, p);
-      }
-      s.best[l] = best; s.dep_best[l] = dep_best;
-    }
+    if (lane) arbitrate(s, sc, L, K, l);
     __syncthreads();
 
     // ================= C3: verdicts, removals, inserts, deposits =======
-    int ev[NEV] = {ev_inj, 0, 0, 0, 0, 0, 0};
     int n_after = 0;
     if (lane) {
-      const bool emit_win = (want & W_EMIT) && s.best[mn_c] == l;
-      const bool tr_win = (want & W_TRANSFER) && s.best[hn_c] == l;
-      const bool dep_win = (want & W_DEPOSIT) && s.dep_best[hn_c] == l;
-      const bool remove = exit_none || dep_win || tr_win;
-      int n = s.count[l] - (remove ? 1 : 0);
-      // the decremented capacitor is detached
-      s.cap[l * K + slot] = emit_win ? detached(cap_v - S(k.veh_len)) : cap_v;
-
-      const int best = s.best[l];
-      const bool has_insert = best < INF_ID;
-      bool is_emit = false;
-      if (has_insert) {
-        const int src = best;
-        is_emit = geom_macro(src);
-        S npos, nvel, na;
-        int nrid, nridx;
-        if (is_emit) {
-          npos = 0.0f;
-          nvel = s.u_last[src];
-          na = grad_carrier(k.veh_len, s.cap_val[src]);
-          nrid = L * d.P + l * d.P2 + s.cursor[l] % d.P2;
-          nridx = 0;
-          s.cursor[l] += 1;
-        } else {
-          npos = s.hs_pos[src] - S(geom_len(src));
-          nvel = s.hs_vel[src];
-          na = s.hs_a[src];
-          nrid = s.hs_rid[src];
-          nridx = s.hs_ridx[src] + 1;
-        }
-        for (int v = V - 1; v > 0; --v) {
-          s.pos[l * V + v] = s.pos[l * V + v - 1];
-          s.vel[l * V + v] = s.vel[l * V + v - 1];
-          s.av[l * V + v] = s.av[l * V + v - 1];
-          s.rid[l * V + v] = s.rid[l * V + v - 1];
-          s.ridx[l * V + v] = s.ridx[l * V + v - 1];
-        }
-        s.pos[l * V] = npos; s.vel[l * V] = nvel; s.av[l * V] = na;
-        s.rid[l * V] = nrid; s.ridx[l * V] = nridx;
-        n += 1;
-      }
-      s.count[l] = n;
-      n_after = n;
-
-      // micro -> macro mass deposit from the winning source
-      const int sd = s.dep_best[l];
-      if (sd < INF_ID) {
-        const S v_head = s.hs_pos[sd] - S(geom_len(sd));
-        const S v_tail = v_head - S(k.veh_len);
-        const S ha = s.hs_a[sd], hv = s.hs_vel[sd];
-        for (int c = 0; c < num_cell; ++c) {
-          const float c_tail = (float)c * cell_len;
-          const float c_head = ((float)c + 1.0f) * cell_len;
-          const bool ov = c_head > val(v_tail) && c_tail < val(v_head) &&
-                          cell_len > val(v_tail);
-          if (!ov) continue;
-          const S max_head = vmax(S(c_head), v_head);
-          const S min_tail = vmin(S(c_tail), v_tail);
-          const S overlap =
-              S(cell_len + k.veh_len) - (max_head - min_tail);
-          const S add_r = (ha / S(k.veh_len)) * (overlap / S(cell_len));
-          const S n_r = st_clip(s.r[l * C + c] + add_r, k.rho_hi);
-          s.r[l * C + c] = n_r;
-          s.y[l * C + c] = comp_y(n_r, hv, u_max);
-        }
-      }
-      ev[1] = is_emit;
-      ev[2] = exit_none || dep_win;
-      ev[3] = has_insert && !is_emit;
-      ev[4] = tr_win;
-      ev[5] = dep_win;
-      ev[6] = remove;
+      const Verdict vd = convert<S>(st, s, sc, g, rq, d, k, l);
+      n_after = vd.n;
+      const int ev[NEV] = {ev_inj,
+                           vd.is_emit,
+                           vd.exit_none || vd.dep_win,
+                           vd.has_insert && !vd.is_emit,
+                           vd.tr_win,
+                           vd.dep_win,
+                           vd.remove};
       s.red_wave[l] = lane_wave;
       for (int e = 0; e < NEV; ++e) s.red_ev[e * L + l] = ev[e];
     }
 
     // ---- queue of this lane
-    S q_lane = 0.0f;
-    if (mode == HARD) {
-      if (lane) {
-        if (is_macro) {
-          for (int c = 0; c < num_cell; ++c) {
-            const S r = s.r[l * C + c];
-            const S u = comp_u(r, s.y[l * C + c], u_max);
-            const float stat = val(u) < k.static_speed ? 1.0f : 0.0f;
-            q_lane = q_lane + S(stat) * ((r * S(cell_len)) / S(k.veh_len));
-          }
-        } else {
-          for (int v = 0; v < n_after; ++v)
-            q_lane = q_lane +
-                     S(val(s.vel[l * V + v]) < k.static_speed ? 1.0f : 0.0f);
-        }
-      }
-    } else {
+    float c_st = 0.0f;
+    if (mode != HARD) {
       // running mean of (static_speed - speed) over macro cells, then over
       // micro vehicles; its detached mean sharpens the queue gates
-      if (lane) {
-        double cells = 0.0, vehs = 0.0;
-        if (is_macro) {
-          for (int c = 0; c < num_cell; ++c)
-            cells += (double)(k.static_speed -
-                              val(comp_u(s.r[l * C + c], s.y[l * C + c],
-                                         u_max)));
-        } else {
-          for (int v = 0; v < n_after; ++v)
-            vehs += (double)(k.static_speed - val(s.vel[l * V + v]));
-        }
-        s.red_sum[l] = cells; s.red_cnt[l] = is_macro ? num_cell : 0;
-        s.red_sum[L + l] = vehs; s.red_cnt[L + l] = is_macro ? 0 : n_after;
-      }
+      if (lane) static_partials<S>(st, s, g, L, l, n_after, k);
       __syncthreads();
       if (threadIdx.x == 0) {
         fold_mean(s, L, 0, s.ms + 3);
@@ -660,26 +346,12 @@ __global__ void itscp_hybrid_episode_kernel(
         s.ms[5] = 16.0f / fmaxf(fabsf(mean), 1e-6f);
       }
       __syncthreads();
-      if (lane) {
-        const float c = s.ms[5];
-        if (is_macro) {
-          for (int c_i = 0; c_i < num_cell; ++c_i) {
-            const S r = s.r[l * C + c_i];
-            const S u = comp_u(r, s.y[l * C + c_i], u_max);
-            const S stat = stg(val(u) < k.static_speed,
-                               soft(S(k.static_speed) - u, c), mode);
-            q_lane = q_lane + stat * ((r * S(cell_len)) / S(k.veh_len));
-          }
-        } else {
-          for (int v = 0; v < n_after; ++v) {
-            const S sp = s.vel[l * V + v];
-            q_lane = q_lane + stg(val(sp) < k.static_speed,
-                                  soft(S(k.static_speed) - sp, c), mode);
-          }
-        }
-      }
+      c_st = s.ms[5];
     }
-    if (lane) s.red_q[l] = q_lane * q_lane;
+    if (lane) {
+      const S q_lane = lane_queue<S>(st, g, l, n_after, mode, c_st, k);
+      s.red_q[l] = q_lane * q_lane;
+    }
     __syncthreads();
 
     // ================= D: block reductions in lane order ===============

@@ -29,7 +29,11 @@
 // physics, after the conversion requests, after arbitration, after the
 // static running mean and before the block reductions. Reductions (running
 // means, queue, events, max wave speed) are taken by one thread in lane
-// order, the sums in float64 rounded once.
+// order, the sums in float64 rounded once. The per-lane phases (signal,
+// injection, ghosts, Godunov and IDM updates, conversion requests,
+// arbitration, verdicts and deposits, queue) are K1's, from
+// itscp_step.cuh; the leader walk, the blend and the reductions follow
+// body_STEP.
 //
 // Derivative: forward-mode tangents. The step is a template on its scalar
 // type: `float` in the forward, `Dual` (value, tangent) in the derivative,
@@ -45,29 +49,13 @@
 // zero tangent).
 //
 // Bound. A step is a handful of block-wide barriers and short chains of
-// dependent global loads per lane; it moves a few hundred KB per episode,
-// so it is latency-bound, far above the bytes / 3.35 TB/s floor.
+// dependent global loads per lane; it must move only the macro cells, the
+// vehicles present and the counters of each episode, tens of KB, so it is
+// latency-bound, far above the bytes / 3.35 TB/s floor.
 
-#include "dhts_scalar.cuh"
+#include "itscp_step.cuh"
 
 namespace {
-
-constexpr int MAXC = 16;  // cells per macro lane held in registers
-constexpr int HARD = 0;   // gate modes; 1 is soft
-constexpr int W_EMIT = 1, W_TRANSFER = 2, W_DEPOSIT = 4;
-
-struct Consts {
-  float u_max, dt, veh_len, static_speed;
-  float rare_den;  // (GAMMA + 1) * u_max, rounded once from double
-  float third;     // GAMMA / (GAMMA + 1), rounded once from double
-  float amax, apref, tgt, min_space, time_pref;  // default vehicle
-  float rho_hi;    // 1 - 1e-5, rounded once from double
-  float gate32;    // 32 * soft_gate_scale, rounded once from double
-};
-
-struct Dims {
-  int T, L, C, V, R, P, P2, K, W, nsf, n_phases, n_inter, mode;
-};
 
 struct Ptrs {
   float* fbuf;  // [N, fsize] values
@@ -108,28 +96,6 @@ __host__ __device__ inline Layout layout(const Dims& d) {
   return o;
 }
 
-// a float field of the carry: values, and tangents in the derivative
-struct FA {
-  float* v;
-  float* d;
-};
-template <class S>
-__device__ __forceinline__ S get(const FA& a, int i);
-template <>
-__device__ __forceinline__ float get<float>(const FA& a, int i) {
-  return a.v[i];
-}
-template <>
-__device__ __forceinline__ Dual get<Dual>(const FA& a, int i) {
-  return Dual(a.v[i], a.d[i]);
-}
-__device__ __forceinline__ void put(const FA& a, int i, float x) {
-  a.v[i] = x;
-}
-__device__ __forceinline__ void put(const FA& a, int i, Dual x) {
-  a.v[i] = x.v;
-  a.d[i] = x.d;
-}
 template <class S>
 __device__ __forceinline__ S from_parts(float v, float d);
 template <>
@@ -139,13 +105,6 @@ __device__ __forceinline__ float from_parts<float>(float v, float) {
 template <>
 __device__ __forceinline__ Dual from_parts<Dual>(float v, float d) {
   return Dual(v, d);
-}
-
-// entry j of route `rid` (-1 for no route or out of range)
-__device__ __forceinline__ int route_at(const int* __restrict__ routes,
-                                        int rid, int j, int R) {
-  if (rid < 0 || j < 0 || j >= R) return -1;
-  return routes[rid * R + j];
 }
 
 // per-lane summaries other lanes read, and the block's reduction scratch
@@ -184,7 +143,8 @@ __host__ __device__ inline size_t smem_bytes(const Dims& d, Smem<S>* s,
 
 // One step t of one episode (S = float; block e is episode e) or of one
 // dual episode (S = Dual; block e is episode e / n_act seeding action entry
-// e % n_act).
+// e % n_act). The per-lane phases are those of itscp_step.cuh on the
+// episode's carry in global memory.
 template <class S>
 __global__ void spatial_step_kernel(Ptrs p, Dims d, Consts k, int t) {
   DHTS_DYNAMIC_SMEM(smem_raw);
@@ -200,7 +160,6 @@ __global__ void spatial_step_kernel(Ptrs p, Dims d, Consts k, int t) {
   const int n_act = d.n_phases * d.n_inter;
   const int b = dual ? e / n_act : e;
   const int seed = dual ? e % n_act : -1;
-  const float u_max = k.u_max;
   const int tl = t * L + l;
 
   // this episode's carry
@@ -209,159 +168,69 @@ __global__ void spatial_step_kernel(Ptrs p, Dims d, Consts k, int t) {
   float* D = dual ? p.dbuf + (size_t)e * o.fsize : nullptr;
   int* I = p.ibuf + (size_t)e * o.isize;
   auto fa = [&](int off) { return FA{F + off, D ? D + off : nullptr}; };
-  const FA r_ = fa(o.r), y_ = fa(o.y), pos_ = fa(o.pos), vel_ = fa(o.vel);
-  const FA av_ = fa(o.av), cap_ = fa(o.cap);
-  float* par[6] = {F + o.amax, F + o.apref, F + o.vt, F + o.ms, F + o.tp,
-                   F + o.len};
-  float* len_ = F + o.len;
-  int* count_ = I + o.count;
-  int* rid_ = I + o.rid;
-  int* ridx_ = I + o.ridx;
-  int* inj_left_ = I + o.inj_left;
-  int* cursor_ = I + o.cursor;
+  LaneState<S, FA, true> st{fa(o.r), fa(o.y), fa(o.pos), fa(o.vel), fa(o.av),
+                      fa(o.cap),
+                      {F + o.amax, F + o.apref, F + o.vt, F + o.ms,
+                       F + o.tp, F + o.len},
+                      I + o.rid, I + o.ridx, I + o.count, I + o.inj_left,
+                      I + o.cursor, 1, L, 1, L, 1, L};
+  set_defaults(st, k);
+  float* len_ = st.par[5];
   float* sg_ms = F + o.sg;
   float* ss_ms = F + o.ss;
 
-  // this lane's static geometry (lane_i rows: is_macro, num_cell,
-  // approaching, is_we, inter, has_prev, num_prev, num_next, prev[K],
-  // next[K]; lane_f rows: length, cell_length)
-  const int* li = p.lane_i;
-  int is_macro = 0, num_cell = 0, approaching = 0, is_we = 0, inter = 0;
-  int has_prev = 0, num_prev = 0, num_next = 0, prev0 = -1, next0 = -1;
-  float length = 1.0f, cell_len = 1.0f;
-  if (lane) {
-    is_macro = li[0 * L + l]; num_cell = li[1 * L + l];
-    approaching = li[2 * L + l]; is_we = li[3 * L + l];
-    inter = li[4 * L + l]; has_prev = li[5 * L + l];
-    num_prev = li[6 * L + l]; num_next = li[7 * L + l];
-    prev0 = li[8 * L + l]; next0 = li[(8 + K) * L + l];
-    length = p.lane_f[0 * L + l]; cell_len = p.lane_f[1 * L + l];
-  }
-  auto macro_at = [&](int j) { return li[0 * L + j] != 0; };
-  auto length_at = [&](int j) { return p.lane_f[0 * L + j]; };
+  const Scene sc{p.lane_i, p.lane_f, p.routes, p.routes + L * d.P * R};
+  const LaneGeom g = lane ? lane_geom(sc, L, K, l) : LaneGeom();
   auto clampL = [&](int j) { return min(max(j, 0), L - 1); };
-  const int last = min(max(num_cell - 1, 0), C - 1);
-
-  // vehicle slot v of this lane: shift rows up by one, new row 0 (tail)
-  auto insert_tail = [&](S npos, S nvel, S na, const float* npar, int nrid,
-                         int nridx) {
-    for (int v = V - 1; v > 0; --v) {
-      const int i = v * L + l, j = (v - 1) * L + l;
-      put(pos_, i, get<S>(pos_, j));
-      put(vel_, i, get<S>(vel_, j));
-      put(av_, i, get<S>(av_, j));
-      for (int q = 0; q < 6; ++q) par[q][i] = par[q][j];
-      rid_[i] = rid_[j];
-      ridx_[i] = ridx_[j];
-    }
-    put(pos_, l, npos); put(vel_, l, nvel); put(av_, l, na);
-    for (int q = 0; q < 6; ++q) par[q][l] = npar[q];
-    rid_[l] = nrid;
-    ridx_[l] = nridx;
-  };
-  const float dflt[6] = {k.amax, k.apref, k.tgt, k.min_space, k.time_pref,
-                         k.veh_len};
+  const int last = min(max(g.num_cell - 1, 0), C - 1);
 
   // ================= A: signal, edge cells, injection ====================
   int ev_inj = 0;
   float incoming = -1.0f;
   if (lane) {
-    const int phase = min(t / d.nsf, d.n_phases - 1);
-    const int ai = phase * d.n_inter + inter;
-    const S a = action_at<S>(p.action[ai], ai == seed);
-    const float progress = p.prog[t % d.nsf];
-    S g;
-    if (!soft_mode) {
-      g = (is_we ? val(a) > progress : progress > val(a)) ? 1.0f : 0.0f;
-    } else {
-      g = soft(is_we ? a - S(progress) : S(progress) - a, k.gate32);
-    }
-    s.sig[l] = approaching ? g : S(1.0f);
-    incoming = has_prev ? -1.0f : p.sched[tl];
-
-    const S rf = get<S>(r_, l), rl = get<S>(r_, last * L + l);
-    s.r_first[l] = rf;
-    s.u_first[l] = comp_u(rf, get<S>(y_, l), u_max);
-    s.r_last[l] = rl;
-    s.u_last[l] = comp_u(rl, get<S>(y_, last * L + l), u_max);
-
-    const int n = count_[l];
-    const float free_sp = n > 0 ? val(get<S>(pos_, l)) - 0.5f * len_[l]
-                                : length;
-    const bool inject = !has_prev && !is_macro &&
-                        (free_sp > 0.5f * k.veh_len) &&
-                        (p.rand[((size_t)b * d.T + t) * L + l] < incoming) &&
-                        (inj_left_[l] > 0) && (n < V);
-    if (inject) {
-      const int pool_idx = min(max(d.P - inj_left_[l], 0), d.P - 1);
-      insert_tail(S(0.0f), S(0.0f), S(k.veh_len), dflt, l * d.P + pool_idx,
-                  0);
-      count_[l] = n + 1;
-      inj_left_[l] -= 1;
-      ev_inj = 1;
-    }
-    s.count[l] = count_[l];
-    s.tpos[l] = get<S>(pos_, l);
-    s.tvel[l] = get<S>(vel_, l);
+    s.sig[l] = lane_signal<S>(p.action, p.prog, d, k, g, t, seed);
+    incoming = g.has_prev ? -1.0f : p.sched[tl];
+    publish_edges<S>(st, s, l, last, k.u_max);
+    ev_inj = inject<S>(st, g, d, k, l, p.rand[((size_t)b * d.T + t) * L + l],
+                       incoming) ? 1 : 0;
+    // the tail summary row the leader walks read
+    s.count[l] = st.count[l];
+    s.tpos[l] = ld<S>(st.pos, l);
+    s.tvel[l] = ld<S>(st.vel, l);
     s.tlen[l] = len_[l];
   }
   __syncthreads();
 
   // ================= B: ghosts, leader walk, the head's signal ===========
-  S bl_r = 0.f, bl_u = 0.f, br_r = 0.f, br_u = 0.f;
+  Ghosts<S> gh{0.f, 0.f, 0.f, 0.f};
   S pd_g = 0.f, sd_g = 0.f, red_pd = 0.f, fsig = 0.f;
   bool blend = false;
   if (lane) {
-    const int mp = p.mprev[tl], mn = p.mnext[tl];
-    const int adjp = num_prev == 1 ? prev0 : mp;
-    const int adjp_c = clampL(adjp);
-    const bool use_l = (num_prev > 0) && (adjp >= 0) && macro_at(adjp_c);
-    S gl_r, gl_u;
-    if (has_prev) {
-      gl_r = use_l ? s.r_last[adjp_c] : S(0.0f);
-      gl_u = use_l ? s.u_last[adjp_c] : S(u_max);
-    } else {
-      gl_r = incoming;
-      gl_u = u_eq(S(incoming), u_max);
-    }
-    const S prev_sig = !has_prev ? S(1.0f)
-                                 : (mp < 0 ? S(0.0f) : s.sig[clampL(mp)]);
-    bl_r = gl_r * prev_sig;
-    bl_u = gl_u * prev_sig + S(u_max) * (S(1.0f) - prev_sig);
-    const int adjn = num_next == 1 ? next0 : mn;
-    const int adjn_c = clampL(adjn);
-    const bool use_r = (num_next > 0) && (adjn >= 0) && macro_at(adjn_c);
-    const S gr_r = use_r ? s.r_first[adjn_c] : S(0.0f);
-    const S gr_u = use_r ? s.u_first[adjn_c] : S(u_max);
-    const S sig_l = s.sig[l];
-    const S s_own = soft_mode ? soft(sig_l - S(0.5f), k.gate32)
-                              : S(val(sig_l) > 0.5f ? 1.0f : 0.0f);
-    br_r = gr_r * s_own + (S(1.0f) - s_own);
-    br_u = gr_u * s_own;
-
-    if (!is_macro) {
+    gh = ghosts<S>(s, sc, g, L, l, p.mprev[tl], p.mnext[tl], incoming,
+                   d.mode, k);
+    if (!g.is_macro) {
       // virtual leader: walk the head vehicle's route
-      const int n = count_[l];
+      const int n = st.count[l];
       const bool exists = n > 0;
       const int h = min(max(n - 1, 0), V - 1);
-      const S hpos = get<S>(pos_, h * L + l), hvel = get<S>(vel_, h * L + l);
+      const S hpos = ld<S>(st.pos, h * L + l), hvel = ld<S>(st.vel, h * L + l);
       const float hlen = len_[h * L + l];
-      const int hrid = rid_[h * L + l], hridx = ridx_[h * L + l];
-      const S base = (S(length) - hpos) - S(hlen * 0.5f);
+      const int hrid = st.rid[h * L + l], hridx = st.ridx[h * L + l];
+      const S base = (S(g.length) - hpos) - S(hlen * 0.5f);
       bool done = !exists, found = false;
       int wstar = -1;
       S cdel_st = 0.0f, cur = base;
       for (int q = 0; q < d.W && !done; ++q) {
-        const int wl = route_at(p.routes, hrid, hridx + 1 + q, R);
+        const int wl = route_at(sc.inj, sc.emit, hrid, hridx + 1 + q, d);
         const bool ex = wl >= 0;
         const int wc = clampL(wl);
-        const bool w_macro = ex && macro_at(wc);
+        const bool w_macro = ex && sc.macro_at(wc);
         if (ex && !w_macro && s.count[wc] > 0) {
           wstar = wl; cdel_st = detached(cur); found = true; done = true;
         } else if (!ex || w_macro) {
           done = true;
         } else {
-          cur = cur + S(length_at(wc));
+          cur = cur + S(sc.length_at(wc));
         }
       }
       if (found) {
@@ -375,16 +244,16 @@ __global__ void spatial_step_kernel(Ptrs p, Dims d, Consts k, int t) {
       }
       // the signal the head sees, blended over its previous, current and
       // next route lane
-      red_pd = vmax((S(length) - hpos) - S(hlen * 0.5f), S(0.0f));
-      const int prev_l = route_at(p.routes, hrid, hridx - 1, R);
-      const int next_l = route_at(p.routes, hrid, hridx + 1, R);
-      const int curr_l = route_at(p.routes, hrid, hridx, R);
+      red_pd = vmax((S(g.length) - hpos) - S(hlen * 0.5f), S(0.0f));
+      const int prev_l = route_at(sc.inj, sc.emit, hrid, hridx - 1, d);
+      const int next_l = route_at(sc.inj, sc.emit, hrid, hridx + 1, d);
+      const int curr_l = route_at(sc.inj, sc.emit, hrid, hridx, d);
       const bool prev_exist = prev_l >= 0, next_exist = next_l >= 0;
       S p_sc, c_sc, n_sc;
       if (soft_mode) {
         p_sc = prev_exist ? soft(-hpos, 16.0f) : S(0.0f);
-        c_sc = soft(hpos, 16.0f) * soft(S(length) - hpos, 16.0f);
-        n_sc = next_exist ? soft(hpos - S(length), 16.0f) : S(0.0f);
+        c_sc = soft(hpos, 16.0f) * soft(S(g.length) - hpos, 16.0f);
+        n_sc = next_exist ? soft(hpos - S(g.length), 16.0f) : S(0.0f);
       } else {
         p_sc = 0.0f; c_sc = 1.0f; n_sc = 0.0f;
       }
@@ -416,36 +285,8 @@ __global__ void spatial_step_kernel(Ptrs p, Dims d, Consts k, int t) {
   // ================= C: physics =========================================
   float lane_wave = 0.0f;
   if (lane) {
-    if (is_macro) {
-      const S right_y = comp_y(br_r, br_u, u_max);
-      const S left_y = comp_y(bl_r, bl_u, u_max);
-      S rp[MAXC], yp[MAXC], up[MAXC];
-      for (int c = 0; c < C; ++c) {
-        rp[c] = c < num_cell ? get<S>(r_, c * L + l) : br_r;
-        yp[c] = c < num_cell ? get<S>(y_, c * L + l) : right_y;
-        up[c] = comp_u(rp[c], yp[c], u_max);
-      }
-      const float coeff = k.dt / cell_len;
-      S fr_prev = 0.f, fy_prev = 0.f;
-      for (int i = 0; i <= C; ++i) {
-        S fr, fy;
-        float wave;
-        if (i == 0)
-          riemann(bl_r, left_y, bl_u, rp[0], up[0], u_max, k.rare_den,
-                  k.third, fr, fy, wave);
-        else if (i == C)
-          riemann(rp[C - 1], yp[C - 1], up[C - 1], br_r, br_u, u_max,
-                  k.rare_den, k.third, fr, fy, wave);
-        else
-          riemann(rp[i - 1], yp[i - 1], up[i - 1], rp[i], up[i], u_max,
-                  k.rare_den, k.third, fr, fy, wave);
-        lane_wave = i == 0 ? wave : fmaxf(lane_wave, wave);
-        if (i > 0 && i - 1 < num_cell) {
-          put(r_, (i - 1) * L + l, rp[i - 1] + (fr_prev - fr) * S(coeff));
-          put(y_, (i - 1) * L + l, yp[i - 1] + (fy_prev - fy) * S(coeff));
-        }
-        fr_prev = fr; fy_prev = fy;
-      }
+    if (g.is_macro) {
+      lane_wave = godunov_lane<S>(st, g, l, C, gh, k);
     } else {
       S pd = pd_g, sd = sd_g;
       if (blend) {
@@ -459,175 +300,29 @@ __global__ void spatial_step_kernel(Ptrs p, Dims d, Consts k, int t) {
           sd = green ? sd_g : S(0.0f);
         }
       }
-      const int n = count_[l];
-      for (int v = 0; v < n; ++v) {
-        const int i = v * L + l;
-        const S pv = get<S>(pos_, i), sp = get<S>(vel_, i);
-        S pdel, sdel;
-        if (v == n - 1) {
-          pdel = pd; sdel = sd;
-        } else {
-          const int j = i + L;
-          pdel = vabs(get<S>(pos_, j) - pv) -
-                 S((len_[j] + len_[i]) * 0.5f);
-          sdel = sp - get<S>(vel_, j);
-        }
-        const float am = par[0][i], ap = par[1][i];
-        S np_, nv_;
-        idm_step(pv, sp, pdel, sdel, am, par[2][i], par[3][i], par[4][i],
-                 2.0f * sqrtf(am * ap), k.dt, np_, nv_);
-        put(pos_, i, np_);
-        put(vel_, i, nv_);
-      }
+      idm_lane<S>(st, l, pd, sd, k);
     }
   }
   __syncthreads();
 
   // ================= D1: conversion requests ============================
-  int want = 0, slot = -1, mn = -1, hnext = -1;
-  bool exit_none = false;
-  S cap_v = 0.0f;
-  if (lane) {
-    const S rl = get<S>(r_, last * L + l);
-    const S ul = comp_u(rl, get<S>(y_, last * L + l), u_max);
-    s.u_last[l] = ul;
-    mn = p.mnext[tl];
-    const int mn_c = clampL(mn);
-    const bool next_is_micro = is_macro && mn >= 0 && !macro_at(mn_c);
-    const S inc = next_is_micro ? (rl * ul) * S(k.dt) : S(0.0f);
-    for (int q = 0; q < K; ++q) {
-      const int nq = li[(8 + K + q) * L + l];
-      if (nq >= 0 && nq == mn) { slot = q; break; }
-    }
-    if (slot >= 0) cap_v = get<S>(cap_, slot * L + l) + inc;
-    s.cap_val[l] = cap_v;
-    const int dest_n = mn >= 0 ? s.count[mn_c] : 0;
-    const float free_n =
-        dest_n > 0 ? val(get<S>(pos_, mn_c)) - 0.5f * len_[mn_c]
-                   : (mn >= 0 ? length_at(mn_c) : 0.0f);
-    if (next_is_micro && val(cap_v) >= k.veh_len && free_n >= k.veh_len &&
-        dest_n < V)
-      want |= W_EMIT;
-
-    // the head after the physics (the conversion's source fields)
-    const int n = count_[l];
-    const bool exists = n > 0;
-    const int h = min(max(n - 1, 0), V - 1);
-    const int hi = h * L + l;
-    const S hpos = get<S>(pos_, hi);
-    const float hlen = len_[hi];
-    s.hs_pos[l] = hpos;
-    s.hs_vel[l] = get<S>(vel_, hi);
-    s.hs_a[l] = get<S>(av_, hi);
-    s.hs_len[l] = hlen;
-    for (int q = 0; q < 5; ++q) s.hs_par[q * L + l] = par[q][hi];
-    s.hs_rid[l] = rid_[hi];
-    s.hs_ridx[l] = ridx_[hi];
-    hnext = route_at(p.routes, rid_[hi], ridx_[hi] + 1, R);
-    const int hn_c = clampL(hnext);
-    const bool past_end = exists && val(hpos) >= length;
-    exit_none = past_end && hnext < 0;
-    const bool hn_macro = hnext >= 0 && macro_at(hn_c);
-    const bool hn_micro = hnext >= 0 && !hn_macro;
-    if (past_end && hn_micro && s.count[hn_c] < V) want |= W_TRANSFER;
-    if (exists && hn_macro && val(hpos) > length + hlen) want |= W_DEPOSIT;
-    s.want[l] = want;
-    s.mn[l] = mn;
-    s.hn[l] = hnext;
-  }
+  Request<S> rq;
+  if (lane) rq = request<S>(st, s, sc, g, d, k, l, p.mnext[tl], last);
   __syncthreads();
 
   // ================= D2: arbitration (pull, lowest source id) ===========
-  if (lane) {
-    int best = L, dep_best = L;
-    for (int q = 0; q < K; ++q) {
-      const int pk = li[(8 + q) * L + l];
-      if (pk < 0) continue;
-      const int pw = s.want[pk];
-      if (((pw & W_EMIT) && s.mn[pk] == l) ||
-          ((pw & W_TRANSFER) && s.hn[pk] == l))
-        best = min(best, pk);
-      if ((pw & W_DEPOSIT) && s.hn[pk] == l) dep_best = min(dep_best, pk);
-    }
-    s.best[l] = best;
-    s.dep_best[l] = dep_best;
-  }
+  if (lane) arbitrate(s, sc, L, K, l);
   __syncthreads();
 
   // ================= D3: verdicts, removals, inserts, deposits ==========
   if (lane) {
-    const int mn_c = clampL(mn), hn_c = clampL(hnext);
-    const bool emit_win = (want & W_EMIT) && s.best[mn_c] == l;
-    const bool tr_win = (want & W_TRANSFER) && s.best[hn_c] == l;
-    const bool dep_win = (want & W_DEPOSIT) && s.dep_best[hn_c] == l;
-    const bool remove = exit_none || dep_win || tr_win;
-    int n = count_[l] - (remove ? 1 : 0);
-    // the decremented capacitor is detached
-    if (slot >= 0)
-      put(cap_, slot * L + l,
-          emit_win ? detached(cap_v - S(k.veh_len)) : cap_v);
-
-    const int src = s.best[l];
-    bool is_emit = false;
-    if (src < L) {
-      is_emit = macro_at(src);
-      float npar[6];
-      if (is_emit) {
-        for (int q = 0; q < 6; ++q) npar[q] = dflt[q];
-        insert_tail(S(0.0f), s.u_last[src],
-                    grad_carrier(k.veh_len, s.cap_val[src]), npar,
-                    L * d.P + l * d.P2 + cursor_[l] % d.P2, 0);
-        cursor_[l] += 1;
-      } else {
-        for (int q = 0; q < 5; ++q) npar[q] = s.hs_par[q * L + src];
-        npar[5] = s.hs_len[src];
-        insert_tail(s.hs_pos[src] - S(length_at(src)), s.hs_vel[src],
-                    s.hs_a[src], npar, s.hs_rid[src], s.hs_ridx[src] + 1);
-      }
-      n += 1;
-    }
-    count_[l] = n;
-
-    // micro -> macro mass deposit from the winning source
-    const int sd = s.dep_best[l];
-    if (sd < L) {
-      const S v_head = s.hs_pos[sd] - S(length_at(sd));
-      const float dlen = s.hs_len[sd];
-      const S v_tail = v_head - S(dlen);
-      const S ha = s.hs_a[sd], hv = s.hs_vel[sd];
-      for (int c = 0; c < num_cell; ++c) {
-        const float c_tail = (float)c * cell_len;
-        const float c_head = ((float)c + 1.0f) * cell_len;
-        const bool ov = c_head > val(v_tail) && c_tail < val(v_head) &&
-                        cell_len > val(v_tail);
-        if (!ov) continue;
-        const S max_head = vmax(S(c_head), v_head);
-        const S min_tail = vmin(S(c_tail), v_tail);
-        const S overlap = S(cell_len + dlen) - (max_head - min_tail);
-        const S add_r = (ha / S(dlen)) * (overlap / S(cell_len));
-        const S n_r = st_clip(get<S>(r_, c * L + l) + add_r, k.rho_hi);
-        put(r_, c * L + l, n_r);
-        put(y_, c * L + l, comp_y(n_r, hv, u_max));
-      }
-    }
+    const Verdict vd = convert<S>(st, s, sc, g, rq, d, k, l);
     s.ev[l] = ev_inj;
-    s.ev[L + l] = is_emit ? 1 : 0;
-    s.ev[2 * L + l] = (exit_none || dep_win) ? 1 : 0;
+    s.ev[L + l] = vd.is_emit ? 1 : 0;
+    s.ev[2 * L + l] = (vd.exit_none || vd.dep_win) ? 1 : 0;
     s.red_wave[l] = lane_wave;
-
     // static running-mean partial sums of this lane, after the conversion
-    double cells = 0.0, vehs = 0.0;
-    if (is_macro) {
-      for (int c = 0; c < num_cell; ++c)
-        cells += (double)(k.static_speed -
-                          val(comp_u(get<S>(r_, c * L + l),
-                                     get<S>(y_, c * L + l), u_max)));
-    } else {
-      for (int v = 0; v < n; ++v)
-        vehs += (double)(k.static_speed - val(get<S>(vel_, v * L + l)));
-    }
-    s.red_sum[l] = cells; s.red_cnt[l] = is_macro ? num_cell : 0;
-    s.red_sum[L + l] = vehs; s.red_cnt[L + l] = is_macro ? 0 : n;
+    static_partials<S>(st, s, g, L, l, vd.n, k);
   }
   __syncthreads();
   if (threadIdx.x == 0) {
@@ -646,24 +341,7 @@ __global__ void spatial_step_kernel(Ptrs p, Dims d, Consts k, int t) {
 
   // ================= E: the queue of this lane ==========================
   if (lane) {
-    const float c_st = s.ms[1];
-    S q = 0.0f;
-    if (is_macro) {
-      for (int c = 0; c < num_cell; ++c) {
-        const S rc = get<S>(r_, c * L + l);
-        const S u = comp_u(rc, get<S>(y_, c * L + l), u_max);
-        const S stat = soft_mode ? soft(S(k.static_speed) - u, c_st)
-                                 : S(val(u) < k.static_speed ? 1.0f : 0.0f);
-        q = q + stat * ((rc * S(cell_len)) / S(k.veh_len));
-      }
-    } else {
-      const int n = count_[l];
-      for (int v = 0; v < n; ++v) {
-        const S sp = get<S>(vel_, v * L + l);
-        q = q + (soft_mode ? soft(S(k.static_speed) - sp, c_st)
-                           : S(val(sp) < k.static_speed ? 1.0f : 0.0f));
-      }
-    }
+    const S q = lane_queue<S>(st, g, l, st.count[l], d.mode, s.ms[1], k);
     s.red_q[l] = q * q;
   }
   __syncthreads();

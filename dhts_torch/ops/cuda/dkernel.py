@@ -17,8 +17,11 @@ and ``:91``). Here the same three parts are held by one
 Integer inputs and outputs carry no gradient; only the inputs at
 ``diff_argnums`` receive one, and every float output contributes a
 cotangent (``diff_argnums`` and the ``float0`` handling of the JAX
-version). The derivative launcher chooses its own method: the fused
-spatial step's is forward mode over a whole episode
+version), except the float outputs at ``nondiff_outputs``: these are
+diagnostics the derivative does not differentiate, returned without a
+gradient (``requires_grad`` false), so that a loss built on them fails
+instead of receiving a silent zero. The derivative launcher chooses its
+own method: the fused spatial step's is forward mode over a whole episode
 (:mod:`dhts_torch.ops.cuda.itscp_spatial_step`). ``make_kernel_sg``, the
 stop-gradient op of the sharded step's discrete phases, runs only on more
 than one lane shard and is not ported yet.
@@ -36,16 +39,20 @@ def _device_type(args) -> str:
     raise TypeError("a kernel op needs at least one tensor argument")
 
 
-def make_dkernel(body, forward, derivative, diff_argnums, name="dkernel"):
+def make_dkernel(body, forward, derivative, diff_argnums, name="dkernel",
+                 nondiff_outputs=()):
     """Wrap ``body`` as a differentiable op: ``op(*args) -> tuple``.
 
-    On CPU tensors the op is ``body`` (autograd differentiates it). On CUDA
-    tensors it is a ``torch.autograd.Function`` whose forward calls
+    On CPU tensors the op is ``body`` (autograd differentiates it; the body
+    detaches its outputs at ``nondiff_outputs`` itself). On CUDA tensors it
+    is a ``torch.autograd.Function`` (``op.function``) whose forward calls
     ``forward(*args)`` and whose backward calls ``derivative(args,
-    float_cotangents)`` with one cotangent per float output (zeros where
-    autograd has none) and places its results at ``diff_argnums``.
+    float_cotangents)`` with one cotangent per differentiable float output
+    (zeros where autograd has none) and places its results at
+    ``diff_argnums``.
     """
     diff_argnums = tuple(diff_argnums)
+    nondiff_outputs = frozenset(nondiff_outputs)
 
     class Op(torch.autograd.Function):
 
@@ -57,15 +64,16 @@ def make_dkernel(body, forward, derivative, diff_argnums, name="dkernel"):
                     raise TypeError(f"{name}: input {i} is listed for a "
                                     f"gradient but is {args[i].dtype}")
             ctx.save_for_backward(*args)
-            ctx.float_out = [o.is_floating_point() for o in outs]
+            ctx.diff_out = [o.is_floating_point() and i not in nondiff_outputs
+                            for i, o in enumerate(outs)]
             ctx.mark_non_differentiable(
-                *[o for o in outs if not o.is_floating_point()])
+                *[o for o, f in zip(outs, ctx.diff_out) if not f])
             return outs
 
         @staticmethod
         def backward(ctx, *cots):
             args = ctx.saved_tensors
-            f_cots = tuple(c for c, f in zip(cots, ctx.float_out) if f)
+            f_cots = tuple(c for c, f in zip(cots, ctx.diff_out) if f)
             grads = derivative(args, f_cots)
             out = [None] * len(args)
             for i, g in zip(diff_argnums, grads):
@@ -80,4 +88,5 @@ def make_dkernel(body, forward, derivative, diff_argnums, name="dkernel"):
         return Op.apply(*args)
 
     op.body = body
+    op.function = Op
     return op

@@ -906,15 +906,17 @@ def make_spatial_episode_op(plan):
     routes) -> (queues, events, max_wave)``, differentiable in ``action2d``
     (plain version and autograd on the CPU; the forward and derivative
     kernels on the card). Only the queues carry a cotangent into the
-    derivative; the max wave speed is a detached diagnostic."""
+    derivative; the max wave speed is a diagnostic without a gradient on
+    both devices."""
     body = lambda *args: plain_spatial_episode(plan, *args)
     fwd = lambda *args: spatial_episode_fwd(plan, *args)
 
     def derivative(args, cots):
-        g_queues = cots[0]
+        (g_queues,) = cots
         return (spatial_episode_bwd(plan, g_queues.contiguous(), *args),)
 
-    return make_dkernel(body, fwd, derivative, (0,), name="spatialSTEP")
+    return make_dkernel(body, fwd, derivative, (0,), name="spatialSTEP",
+                        nondiff_outputs=(2,))
 
 
 # ---------------------------------------------------------------------------
@@ -977,40 +979,51 @@ def make_fused_spatial_episode(env, mesh, differentiable: bool = True):
     return episode
 
 
-def _train_step(env, model, optimizer, mesh, obs, low, high):
+def _train_step(env, model, update, mesh, obs, low, high):
     from dhts_torch.apps.control.controller import squash_action
+    from dhts_torch.parallel.mesh import shard_episode_batch
 
+    if mesh.device != env.device:
+        raise ValueError(f"mesh on {mesh.device}, env on {env.device}")
     ep = make_fused_spatial_episode(env, mesh, differentiable=True)
     obs = torch.as_tensor(obs, device=env.device)
+    n_data = mesh.shape.get("data", 1)
 
     def train_step(rand):
-        """One Adam update on the mean soft reward of the B episodes of
+        """One update on the mean soft reward of the B episodes of
         ``rand[B, T, L]`` (all in each launch); returns the loss."""
+        if rand.shape[0] % n_data:
+            raise ValueError(f"{rand.shape[0]} episodes per step must be a "
+                             f"multiple of the mesh's data axis ({n_data})")
+        rand = shard_episode_batch(mesh, rand)
         action = squash_action(model(obs), low, high)
         queues, _, _ = ep.batch(action, rand)
-        loss = torch.mean(torch.sum(queues, -1))  # -mean(reward)
-        optimizer.zero_grad(set_to_none=True)
-        loss.backward()
-        optimizer.step()
+        loss = -torch.mean(-torch.sum(queues, -1))  # -mean(reward)
+        update(loss)
         return float(loss.detach())
 
     return train_step
 
 
-def make_fused_spatial_train_step(env, model, optimizer, mesh, obs, low,
+def make_fused_spatial_train_step(env, model, update, mesh, obs, low,
                                   high):
     """``fn(rand[B, T, L]) -> loss``: the controller's training step over
-    the fused spatial episode on a one-device ``lane`` mesh, the B episodes
-    in each launch, one Adam update of ``model`` by ``optimizer``."""
-    return _train_step(env, model, optimizer, mesh, obs, low, high)
+    the fused spatial episode on a one-device ``("lane",)`` mesh, the B
+    episodes in each launch. ``update(loss)`` backpropagates the loss and
+    steps the optimiser (the Trainer's ``apply_update``: global-norm clip,
+    learning-rate schedule, Adam)."""
+    if tuple(mesh.axis_names) != ("lane",):
+        raise ValueError(f"mesh axes {mesh.axis_names} must be ('lane',)")
+    return _train_step(env, model, update, mesh, obs, low, high)
 
 
-def make_fused_spatial_train_step_2d(env, model, optimizer, mesh, obs, low,
+def make_fused_spatial_train_step_2d(env, model, update, mesh, obs, low,
                                      high):
     """The ``(data, lane)`` composition of the JAX package on a one-device
-    mesh: the same step as :func:`make_fused_spatial_train_step` (B must be
-    a multiple of the data axis, here 1)."""
-    if "data" not in mesh.axis_names or "lane" not in mesh.axis_names:
+    mesh, the Trainer's ``mesh_fused`` step: the same step as
+    :func:`make_fused_spatial_train_step`, the episode batch placed on the
+    data axis (B must be a multiple of its size, here 1)."""
+    if set(mesh.axis_names) != {"data", "lane"}:
         raise ValueError(f"mesh axes {mesh.axis_names} must be "
                          f"('data', 'lane')")
-    return _train_step(env, model, optimizer, mesh, obs, low, high)
+    return _train_step(env, model, update, mesh, obs, low, high)

@@ -235,3 +235,35 @@ def test_dkernel_routes_cpu_tensors_to_the_body_with_autograd():
     y.sum().backward()
     assert op.body is body and not calls
     assert torch.equal(x.grad, 2 * x.detach()) and int(n) == 4
+
+
+def test_dkernel_function_gives_nondiff_outputs_no_gradient():
+    """The card's path (``op.function``, here on CPU tensors): the float
+    output listed in ``nondiff_outputs`` has no gradient, so a loss on it
+    raises; the derivative gets the cotangents of the others only."""
+    seen = []
+
+    def fwd(x):
+        return x * x, torch.amax(x, 0, keepdim=True)
+
+    def derivative(args, cots):
+        seen.append(len(cots))
+        return (2 * args[0] * cots[0],)
+
+    op = make_dkernel(fwd, fwd, derivative, (0,), name="square",
+                      nondiff_outputs=(1,))
+    x = torch.tensor([1.5, -2.0], requires_grad=True)
+    y, peak = op.function.apply(x)
+    assert y.requires_grad and not peak.requires_grad
+    with pytest.raises(RuntimeError):
+        peak.sum().backward()
+    y.sum().backward()
+    assert seen == [1] and torch.equal(x.grad, 2 * x.detach())
+    env = ItscpEnv(config=MICRO_CFG, schedule_fn=problem.problem_1,
+                   device="cpu")
+    env.reset()
+    ep = k6.make_fused_spatial_episode(env, make_mesh(
+        {"data": 1, "lane": 1}, "cpu"))
+    a = torch.full((env.action_size(),), 0.5, requires_grad=True)
+    res = ep(a, generator=torch.Generator().manual_seed(2))
+    assert res.reward.requires_grad and not res.max_wave_speed.requires_grad

@@ -12,6 +12,9 @@
   expects ``[1, lp]``), as asserted here; the JAX package's own test holds
   the two variants' losses equal (rtol 1e-5) on a 2 x 4 mesh. Two steps:
   finite losses, moved parameters.
+* The port's single-axis ``make_fused_spatial_train_step`` with the
+  Trainer's ``apply_update`` takes the same two steps as the Trainer's own
+  ``(data, lane)`` step, which runs ``make_fused_spatial_train_step_2d``.
 * ``python -m dhts_torch.apps.control.itscp.run --mesh 1,1 --mesh_fused
   --device cpu`` trains one small epoch and evaluates; ``--gate_mode st``
   trains soft and says so.
@@ -89,21 +92,35 @@ def test_first_loss_matches_jax_fused_spatial_train_step():
 
 
 def test_fused_spatial_train_step_updates_the_controller():
+    """The single-axis factory on a ``("lane",)`` mesh, with the Trainer's
+    update, takes the same steps as the Trainer's own (data, lane) step:
+    equal losses, equal parameters after two updates, and the parameters
+    moved."""
     env = ItscpEnv(config=MICRO_CFG, schedule_fn=problem.problem_1,
                    device="cpu")
     env.reset()
+    ref = Trainer(env, network_size=WIDTHS, lr=1e-2,
+                  mesh=make_mesh({"data": 1, "lane": 1}, "cpu"),
+                  mesh_fused=True)
     trainer = Trainer(env, network_size=WIDTHS, lr=1e-2)
-    step = k6.make_fused_spatial_train_step_2d(
-        env, trainer.model, trainer.opt, make_mesh({"data": 1, "lane": 1},
-                                                   "cpu"),
-        env.observe(), *env.action_bounds())
+    step = k6.make_fused_spatial_train_step(
+        env, trainer.model, trainer.apply_update,
+        make_mesh({"lane": 1}, "cpu"), env.observe(), *env.action_bounds())
+    with pytest.raises(ValueError, match="data"):
+        k6.make_fused_spatial_train_step_2d(
+            env, trainer.model, trainer.apply_update,
+            make_mesh({"lane": 1}, "cpu"), env.observe(),
+            *env.action_bounds())
     gen = torch.Generator().manual_seed(4)
     rand = torch.stack([env.draw_rand(gen) for _ in range(2)])
     before = [p.detach().clone() for p in trainer.model.parameters()]
     losses = [step(rand), step(rand)]
-    assert all(np.isfinite(losses))
+    assert losses == [ref.train_step(rand=rand), ref.train_step(rand=rand)]
+    assert all(np.isfinite(losses)) and trainer.step_count == 2
     assert any(not torch.equal(a, b.detach()) for a, b in
                zip(before, trainer.model.parameters()))
+    for a, b in zip(ref.model.parameters(), trainer.model.parameters()):
+        assert torch.equal(a, b)
 
 
 def test_run_cli_trains_on_the_fused_spatial_step(tmp_path, capsys):
