@@ -11,7 +11,10 @@ initial-state benchmarks at their CLI defaults through the fused rollouts
 the JAX package, and the 3x3 preset's training on the fused spatial step
 of a one-device mesh (``run --mesh 1,1 --mesh_fused``: K6's STEP body as a
 forward and a forward-mode derivative kernel, one launch per simulation
-step). Each phase prints one JSON line with its wall seconds:
+step), and the all-macro ITSCP episode of ``run_itscp_macro.sh`` through
+K4's forward and backward kernels (the action, r0 and y0 gradients), which
+a controller trains through. Each phase prints one JSON line with its wall
+seconds:
 
 1. ``device``  card name and power limit (``nvidia-smi``), PyTorch/CUDA
 2. ``build``   every ``dhts_torch/ops/cuda/csrc/*.cu`` compiled with nvcc,
@@ -73,13 +76,35 @@ step). Each phase prints one JSON line with its wall seconds:
                and 4 (CUDA events, median of 5 runs of 50 launches back to
                back) and per episode (T launches), with their bounds, and
                the plain step's ms at B = 1
-16. ``timing``  each K1 kernel's ms per launch (CUDA events, median of 10
+16. ``k4_vs_plain``  K4 (the all-macro episode) at the macro preset of
+               ``run_itscp_macro.sh`` (L = 40, C = 7, T = 300) and the 3x3
+               preset in macro mode (L = 144, C = 4, T = 600), actions 0.3
+               and 0.7, from the empty state and a seeded one: forward
+               against the plain version on the card (reward rel <= 1e-5,
+               queues abs <= 1e-4), the action, r0 and y0 gradients against
+               its autograd (cosine > 0.999, allclose(rtol 2e-2, atol 2e-3
+               * max|g|), finite, nonzero, padded cells exactly 0), one case
+               with a loss on queues[t]
+17. ``k4_vs_scan``  K4 against the port's eager soft scan episode at the
+               macro preset: reward rel 2e-4, queues rtol 2e-3 atol 1e-5,
+               action gradient rtol 1e-2 atol 1e-5
+18. ``k4_vs_k1``  K4 against K1's soft forward at the 3x3 macro scene: the
+               same reward and queue tolerances
+19. ``k4_train``  the caller: a seeded controller (256, 256) takes 3 Adam
+               steps at lr 1e-4 through K4 at the macro preset; losses
+               finite, parameters changed, K4's forward and backward
+               launched 3 times each, the backward the action's blocks only
+20. ``k4_timing``  K4 forward, backward with the action alone and with all
+               three gradients, ms per launch at both scenes (median of 5
+               runs of 20 launches back to back) with their bounds, and the
+               plain version's ms (median of the k4_vs_plain runs)
+21. ``timing``  each K1 kernel's ms per launch (CUDA events, median of 10
                after a warm-up), fwd+bwd episodes per second, the plain hard
                version's ms (median of 3); K2 and K3 forward and backward ms
                at B = 1, 12, 128 (median of 5 runs of 20 launches back to
                back) with their bounds, and their plain versions' ms at
                B = 1
-17. ``kernels`` the per-kernel record (launches, error, times, bound)
+22. ``kernels`` the per-kernel record (launches, error, times, bound)
 
 then the card's name and power limit, and as the last line
 ``{"ok": true, "device": {...}}``. Any failure exits non-zero without that
@@ -129,6 +154,14 @@ ROLLOUT_BATCHES = (1, 12, 128)
 PRESET = dict(num_intersection=3, num_lane=1, lane_length=5, speed_limit=60,
               policy_length=20, signal_length=4, simulation_frequency=30,
               mode="hybrid", use_fused_episode=True)
+# K4's all-macro scenes: the macro preset of run_itscp_macro.sh (L = 40,
+# C = 7, T = 300, 5 actions) and the 3x3 preset in macro mode (L = 144, C =
+# 4, T = 600, 45 actions); problem 1, seed 3
+K4_SCENES = {
+    "macro_preset": dict(num_intersection=1, num_lane=3, lane_length=30,
+                         speed_limit=60, policy_length=10, signal_length=2,
+                         mode="macro", random_seed=3),
+    "grid3_macro": dict(PRESET, mode="macro", random_seed=3)}
 
 _phase = {"name": "start", "t0": time.perf_counter()}
 
@@ -769,6 +802,321 @@ def time_spatial(env, vehicles_per_step: float) -> dict:
                                    for B in ms[n]} for n in ms})
 
 
+def k4_scene(cfg, dev):
+    """An all-macro scene for K4: the env (problem 1, reset with its seed)
+    and the factory's episode function on the card."""
+    from dhts_torch.apps.control.itscp import problem
+    from dhts_torch.apps.control.itscp.env import ItscpEnv
+    from dhts_torch.ops.cuda import itscp_macro_episode as k4
+
+    env = ItscpEnv(config=cfg, schedule_fn=problem.problem_1, device=dev)
+    env.reset()
+    return env, k4.make_fused_itscp_macro_episode(env.spec, env.meta,
+                                                  env.config, device=dev)
+
+
+def k4_inputs(env, plan, action: float, seeded: bool):
+    """K4's inputs: ``action`` in every entry, the env's draws, and an
+    empty initial state (the ITSCP case) or a seeded one: r0 uniform in
+    [0.05, 0.6] on the valid cells, y0 = compute_y(r0, u) with u in [0.3,
+    1] u_max."""
+    import torch
+
+    from dhts_torch.ops import arz
+
+    dev = env.device
+    L, C, u_max = plan.L, plan.C, plan.floats[0]
+    r0 = torch.zeros((L, C), device=dev)
+    y0 = torch.zeros((L, C), device=dev)
+    if seeded:
+        rng = np.random.default_rng(11)
+        t = lambda x: torch.as_tensor(x, dtype=torch.float32, device=dev)
+        m = plan.cell_mask
+        r0 = torch.where(m, t(rng.uniform(0.05, 0.6, (L, C))), 0.0)
+        y0 = torch.where(m, arz.compute_y(
+            r0, t(rng.uniform(0.3, 1.0, (L, C)) * u_max), u_max), 0.0)
+    a = torch.full((plan.n_phases, plan.n_inter), float(action), device=dev)
+    d = env.data
+    return (a, d.schedule, d.mroute_next, d.mroute_prev, r0.contiguous(),
+            y0.contiguous())
+
+
+def check_k4_plain(scenes) -> dict:
+    """K4's forward and backward (all three gradients) against the plain
+    version on the card, at both scenes, actions 0.3 and 0.7, empty and
+    seeded initial state; on the seeded state at action 0.7 the loss also
+    weights queues[t]. Returns the largest errors and the plain version's
+    ms (median of the scene's four runs: the forward with its graph, and
+    forward plus backward). Raises on a failed check."""
+    import torch
+
+    from dhts_torch.ops.cuda import itscp_macro_episode as k4
+
+    checks, plain_ms = [], {}
+    fwd_err = bwd_err = 0.0
+    ok = True
+    for name, (env, fn) in scenes.items():
+        plan = fn.plan
+        pad = ~plan.cell_mask
+        t_fwd, t_bwd = [], []
+        for action in (0.3, 0.7):
+            for seeded in (False, True):
+                ins = k4_inputs(env, plan, action, seeded)
+                w = torch.full((plan.T,), -1.0, device=env.device)
+                if seeded and action == 0.7:
+                    w = w + torch.linspace(0.0, 2.0, plan.T,
+                                           device=env.device)
+                kr, kq = k4.macro_episode_fwd(plan, *ins)
+                kg = k4.macro_episode_bwd(plan, w, *ins)
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                with torch.enable_grad():
+                    leaves = [ins[i].detach().requires_grad_(True)
+                              for i in (0, 4, 5)]
+                    pr, pq = k4.plain_macro_episode(
+                        plan, leaves[0], *ins[1:4], leaves[1], leaves[2])
+                    torch.cuda.synchronize()
+                    t1 = time.perf_counter()
+                    pg = torch.autograd.grad(torch.sum(pq * w), leaves)
+                pr, pq = pr.detach(), pq.detach()
+                torch.cuda.synchronize()
+                t2 = time.perf_counter()
+                t_fwd.append((t1 - t0) * 1e3)
+                t_bwd.append((t2 - t0) * 1e3)
+                rel = abs(float(kr) - float(pr)) / abs(float(pr))
+                q_err = float((kq - pq).abs().max())
+                fwd_err = max(fwd_err, q_err, abs(float(kr) - float(pr)))
+                rec = dict(scene=name, action=action, seeded=seeded,
+                           queue_weights=bool(seeded and action == 0.7),
+                           reward_kernel=float(kr),
+                           reward_plain=float(pr), reward_rel_err=rel,
+                           queues_max_abs_err=q_err,
+                           finite=bool(torch.isfinite(kq).all()))
+                c_ok = (rel <= 1e-5 and q_err <= 1e-4 and rec["finite"] and
+                        tuple(kq.shape) == (plan.T,))
+                for gname, a, b in zip(("action", "r0", "y0"), kg, pg):
+                    pad_zero = gname == "action" or \
+                        float(a[pad].abs().max()) == 0.0
+                    a, b = a.double().flatten(), b.double().flatten()
+                    scale = float(b.abs().max())
+                    err = float((a - b).abs().max())
+                    bwd_err = max(bwd_err, err)
+                    g = dict(cos=cosine(a, b), max_abs_err=err,
+                             max_abs_ref=scale, padded_zero=pad_zero,
+                             finite=bool(torch.isfinite(a).all()))
+                    g["ok"] = (g["finite"] and scale > 0 and pad_zero and
+                               g["cos"] > 0.999 and
+                               bool(torch.allclose(a, b, rtol=2e-2,
+                                                   atol=2e-3 * scale)))
+                    rec[f"grad_{gname}"] = g
+                    c_ok = c_ok and g["ok"]
+                checks.append(dict(rec, ok=c_ok))
+                ok = ok and c_ok
+        plain_ms[name] = dict(fwd=float(np.median(t_fwd)),
+                              bwd=float(np.median(t_bwd)))
+    report(checks=checks, plain_ms=plain_ms,
+           tolerance=dict(reward_rel=1e-5, queues_abs=1e-4,
+                          grads="cos > 0.999, allclose(rtol 2e-2, atol "
+                                "2e-3 * max|g_plain|), padded cells 0"),
+           status="ok" if ok else "FAIL")
+    if not ok:
+        raise SystemExit("k4_vs_plain failed")
+    return dict(fwd_err=fwd_err, bwd_err=bwd_err, plain_ms=plain_ms)
+
+
+def check_k4_scan(env, fn):
+    """K4 against the port's own soft scan episode (``env.episode(action,
+    True)``, eager) at the macro preset, actions 0.3 and 0.7: reward rel
+    2e-4, queues rtol 2e-3 atol 1e-5, action gradient rtol 1e-2 atol 1e-5
+    (``tests/test_itscp_fused.py``). Raises on a failed check."""
+    import torch
+
+    plan, dev = fn.plan, env.device
+    zero = torch.zeros((plan.L, plan.C), device=dev)
+    d = env.data
+    checks, ok = [], True
+    for action in (0.3, 0.7):
+        a_scan = torch.full((env.action_size(),), action, device=dev,
+                            requires_grad=True)
+        ref = env.episode(a_scan, True)
+        (-ref.reward).backward()
+        a_k4 = torch.full((plan.n_phases, plan.n_inter), action, device=dev,
+                          requires_grad=True)
+        reward, queues = fn(a_k4, d.schedule, d.mroute_next, d.mroute_prev,
+                            zero, zero)
+        (-reward).backward()
+        torch.cuda.synchronize()
+        r_k, r_s = float(reward.detach()), float(ref.reward.detach())
+        q_k, q_s = queues.detach(), ref.queue_per_step.detach()
+        g_k, g_s = a_k4.grad.flatten(), a_scan.grad
+        rec = dict(action=action, reward_k4=r_k, reward_scan=r_s,
+                   reward_rel_err=abs(r_k - r_s) / abs(r_s),
+                   queues_max_abs_err=float((q_k - q_s).abs().max()),
+                   grad_max_abs_err=float((g_k - g_s).abs().max()),
+                   grad_max_abs_ref=float(g_s.abs().max()))
+        rec["ok"] = (abs(r_k - r_s) <= max(2e-4 * abs(r_s), 2e-4) and
+                     bool(torch.allclose(q_k, q_s, rtol=2e-3,
+                                         atol=1e-5)) and
+                     bool(torch.isfinite(g_k).all()) and
+                     bool(torch.allclose(g_k, g_s, rtol=1e-2, atol=1e-5)))
+        checks.append(rec)
+        ok = ok and rec["ok"]
+    report(checks=checks, tolerance=dict(
+        reward_rel=2e-4, queues="rtol 2e-3, atol 1e-5",
+        action_grad="rtol 1e-2, atol 1e-5"), status="ok" if ok else "FAIL")
+    if not ok:
+        raise SystemExit("k4_vs_scan failed")
+
+
+def check_k4_k1(env, fn):
+    """K4 against K1's soft forward on the same all-macro scene (the 3x3
+    preset in macro mode) and action, from the empty state K1 starts from:
+    reward rel 2e-4, queues rtol 2e-3 atol 1e-5. Raises on a failed
+    check."""
+    import torch
+
+    from dhts_torch.ops.cuda import itscp_hybrid_episode as k1
+
+    plan, dev = fn.plan, env.device
+    p1 = env.fused_plan(True)
+    zero = torch.zeros((plan.L, plan.C), device=dev)
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(1234)
+    rand = env.draw_rand(gen)
+    d = env.data
+    checks, ok = [], True
+    for action in (0.3, 0.7):
+        a = torch.full((plan.n_phases, plan.n_inter), action, device=dev)
+        r4, q4 = fn(a, d.schedule, d.mroute_next, d.mroute_prev, zero, zero)
+        r1, q1, _ = k1.itscp_hybrid_episode_fwd(
+            p1, a, d.schedule, d.mroute_next, d.mroute_prev, rand,
+            d.inj_routes, env.base_state.route_pool)
+        torch.cuda.synchronize()
+        rec = dict(action=action, reward_k4=float(r4), reward_k1=float(r1),
+                   reward_rel_err=abs(float(r4) - float(r1)) /
+                   abs(float(r1)),
+                   queues_max_abs_err=float((q4 - q1).abs().max()))
+        rec["ok"] = (rec["reward_rel_err"] <= 2e-4 and
+                     bool(torch.allclose(q4, q1, rtol=2e-3, atol=1e-5)))
+        checks.append(rec)
+        ok = ok and rec["ok"]
+    report(checks=checks, L=plan.L, C=plan.C, T=plan.T,
+           tolerance=dict(reward_rel=2e-4, queues="rtol 2e-3, atol 1e-5"),
+           status="ok" if ok else "FAIL")
+    if not ok:
+        raise SystemExit("k4_vs_k1 failed")
+
+
+def run_k4_train(env, fn) -> dict:
+    """The caller: a seeded controller (256, 256) takes 3 Adam steps at lr
+    1e-4 on the macro preset, each on a fresh scenario (seeds 3, 4, 5):
+    observation -> controller -> squash -> K4 from the empty state ->
+    -reward -> backward. K4's launches, counted from 0 here, must be 3
+    forward and 3 backward, the backward launching the action's blocks
+    only. Raises on a failed check."""
+    import torch
+
+    from dhts_torch.apps.control.controller import (init_controller,
+                                                     squash_action)
+    from dhts_torch.ops.cuda import itscp_macro_episode as k4
+
+    plan, dev = fn.plan, env.device
+    model = init_controller(torch.Generator().manual_seed(3),
+                            env.observation_size(), env.action_size(),
+                            (256, 256), device=dev)
+    opt = torch.optim.Adam(model.parameters(), lr=1e-4)
+    before = [x.detach().clone() for x in model.parameters()]
+    low, high = env.action_bounds()
+    zero = torch.zeros((plan.L, plan.C), device=dev)
+    k4.macro_episode_fwd.launches = 0
+    k4.macro_episode_bwd.launches = 0
+    k4.macro_episode_bwd.blocks = 0
+    losses = []
+    for seed in (3, 4, 5):
+        obs = torch.as_tensor(env.reset(seed), device=dev)
+        action = squash_action(model(obs), low, high)
+        d = env.data
+        reward, _ = fn(action.reshape(plan.n_phases, plan.n_inter),
+                       d.schedule, d.mroute_next, d.mroute_prev, zero, zero)
+        loss = -reward
+        opt.zero_grad()
+        loss.backward()
+        opt.step()
+        losses.append(float(loss.detach()))
+    torch.cuda.synchronize()
+    launches = dict(fwd=k4.macro_episode_fwd.launches,
+                    bwd=k4.macro_episode_bwd.launches,
+                    bwd_blocks=k4.macro_episode_bwd.blocks)
+    expected = dict(fwd=3, bwd=3, bwd_blocks=3 * plan.n_action)
+    changed = any(not torch.equal(a, b.detach()) for a, b in
+                  zip(before, model.parameters()))
+    ok = (launches == expected and changed and
+          all(math.isfinite(x) for x in losses))
+    report(losses=losses, params_changed=changed, launches=launches,
+           expected_launches=expected, status="ok" if ok else "FAIL")
+    if not ok:
+        raise SystemExit("k4_train failed")
+    return launches
+
+
+def time_k4(scenes, plain_ms) -> dict:
+    """K4's forward, its backward with the action alone and with all three
+    gradients, at both scenes from the empty state: ms per launch (CUDA
+    events, median of 5 runs of 20 launches back to back, after two
+    warm-up launches), each with its bound; the plain version's ms from
+    the k4_vs_plain runs. Timing launches are not the main path's: the
+    counters are restored."""
+    import torch
+
+    from dhts_torch.ops.cuda import itscp_macro_episode as k4
+
+    saved = (k4.macro_episode_fwd.launches, k4.macro_episode_bwd.launches,
+             k4.macro_episode_bwd.blocks)
+    ms, bounds, smem = {}, {}, {}
+    lib = k4._library()
+    for name, (env, fn) in scenes.items():
+        plan = fn.plan
+        ins = k4_inputs(env, plan, 0.5, False)
+        w = torch.full((plan.T,), -1.0, device=env.device)
+        runs = {"fwd": lambda: k4.macro_episode_fwd(plan, *ins),
+                "bwd_action": lambda: k4.macro_episode_bwd(
+                    plan, w, *ins, needs=(True, False, False)),
+                "bwd_all": lambda: k4.macro_episode_bwd(plan, w, *ins)}
+        for fn_run in runs.values():
+            fn_run()
+            fn_run()
+        torch.cuda.synchronize()
+        ms[name] = {k: cuda_ms(f, 5, launches=20) for k, f in runs.items()}
+        # bytes: each input read once (the six inputs and the scene's
+        # tables), each output written once; operations: the Riemann
+        # solves (num_cell + 1 per lane) and cell updates of the valid
+        # cells, T steps, 3x for the backward's one vector-Jacobian
+        # product (whichever gradients it returns)
+        n_valid, L, C, T = int(plan.cells.numel()), plan.L, plan.C, plan.T
+        ops = T * ((n_valid + L) * OPS_PER_INTERFACE + n_valid * OPS_PER_CELL)
+        in_bytes = sum(x.numel() * x.element_size() for x in
+                       (*ins, plan.prog, plan.lane_i, plan.lane_f))
+        na = plan.n_action * 4
+        work = {"fwd": (in_bytes + (1 + T) * 4, ops),
+                "bwd_action": (in_bytes + T * 4 + na,
+                               ops * VJP_OPS_MULTIPLE),
+                "bwd_all": (in_bytes + T * 4 + n_valid * 4 + na +
+                            2 * L * C * 4, ops * VJP_OPS_MULTIPLE)}
+        bounds[name] = {k: bound_of(*v) for k, v in work.items()}
+        smem[name] = dict(fwd=lib.itscp_macro_episode_smem(L, C, 0),
+                          bwd=lib.itscp_macro_episode_smem(L, C, 1))
+    (k4.macro_episode_fwd.launches, k4.macro_episode_bwd.launches,
+     k4.macro_episode_bwd.blocks) = saved
+    return dict(ms=ms, bounds=bounds, plain_ms=plain_ms, library_ms=None,
+                smem_bytes=smem,
+                blocks={n: dict(fwd=1, bwd_action=fn.plan.n_action,
+                                bwd_all=fn.plan.n_action +
+                                2 * int(fn.plan.cells.numel()))
+                        for n, (_, fn) in scenes.items()},
+                ms_over_bound={n: {k: ms[n][k] / bounds[n][k]["bound_ms"]
+                                   for k in ms[n]} for n in ms})
+
+
 def main() -> int:
     if not (HERE / "dhts_torch" / "ops" / "cuda" / "csrc").is_dir():
         print("chip_smoke.py: the dhts_torch package is not beside this "
@@ -1042,6 +1390,22 @@ def main() -> int:
     report(**spatial_times, nvidia_smi=smi)
     slice4_seconds = time.perf_counter() - t_slice4
 
+    # ---- 16-20. slice 5: the all-macro episode through K4
+    t_slice5 = time.perf_counter()
+    phase("k4_vs_plain")
+    k4_scenes = {name: k4_scene(cfg, dev) for name, cfg in K4_SCENES.items()}
+    k4_check = check_k4_plain(k4_scenes)
+    phase("k4_vs_scan")
+    check_k4_scan(*k4_scenes["macro_preset"])
+    phase("k4_vs_k1")
+    check_k4_k1(*k4_scenes["grid3_macro"])
+    phase("k4_train")
+    k4_launches = run_k4_train(*k4_scenes["macro_preset"])
+    phase("k4_timing")
+    k4_times = time_k4(k4_scenes, k4_check["plain_ms"])
+    report(**k4_times, nvidia_smi=smi)
+    slice5_seconds = time.perf_counter() - t_slice5
+
     # ---- 5. timing at the preset's shapes
     phase("timing")
     env.reset(3)
@@ -1146,8 +1510,29 @@ def main() -> int:
             "bound_by": b1["bound_by"], "library_ms": None, "batch": 1,
             "ms_by_batch": spatial_times["ms"][key],
             "ms_per_episode": spatial_times["ms_per_episode"][key]})
+    # K4 at the macro preset, the shape of the k4_train phase (the
+    # backward with the action alone, as training asks)
+    from dhts_torch.ops.cuda import itscp_macro_episode as k4
+
+    main_scene = "macro_preset"
+    for key, timed, replaces, err in (
+            ("fwd", "fwd", k4.REPLACES_FWD, k4_check["fwd_err"]),
+            ("bwd", "bwd_action", k4.REPLACES_BWD, k4_check["bwd_err"])):
+        b = k4_times["bounds"][main_scene][timed]
+        kernels.append({
+            "name": f"itscp_macro_episode_{key}", "route": "cuda",
+            "source": k4.SOURCE, "replaces": replaces,
+            "launches": k4_launches[key], "max_abs_err": err,
+            "ms": k4_times["ms"][main_scene][timed],
+            "plain_ms": k4_check["plain_ms"][main_scene][key],
+            "bound_ms": b["bound_ms"], "bound_by": b["bound_by"],
+            "library_ms": None, "scene": main_scene,
+            "ms_by_scene": {n: {k: v for k, v in m.items()
+                                if k.startswith(key)}
+                            for n, m in k4_times["ms"].items()}})
     report(total_seconds=time.perf_counter() - t_start,
-           slice3_seconds=slice3_seconds, slice4_seconds=slice4_seconds)
+           slice3_seconds=slice3_seconds, slice4_seconds=slice4_seconds,
+           slice5_seconds=slice5_seconds)
     print(json.dumps({"kernels": kernels}), flush=True)
     print(smi, flush=True)
     print(json.dumps({"ok": True, "device": {

@@ -2,6 +2,9 @@
 // fused episode (itscp_hybrid_episode.cu, kernel K1: the whole episode in
 // one block, its state in shared memory) and the fused spatial step
 // (itscp_spatial_step.cu: one step per launch, the carry in global memory).
+// The all-macro episode (itscp_macro_episode.cu, kernel K4) runs the macro
+// phases in soft mode: signal, edges, ghosts, Godunov, the static partials
+// and the lane queue.
 // Each thread runs one lane; a phase reads other lanes only through the
 // block's per-lane summaries (`Sm`, a kernel's shared-memory struct with the
 // fields used here), so the kernel puts a __syncthreads() between phases.
