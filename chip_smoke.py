@@ -13,8 +13,14 @@ of a one-device mesh (``run --mesh 1,1 --mesh_fused``: K6's STEP body as a
 forward and a forward-mode derivative kernel, one launch per simulation
 step), and the all-macro ITSCP episode of ``run_itscp_macro.sh`` through
 K4's forward and backward kernels (the action, r0 and y0 gradients), which
-a controller trains through. Each phase prints one JSON line with its wall
-seconds:
+a controller trains through, and the 3x3 preset's training on the
+lane-sharded fused spatial step (``run --mesh 1,4 --mesh_fused``: K6's
+per-shard bodies A, B, C, D1, D2, D3, E and K5's stop-gradient op, four
+gloo ranks that share the card, spawned once after the build with a
+``FileStore`` in a temporary directory and kept for the slice's phases,
+with two more for the S = 2 check; a rank that fails or outlives its
+time fails the run). Each
+phase prints one JSON line with its wall seconds:
 
 1. ``device``  card name and power limit (``nvidia-smi``), PyTorch/CUDA
 2. ``build``   every ``dhts_torch/ops/cuda/csrc/*.cu`` compiled with nvcc,
@@ -98,13 +104,41 @@ seconds:
                three gradients, ms per launch at both scenes (median of 5
                runs of 20 launches back to back) with their bounds, and the
                plain version's ms (median of the k4_vs_plain runs)
-21. ``timing``  each K1 kernel's ms per launch (CUDA events, median of 10
+21. ``shard_vs_plain``  the sharded forward at the preset, hard and soft,
+               B = 1, on S = 4 ranks: at every 50th step each rank holds the
+               inputs of its seven launches through the plain bodies on the
+               card (integers equal, floats allclose(rtol 1e-6, atol 1e-6));
+               each episode at S = 4 and S = 2 against the single-shard STEP
+               kernel's on the same draws: events, queues, waves bit-equal,
+               emitted > 0; the ranks' draws and scene agree
+22. ``shard_bwd_vs_plain``  the sharded derivative (S = 4, T = 600) against
+               the STEP derivative (cosine > 0.99999, allclose(rtol 2e-2,
+               atol 2e-3 * max|g|), finite) and over the first 60 steps
+               against the plain forward-mode sharded derivative
+23. ``shard_train``  ``python -m dhts_torch.apps.control.itscp.run --mesh
+               1,4 --mesh_fused`` in 4 ranks at the ``run_itscp_hybrid.sh``
+               flags, problem 1, 2 epochs with an evaluation each: losses
+               finite and equal on every rank, parameters equal on every
+               rank afterwards, each body's launches, counted from 0 on each
+               rank, T per forward episode (train step and evaluation) and
+               T per train step for the derivative (D1, D2: also T per
+               train step, run on the derivative's values); the collectives
+               per step
+24. ``shard_timing``  each body's ms per launch at S = 4, B = 1 and 4, and
+               of the derivative's bodies (CUDA events, median of 5 runs of
+               50 launches back to back of one shard's kernel at a quiet
+               step, its gathered rows in place: no collective inside), the
+               plain bodies' ms, the bytes bounds; the wall ms of an
+               unchecked sharded step (from ``shard_vs_plain``: seven
+               launches and the collectives between them, host-staged gloo,
+               not a collective number of the card)
+25. ``timing``  each K1 kernel's ms per launch (CUDA events, median of 10
                after a warm-up), fwd+bwd episodes per second, the plain hard
-               version's ms (median of 3); K2 and K3 forward and backward ms
+               version's ms (one run); K2 and K3 forward and backward ms
                at B = 1, 12, 128 (median of 5 runs of 20 launches back to
                back) with their bounds, and their plain versions' ms at
                B = 1
-22. ``kernels`` the per-kernel record (launches, error, times, bound)
+26. ``kernels`` the per-kernel record (launches, error, times, bound)
 
 then the card's name and power limit, and as the last line
 ``{"ok": true, "device": {...}}``. Any failure exits non-zero without that
@@ -802,6 +836,444 @@ def time_spatial(env, vehicles_per_step: float) -> dict:
                                    for B in ms[n]} for n in ms})
 
 
+# ---------------------------------------------------------------------------
+# slice 6: the lane-sharded fused spatial step (K6's per-shard bodies, K5's
+# stop-gradient op) over S gloo ranks that share the card
+# ---------------------------------------------------------------------------
+
+SHARDS = 4
+SHARD_CHECK_EVERY = 50
+# each call of the spawned ranks must end within this (they fail the run
+# if they do not)
+RANK_SECONDS = 240
+
+
+def preset_env(dev):
+    """The 3x3 hybrid preset's env as the spatial phases use it (problem 1,
+    seed 3, reset with seed 3)."""
+    from dhts_torch.apps.control.itscp import problem
+    from dhts_torch.apps.control.itscp.env import ItscpEnv
+
+    env = ItscpEnv(config=dict(PRESET, random_seed=3),
+                   schedule_fn=problem.problem_1, device=dev)
+    env.reset(3)
+    return env
+
+
+def _lane_comm(plan, S, rank):
+    from dhts_torch.ops.cuda import itscp_spatial_shard as ks
+    from dhts_torch.parallel.mesh import make_mesh
+
+    mesh = make_mesh({"data": 1, "lane": S}, "cuda")
+    return ks.LaneComm(plan.L, [ks.shards_of(plan.L, S)[rank]],
+                       mesh.lane_group)
+
+
+def _shard_fwd_rank(rank, S, check_every):
+    """One rank of ``shard_vs_plain``: the sharded forward, hard and soft,
+    B = 1, every ``check_every``-th step's seven launches held against the
+    plain bodies on the card (``checked_step`` raises on a difference), and
+    the whole episode against the single-shard STEP kernel's."""
+    import torch
+
+    from dhts_torch.ops.cuda import itscp_spatial_shard as ks
+    from dhts_torch.ops.cuda import itscp_spatial_step as k6
+
+    env = preset_env(torch.device("cuda"))
+    out = {"checks": [], "errors": {}}
+    for differentiable in (False, True):
+        plan = k6.make_plan(env, differentiable)
+        comm = _lane_comm(plan, S, rank)
+        ins = spatial_inputs(env, 1, 101, np.full(env.action_size(), 0.55))
+        if not differentiable:
+            out["scene"] = [float(x.double().sum()) for x in ins]
+        run = ks.ShardRun(plan, comm, ins, dual=False)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        plain_steps, stepped = 0, 0.0
+        for t in range(plan.T):
+            if check_every and t % check_every == 0:
+                for body, e in run.checked_step(t, 1e-6, 1e-6).items():
+                    out["errors"][body] = max(out["errors"].get(body, 0.0), e)
+                continue
+            # wall time of an unchecked step: seven launches and the
+            # collectives between them (host-staged gloo, not the card's)
+            t1 = time.perf_counter()
+            run.step(t)
+            torch.cuda.synchronize()
+            stepped += time.perf_counter() - t1
+            plain_steps += 1
+        q, ev, w = run.outputs()
+        torch.cuda.synchronize()
+        seconds = time.perf_counter() - t0
+        qs, evs, ws = k6.spatial_episode_fwd(plan, *ins)
+        rec = dict(mode="soft" if differentiable else "hard", S=S,
+                   seconds=seconds,
+                   events_equal=bool(torch.equal(ev, evs)),
+                   queues_equal=bool(torch.equal(q, qs)),
+                   waves_equal=bool(torch.equal(w, ws)),
+                   reward=float(-q.sum()), reward_step=float(-qs.sum()),
+                   queues_max_abs_err=float((q - qs).abs().max()),
+                   emitted=int(ev[..., 1].sum()),
+                   absorbed=int(ev[..., 2].sum()),
+                   step_wall_ms_host_staged_gloo=stepped / plain_steps * 1e3)
+        out["checks"].append(rec)
+    return out
+
+
+def check_shard_fwd(ranks) -> dict:
+    """``shard_vs_plain``: the S = 4 ranks of ``ranks`` with per-launch
+    checks, then its S = 2 ranks, each episode against the STEP kernel's;
+    raises on a failure."""
+    recs, errors, ok, wall = [], {}, True, {}
+    for S, every in ((SHARDS, SHARD_CHECK_EVERY), (2, 0)):
+        outs = ranks[S].run(_shard_fwd_rank, (every,))
+        for o in outs:
+            for body, e in o["errors"].items():
+                errors[body] = max(errors.get(body, 0.0), e)
+            ok = ok and o["scene"] == outs[0]["scene"]
+        for rank, o in enumerate(outs):
+            for rec in o["checks"]:
+                ok = (ok and rec["events_equal"] and rec["queues_equal"] and
+                      rec["waves_equal"] and rec["emitted"] > 0)
+                if rank == 0:
+                    recs.append(rec)
+        wall[S] = {c["mode"]: c["step_wall_ms_host_staged_gloo"]
+                   for c in outs[0]["checks"]}
+    report(checks=recs, per_launch_max_abs_err=errors,
+           step_wall_ms_host_staged_gloo=wall,
+           tolerance=dict(per_launch="integers equal, floats allclose(rtol "
+                                     "1e-6, atol 1e-6), every 50th step",
+                          vs_step="events, queues, waves bit-equal"),
+           status="ok" if ok else "FAIL")
+    if not ok:
+        raise SystemExit("shard_vs_plain failed")
+    return dict(errors=errors, step_wall_ms=wall)
+
+
+def _shard_bwd_rank(rank, S):
+    """One rank of ``shard_bwd_vs_plain``: the sharded derivative at T =
+    600 against the STEP derivative, and over the first 60 steps against
+    the plain forward-mode sharded derivative."""
+    import torch
+
+    from dhts_torch.ops.cuda import itscp_spatial_shard as ks
+    from dhts_torch.ops.cuda import itscp_spatial_step as k6
+
+    env = preset_env(torch.device("cuda"))
+    plan = k6.make_plan(env, True)
+    comm = _lane_comm(plan, S, rank)
+    rng = np.random.default_rng(3)
+    ins = spatial_inputs(env, 1, 201, rng.uniform(0.3, 0.7,
+                                                  env.action_size()))
+    wf = torch.full((1, plan.T), -1.0, device=env.device)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    got = ks.shard_episode_bwd(plan, comm, wf, *ins)
+    torch.cuda.synchronize()
+    seconds = time.perf_counter() - t0
+    ref = k6.spatial_episode_bwd(plan, wf, *ins)
+    g, r = got.double().flatten(), ref.double().flatten()
+    scale = float(r.abs().max())
+    rec600 = dict(T=plan.T, cos=cosine(g, r), bit_equal=bool(
+        torch.equal(got, ref)), max_abs_err=float((g - r).abs().max()),
+        max_abs_ref=scale, finite=bool(torch.isfinite(g).all()),
+        close=bool(torch.allclose(g, r, rtol=2e-2, atol=2e-3 * scale)),
+        wall_s_host_staged_gloo=seconds)
+    T60 = 60
+    p60 = plan._replace(T=T60)
+    ins60 = list(ins)
+    ins60[1] = ins[1][:, :T60].contiguous()
+    ins60[2:5] = [x[:T60].contiguous() for x in ins[2:5]]
+    w = torch.as_tensor(rng.uniform(-1, 1, (1, T60)), dtype=torch.float32,
+                        device=env.device)
+    got = ks.shard_episode_bwd(p60, comm, w, *ins60).double().flatten()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    ref = ks.plain_sharded_episode_bwd(p60, comm, w, *ins60)
+    torch.cuda.synchronize()
+    plain_s = time.perf_counter() - t0
+    ref = ref.double().flatten()
+    scale = float(ref.abs().max())
+    rec60 = dict(T=T60, cos=cosine(got, ref),
+                 max_abs_err=float((got - ref).abs().max()),
+                 max_abs_ref=scale, finite=bool(torch.isfinite(got).all()),
+                 close=bool(torch.allclose(got, ref, rtol=2e-2,
+                                           atol=2e-3 * scale)),
+                 plain_wall_s=plain_s)
+    return dict(vs_step=rec600, vs_plain=rec60)
+
+
+def check_shard_bwd(ranks) -> dict:
+    outs = ranks.run(_shard_bwd_rank)
+    ok = True
+    for o in outs:
+        a, b = o["vs_step"], o["vs_plain"]
+        ok = (ok and a["finite"] and a["cos"] > 0.99999 and a["close"] and
+              a["max_abs_ref"] > 0 and b["finite"] and b["cos"] > 0.99999
+              and b["close"] and b["max_abs_ref"] > 0)
+    report(S=SHARDS, vs_step_derivative=outs[0]["vs_step"],
+           vs_plain_forward_mode=outs[0]["vs_plain"],
+           ranks_equal=all(o["vs_step"]["max_abs_err"] ==
+                           outs[0]["vs_step"]["max_abs_err"] for o in outs),
+           tolerance=dict(vs_step="cos > 0.99999, allclose(rtol 2e-2, atol "
+                                  "2e-3 * max|g|); bit-equal expected",
+                          vs_plain="first 60 steps: cos > 0.99999, the same "
+                                   "allclose"),
+           status="ok" if ok else "FAIL")
+    if not ok:
+        raise SystemExit("shard_bwd_vs_plain failed")
+    return dict(max_abs_err=max(outs[0]["vs_step"]["max_abs_err"],
+                                outs[0]["vs_plain"]["max_abs_err"]))
+
+
+def _shard_train_rank(rank, S, argv):
+    """One rank of ``shard_train``: the CLI in this rank's process group,
+    its launches and collectives counted from 0."""
+    from dhts_torch.apps.control.itscp import run
+    from dhts_torch.ops.cuda import itscp_spatial_shard as ks
+    from dhts_torch.parallel import collectives
+
+    ks.launches.update(dict.fromkeys(ks.launches, 0))
+    collectives.counts.update(dict.fromkeys(collectives.counts, 0))
+    ((trainer, losses),) = run.main(argv)
+    return dict(launches=dict(ks.launches), counts=dict(collectives.counts),
+                losses=losses, T=trainer.env.num_timestep,
+                params=[p.detach().cpu() for p in trainer.model.parameters()])
+
+
+def run_shard_train(ranks, log_root: str) -> dict:
+    """``run --mesh 1,4 --mesh_fused`` at the run_itscp_hybrid.sh flags
+    in the 4 ranks of ``ranks``; raises on a failed check."""
+    argv = ["--mode", "hybrid", "--problem", "1", "--n_trial", "1",
+            "--n_intersection", "3", "--n_lane", "1", "--lane_length", "5",
+            "--speed_limit", "60", "--simulation_length", "20",
+            "--signal_length", "4", "--lr", "1e-4", "--seed", "3",
+            "--n_episode", "1", "--mesh", f"1,{SHARDS}", "--mesh_fused",
+            "--log_root", log_root]
+    outs = ranks.run(_shard_train_rank, (argv,))
+    (metrics,) = Path(log_root).glob("hybrid_*/trial_0/metrics.jsonl")
+    rows = [json.loads(x) for x in metrics.read_text().splitlines()]
+    evals = [r["reward_eval"] for r in rows if "reward_eval" in r]
+    T, steps = outs[0]["T"], len(outs[0]["losses"])
+    # forward episodes: one per train step and per evaluation; derivative
+    # episodes: one per train step, whose dual rows run D1 and D2's float
+    # kernels on their values (D1 and D2 have no derivative kernel)
+    fwd_eps, bwd_eps = steps + len(evals), steps
+    expected = {b: T * fwd_eps for b in ("A", "B", "C", "D3", "E")}
+    expected.update({b: T * (fwd_eps + bwd_eps) for b in ("D1", "D2")})
+    expected.update({f"{b}_bwd": T * bwd_eps
+                     for b in ("A", "B", "C", "D3", "E")})
+    episodes = fwd_eps + bwd_eps
+    per_step = {k: v / (T * episodes) for k, v in outs[0]["counts"].items()}
+    ok = (steps == 2 and len(evals) == 2 and
+          all(o["launches"] == expected for o in outs) and
+          all(math.isfinite(x) for x in outs[0]["losses"] + evals) and
+          all(o["losses"] == outs[0]["losses"] for o in outs) and
+          all(all(bool((p == q).all()) for p, q in zip(o["params"],
+                                                       outs[0]["params"]))
+              for o in outs))
+    report(argv=argv, ranks=SHARDS, losses=outs[0]["losses"],
+           eval_rewards=evals, launches=outs[0]["launches"],
+           expected_launches=expected, collectives=outs[0]["counts"],
+           collectives_per_step=per_step,
+           note="collectives are gloo over host memory between ranks that "
+                "share the card, not the card's",
+           status="ok" if ok else "FAIL")
+    if not ok:
+        raise SystemExit("shard_train failed")
+    return outs[0]["launches"]
+
+
+def _quiet_step(run, t0: int) -> int:
+    """Step a ShardRun of one process (all shards local) from t0 to the
+    first step without an injection, a conversion want or an arbitrated
+    insert or deposit, and return it: every body can be relaunched there
+    on that step's inputs without growing a lane's vehicles."""
+    for t in range(t0, run.plan.T):
+        run.step(t)
+        if all(float(b["sumA_v"][:, 8].sum()) == 0.0 and
+               int(b["pred"].abs().sum()) == 0 and
+               bool((b["bd"] == run.plan.L).all())
+               for _, _, b, _ in run.shards):
+            return t
+    raise RuntimeError("no quiet step to time the bodies at")
+
+
+def _plain_call(run, body: str, t: int):
+    """A zero-argument call of ``body``'s plain version on shard 0's inputs
+    of step t as they stand in ``run`` (after the step), on the card; for a
+    derivative run the plain body under forward-mode AD over the same dual
+    rows."""
+    import torch
+    import torch.autograd.forward_ad as fwad
+
+    from dhts_torch.ops.cuda import itscp_spatial_shard as ks
+    from dhts_torch.ops.cuda import itscp_spatial_step as k6
+
+    plan, g = run.plan, run.geom
+    s, p_n, b, _ = run.shards[0]
+    lg = ks.local_geometry(g, s)
+    a2, rand, sched, mnext, mprev, routes = run.inputs
+    c = s.cols
+    G = run.g
+    n_act = plan.n_phases * plan.n_inter
+    rows = rand.repeat_interleave(n_act, 0) if run.dual else rand
+
+    def call():
+        with torch.no_grad(), fwad.dual_level():
+            dual = lambda v, d: v if d is None else fwad.make_dual(v, d)
+            carry, sg, ss = k6.unpack(p_n, b["fbuf"], b["ibuf"])
+            if run.dual:
+                tans = k6.unpack(p_n, b["dbuf"], b["ibuf"])[0]
+                carry = tuple(fwad.make_dual(x, d) if i in k6.CARRY_DIFF
+                              else x for i, (x, d) in
+                              enumerate(zip(carry, tans)))
+                action, seeds, _ = ks.dual_rows(plan, a2, rand)
+                act = fwad.make_dual(action, seeds)
+            else:
+                act = a2
+            gA = dual(G["gA_v"], G.get("gA_d"))
+            gF = dual(G["gF_v"], G.get("gF_d"))
+            if body == "A":
+                return ks.plain_body_A(plan, lg, carry, rows[:, t, c],
+                                       sched[t, c])
+            if body == "B":
+                return ks.plain_body_B(plan, g, lg, carry, gA, act, t,
+                                       mnext[t, c], mprev[t, c], sched[t, c],
+                                       routes)
+            if body == "C":
+                _, c_sig = ks.fold_sg(plan, sg, G["gsg"])
+                bc = dual(b["bc_v"], b["bc_d"])
+                return ks.plain_body_C(plan, g, lg, carry, bc, c_sig,
+                                       mnext[t, c], routes)
+            if body == "D1":
+                return ks.plain_body_D1(plan, g, lg, carry, b["sumF_v"],
+                                        b["sumI"], G["gF_v"], G["gI"])
+            if body == "D2":
+                return ks.plain_body_D2(plan, lg, G["gI"], G["gW"])
+            if body == "D3":
+                return ks.plain_body_D3(plan, g, lg, carry, gF, G["gI"],
+                                        G["gV"], b["pred"], b["bd"],
+                                        b["sumI"])
+            _, c_st = ks.fold_ss(plan, ss, G["gss"], G["gssn"])
+            return ks.plain_body_E(plan, lg, carry, c_st)
+
+    return call
+
+
+def shard_body_work(plan, env, body: str, N: int, n: int, dual: bool):
+    """``(bytes, operations)`` one launch of ``body`` must move and do for N
+    rows of a shard of n lanes at the 3x3 preset: the rows and state it
+    reads once and writes once (float entries 4 bytes, twice in a
+    derivative for value and tangent; the static-mean terms 8 + 4), the
+    shard's share of the macro cells standing for the state a body touches
+    (the vehicles present are few and not counted); the operations of C's
+    Riemann solves and cell updates (3x in a derivative: one VJP)."""
+    L, K, C = plan.L, plan.K, plan.C
+    S = L // n
+    cells = int(env.spec.num_cell[env.spec.is_macro].sum()) / S
+    macro = int(env.spec.is_macro.sum()) / S
+    f = 8 if dual else 4  # a differentiable float row entry
+    per_row = {
+        # A: edge cells (r, y of two cells) per macro lane, count, tail and
+        # waiting pool per lane, the draw and schedule; out 9 rows
+        "A": n * (4 * f + 4 * 4 + 2 * 4) + 9 * n * f,
+        # B: gathered 9 rows; head and counters per lane; out 10 + 2 rows
+        "B": 9 * L * f + n * 6 * 4 + 10 * n * f + 2 * n * 4,
+        # C: B's 10 rows and the signal terms; r, y of the cells read and
+        # written; out 15 + 4 rows
+        "C": 10 * n * f + 2 * L * 4 + cells * 2 * 2 * f + n * K * f +
+             15 * n * f + 4 * n * 4,
+        # D1: C's rows it reads, the destinations' gathered rows; out 7
+        "D1": 6 * n * 4 + 3 * L * 4 + n * 4 + 7 * n * 4,
+        # D2: the gathered wants and next lanes, predecessor table; out 2
+        "D2": 4 * L * 4 + K * n * 4 + 2 * n * 4,
+        # D3: the gathered post-physics and verdict rows, wants, cells for
+        # the static terms; out the terms
+        "D3": 15 * L * f + 6 * L * 4 + 4 * n * 4 + cells * 2 * f +
+              2 * n * (8 + 4),
+        # E: the gathered terms, the cells; out one row entry per step
+        "E": 2 * L * (8 + 4) + cells * 2 * f + n * f,
+    }[body]
+    shared = 4 * (8 + 2 * K) * n + 4 * 2 * n  # the shard's lane tables
+    ops = 0.0
+    if body == "C":
+        ops = N * macro * ((C + 1) * OPS_PER_INTERFACE + C * OPS_PER_CELL)
+        ops *= VJP_OPS_MULTIPLE if dual else 1
+    return N * per_row + shared, ops
+
+
+def time_shard(env) -> dict:
+    """Each body's ms per launch at S = 4, B = 1 and 4 (forward) and at the
+    derivative's 45 B rows: CUDA events, median of 5 runs of 50 launches
+    back to back of shard 0's kernel at a quiet step, with that step's
+    gathered rows in place (all four shards in this process, so no
+    collective is inside the timing); the plain body's ms on the same
+    inputs; each launch's bytes bound. Timing launches are not the main
+    path's: the counters are restored."""
+    import torch
+
+    from dhts_torch.ops.cuda import itscp_spatial_shard as ks
+    from dhts_torch.ops.cuda import itscp_spatial_step as k6
+
+    saved = dict(ks.launches)
+    hard, soft = k6.make_plan(env, False), k6.make_plan(env, True)
+    L, S = hard.L, SHARDS
+    n = L // S
+    n_act = soft.n_phases * soft.n_inter
+    comm = ks.LaneComm(L, ks.shards_of(L, S))
+    ms, plain, bounds, steps, host = {}, {}, {}, {}, {}
+    for dual in (False, True):
+        plan = soft if dual else hard
+        for B in (1, 4):
+            ins = spatial_inputs(env, B, 300 + B, np.full(env.action_size(),
+                                                          0.55))
+            run = ks.ShardRun(plan, comm, ins, dual=dual)
+            for t in range(100):
+                run.step(t)
+            t_q = _quiet_step(run, 100)
+            N = run.N
+            bufs = run.shards[0][2]
+            snap = {k: v.clone() for k, v in bufs.items() if v is not None}
+
+            def restore():
+                for k, v in snap.items():
+                    bufs[k].copy_(v)
+
+            for body in ks.BODIES:
+                if dual and body not in ks.DUAL_BODIES:
+                    continue
+                key = f"{body}_bwd" if dual else body
+                restore()
+                # 50 launches back to back in one call of the launcher,
+                # so that the host's cost of a launch is not in the time
+                fn = lambda: run.launch(body, t_q, [0], repeat=50)
+                fn()
+                torch.cuda.synchronize()
+                ms.setdefault(key, {})[B] = cuda_ms(fn, 5) / 50
+                # the wrapper's own time per launch, one call per launch
+                # as on the main path
+                one = lambda: run.launch(body, t_q, [0])
+                host.setdefault(key, {})[B] = cuda_ms(one, 5, 50)
+                bounds.setdefault(key, {})[B] = bound_of(*shard_body_work(
+                    plan, env, body, N, n, dual))
+                if B == 1:
+                    restore()
+                    call = _plain_call(run, body, t_q)
+                    call()
+                    plain[key] = cuda_ms(call, 5)
+            restore()
+            steps[("bwd" if dual else "fwd", B)] = t_q
+    ks.launches.update(saved)
+    return dict(ms=ms, plain_ms=plain, bounds=bounds, S=S,
+                ms_one_call_per_launch=host,
+                quiet_steps={f"{k[0]}_B{k[1]}": v for k, v in steps.items()},
+                derivative_rows=n_act,
+                ms_over_bound={k: {B: ms[k][B] / bounds[k][B]["bound_ms"]
+                                   for B in ms[k]} for k in ms})
+
+
 def k4_scene(cfg, dev):
     """An all-macro scene for K4: the env (problem 1, reset with its seed)
     and the factory's episode function on the card."""
@@ -1159,6 +1631,13 @@ def main() -> int:
            nvcc_seconds={n: _build.build_seconds.get(n) for n in names},
            ptxas=ptxas)
 
+    # the gloo ranks of the slice-6 phases (4 and 2, sharing the card),
+    # started now: they start up while the phases before them run and
+    # then wait on their task queues, idle, without a CUDA context
+    from dhts_torch.parallel.local_ranks import LocalRanks
+
+    shard_ranks = {S: LocalRanks(S, RANK_SECONDS) for S in (SHARDS, 2)}
+
     from dhts_torch.apps.control.controller import (init_controller,
                                                      squash_action)
     from dhts_torch.apps.control.itscp import problem
@@ -1406,6 +1885,28 @@ def main() -> int:
     report(**k4_times, nvidia_smi=smi)
     slice5_seconds = time.perf_counter() - t_slice5
 
+    # ---- 21-24. slice 6: the lane-sharded spatial step over gloo ranks
+    t_slice6 = time.perf_counter()
+    phase("shard_vs_plain")
+    shard_fwd = check_shard_fwd(shard_ranks)
+    shard_ranks[2].close()
+    phase("shard_bwd_vs_plain")
+    shard_bwd = check_shard_bwd(shard_ranks[SHARDS])
+    with tempfile.TemporaryDirectory() as log_root:
+        phase("shard_train")
+        shard_launches = run_shard_train(shard_ranks[SHARDS], log_root)
+    shard_ranks[SHARDS].close()
+    phase("shard_timing")
+    shard_times = time_shard(preset_env(dev))
+    report(**shard_times, step_wall_ms_host_staged_gloo=shard_fwd[
+        "step_wall_ms"], nvidia_smi=smi,
+        note="per-launch kernel times on one rank, no collective inside; "
+             "the step wall times (by shard count and mode) include gloo "
+             "collectives staged through host memory between ranks that "
+             "share the card and are not a collective measurement of the "
+             "card")
+    slice6_seconds = time.perf_counter() - t_slice6
+
     # ---- 5. timing at the preset's shapes
     phase("timing")
     env.reset(3)
@@ -1424,7 +1925,8 @@ def main() -> int:
     # timing launches are not the main path
     kfn.launches.update(counts[0])
     kfn_bwd.launches = counts[1]
-    plain_ms = cuda_ms(lambda: k1.plain_episode(plan, *inputs), 3)
+    # one run: the plain episode takes seconds on the card's host
+    plain_ms = cuda_ms(lambda: k1.plain_episode(plan, *inputs), 1)
     in_bytes = sum(x.numel() * x.element_size() for x in
                    (*inputs, plan.prog, plan.lane_i, plan.lane_f))
     out_bytes = (1 + T + 8 * T) * 4
@@ -1530,13 +2032,36 @@ def main() -> int:
             "ms_by_scene": {n: {k: v for k, v in m.items()
                                 if k.startswith(key)}
                             for n, m in k4_times["ms"].items()}})
+    # K6's per-shard bodies at S = 4, B = 1, the CLI's episodes per launch
+    from dhts_torch.ops.cuda import itscp_spatial_shard as ks
+
+    pallas_call = {"fwd": k6.REPLACES_FWD, "bwd": k6.REPLACES_BWD,
+                   "sg": ks.REPLACES_SG}
+    for body in ks.BODIES + tuple(f"{b}_bwd" for b in ks.DUAL_BODIES):
+        name = body.split("_")[0]
+        wrap = ("bwd" if body.endswith("_bwd") else
+                "sg" if name in ("D1", "D2") else "fwd")
+        b1 = shard_times["bounds"][body][1]
+        kernels.append({
+            "name": f"itscp_spatial_shard_{name}_"
+                    f"{'bwd' if wrap == 'bwd' else 'fwd'}",
+            "route": "cuda", "source": ks.SOURCE,
+            "replaces": ks.REPLACES[name], "pallas_call": pallas_call[wrap],
+            "launches": shard_launches[body],
+            "max_abs_err": (shard_bwd["max_abs_err"] if wrap == "bwd" else
+                            shard_fwd["errors"].get(name, 0.0)),
+            "ms": shard_times["ms"][body][1],
+            "plain_ms": shard_times["plain_ms"][body],
+            "bound_ms": b1["bound_ms"], "bound_by": b1["bound_by"],
+            "library_ms": None, "batch": 1, "shards": SHARDS,
+            "ms_by_batch": shard_times["ms"][body]})
     report(total_seconds=time.perf_counter() - t_start,
            slice3_seconds=slice3_seconds, slice4_seconds=slice4_seconds,
-           slice5_seconds=slice5_seconds)
+           slice5_seconds=slice5_seconds, slice6_seconds=slice6_seconds)
     print(json.dumps({"kernels": kernels}), flush=True)
     print(smi, flush=True)
     print(json.dumps({"ok": True, "device": {
-        "platform": "gpu", "kind": kind,
+        "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}), flush=True)
     return 0
 

@@ -12,10 +12,16 @@ K1's forward and backward::
 ``--mesh 1,1 --mesh_fused`` trains through the fused spatial step (K6's
 STEP body, one launch per simulation step, forward and derivative) on a
 one-device ``(data, lane)`` mesh, one episode per data shard per epoch, as
-the JAX CLI does; a mesh of more than one device, and ``--mesh`` without
-``--mesh_fused`` (the sharded scan step), raise ``NotImplementedError``. The
-spatial step has soft gates only: ``--gate_mode st`` with ``--mesh_fused``
-trains soft, as in JAX, and says so.
+the JAX CLI does. ``--mesh 1,S --mesh_fused`` shards the scene's lanes over
+S processes, one per shard, through K6's per-shard bodies between
+collectives; run it under ``torchrun --nproc_per_node S``. The CLI sets up
+the process group from torchrun's environment (or uses one its caller has
+set up): NCCL where each rank has a card of its own, gloo where ranks share
+a card or run on the CPU; it prints the choice on its first line. Only rank
+0 writes logs and checkpoints. A data axis of more than one device, and
+``--mesh`` without ``--mesh_fused`` (the sharded scan step), raise
+``NotImplementedError``. The spatial step has soft gates only: ``--gate_mode
+st`` with ``--mesh_fused`` trains soft, as in JAX, and says so.
 
 ``--device cpu`` runs the plain PyTorch path on the CPU. Not offered yet:
 ``--packed`` (scenario batching); ``--wide_ops`` is a TPU layout switch
@@ -113,8 +119,8 @@ def build_parser():
                    help="train through the fused episode kernel K1 (forward "
                         "and backward on the card)")
     p.add_argument("--mesh", type=str, default=None, metavar="D,L",
-                   help="train on a (data, lane) device mesh; the port runs "
-                        "one device: 1,1")
+                   help="train on a (data, lane) device mesh: 1,1 on one "
+                        "device, 1,S over S processes (torchrun)")
     p.add_argument("--mesh_fused", action="store_true",
                    help="with --mesh: run each step as the fused spatial "
                         "step kernel (forward and derivative on the card)")
@@ -143,13 +149,58 @@ def _trainer(args, env, seed, schedule_epochs, mesh=None):
                    grad_clip=args.grad_clip)
 
 
+MESH_WITHOUT_FUSED = ("--mesh without --mesh_fused runs the sharded scan "
+                      "step (dhts/parallel/spatial.py), which is not ported "
+                      "yet: ROADMAP.md queue 1, item 1")
+
+
+def init_lanes(device: str, lanes: int):
+    """Set up the default process group for a lane axis of ``lanes``
+    shards from torchrun's environment (``RANK``, ``WORLD_SIZE``,
+    ``LOCAL_RANK``, ``LOCAL_WORLD_SIZE``, ``MASTER_ADDR``, ``MASTER_PORT``),
+    unless the caller has set one up. NCCL where each local rank has a card
+    of its own, gloo where ranks share a card or run on the CPU. Returns a
+    line saying which."""
+    import torch.distributed as dist
+
+    if dist.is_initialized():
+        return (f"process group: the caller's, {dist.get_backend()}, "
+                f"{dist.get_world_size()} ranks")
+    if "WORLD_SIZE" not in os.environ:
+        return "process group: none (not started by torchrun)"
+    local_rank = int(os.environ.get("LOCAL_RANK", 0))
+    local_world = int(os.environ.get("LOCAL_WORLD_SIZE",
+                                     os.environ["WORLD_SIZE"]))
+    own_card = (torch.device(device).type == "cuda" and
+                torch.cuda.device_count() >= local_world)
+    if own_card:
+        torch.cuda.set_device(local_rank)
+        backend, why = "nccl", "a card per rank"
+    else:
+        backend = "gloo"
+        why = ("ranks on the CPU" if torch.device(device).type == "cpu" else
+               f"{local_world} ranks share {torch.cuda.device_count()} "
+               f"card(s); gloo stages CUDA tensors through host memory")
+    dist.init_process_group(backend)
+    return (f"process group: {backend} ({why}), rank {dist.get_rank()} of "
+            f"{dist.get_world_size()}, {lanes} lane shards")
+
+
 def main(argv=None):
     args = build_parser().parse_args(argv)
     mesh = None
     if args.mesh:
         from dhts_torch.parallel.mesh import make_mesh
 
+        if not args.mesh_fused:
+            raise NotImplementedError(MESH_WITHOUT_FUSED)
         d, l = (int(x) for x in args.mesh.split(","))
+        if d == 1 and l > 1:
+            import torch.distributed as dist
+
+            line = init_lanes(args.device, l)
+            if not dist.is_initialized() or dist.get_rank() == 0:
+                print(line, flush=True)
         mesh = make_mesh({"data": d, "lane": l}, args.device)
         if args.mesh_fused and args.gate_mode == "st":
             print("--gate_mode st: the fused spatial step has soft gates "
@@ -195,6 +246,7 @@ def main(argv=None):
         return
 
     env = _env(args, args.soft_gate_scale)
+    trained = []
     for trial in range(args.n_trial):
         env.reset(seed=trial_seed(trial))
         trainer = _trainer(args, env, args.seed + trial, args.n_episode + 1,
@@ -203,10 +255,13 @@ def main(argv=None):
         # one episode per data shard per epoch on a mesh, as in JAX
         ep_per_epoch = (mesh.shape["data"] if mesh is not None
                         else max(1, args.ep_per_epoch))
-        trainer.train(ep_per_epoch, args.n_episode + 1,
-                      (args.eval_every if args.eval_every > 0 else
-                       max(1, args.n_episode // 10)),
-                      max(1, args.n_eval_episode), log_path)
+        losses = trainer.train(ep_per_epoch, args.n_episode + 1,
+                               (args.eval_every if args.eval_every > 0 else
+                                max(1, args.n_episode // 10)),
+                               max(1, args.n_eval_episode), log_path)
+        trained.append((trainer, losses))
+    # every rank's trainers and losses, for a caller that checks the ranks
+    return trained
 
 
 if __name__ == "__main__":

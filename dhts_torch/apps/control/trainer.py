@@ -9,20 +9,24 @@ controller and optimiser state (``torch.save``).
 
 On the card a differentiable fused episode (``use_fused_episode``) runs
 kernel K1's soft/straight-through forward and its backward kernel; with a
-one-device ``mesh`` and ``mesh_fused`` the episodes of a step run through
-the fused spatial step instead (K6's STEP body: the B episodes of the step
-in each launch, T launches forward and T derivative launches per step,
-:mod:`dhts_torch.ops.cuda.itscp_spatial_step`), and the evaluation through
-its hard forward. The controller, the action squash and Adam are
+``mesh`` and ``mesh_fused`` the episodes of a step run through the fused
+spatial step instead, and the evaluation through its hard forward: on a
+one-device mesh K6's STEP body (the B episodes of the step in each launch,
+T launches forward and T derivative launches per step,
+:mod:`dhts_torch.ops.cuda.itscp_spatial_step`), on a ``(1, S)`` mesh K6's
+per-shard bodies, one process per lane shard
+(:mod:`dhts_torch.ops.cuda.itscp_spatial_shard`): every rank computes the
+same loss and gradient and takes the same Adam step, and only rank 0 writes
+logs and checkpoints. The controller, the action squash and Adam are
 PyTorch. Randomness comes from
 explicit ``torch.Generator``s: ``seed + 1`` for the training draws and
 ``seed + 2`` for the fixed evaluation draws, in the roles of the JAX
 trainer's keys (the two give different numbers; parity tests pass the
 draws in).
 
-Not ported yet: ``multi_scenario``/``packed`` (scenario batching), a
-``mesh`` of more than one device and ``mesh`` without ``mesh_fused`` (the
-sharded scan step), ``render_eval`` and TensorBoard logging.
+Not ported yet: ``multi_scenario``/``packed`` (scenario batching), a mesh
+with a data axis of more than one device, ``mesh`` without ``mesh_fused``
+(the sharded scan step), ``render_eval`` and TensorBoard logging.
 """
 
 from __future__ import annotations
@@ -83,13 +87,16 @@ class Trainer:
         for name, val, where in (
                 ("multi_scenario", multi_scenario, "scenario batching"),
                 ("packed", packed, "scenario batching"),
-                ("mesh without mesh_fused", mesh is not None and
-                 not mesh_fused, "multi-device"),
                 ("render_eval", render_eval, "tooling")):
             if val:
                 raise NotImplementedError(
                     f"Trainer({name}) belongs to the {where} slice of "
                     f"the port, which is not ported yet")
+        if mesh is not None and not mesh_fused:
+            raise NotImplementedError(
+                "Trainer(mesh without mesh_fused) runs the sharded scan step "
+                "(dhts/parallel/spatial.py), which is not ported yet: "
+                "ROADMAP.md queue 1, item 1")
         if lr_schedule not in ("const", "cosine"):
             raise ValueError(f"unknown lr_schedule {lr_schedule!r}")
         self.env = env
@@ -111,6 +118,8 @@ class Trainer:
         self.generator.manual_seed(self.seed + 1)
         self.best_eval_reward = -float("inf")
         self.grad_norm = None  # before clipping, when grad_clip is set
+        # only one process of a sharded mesh writes logs and checkpoints
+        self.writer = mesh is None or mesh.writer
         self._spatial_step = self._spatial_eval = None
         if mesh is not None:
             from dhts_torch.ops.cuda import itscp_spatial_step as k6
@@ -173,7 +182,8 @@ class Trainer:
               epoch_offset: int = 0):
         """``initial_best``/``epoch_offset`` carry the best-checkpoint bar
         and the epoch count across staged runs sharing one ``log_path``."""
-        os.makedirs(log_path, exist_ok=True)
+        if self.writer:
+            os.makedirs(log_path, exist_ok=True)
         metrics_path = os.path.join(log_path, "metrics.jsonl")
         self.best_eval_reward = initial_best
         history = []
@@ -183,6 +193,8 @@ class Trainer:
                 self.evaluate(epoch, num_eval_episode, log_path, verbose)
             loss = self.train_step(max(1, num_episode_per_epoch))
             history.append(loss)
+            if not self.writer:
+                continue
             with open(metrics_path, "a") as f:
                 f.write(json.dumps({"epoch": epoch, "loss_train": loss,
                                     "t": time.time()}) + "\n")
@@ -208,6 +220,9 @@ class Trainer:
             rewards = [float(episode(action, rand=r).reward)
                        for r in self.eval_rand(num_episode)]
         avg = sum(rewards) / len(rewards)
+        if not self.writer:
+            self.best_eval_reward = max(self.best_eval_reward, avg)
+            return avg
         os.makedirs(log_path, exist_ok=True)
         with open(os.path.join(log_path, "eval.txt"), "a") as f:
             f.write(f"{-avg:08f}\n")

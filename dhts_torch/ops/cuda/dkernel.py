@@ -22,9 +22,17 @@ diagnostics the derivative does not differentiate, returned without a
 gradient (``requires_grad`` false), so that a loss built on them fails
 instead of receiving a silent zero. The derivative launcher chooses its
 own method: the fused spatial step's is forward mode over a whole episode
-(:mod:`dhts_torch.ops.cuda.itscp_spatial_step`). ``make_kernel_sg``, the
-stop-gradient op of the sharded step's discrete phases, runs only on more
-than one lane shard and is not ported yet.
+(:mod:`dhts_torch.ops.cuda.itscp_spatial_step`, and over the lane-sharded
+bodies in :mod:`dhts_torch.ops.cuda.itscp_spatial_shard`). An op whose
+plain version crosses ``torch.distributed`` calls cannot be differentiated
+by autograd; ``body_autograd=False`` makes it the ``autograd.Function`` on
+every device, its derivative launcher choosing the plain forward-mode
+version on CPU tensors.
+
+:func:`make_kernel_sg` is the stop-gradient op (``dkernel.py:127-161``,
+``pallas_call`` at ``:154``) of the sharded step's wholly discrete phases
+D1 and D2: float inputs and outputs are detached, CUDA tensors launch the
+kernel, CPU tensors run the plain body; there is no backward.
 """
 
 from __future__ import annotations
@@ -40,16 +48,18 @@ def _device_type(args) -> str:
 
 
 def make_dkernel(body, forward, derivative, diff_argnums, name="dkernel",
-                 nondiff_outputs=()):
+                 nondiff_outputs=(), body_autograd=True):
     """Wrap ``body`` as a differentiable op: ``op(*args) -> tuple``.
 
     On CPU tensors the op is ``body`` (autograd differentiates it; the body
-    detaches its outputs at ``nondiff_outputs`` itself). On CUDA tensors it
-    is a ``torch.autograd.Function`` (``op.function``) whose forward calls
-    ``forward(*args)`` and whose backward calls ``derivative(args,
-    float_cotangents)`` with one cotangent per differentiable float output
-    (zeros where autograd has none) and places its results at
-    ``diff_argnums``.
+    detaches its outputs at ``nondiff_outputs`` itself), unless
+    ``body_autograd`` is false. On CUDA tensors, and on every device when
+    ``body_autograd`` is false, it is a ``torch.autograd.Function``
+    (``op.function``) whose forward calls ``forward(*args)`` and whose
+    backward calls ``derivative(args, float_cotangents)`` with one
+    cotangent per differentiable float output (zeros where autograd has
+    none) and places its results at ``diff_argnums``; ``forward`` and
+    ``derivative`` then serve CPU tensors themselves.
     """
     diff_argnums = tuple(diff_argnums)
     nondiff_outputs = frozenset(nondiff_outputs)
@@ -83,10 +93,31 @@ def make_dkernel(body, forward, derivative, diff_argnums, name="dkernel",
     Op.__name__ = Op.__qualname__ = name
 
     def op(*args):
-        if _device_type(args) == "cpu":
+        if body_autograd and _device_type(args) == "cpu":
             return tuple(body(*args))
         return Op.apply(*args)
 
     op.body = body
     op.function = Op
+    return op
+
+
+def make_kernel_sg(body, forward, name="kernel_sg"):
+    """Wrap a wholly discrete ``body`` as a stop-gradient op: ``op(*args)
+    -> tuple``. Float inputs are detached; CPU tensors run ``body(*args)``,
+    CUDA tensors ``forward(*args)`` (the kernel's launcher); float outputs
+    are returned detached. There is no backward: nothing upstream of the
+    op receives a gradient through it."""
+
+    def op(*args):
+        args = tuple(x.detach() if isinstance(x, torch.Tensor) else x
+                     for x in args)
+        with torch.no_grad():
+            outs = tuple(body(*args) if _device_type(args) == "cpu"
+                         else forward(*args))
+        return tuple(o.detach() for o in outs)
+
+    op.__name__ = op.__qualname__ = name
+    op.body = body
+    op.forward = forward
     return op

@@ -6,7 +6,9 @@ Port of the single-shard part of :mod:`dhts.ops.pallas.itscp_spatial_step`
 collective of the sharded step is an identity and ``body_STEP`` carries a
 whole simulation step in one kernel, wrapped by ``make_dkernel``), with
 :func:`make_fused_spatial_train_step` and
-:func:`make_fused_spatial_train_step_2d`.
+:func:`make_fused_spatial_train_step_2d`. On a lane axis of more than one
+shard these factories run the per-shard bodies of
+:mod:`dhts_torch.ops.cuda.itscp_spatial_shard` instead.
 
 The carry is the JAX step's 17 arrays in its lane-minor layout with the
 true sizes (no padding) and a batch axis ``B`` in front: ``r, y [B, C,
@@ -21,8 +23,10 @@ route of an episode is such a row and vehicles only ever copy routes.
 
 * :func:`plain_spatial_step` is the plain PyTorch version of one step,
   vectorised over episodes and lanes, and the kernels' specification op for
-  op; :func:`plain_spatial_episode` loops it over T, and autograd through
-  it is the derivative's specification.
+  op: the composition of the plain per-shard bodies on one shard holding
+  every lane, so the port has one copy of the step's math;
+  :func:`plain_spatial_episode` loops it over T, and autograd through it is
+  the derivative's specification.
 * :func:`spatial_step_fwd` is the wrapper of the forward kernel
   (``csrc/itscp_spatial_step.cu``, one launch per step, one block per
   episode) and :func:`spatial_step_bwd` that of the derivative kernel
@@ -48,7 +52,6 @@ from typing import NamedTuple
 import numpy as np
 import torch
 
-from dhts_torch.ops import arz, dmath, idm
 from dhts_torch.ops.cuda import _launch
 from dhts_torch.ops.cuda import itscp_hybrid_episode as k1
 from dhts_torch.ops.cuda.dkernel import make_dkernel
@@ -245,12 +248,6 @@ def _insert(x, new, mask):
     return torch.where(mask[:, None], shifted, x)
 
 
-def _sum32(x):
-    """Sum over all but the batch axis in float64, rounded once."""
-    return x.reshape(x.shape[0], -1).to(torch.float64).sum(1).to(
-        torch.float32)
-
-
 def _route_at(routes, rid, j, R):
     """Entry ``j`` of route ``rid`` (``-1`` for no route or out of range)."""
     ok = (rid >= 0) & (j >= 0) & (j < R)
@@ -270,9 +267,11 @@ class StepOut(NamedTuple):
 
 def lane_signals(plan, action2d, t: int, soft: bool, g: Geometry):
     """Per-lane signal of step ``t`` (``lane_sig_global``): approaching arms
-    gate the action against the phase progress, other lanes are open."""
+    gate the action against the phase progress, other lanes are open.
+    ``[L]`` for an action ``[n_phases, n_inter]``, ``[N, L]`` for one action
+    per row ``[N, n_phases, n_inter]``."""
     phase = min(t // plan.nsf, plan.n_phases - 1)
-    a = action2d[phase][g.inter]
+    a = action2d[..., phase, :][..., g.inter]
     progress = plan.prog[t % plan.nsf]
     c = plan.floats[12]
     if soft:
@@ -287,333 +286,28 @@ def lane_signals(plan, action2d, t: int, soft: bool, g: Geometry):
 
 def plain_spatial_step(plan, carry, sg_ms, ss_ms, t: int, action2d, rand_t,
                        sched_t, mnext_t, mprev_t, routes, g=None) -> StepOut:
-    """One step of B episodes (``body_STEP``): injection, signal-blended
+    """One step of B episodes (``body_STEP``): the composition of the plain
+    per-shard bodies A, B, C, D1, D2, D3 and E of
+    :mod:`dhts_torch.ops.cuda.itscp_spatial_shard` on one shard holding
+    every lane, whose gathers are identities: injection, signal-blended
     ghosts and the leader walk, Godunov and IDM physics, the flux
     capacitors, conversion (wants, arbitration, removals, inserts,
     deposits) and the queue. ``rand_t`` is ``[B, L]``; ``sched_t``,
     ``mnext_t``, ``mprev_t`` are ``[L]`` (shared by the batch); ``action2d``
     ``[n_phases, n_inter]``. Lane and vehicle sums are taken in a fixed
-    order (cells and vehicles one after another, lanes in float64 rounded
-    once), as the kernels take them."""
+    order (cells and vehicles one after another, then lanes in float64 in
+    lane order, rounded once), as the kernels take them."""
+    from dhts_torch.ops.cuda import itscp_spatial_shard as shard
+
     g = geometry(plan, rand_t.device) if g is None else g
-    (u_max, dt, veh_len, static_speed, _, _, amax0, apref0, vt0, ms0, tp0,
-     rho_hi, gate32) = plan.floats
-    soft = plan.mode != HARD
-    L, C, V, R, P, P2, K = (plan.L, plan.C, plan.V, plan.R, plan.P,
-                            plan.P2, plan.K)
-    (r, y, pos, vel, av, p_amax, p_apref, p_vt, p_ms, p_tp, p_len, count,
-     rid, ridx, cap, inj_left, cursor) = carry
-    B = r.shape[0]
-    dev = r.device
-    clampL = lambda j: torch.clamp(j, 0, L - 1).long()
-    f = lambda v: torch.full((B, L), v, dtype=torch.float32, device=dev)
-    zeros = f(0.0)
-
-    sig = lane_signals(plan, action2d, t, soft, g)  # [L]
-    incoming = torch.where(g.has_prev, -1.0, sched_t)
-
-    # ---- A: pre-physics summaries and the injection bit
-    u = arz.compute_u(r, y, u_max)
-    r_first, u_first = r[:, 0], u[:, 0]
-    lastB = g.last[None, None].expand(B, 1, L)
-    r_last = r.gather(1, lastB).squeeze(1)
-    u_last = u.gather(1, lastB).squeeze(1)
-    free = torch.where(count > 0, pos[:, 0] - 0.5 * p_len[:, 0], g.length)
-    inject = (~g.has_prev & ~g.is_macro & (free > 0.5 * veh_len) &
-              (rand_t < incoming) & (inj_left > 0) & (count < V))
-
-    # ---- B: apply the injections
-    pool_idx = torch.clamp(P - inj_left, 0, P - 1)
-    new_rid = (g.gid * P + pool_idx).to(torch.int32)
-    pos = _insert(pos, zeros, inject)
-    vel = _insert(vel, zeros, inject)
-    av = _insert(av, f(veh_len), inject)
-    p_amax = _insert(p_amax, f(amax0), inject)
-    p_apref = _insert(p_apref, f(apref0), inject)
-    p_vt = _insert(p_vt, f(vt0), inject)
-    p_ms = _insert(p_ms, f(ms0), inject)
-    p_tp = _insert(p_tp, f(tp0), inject)
-    p_len = _insert(p_len, f(veh_len), inject)
-    rid = _insert(rid, new_rid, inject)
-    ridx = _insert(ridx, torch.zeros_like(count), inject)
-    count = count + inject.to(torch.int32)
-    inj_left = inj_left - inject.to(torch.int32)
-    n_inj = inject.sum(1)
-    tail_pos, tail_vel, tail_len = pos[:, 0], vel[:, 0], p_len[:, 0]
-
-    # macro ghosts from the neighbours' summaries
-    adjp = torch.where(g.num_prev == 1, g.prev_k[0], mprev_t)
-    use_l = (g.num_prev > 0) & (adjp >= 0) & g.is_macro[clampL(adjp)]
-    gl_r = torch.where(g.has_prev,
-                       torch.where(use_l, _take(r_last, clampL(adjp)), 0.0),
-                       incoming)
-    gl_u = torch.where(g.has_prev,
-                       torch.where(use_l, _take(u_last, clampL(adjp)), u_max),
-                       arz.compute_u_eq(incoming, u_max))
-    prev_sig = torch.where(~g.has_prev, 1.0,
-                           torch.where(mprev_t < 0, 0.0,
-                                       sig[clampL(mprev_t)]))
-    bl_r = gl_r * prev_sig
-    bl_u = gl_u * prev_sig + u_max * (1.0 - prev_sig)
-    adjn = torch.where(g.num_next == 1, g.next_k[0], mnext_t)
-    use_r = (g.num_next > 0) & (adjn >= 0) & g.is_macro[clampL(adjn)]
-    gr_r = torch.where(use_r, _take(r_first, clampL(adjn)), 0.0)
-    gr_u = torch.where(use_r, _take(u_first, clampL(adjn)), u_max)
-
-    # leader walk along the head's route
-    h = torch.clamp(count - 1, 0, V - 1)
-    hv_pos, hv_vel, hv_len = _pick(pos, h), _pick(vel, h), _pick(p_len, h)
-    h_rid, h_ridx = _pick(rid, h), _pick(ridx, h)
-    h_exists = count > 0
-    base = (g.length - hv_pos) - hv_len * 0.5
-    done = ~h_exists
-    found = torch.zeros_like(done)
-    wstar = torch.full_like(count, -1)
-    cdel_st = zeros
-    cur = base
-    for o in range(plan.W):
-        wl = _route_at(routes, h_rid, h_ridx + 1 + o, R)
-        exists = wl >= 0
-        wl_c = clampL(wl)
-        w_macro = exists & g.is_macro[wl_c]
-        occupied = exists & ~w_macro & (_take(count, wl_c) > 0)
-        term_default = ~done & (~exists | w_macro)
-        term_leader = ~done & occupied
-        wstar = torch.where(term_leader, wl, wstar)
-        cdel_st = torch.where(term_leader, cur.detach(), cdel_st)
-        found = found | term_leader
-        done = done | term_default | term_leader
-        cur = torch.where(~done, cur + torch.where(exists, g.length[wl_c],
-                                                   0.0), cur)
-    w_c = clampL(wstar)
-    gt_pos = torch.where(found, _take(tail_pos, w_c), 0.0)
-    gt_vel = torch.where(found, _take(tail_vel, w_c), 0.0)
-    gt_len = torch.where(found, _take(tail_len, w_c), 0.0)
-    cdel = cdel_st + (base - base.detach())
-    pd_g = torch.where(found, dmath.maximum((cdel + gt_pos) - gt_len * 0.5,
-                                            0.0), 1000.0)
-    sd_g = torch.where(found, hv_vel - gt_vel, 0.0)
-
-    # the signal the head sees: blended over its previous, current and
-    # next route lane
-    red_pd = dmath.maximum((g.length - hv_pos) - hv_len * 0.5, 0.0)
-    prev_l = _route_at(routes, h_rid, h_ridx - 1, R)
-    next_l = _route_at(routes, h_rid, h_ridx + 1, R)
-    curr_l = _route_at(routes, h_rid, h_ridx, R)
-    prev_exist, next_exist = prev_l >= 0, next_l >= 0
-    if soft:
-        p_sc = torch.where(prev_exist, soft_sigmoid(-hv_pos, 16.0), 0.0)
-        c_sc = soft_sigmoid(hv_pos, 16.0) * soft_sigmoid(g.length - hv_pos,
-                                                         16.0)
-        n_sc = torch.where(next_exist, soft_sigmoid(hv_pos - g.length, 16.0),
-                           0.0)
-    else:
-        p_sc, c_sc, n_sc = zeros, f(1.0), zeros
-    ssum = (p_sc + c_sc) + n_sc
-    p_sc, c_sc, n_sc = p_sc / ssum, c_sc / ssum, n_sc / ssum
-    sig_at = lambda j: torch.where(j >= 0, sig[clampL(j)], 0.0)
-    fsig = c_sc * sig_at(curr_l)
-    fsig = fsig + torch.where(prev_exist, p_sc * sig_at(prev_l), 0.0)
-    fsig = fsig + torch.where(next_exist, n_sc * sig_at(next_l), 0.0)
-    blend = h_exists & ~g.is_macro
-    sg_part = torch.stack([_sum32(torch.where(blend, fsig.detach(), 0.0)),
-                           blend.sum(1).to(torch.float32)], 1)
-    sg_ms = sg_ms + sg_part
-
-    # ---- C: signal blend of the head deltas, physics, flux capacitors
-    if soft:
-        mean = sg_ms[:, 0] / dmath.maximum(sg_ms[:, 1], 1.0)
-        c_sig = arz.rdiv(gate32, dmath.maximum(torch.abs(mean), 1e-6))
-        fs = soft_sigmoid(fsig - 0.5, c_sig[:, None])
-        pd = pd_g * fs + red_pd * (1.0 - fs)
-        sd = sd_g * fs
-        s_own = soft_sigmoid(sig - 0.5, gate32)
-    else:
-        green = fsig >= 0.5
-        pd = torch.where(green, pd_g, red_pd)
-        sd = torch.where(green, sd_g, 0.0)
-        s_own = (sig > 0.5).to(torch.float32)
-    pd = torch.where(blend, pd, pd_g)
-    sd = torch.where(blend, sd, sd_g)
-    br_r = gr_r * s_own + (1.0 - s_own)
-    br_u = gr_u * s_own
-
-    right_y = arz.compute_y(br_r, br_u, u_max)
-    rp = torch.where(g.cmask, r, br_r[:, None])
-    yp = torch.where(g.cmask, y, right_y[:, None])
-    res = arz.godunov_step(rp.transpose(1, 2), yp.transpose(1, 2), bl_r,
-                           bl_u, br_r, br_u, u_max, dt, g.cell_len)
-    r = torch.where(g.cmask, res.r.transpose(1, 2), r)
-    y = torch.where(g.cmask, res.y.transpose(1, 2), y)
-    max_wave = torch.amax(torch.where(g.is_macro, res.max_wave_speed, 0.0),
-                          1)
-
-    rows = torch.arange(V, device=dev)[None, :, None]
-    active = rows < count[:, None]
-    is_head = rows == (count - 1)[:, None]
-    lead = lambda x, top: torch.cat([x[:, 1:], top], 1)
-    gap = (torch.abs(lead(pos, zeros[:, None]) - pos) -
-           (lead(p_len, p_len[:, :1]) + p_len) * 0.5)
-    dv = vel - lead(vel, zeros[:, None])
-    gap = torch.where(is_head, pd[:, None], gap)
-    dv = torch.where(is_head, sd[:, None], dv)
-    coll = gap < 0.0
-    gap = dmath.maximum(torch.where(coll, 0.0, gap), idm.POSITION_DELTA_EPS)
-    dv = torch.where(coll, 0.0, dv)
-    acc_res = idm.idm_acceleration(p_amax, p_apref, vel, p_vt, gap, dv, p_ms,
-                                   p_tp, dt)
-    acc = torch.where(active, acc_res.acceleration, 0.0)
-    pos = torch.where(active, pos + dt * vel, pos)
-    new_vel = vel + dt * acc
-    # stopped by the acceleration floor: the new speed does not depend on
-    # the old one (dhts_torch/ops/idm.py)
-    new_vel = torch.where(active & acc_res.clipped_acceleration,
-                          new_vel.detach(), new_vel)
-    vel = torch.where(active, new_vel, vel)
-
-    u = arz.compute_u(r, y, u_max)
-    r_last = r.gather(1, lastB).squeeze(1)
-    u_last = u.gather(1, lastB).squeeze(1)
-    mn = mnext_t
-    mn_c = clampL(mn)
-    next_is_micro = g.is_macro & (mn >= 0) & ~g.is_macro[mn_c]
-    inc = torch.where(next_is_micro, (r_last * u_last) * dt, 0.0)
-    match = (g.next_k == mn) & (g.next_k >= 0)  # [K, L]
-    has_slot = match.any(0)
-    slot = torch.argmax(match.to(torch.int32), 0)
-    cap = torch.where(match, cap + inc[:, None], cap)
-    cap_val = torch.where(has_slot, cap.gather(
-        1, slot[None, None].expand(B, 1, L)).squeeze(1), 0.0)
-
-    # post-physics head of every lane (the conversion's source fields)
-    hs_pos, hs_vel, hs_a = _pick(pos, h), _pick(vel, h), _pick(av, h)
-    hs_par = [_pick(x, h) for x in (p_amax, p_apref, p_vt, p_ms, p_tp,
-                                    p_len)]
-    hs_len = hs_par[5]
-    hs_rid, hs_ridx = _pick(rid, h), _pick(ridx, h)
-    hnext = _route_at(routes, hs_rid, hs_ridx + 1, R)
-    hn_c = clampL(hnext)
-
-    # ---- D1: wants of every source lane
-    dest_count = torch.where(mn >= 0, _take(count, mn_c), 0)
-    free_n = torch.where(dest_count > 0,
-                         _take(pos[:, 0], mn_c) - 0.5 * _take(p_len[:, 0],
-                                                              mn_c),
-                         torch.where(mn >= 0, g.length[mn_c], 0.0))
-    want_emit = (next_is_micro & (cap_val.detach() >= veh_len) &
-                 (free_n >= veh_len) & (dest_count < V))
-    past_end = h_exists & (hs_pos >= g.length)
-    hn_macro = (hnext >= 0) & g.is_macro[hn_c]
-    hn_micro = (hnext >= 0) & ~hn_macro
-    exit_none = past_end & (hnext < 0)
-    want_tr = past_end & hn_micro & (_take(count, hn_c) < V)
-    want_dep = h_exists & hn_macro & (hs_pos > g.length + hs_len)
-
-    # ---- D2: each destination takes the lowest source id that wants in
-    tr_tgt = torch.where(want_tr, hnext, -2)
-    dep_tgt = torch.where(want_dep, hnext, -2)
-    best = torch.full_like(count, L)
-    dep_best = torch.full_like(count, L)
-    for k in range(K):
-        pk = g.prev_k[k]
-        ok = pk >= 0
-        pk_c = clampL(pk)
-        c_emit = _take(want_emit, pk_c) & (mn[pk_c] == g.gid)
-        c_tr = _take(tr_tgt, pk_c) == g.gid
-        best = torch.minimum(best, torch.where(ok & (c_emit | c_tr), pk, L))
-        dep_best = torch.minimum(dep_best, torch.where(
-            ok & (_take(dep_tgt, pk_c) == g.gid), pk, L))
-
-    # ---- D3: verdicts, removals, inserts, deposits
-    emit_win = want_emit & (_take(best, mn_c) == g.gid)
-    tr_win = want_tr & (_take(best, hn_c) == g.gid)
-    dep_win = want_dep & (_take(dep_best, hn_c) == g.gid)
-    remove = exit_none | dep_win | tr_win
-    count = count - remove.to(torch.int32)
-    cap_dec = torch.where(emit_win, (cap_val - veh_len).detach(), cap_val)
-    cap = torch.where(match, cap_dec[:, None], cap)
-
-    has_ins = best < L
-    src = clampL(best)
-    is_emit = has_ins & g.is_macro[src]
-    carrier = (veh_len + cap_val) - cap_val.detach()
-    new_pos = torch.where(is_emit, 0.0, _take(hs_pos, src) - g.length[src])
-    new_vel = torch.where(is_emit, _take(u_last, src), _take(hs_vel, src))
-    new_a = torch.where(is_emit, _take(carrier, src), _take(hs_a, src))
-    new_par = [torch.where(is_emit, d, _take(x, src)) for d, x in zip(
-        (amax0, apref0, vt0, ms0, tp0, veh_len), hs_par)]
-    new_rid = torch.where(is_emit, (L * P + g.gid * P2 + cursor % P2).to(
-        torch.int32), _take(hs_rid, src))
-    new_ridx = torch.where(is_emit, 0, _take(hs_ridx, src) + 1).to(
+    (o,) = shard.plain_shard_step(plan, g, shard.LaneComm.whole(plan.L),
+                                  [(carry, sg_ms, ss_ms)], t, action2d,
+                                  rand_t, sched_t, mnext_t, mprev_t, routes)
+    queue = shard.lane_sum32(o.q2) * plan.floats[1]
+    events = torch.stack([o.n_inj, o.ev[:, 0], o.ev[:, 1]], 1).to(
         torch.int32)
-    pos = _insert(pos, new_pos, has_ins)
-    vel = _insert(vel, new_vel, has_ins)
-    av = _insert(av, new_a, has_ins)
-    p_amax, p_apref, p_vt, p_ms, p_tp, p_len = (
-        _insert(x, n, has_ins) for x, n in zip(
-            (p_amax, p_apref, p_vt, p_ms, p_tp, p_len), new_par))
-    rid = _insert(rid, new_rid, has_ins)
-    ridx = _insert(ridx, new_ridx, has_ins)
-    count = count + has_ins.to(torch.int32)
-    cursor = cursor + is_emit.to(torch.int32)
-
-    # micro -> macro deposit from the winning source (gathered at a clamped
-    # index: a dead branch's operands stay finite)
-    dep_has = dep_best < L
-    dsrc = clampL(dep_best)
-    v_head = _take(hs_pos, dsrc) - g.length[dsrc]
-    d_len = _take(hs_len, dsrc)
-    v_tail = v_head - d_len
-    cells = torch.arange(C, dtype=torch.float32, device=dev)[:, None]
-    c_tail = cells * g.cell_len
-    c_head = (cells + 1.0) * g.cell_len
-    v_head3, v_tail3 = v_head[:, None], v_tail[:, None]
-    ov = ((c_head > v_tail3) & (c_tail < v_head3) & g.cmask &
-          dep_has[:, None] & (g.cell_len > v_tail3))
-    overlap = ((g.cell_len + d_len)[:, None] -
-               (torch.maximum(c_head, v_head3) -
-                torch.minimum(c_tail, v_tail3)))
-    add_r = ((_take(hs_a, dsrc) / d_len.detach())[:, None] *
-             (overlap / g.cell_len))
-    n_r = dmath.st_clip(r + add_r, 1e-5, rho_hi)
-    r = torch.where(ov, n_r, r)
-    y = torch.where(ov, arz.compute_y(n_r, _take(hs_vel, dsrc)[:, None],
-                                      u_max), y)
-
-    # ---- E: running mean of (static_speed - speed), then the queue
-    u_cells = arz.compute_u(r, y, u_max)
-    veh_m = (rows < count[:, None]) & ~g.is_macro
-    ss_sum = (_sum32(torch.where(g.cmask, static_speed - u_cells.detach(),
-                                 0.0)) +
-              _sum32(torch.where(veh_m, static_speed - vel.detach(), 0.0)))
-    ss_cnt = (g.cmask.sum().to(torch.float32) +
-              veh_m.sum((1, 2)).to(torch.float32))
-    ss_ms = ss_ms + torch.stack([ss_sum, ss_cnt], 1)
-    if soft:
-        mean = ss_ms[:, 0] / dmath.maximum(ss_ms[:, 1], 1.0)
-        c_st = arz.rdiv(16.0, dmath.maximum(torch.abs(mean), 1e-6))
-        stat_c = soft_sigmoid(static_speed - u_cells, c_st[:, None, None])
-        stat_v = soft_sigmoid(static_speed - vel, c_st[:, None, None])
-    else:
-        stat_c = (u_cells < static_speed).to(torch.float32)
-        stat_v = (vel < static_speed).to(torch.float32)
-    n_veh = arz.div(r * g.cell_len, veh_len)
-    q_macro, q_micro = zeros, zeros
-    for c in range(C):
-        q_macro = q_macro + torch.where(g.cmask[c], stat_c[:, c] * n_veh[:, c],
-                                        0.0)
-    for v in range(V):
-        q_micro = q_micro + torch.where(veh_m[:, v], stat_v[:, v], 0.0)
-    q_lane = torch.where(g.is_macro, q_macro, q_micro)
-    queue = _sum32(q_lane * q_lane) * dt
-
-    events = torch.stack([n_inj, is_emit.sum(1), (exit_none | dep_win).sum(1)],
-                         1).to(torch.int32)
-    carry = (r, y, pos, vel, av, p_amax, p_apref, p_vt, p_ms, p_tp, p_len,
-             count, rid, ridx, cap, inj_left, cursor)
-    floor_hits = (active & acc_res.clipped_acceleration).sum((1, 2))
-    return StepOut(carry, sg_ms, ss_ms, queue, events, max_wave.detach(),
-                   floor_hits)
+    return StepOut(o.carry, o.sg_ms, o.ss_ms, queue, events, o.wave,
+                   o.floor_hits)
 
 
 def initial_carry(plan, B: int, device):
@@ -926,27 +620,47 @@ def make_spatial_episode_op(plan):
 
 def make_fused_spatial_episode(env, mesh, differentiable: bool = True):
     """``episode(action_flat, rand=None, generator=None) -> EpisodeResult``
-    through the fused spatial step on a one-device mesh, from the empty
-    network state. ``rand`` is ``[T, L]`` (one episode) or ``[B, T, L]`` (B
-    episodes in each launch; the result's fields gain a leading B); without
-    it one draw comes from ``env.draw_rand(generator)``. The scene's data
-    (schedule, routes, pools) is read from ``env`` at each call; the plan is
-    rebuilt when a reset needs a wider leader window."""
-    if mesh.size != 1:
-        raise NotImplementedError(f"mesh {mesh.shape}: only one lane shard is"
-                                  f" ported")
+    through the fused spatial step, from the empty network state. ``rand``
+    is ``[T, L]`` (one episode) or ``[B, T, L]`` (B episodes in each
+    launch; the result's fields gain a leading B); without it one draw
+    comes from ``env.draw_rand(generator)``. The scene's data (schedule,
+    routes, pools) is read from ``env`` at each call; the plan is rebuilt
+    when a reset needs a wider leader window.
+
+    On a one-device mesh each step is one STEP launch. On a mesh whose lane
+    axis has S > 1 shards (one process per shard, every rank calling with
+    the same action and draws) each step runs the per-shard bodies of
+    :mod:`dhts_torch.ops.cuda.itscp_spatial_shard` on this rank's lanes
+    between collectives over the mesh's lane group, and every rank returns
+    the whole result."""
+    sharded = mesh.lanes > 1
+    if sharded and mesh.lane_group is None:
+        raise ValueError(f"mesh {mesh.shape}: {mesh.lanes} lane shards need "
+                         f"the mesh's lane process group (make_mesh)")
     built = {}
 
     def op_of():
         win = env._fused_win_needed
         if built.get("win", -1) < win:
-            built["plan"] = make_plan(env, differentiable)
-            built["op"] = make_spatial_episode_op(built["plan"])
+            plan = make_plan(env, differentiable)
+            built["plan"] = plan
+            if sharded:
+                from dhts_torch.ops.cuda import itscp_spatial_shard as shard
+
+                sh = shard.shards_of(plan.L, mesh.lanes)[mesh.lane_index]
+                built["comm"] = shard.LaneComm(plan.L, [sh], mesh.lane_group)
+                built["op"] = shard.make_shard_episode_op(plan,
+                                                          built["comm"])
+                built["fwd"] = lambda *a: shard.shard_episode_fwd(
+                    plan, built["comm"], *a)
+            else:
+                built["op"] = make_spatial_episode_op(plan)
+                built["fwd"] = lambda *a: spatial_episode_fwd(plan, *a)
             built["win"] = win
-        return built["plan"], built["op"]
+        return built["plan"], built["op"], built["fwd"]
 
     def batch(action_flat, rand):
-        plan, op = op_of()
+        plan, op, fwd = op_of()
         action2d = torch.as_tensor(action_flat, dtype=torch.float32,
                                    device=env.device).reshape(
             plan.n_phases, plan.n_inter).contiguous()
@@ -957,7 +671,7 @@ def make_fused_spatial_episode(env, mesh, differentiable: bool = True):
         if differentiable:
             return op(*args)
         with torch.no_grad():
-            return spatial_episode_fwd(plan, *args)
+            return fwd(*args)
 
     def episode(action_flat, rand=None, generator=None):
         from dhts_torch.apps.control.itscp.env import EpisodeResult
@@ -1008,10 +722,12 @@ def _train_step(env, model, update, mesh, obs, low, high):
 def make_fused_spatial_train_step(env, model, update, mesh, obs, low,
                                   high):
     """``fn(rand[B, T, L]) -> loss``: the controller's training step over
-    the fused spatial episode on a one-device ``("lane",)`` mesh, the B
-    episodes in each launch. ``update(loss)`` backpropagates the loss and
-    steps the optimiser (the Trainer's ``apply_update``: global-norm clip,
-    learning-rate schedule, Adam)."""
+    the fused spatial episode on a ``("lane",)`` mesh, the B episodes in
+    each launch. ``update(loss)`` backpropagates the loss and steps the
+    optimiser (the Trainer's ``apply_update``: global-norm clip,
+    learning-rate schedule, Adam). On S > 1 lane shards every rank computes
+    the same loss and the whole action gradient, so the controller's
+    parameters stay replicated without a gradient all-reduce."""
     if tuple(mesh.axis_names) != ("lane",):
         raise ValueError(f"mesh axes {mesh.axis_names} must be ('lane',)")
     return _train_step(env, model, update, mesh, obs, low, high)
@@ -1019,8 +735,8 @@ def make_fused_spatial_train_step(env, model, update, mesh, obs, low,
 
 def make_fused_spatial_train_step_2d(env, model, update, mesh, obs, low,
                                      high):
-    """The ``(data, lane)`` composition of the JAX package on a one-device
-    mesh, the Trainer's ``mesh_fused`` step: the same step as
+    """The ``(data, lane)`` composition of the JAX package, the Trainer's
+    ``mesh_fused`` step, on a ``(1, S)`` mesh: the same step as
     :func:`make_fused_spatial_train_step`, the episode batch placed on the
     data axis (B must be a multiple of its size, here 1)."""
     if set(mesh.axis_names) != {"data", "lane"}:

@@ -198,24 +198,32 @@ def test_step_matches_jax_body(cfg, differentiable):
 
 
 def test_mesh_is_one_device():
+    """A one-device mesh needs no process group; a data axis of more than
+    one device is not ported (raises, naming ROADMAP.md); a lane axis of
+    more than one shard needs an initialised process group of its size
+    (raises without one: lane shards run one process each)."""
     mesh = make_mesh({"data": 1, "lane": 1}, "cpu")
     assert mesh.shape == {"data": 1, "lane": 1} and mesh.size == 1
     rand = torch.zeros(2, 3, 4)
     assert shard_episode_batch(mesh, rand).device == mesh.device
-    for shape in ({"data": 2, "lane": 1}, {"data": 1, "lane": 2},
-                  {"lane": 4}):
-        with pytest.raises(NotImplementedError, match="ROADMAP"):
+    with pytest.raises(NotImplementedError, match="ROADMAP"):
+        make_mesh({"data": 2, "lane": 1}, "cpu")
+    for shape in ({"data": 1, "lane": 2}, {"lane": 4}):
+        with pytest.raises(RuntimeError, match="torch.distributed"):
             make_mesh(shape, "cpu")
     with pytest.raises(ValueError):
         make_mesh({"data": 0, "lane": 1}, "cpu")
 
 
 def test_spatial_episode_refuses_sharded_mesh():
+    """A mesh of two lane shards without a lane process group is refused;
+    the sharded episode itself runs in
+    ``tests/test_torch_spatial_shard_dist.py``."""
     env = ItscpEnv(config=MICRO_CFG, schedule_fn=problem.problem_1,
                    device="cpu")
     env.reset()
     fake = make_mesh({"data": 1, "lane": 1}, "cpu")._replace(sizes=(1, 2))
-    with pytest.raises(NotImplementedError):
+    with pytest.raises(ValueError, match="process group"):
         k6.make_fused_spatial_episode(env, fake)
 
 
