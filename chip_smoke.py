@@ -108,13 +108,19 @@ phase prints one JSON line with its wall seconds:
                B = 1, on S = 4 ranks: at every 50th step each rank holds the
                inputs of its seven launches through the plain bodies on the
                card (integers equal, floats allclose(rtol 1e-6, atol 1e-6));
-               each episode at S = 4 and S = 2 against the single-shard STEP
-               kernel's on the same draws: events, queues, waves bit-equal,
-               emitted > 0; the ranks' draws and scene agree
+               the Q kernel's queues bit-equal to ``plain_queues`` of the
+               same gathered rows; each episode at S = 4 and S = 2 against
+               the single-shard STEP kernel's on the same draws (run once,
+               in this process): events, queues, waves bit-equal, emitted >
+               0; the ranks' draws and scene agree; the host-staged gloo
+               time per collective call
 22. ``shard_bwd_vs_plain``  the sharded derivative (S = 4, T = 600) against
                the STEP derivative (cosine > 0.99999, allclose(rtol 2e-2,
-               atol 2e-3 * max|g|), finite) and over the first 60 steps
-               against the plain forward-mode sharded derivative
+               atol 2e-3 * max|g|), finite; its Q kernel bit-equal to
+               ``plain_gradient`` of the same gathered tangent rows) and
+               over the first 60 steps against the plain forward-mode
+               derivative (one shard); both references run once, in this
+               process, while the ranks work
 23. ``shard_train``  ``python -m dhts_torch.apps.control.itscp.run --mesh
                1,4 --mesh_fused`` in 4 ranks at the ``run_itscp_hybrid.sh``
                flags, problem 1, 2 epochs with an evaluation each: losses
@@ -122,22 +128,26 @@ phase prints one JSON line with its wall seconds:
                rank afterwards, each body's launches, counted from 0 on each
                rank, T per forward episode (train step and evaluation) and
                T per train step for the derivative (D1, D2: also T per
-               train step, run on the derivative's values); the collectives
-               per step
+               train step, run on the derivative's values), Q once per
+               episode; the collectives as derived (per step 4 gathers and
+               2 sums in soft mode, 1 sum in hard mode; per episode the
+               queues' gather and the events' and waves' reductions)
 24. ``shard_timing``  each body's ms per launch at S = 4, B = 1 and 4, and
                of the derivative's bodies (CUDA events, median of 5 runs of
                50 launches back to back of one shard's kernel at a quiet
                step, its gathered rows in place: no collective inside), the
-               plain bodies' ms, the bytes bounds; the wall ms of an
+               plain bodies' ms, the bytes bounds; Q's ms per launch on the
+               gathered q^2 rows with its plain and library ms; the wall ms
+               of an
                unchecked sharded step (from ``shard_vs_plain``: seven
                launches and the collectives between them, host-staged gloo,
                not a collective number of the card)
 25. ``timing``  each K1 kernel's ms per launch (CUDA events, median of 10
                after a warm-up), fwd+bwd episodes per second, the plain hard
-               version's ms (one run); K2 and K3 forward and backward ms
-               at B = 1, 12, 128 (median of 5 runs of 20 launches back to
-               back) with their bounds, and their plain versions' ms at
-               B = 1
+               version's ms (the mean of its two runs in ``k1_vs_plain``);
+               K2 and K3 forward and backward ms at B = 1, 12, 128 (median
+               of 5 runs of 20 launches back to back) with their bounds,
+               and their plain versions' ms at B = 1
 26. ``kernels`` the per-kernel record (launches, error, times, bound)
 
 then the card's name and power limit, and as the last line
@@ -873,11 +883,14 @@ def _shard_fwd_rank(rank, S, check_every):
     """One rank of ``shard_vs_plain``: the sharded forward, hard and soft,
     B = 1, every ``check_every``-th step's seven launches held against the
     plain bodies on the card (``checked_step`` raises on a difference), and
-    the whole episode against the single-shard STEP kernel's."""
+    the Q kernel's queues against ``plain_queues`` of the same gathered
+    rows; returns the episode for the parent to hold against the STEP
+    kernel's."""
     import torch
 
     from dhts_torch.ops.cuda import itscp_spatial_shard as ks
     from dhts_torch.ops.cuda import itscp_spatial_step as k6
+    from dhts_torch.parallel import collectives
 
     env = preset_env(torch.device("cuda"))
     out = {"checks": [], "errors": {}}
@@ -889,6 +902,8 @@ def _shard_fwd_rank(rank, S, check_every):
             out["scene"] = [float(x.double().sum()) for x in ins]
         run = ks.ShardRun(plan, comm, ins, dual=False)
         torch.cuda.synchronize()
+        counts = dict(collectives.counts)
+        secs = dict(collectives.seconds)
         t0 = time.perf_counter()
         plain_steps, stepped = 0, 0.0
         for t in range(plan.T):
@@ -906,125 +921,194 @@ def _shard_fwd_rank(rank, S, check_every):
         q, ev, w = run.outputs()
         torch.cuda.synchronize()
         seconds = time.perf_counter() - t0
-        qs, evs, ws = k6.spatial_episode_fwd(plan, *ins)
+        calls = {k: collectives.counts[k] - counts[k] for k in counts}
+        # the Q kernel against its plain version on the same gathered rows
+        q_plain = ks.plain_queues(plan, run.g["gq"].cpu())
+        q = q.cpu()
         rec = dict(mode="soft" if differentiable else "hard", S=S,
-                   seconds=seconds,
-                   events_equal=bool(torch.equal(ev, evs)),
-                   queues_equal=bool(torch.equal(q, qs)),
-                   waves_equal=bool(torch.equal(w, ws)),
-                   reward=float(-q.sum()), reward_step=float(-qs.sum()),
-                   queues_max_abs_err=float((q - qs).abs().max()),
-                   emitted=int(ev[..., 1].sum()),
-                   absorbed=int(ev[..., 2].sum()),
-                   step_wall_ms_host_staged_gloo=stepped / plain_steps * 1e3)
+                   seconds=seconds, q_kernel_equal=bool(torch.equal(
+                       q, q_plain)),
+                   q_kernel_max_abs_err=float((q - q_plain).abs().max()),
+                   episode=(q, ev.cpu(), w.cpu()),
+                   step_wall_ms_host_staged_gloo=stepped / plain_steps * 1e3,
+                   collectives=calls,
+                   collective_ms_host_staged_gloo={
+                       k: (collectives.seconds[k] - secs[k]) / n * 1e3
+                       for k, n in calls.items() if n})
         out["checks"].append(rec)
     return out
 
 
+def _step_episodes(env):
+    """The single-shard STEP kernel's episodes on the inputs of
+    ``_shard_fwd_rank`` (hard, soft), and the inputs' checksums."""
+    from dhts_torch.ops.cuda import itscp_spatial_step as k6
+
+    ins = spatial_inputs(env, 1, 101, np.full(env.action_size(), 0.55))
+    refs = [tuple(x.cpu() for x in k6.spatial_episode_fwd(
+        k6.make_plan(env, d), *ins)) for d in (False, True)]
+    return refs, [float(x.double().sum()) for x in ins]
+
+
 def check_shard_fwd(ranks) -> dict:
     """``shard_vs_plain``: the S = 4 ranks of ``ranks`` with per-launch
-    checks, then its S = 2 ranks, each episode against the STEP kernel's;
-    raises on a failure."""
-    recs, errors, ok, wall = [], {}, True, {}
+    checks, then its S = 2 ranks; every rank's episode against the STEP
+    kernel's, run once here while the S = 4 ranks work; raises on a
+    failure."""
+    import torch
+
+    recs, errors, ok, wall, coll = [], {}, True, {}, {}
+    submitted = ranks[SHARDS].submit(_shard_fwd_rank, (SHARD_CHECK_EVERY,))
+    refs, scene = _step_episodes(preset_env(torch.device("cuda")))
     for S, every in ((SHARDS, SHARD_CHECK_EVERY), (2, 0)):
-        outs = ranks[S].run(_shard_fwd_rank, (every,))
+        outs = (ranks[S].result(submitted) if S == SHARDS else
+                ranks[S].run(_shard_fwd_rank, (every,)))
         for o in outs:
             for body, e in o["errors"].items():
                 errors[body] = max(errors.get(body, 0.0), e)
-            ok = ok and o["scene"] == outs[0]["scene"]
+            ok = ok and o["scene"] == scene
         for rank, o in enumerate(outs):
-            for rec in o["checks"]:
+            for rec, ref in zip(o["checks"], refs):
+                (q, ev, w), (qs, evs, ws) = rec.pop("episode"), ref
+                rec.update(events_equal=bool(torch.equal(ev, evs)),
+                           queues_equal=bool(torch.equal(q, qs)),
+                           waves_equal=bool(torch.equal(w, ws)),
+                           reward=float(-q.sum()), reward_step=float(
+                               -qs.sum()),
+                           queues_max_abs_err=float((q - qs).abs().max()),
+                           emitted=int(ev[..., 1].sum()),
+                           absorbed=int(ev[..., 2].sum()))
                 ok = (ok and rec["events_equal"] and rec["queues_equal"] and
-                      rec["waves_equal"] and rec["emitted"] > 0)
+                      rec["waves_equal"] and rec["emitted"] > 0 and
+                      rec["q_kernel_equal"])
+                errors["Q"] = max(errors.get("Q", 0.0),
+                                  rec["q_kernel_max_abs_err"])
                 if rank == 0:
                     recs.append(rec)
         wall[S] = {c["mode"]: c["step_wall_ms_host_staged_gloo"]
                    for c in outs[0]["checks"]}
+        coll[S] = {c["mode"]: c["collective_ms_host_staged_gloo"]
+                   for c in outs[0]["checks"]}
     report(checks=recs, per_launch_max_abs_err=errors,
            step_wall_ms_host_staged_gloo=wall,
+           collective_ms_host_staged_gloo=coll,
            tolerance=dict(per_launch="integers equal, floats allclose(rtol "
                                      "1e-6, atol 1e-6), every 50th step",
+                          q_kernel="bit-equal to plain_queues of the same "
+                                   "gathered rows",
                           vs_step="events, queues, waves bit-equal"),
            status="ok" if ok else "FAIL")
     if not ok:
         raise SystemExit("shard_vs_plain failed")
-    return dict(errors=errors, step_wall_ms=wall)
+    return dict(errors=errors, step_wall_ms=wall, collective_ms=coll)
+
+
+T_PLAIN_BWD = 60  # steps of the plain forward-mode derivative's check
+
+
+def _shard_bwd_inputs(env):
+    """``shard_bwd_vs_plain``'s soft plan, inputs and loss weights at T =
+    600, and the same cut to the first ``T_PLAIN_BWD`` steps."""
+    import torch
+
+    from dhts_torch.ops.cuda import itscp_spatial_step as k6
+
+    plan = k6.make_plan(env, True)
+    rng = np.random.default_rng(3)
+    ins = spatial_inputs(env, 1, 201, rng.uniform(0.3, 0.7,
+                                                  env.action_size()))
+    wf = torch.full((1, plan.T), -1.0, device=env.device)
+    T = T_PLAIN_BWD
+    ins60 = list(ins)
+    ins60[1] = ins[1][:, :T].contiguous()
+    ins60[2:5] = [x[:T].contiguous() for x in ins[2:5]]
+    w60 = torch.as_tensor(rng.uniform(-1, 1, (1, T)), dtype=torch.float32,
+                          device=env.device)
+    return (plan, ins, wf), (plan._replace(T=T), ins60, w60)
 
 
 def _shard_bwd_rank(rank, S):
     """One rank of ``shard_bwd_vs_plain``: the sharded derivative at T =
-    600 against the STEP derivative, and over the first 60 steps against
-    the plain forward-mode sharded derivative."""
+    600 (its Q kernel against ``plain_gradient`` of the same gathered
+    tangent rows) and over the first 60 steps, for the parent to hold
+    against the STEP derivative and the plain forward-mode derivative."""
+    import torch
+
+    from dhts_torch.ops.cuda import itscp_spatial_shard as ks
+
+    env = preset_env(torch.device("cuda"))
+    (plan, ins, wf), (p60, ins60, w60) = _shard_bwd_inputs(env)
+    comm = _lane_comm(plan, S, rank)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    run = ks.ShardRun(plan, comm, ins, dual=True).run()
+    got = run.gradient(wf)
+    torch.cuda.synchronize()
+    seconds = time.perf_counter() - t0
+    q_plain = ks.plain_gradient(plan, run.g["gq"].cpu(), wf.cpu())
+    got60 = ks.shard_episode_bwd(p60, comm, w60, *ins60)
+    return dict(grad=got.cpu(), grad60=got60.cpu(), wall_s=seconds,
+                q_kernel_equal=bool(torch.equal(got.cpu(), q_plain)),
+                q_kernel_max_abs_err=float((got.cpu() - q_plain).abs().max()))
+
+
+def check_shard_bwd(ranks) -> dict:
+    """``shard_bwd_vs_plain``: the ranks' derivatives against the STEP
+    derivative and the plain forward-mode derivative (one shard), both run
+    once here while the ranks work; raises on a failure."""
     import torch
 
     from dhts_torch.ops.cuda import itscp_spatial_shard as ks
     from dhts_torch.ops.cuda import itscp_spatial_step as k6
 
+    submitted = ranks.submit(_shard_bwd_rank)
     env = preset_env(torch.device("cuda"))
-    plan = k6.make_plan(env, True)
-    comm = _lane_comm(plan, S, rank)
-    rng = np.random.default_rng(3)
-    ins = spatial_inputs(env, 1, 201, rng.uniform(0.3, 0.7,
-                                                  env.action_size()))
-    wf = torch.full((1, plan.T), -1.0, device=env.device)
+    (plan, ins, wf), (p60, ins60, w60) = _shard_bwd_inputs(env)
+    ref = k6.spatial_episode_bwd(plan, wf, *ins).cpu()
     torch.cuda.synchronize()
     t0 = time.perf_counter()
-    got = ks.shard_episode_bwd(plan, comm, wf, *ins)
-    torch.cuda.synchronize()
-    seconds = time.perf_counter() - t0
-    ref = k6.spatial_episode_bwd(plan, wf, *ins)
-    g, r = got.double().flatten(), ref.double().flatten()
-    scale = float(r.abs().max())
-    rec600 = dict(T=plan.T, cos=cosine(g, r), bit_equal=bool(
-        torch.equal(got, ref)), max_abs_err=float((g - r).abs().max()),
-        max_abs_ref=scale, finite=bool(torch.isfinite(g).all()),
-        close=bool(torch.allclose(g, r, rtol=2e-2, atol=2e-3 * scale)),
-        wall_s_host_staged_gloo=seconds)
-    T60 = 60
-    p60 = plan._replace(T=T60)
-    ins60 = list(ins)
-    ins60[1] = ins[1][:, :T60].contiguous()
-    ins60[2:5] = [x[:T60].contiguous() for x in ins[2:5]]
-    w = torch.as_tensor(rng.uniform(-1, 1, (1, T60)), dtype=torch.float32,
-                        device=env.device)
-    got = ks.shard_episode_bwd(p60, comm, w, *ins60).double().flatten()
-    torch.cuda.synchronize()
-    t0 = time.perf_counter()
-    ref = ks.plain_sharded_episode_bwd(p60, comm, w, *ins60)
+    ref60 = ks.plain_sharded_episode_bwd(p60, ks.LaneComm.whole(p60.L), w60,
+                                         *ins60).cpu()
     torch.cuda.synchronize()
     plain_s = time.perf_counter() - t0
-    ref = ref.double().flatten()
-    scale = float(ref.abs().max())
-    rec60 = dict(T=T60, cos=cosine(got, ref),
-                 max_abs_err=float((got - ref).abs().max()),
-                 max_abs_ref=scale, finite=bool(torch.isfinite(got).all()),
-                 close=bool(torch.allclose(got, ref, rtol=2e-2,
-                                           atol=2e-3 * scale)),
-                 plain_wall_s=plain_s)
-    return dict(vs_step=rec600, vs_plain=rec60)
+    outs = ranks.result(submitted)
 
+    def versus(got, r, **extra):
+        g, r = got.double().flatten(), r.double().flatten()
+        scale = float(r.abs().max())
+        return dict(cos=cosine(g, r), bit_equal=bool(torch.equal(g, r)),
+                    max_abs_err=float((g - r).abs().max()),
+                    max_abs_ref=scale, finite=bool(torch.isfinite(g).all()),
+                    close=bool(torch.allclose(g, r, rtol=2e-2,
+                                              atol=2e-3 * scale)), **extra)
 
-def check_shard_bwd(ranks) -> dict:
-    outs = ranks.run(_shard_bwd_rank)
-    ok = True
+    ok, recs = True, []
     for o in outs:
-        a, b = o["vs_step"], o["vs_plain"]
+        a = versus(o["grad"], ref, T=plan.T,
+                   wall_s_host_staged_gloo=o["wall_s"])
+        b = versus(o["grad60"], ref60, T=p60.T, plain_wall_s=plain_s)
         ok = (ok and a["finite"] and a["cos"] > 0.99999 and a["close"] and
               a["max_abs_ref"] > 0 and b["finite"] and b["cos"] > 0.99999
-              and b["close"] and b["max_abs_ref"] > 0)
-    report(S=SHARDS, vs_step_derivative=outs[0]["vs_step"],
-           vs_plain_forward_mode=outs[0]["vs_plain"],
-           ranks_equal=all(o["vs_step"]["max_abs_err"] ==
-                           outs[0]["vs_step"]["max_abs_err"] for o in outs),
+              and b["close"] and b["max_abs_ref"] > 0 and
+              o["q_kernel_equal"])
+        recs.append((a, b))
+    report(S=SHARDS, vs_step_derivative=recs[0][0],
+           vs_plain_forward_mode=recs[0][1],
+           q_kernel_max_abs_err=max(o["q_kernel_max_abs_err"] for o in outs),
+           ranks_equal=all(torch.equal(o["grad"], outs[0]["grad"])
+                           for o in outs),
            tolerance=dict(vs_step="cos > 0.99999, allclose(rtol 2e-2, atol "
                                   "2e-3 * max|g|); bit-equal expected",
                           vs_plain="first 60 steps: cos > 0.99999, the same "
-                                   "allclose"),
+                                   "allclose",
+                          q_kernel="bit-equal to plain_gradient of the same "
+                                   "gathered tangent rows"),
            status="ok" if ok else "FAIL")
     if not ok:
         raise SystemExit("shard_bwd_vs_plain failed")
-    return dict(max_abs_err=max(outs[0]["vs_step"]["max_abs_err"],
-                                outs[0]["vs_plain"]["max_abs_err"]))
+    return dict(max_abs_err=max(max(a["max_abs_err"], b["max_abs_err"])
+                                for a, b in recs),
+                q_max_abs_err=max(o["q_kernel_max_abs_err"] for o in outs))
 
 
 def _shard_train_rank(rank, S, argv):
@@ -1064,10 +1148,22 @@ def run_shard_train(ranks, log_root: str) -> dict:
     expected.update({b: T * (fwd_eps + bwd_eps) for b in ("D1", "D2")})
     expected.update({f"{b}_bwd": T * bwd_eps
                      for b in ("A", "B", "C", "D3", "E")})
+    # Q: once per episode
+    expected.update(Q=fwd_eps, Q_bwd=bwd_eps)
+    # collectives: per step 4 gathers and the running means' sums (the
+    # signal mean's in soft mode only: train steps soft, evaluations hard);
+    # per forward episode the queues' gather, the events' psum and the
+    # waves' pmax; per derivative episode the tangents' gather
+    expected_coll = {
+        "all_gather": 4 * T * (fwd_eps + bwd_eps),
+        "psum": (2 * T * (steps + bwd_eps) + T * len(evals) + 2 * fwd_eps +
+                 bwd_eps),
+        "pmax": fwd_eps}
     episodes = fwd_eps + bwd_eps
     per_step = {k: v / (T * episodes) for k, v in outs[0]["counts"].items()}
     ok = (steps == 2 and len(evals) == 2 and
           all(o["launches"] == expected for o in outs) and
+          all(o["counts"] == expected_coll for o in outs) and
           all(math.isfinite(x) for x in outs[0]["losses"] + evals) and
           all(o["losses"] == outs[0]["losses"] for o in outs) and
           all(all(bool((p == q).all()) for p, q in zip(o["params"],
@@ -1076,6 +1172,7 @@ def run_shard_train(ranks, log_root: str) -> dict:
     report(argv=argv, ranks=SHARDS, losses=outs[0]["losses"],
            eval_rewards=evals, launches=outs[0]["launches"],
            expected_launches=expected, collectives=outs[0]["counts"],
+           expected_collectives=expected_coll,
            collectives_per_step=per_step,
            note="collectives are gloo over host memory between ranks that "
                 "share the card, not the card's",
@@ -1108,56 +1205,9 @@ def _plain_call(run, body: str, t: int):
     import torch
     import torch.autograd.forward_ad as fwad
 
-    from dhts_torch.ops.cuda import itscp_spatial_shard as ks
-    from dhts_torch.ops.cuda import itscp_spatial_step as k6
-
-    plan, g = run.plan, run.geom
-    s, p_n, b, _ = run.shards[0]
-    lg = ks.local_geometry(g, s)
-    a2, rand, sched, mnext, mprev, routes = run.inputs
-    c = s.cols
-    G = run.g
-    n_act = plan.n_phases * plan.n_inter
-    rows = rand.repeat_interleave(n_act, 0) if run.dual else rand
-
     def call():
         with torch.no_grad(), fwad.dual_level():
-            dual = lambda v, d: v if d is None else fwad.make_dual(v, d)
-            carry, sg, ss = k6.unpack(p_n, b["fbuf"], b["ibuf"])
-            if run.dual:
-                tans = k6.unpack(p_n, b["dbuf"], b["ibuf"])[0]
-                carry = tuple(fwad.make_dual(x, d) if i in k6.CARRY_DIFF
-                              else x for i, (x, d) in
-                              enumerate(zip(carry, tans)))
-                action, seeds, _ = ks.dual_rows(plan, a2, rand)
-                act = fwad.make_dual(action, seeds)
-            else:
-                act = a2
-            gA = dual(G["gA_v"], G.get("gA_d"))
-            gF = dual(G["gF_v"], G.get("gF_d"))
-            if body == "A":
-                return ks.plain_body_A(plan, lg, carry, rows[:, t, c],
-                                       sched[t, c])
-            if body == "B":
-                return ks.plain_body_B(plan, g, lg, carry, gA, act, t,
-                                       mnext[t, c], mprev[t, c], sched[t, c],
-                                       routes)
-            if body == "C":
-                _, c_sig = ks.fold_sg(plan, sg, G["gsg"])
-                bc = dual(b["bc_v"], b["bc_d"])
-                return ks.plain_body_C(plan, g, lg, carry, bc, c_sig,
-                                       mnext[t, c], routes)
-            if body == "D1":
-                return ks.plain_body_D1(plan, g, lg, carry, b["sumF_v"],
-                                        b["sumI"], G["gF_v"], G["gI"])
-            if body == "D2":
-                return ks.plain_body_D2(plan, lg, G["gI"], G["gW"])
-            if body == "D3":
-                return ks.plain_body_D3(plan, g, lg, carry, gF, G["gI"],
-                                        G["gV"], b["pred"], b["bd"],
-                                        b["sumI"])
-            _, c_st = ks.fold_ss(plan, ss, G["gss"], G["gssn"])
-            return ks.plain_body_E(plan, lg, carry, c_st)
+            return run.plain(body, 0, t)
 
     return call
 
@@ -1210,8 +1260,10 @@ def time_shard(env) -> dict:
     back to back of shard 0's kernel at a quiet step, with that step's
     gathered rows in place (all four shards in this process, so no
     collective is inside the timing); the plain body's ms on the same
-    inputs; each launch's bytes bound. Timing launches are not the main
-    path's: the counters are restored."""
+    inputs; each launch's bytes bound. Q likewise on the q^2 rows gathered
+    so far, with the library's lane sum (forward) and weighted sum
+    (derivative) beside it. Timing launches are not the main path's: the
+    counters are restored."""
     import torch
 
     from dhts_torch.ops.cuda import itscp_spatial_shard as ks
@@ -1223,7 +1275,7 @@ def time_shard(env) -> dict:
     n = L // S
     n_act = soft.n_phases * soft.n_inter
     comm = ks.LaneComm(L, ks.shards_of(L, S))
-    ms, plain, bounds, steps, host = {}, {}, {}, {}, {}
+    ms, plain, bounds, steps, host, library = {}, {}, {}, {}, {}, {}
     for dual in (False, True):
         plan = soft if dual else hard
         for B in (1, 4):
@@ -1265,8 +1317,40 @@ def time_shard(env) -> dict:
                     plain[key] = cuda_ms(call, 5)
             restore()
             steps[("bwd" if dual else "fwd", B)] = t_q
+            # Q, once per episode, on the rows the run has gathered so far
+            key = "Q_bwd" if dual else "Q"
+            run.g = {}
+            run.gather(["q_d" if dual else "q_v"], "psum")
+            gq = run.g["gq"]
+            wq = torch.full((B, plan.T), -1.0, device=gq.device)
+            run.g["q_weight"] = wq
+            fn = lambda: run.launch("Q", 0, [0], repeat=50)
+            fn()
+            torch.cuda.synchronize()
+            ms.setdefault(key, {})[B] = cuda_ms(fn, 5) / 50
+            host.setdefault(key, {})[B] = cuda_ms(
+                lambda: run.launch("Q", 0, [0]), 5, 50)
+            # bytes: the gathered rows read once, the queues written once
+            # (the derivative: also the weights read, the row terms written)
+            nbytes = gq.numel() * 4 + N * plan.T * 4 + (
+                B * plan.T * 4 + N * 8 if dual else 0)
+            # one float64 add per entry, counted twice: the card's float64
+            # rate is half its float32 rate
+            bounds.setdefault(key, {})[B] = bound_of(nbytes, 2 * gq.numel())
+            if B == 1:
+                if dual:
+                    plain[key] = cuda_ms(lambda: ks.plain_gradient(
+                        plan, gq, wq), 5)
+                    wrows = wq.repeat_interleave(n_act, 0)
+                    library[key] = cuda_ms(lambda: torch.einsum(
+                        "ntl,nt->n", gq, wrows), 5)
+                else:
+                    plain[key] = cuda_ms(lambda: ks.plain_queues(plan, gq),
+                                         5)
+                    library[key] = cuda_ms(lambda: torch.sum(
+                        gq, -1, dtype=torch.float64), 5)
     ks.launches.update(saved)
-    return dict(ms=ms, plain_ms=plain, bounds=bounds, S=S,
+    return dict(ms=ms, plain_ms=plain, bounds=bounds, S=S, library_ms=library,
                 ms_one_call_per_launch=host,
                 quiet_steps={f"{k[0]}_B{k[1]}": v for k, v in steps.items()},
                 derivative_rows=n_act,
@@ -1670,13 +1754,16 @@ def main() -> int:
                 env.data.mroute_prev, rand, env.data.inj_routes,
                 env.base_state.route_pool)
 
-    checks = []
+    checks, plain_hard_ms = [], []
     max_abs_err = 0.0
     for a in (0.3, 0.7):
         inputs = k1_inputs(torch.full((env.action_size(),), a, device=dev))
         kr, kq, ke = kfn(plan, *inputs)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
         pr, pq, pe = k1.plain_episode(plan, *inputs)
         torch.cuda.synchronize()
+        plain_hard_ms.append((time.perf_counter() - t0) * 1e3)
         ev_equal = bool(torch.equal(ke, pe))
         rel = abs(float(kr) - float(pr)) / max(abs(float(pr)), 1e-30)
         q_err = float((kq - pq).abs().max())
@@ -1925,8 +2012,9 @@ def main() -> int:
     # timing launches are not the main path
     kfn.launches.update(counts[0])
     kfn_bwd.launches = counts[1]
-    # one run: the plain episode takes seconds on the card's host
-    plain_ms = cuda_ms(lambda: k1.plain_episode(plan, *inputs), 1)
+    # the plain episode takes seconds on the card's host: the mean of its
+    # two runs in k1_vs_plain, not a third
+    plain_ms = float(np.mean(plain_hard_ms))
     in_bytes = sum(x.numel() * x.element_size() for x in
                    (*inputs, plan.prog, plan.lane_i, plan.lane_f))
     out_bytes = (1 + T + 8 * T) * 4
@@ -2037,23 +2125,25 @@ def main() -> int:
 
     pallas_call = {"fwd": k6.REPLACES_FWD, "bwd": k6.REPLACES_BWD,
                    "sg": ks.REPLACES_SG}
-    for body in ks.BODIES + tuple(f"{b}_bwd" for b in ks.DUAL_BODIES):
+    for body in ks.KERNELS + tuple(f"{b}_bwd" for b in ks.DUAL_KERNELS):
         name = body.split("_")[0]
         wrap = ("bwd" if body.endswith("_bwd") else
                 "sg" if name in ("D1", "D2") else "fwd")
         b1 = shard_times["bounds"][body][1]
+        err = (shard_bwd["q_max_abs_err"] if body == "Q_bwd" else
+               shard_bwd["max_abs_err"] if wrap == "bwd" else
+               shard_fwd["errors"].get(name, 0.0))
         kernels.append({
             "name": f"itscp_spatial_shard_{name}_"
                     f"{'bwd' if wrap == 'bwd' else 'fwd'}",
             "route": "cuda", "source": ks.SOURCE,
             "replaces": ks.REPLACES[name], "pallas_call": pallas_call[wrap],
             "launches": shard_launches[body],
-            "max_abs_err": (shard_bwd["max_abs_err"] if wrap == "bwd" else
-                            shard_fwd["errors"].get(name, 0.0)),
-            "ms": shard_times["ms"][body][1],
+            "max_abs_err": err, "ms": shard_times["ms"][body][1],
             "plain_ms": shard_times["plain_ms"][body],
             "bound_ms": b1["bound_ms"], "bound_by": b1["bound_by"],
-            "library_ms": None, "batch": 1, "shards": SHARDS,
+            "library_ms": shard_times["library_ms"].get(body),
+            "batch": 1, "shards": SHARDS,
             "ms_by_batch": shard_times["ms"][body]})
     report(total_seconds=time.perf_counter() - t_start,
            slice3_seconds=slice3_seconds, slice4_seconds=slice4_seconds,

@@ -7,7 +7,9 @@
 // body_C (:440), body_D1 (:544), body_D2 (:592), body_D3 (:621) and body_E
 // (:847), wrapped at :883-919 by make_dkernel (A, B, C, D3, E;
 // dhts/ops/pallas/dkernel.py: forward pallas_call at :63, backward at :91)
-// and make_kernel_sg (D1, D2; :154). The specification is the plain PyTorch
+// and make_kernel_sg (D1, D2; :154). A further kernel, Q, does body_E's lane
+// sum of q^2 (:861-865) once per episode over the gathered rows, and in a
+// derivative the loss weights' sum over the steps. The specification is the plain PyTorch
 // bodies beside the wrapper (dhts_torch/ops/cuda/itscp_spatial_shard.py::
 // plain_body_A ... plain_body_E): every per-lane value is computed with the
 // same IEEE operations in the same order (-fmad=false, no fast math), so
@@ -30,7 +32,9 @@
 // Sums: the signal and static running means and the queue are summed from
 // per-lane terms gathered over the lane axis, by one thread in lane order in
 // float64 and rounded once, as the STEP kernel sums them, so the sharded
-// episode equals the single-shard one bit for bit at any shard count.
+// episode equals the single-shard one bit for bit at any shard count. In
+// hard mode the signal mean sharpens nothing, and a split lane axis does not
+// gather its terms (C then leaves it as it is), as JAX's sharded step.
 //
 // Bound. Each launch moves the shard's share of a step's state (the macro
 // cells, the vehicles present, the counters) and the gathered rows, a few
@@ -81,6 +85,10 @@ struct ShardArgs {
   const int* gssn;      // E: [N, 2, L]
   float* q_v;           // E: [N, T, n] the lanes' squared queues
   float* q_d;
+  const float* gq;      // Q: [N, T, L] gathered q_v (q_d in a derivative)
+  float* queues;        // Q: [N, T] (a derivative: the queues' tangents)
+  const float* q_weight;  // Q derivative: [B, T] the loss weights
+  double* grad;         // Q derivative: [N]
   int N, t, off, n;
   Dims d;
   Consts k;
@@ -90,7 +98,8 @@ constexpr int A_ROWS = 9, BC_ROWS = 10, F_ROWS = 15, I_ROWS = 4;
 enum { F_RLAST, F_ULAST, F_COUNT, F_TPOS, F_TLEN, F_CAP, F_HPOS, F_HVEL,
        F_HLEN, F_HA, F_AMAX };
 enum { I_MN, I_RIDX, I_HNEXT, I_RID };
-enum { BODY_A, BODY_B, BODY_C, BODY_D1, BODY_D2, BODY_D3, BODY_E };
+enum { BODY_A, BODY_B, BODY_C, BODY_D1, BODY_D2, BODY_D3, BODY_E, BODY_Q };
+constexpr int Q_THREADS = 128;  // Q's block (a step per thread, strided)
 
 // offsets of the packed carry of n lanes (float_layout / int_layout of the
 // wrapper at the shard's lanes)
@@ -405,9 +414,9 @@ __global__ void shard_C(ShardArgs a) {
   const Scene& sc = k.sc;
   const int gl = k.gl;
   auto clampL = [&](int q) { return min(max(q, 0), L - 1); };
-  if (threadIdx.x == 0) {
+  if (threadIdx.x == 0 && a.gsg != nullptr) {
     // signal running mean from the gathered per-lane terms, in lane order;
-    // its detached mean sharpens the blend gate
+    // its detached mean sharpens the blend gate (soft modes only)
     const float* gs = a.gsg + (size_t)k.e * 2 * L;
     double tot = 0.0;
     int cnt = 0;
@@ -648,6 +657,32 @@ __global__ void shard_E(ShardArgs a) {
   }
 }
 
+// ========= Q: the episode's queues from the gathered q^2 rows ==========
+// One block per row, the steps strided over its threads: a step's L lanes
+// summed in lane order in float64, rounded once, times dt (the STEP
+// kernel's reduction). In a derivative the rows are tangents, and thread 0
+// then adds q_weight[b, t] * tangent over the steps in float64, in step
+// order, into grad[row].
+__global__ void shard_Q(ShardArgs a) {
+  const int e = blockIdx.x, L = a.d.L, T = a.d.T;
+  const float* q = a.gq + (size_t)e * T * L;
+  float* out = a.queues + (size_t)e * T;
+  for (int t = threadIdx.x; t < T; t += Q_THREADS) {
+    double s = 0.0;
+    for (int l = 0; l < L; ++l) s += (double)q[(size_t)t * L + l];
+    out[t] = (float)s * a.k.dt;
+  }
+  if (a.grad == nullptr) return;
+  __syncthreads();
+  if (threadIdx.x == 0) {
+    const int n_act = a.d.n_phases * a.d.n_inter;
+    const float* w = a.q_weight + (size_t)(e / n_act) * T;
+    double g = 0.0;
+    for (int t = 0; t < T; ++t) g += (double)w[t] * (double)out[t];
+    a.grad[e] = g;
+  }
+}
+
 // dynamic shared memory of a body's block
 template <class S>
 size_t smem_of(int body, int L, int n) {
@@ -676,7 +711,7 @@ template <class S, class Kernel>
 int run(Kernel kernel, int body, const ShardArgs& a, int repeat,
         void* stream) {
   const size_t smem = smem_of<S>(body, a.d.L, a.n);
-  const int threads = ((a.n + 31) / 32) * 32;
+  const int threads = body == BODY_Q ? Q_THREADS : ((a.n + 31) / 32) * 32;
   for (int r = 0; r < repeat; ++r) {
 #ifdef DHTS_CPU_EMULATION
     (void)stream;
@@ -699,7 +734,9 @@ size_t itscp_shard_args_size() { return sizeof(ShardArgs); }
 
 // Launch body `body` (0..6: A, B, C, D1, D2, D3, E) of step a->t on the
 // a->N rows of one shard, in `Dual` when `dual` (A, B, C, D3, E; the rows
-// are then B * n_act dual episodes), `repeat` times back to back (1 on the
+// are then B * n_act dual episodes), or (7: Q) the episode's queues from the
+// gathered rows a->gq, and with `dual` the gradient's terms a->grad from
+// their tangents; `repeat` times back to back (1 on the
 // main path; a timing asks for more, so that the host's cost of a launch
 // is not in the time); `args` points to a ShardArgs (taken as void*: the
 // struct's type has internal linkage, and a function with C linkage must
@@ -710,8 +747,13 @@ int launch_itscp_shard(int body, int dual, const void* args, int repeat,
   const ShardArgs* a = static_cast<const ShardArgs*>(args);
   const Dims& d = a->d;
   const bool dual_ok = body == BODY_A || body == BODY_B || body == BODY_C ||
-                       body == BODY_D3 || body == BODY_E;
-  if (body < BODY_A || body > BODY_E || (dual && !dual_ok) || a->N < 1 ||
+                       body == BODY_D3 || body == BODY_E || body == BODY_Q;
+  if (body == BODY_Q &&
+      (!a->gq || !a->queues || (dual && (!a->grad || !a->q_weight)) ||
+       (!dual && a->grad)))
+    return 1;
+  if (body == BODY_C && d.mode != HARD && !a->gsg) return 1;
+  if (body < BODY_A || body > BODY_Q || (dual && !dual_ok) || a->N < 1 ||
       a->n < 1 || a->n > 1024 || a->off < 0 || a->off + a->n > d.L ||
       d.L > 1024 || d.C < 1 || d.C > MAXC || d.V < 1 || d.R < 1 ||
       d.K < 1 || d.mode < HARD || d.mode > SOFT || a->t < 0 ||
@@ -725,7 +767,8 @@ int launch_itscp_shard(int body, int dual, const void* args, int repeat,
       case BODY_B: return run<Dual>(shard_B<Dual>, body, *a, r, stream);
       case BODY_C: return run<Dual>(shard_C<Dual>, body, *a, r, stream);
       case BODY_D3: return run<Dual>(shard_D3<Dual>, body, *a, r, stream);
-      default: return run<Dual>(shard_E<Dual>, body, *a, r, stream);
+      case BODY_E: return run<Dual>(shard_E<Dual>, body, *a, r, stream);
+      default: return run<float>(shard_Q, body, *a, r, stream);
     }
   }
   switch (body) {
@@ -735,7 +778,8 @@ int launch_itscp_shard(int body, int dual, const void* args, int repeat,
     case BODY_D1: return run<float>(shard_D1, body, *a, r, stream);
     case BODY_D2: return run<float>(shard_D2, body, *a, r, stream);
     case BODY_D3: return run<float>(shard_D3<float>, body, *a, r, stream);
-    default: return run<float>(shard_E<float>, body, *a, r, stream);
+    case BODY_E: return run<float>(shard_E<float>, body, *a, r, stream);
+    default: return run<float>(shard_Q, body, *a, r, stream);
   }
 }
 

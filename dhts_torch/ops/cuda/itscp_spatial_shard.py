@@ -35,8 +35,10 @@ E     the lanes' squared soft queues ``q^2`` (one row per step)
 ====  ===================================================================
 
 Per episode the lanes' ``q^2`` rows are gathered once and summed in lane
-order, and the event counts and wave maxima are reduced once (one psum,
-one pmax), as JAX reduces its partials once per episode.
+order (on the card by a kernel of its own, Q), and the event counts and
+wave maxima are reduced once (one psum, one pmax), as JAX reduces its
+partials once per episode. In hard mode a split lane axis skips the
+signal terms' sum, as JAX does (:func:`gathers_sg`).
 
 Sums: the two running means and the queue are summed from per-lane terms
 in lane order on every rank (float64, rounded once), exactly as the
@@ -56,8 +58,12 @@ replicated without a gradient all-reduce.
 * :class:`ShardRun` launches the hand-written kernels of
   ``csrc/itscp_spatial_shard.cu`` (one launch per body and step, one block
   per episode, one thread per local lane; a ``Dual`` variant of A, B, C,
-  D3 and E with one block per episode and action entry) between the same
-  gathers; each launch counts in :data:`launches`.
+  D3 and E with one block per episode and action entry; Q once per
+  episode) between the same gathers; each launch counts in
+  :data:`launches`. :data:`STEP` describes each body once: its plain
+  version on the run's buffers, where its kernel writes, and what is
+  gathered after it; the run's step, its checked step and the card's
+  timing of the plain bodies all go through it.
 * :func:`shard_episode_fwd` and :func:`shard_episode_bwd` are the wrappers:
   CPU tensors run the plain versions, CUDA tensors the kernels.
   :func:`make_shard_episode_op` is K5's op around the episode.
@@ -89,8 +95,15 @@ HARD = k6.HARD
 
 BODIES = ("A", "B", "C", "D1", "D2", "D3", "E")
 DUAL_BODIES = ("A", "B", "C", "D3", "E")  # D1, D2 are wholly discrete
-# launches per kernel: forward "A" ... "E", derivative "A_bwd" ... "E_bwd"
-launches = {**{b: 0 for b in BODIES}, **{f"{b}_bwd": 0 for b in DUAL_BODIES}}
+# the kernels: the bodies, and Q, body_E's lane sum of q^2 (:861-865) once
+# per episode over the gathered rows (in a derivative, with the loss
+# weights' sum over the steps)
+KERNELS = BODIES + ("Q",)
+DUAL_KERNELS = DUAL_BODIES + ("Q",)
+REPLACES["Q"] = f"{PALLAS}:861"
+# launches per kernel: forward "A" ... "Q", derivative "A_bwd" ... "Q_bwd"
+launches = {**{b: 0 for b in KERNELS},
+            **{f"{b}_bwd": 0 for b in DUAL_KERNELS}}
 
 # rows of the summaries (JAX's names and order)
 A_ROWS = ("r_first", "u_first", "r_last", "u_last", "count", "tail_pos",
@@ -661,6 +674,11 @@ class LaneComm:
     def whole(cls, L: int) -> "LaneComm":
         return cls(L, [Shard(0, L)])
 
+    @property
+    def split(self) -> bool:
+        """Whether the lane axis is cut into more than one shard."""
+        return self.group is not None or len(self.shards) > 1
+
     def gather(self, parts, kind: str = "all_gather"):
         """``parts[i]``: the rows ``[..., n_i]`` of local shard i (the same
         list of tensors for every shard). Returns each tensor of the list
@@ -709,6 +727,15 @@ class ShardOut(NamedTuple):
     floor_hits: torch.Tensor  # [B]
 
 
+def gathers_sg(plan, comm: LaneComm) -> bool:
+    """Whether a step gathers the signal mean's terms after B and folds
+    them in C: in the soft modes, whose blend gate the mean sharpens, and
+    on a lane axis of one shard (where it costs no collective). A split
+    lane axis in hard mode leaves the mean as it is, as JAX's sharded step
+    does (``if diff``); the mean reaches no output there."""
+    return plan.mode != HARD or not comm.split
+
+
 def plain_shard_step(plan, g, comm: LaneComm, states, t: int, action2d,
                      rand_t, sched_t, mnext_t, mprev_t, routes):
     """One step of this process's shards (``states[i] = (carry, sg_ms,
@@ -724,8 +751,10 @@ def plain_shard_step(plan, g, comm: LaneComm, states, t: int, action2d,
     outB = [plain_body_B(plan, g, lg, st[0], gA, action2d, t, mnext_t[c],
                          mprev_t[c], sched_t[c], routes)
             for lg, st, c in zip(lgs, states, cols)]
-    (gsg,) = comm.gather([[o.sg] for o in outB], "psum")
-    sg_ms, c_sig = fold_sg(plan, states[0][1], gsg)
+    sg_ms, c_sig = states[0][1], None
+    if gathers_sg(plan, comm):
+        (gsg,) = comm.gather([[o.sg] for o in outB], "psum")
+        sg_ms, c_sig = fold_sg(plan, sg_ms, gsg)
     outC = [plain_body_C(plan, g, lg, o.carry, o.bc, c_sig, mnext_t[c],
                          routes) for lg, o, c in zip(lgs, outB, cols)]
     gF, gI = comm.gather([[o.sumF, o.sumI] for o in outC])
@@ -787,8 +816,14 @@ def _episode_outputs(plan, comm, q2, events, waves):
     """Queues ``[B, T]`` (the lanes' squared queues gathered once and
     summed in lane order), events and wave maxima reduced once."""
     (q2g,) = comm.gather([[q] for q in q2], "psum")
-    queues = lane_sum32(q2g.cpu()).to(q2g.device) * plan.floats[1]
-    return queues, comm.psum(events), comm.pmax(waves)
+    return plain_queues(plan, q2g), comm.psum(events), comm.pmax(waves)
+
+
+def plain_queues(plan, q2g):
+    """Plain version of the Q kernel: the queues ``[N, T]`` of the
+    gathered ``q^2`` rows ``[N, T, L]``, summed in lane order in float64,
+    rounded once and scaled by dt (in lane order on CPU tensors)."""
+    return lane_sum32(q2g) * plan.floats[1]
 
 
 def plain_sharded_episode(plan, comm, action2d, rand, sched, mnext, mprev,
@@ -802,21 +837,21 @@ def plain_sharded_episode(plan, comm, action2d, rand, sched, mnext, mprev,
         return _episode_outputs(plan, comm, q2, events, waves)
 
 
-def _gradient(plan, qd, q_weight):
-    """``sum_{b,t} q_weight[b, t] * d(queue[b, t]) / d(action)`` from the
-    tangents ``qd [B * n_act, T, L]`` of the lanes' squared queues (row ``b
-    * n_act + j`` seeds action entry j): each step's tangent summed over
-    the lanes in float64 in lane order, rounded once and scaled by dt, then
-    accumulated over the steps in float64, as the STEP derivative kernel
-    accumulates it."""
+def plain_gradient(plan, qd, q_weight):
+    """Plain version of the Q kernel's derivative with its sum over the
+    episodes: ``sum_{b,t} q_weight[b, t] * d(queue[b, t]) / d(action)``
+    from the tangents ``qd [B * n_act, T, L]`` of the lanes' squared
+    queues (row ``b * n_act + j`` seeds action entry j): each step's
+    tangent summed over the lanes in float64 in lane order, rounded once
+    and scaled by dt, then accumulated over the steps in float64, as the
+    STEP derivative kernel accumulates it."""
     n_act = plan.n_phases * plan.n_inter
-    dev = qd.device
-    tq = lane_sum32(qd.cpu()) * plan.floats[1]  # [N, T]
-    w = q_weight.cpu().repeat_interleave(n_act, 0).to(torch.float64)
+    tq = plain_queues(plan, qd)  # [N, T]
+    w = q_weight.repeat_interleave(n_act, 0).to(torch.float64)
     g64 = _seq_sum64(w * tq.to(torch.float64), -1)
     B = q_weight.shape[0]
     return g64.view(B, -1).sum(0).to(torch.float32).view(
-        plan.n_phases, plan.n_inter).to(dev)
+        plan.n_phases, plan.n_inter)
 
 
 def dual_rows(plan, action2d, rand):
@@ -847,7 +882,7 @@ def plain_sharded_episode_bwd(plan, comm, q_weight, action2d, rand, sched,
         qd, _, _ = _run_plain(plan, comm, a, rand_n, sched, mnext, mprev,
                               routes, True)
     (qdg,) = comm.gather([[q] for q in qd], "psum")
-    return _gradient(plan, qdg, q_weight)
+    return plain_gradient(plan, qdg, q_weight)
 
 
 # ---------------------------------------------------------------------------
@@ -859,11 +894,16 @@ PTRS = ("fbuf", "dbuf", "ibuf", "action", "rand", "sched", "mnext", "mprev",
         "routes", "prog", "lane_i", "lane_f", "sumA_v", "sumA_d", "gA_v",
         "gA_d", "bc_v", "bc_d", "sg", "events", "gsg", "sumF_v", "sumF_d",
         "sumI", "waves", "gF_v", "gF_d", "gI", "wrow", "pred", "gW", "bd",
-        "gV", "ss", "ssn", "gss", "gssn", "q_v", "q_d")
-# the pointers to this step's gathered rows (set before every launch; the
-# others are fixed for a ShardRun)
+        "gV", "ss", "ssn", "gss", "gssn", "q_v", "q_d", "gq", "queues",
+        "q_weight", "grad")
+# the pointers to this step's gathered rows and Q's weights (set before
+# every launch; the others are fixed for a ShardRun)
 GATHERED = ("gA_v", "gA_d", "gsg", "gF_v", "gF_d", "gI", "gW", "gV", "gss",
-            "gssn")
+            "gssn", "gq", "q_weight")
+# the gathered name of a local row where it is not "g" + its name
+GATHERED_AS = {"sumA_v": "gA_v", "sumA_d": "gA_d", "sumF_v": "gF_v",
+               "sumF_d": "gF_d", "wrow": "gW", "bd": "gV", "q_v": "gq",
+               "q_d": "gq", "sumI": "gI"}
 DIMS = ("T", "L", "C", "V", "R", "P", "P2", "K", "W", "nsf", "n_phases",
         "n_inter", "mode")
 CONSTS = ("u_max", "dt", "veh_len", "static_speed", "rare_den", "third",
@@ -912,7 +952,8 @@ class ShardRun:
     (default), or the host build of the same source for CPU tensors (the
     tests). D1 and D2 run through K5's stop-gradient op
     (:func:`make_kernel_sg`: the kernel on CUDA tensors, the plain body on
-    CPU tensors). Each launch counts in :data:`launches`."""
+    CPU tensors). Each launch counts in :data:`launches`. The step is
+    :data:`STEP`, one entry per body."""
 
     def __init__(self, plan, comm: LaneComm, inputs, dual: bool, lib=None):
         action2d, rand, sched, mnext, mprev, routes = inputs
@@ -922,6 +963,7 @@ class ShardRun:
         self.lib = _library() if lib is None else lib
         self.stream = _launch.stream(dev) if dev.type == "cuda" else 0
         self.geom = g = k6.geometry(plan, dev)
+        self.sg_gathered = gathers_sg(plan, comm)
         n_act = plan.n_phases * plan.n_inter
         self.B = B = rand.shape[0]
         self.N = N = B * n_act if dual else B
@@ -929,6 +971,11 @@ class ShardRun:
         f32 = dict(dtype=torch.float32, device=dev)
         i32 = dict(dtype=torch.int32, device=dev)
         carry, sg, ss = k6.initial_carry(plan, N, dev)
+        # Q's outputs: the episode's queues (their tangents in a derivative)
+        # and the gradient's terms of each row
+        self.queues = torch.zeros((N, T), **f32)
+        self.grad = (torch.zeros(N, dtype=torch.float64, device=dev) if dual
+                     else None)
         self.shards = []
         for s in comm.shards:
             p_n = plan._replace(L=s.n)
@@ -963,13 +1010,14 @@ class ShardRun:
             fixed = dict(bufs, action=action2d, rand=rand, sched=sched,
                          mnext=mnext, mprev=mprev, routes=routes,
                          prog=plan.prog, lane_i=plan.lane_i,
-                         lane_f=plan.lane_f)
+                         lane_f=plan.lane_f, queues=self.queues,
+                         grad=self.grad)
             for name in PTRS:
                 x = fixed.get(name)
                 if name not in GATHERED and x is not None:
                     setattr(args, name, x.data_ptr())
             self.shards.append((s, p_n, bufs, args))
-        self.g = {}  # this step's gathered rows
+        self.g = {}  # this step's gathered rows (and Q's weights)
         self.sg_ops = [self._sg_ops(i) for i in range(len(self.shards))]
 
     def _sg_ops(self, i):
@@ -997,17 +1045,18 @@ class ShardRun:
                     d2_kernel, name="spatialD2")}
 
     def launch(self, body: str, t: int, which=None, repeat: int = 1):
-        """Launch ``body``'s kernel for step t on the local shards
-        ``which`` (default all), reading this step's gathered rows;
-        ``repeat`` times back to back (a timing's launches)."""
-        dual = self.dual and body in DUAL_BODIES
+        """Launch ``body``'s kernel (one of :data:`KERNELS`) for step t on
+        the local shards ``which`` (default all), reading this step's
+        gathered rows; ``repeat`` times back to back (a timing's
+        launches)."""
+        dual = self.dual and body in DUAL_KERNELS
         for i in range(len(self.shards)) if which is None else which:
             _, _, bufs, args = self.shards[i]
             args.t = t
             for name in GATHERED:
                 x = self.g.get(name)
                 setattr(args, name, None if x is None else x.data_ptr())
-            err = self.lib.launch_itscp_shard(BODIES.index(body), int(dual),
+            err = self.lib.launch_itscp_shard(KERNELS.index(body), int(dual),
                                               ctypes.byref(args), repeat,
                                               ctypes.c_void_p(self.stream))
             _launch.raise_on(err, f"itscp_spatial_shard {body}")
@@ -1030,7 +1079,8 @@ class ShardRun:
 
     def gather(self, names, kind="all_gather"):
         """Gather the local rows ``names`` (with their tangent rows in the
-        derivative) into this step's gathered rows."""
+        derivative) into this step's gathered rows: ``sumA_v`` -> ``gA_v``,
+        ``sg`` -> ``gsg``, ``q_v`` -> ``gq``."""
         full = []
         for name in names:
             full.append(name)
@@ -1039,29 +1089,28 @@ class ShardRun:
                 full.append(tan)
         parts = [[bufs[x] for x in full] for _, _, bufs, _ in self.shards]
         out = self.comm.gather(parts, kind)
-        gname = {"sumA_v": "gA_v", "sumA_d": "gA_d", "sg": "gsg",
-                 "sumF_v": "gF_v", "sumF_d": "gF_d", "sumI": "gI",
-                 "wrow": "gW", "bd": "gV", "ss": "gss", "ssn": "gssn"}
         for x, y in zip(full, out):
-            self.g[gname[x]] = y.contiguous()
+            self.g[GATHERED_AS.get(x, "g" + x)] = y.contiguous()
 
-    # the step: (launch or stop-gradient op, body, rows gathered after it)
-    SEQUENCE = (("A", ["sumA_v"], "all_gather"), ("B", ["sg"], "psum"),
-                ("C", ["sumF_v", "sumI"], "all_gather"),
-                ("D1", ["wrow"], "all_gather"), ("D2", ["bd"], "all_gather"),
-                ("D3", ["ss", "ssn"], "psum"), ("E", [], None))
+    def gathers_after(self, body: str) -> tuple:
+        """The local rows gathered after ``body`` in this run (B's signal
+        terms only where :func:`gathers_sg`)."""
+        if body == "B" and not self.sg_gathered:
+            return ()
+        return STEP[body].gather
 
     def step(self, t: int):
-        """Step t: the seven bodies on every local shard and the five
-        gathers and two sums between them."""
+        """Step t: the seven bodies on every local shard and the gathers
+        between them (five gathers and two sums in soft modes)."""
         self.g = {}
-        for body, names, kind in self.SEQUENCE:
+        for body, spec in STEP.items():
             if body in ("D1", "D2"):
                 self._sg(body, t)
             else:
                 self.launch(body, t)
+            names = self.gathers_after(body)
             if names:
-                self.gather(names, kind)
+                self.gather(names, spec.kind)
 
     def run(self):
         for t in range(self.plan.T):
@@ -1073,19 +1122,50 @@ class ShardRun:
         _, p_n, bufs, _ = self.shards[i]
         return k6.unpack(p_n, bufs["fbuf"], bufs["ibuf"])
 
+    def view(self, i: int, t: int, state=None) -> "ShardView":
+        """Shard i's inputs of step t as they stand in the buffers, from
+        ``state`` (``(carry, sg_ms, ss_ms)``; default: the shard's state
+        now). In a derivative run the float rows, the carry and the action
+        are forward-mode duals: use it inside
+        ``torch.autograd.forward_ad.dual_level()``, with the default
+        state."""
+        import torch.autograd.forward_ad as fwad
+
+        plan = self.plan
+        s, p_n, b, _ = self.shards[i]
+        a2, rand, sched, mnext, mprev, routes = self.inputs
+        c = s.cols
+        carry, sg, ss = self.carry(i) if state is None else state
+        if self.dual:
+            if state is not None:
+                raise ValueError("a derivative's view starts from now")
+            tans = k6.unpack(p_n, b["dbuf"], b["ibuf"])[0]
+            carry = tuple(fwad.make_dual(x, d) if j in k6.CARRY_DIFF else x
+                          for j, (x, d) in enumerate(zip(carry, tans)))
+            action, seeds, rand = dual_rows(plan, a2, rand)
+            a2 = fwad.make_dual(action, seeds)
+        return ShardView(self, b, self.g, plan, self.geom,
+                         local_geometry(self.geom, s), t, i, carry, sg, ss,
+                         a2, rand[:, t, c], sched[t, c], mnext[t, c],
+                         mprev[t, c], routes)
+
+    def plain(self, body: str, i: int, t: int, state=None) -> dict:
+        """``body``'s plain version on shard i's inputs of step t (see
+        :meth:`view`): ``{output: tensor}``."""
+        return STEP[body].plain(self.view(i, t, state))
+
     def checked_step(self, t: int, rtol: float = 0.0, atol: float = 0.0):
         """Step t of a forward with every launch (D1 and D2 as kernels too)
-        held against its plain body on the same inputs: integers equal,
-        floats allclose(rtol, atol). Returns ``{body: max_abs_err}`` and
-        raises ``AssertionError`` naming the first output that differs."""
+        held against its plain body on the same inputs, output by output as
+        :data:`STEP` names them: integers equal, floats allclose(rtol,
+        atol). Returns ``{body: max_abs_err}`` and raises
+        ``AssertionError`` naming the first output that differs."""
         if self.dual:
             raise ValueError("the check runs the forward")
-        plan, g = self.plan, self.geom
-        a2, rand, sched, mnext, mprev, routes = self.inputs
         errs = {}
 
         def same(body, name, ref, got):
-            ref, got = ref.to(got.dtype), got
+            ref = ref.to(got.dtype)
             if got.is_floating_point():
                 err = float((ref - got).abs().max()) if got.numel() else 0.0
                 errs[body] = max(errs.get(body, 0.0), err)
@@ -1096,106 +1176,158 @@ class ShardRun:
                 raise AssertionError(f"step {t}, body {body}: {name} differs"
                                      f" from its plain body")
 
-        def snap():
-            out = []
-            for i in range(len(self.shards)):
-                carry, sg, ss = self.carry(i)
-                out.append((tuple(x.clone() for x in carry), sg.clone(),
-                            ss.clone()))
-            return out
-
-        def same_state(body, i, carry, sg=None, ss=None):
-            got, gsg, gss = self.carry(i)
-            for name, a, b in zip(k6.CNAMES, carry, got):
-                same(body, name, a, b)
-            for name, a, b in (("sg_ms", sg, gsg), ("ss_ms", ss, gss)):
-                if a is not None:
-                    same(body, name, a, b)
+        def snap(i):
+            carry, sg, ss = self.carry(i)
+            return tuple(x.clone() for x in carry), sg.clone(), ss.clone()
 
         self.g = {}
-        lgs = [local_geometry(g, s) for s, _, _, _ in self.shards]
-        cols = [s.cols for s, _, _, _ in self.shards]
-        bufs = [b for _, _, b, _ in self.shards]
-        before = snap()
-        self.launch("A", t)
-        for i, lg in enumerate(lgs):
-            same("A", "sumA", plain_body_A(plan, lg, before[i][0],
-                                           rand[:, t, cols[i]],
-                                           sched[t, cols[i]]),
-                 bufs[i]["sumA_v"])
-        self.gather(["sumA_v"])
-        before = snap()
-        self.launch("B", t)
-        for i, lg in enumerate(lgs):
-            o = plain_body_B(plan, g, lg, before[i][0], self.g["gA_v"], a2, t,
-                             mnext[t, cols[i]], mprev[t, cols[i]],
-                             sched[t, cols[i]], routes)
-            same_state("B", i, o.carry)
-            same("B", "bc", o.bc, bufs[i]["bc_v"])
-            same("B", "sg", o.sg, bufs[i]["sg"])
-            same("B", "n_inj", o.n_inj, bufs[i]["events"][:, t, 0])
-        self.gather(["sg"], "psum")
-        before = snap()
-        self.launch("C", t)
-        for i, lg in enumerate(lgs):
-            sg_ms, c_sig = fold_sg(plan, before[i][1], self.g["gsg"])
-            o = plain_body_C(plan, g, lg, before[i][0], bufs[i]["bc_v"], c_sig,
-                             mnext[t, cols[i]], routes)
-            same_state("C", i, o.carry, sg_ms)
-            same("C", "sumF", o.sumF, bufs[i]["sumF_v"])
-            same("C", "sumI", o.sumI, bufs[i]["sumI"])
-            same("C", "wave", o.wave, bufs[i]["waves"][:, t])
-        self.gather(["sumF_v", "sumI"])
-        self.launch("D1", t)
-        for i, lg in enumerate(lgs):
-            carry = tuple(x.clone() for x in self.carry(i)[0])
-            wrow, pred = plain_body_D1(plan, g, lg, carry, bufs[i]["sumF_v"],
-                                       bufs[i]["sumI"], self.g["gF_v"],
-                                       self.g["gI"])
-            same("D1", "wrow", wrow, bufs[i]["wrow"])
-            same("D1", "pred", pred, bufs[i]["pred"])
-        self.gather(["wrow"])
-        self.launch("D2", t)
-        for i, lg in enumerate(lgs):
-            same("D2", "bd", plain_body_D2(plan, lg, self.g["gI"],
-                                           self.g["gW"]), bufs[i]["bd"])
-        self.gather(["bd"])
-        before = snap()
-        self.launch("D3", t)
-        for i, lg in enumerate(lgs):
-            o = plain_body_D3(plan, g, lg, before[i][0], self.g["gF_v"],
-                              self.g["gI"], self.g["gV"], bufs[i]["pred"],
-                              bufs[i]["bd"], bufs[i]["sumI"])
-            same_state("D3", i, o.carry)
-            same("D3", "ss", o.ss, bufs[i]["ss"])
-            same("D3", "ssn", o.ssn, bufs[i]["ssn"])
-            same("D3", "events", o.ev[:, :2], bufs[i]["events"][:, t, 1:])
-        self.gather(["ss", "ssn"], "psum")
-        before = snap()
-        self.launch("E", t)
-        for i, lg in enumerate(lgs):
-            ss_ms, c_st = fold_ss(plan, before[i][2], self.g["gss"],
-                                  self.g["gssn"])
-            same_state("E", i, before[i][0], ss=ss_ms)
-            same("E", "q2", plain_body_E(plan, lg, before[i][0], c_st),
-                 bufs[i]["q_v"][:, t])
+        for body, spec in STEP.items():
+            before = [snap(i) for i in range(len(self.shards))]
+            self.launch(body, t)
+            for i in range(len(self.shards)):
+                ref = self.plain(body, i, t, before[i])
+                got = spec.written(self.view(i, t))
+                for name, r in ref.items():
+                    if name == "carry":
+                        for cn, a, b in zip(k6.CNAMES, r, got[name]):
+                            same(body, cn, a, b)
+                    else:
+                        same(body, name, r, got[name])
+            names = self.gathers_after(body)
+            if names:
+                self.gather(names, spec.kind)
         return errs
 
     def outputs(self):
         """The episode's queues ``[B, T]``, events and wave maxima (every
-        rank the whole result) after :meth:`run` of a forward."""
+        rank the whole result) after :meth:`run` of a forward: the lanes'
+        ``q^2`` rows gathered once and summed by the Q kernel."""
         bufs = [b for _, _, b, _ in self.shards]
-        return _episode_outputs(
-            self.plan, self.comm, [b["q_v"] for b in bufs],
-            sum(b["events"] for b in bufs),
-            torch.stack([b["waves"] for b in bufs]).amax(0))
+        self.g = {}
+        self.gather(["q_v"], "psum")
+        self.launch("Q", 0, [0])
+        return (self.queues, self.comm.psum(sum(b["events"] for b in bufs)),
+                self.comm.pmax(torch.stack([b["waves"] for b in bufs]).amax(
+                    0)))
 
     def gradient(self, q_weight):
         """The action gradient ``[n_phases, n_inter]`` after :meth:`run` of
-        a derivative."""
-        (qdg,) = self.comm.gather([[b["q_d"]] for _, _, b, _ in self.shards],
-                                  "psum")
-        return _gradient(self.plan, qdg, q_weight)
+        a derivative: the lanes' ``q^2`` tangent rows gathered once, the Q
+        kernel's float64 terms of each row summed over the episodes."""
+        self.g = {}
+        self.gather(["q_d"], "psum")
+        self.g["q_weight"] = q_weight.contiguous()
+        self.launch("Q", 0, [0])
+        return self.grad.view(self.B, -1).sum(0).to(torch.float32).view(
+            self.plan.n_phases, self.plan.n_inter)
+
+
+class ShardView(NamedTuple):
+    """Shard ``i`` of a :class:`ShardRun` at step ``t``: its buffers ``b``,
+    this step's gathered rows ``G``, the state a launch starts from, and
+    the scene's columns at step t."""
+
+    run: ShardRun
+    b: dict
+    G: dict
+    plan: object
+    g: k6.Geometry
+    lg: k6.Geometry
+    t: int
+    i: int
+    carry: tuple
+    sg_ms: torch.Tensor
+    ss_ms: torch.Tensor
+    action: torch.Tensor
+    rand_t: torch.Tensor
+    sched_t: torch.Tensor
+    mnext_t: torch.Tensor
+    mprev_t: torch.Tensor
+    routes: torch.Tensor
+
+    def dual(self, rows: dict, name: str):
+        """``rows[name]``, with its tangents ``rows[name[:-2] + "_d"]`` as a
+        forward-mode dual in a derivative run."""
+        import torch.autograd.forward_ad as fwad
+
+        d = rows.get(name[:-2] + "_d") if self.run.dual else None
+        return rows[name] if d is None else fwad.make_dual(rows[name], d)
+
+    def now(self):
+        """The shard's ``(carry, sg_ms, ss_ms)`` as the kernels left it."""
+        return self.run.carry(self.i)
+
+
+class BodySpec(NamedTuple):
+    """One body of the step: its plain version on a :class:`ShardView`
+    (``{output: tensor}``), where its kernel wrote the same outputs, and the
+    local rows gathered after it over the lane axis, by kind."""
+
+    plain: object
+    written: object
+    gather: tuple
+    kind: str = "all_gather"
+
+
+def _plain_C(v: ShardView):
+    sg_ms, c_sig = v.sg_ms, None
+    if "gsg" in v.G:
+        sg_ms, c_sig = fold_sg(v.plan, v.sg_ms, v.G["gsg"])
+    o = plain_body_C(v.plan, v.g, v.lg, v.carry, v.dual(v.b, "bc_v"), c_sig,
+                     v.mnext_t, v.routes)
+    return dict(carry=o.carry, sg_ms=sg_ms, sumF=o.sumF, sumI=o.sumI,
+                wave=o.wave)
+
+
+def _plain_D3(v: ShardView):
+    o = plain_body_D3(v.plan, v.g, v.lg, v.carry, v.dual(v.G, "gF_v"),
+                      v.G["gI"], v.G["gV"], v.b["pred"], v.b["bd"],
+                      v.b["sumI"])
+    return dict(carry=o.carry, ss=o.ss, ssn=o.ssn, events=o.ev[:, :2])
+
+
+def _plain_E(v: ShardView):
+    ss_ms, c_st = fold_ss(v.plan, v.ss_ms, v.G["gss"], v.G["gssn"])
+    return dict(carry=v.carry, ss_ms=ss_ms,
+                q2=plain_body_E(v.plan, v.lg, v.carry, c_st))
+
+
+# the step, body by body in launch order; ``written`` reads a forward run
+STEP = {
+    "A": BodySpec(
+        lambda v: dict(sumA=plain_body_A(v.plan, v.lg, v.carry, v.rand_t,
+                                         v.sched_t)),
+        lambda v: dict(sumA=v.b["sumA_v"]), ("sumA_v",)),
+    "B": BodySpec(
+        lambda v: dict(zip(("carry", "bc", "sg", "n_inj"), plain_body_B(
+            v.plan, v.g, v.lg, v.carry, v.dual(v.G, "gA_v"), v.action, v.t,
+            v.mnext_t, v.mprev_t, v.sched_t, v.routes))),
+        lambda v: dict(carry=v.now()[0], bc=v.b["bc_v"], sg=v.b["sg"],
+                       n_inj=v.b["events"][:, v.t, 0]), ("sg",), "psum"),
+    "C": BodySpec(
+        _plain_C,
+        lambda v: dict(carry=v.now()[0], sg_ms=v.now()[1],
+                       sumF=v.b["sumF_v"], sumI=v.b["sumI"],
+                       wave=v.b["waves"][:, v.t]), ("sumF_v", "sumI")),
+    "D1": BodySpec(
+        lambda v: dict(zip(("wrow", "pred"), plain_body_D1(
+            v.plan, v.g, v.lg, v.carry, v.b["sumF_v"], v.b["sumI"],
+            v.G["gF_v"], v.G["gI"]))),
+        lambda v: dict(wrow=v.b["wrow"], pred=v.b["pred"]), ("wrow",)),
+    "D2": BodySpec(
+        lambda v: dict(bd=plain_body_D2(v.plan, v.lg, v.G["gI"],
+                                        v.G["gW"])),
+        lambda v: dict(bd=v.b["bd"]), ("bd",)),
+    "D3": BodySpec(
+        _plain_D3,
+        lambda v: dict(carry=v.now()[0], ss=v.b["ss"], ssn=v.b["ssn"],
+                       events=v.b["events"][:, v.t, 1:]), ("ss", "ssn"),
+        "psum"),
+    "E": BodySpec(
+        _plain_E,
+        lambda v: dict(carry=v.now()[0], ss_ms=v.now()[2],
+                       q2=v.b["q_v"][:, v.t]), ()),
+}
 
 
 def _check(plan, comm, inputs, dual):

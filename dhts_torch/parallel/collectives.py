@@ -14,10 +14,13 @@ gloo, and their collectives are host traffic, not the card's. On gloo the
 gather is one ``all_to_all_single`` in which every rank sends its block to
 every rank: gloo's ``all_gather`` passes the blocks round a ring, S - 1
 message latencies in a row, where the exchange waits for about one. Every
-call is counted in :data:`counts` under its kind.
+call is counted in :data:`counts` under its kind, and its wall time added
+to :data:`seconds`.
 """
 
 from __future__ import annotations
+
+import time
 
 import torch
 import torch.distributed as dist
@@ -26,6 +29,22 @@ import torch.distributed as dist
 # the gathers of per-lane terms that the caller sums in lane order (the
 # running means and the queue) and the elementwise sums; "pmax"
 counts = {"all_gather": 0, "psum": 0, "pmax": 0}
+# the host's wall seconds inside those calls, by kind (on gloo with CUDA
+# tensors the staging copies wait for the card's stream, so a call's time
+# includes the kernels queued before it)
+seconds = {"all_gather": 0.0, "psum": 0.0, "pmax": 0.0}
+
+
+def _timed(fn):
+    def call(*args, kind):
+        t0 = time.perf_counter()
+        try:
+            return fn(*args)
+        finally:
+            counts[kind] += 1
+            seconds[kind] += time.perf_counter() - t0
+
+    return call
 
 
 def _staged(group) -> bool:
@@ -39,7 +58,11 @@ def all_gather_lanes(xs, group, kind: str = "all_gather"):
     the same shape on every rank), in one collective call. Returns a list
     of ``[..., S * l]`` tensors on the device of ``xs``. On a gloo group the
     rows are joined in host memory and copied to the device once."""
-    counts[kind] += 1
+    return _gather(xs, group, kind=kind)
+
+
+@_timed
+def _gather(xs, group):
     S = dist.get_world_size(group)
     dev = xs[0].device
     staged = _staged(group)
@@ -75,8 +98,8 @@ def all_gather_lanes(xs, group, kind: str = "all_gather"):
         y.shape) for a, y in zip(offs, joined)]
 
 
-def _reduce(x, group, op, kind):
-    counts[kind] += 1
+@_timed
+def _reduce(x, group, op):
     # a copy (on the host for gloo): the caller's tensor stays as it was
     y = x.detach().to("cpu" if _staged(group) else x.device, copy=True)
     dist.all_reduce(y, op=op, group=group)
@@ -85,9 +108,9 @@ def _reduce(x, group, op, kind):
 
 def psum(x, group):
     """Elementwise sum of ``x`` over the ranks of ``group``."""
-    return _reduce(x, group, dist.ReduceOp.SUM, "psum")
+    return _reduce(x, group, dist.ReduceOp.SUM, kind="psum")
 
 
 def pmax(x, group):
     """Elementwise maximum of ``x`` over the ranks of ``group``."""
-    return _reduce(x, group, dist.ReduceOp.MAX, "pmax")
+    return _reduce(x, group, dist.ReduceOp.MAX, kind="pmax")

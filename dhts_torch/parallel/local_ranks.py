@@ -73,16 +73,27 @@ class LocalRanks:
         its rank (``fn`` must be importable by module name). Raises
         ``RuntimeError`` with the failing ranks' tracebacks, after ending
         every rank, if a rank fails or the call outlasts ``timeout``."""
+        return self.result(self.submit(fn, args))
+
+    def submit(self, fn, args=()):
+        """Start :meth:`run`'s call in the ranks and return at once, so that
+        this process can work meanwhile; :meth:`result` waits for it."""
+        if self._procs is None:
+            raise RuntimeError("the ranks are closed")
+        call, self.calls = self.calls, self.calls + 1
+        for q in self._tasks:
+            q.put((fn, tuple(args)))
+        return call, time.monotonic() + self.timeout
+
+    def result(self, submitted):
+        """The results of a :meth:`submit`, in rank order (as :meth:`run`)."""
         import torch
 
         if self._procs is None:
             raise RuntimeError("the ranks are closed")
-        call, self.calls = self.calls, self.calls + 1
+        call, deadline = submitted
         paths = [os.path.join(self._tmp.name, f"rank{r}.{call}.pt")
                  for r in range(self.nprocs)]
-        for q in self._tasks:
-            q.put((fn, tuple(args)))
-        deadline = time.monotonic() + self.timeout
         while not all(os.path.exists(p) for p in paths):
             if any(p.exitcode is not None for p in self._procs):
                 self._fail("a rank failed")

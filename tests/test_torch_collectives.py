@@ -33,6 +33,7 @@ def _rank(rank, S):
     from dhts_torch.parallel import collectives
 
     before = dict(collectives.counts)
+    before_s = dict(collectives.seconds)
     group = dist.new_group(list(range(S)))
     # (clones: the joined tensors are views of one received buffer)
     joined = [x.clone() for x in collectives.all_gather_lanes(blocks(rank),
@@ -40,9 +41,10 @@ def _rank(rank, S):
     (single,) = collectives.all_gather_lanes([blocks(rank)[1]], group, "psum")
     x = torch.tensor([rank, -rank, 2 * rank], dtype=torch.int32)
     counts = {k: collectives.counts[k] - before[k] for k in before}
+    timed = {k: collectives.seconds[k] > before_s[k] for k in before_s}
     return dict(joined=joined, single=single,
                 sum=collectives.psum(x, group), max=collectives.pmax(x, group),
-                counts=counts)
+                counts=counts, timed=timed)
 
 
 @pytest.mark.parametrize("S", [2, 4])
@@ -58,6 +60,8 @@ def test_lane_collectives_join_in_rank_order_and_reduce(S):
         assert torch.equal(o["sum"], xs.sum(0).to(torch.int32))
         assert torch.equal(o["max"], xs.amax(0))
         assert o["counts"] == {"all_gather": 1, "psum": 1, "pmax": 0}
+        assert o["timed"] == {"all_gather": True, "psum": True,
+                              "pmax": False}
 
 
 def _failing_rank(rank, S):
@@ -83,10 +87,12 @@ def _count_gathers(rank, S):
 
 def test_kept_ranks_run_one_call_after_another():
     """The same processes serve every call until closed: a counter of the
-    rank's process keeps rising from call to call."""
+    rank's process keeps rising from call to call, whether the caller
+    waits (``run``) or collects a submitted call later."""
     with LocalRanks(2, timeout=120) as ranks:
         first = ranks.run(_count_gathers)
-        second = ranks.run(_count_gathers)
+        submitted = ranks.submit(_count_gathers)
+        second = ranks.result(submitted)
     for (got1, n1), (got2, n2) in zip(first, second):
         assert torch.equal(got1, torch.tensor([0, 1], dtype=torch.int32))
         assert torch.equal(got2, got1) and n2 == n1 + 1

@@ -12,8 +12,9 @@ In one spawn per shard count (S = 2, 4), every rank:
   ``(1, S)`` mesh, hard and soft: queues, events and wave maxima bit-equal
   to the one-process single-shard episode on every rank; the collectives
   per step are 4 lane gathers (gA; gF with gI; gW; gV) and 2 sums of
-  per-lane terms (the running means), and per episode one gather-and-sum
-  of the queues, one psum of the events and one pmax;
+  per-lane terms (the running means; hard mode skips the signal mean's,
+  as JAX does), and per episode one gather-and-sum of the queues, one
+  psum of the events and one pmax;
 * differentiates the soft reward by K5's op (forward mode through the
   ranks): the whole action gradient on every rank, bit-equal to the
   single-shard forward-mode derivative and within cosine 0.99999 of
@@ -97,7 +98,10 @@ def _rank(rank, S, rand, action):
                       k6.route_table(d.inj_routes,
                                      env.base_state.route_pool)])
     hard = k6.make_fused_spatial_episode(env, mesh, differentiable=False)
+    before = dict(collectives.counts)
     res = hard(torch.as_tensor(action), rand)
+    out["hard_counts"] = {k: collectives.counts[k] - before[k]
+                          for k in before}
     out["hard"] = (res.queue_per_step, res.events_per_step)
     soft = k6.make_fused_spatial_episode(env, mesh)
     a = torch.tensor(action, requires_grad=True)
@@ -182,6 +186,9 @@ def test_sharded_episode_gradient_and_train_step_across_ranks(S):
         assert torch.equal(o["soft"][2], soft_ref[2][0].amax()), r
         assert o["counts"] == {"all_gather": 4 * T, "psum": 2 * T + 2,
                                "pmax": 1}, o["counts"]
+        # hard mode skips the signal mean's sum (JAX: ``if diff``)
+        assert o["hard_counts"] == {"all_gather": 4 * T, "psum": T + 2,
+                                    "pmax": 1}, o["hard_counts"]
         assert torch.equal(o["grad"], grad_ref), r
         assert o["loss"] == outs[0]["loss"]
         for p, q in zip(o["params"], outs[0]["params"]):

@@ -110,6 +110,37 @@ def test_forward_launches_match_plain_bodies(libs, cfg, S, every,
     for body in ("A", "B", "C", "D3", "E"):
         assert launched[body] == S * plan.T
     assert launched["D1"] == launched["D2"] == S * checked
+    assert launched["Q"] == 1  # the queues, once per episode
+
+
+@pytest.mark.parametrize("dual", [False, True], ids=["forward", "derivative"])
+def test_queue_kernel_matches_plain_sums(libs, dual):
+    """Q on gathered rows of mixed magnitudes: the forward's queues equal
+    ``plain_queues``; the derivative's per-row terms, summed over the
+    episodes as the wrapper sums them, equal ``plain_gradient``."""
+    lib, _ = libs
+    B = 2
+    plan, inputs = case(MICRO_CFG, True, B)
+    comm = ks.LaneComm(plan.L, ks.shards_of(plan.L, 2))
+    run = ks.ShardRun(plan, comm, inputs, dual=dual, lib=lib)
+    rng = np.random.default_rng(5)
+    rows = torch.as_tensor(rng.standard_normal((run.N, plan.T, plan.L)) *
+                           10.0 ** rng.integers(-6, 4, (run.N, plan.T,
+                                                        plan.L)),
+                           dtype=torch.float32)
+    wq = torch.as_tensor(rng.uniform(-1, 1, (B, plan.T)),
+                         dtype=torch.float32)
+    run.g = {"gq": rows, "q_weight": wq}
+    before = ks.launches["Q_bwd" if dual else "Q"]
+    run.launch("Q", 0, [0])
+    assert ks.launches["Q_bwd" if dual else "Q"] == before + 1
+    assert torch.equal(run.queues, ks.plain_queues(plan, rows))
+    if dual:
+        got = run.grad.view(B, -1).sum(0).to(torch.float32).view(
+            plan.n_phases, plan.n_inter)
+        assert torch.equal(got, ks.plain_gradient(plan, rows, wq))
+    else:
+        assert run.grad is None
 
 
 def cut(plan, inputs, wq, steps):
@@ -162,11 +193,15 @@ def test_launcher_refuses_bad_launches(libs):
     args = run.shards[0][3]
     run.step(0)
     call = lambda body, dual, repeat=1: lib.launch_itscp_shard(
-        ks.BODIES.index(body), dual, ctypes.byref(args), repeat, None)
+        ks.KERNELS.index(body), dual, ctypes.byref(args), repeat, None)
     assert call("A", 0) == 0 and call("A", 0, 3) == 0
     assert call("A", 0, 0) != 0  # no launch
     assert call("D1", 1) != 0  # D1 has no derivative
     assert call("A", 1) != 0  # no tangent buffer
+    assert call("Q", 0) != 0  # no gathered rows
+    assert call("Q", 1) != 0  # a derivative without tangents and weights
+    args.gsg = None
+    assert call("C", 0) != 0  # a soft step without the signal mean's terms
     args.t = plan.T  # past the last step
     assert call("A", 0) != 0
     args.t, args.off, args.n = 0, 1, plan.L  # the shard overruns the scene
