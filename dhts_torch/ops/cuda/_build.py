@@ -64,29 +64,35 @@ def _included(src: Path, csrc: Path, seen: set) -> list[Path]:
     return files
 
 
-def library_path(name: str, csrc: Path = CSRC) -> Path:
+def _flags(defines) -> tuple:
+    return (*NVCC_FLAGS, *(f"-D{d}" for d in defines))
+
+
+def library_path(name: str, csrc: Path = CSRC, defines=()) -> Path:
     """Where the library of ``<csrc>/<name>.cu`` goes, named by the content
     of the source, of every header of ``csrc`` it includes, and of the
-    flags: an edited header names a new library."""
+    flags (with the macros ``defines``): an edited header names a new
+    library."""
     src = Path(csrc) / f"{name}.cu"
     if not src.exists():
         raise FileNotFoundError(src)
     h = hashlib.sha256()
     for f in _included(src, Path(csrc), set()):
         h.update(f.name.encode() + b"\0" + f.read_bytes() + b"\0")
-    h.update("\0".join(NVCC_FLAGS).encode())
+    h.update("\0".join(_flags(defines)).encode())
     return BUILD_DIR / f"lib{name}_{h.hexdigest()[:16]}.so"
 
 
-def build(name: str, timeout: float = 600.0) -> Path:
-    """Compile ``csrc/<name>.cu`` unless its library already exists."""
-    out = library_path(name)
+def build(name: str, timeout: float = 600.0, defines=()) -> Path:
+    """Compile ``csrc/<name>.cu`` unless its library already exists;
+    ``defines``: macros to set (an instrumented variant of the source)."""
+    out = library_path(name, defines=defines)
     if out.exists():
         build_seconds.setdefault(name, 0.0)
         return out
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
     tmp = out.with_name(f"{out.stem}.{os.getpid()}.tmp.so")
-    cmd = [find_nvcc(), *NVCC_FLAGS, "-Xptxas", "-v", "-o", str(tmp),
+    cmd = [find_nvcc(), *_flags(defines), "-Xptxas", "-v", "-o", str(tmp),
            str(CSRC / f"{name}.cu")]
     t0 = time.perf_counter()
     proc = subprocess.run(cmd, capture_output=True, text=True,

@@ -219,6 +219,12 @@ __device__ __forceinline__ void riemann(S rl, S yl, S ul, S rr, S ur,
     speed0 = val(half_lam_vac); speed1 = val(ur); c = l_or_c;
   }
   S r0, u0, y0;
+#ifdef DHTS_RIEMANN_SELECT
+  r0 = c == 1 ? r_m : (c == 2 ? r_c : rl);
+  u0 = c == 1 ? u_m : (c == 2 ? u_c : ul);
+  const S y_mc = comp_y(r0, u0, u_max);
+  y0 = c == 0 ? yl : y_mc;
+#else
   if (c == 1) {
     r0 = r_m; u0 = u_m; y0 = comp_y(r0, u0, u_max);
   } else if (c == 2) {
@@ -226,6 +232,7 @@ __device__ __forceinline__ void riemann(S rl, S yl, S ul, S rr, S ur,
   } else {
     r0 = rl; u0 = ul; y0 = yl;
   }
+#endif
   fr = r0 * u0;
   fy = y0 * u0;
   wave = fmaxf(fabsf(speed0), fabsf(speed1));

@@ -41,6 +41,26 @@
 
 #include "dhts_scalar.cuh"
 
+// Built with -DDHTS_STEP_CLOCK (python -m dhts_torch.ops.cuda.step_clock),
+// thread 0 of block 0 adds up the clock64() cycles of each part of a step
+// into Args::cycles; otherwise the marks compile to nothing.
+#ifdef DHTS_STEP_CLOCK
+#define CLOCK_INIT long long clk_t = clock64(), clk[4] = {0, 0, 0, 0}
+#define CLOCK_MARK(k)                   \
+  do {                                  \
+    const long long now_ = clock64();   \
+    clk[k] += now_ - clk_t;             \
+    clk_t = now_;                       \
+  } while (0)
+#define CLOCK_SAVE(p)                                        \
+  if ((p) && blockIdx.x == 0 && threadIdx.x == 0)            \
+    for (int k_ = 0; k_ < 4; ++k_) (p)[k_] = clk[k_]
+#else
+#define CLOCK_INIT
+#define CLOCK_MARK(k)
+#define CLOCK_SAVE(p)
+#endif
+
 namespace {
 
 template <class S>
@@ -59,6 +79,7 @@ struct Args {
   float* g_in;                     // backward output [B, 2C + 4]
   int T, C;
   float u_max, rare_den, third, dt, dx;
+  long long* cycles;               // DHTS_STEP_CLOCK: [4] of block 0
 };
 
 // Dynamic shared memory: r, y [C] and the interface fluxes [C + 1] as S,
@@ -97,6 +118,7 @@ __global__ void macro_rollout_kernel(Args a) {
   float wmax = 0.0f;
   __syncthreads();
 
+  CLOCK_INIT;
   for (int t = 0; t < a.T; ++t) {
     if (i <= C) {
       S rl, yl, ul, rr, ur;
@@ -110,21 +132,26 @@ __global__ void macro_rollout_kernel(Args a) {
       } else {
         rr = r[i]; ur = comp_u(rr, y[i], u_max);
       }
+      CLOCK_MARK(0);  // neighbour states
       S f_r, f_y;
       float wave;
       riemann(rl, yl, ul, rr, ur, u_max, a.rare_den, a.third, f_r, f_y,
               wave);
+      CLOCK_MARK(1);  // Riemann solve
       fr[i] = f_r;
       fy[i] = f_y;
       wmax = fmaxf(wmax, wave);
     }
     __syncthreads();
+    CLOCK_MARK(2);  // flux exchange
     if (i < C) {
       r[i] = r[i] + (fr[i] - fr[i + 1]) * S(coef);
       y[i] = y[i] + (fy[i] - fy[i + 1]) * S(coef);
     }
     __syncthreads();
+    CLOCK_MARK(3);  // cell update
   }
+  CLOCK_SAVE(a.cycles);
 
   if (!bwd) {
     if (i < C) {
@@ -193,5 +220,22 @@ int launch_macro_rollout_bwd(const float* r0, const float* y0,
                g_yT, g_in, T, C, u_max, rare_den, third, dt, dx};
   return launch<Dual>(B * (2 * C + 4), a, stream);
 }
+
+#ifdef DHTS_STEP_CLOCK
+// The forward with the step's cycle stamps of block 0 in cycles[4].
+int launch_macro_rollout_fwd_clock(const float* r0, const float* y0,
+                                   const float* blr, const float* blu,
+                                   const float* brr, const float* bru,
+                                   float* rT, float* yT, float* max_wave,
+                                   int B, int T, int C, float u_max,
+                                   float rare_den, float third, float dt,
+                                   float dx, void* stream,
+                                   long long* cycles) {
+  const Args a{r0, y0, blr, blu, brr, bru, rT, yT, max_wave, nullptr,
+               nullptr, nullptr, T, C, u_max, rare_den, third, dt, dx,
+               cycles};
+  return launch<float>(B, a, stream);
+}
+#endif
 
 }  // extern "C"
