@@ -45,7 +45,8 @@ phase prints one JSON line with its wall seconds:
                the plain version, cosine > 0.9999, allclose(rtol 5e-3, atol
                5e-4 * max|g|), finite, nonzero (the right ghost density's
                gradient is 0 on both sides); the segmented rollout (chunk
-               128) bit-equal to one call
+               128) bit-equal to one call; all of it again at C = 40 (a
+               lane above one warp of cells)
 9. ``k3_vs_plain``  K3 at the micro defaults (V = 10, T = 500), B = 12, half
                the platoons dense: the same, atol 1e-5 * max|g|; prints the
                acceleration-floor hits, which must be > 0
@@ -137,7 +138,8 @@ phase prints one JSON line with its wall seconds:
                50 launches back to back of one shard's kernel at a quiet
                step, its gathered rows in place: no collective inside), the
                plain bodies' ms, the bytes bounds; Q's ms per launch on the
-               gathered q^2 rows with its plain and library ms; the wall ms
+               gathered q^2 rows with its plain ms and the library's (one
+               PyTorch call, 50 back to back, as Q's launches); the wall ms
                of an
                unchecked sharded step (from ``shard_vs_plain``: seven
                launches and the collectives between them, host-staged gloo,
@@ -192,6 +194,7 @@ VJP_OPS_MULTIPLE = 3
 OPS_PER_VEHICLE = 30
 # the inverse benchmarks at their CLI defaults (dhts_torch/apps/inverse)
 MACRO = dict(u_max=30.0, dt=0.01, dx=5.0, T=500, C=10)
+K2_WIDE_C = 40  # a lane above one warp of cells (K2's shared-memory kernel)
 MICRO = dict(u_max=30.0, dt=0.01, T=500, V=10)
 INVERSE_EPISODES = 100
 ROLLOUT_BATCHES = (1, 12, 128)
@@ -280,7 +283,7 @@ def cosine(a, b) -> float:
     return float(a @ b / (a.norm() * b.norm()))
 
 
-def macro_inputs(B: int, seed: int, dev):
+def macro_inputs(B: int, seed: int, dev, C: int = MACRO["C"]):
     """Seeded scenarios of the macro benchmark: densities and speeds drawn
     as the inverse problem draws its truth, ``y0`` from them."""
     import torch
@@ -289,7 +292,7 @@ def macro_inputs(B: int, seed: int, dev):
 
     rng = np.random.default_rng(seed)
     t = lambda x: torch.as_tensor(x, dtype=torch.float32, device=dev)
-    C, u_max = MACRO["C"], MACRO["u_max"]
+    u_max = MACRO["u_max"]
     r0 = t(rng.uniform(0, 1, (B, C)))
     y0 = arz.compute_y(r0, t(rng.uniform(0, u_max, (B, C))),
                        u_max).contiguous()
@@ -317,58 +320,68 @@ def micro_inputs(B: int, seed: int, dev):
 
 def check_k2(dev) -> dict:
     """K2 forward, backward and the segmented rollout against the plain
-    version at the macro defaults, B = 12; raises on a failed check."""
+    version at the macro defaults, B = 12, and at C = 40 cells (above one
+    warp: the shared-memory kernel); raises on a failed check."""
     import torch
 
     from dhts_torch.ops.cuda import macro_rollout as k2
 
-    B, C = 12, MACRO["C"]
+    B = 12
     consts = k2.MacroConsts(MACRO["u_max"], MACRO["dt"], MACRO["dx"],
                             MACRO["T"])
-    inputs = macro_inputs(B, 12, dev)
-    out = k2.macro_rollout_fwd(consts, *inputs)
-    ref = k2.plain_macro_rollout(consts, *inputs)
-    torch.cuda.synchronize()
-    fwd_err = max(float((a - b).abs().max()) for a, b in zip(out, ref))
-    fwd_ok = all(bool(torch.isfinite(a).all()) and
-                 bool(torch.allclose(a, b, rtol=1e-6, atol=1e-6))
-                 for a, b in zip(out, ref))
-    rng = np.random.default_rng(13)
-    cot = [torch.as_tensor(rng.normal(size=(B, C)), dtype=torch.float32,
-                           device=dev) for _ in range(2)]
-    got = k2.macro_rollout_bwd(consts, *inputs, *cot)
-    want = k2.plain_macro_rollout_bwd(consts, *inputs, *cot)
-    torch.cuda.synchronize()
-    grads, bwd_err, bwd_ok = {}, 0.0, True
-    for name, a, b in zip(("r0", "y0", "bl_r", "bl_u", "br_r", "br_u"),
-                          got, want):
-        err = float((a - b).abs().max())
-        bwd_err = max(bwd_err, err)
-        scale = float(b.abs().max())
-        rec = dict(max_abs_err=err, max_abs_ref=scale,
-                   finite=bool(torch.isfinite(a).all()))
-        if name == "br_r":
-            # the right ghost density enters only the right-vacuum test of
-            # the Riemann solver: its gradient is 0 on both sides
-            ok = rec["finite"] and scale == 0.0 and err == 0.0
-        else:
-            rec["cos"] = cosine(a, b)
-            ok = (rec["finite"] and scale > 0 and rec["cos"] > 0.9999 and
-                  bool(torch.allclose(a, b, rtol=5e-3, atol=5e-4 * scale)))
-        grads[name] = dict(rec, ok=ok)
-        bwd_ok = bwd_ok and ok
-    args = (MACRO["u_max"], MACRO["dt"], MACRO["dx"], MACRO["T"], C, B)
-    one = k2.make_fused_macro_rollout(*args, device=dev)(*inputs)
-    seg = k2.make_segmented_macro_rollout(*args, chunk=128,
-                                          device=dev)(*inputs)
-    seg_equal = all(bool(torch.equal(a, b)) for a, b in zip(one, seg))
-    rec = dict(B=B, forward_max_abs_err=fwd_err, forward_ok=fwd_ok,
-               max_wave=float(out[2].max()), grads=grads,
-               segmented_bit_equal=seg_equal,
+    cases, fwd_err, bwd_err, ok = [], 0.0, 0.0, True
+    for C in (MACRO["C"], K2_WIDE_C):
+        inputs = macro_inputs(B, 12, dev, C)
+        out = k2.macro_rollout_fwd(consts, *inputs)
+        ref = k2.plain_macro_rollout(consts, *inputs)
+        torch.cuda.synchronize()
+        f_err = max(float((a - b).abs().max()) for a, b in zip(out, ref))
+        f_ok = all(bool(torch.isfinite(a).all()) and
+                   bool(torch.allclose(a, b, rtol=1e-6, atol=1e-6))
+                   for a, b in zip(out, ref))
+        rng = np.random.default_rng(13)
+        cot = [torch.as_tensor(rng.normal(size=(B, C)), dtype=torch.float32,
+                               device=dev) for _ in range(2)]
+        got = k2.macro_rollout_bwd(consts, *inputs, *cot)
+        want = k2.plain_macro_rollout_bwd(consts, *inputs, *cot)
+        torch.cuda.synchronize()
+        grads, b_err, b_ok = {}, 0.0, True
+        for name, a, b in zip(("r0", "y0", "bl_r", "bl_u", "br_r", "br_u"),
+                              got, want):
+            err = float((a - b).abs().max())
+            b_err = max(b_err, err)
+            scale = float(b.abs().max())
+            rec = dict(max_abs_err=err, max_abs_ref=scale,
+                       finite=bool(torch.isfinite(a).all()))
+            if name == "br_r":
+                # the right ghost density enters only the right-vacuum test
+                # of the Riemann solver: its gradient is 0 on both sides
+                g_ok = rec["finite"] and scale == 0.0 and err == 0.0
+            else:
+                rec["cos"] = cosine(a, b)
+                g_ok = (rec["finite"] and scale > 0 and
+                        rec["cos"] > 0.9999 and
+                        bool(torch.allclose(a, b, rtol=5e-3,
+                                            atol=5e-4 * scale)))
+            grads[name] = dict(rec, ok=g_ok)
+            b_ok = b_ok and g_ok
+        args = (MACRO["u_max"], MACRO["dt"], MACRO["dx"], MACRO["T"], C, B)
+        one = k2.make_fused_macro_rollout(*args, device=dev)(*inputs)
+        seg = k2.make_segmented_macro_rollout(*args, chunk=128,
+                                              device=dev)(*inputs)
+        seg_equal = all(bool(torch.equal(a, b)) for a, b in zip(one, seg))
+        cases.append(dict(C=C, B=B, forward_max_abs_err=f_err,
+                          forward_bit_equal=all(bool(torch.equal(a, b))
+                                                for a, b in zip(out, ref)),
+                          forward_ok=f_ok, max_wave=float(out[2].max()),
+                          grads=grads, segmented_bit_equal=seg_equal))
+        fwd_err, bwd_err = max(fwd_err, f_err), max(bwd_err, b_err)
+        ok = ok and f_ok and b_ok and seg_equal
+    rec = dict(cases=cases,
                tolerance=dict(forward="allclose(rtol 1e-6, atol 1e-6)",
                               backward="cos > 0.9999, allclose(rtol 5e-3, "
                                        "atol 5e-4 * max|g_plain|)"))
-    if not (fwd_ok and bwd_ok and seg_equal):
+    if not ok:
         report(**rec, status="FAIL")
         raise SystemExit("k2_vs_plain failed")
     report(**rec)
@@ -1262,7 +1275,8 @@ def time_shard(env) -> dict:
     collective is inside the timing); the plain body's ms on the same
     inputs; each launch's bytes bound. Q likewise on the q^2 rows gathered
     so far, with the library's lane sum (forward) and weighted sum
-    (derivative) beside it. Timing launches are not the main path's: the
+    (derivative) beside it, timed as Q is: 50 calls back to back between
+    one pair of events. Timing launches are not the main path's: the
     counters are restored."""
     import torch
 
@@ -1343,12 +1357,12 @@ def time_shard(env) -> dict:
                         plan, gq, wq), 5)
                     wrows = wq.repeat_interleave(n_act, 0)
                     library[key] = cuda_ms(lambda: torch.einsum(
-                        "ntl,nt->n", gq, wrows), 5)
+                        "ntl,nt->n", gq, wrows), 5, 50)
                 else:
                     plain[key] = cuda_ms(lambda: ks.plain_queues(plan, gq),
                                          5)
                     library[key] = cuda_ms(lambda: torch.sum(
-                        gq, -1, dtype=torch.float64), 5)
+                        gq, -1, dtype=torch.float64), 5, 50)
     ks.launches.update(saved)
     return dict(ms=ms, plain_ms=plain, bounds=bounds, S=S, library_ms=library,
                 ms_one_call_per_launch=host,

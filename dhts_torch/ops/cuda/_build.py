@@ -116,18 +116,22 @@ def load(name: str) -> ctypes.CDLL:
     return lib
 
 
-def build_cpu_emulation(name: str, out_dir, timeout: float = 300.0) -> Path:
+def build_cpu_emulation(name: str, out_dir, timeout: float = 300.0,
+                        defines=()) -> Path:
     """Compile ``csrc/<name>.cu`` with the host C++ compiler against
-    ``csrc/cpu_emulation.h`` (one fiber per CUDA thread, switched at
-    ``__syncthreads``), so the kernel's own code runs on a machine without a
-    GPU. For tests: it checks the kernel's logic, not the card's compiler."""
+    ``csrc/cpu_emulation.h`` (one fiber per CUDA thread, switched where it
+    waits for its block or its warp), so the kernel's own code runs on a
+    machine without a GPU; ``defines``: macros to set, as for :func:`build`.
+    For tests: it checks the kernel's logic, not the card's compiler."""
     cxx = shutil.which("g++") or shutil.which("c++")
     if cxx is None:
         raise RuntimeError("no host C++ compiler (g++/c++) on PATH")
-    out = Path(out_dir) / f"lib{name}_emulated.so"
+    tag = "".join(f"_{d.lower()}" for d in defines)
+    out = Path(out_dir) / f"lib{name}{tag}_emulated.so"
     cmd = [cxx, "-std=c++20", "-O2", "-ffp-contract=off",
-           "-DDHTS_CPU_EMULATION", "-x", "c++", "-shared", "-fPIC",
-           "-pthread", "-o", str(out), str(CSRC / f"{name}.cu")]
+           "-DDHTS_CPU_EMULATION", *(f"-D{d}" for d in defines), "-x", "c++",
+           "-shared", "-fPIC", "-pthread", "-o", str(out),
+           str(CSRC / f"{name}.cu")]
     proc = subprocess.run(cmd, capture_output=True, text=True,
                           timeout=timeout)
     if proc.returncode != 0:

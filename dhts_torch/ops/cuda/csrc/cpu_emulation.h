@@ -6,20 +6,32 @@
 //       -shared -fPIC -pthread -o libk.so kernel.cu
 //
 // Each CUDA thread of a block is a fiber (ucontext) on the calling host
-// thread. The fibers run one after another, each up to its next
-// __syncthreads() or its end, and a round over all of them is one barrier
-// phase; dynamic shared memory is one host buffer. The blocks of a grid run
-// one after another. Float arithmetic stays IEEE single precision without
-// contraction, as on the card with -fmad=false. Only what the kernels use is
-// provided: a 1-D grid, threadIdx.x and blockIdx.x, __syncthreads() reached
-// by every thread of the block, no warp intrinsics.
+// thread; the blocks of a grid run one after another. A fiber runs until it
+// waits: at __syncthreads() for every live thread of its block, at a warp
+// exchange (__syncwarp(), a shuffle) for every live thread of its warp of
+// 32. The scheduler resumes the waiting fibers once their group is
+// complete, so warps that take different paths between two block barriers
+// stay correct. A shuffle is one exchange round among its warp's fibers:
+// each writes its value, waits for the warp, and reads its source lane's
+// (two slots, used in turn, keep the next round from overwriting a value
+// not yet read). Dynamic shared memory is one host buffer. Float arithmetic
+// stays IEEE single precision without contraction, as on the card with
+// -fmad=false. Only what the kernels use is provided: a 1-D grid,
+// threadIdx.x and blockIdx.x, __syncthreads() and the warp primitives
+// reached by every live thread of their group (the member mask is not
+// read), atomicAdd on int, __threadfence(), __ldcg() and a clock64() that
+// counts host nanoseconds.
 #pragma once
 
 #include <math.h>
 #include <ucontext.h>
 
+#include <chrono>
 #include <cstddef>
 #include <cstdint>
+#include <cstdio>
+#include <cstdlib>
+#include <cstring>
 #include <vector>
 
 #define __global__
@@ -42,26 +54,89 @@ inline bool finished = false;
 inline void (*body)(void*) = nullptr;
 inline void* body_arg = nullptr;
 
+// what each fiber of the running block waits for
+enum Wait : char { RUN, BLOCK, WARP, DONE };
+inline int current = 0;            // the running fiber
+inline Wait* waits = nullptr;      // [threads]
+inline char* parity = nullptr;     // [threads] the slot of its next shuffle
+inline uint64_t* slots = nullptr;  // [warps][2][32] shuffled values
+
 inline void fiber_entry() {
   body(body_arg);
   finished = true;  // returns to `scheduler` through uc_link
 }
 
-inline void sync_threads() { swapcontext(running, &scheduler); }
+inline void wait_for(Wait w) {
+  waits[current] = w;
+  swapcontext(running, &scheduler);
+}
+inline void sync_threads() { wait_for(BLOCK); }
+inline void sync_warp() { wait_for(WARP); }
+
+// one exchange round: the value of lane `src` of this fiber's warp
+template <class T>
+T exchange(T v, int src) {
+  static_assert(sizeof(T) <= sizeof(uint64_t), "shuffle of a wide type");
+  const int lane = current % 32;
+  uint64_t* slot = slots + size_t(current / 32) * 64 + 32 * parity[current];
+  parity[current] ^= 1;
+  uint64_t bits = 0;
+  std::memcpy(&bits, &v, sizeof(T));
+  slot[lane] = bits;
+  sync_warp();
+  T out;
+  std::memcpy(&out, &slot[src], sizeof(T));
+  return out;
+}
+
+// release the waiting groups that are complete; false if none is
+inline bool release(int threads) {
+  int live = 0, at_block = 0;
+  for (int i = 0; i < threads; ++i) {
+    live += waits[i] != DONE;
+    at_block += waits[i] == BLOCK;
+  }
+  if (live > 0 && at_block == live) {
+    for (int i = 0; i < threads; ++i)
+      if (waits[i] == BLOCK) waits[i] = RUN;
+    return true;
+  }
+  bool any = false;
+  for (int w0 = 0; w0 < threads; w0 += 32) {
+    const int w1 = min(w0 + 32, threads);
+    int n_live = 0, n_warp = 0;
+    for (int i = w0; i < w1; ++i) {
+      n_live += waits[i] != DONE;
+      n_warp += waits[i] == WARP;
+    }
+    if (n_live > 0 && n_warp == n_live) {
+      for (int i = w0; i < w1; ++i)
+        if (waits[i] == WARP) waits[i] = RUN;
+      any = true;
+    }
+  }
+  return any;
+}
 
 template <class Kernel, class... Args>
 void launch(int blocks, int threads, size_t smem, Kernel kernel,
             Args... args) {
   constexpr size_t STACK = size_t(1) << 18;
+  const int warps = (threads + 31) / 32;
   std::vector<char> buf(smem + 16);
   std::vector<char> stacks(size_t(threads) * STACK);
   std::vector<ucontext_t> ctx(threads);
-  std::vector<char> done(threads);
+  std::vector<Wait> wait(threads);
+  std::vector<char> par(threads);
+  std::vector<uint64_t> slot(size_t(warps) * 64);
   auto call = [&] { kernel(args...); };
   using Call = decltype(call);
   body = [](void* p) { (*static_cast<Call*>(p))(); };
   body_arg = &call;
   dyn_smem = buf.data();
+  waits = wait.data();
+  parity = par.data();
+  slots = slot.data();
   for (int b = 0; b < blocks; ++b) {
     block_idx.x = static_cast<unsigned>(b);
     for (int i = 0; i < threads; ++i) {
@@ -70,21 +145,32 @@ void launch(int blocks, int threads, size_t smem, Kernel kernel,
       ctx[i].uc_stack.ss_size = STACK;
       ctx[i].uc_link = &scheduler;
       makecontext(&ctx[i], fiber_entry, 0);
-      done[i] = 0;
+      wait[i] = RUN;
+      par[i] = 0;
     }
     for (int live = threads; live > 0;) {
       for (int i = 0; i < threads; ++i) {
-        if (done[i]) continue;
+        if (wait[i] != RUN) continue;
         thread_idx.x = static_cast<unsigned>(i);
+        current = i;
         running = &ctx[i];
         finished = false;
         swapcontext(&scheduler, &ctx[i]);
-        if (finished) { done[i] = 1; --live; }
+        if (finished) { wait[i] = DONE; --live; }
+      }
+      if (live > 0 && !release(threads)) {
+        std::fprintf(stderr, "cpu_emulation: block %d deadlocked (a "
+                     "barrier or warp exchange some threads never reach)\n",
+                     b);
+        std::abort();
       }
     }
   }
   dyn_smem = nullptr;
   running = nullptr;
+  waits = nullptr;
+  parity = nullptr;
+  slots = nullptr;
 }
 }  // namespace dhts_emu
 
@@ -92,3 +178,46 @@ void launch(int blocks, int threads, size_t smem, Kernel kernel,
 #define blockIdx (::dhts_emu::block_idx)
 #define __syncthreads() (::dhts_emu::sync_threads())
 #define DHTS_DYNAMIC_SMEM(name) char* name = ::dhts_emu::dyn_smem
+
+inline void __syncwarp(unsigned = 0xffffffffu) { ::dhts_emu::sync_warp(); }
+
+// The shuffles of CUDA's warp-level primitives. `width` splits the warp
+// into segments; a lane whose source lies outside its segment (up: below
+// it, down: past it) gets its own value.
+template <class T>
+T __shfl_sync(unsigned, T v, int src, int width = 32) {
+  const int lane = ::dhts_emu::current % 32;
+  const int base = lane / width * width;
+  return ::dhts_emu::exchange(v, base + ((src % width) + width) % width);
+}
+template <class T>
+T __shfl_up_sync(unsigned, T v, unsigned delta, int width = 32) {
+  const int lane = ::dhts_emu::current % 32;
+  const int src = lane % width >= (int)delta ? lane - (int)delta : lane;
+  return ::dhts_emu::exchange(v, src);
+}
+template <class T>
+T __shfl_down_sync(unsigned, T v, unsigned delta, int width = 32) {
+  const int lane = ::dhts_emu::current % 32;
+  const int src = lane % width + (int)delta < width ? lane + (int)delta
+                                                    : lane;
+  return ::dhts_emu::exchange(v, src);
+}
+
+inline long long clock64() {
+  return std::chrono::duration_cast<std::chrono::nanoseconds>(
+             std::chrono::steady_clock::now().time_since_epoch())
+      .count();
+}
+
+// blocks run one after another on one host thread: plain memory suffices
+inline int atomicAdd(int* p, int v) {
+  const int old = *p;
+  *p = old + v;
+  return old;
+}
+inline void __threadfence() {}
+template <class T>
+T __ldcg(const T* p) {
+  return *p;
+}

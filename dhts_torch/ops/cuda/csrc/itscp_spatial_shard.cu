@@ -39,7 +39,7 @@
 // Bound. Each launch moves the shard's share of a step's state (the macro
 // cells, the vehicles present, the counters) and the gathered rows, a few
 // KB per episode, through short chains of dependent loads: latency-bound,
-// far above the bytes / 3.35 TB/s floor.
+// far above the bytes / 3.35 TB/s floor. Q (below) is bound by its bytes.
 
 #include "itscp_step.cuh"
 
@@ -89,6 +89,7 @@ struct ShardArgs {
   float* queues;        // Q: [N, T] (a derivative: the queues' tangents)
   const float* q_weight;  // Q derivative: [B, T] the loss weights
   double* grad;         // Q derivative: [N]
+  int* q_count;         // Q derivative: [N] tiles done, 0 between launches
   int N, t, off, n;
   Dims d;
   Consts k;
@@ -99,7 +100,19 @@ enum { F_RLAST, F_ULAST, F_COUNT, F_TPOS, F_TLEN, F_CAP, F_HPOS, F_HVEL,
        F_HLEN, F_HA, F_AMAX };
 enum { I_MN, I_RIDX, I_HNEXT, I_RID };
 enum { BODY_A, BODY_B, BODY_C, BODY_D1, BODY_D2, BODY_D3, BODY_E, BODY_Q };
-constexpr int Q_THREADS = 128;  // Q's block (a step per thread, strided)
+// Q's block: Q_THREADS threads load a tile of up to Q_TILE steps of a row,
+// [steps, L] floats at a row stride of L | 1 floats in shared memory (odd:
+// the tile's threads, one per step, read a lane's column from distinct
+// banks), within the 48 KB a block takes without opting in.
+constexpr int Q_THREADS = 128, Q_TILE = 32, Q_SMEM = 48 * 1024;
+__host__ __device__ inline int q_stride(int L) { return L | 1; }
+__host__ __device__ inline int q_tile(int L) {
+  const int k = Q_SMEM / (4 * q_stride(L));
+  return k < 1 ? 1 : (k < Q_TILE ? k : Q_TILE);
+}
+__host__ __device__ inline int q_tiles(int T, int L) {
+  return (T + q_tile(L) - 1) / q_tile(L);
+}
 
 // offsets of the packed carry of n lanes (float_layout / int_layout of the
 // wrapper at the shard's lanes)
@@ -657,29 +670,81 @@ __global__ void shard_E(ShardArgs a) {
   }
 }
 
+// s + x[0] + x[1] + ... + x[n - 1] in float64, one add after another; the
+// loads of eight terms are issued before their adds, so that the chain of
+// adds, not the loads' latency, sets the time
+template <class T>
+__device__ __forceinline__ double add_in_order(double s, const T* x, int n) {
+  int k = 0;
+  for (; k + 8 <= n; k += 8) {
+    double v[8];
+#pragma unroll
+    for (int j = 0; j < 8; ++j) v[j] = (double)x[k + j];
+#pragma unroll
+    for (int j = 0; j < 8; ++j) s += v[j];
+  }
+  for (; k < n; ++k) s += (double)x[k];
+  return s;
+}
+
 // ========= Q: the episode's queues from the gathered q^2 rows ==========
-// One block per row, the steps strided over its threads: a step's L lanes
-// summed in lane order in float64, rounded once, times dt (the STEP
-// kernel's reduction). In a derivative the rows are tangents, and thread 0
-// then adds q_weight[b, t] * tangent over the steps in float64, in step
-// order, into grad[row].
+// One block per tile of q_tile(L) steps of a row, so that a row's T x L
+// floats spread over T / q_tile(L) SMs. The block copies its tile into
+// shared memory with coalesced loads (the tile's steps are contiguous in
+// gq); then thread j adds step j's L lanes in lane order in float64,
+// rounded once, times dt (the STEP kernel's reduction). In a derivative the
+// rows are tangents, and the row's last block to finish (counted in
+// q_count, which it resets) adds q_weight[b, t] * tangent over all the
+// row's steps in float64, in step order, into grad[row]: the terms staged
+// in shared memory, one thread adding them one after another, as STEP's
+// derivative adds them (a tree would round differently). Q reads each row
+// once, so bytes bound it (0.1 us for a 600 x 144 row on an H100); one
+// block per row with the steps strided over its threads (uncoalesced loads,
+// one SM) took 32.9 us there.
 __global__ void shard_Q(ShardArgs a) {
-  const int e = blockIdx.x, L = a.d.L, T = a.d.T;
-  const float* q = a.gq + (size_t)e * T * L;
+  DHTS_DYNAMIC_SMEM(smem_raw);
+  const int L = a.d.L, T = a.d.T, P = q_stride(L), K = q_tile(L);
+  const int n_tiles = q_tiles(T, L);
+  const int e = blockIdx.x / n_tiles, t0 = blockIdx.x % n_tiles * K;
+  const int steps = min(K, T - t0);
+  int* last = nullptr;
+  float* tile = nullptr;
+  size_t off = 0;
+  carve(&last, 1, smem_raw, off);
+  carve(&tile, (size_t)K * P, smem_raw, off);
+  const float* q = a.gq + ((size_t)e * T + t0) * L;
+  for (int k = threadIdx.x; k < steps * L; k += Q_THREADS)
+    tile[k / L * P + k % L] = q[k];
+  __syncthreads();
   float* out = a.queues + (size_t)e * T;
-  for (int t = threadIdx.x; t < T; t += Q_THREADS) {
-    double s = 0.0;
-    for (int l = 0; l < L; ++l) s += (double)q[(size_t)t * L + l];
-    out[t] = (float)s * a.k.dt;
+  if ((int)threadIdx.x < steps) {
+    const double s = add_in_order(0.0, tile + threadIdx.x * P, L);
+    out[t0 + threadIdx.x] = (float)s * a.k.dt;
   }
   if (a.grad == nullptr) return;
+  __threadfence();  // this tile's sums reach the device before the count
   __syncthreads();
+  if (threadIdx.x == 0)
+    last[0] = atomicAdd(a.q_count + e, 1) == n_tiles - 1;
+  __syncthreads();
+  if (!last[0]) return;
+  const int n_act = a.d.n_phases * a.d.n_inter;
+  const float* w = a.q_weight + (size_t)(e / n_act) * T;
+  double* term = reinterpret_cast<double*>(tile);
+  const int cap = K * P / 2;  // the doubles the tile holds
+  double g = 0.0;
+  for (int c0 = 0; c0 < T; c0 += cap) {
+    const int n = min(cap, T - c0);
+    // the other tiles' sums are read from L2 (__ldcg), past this SM's L1
+    for (int k = threadIdx.x; k < n; k += Q_THREADS)
+      term[k] = (double)w[c0 + k] * (double)__ldcg(out + c0 + k);
+    __syncthreads();
+    if (threadIdx.x == 0) g = add_in_order(g, term, n);
+    __syncthreads();
+  }
   if (threadIdx.x == 0) {
-    const int n_act = a.d.n_phases * a.d.n_inter;
-    const float* w = a.q_weight + (size_t)(e / n_act) * T;
-    double g = 0.0;
-    for (int t = 0; t < T; ++t) g += (double)w[t] * (double)out[t];
     a.grad[e] = g;
+    a.q_count[e] = 0;
   }
 }
 
@@ -703,6 +768,11 @@ size_t smem_of(int body, int L, int n) {
   } else if (body == BODY_E) {
     float* f = nullptr;
     carve(&f, 1, none, off);
+  } else if (body == BODY_Q) {
+    int* i = nullptr;
+    float* f = nullptr;
+    carve(&i, 1, none, off);
+    carve(&f, (size_t)q_tile(L) * q_stride(L), none, off);
   }
   return off;
 }
@@ -712,12 +782,13 @@ int run(Kernel kernel, int body, const ShardArgs& a, int repeat,
         void* stream) {
   const size_t smem = smem_of<S>(body, a.d.L, a.n);
   const int threads = body == BODY_Q ? Q_THREADS : ((a.n + 31) / 32) * 32;
+  const int blocks = body == BODY_Q ? a.N * q_tiles(a.d.T, a.d.L) : a.N;
   for (int r = 0; r < repeat; ++r) {
 #ifdef DHTS_CPU_EMULATION
     (void)stream;
-    dhts_emu::launch(a.N, threads, smem, kernel, a);
+    dhts_emu::launch(blocks, threads, smem, kernel, a);
 #else
-    kernel<<<a.N, threads, smem, (cudaStream_t)stream>>>(a);
+    kernel<<<blocks, threads, smem, (cudaStream_t)stream>>>(a);
     const cudaError_t err = cudaGetLastError();
     if (err != cudaSuccess) return (int)err;
 #endif
@@ -749,7 +820,8 @@ int launch_itscp_shard(int body, int dual, const void* args, int repeat,
   const bool dual_ok = body == BODY_A || body == BODY_B || body == BODY_C ||
                        body == BODY_D3 || body == BODY_E || body == BODY_Q;
   if (body == BODY_Q &&
-      (!a->gq || !a->queues || (dual && (!a->grad || !a->q_weight)) ||
+      (!a->gq || !a->queues ||
+       (dual && (!a->grad || !a->q_weight || !a->q_count)) ||
        (!dual && a->grad)))
     return 1;
   if (body == BODY_C && d.mode != HARD && !a->gsg) return 1;

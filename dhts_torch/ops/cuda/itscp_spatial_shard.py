@@ -59,7 +59,8 @@ replicated without a gradient all-reduce.
   ``csrc/itscp_spatial_shard.cu`` (one launch per body and step, one block
   per episode, one thread per local lane; a ``Dual`` variant of A, B, C,
   D3 and E with one block per episode and action entry; Q once per
-  episode) between the same gathers; each launch counts in
+  episode, one block per tile of up to 32 steps of a row) between the
+  same gathers; each launch counts in
   :data:`launches`. :data:`STEP` describes each body once: its plain
   version on the run's buffers, where its kernel writes, and what is
   gathered after it; the run's step, its checked step and the card's
@@ -895,7 +896,7 @@ PTRS = ("fbuf", "dbuf", "ibuf", "action", "rand", "sched", "mnext", "mprev",
         "gA_d", "bc_v", "bc_d", "sg", "events", "gsg", "sumF_v", "sumF_d",
         "sumI", "waves", "gF_v", "gF_d", "gI", "wrow", "pred", "gW", "bd",
         "gV", "ss", "ssn", "gss", "gssn", "q_v", "q_d", "gq", "queues",
-        "q_weight", "grad")
+        "q_weight", "grad", "q_count")
 # the pointers to this step's gathered rows and Q's weights (set before
 # every launch; the others are fixed for a ShardRun)
 GATHERED = ("gA_v", "gA_d", "gsg", "gF_v", "gF_d", "gI", "gW", "gV", "gss",
@@ -972,10 +973,12 @@ class ShardRun:
         i32 = dict(dtype=torch.int32, device=dev)
         carry, sg, ss = k6.initial_carry(plan, N, dev)
         # Q's outputs: the episode's queues (their tangents in a derivative)
-        # and the gradient's terms of each row
+        # and the gradient's terms of each row, with the derivative's count
+        # of each row's finished tiles (the kernel leaves it at 0)
         self.queues = torch.zeros((N, T), **f32)
         self.grad = (torch.zeros(N, dtype=torch.float64, device=dev) if dual
                      else None)
+        self.q_count = torch.zeros(N, **i32) if dual else None
         self.shards = []
         for s in comm.shards:
             p_n = plan._replace(L=s.n)
@@ -1011,7 +1014,7 @@ class ShardRun:
                          mnext=mnext, mprev=mprev, routes=routes,
                          prog=plan.prog, lane_i=plan.lane_i,
                          lane_f=plan.lane_f, queues=self.queues,
-                         grad=self.grad)
+                         grad=self.grad, q_count=self.q_count)
             for name in PTRS:
                 x = fixed.get(name)
                 if name not in GATHERED and x is not None:

@@ -4,14 +4,14 @@
 
 Builds ``csrc/macro_rollout.cu`` with ``-DDHTS_STEP_CLOCK`` (thread 0 of
 block 0 adds up the ``clock64()`` cycles of each part of a step) and runs
-the forward once at the inverse benchmark's macro defaults on the card.
-Prints one JSON line per variant: the cycles per step of each part, their
-shares, the clocked kernel's ms, and the same source's ms without stamps
-(CUDA events, median of 5 runs of 20 launches back to back). The variants
-are the Riemann solver as written (``branch``: ``comp_y`` on divergent
-paths) and with ``-DDHTS_RIEMANN_SELECT`` (``select``: the inputs selected
-first, one ``comp_y``). Every variant's outputs must equal the plain
-version's bit for bit. Needs one CUDA device.
+the forward at the inverse benchmark's macro defaults on the card through
+each kernel that takes the lane: the warp kernel (cells in registers, C <=
+31) and the shared-memory one. Prints one JSON line per kernel: the cycles
+per step of each part, their shares, the clocked kernel's ms (CUDA events,
+median of 5 runs of 20 launches back to back) and, for the kernel the
+launcher picks at this C, the ms of the build without stamps with the
+step's us split in the stamps' shares. Every run's outputs must equal the
+plain version's bit for bit. Needs one CUDA device.
 """
 
 from __future__ import annotations
@@ -20,7 +20,6 @@ import argparse
 import ctypes
 import json
 import subprocess
-from concurrent.futures import ThreadPoolExecutor
 
 import numpy as np
 import torch
@@ -30,8 +29,8 @@ from dhts_torch.ops.cuda import _build, _launch
 from dhts_torch.ops.cuda import macro_rollout as k2
 
 PARTS = ("neighbour_states", "riemann", "flux_exchange", "cell_update")
-VARIANTS = {"branch": (), "select": ("DHTS_RIEMANN_SELECT",)}
-CLOCK = "DHTS_STEP_CLOCK"
+KERNELS = {"warp": 1, "smem": 0}
+WARP_CELLS = 31  # the most cells of the warp kernel (csrc/macro_rollout.cu)
 
 
 def inputs(B: int, C: int, u_max: float, seed: int, dev):
@@ -71,48 +70,52 @@ def main() -> int:
     smi = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit,clocks.sm,clocks.max.sm",
          "--format=csv,noheader"], capture_output=True, text=True).stdout
-    builds = [(name, clocked) for name in VARIANTS for clocked in (0, 1)]
-    with ThreadPoolExecutor(len(builds)) as pool:
-        paths = dict(zip(builds, pool.map(
-            lambda nc: _build.build("macro_rollout", defines=(
-                *VARIANTS[nc[0]], *((CLOCK,) if nc[1] else ()))), builds)))
+    lib = k2.bind(ctypes.CDLL(str(_build.build(
+        "macro_rollout", defines=("DHTS_STEP_CLOCK",)))))
+    fn = lib.launch_macro_rollout_fwd_clock
+    fn.argtypes = list(k2._ARGTYPES) + [ctypes.c_int, ctypes.c_void_p]
+    fn.restype = ctypes.c_int
     consts = k2.MacroConsts(30.0, 0.01, 5.0, args.T)
     B, C = args.B, args.C
     ins = inputs(B, C, consts.u_max, 21, dev)
     ref = k2.plain_macro_rollout(consts, *ins)
-    stream = _launch.stream(dev)
     out = (torch.empty((B, C), device=dev), torch.empty((B, C), device=dev),
            torch.empty((B,), device=dev))
     cycles = torch.zeros(4, dtype=torch.int64, device=dev)
-    kargs = k2.kernel_args(consts, (*ins, *out), B, C, stream)
+    kargs = k2.kernel_args(consts, (*ins, *out), B, C, _launch.stream(dev))
+    picked = "warp" if C <= WARP_CELLS else "smem"
     ok = True
-    for name in VARIANTS:
-        plain_lib = k2.bind(ctypes.CDLL(str(paths[(name, 0)])))
-        lib = k2.bind(ctypes.CDLL(str(paths[(name, 1)])))
-        fn = lib.launch_macro_rollout_fwd_clock
-        fn.argtypes = list(k2._ARGTYPES) + [ctypes.c_void_p]
-        fn.restype = ctypes.c_int
-        clocked = lambda: fn(*kargs, ctypes.c_void_p(cycles.data_ptr()))
-        unclocked = lambda: plain_lib.launch_macro_rollout_fwd(*kargs)
-        rec = {"variant": name, "B": B, "C": C, "T": args.T}
-        for key, call in (("ms", unclocked), ("ms_clocked", clocked)):
+    for name, warp in KERNELS.items():
+        if warp and C > WARP_CELLS:
+            continue
+        calls = {"ms_clocked": lambda: fn(*kargs, warp, ctypes.c_void_p(
+            cycles.data_ptr()))}
+        if name == picked:
+            calls["ms"] = lambda: k2._library().launch_macro_rollout_fwd(
+                *kargs)
+        rec = {"kernel": name, "picked": name == picked, "B": B, "C": C,
+               "T": args.T}
+        for key, call in calls.items():
+            for x in out:
+                x.fill_(float("nan"))
             _launch.raise_on(call(), f"{name} {key}")
             torch.cuda.synchronize()
             rec[f"{key}_bit_equal"] = all(bool(torch.equal(a, b))
                                           for a, b in zip(out, ref))
             ok = ok and rec[f"{key}_bit_equal"]
             rec[key] = events_ms(call)
-        _launch.raise_on(clocked(), name)
+        _launch.raise_on(calls["ms_clocked"](), name)
         torch.cuda.synchronize()
         cyc = cycles.tolist()
         total = sum(cyc)
         rec["cycles_per_step"] = {p: c / args.T for p, c in zip(PARTS, cyc)}
         rec["share"] = {p: c / total for p, c in zip(PARTS, cyc)}
         rec["cycles_per_step_total"] = total / args.T
-        # the unclocked step's us split in the stamps' shares
-        rec["us_per_step"] = rec["ms"] * 1e3 / args.T
-        rec["us_per_step_by_part"] = {p: rec["us_per_step"] * s for p, s in
-                                      rec["share"].items()}
+        if "ms" in rec:
+            # the unclocked step's us split in the stamps' shares
+            rec["us_per_step"] = rec["ms"] * 1e3 / args.T
+            rec["us_per_step_by_part"] = {
+                p: rec["us_per_step"] * v for p, v in rec["share"].items()}
         print(json.dumps(rec), flush=True)
     print(smi.strip(), flush=True)
     return 0 if ok else 1

@@ -44,3 +44,14 @@ def test_editing_another_source_keeps_the_name(tmp_path):
 def test_missing_source_raises(tmp_path):
     with pytest.raises(FileNotFoundError):
         _build.library_path("no_such_kernel", tmp_path)
+
+
+def test_a_build_with_macros_names_its_own_library():
+    """An instrumented build (``-DDHTS_STEP_CLOCK``, the step's cycle
+    stamps) never loads as the plain one, nor the plain one as it."""
+    plain = _build.library_path("macro_rollout")
+    clocked = _build.library_path("macro_rollout",
+                                  defines=("DHTS_STEP_CLOCK",))
+    assert clocked != plain and clocked.parent == plain.parent
+    assert clocked == _build.library_path("macro_rollout",
+                                          defines=["DHTS_STEP_CLOCK"])

@@ -1,7 +1,8 @@
 """Kernels K2 (fused ARZ macro rollout) and K3 (fused IDM micro rollout)
 on the card against their plain PyTorch versions (skipped without a CUDA
 device), at the inverse benchmarks' defaults: C = 10 cells of 5 m or V = 10
-vehicles, dt 0.01, T = 500 steps, speed limit 30, at B = 1 and B = 12.
+vehicles, dt 0.01, T = 500 steps, speed limit 30, at B = 1 and B = 12; K2
+also at C = 40, above one warp of cells (the shared-memory kernel).
 
 Tolerances as in ``chip_smoke.py``: the forward allclose(rtol 1e-6, atol
 1e-6) (it repeats the plain version's float32 operations, so it is
@@ -37,10 +38,10 @@ def cuda():
     return torch.device("cuda")
 
 
-def macro_inputs(B, seed, dev, probe=False):
+def macro_inputs(B, seed, dev, probe=False, C=10):
     rng = np.random.default_rng(seed)
-    r0 = rng.uniform(0.0, 1.0, (B, 10))
-    u0 = rng.uniform(0.0, U_MAX, (B, 10))
+    r0 = rng.uniform(0.0, 1.0, (B, C))
+    u0 = rng.uniform(0.0, U_MAX, (B, C))
     ghosts = [rng.uniform(0, 1, B), rng.uniform(0, U_MAX, B),
               rng.uniform(0, 1, B), rng.uniform(0, U_MAX, B)]
     if probe:  # vacuum and jammed cells and ghosts
@@ -68,8 +69,9 @@ def check_grads(got, ref, atol_scale):
 
 @pytest.mark.parametrize("probe", [False, True], ids=["random", "vac_jam"])
 @pytest.mark.parametrize("B", [1, 12])
-def test_k2_matches_plain_version(cuda, B, probe):
-    inputs = macro_inputs(B, 3 + B, cuda, probe)
+@pytest.mark.parametrize("C", [10, 40])
+def test_k2_matches_plain_version(cuda, C, B, probe):
+    inputs = macro_inputs(B, 3 + B, cuda, probe, C)
     n = k2.macro_rollout_fwd.launches, k2.macro_rollout_bwd.launches
     out = k2.macro_rollout_fwd(MACRO, *inputs)
     ref = k2.plain_macro_rollout(MACRO, *inputs)
@@ -77,7 +79,7 @@ def test_k2_matches_plain_version(cuda, B, probe):
         assert torch.isfinite(a).all()
         assert torch.allclose(a, b, rtol=1e-6, atol=1e-6)
     rng = np.random.default_rng(B)
-    cot = [torch.as_tensor(rng.normal(size=(B, 10)), dtype=torch.float32,
+    cot = [torch.as_tensor(rng.normal(size=(B, C)), dtype=torch.float32,
                            device=cuda) for _ in range(2)]
     got = k2.macro_rollout_bwd(MACRO, *inputs, *cot)
     want = k2.plain_macro_rollout_bwd(MACRO, *inputs, *cot)

@@ -168,23 +168,32 @@ def lib(tmp_path_factory):
     return k2.bind(ctypes.CDLL(str(path)))
 
 
-@pytest.mark.parametrize("T", [1, 40])
-@pytest.mark.parametrize("probe", [False, True], ids=["random", "vac_jam"])
-def test_source_forward_is_bit_equal_to_plain_version(lib, probe, T):
-    args = case(3, B=4, probe=probe)
+def forward_case(lib, C, probe, T):
+    args = case(3, B=4, C=C, probe=probe)
     consts = k2.MacroConsts(U_MAX, DT, DX, T)
     ins = port_inputs(args)
-    out = (torch.empty(4, 10), torch.empty(4, 10), torch.empty(4))
+    out = (torch.empty(4, C), torch.empty(4, C), torch.empty(4))
     assert lib.launch_macro_rollout_fwd(
-        *k2.kernel_args(consts, (*ins, *out), 4, 10, 0)) == 0
+        *k2.kernel_args(consts, (*ins, *out), 4, C, 0)) == 0
     for a, b in zip(out, k2.plain_macro_rollout(consts, *ins)):
         assert torch.isfinite(a).all()
         assert torch.equal(a, b)
 
 
+@pytest.mark.parametrize("T", [1, 40])
 @pytest.mark.parametrize("probe", [False, True], ids=["random", "vac_jam"])
-def test_source_backward_matches_autograd(lib, probe):
-    B, C, T = 2, 6, 30
+def test_source_forward_is_bit_equal_to_plain_version(lib, probe, T):
+    forward_case(lib, 10, probe, T)  # the warp kernel
+
+
+@pytest.mark.parametrize("T", [1, 40])
+@pytest.mark.parametrize("probe", [False, True], ids=["random", "vac_jam"])
+def test_source_forward_above_one_warp_is_bit_equal(lib, probe, T):
+    forward_case(lib, 40, probe, T)  # the shared-memory kernel
+
+
+def backward_case(lib, C, probe):
+    B, T = 2, 30
     args = case(4, B=B, C=C, probe=probe)
     consts = k2.MacroConsts(U_MAX, DT, DX, T)
     ins = port_inputs(args)
@@ -204,10 +213,60 @@ def test_source_backward_matches_autograd(lib, probe):
     assert float(got[:, 2 * C + 2].abs().max()) == 0.0  # d/d br_r
 
 
+@pytest.mark.parametrize("probe", [False, True], ids=["random", "vac_jam"])
+def test_source_backward_matches_autograd(lib, probe):
+    backward_case(lib, 6, probe)
+
+
+@pytest.mark.parametrize("C", [10, 40], ids=["warp", "above_one_warp"])
+@pytest.mark.parametrize("probe", [False, True], ids=["random", "vac_jam"])
+def test_source_backward_matches_autograd_at_both_kernels(lib, probe, C):
+    backward_case(lib, C, probe)
+
+
 def test_source_rejects_bad_sizes(lib):
     consts = k2.MacroConsts(U_MAX, DT, DX, 5)
     ins = port_inputs(case(0, B=1, C=2))
     out = (torch.empty(1, 2), torch.empty(1, 2), torch.empty(1))
-    args = list(k2.kernel_args(consts, (*ins, *out), 1, 2, 0))
-    args[11] = 0  # C
-    assert lib.launch_macro_rollout_fwd(*args) == 1
+    fwd = list(k2.kernel_args(consts, (*ins, *out), 1, 2, 0))
+    bwd = list(k2.kernel_args(consts, (*ins, *out[:2], torch.empty(1, 8)),
+                              1, 2, 0))
+    for C in (0, 1024):  # no cell; more than a block's threads
+        fwd[11] = bwd[11] = C
+        assert lib.launch_macro_rollout_fwd(*fwd) == 1
+        assert lib.launch_macro_rollout_bwd(*bwd) == 1
+
+
+@pytest.mark.parametrize("C", [1, 31, 32])
+def test_source_lanes_at_the_warp_edge(lib, C):
+    """One cell, a full warp of interfaces (C = 31: the right ghost at lane
+    31) and the first lane of the shared-memory kernel (C = 32)."""
+    forward_case(lib, C, False, 25)
+
+
+@pytest.mark.parametrize("warp", [1, 0], ids=["warp", "smem"])
+def test_clocked_source_matches_and_stamps_every_part(tmp_path, warp):
+    """The instrumented build (``-DDHTS_STEP_CLOCK``) through its launcher
+    as ``python -m dhts_torch.ops.cuda.step_clock`` calls it: each kernel's
+    outputs bit-equal to the plain version, four non-negative part counts
+    (host nanoseconds here, cycles on the card)."""
+    try:
+        path = _build.build_cpu_emulation("macro_rollout", tmp_path,
+                                          defines=("DHTS_STEP_CLOCK",))
+    except RuntimeError as err:
+        pytest.skip(f"no host build of the kernel source: {err}")
+    lib = k2.bind(ctypes.CDLL(str(path)))
+    fn = lib.launch_macro_rollout_fwd_clock
+    fn.argtypes = list(k2._ARGTYPES) + [ctypes.c_int, ctypes.c_void_p]
+    consts = k2.MacroConsts(U_MAX, DT, DX, 20)
+    ins = port_inputs(case(6, B=2, C=10))
+    out = (torch.empty(2, 10), torch.empty(2, 10), torch.empty(2))
+    cycles = torch.full((4,), -1, dtype=torch.int64)
+    assert fn(*k2.kernel_args(consts, (*ins, *out), 2, 10, 0), warp,
+              ctypes.c_void_p(cycles.data_ptr())) == 0
+    for a, b in zip(out, k2.plain_macro_rollout(consts, *ins)):
+        assert torch.equal(a, b)
+    assert (cycles >= 0).all() and int(cycles.sum()) > 0
+    # the warp kernel takes at most 31 cells
+    assert fn(*k2.kernel_args(consts, (*ins, *out), 2, 32, 0), 1,
+              ctypes.c_void_p(cycles.data_ptr())) == 1

@@ -143,6 +143,46 @@ def test_queue_kernel_matches_plain_sums(libs, dual):
         assert run.grad is None
 
 
+@pytest.mark.parametrize("L", [None, 600], ids=["scene_L", "L600"])
+@pytest.mark.parametrize("dual", [False, True], ids=["forward", "derivative"])
+@pytest.mark.parametrize("B", [1, 4])
+def test_queue_kernel_on_partial_tiles(libs, B, dual, L):
+    """Q at T = 37, not a multiple of its tile of steps (32 at the scene's
+    lanes, 20 at 600 lanes), B = 1 and 4: the queues equal
+    ``plain_queues`` and the derivative's terms ``plain_gradient`` bit for
+    bit, launched twice back to back (the derivative's count of finished
+    tiles returns to 0 in between)."""
+    lib, _ = libs
+    plan, inputs = case(MICRO_CFG, True, B)
+    run = ks.ShardRun(plan, ks.LaneComm(plan.L, ks.shards_of(plan.L, 2)),
+                      inputs, dual=dual, lib=lib)
+    T, L = 37, L or plan.L
+    rng = np.random.default_rng(B + 10 * dual)
+    rows = torch.as_tensor(rng.standard_normal((run.N, T, L)) *
+                           10.0 ** rng.integers(-6, 4, (run.N, T, L)),
+                           dtype=torch.float32)
+    wq = torch.as_tensor(rng.uniform(-1, 1, (B, T)), dtype=torch.float32)
+    queues = torch.full((run.N, T), float("nan"))
+    grad = torch.zeros(run.N, dtype=torch.float64) if dual else None
+    # Q reads only the sizes, dt and its own pointers: a copy of the run's
+    # arguments at this T and L
+    args = ks.ShardArgs.from_buffer_copy(run.shards[0][3])
+    args.d_T, args.d_L = T, L
+    for name, x in (("gq", rows), ("queues", queues), ("q_weight", wq),
+                    ("grad", grad), ("q_count", run.q_count)):
+        setattr(args, name, None if x is None else x.data_ptr())
+    want = ks.plain_queues(plan, rows)
+    for _ in range(2):
+        assert lib.launch_itscp_shard(ks.KERNELS.index("Q"), int(dual),
+                                      ctypes.byref(args), 1, None) == 0
+        assert torch.equal(queues, want)
+        if dual:
+            got = grad.view(B, -1).sum(0).to(torch.float32).view(
+                plan.n_phases, plan.n_inter)
+            assert torch.equal(got, ks.plain_gradient(plan, rows, wq))
+            assert int(run.q_count.abs().sum()) == 0
+
+
 def cut(plan, inputs, wq, steps):
     """The first ``steps`` steps of an episode: plan, inputs, weights."""
     if steps >= plan.T:
@@ -200,6 +240,14 @@ def test_launcher_refuses_bad_launches(libs):
     assert call("A", 1) != 0  # no tangent buffer
     assert call("Q", 0) != 0  # no gathered rows
     assert call("Q", 1) != 0  # a derivative without tangents and weights
+    dual = ks.ShardRun(plan, comm, inputs, dual=True, lib=lib)
+    dargs = dual.shards[0][3]
+    dual.g = {"gq": dual.queues.new_zeros((dual.N, plan.T, plan.L)),
+              "q_weight": dual.queues.new_zeros((1, plan.T))}
+    dual.launch("Q", 0, [0])
+    dargs.q_count = None
+    assert lib.launch_itscp_shard(ks.KERNELS.index("Q"), 1,
+                                  ctypes.byref(dargs), 1, None) != 0  # count
     args.gsg = None
     assert call("C", 0) != 0  # a soft step without the signal mean's terms
     args.t = plan.T  # past the last step
