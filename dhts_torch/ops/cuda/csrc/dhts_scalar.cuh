@@ -219,32 +219,15 @@ __device__ __forceinline__ void riemann(S rl, S yl, S ul, S rr, S ur,
     speed0 = val(half_lam_vac); speed1 = val(ur); c = l_or_c;
   }
   // the interface state: (r_m, u_m) if c == 1, (r_c, u_c) if c == 2, the
-  // left state otherwise. The inputs are selected first and comp_y runs
-  // once, on every lane: comp_y on two divergent paths cost a warp both
-  // chains (K2's Riemann part on an H100: 924 against 815 cycles a step)
-#ifndef DHTS_RIEMANN_Y
-#define DHTS_RIEMANN_Y 1
-#endif
-#if DHTS_RIEMANN_Y == 0
-  S r0, u0, y0;
-  if (c == 1) {
-    r0 = r_m; u0 = u_m; y0 = comp_y(r0, u0, u_max);
-  } else if (c == 2) {
-    r0 = r_c; u0 = u_c; y0 = comp_y(r0, u0, u_max);
-  } else {
-    r0 = rl; u0 = ul; y0 = yl;
-  }
-#else
+  // left state otherwise. The inputs are selected first, so that a warp
+  // whose lanes need both runs comp_y once, not on two divergent paths (on
+  // an H100, K2's Riemann part took 924 against 815 cycles a step); comp_y
+  // stays behind a branch, so a warp that needs neither runs it not at all
+  // (on every lane, K1's backward took 3 % longer)
   const S r0 = c == 1 ? r_m : (c == 2 ? r_c : rl);
   const S u0 = c == 1 ? u_m : (c == 2 ? u_c : ul);
-#if DHTS_RIEMANN_Y == 1
-  const S y_mc = comp_y(r0, u0, u_max);
-  const S y0 = c == 0 ? yl : y_mc;
-#else
   S y0 = yl;
   if (c != 0) y0 = comp_y(r0, u0, u_max);
-#endif
-#endif
   fr = r0 * u0;
   fy = y0 * u0;
   wave = fmaxf(fabsf(speed0), fabsf(speed1));
