@@ -47,7 +47,7 @@
 // with the cells in shared memory took 1,697 cycles: the neighbours' states
 // (two comp_u) 529, the Riemann solve 924, the exchanges, barriers and
 // update 244. The register design keeps one comp_u and the solve on the
-// chain: 1,146 cycles, 268 + 827 + 51.
+// chain and two shuffles of the rest (its split: PERF.md, section 5).
 
 #include "dhts_scalar.cuh"
 
