@@ -19,7 +19,8 @@ per-shard bodies A, B, C, D1, D2, D3, E and K5's stop-gradient op, four
 gloo ranks that share the card, spawned once after the build with a
 ``FileStore`` in a temporary directory and kept for the slice's phases,
 with two more for the S = 2 check; a rank that fails or outlives its
-time fails the run). Each
+time fails the run), and K1's scenario batch: B episodes in one launch, the
+packed Trainer (``run --packed``). Each
 phase prints one JSON line with its wall seconds:
 
 1. ``device``  card name and power limit (``nvidia-smi``), PyTorch/CUDA
@@ -124,7 +125,8 @@ phase prints one JSON line with its wall seconds:
                process, while the ranks work
 23. ``shard_train``  ``python -m dhts_torch.apps.control.itscp.run --mesh
                1,4 --mesh_fused`` in 4 ranks at the ``run_itscp_hybrid.sh``
-               flags, problem 1, 2 epochs with an evaluation each: losses
+               flags, problem 1, 1 epoch with an evaluation (2 until K1's
+               episode axis; cut to keep the run within 300 s): losses
                finite and equal on every rank, parameters equal on every
                rank afterwards, each body's launches, counted from 0 on each
                rank, T per forward episode (train step and evaluation) and
@@ -151,6 +153,36 @@ phase prints one JSON line with its wall seconds:
                of 5 runs of 20 launches back to back) with their bounds,
                and their plain versions' ms at B = 1
 26. ``kernels`` the per-kernel record (launches, error, times, bound)
+
+Slice 8 (K1 with B episodes per launch; a scene wider than one block on the
+sharded step) adds, where they run:
+
+* in ``train``: one ``train_step(4)``, four draws of the controller's
+  action in one soft forward and one backward launch;
+* after ``train``, ``k1_batch_vs_single``: the preset's
+  ``reset_batch(4, seed=3)``, four seeded actions; one launch of the four
+  episodes, hard and soft forward and the backward (per-episode loss
+  weights), bit-equal to four single launches (reward, queues, all eight
+  event rows, gradients), emitted > 0; the same for four draws of one
+  scene with the scene data and action shared (stride 0; the preset's
+  open boundaries are macro lanes, so its episodes read no draw);
+* ``packed_train``: ``Trainer(multi_scenario=True, packed=True)`` on those
+  four scenarios takes 3 steps and 1 evaluation: exactly one soft forward
+  and one backward launch per step and one hard launch for the
+  evaluation, counted from 0 in this phase; the first loss equal to minus
+  the mean of four single soft launches' rewards; losses finite,
+  parameters changed;
+* after ``shard_train``, ``shard9_vs_plain``: the 9x9 hybrid scene (the
+  preset's lanes and signals, 1,296 lanes, policy_length 2: T = 60) on the
+  S = 4 ranks (324 lanes a shard), hard and soft: at every 20th step each
+  launch against its plain body on the card (integers equal, floats
+  allclose(rtol 1e-6, atol 1e-6)), each episode bit-equal to the plain
+  single-shard episode, run here while the ranks work;
+* before ``timing``, ``k1_batch_timing``: K1's hard, soft and backward ms
+  per launch at B = 1, 2, 4, 8, 32 episodes of the four scenarios in turn
+  (CUDA events, median of 5 after a warm-up), fwd+bwd episodes per second
+  and each launch's bound; the ``kernels`` line gains K1's rows at B = 4
+  (``packed_train``'s launches).
 
 then the card's name and power limit, and as the last line
 ``{"ok": true, "device": {...}}``. Any failure exits non-zero without that
@@ -1146,7 +1178,7 @@ def run_shard_train(ranks, log_root: str) -> dict:
             "--n_intersection", "3", "--n_lane", "1", "--lane_length", "5",
             "--speed_limit", "60", "--simulation_length", "20",
             "--signal_length", "4", "--lr", "1e-4", "--seed", "3",
-            "--n_episode", "1", "--mesh", f"1,{SHARDS}", "--mesh_fused",
+            "--n_episode", "0", "--mesh", f"1,{SHARDS}", "--mesh_fused",
             "--log_root", log_root]
     outs = ranks.run(_shard_train_rank, (argv,))
     (metrics,) = Path(log_root).glob("hybrid_*/trial_0/metrics.jsonl")
@@ -1174,7 +1206,7 @@ def run_shard_train(ranks, log_root: str) -> dict:
         "pmax": fwd_eps}
     episodes = fwd_eps + bwd_eps
     per_step = {k: v / (T * episodes) for k, v in outs[0]["counts"].items()}
-    ok = (steps == 2 and len(evals) == 2 and
+    ok = (steps == 1 and len(evals) == 1 and
           all(o["launches"] == expected for o in outs) and
           all(o["counts"] == expected_coll for o in outs) and
           all(math.isfinite(x) for x in outs[0]["losses"] + evals) and
@@ -1687,6 +1719,312 @@ def time_k4(scenes, plain_ms) -> dict:
                                    for k in ms[n]} for n in ms})
 
 
+# ---------------------------------------------------------------------------
+# slice 8: K1 runs B episodes per launch (the scenario batch, the packed
+# Trainer), and the lane-sharded step on a scene of more than 1,024 lanes
+# ---------------------------------------------------------------------------
+
+K1_BATCH = 4  # scenarios of k1_batch_vs_single and packed_train
+K1_TIMING_BATCHES = (1, 2, 4, 8, 32)
+# the 9x9 hybrid scene (1,296 lanes) on the preset's lanes and signals, at a
+# short horizon (policy_length 2: T = 60 steps, 81 actions)
+SHARD9 = dict(PRESET, num_intersection=9, policy_length=2, random_seed=3)
+SHARD9_CHECK_EVERY = 20
+
+
+def batch_env(dev):
+    """The 3x3 preset after ``reset_batch(K1_BATCH, seed=3)`` (problem 1)."""
+    from dhts_torch.apps.control.itscp import problem
+    from dhts_torch.apps.control.itscp.env import ItscpEnv
+
+    env = ItscpEnv(config=dict(PRESET, random_seed=3),
+                   schedule_fn=problem.problem_1, device=dev)
+    env.reset_batch(K1_BATCH, seed=3)
+    return env
+
+
+def k1_batch_inputs(env, B: int, seed: int, scenarios: bool = True):
+    """K1's inputs for B episodes of the preset: episode e takes scenario
+    e % K1_BATCH of ``env.batch_data`` (``scenarios``), or every episode
+    the last reset's scene data and one action (stride 0); B seeded
+    actions (scenarios) and B seeded draws."""
+    import torch
+
+    dev = env.device
+    n_inter = env.action_size() // env.n_phases
+    rng = np.random.default_rng(seed)
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(seed)
+    rand = torch.stack([env.draw_rand(gen) for _ in range(B)])
+    if not scenarios:
+        d = env.data
+        action = torch.as_tensor(rng.uniform(0.3, 0.7, (env.n_phases,
+                                                        n_inter)),
+                                 dtype=torch.float32, device=dev)
+        return (action, d.schedule, d.mroute_next, d.mroute_prev, rand,
+                d.inj_routes, env.base_state.route_pool)
+    bd = env.batch_data
+    idx = torch.arange(B, device=dev) % bd.schedule.shape[0]
+    action = torch.as_tensor(rng.uniform(0.3, 0.7, (B, env.n_phases,
+                                                    n_inter)),
+                             dtype=torch.float32, device=dev)
+    return (action, bd.schedule[idx].contiguous(),
+            bd.mroute_next[idx].contiguous(),
+            bd.mroute_prev[idx].contiguous(), rand,
+            bd.inj_routes[idx].contiguous(), env.base_state.route_pool)
+
+
+def k1_row(plan, inputs, e: int):
+    """Episode e's inputs of a batch, as a launch of one episode takes
+    them."""
+    from dhts_torch.ops.cuda import itscp_hybrid_episode as k1
+
+    return tuple((x[e] if x.dim() == len(shape) + 1 else x).contiguous()
+                 for x, (shape, _) in zip(inputs, k1._rows(plan)))
+
+
+def check_k1_batch(env) -> dict:
+    """``k1_batch_vs_single``: one launch of K1_BATCH episodes against as
+    many launches of one episode, hard and soft forward and the backward,
+    for the scenarios of ``env`` and for draws of one scene; raises on a
+    difference."""
+    import torch
+
+    from dhts_torch.ops.cuda import itscp_hybrid_episode as k1
+
+    kfn, kfn_bwd = k1.itscp_hybrid_episode_fwd, k1.itscp_hybrid_episode_bwd
+    hard, soft = env.fused_plan(False), env.fused_plan(True)
+    B, T = K1_BATCH, hard.T
+    recs, ok, err = [], True, {"fwd": 0.0, "fwd_soft": 0.0, "bwd": 0.0}
+    for scenarios in (True, False):
+        ins = k1_batch_inputs(env, B, 5, scenarios)
+        strides = k1.episode_rows(hard, ins, B)[1]
+        w = torch.as_tensor(np.random.default_rng(6).uniform(
+            -1.0, 1.0, (B, T)), dtype=torch.float32, device=env.device)
+        rec = dict(batch="scenarios" if scenarios else "draws",
+                   episode_strides=strides)
+        for key, plan in (("fwd", hard), ("fwd_soft", soft)):
+            r, q, ev = kfn(plan, *ins)
+            singles = [kfn(plan, *k1_row(plan, ins, e)) for e in range(B)]
+            equal = all(torch.equal(r[e], s[0]) and torch.equal(q[e], s[1])
+                        and torch.equal(ev[e], s[2])
+                        for e, s in enumerate(singles))
+            diff = max(float((q[e] - s[1]).abs().max()) for e, s in
+                       enumerate(singles))
+            err[key] = max(err[key], diff)
+            tot = ev[..., :3].sum((0, 1)).tolist()
+            # the preset's open boundaries are macro lanes: its episodes
+            # read no draw, so one scene's draws give equal episodes
+            rec[key] = dict(bit_equal=equal, rewards=r.tolist(),
+                            distinct_rewards=len(set(r.tolist())),
+                            injected=tot[0], emitted=tot[1],
+                            absorbed=tot[2], queues_max_abs_err=diff)
+            ok = ok and equal and (tot[1] > 0 or not scenarios)
+        g = kfn_bwd(soft, w, *ins)
+        singles = [kfn_bwd(soft, w[e].contiguous(), *k1_row(soft, ins, e))
+                   for e in range(B)]
+        equal = all(torch.equal(g[e], s) for e, s in enumerate(singles))
+        diff = max(float((g[e] - s).abs().max()) for e, s in
+                   enumerate(singles))
+        err["bwd"] = max(err["bwd"], diff)
+        finite = bool(torch.isfinite(g).all()) and float(g.abs().max()) > 0
+        rec["bwd"] = dict(bit_equal=equal, max_abs_err=diff, finite=finite,
+                          norm=float(g.norm()))
+        ok = ok and equal and finite
+        recs.append(rec)
+    report(B=B, T=T, L=hard.L, checks=recs,
+           tolerance="reward, queues, events[T, 8] and gradients bit-equal "
+                     "to single launches",
+           status="ok" if ok else "FAIL")
+    if not ok:
+        raise SystemExit("k1_batch_vs_single failed")
+    return err
+
+
+def run_packed_train(env, log_root: str) -> dict:
+    """``packed_train``: ``Trainer(multi_scenario=True, packed=True)`` on
+    the scenarios of ``env``, three steps and one evaluation, K1's
+    launches counted from 0 in this phase; raises on a failed check."""
+    import torch
+
+    from dhts_torch.apps.control.trainer import Trainer
+    from dhts_torch.ops.cuda import itscp_hybrid_episode as k1
+
+    kfn, kfn_bwd = k1.itscp_hybrid_episode_fwd, k1.itscp_hybrid_episode_bwd
+    dev, B = env.device, K1_BATCH
+    trainer = Trainer(env, lr=1e-4, seed=3, multi_scenario=True, packed=True)
+    before = [x.detach().clone() for x in trainer.model.parameters()]
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(11)
+    rands = [torch.stack([env.draw_rand(gen) for _ in range(B)])
+             for _ in range(3)]
+    # the first loss from four single soft launches at the first actions
+    plan, bd = env.fused_plan(True), env.batch_data
+    with torch.no_grad():
+        actions = trainer.action().reshape(B, env.n_phases, -1)
+        ref = -torch.mean(torch.stack([kfn(
+            plan, actions[e].contiguous(), bd.schedule[e],
+            bd.mroute_next[e], bd.mroute_prev[e], rands[0][e],
+            bd.inj_routes[e], env.base_state.route_pool)[0]
+            for e in range(B)]))
+    kfn.launches.update(dict.fromkeys(kfn.launches, 0))
+    kfn_bwd.launches = 0
+    losses, per_step = [], []
+    for r in rands:
+        f0, b0 = kfn.launches[k1.SOFT], kfn_bwd.launches
+        losses.append(trainer.train_step(rand=r))
+        per_step.append((kfn.launches[k1.SOFT] - f0, kfn_bwd.launches - b0))
+    eval_reward = trainer.evaluate(3, 1, log_root, False)
+    torch.cuda.synchronize()
+    launches = dict(fwd_soft=kfn.launches[k1.SOFT] + kfn.launches[k1.ST],
+                    bwd=kfn_bwd.launches, fwd=kfn.launches[k1.HARD])
+    changed = any(not torch.equal(a, b.detach()) for a, b in
+                  zip(before, trainer.model.parameters()))
+    ok = (all(s == (1, 1) for s in per_step) and changed and
+          all(math.isfinite(x) for x in losses) and
+          losses[0] == float(ref) and math.isfinite(eval_reward) and
+          launches == dict(fwd_soft=3, bwd=3, fwd=1))
+    report(B=B, losses=losses, first_loss_from_singles=float(ref),
+           eval_reward=eval_reward, params_changed=changed,
+           launches_per_step=per_step, launches=launches,
+           status="ok" if ok else "FAIL")
+    if not ok:
+        raise SystemExit("packed_train failed")
+    return launches
+
+
+def time_k1_batches(env) -> dict:
+    """K1's hard, soft and backward ms per launch at each of
+    K1_TIMING_BATCHES episodes (CUDA events, median of 5 after a warm-up),
+    fwd+bwd episodes per second, and each launch's bound; the launches are
+    not counted."""
+    import torch
+
+    from dhts_torch.ops.cuda import itscp_hybrid_episode as k1
+
+    kfn, kfn_bwd = k1.itscp_hybrid_episode_fwd, k1.itscp_hybrid_episode_bwd
+    counts = (dict(kfn.launches), kfn_bwd.launches)
+    hard, soft = env.fused_plan(False), env.fused_plan(True)
+    T, n_act = hard.T, hard.n_phases * hard.n_inter
+    n_macro = int(env.spec.is_macro.sum())
+    ops1 = T * n_macro * ((hard.C + 1) * OPS_PER_INTERFACE +
+                          hard.C * OPS_PER_CELL)
+    tables = sum(x.numel() * x.element_size() for x in
+                 (hard.prog, hard.lane_i, hard.lane_f))
+    ms, bounds, eps = {}, {}, {}
+    for B in K1_TIMING_BATCHES:
+        ins = k1_batch_inputs(env, B, 100 + B)
+        w = torch.full((B, T), -1.0, device=env.device)
+        runs = {"fwd": lambda: kfn(hard, *ins),
+                "fwd_soft": lambda: kfn(soft, *ins),
+                "bwd": lambda: kfn_bwd(soft, w, *ins)}
+        for fn in runs.values():
+            fn()
+        torch.cuda.synchronize()
+        for key, fn in runs.items():
+            ms.setdefault(key, {})[B] = cuda_ms(fn, 5)
+        in_bytes = tables + sum(x.numel() * x.element_size() for x in ins)
+        out_bytes = B * (1 + T + 8 * T) * 4
+        work = {"fwd": (in_bytes + out_bytes, B * ops1),
+                "fwd_soft": (in_bytes + out_bytes, B * ops1),
+                "bwd": (in_bytes + 4 * B * T + 4 * B * n_act,
+                        B * ops1 * VJP_OPS_MULTIPLE)}
+        for key, (nbytes, nops) in work.items():
+            bounds.setdefault(key, {})[B] = bound_of(nbytes, nops)
+        eps[B] = B * 1e3 / (ms["fwd_soft"][B] + ms["bwd"][B])
+    kfn.launches.update(counts[0])
+    kfn_bwd.launches = counts[1]
+    return dict(ms=ms, bounds=bounds, fwd_bwd_episodes_per_s=eps,
+                ms_per_episode={k: {B: v / B for B, v in m.items()}
+                                for k, m in ms.items()})
+
+
+def shard9_env(dev):
+    from dhts_torch.apps.control.itscp import problem
+    from dhts_torch.apps.control.itscp.env import ItscpEnv
+
+    env = ItscpEnv(config=SHARD9, schedule_fn=problem.problem_1, device=dev)
+    env.reset(3)
+    return env
+
+
+def _shard9_rank(rank, S, check_every):
+    """One rank of ``shard9_vs_plain``: the sharded forward of the 9x9
+    scene, hard and soft, B = 1, every ``check_every``-th step's launches
+    held against the plain bodies on the card; returns the episodes."""
+    import torch
+
+    from dhts_torch.ops.cuda import itscp_spatial_shard as ks
+    from dhts_torch.ops.cuda import itscp_spatial_step as k6
+
+    env = shard9_env(torch.device("cuda"))
+    out = {"checks": [], "errors": {}}
+    for differentiable in (False, True):
+        plan = k6.make_plan(env, differentiable)
+        comm = _lane_comm(plan, S, rank)
+        ins = spatial_inputs(env, 1, 101, np.full(env.action_size(), 0.55))
+        run = ks.ShardRun(plan, comm, ins, dual=False)
+        t0 = time.perf_counter()
+        for t in range(plan.T):
+            if t % check_every == 0:
+                for body, e in run.checked_step(t, 1e-6, 1e-6).items():
+                    out["errors"][body] = max(out["errors"].get(body, 0.0), e)
+            else:
+                run.step(t)
+        q, ev, w = run.outputs()
+        torch.cuda.synchronize()
+        out["checks"].append(dict(
+            mode="soft" if differentiable else "hard", L=plan.L,
+            lanes_per_shard=comm.shards[0].n, T=plan.T,
+            seconds=time.perf_counter() - t0,
+            episode=(q.cpu(), ev.cpu(), w.cpu())))
+    return out
+
+
+def check_shard9(ranks) -> dict:
+    """``shard9_vs_plain``: the 9x9 scene on the S = 4 ranks of ``ranks``,
+    every launch of every SHARD9_CHECK_EVERY-th step against its plain
+    body, and each episode against the plain single-shard episode on the
+    card, run here while the ranks work; raises on a failure."""
+    import torch
+
+    from dhts_torch.ops.cuda import itscp_spatial_step as k6
+
+    submitted = ranks.submit(_shard9_rank, (SHARD9_CHECK_EVERY,))
+    env = shard9_env(torch.device("cuda"))
+    ins = spatial_inputs(env, 1, 101, np.full(env.action_size(), 0.55))
+    t0 = time.perf_counter()
+    refs = [tuple(x.cpu() for x in k6.plain_spatial_episode(
+        k6.make_plan(env, d), *ins)) for d in (False, True)]
+    plain_seconds = time.perf_counter() - t0
+    outs = ranks.result(submitted)
+    recs, errors, ok = [], {}, env.spec.num_lanes == 1296
+    for rank, o in enumerate(outs):
+        for body, e in o["errors"].items():
+            errors[body] = max(errors.get(body, 0.0), e)
+        for rec, (qs, evs, ws) in zip(o["checks"], refs):
+            q, ev, w = rec.pop("episode")
+            rec.update(events_equal=bool(torch.equal(ev, evs)),
+                       queues_equal=bool(torch.equal(q, qs)),
+                       waves_equal=bool(torch.equal(w, ws)),
+                       reward=float(-q.sum()), reward_plain=float(-qs.sum()),
+                       queues_max_abs_err=float((q - qs).abs().max()))
+            ok = (ok and rec["events_equal"] and rec["queues_equal"] and
+                  rec["waves_equal"])
+            if rank == 0:
+                recs.append(rec)
+    report(checks=recs, per_launch_max_abs_err=errors, ranks=SHARDS,
+           plain_episodes_seconds=plain_seconds,
+           tolerance=dict(per_launch="integers equal, floats allclose(rtol "
+                                     "1e-6, atol 1e-6), every 20th step",
+                          vs_plain="events, queues, waves bit-equal to the "
+                                   "plain single-shard episode"),
+           status="ok" if ok else "FAIL")
+    if not ok:
+        raise SystemExit("shard9_vs_plain failed")
+    return errors
+
+
 def main() -> int:
     if not (HERE / "dhts_torch" / "ops" / "cuda" / "csrc").is_dir():
         print("chip_smoke.py: the dhts_torch package is not beside this "
@@ -1933,13 +2271,31 @@ def main() -> int:
         bwd=kfn_bwd.launches, fwd_hard=kfn.launches[k1.HARD])
     changed = any(not torch.equal(a, b.detach()) for a, b in
                   zip(before, trainer.model.parameters()))
+    # a step of four draws: one forward and one backward launch
+    counts = (kfn.launches[k1.SOFT], kfn_bwd.launches)
+    loss4 = trainer.train_step(4)
+    torch.cuda.synchronize()
+    step4_launches = dict(fwd_soft=kfn.launches[k1.SOFT] - counts[0],
+                          bwd=kfn_bwd.launches - counts[1])
     ok = (all(math.isfinite(x) for x in losses) and changed and
           math.isfinite(eval_reward) and train_launches["fwd_soft"] == 3 and
-          train_launches["bwd"] == 3 and train_launches["fwd_hard"] == 1)
+          train_launches["bwd"] == 3 and train_launches["fwd_hard"] == 1 and
+          math.isfinite(loss4) and step4_launches == dict(fwd_soft=1, bwd=1))
     report(losses=losses, eval_reward=eval_reward, params_changed=changed,
-           launches=train_launches)
+           launches=train_launches, loss_4_draws=loss4,
+           launches_4_draws=step4_launches)
     if not ok:
         raise SystemExit("train failed")
+
+    # ---- slice 8: K1 with B episodes per launch, the packed Trainer
+    t_slice8 = time.perf_counter()
+    phase("k1_batch_vs_single")
+    benv = batch_env(dev)
+    k1_batch_err = check_k1_batch(benv)
+    with tempfile.TemporaryDirectory() as log_root:
+        phase("packed_train")
+        packed_launches = run_packed_train(benv, log_root)
+    slice8_seconds = time.perf_counter() - t_slice8
 
     # ---- 8-11. slice 3: the inverse benchmarks through K2 and K3
     t_slice3 = time.perf_counter()
@@ -1996,6 +2352,12 @@ def main() -> int:
     with tempfile.TemporaryDirectory() as log_root:
         phase("shard_train")
         shard_launches = run_shard_train(shard_ranks[SHARDS], log_root)
+    slice6_seconds = time.perf_counter() - t_slice6
+    t0 = time.perf_counter()
+    phase("shard9_vs_plain")
+    check_shard9(shard_ranks[SHARDS])
+    slice8_seconds += time.perf_counter() - t0
+    t_slice6 = time.perf_counter()
     shard_ranks[SHARDS].close()
     phase("shard_timing")
     shard_times = time_shard(preset_env(dev))
@@ -2006,7 +2368,14 @@ def main() -> int:
              "collectives staged through host memory between ranks that "
              "share the card and are not a collective measurement of the "
              "card")
-    slice6_seconds = time.perf_counter() - t_slice6
+    slice6_seconds += time.perf_counter() - t_slice6
+
+    # ---- slice 8: K1's ms per launch by episodes per launch
+    t0 = time.perf_counter()
+    phase("k1_batch_timing")
+    k1_batch_times = time_k1_batches(benv)
+    report(**k1_batch_times, nvidia_smi=smi)
+    slice8_seconds += time.perf_counter() - t0
 
     # ---- 5. timing at the preset's shapes
     phase("timing")
@@ -2159,9 +2528,28 @@ def main() -> int:
             "library_ms": shard_times["library_ms"].get(body),
             "batch": 1, "shards": SHARDS,
             "ms_by_batch": shard_times["ms"][body]})
+    # K1's batched launches at K1_BATCH episodes, the packed Trainer's
+    # (packed_train); the plain version runs the episodes one after
+    # another: K1_BATCH times its single episode's ms above
+    for key, replaces in (("fwd", k1.REPLACES_FWD),
+                          ("fwd_soft", k1.REPLACES_FWD),
+                          ("bwd", k1.REPLACES_BWD)):
+        b = k1_batch_times["bounds"][key][K1_BATCH]
+        kernels.append({
+            "name": f"itscp_hybrid_episode_{key}_batch", "route": "cuda",
+            "source": k1.SOURCE, "replaces": replaces,
+            "launches": packed_launches[key],
+            "max_abs_err": k1_batch_err[key],
+            "ms": k1_batch_times["ms"][key][K1_BATCH],
+            "plain_ms": K1_BATCH * plain[key],
+            "plain_ms_from": f"{K1_BATCH} x the plain single episode's ms",
+            "bound_ms": b["bound_ms"], "bound_by": b["bound_by"],
+            "library_ms": None, "batch": K1_BATCH,
+            "ms_by_batch": k1_batch_times["ms"][key]})
     report(total_seconds=time.perf_counter() - t_start,
            slice3_seconds=slice3_seconds, slice4_seconds=slice4_seconds,
-           slice5_seconds=slice5_seconds, slice6_seconds=slice6_seconds)
+           slice5_seconds=slice5_seconds, slice6_seconds=slice6_seconds,
+           slice8_seconds=slice8_seconds)
     print(json.dumps({"kernels": kernels}), flush=True)
     print(smi, flush=True)
     print(json.dumps({"ok": True, "device": {

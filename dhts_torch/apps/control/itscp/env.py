@@ -22,6 +22,9 @@ sigmoids are detached ``(sum, count)`` states updated once per step.
 Randomness is host numpy at ``reset`` (the same draws, in the same order,
 as ``dhts``) and one ``rand[T, L]`` tensor per episode, drawn with an
 explicit ``torch.Generator`` or passed in.
+
+``reset_batch`` draws a batch of B scenarios; ``episode_batch`` and
+``packed_episode_fn`` run them, on the fused path as one launch of K1.
 """
 
 from __future__ import annotations
@@ -386,14 +389,20 @@ def _make_episode_fn(spec: SceneSpec, meta: LaneMeta, config,
 
 def result_from_events(reward, queues, events) -> EpisodeResult:
     """EpisodeResult from the fused kernel's outputs ``(-qsum, queues[T],
-    events[T, 8])``."""
-    ev = events[:, :3].to(torch.int32)
+    events[T, 8])``, or of B episodes ``(reward[B], queues[B, T],
+    events[B, T, 8])`` (every field then has the leading B)."""
+    ev = events[..., :3].to(torch.int32)
     return EpisodeResult(reward=reward, queue_per_step=queues,
-                         emitted=torch.sum(ev[:, 1]),
-                         absorbed=torch.sum(ev[:, 2]),
-                         injected=torch.sum(ev[:, 0]),
-                         max_wave_speed=torch.amax(events[:, 7]),
+                         emitted=torch.sum(ev[..., 1], -1),
+                         absorbed=torch.sum(ev[..., 2], -1),
+                         injected=torch.sum(ev[..., 0], -1),
+                         max_wave_speed=torch.amax(events[..., 7], -1),
                          events_per_step=ev)
+
+
+def stack_results(results) -> EpisodeResult:
+    """One EpisodeResult with a leading batch axis from single episodes'."""
+    return EpisodeResult(*(torch.stack(x) for x in zip(*results)))
 
 
 class ItscpEnv:
@@ -591,16 +600,106 @@ class ItscpEnv:
 
     def _fused_episode_one(self, differentiable: bool = False):
         """Return ``one(action_flat, data, rand) -> EpisodeResult`` through
-        the fused episode (built once per scene, mode and leader window)."""
+        the fused episode (built once per scene, mode and leader window).
+
+        ``one`` also runs B episodes in one launch: ``action_flat[B,
+        n_act]``, ``rand[B, T, L]`` and the fields of ``data`` (a
+        ``batch_data``) may each have a leading episode axis, and the
+        inputs without it are shared (an ``[n_act]`` action: E draws of one
+        controller's episode); the result's fields then have the leading B.
+        Every episode takes the emission pool of the last reset, as JAX's
+        ``episode_batch`` and ``packed_episode_fn`` do."""
         fn = self._fused_episode_fn(differentiable)
         n_phases = self.n_phases
         pool = self.base_state.route_pool
 
         def one(action_flat, data, rand, pool=pool):
             reward, queues, events = fn(
-                action_flat.reshape(n_phases, -1), data.schedule,
-                data.mroute_next, data.mroute_prev, rand, data.inj_routes,
-                pool, with_events=True)
+                action_flat.reshape(*action_flat.shape[:-1], n_phases, -1),
+                data.schedule, data.mroute_next, data.mroute_prev, rand,
+                data.inj_routes, pool, with_events=True)
             return result_from_events(reward, queues, events)
 
         return one
+
+    # -- multi-scenario batching --------------------------------------------
+
+    def reset_batch(self, batch: int, seed: int | None = None) -> np.ndarray:
+        """Draw ``batch`` independent scenarios (schedules, per-step macro
+        routes, waiting pools) with the seeds ``seed + i`` (an unseeded
+        generator each when the base seed is 0, as in JAX) and stack them
+        into ``batch_data``, an EpisodeData with a leading B. Returns the
+        per-scenario observations ``batch_obs[B, obs]``. The leader window
+        covers every scenario's pools; ``data`` and the emission pool are
+        the last scenario's."""
+        base_seed = self.config["random_seed"] if seed is None else seed
+        datas, obss, wins = [], [], []
+        for i in range(batch):
+            obss.append(self.reset(seed=base_seed + i if base_seed > 0
+                                   else None))
+            datas.append(self.data)
+            wins.append(self._fused_win_needed)
+        self.batch_data = EpisodeData(*(torch.stack(x) for x in
+                                        zip(*datas)))
+        self.batch_obs = np.stack(obss)
+        self._fused_win_needed = max(wins)
+        return self.batch_obs
+
+    def _batch_rand(self, rand):
+        """``rand[B, T, L]`` as given, or B draws of ``draw_rand`` from a
+        ``torch.Generator`` (or from the default one when None)."""
+        if isinstance(rand, torch.Tensor):
+            return rand
+        B = int(self.batch_data.schedule.shape[0])
+        return torch.stack([self.draw_rand(rand) for _ in range(B)])
+
+    def episode_batch(self, actions, differentiable: bool,
+                      rand=None) -> EpisodeResult:
+        """The episodes of the scenario batch (``reset_batch``):
+        ``actions[B, n_act]``, ``rand[B, T, L]`` or a ``torch.Generator``
+        -> EpisodeResult with a leading B. With
+        ``config["use_fused_episode"]`` the B episodes are one launch of
+        the fused kernel K1 (forward; and one backward launch when
+        differentiated); without it the eager scan env runs them one after
+        another."""
+        actions = torch.as_tensor(actions, dtype=torch.float32,
+                                  device=self.device)
+        rand = self._batch_rand(rand)
+        bd = self.batch_data
+        if self.config.get("use_fused_episode"):
+            return self._fused_episode_one(differentiable)(actions, bd, rand)
+        fn = self._episode_soft if differentiable else self._episode_hard
+        return stack_results(
+            fn(actions[b], EpisodeData(*(x[b] for x in bd)),
+               self.base_state, rand[b]) for b in range(actions.shape[0]))
+
+    def packed_episode_fn(self):
+        """The JAX package's packed scenario batch: ``run(actions[B,
+        n_act], rand[B, T, L]) -> EpisodeResult`` with per-episode
+        ``reward[B]`` and ``queue_per_step[B, T]`` and pack totals of
+        ``emitted``, ``absorbed``, ``injected``, ``max_wave_speed`` and
+        ``events_per_step[T, 3]``, differentiable (soft or ``st`` gates).
+
+        JAX packs the B episodes side by side in one kernel instance's lane
+        axis. Here it is the same single batched launch as
+        :meth:`episode_batch` (one block per episode, whatever
+        ``use_fused_episode`` says): the B episodes keep their own running
+        means, queue sums and events, and equal B single launches bit for
+        bit. Like JAX's, ``run`` holds the batch data, emission pool and
+        leader window of the ``reset_batch`` before it; a later
+        ``reset_batch`` needs a new ``run``."""
+        if getattr(self, "batch_data", None) is None:
+            raise ValueError("call env.reset_batch(B) first")
+        one = self._fused_episode_one(True)
+        bd = self.batch_data
+
+        def run(actions, rand):
+            res = one(torch.as_tensor(actions, dtype=torch.float32,
+                                      device=self.device), bd, rand)
+            return res._replace(emitted=res.emitted.sum(),
+                                absorbed=res.absorbed.sum(),
+                                injected=res.injected.sum(),
+                                max_wave_speed=res.max_wave_speed.amax(),
+                                events_per_step=res.events_per_step.sum(0))
+
+        return run

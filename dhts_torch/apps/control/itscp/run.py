@@ -23,9 +23,15 @@ a card or run on the CPU; it prints the choice on its first line. Only rank
 ``NotImplementedError``. The spatial step has soft gates only: ``--gate_mode
 st`` with ``--mesh_fused`` trains soft, as in JAX, and says so.
 
-``--device cpu`` runs the plain PyTorch path on the CPU. Not offered yet:
-``--packed`` (scenario batching); ``--wide_ops`` is a TPU layout switch
-with no counterpart here.
+``--packed B`` trains one controller against B scenarios
+(``env.reset_batch``) through ``env.packed_episode_fn``: one launch of K1's
+forward and one of its backward per epoch for all B episodes, each with its
+own observation and action. It implies ``--fused_episode`` and excludes
+``--mesh``, as in JAX. ``--ep_per_epoch E`` runs a step's E draws as one
+launch too.
+
+``--device cpu`` runs the plain PyTorch path on the CPU. ``--wide_ops`` is
+a TPU layout switch with no counterpart here.
 """
 
 from __future__ import annotations
@@ -124,6 +130,9 @@ def build_parser():
     p.add_argument("--mesh_fused", action="store_true",
                    help="with --mesh: run each step as the fused spatial "
                         "step kernel (forward and derivative on the card)")
+    p.add_argument("--packed", type=int, default=0, metavar="B",
+                   help="train against B scenarios in one launch of the "
+                        "fused episode (implies --fused_episode)")
     p.add_argument("--device", type=str, default="cuda",
                    help="cuda (default; raises without a GPU) or cpu")
     return p
@@ -144,6 +153,7 @@ def _trainer(args, env, seed, schedule_epochs, mesh=None):
     return Trainer(env, lr=args.lr, seed=seed,
                    network_size=tuple(args.network_size),
                    mesh=mesh, mesh_fused=args.mesh_fused,
+                   multi_scenario=bool(args.packed), packed=bool(args.packed),
                    lr_schedule=args.lr_schedule,
                    schedule_epochs=schedule_epochs,
                    grad_clip=args.grad_clip)
@@ -151,7 +161,7 @@ def _trainer(args, env, seed, schedule_epochs, mesh=None):
 
 MESH_WITHOUT_FUSED = ("--mesh without --mesh_fused runs the sharded scan "
                       "step (dhts/parallel/spatial.py), which is not ported "
-                      "yet: ROADMAP.md queue 1, item 1")
+                      "yet: ROADMAP.md queue 1, item 4")
 
 
 def init_lanes(device: str, lanes: int):
@@ -188,6 +198,10 @@ def init_lanes(device: str, lanes: int):
 
 def main(argv=None):
     args = build_parser().parse_args(argv)
+    if args.packed:
+        if args.mesh:
+            raise ValueError("--packed and --mesh are mutually exclusive")
+        args.fused_episode = True
     mesh = None
     if args.mesh:
         from dhts_torch.parallel.mesh import make_mesh
@@ -209,7 +223,7 @@ def main(argv=None):
     trial_seed = lambda trial: args.seed + trial if args.seed > 0 else None
 
     if args.anneal_gates:
-        if mesh is not None:
+        if mesh is not None or args.packed:
             raise ValueError("--anneal_gates supports the single-device "
                              "paths only")
         stages = [(float(s.split(":")[0]), int(s.split(":")[1]))
@@ -248,7 +262,10 @@ def main(argv=None):
     env = _env(args, args.soft_gate_scale)
     trained = []
     for trial in range(args.n_trial):
-        env.reset(seed=trial_seed(trial))
+        if args.packed:
+            env.reset_batch(args.packed, seed=trial_seed(trial))
+        else:
+            env.reset(seed=trial_seed(trial))
         trainer = _trainer(args, env, args.seed + trial, args.n_episode + 1,
                            mesh)
         log_path = os.path.join(run_name, f"trial_{trial}")

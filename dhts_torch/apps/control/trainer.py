@@ -1,14 +1,19 @@
 """Backprop-through-simulation trainer for the ITSCP controller (port of
-:mod:`dhts.apps.control.trainer`, its single-device path).
+:mod:`dhts.apps.control.trainer`).
 
 Per epoch: run ``num_episode_per_epoch`` differentiable episodes of the
-controller's action, minimise the negative mean episode reward with Adam,
+controller's action (``multi_scenario``: one episode of each scenario of
+the env's ``reset_batch``, each with its own observation and action),
+minimise the negative mean episode reward with Adam,
 evaluate every ``num_eval_epoch`` epochs in hard mode on fixed draws, append
 ``eval.txt`` and ``metrics.jsonl``, and checkpoint the latest and the best
 controller and optimiser state (``torch.save``).
 
 On the card a differentiable fused episode (``use_fused_episode``) runs
-kernel K1's soft/straight-through forward and its backward kernel; with a
+kernel K1's soft/straight-through forward and its backward kernel, one
+launch each for all the episodes of a step (and one hard launch for an
+evaluation's draws; ``packed`` trains through ``env.packed_episode_fn``,
+the same single launch); with a
 ``mesh`` and ``mesh_fused`` the episodes of a step run through the fused
 spatial step instead, and the evaluation through its hard forward: on a
 one-device mesh K6's STEP body (the B episodes of the step in each launch,
@@ -24,9 +29,9 @@ explicit ``torch.Generator``s: ``seed + 1`` for the training draws and
 trainer's keys (the two give different numbers; parity tests pass the
 draws in).
 
-Not ported yet: ``multi_scenario``/``packed`` (scenario batching), a mesh
-with a data axis of more than one device, ``mesh`` without ``mesh_fused``
-(the sharded scan step), ``render_eval`` and TensorBoard logging.
+Not ported yet: a mesh with a data axis of more than one device, ``mesh``
+without ``mesh_fused`` (the sharded scan step), ``render_eval`` and
+TensorBoard logging.
 """
 
 from __future__ import annotations
@@ -79,32 +84,46 @@ class Trainer:
                  render_eval=False, multi_scenario=False, mesh=None,
                  mesh_fused=False, packed=False, lr_schedule="const",
                  schedule_epochs=None, grad_clip=None):
-        """``lr_schedule``: ``"const"`` or ``"cosine"`` (linear warmup over
+        """``multi_scenario``: train against the env's whole scenario batch
+        (``env.reset_batch`` must have been called): the observations are
+        ``env.batch_obs[B, obs]``, the controller acts per scenario and a
+        step runs one episode of each scenario (``env.episode_batch``).
+        ``packed`` (needs ``multi_scenario``) trains through
+        ``env.packed_episode_fn``, built here from the batch of that time.
+
+        ``lr_schedule``: ``"const"`` or ``"cosine"`` (linear warmup over
         the first ~5% of ``schedule_epochs`` updates from ``lr / 10`` to
         ``lr``, cosine decay to ``lr / 10`` after). ``grad_clip``: optional
         global-norm clip before Adam. Adam has optax's defaults: betas
         (0.9, 0.999), eps 1e-8."""
-        for name, val, where in (
-                ("multi_scenario", multi_scenario, "scenario batching"),
-                ("packed", packed, "scenario batching"),
-                ("render_eval", render_eval, "tooling")):
-            if val:
-                raise NotImplementedError(
-                    f"Trainer({name}) belongs to the {where} slice of "
-                    f"the port, which is not ported yet")
+        if render_eval:
+            raise NotImplementedError(
+                "Trainer(render_eval) belongs to the tooling slice of the "
+                "port, which is not ported yet")
         if mesh is not None and not mesh_fused:
             raise NotImplementedError(
                 "Trainer(mesh without mesh_fused) runs the sharded scan step "
                 "(dhts/parallel/spatial.py), which is not ported yet: "
-                "ROADMAP.md queue 1, item 1")
+                "ROADMAP.md queue 1, item 4")
+        if mesh is not None and multi_scenario:
+            raise ValueError("multi_scenario and mesh are mutually exclusive")
+        if packed and not multi_scenario:
+            raise ValueError("packed=True rides the scenario batch: pass "
+                             "multi_scenario=True")
+        if multi_scenario and getattr(env, "batch_obs", None) is None:
+            raise ValueError("call env.reset_batch(B) before "
+                             "Trainer(multi_scenario=True)")
         if lr_schedule not in ("const", "cosine"):
             raise ValueError(f"unknown lr_schedule {lr_schedule!r}")
         self.env = env
         self.device = env.device
-        self.obs = torch.as_tensor(env.observe(), device=self.device)
+        self.multi_scenario = bool(multi_scenario)
+        self.obs = torch.as_tensor(
+            env.batch_obs if multi_scenario else env.observe(),
+            device=self.device)
         self.low, self.high = env.action_bounds()
         self.model = init_controller(
-            torch.Generator().manual_seed(seed), self.obs.shape[0],
+            torch.Generator().manual_seed(seed), self.obs.shape[-1],
             env.action_size(), network_size, device=self.device)
         self.lr = float(lr)
         self.lr_schedule = lr_schedule
@@ -121,6 +140,7 @@ class Trainer:
         # only one process of a sharded mesh writes logs and checkpoints
         self.writer = mesh is None or mesh.writer
         self._spatial_step = self._spatial_eval = None
+        self._packed = env.packed_episode_fn() if packed else None
         if mesh is not None:
             from dhts_torch.ops.cuda import itscp_spatial_step as k6
 
@@ -141,7 +161,8 @@ class Trainer:
                                    self.lr / 10.0)
 
     def action(self):
-        """The controller's squashed action for the env's observation."""
+        """The controller's squashed action for the env's observation
+        (``[B, n_act]`` for the B scenarios with ``multi_scenario``)."""
         return squash_action(self.model(self.obs), self.low, self.high)
 
     def apply_update(self, loss):
@@ -160,16 +181,29 @@ class Trainer:
     def train_step(self, num_episode: int = 1, rand=None) -> float:
         """One Adam update on the mean soft reward of ``num_episode``
         episodes; ``rand`` (``[E, T, L]``) replaces the generator's draws.
-        Returns the loss. With a mesh, the fused spatial train step
+        Returns the loss. With ``use_fused_episode`` the E episodes share
+        the action and run as one launch of K1's forward and one of its
+        backward. With ``multi_scenario`` a step runs one episode of each
+        of the B scenarios (``num_episode`` is not read; ``rand`` is
+        ``[B, T, L]``). With a mesh, the fused spatial train step
         (``make_fused_spatial_train_step_2d``) runs the E episodes."""
         if rand is None:
+            n = self.obs.shape[0] if self.multi_scenario else num_episode
             rand = torch.stack([self.env.draw_rand(self.generator)
-                                for _ in range(max(1, num_episode))])
+                                for _ in range(max(1, n))])
         if self._spatial_step is not None:
             return self._spatial_step(rand)
         action = self.action()
-        rewards = torch.stack([
-            self.env.episode(action, True, rand=r).reward for r in rand])
+        if self._packed is not None:
+            rewards = self._packed(action, rand).reward
+        elif self.multi_scenario:
+            rewards = self.env.episode_batch(action, True, rand).reward
+        elif self.env.config.get("use_fused_episode"):
+            rewards = self.env._fused_episode_one(True)(
+                action, self.env.data, rand).reward
+        else:
+            rewards = torch.stack([
+                self.env.episode(action, True, rand=r).reward for r in rand])
         loss = -torch.mean(rewards)
         self.apply_update(loss)
         return float(loss.detach())
@@ -205,20 +239,44 @@ class Trainer:
 
     def eval_rand(self, num_episode: int):
         """The fixed evaluation draws: the same ``num_episode`` tensors at
-        every evaluation, from a generator seeded with ``seed + 2``."""
+        every evaluation, from a generator seeded with ``seed + 2``
+        (``[T, L]`` each; ``[B, T, L]`` with ``multi_scenario``, one draw
+        per scenario)."""
         gen = torch.Generator(device=self.device)
         gen.manual_seed(self.seed + 2)
-        return [self.env.draw_rand(gen) for _ in range(max(1, num_episode))]
+        draws = [self.env.draw_rand(gen) for _ in range(
+            max(1, num_episode) * (self.obs.shape[0] if self.multi_scenario
+                                   else 1))]
+        if not self.multi_scenario:
+            return draws
+        B = self.obs.shape[0]
+        return [torch.stack(draws[i:i + B]) for i in range(0, len(draws), B)]
+
+    def _eval_rewards(self, action, draws) -> list:
+        """Hard-mode rewards of the evaluation draws (with
+        ``multi_scenario`` each the mean over the B scenarios of one
+        batched episode)."""
+        env = self.env
+        if self._spatial_eval is not None:
+            return [float(self._spatial_eval(action, rand=r).reward)
+                    for r in draws]
+        if self.multi_scenario:
+            return [float(env.episode_batch(action, False, r).reward.mean())
+                    for r in draws]
+        if env.config.get("use_fused_episode"):
+            res = env._fused_episode_one(False)(action, env.data,
+                                                torch.stack(draws))
+            return [float(r) for r in res.reward]
+        return [float(env.episode(action, False, rand=r).reward)
+                for r in draws]
 
     def evaluate(self, epoch, num_episode, log_path, verbose=True):
-        """Mean hard-mode reward over the fixed draws; appends ``eval.txt``
-        and ``metrics.jsonl`` and saves ``best/model.pt`` on a new best."""
-        episode = (self._spatial_eval if self._spatial_eval is not None else
-                   lambda a, rand: self.env.episode(a, False, rand=rand))
+        """Mean hard-mode reward over the fixed draws (on the fused path one
+        launch for all of them); appends ``eval.txt`` and ``metrics.jsonl``
+        and saves ``best/model.pt`` on a new best."""
         with torch.no_grad():
-            action = self.action()
-            rewards = [float(episode(action, rand=r).reward)
-                       for r in self.eval_rand(num_episode)]
+            rewards = self._eval_rewards(self.action(),
+                                         self.eval_rand(num_episode))
         avg = sum(rewards) / len(rewards)
         if not self.writer:
             self.best_eval_reward = max(self.best_eval_reward, avg)

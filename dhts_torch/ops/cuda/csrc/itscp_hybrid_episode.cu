@@ -17,8 +17,17 @@
 // and queues to the rounding of the lane sums.
 //
 // Design. One thread block per episode and one thread per lane; the T loop
-// runs inside the kernel. Cells, vehicles, counters and flux capacitors
-// live in shared memory. The [L, V, R] route container of the JAX kernel
+// runs inside the kernel. A launch runs B independent episodes (the JAX
+// kernel's `episodes=B` and its vmapped configurations), block e the
+// episode e: each input has an episode stride in elements (0: shared by
+// every episode), and each block keeps its own state, running means,
+// queue sum and events in its own shared memory, so B episodes in one
+// launch give what B launches give, bit for bit. No lane packing, no
+// lane-to-episode maps: a block is an episode. A launch of one episode
+// runs the kernel's instantiation without the episode axis (kBatch =
+// false): moving the input pointers to a block's episode cost a launch of
+// one episode 1.0-2.4 % forward on an H100. Cells, vehicles, counters and
+// flux capacitors live in shared memory. The [L, V, R] route container of the JAX kernel
 // is not materialised: every route in an episode is a row of one of the
 // two read-only pools (waiting pool [L, P, R], emission pool [L, P2, R]),
 // and vehicles only ever copy routes, so each vehicle slot holds a route
@@ -43,20 +52,20 @@
 //   sigmoid      1 / (1 + exp(-x)) in float64, rounded once to float32,
 //                like the plain version's dmath.sigmoid.
 //
-// Backward: forward-mode tangents, one block per action entry. The whole
+// Backward: forward-mode tangents, one block per episode and action entry
+// (block e * n_act + j). The whole
 // episode code is a template on its scalar type: `float` for the forward,
 // and `Dual` (value, tangent) for the backward kernel, whose block j seeds
 // the tangent of action entry j and carries d(state)/d(action_j) through
 // the T steps beside the values. The value half repeats the forward's
 // float operations exactly, so the backward follows the forward's discrete
 // trajectory (events) by construction and needs no saved residuals: its
-// inputs are the forward's inputs. Block j returns
-//     grad[j] = sum_t w[t] * d(queue_t)/d(action_j),
+// inputs are the forward's inputs. Block (e, j) returns
+//     grad[e, j] = sum_t w[e, t] * d(queue_{e,t})/d(action_{e,j}),
 // where w[t] = d(loss)/d(queue_t) (with the reward's cotangent folded in,
 // reward = -sum(queues)); that is the vector-Jacobian product of the
-// backward of the TPU kernel, computed as n_phases * n_inter independent
-// blocks (45 at the 3x3 preset, fewer than the card's 132 SMs) that run at
-// once. Local derivatives follow PyTorch autograd of the plain version:
+// backward of the TPU kernel, computed as B * n_phases * n_inter
+// independent blocks (45 an episode at the 3x3 preset). Local derivatives follow PyTorch autograd of the plain version:
 // max/min/clip split the gradient 0.5/0.5 at a tie (as JAX does), a
 // `where` takes only the selected branch's tangent, straight-through
 // gates carry the soft gate's tangent under the hard value, the emitted
@@ -74,6 +83,14 @@
 namespace {
 
 constexpr int NEV = 7;  // integer event rows
+
+// the episode axis of a launch: each input's stride between episodes in
+// elements (0 when every episode reads the same tensor), and the blocks of
+// one episode (1 forward, n_phases * n_inter backward)
+struct Episodes {
+  long long action, sched, mnext, mprev, rand, inj, emit, q_weight;
+  int blocks;
+};
 
 template <class S>
 struct Smem {
@@ -132,12 +149,14 @@ __device__ __forceinline__ float fold_mean(const Smem<S>& s, int L,
   return ms[1] > 0.0f ? ms[0] / fmaxf(ms[1], 1.0f) : 1.0f;
 }
 
-// One episode per block. S = float: the forward (outputs reward, queues,
-// events; `q_weight`/`out_grad` unused). S = Dual: the backward; block j
-// seeds action entry j and writes out_grad[j] = sum_t q_weight[t] *
-// d(queue_t)/d(action_j) (the forward outputs are unused). The per-lane
-// phases are those of itscp_step.cuh on the state in shared memory.
-template <class S>
+// One episode per block. S = float: the forward; block e writes reward[e],
+// queues[e, T], events[e, T, 8] (`q_weight`/`out_grad` unused). S = Dual:
+// the backward; block e * n_act + j seeds action entry j of episode e and
+// writes out_grad[e * n_act + j] = sum_t q_weight[e, t] *
+// d(queue_{e,t})/d(action_{e,j}) (the forward outputs are unused). The
+// per-lane phases are those of itscp_step.cuh on the state in shared
+// memory. kBatch = false: one episode (B = 1), `ep`'s strides unread.
+template <class S, bool kBatch>
 __global__ void itscp_hybrid_episode_kernel(
     const float* __restrict__ action, const float* __restrict__ sched,
     const int* __restrict__ mnext, const int* __restrict__ mprev,
@@ -146,7 +165,7 @@ __global__ void itscp_hybrid_episode_kernel(
     const int* __restrict__ lane_i, const float* __restrict__ lane_f,
     float* __restrict__ out_reward, float* __restrict__ out_queues,
     float* __restrict__ out_events, const float* __restrict__ q_weight,
-    float* __restrict__ out_grad, Dims d, Consts k) {
+    float* __restrict__ out_grad, Dims d, Consts k, Episodes ep) {
   DHTS_DYNAMIC_SMEM(smem_raw);
   Smem<S> s;
   smem_bytes<S>(d, &s, smem_raw);
@@ -154,7 +173,20 @@ __global__ void itscp_hybrid_episode_kernel(
   const int L = d.L, C = d.C, V = d.V, K = d.K;
   const int mode = d.mode;
   const int l = threadIdx.x;
-  const int seed = blockIdx.x;
+  const int seed = kBatch ? blockIdx.x % ep.blocks : blockIdx.x;
+  if (kBatch) {
+    // this block's episode
+    const int e = blockIdx.x / ep.blocks;
+    action += e * ep.action; sched += e * ep.sched;
+    mnext += e * ep.mnext; mprev += e * ep.mprev; rand += e * ep.rand;
+    inj_routes += e * ep.inj; emit_routes += e * ep.emit;
+    if (q_weight) q_weight += e * ep.q_weight;
+    if (out_reward) {
+      out_reward += e;
+      out_queues += (size_t)e * d.T;
+      out_events += (size_t)e * d.T * 8;
+    }
+  }
   const bool lane = l < L;
   const float u_max = k.u_max;
   const Scene sc{lane_i, lane_f, inj_routes, emit_routes};
@@ -379,41 +411,43 @@ __global__ void itscp_hybrid_episode_kernel(
   }
   if (threadIdx.x == 0) {
     if (out_reward) out_reward[0] = -qsum;
-    if (out_grad) out_grad[seed] = (float)grad;
+    if (out_grad) out_grad[blockIdx.x] = (float)grad;
   }
 }
 
-// shared launch path of the forward (S = float, one block) and the
-// backward (S = Dual, one block per action entry)
+// shared launch path of the forward (S = float, one block per episode)
+// and the backward (S = Dual, one block per episode and action entry)
 template <class S>
-int launch(int blocks, const float* action, const float* sched,
+int launch(int B, const Episodes& ep, const float* action, const float* sched,
            const int* mnext, const int* mprev, const float* rand,
            const int* inj_routes, const int* emit_routes, const float* prog,
            const int* lane_i, const float* lane_f, float* out_reward,
            float* out_queues, float* out_events, const float* q_weight,
            float* out_grad, const Dims& d, const Consts& k, void* stream) {
   if (d.L < 1 || d.L > 1024 || d.C < 1 || d.C > MAXC || d.V < 1 ||
-      d.R < 1 || d.K < 1 || d.mode < HARD || d.mode > ST)
+      d.R < 1 || d.K < 1 || d.mode < HARD || d.mode > ST || B < 1 ||
+      ep.blocks < 1 || (long long)B * ep.blocks > 0x7fffffffLL)
     return 1;  // cudaErrorInvalidValue
+  const int blocks = B * ep.blocks;
   const size_t smem = smem_bytes<S>(d, nullptr, nullptr);
   const int threads = ((d.L + 31) / 32) * 32;
+  auto kernel = B > 1 ? itscp_hybrid_episode_kernel<S, true>
+                      : itscp_hybrid_episode_kernel<S, false>;
 #ifdef DHTS_CPU_EMULATION
   (void)stream;
-  dhts_emu::launch(blocks, threads, smem, itscp_hybrid_episode_kernel<S>,
-                   action, sched, mnext, mprev, rand, inj_routes,
-                   emit_routes, prog, lane_i, lane_f, out_reward, out_queues,
-                   out_events, q_weight, out_grad, d, k);
+  dhts_emu::launch(blocks, threads, smem, kernel, action, sched, mnext,
+                   mprev, rand, inj_routes, emit_routes, prog, lane_i,
+                   lane_f, out_reward, out_queues, out_events, q_weight,
+                   out_grad, d, k, ep);
   return 0;
 #else
   cudaError_t err = cudaFuncSetAttribute(
-      itscp_hybrid_episode_kernel<S>,
-      cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
   if (err != cudaSuccess) return (int)err;
-  itscp_hybrid_episode_kernel<S><<<blocks, threads, smem,
-                                   (cudaStream_t)stream>>>(
+  kernel<<<blocks, threads, smem, (cudaStream_t)stream>>>(
       action, sched, mnext, mprev, rand, inj_routes, emit_routes, prog,
       lane_i, lane_f, out_reward, out_queues, out_events, q_weight, out_grad,
-      d, k);
+      d, k, ep);
   return (int)cudaGetLastError();
 #endif
 }
@@ -431,14 +465,19 @@ size_t itscp_hybrid_episode_smem(int L, int C, int V, int K, int tangent) {
                  : smem_bytes<float>(d, nullptr, nullptr);
 }
 
-// Forward: one episode in gate mode `mode` (0 hard, 1 soft, 2
-// straight-through) on `stream`; returns cudaGetLastError() of the launch.
+// Forward: B episodes in gate mode `mode` (0 hard, 1 soft, 2
+// straight-through) on `stream`, one block each: out_reward[B],
+// out_queues[B, T], out_events[B, T, 8]. s_* is each input's stride
+// between episodes in elements (0: shared; s_qw unused here). Returns
+// cudaGetLastError() of the launch.
 int launch_itscp_hybrid_episode_fwd(
     const float* action, const float* sched, const int* mnext,
     const int* mprev, const float* rand, const int* inj_routes,
     const int* emit_routes, const float* prog, const int* lane_i,
     const float* lane_f, float* out_reward, float* out_queues,
-    float* out_events, int T, int L, int C, int V, int R, int P, int P2,
+    float* out_events, int B, long long s_action, long long s_sched,
+    long long s_mnext, long long s_mprev, long long s_rand, long long s_inj,
+    long long s_emit, long long s_qw, int T, int L, int C, int V, int R, int P, int P2,
     int K, int W, int nsf, int n_phases, int n_inter, int mode, float u_max,
     float dt, float veh_len, float static_speed, float rare_den, float third,
     float amax, float apref, float tgt, float min_space, float time_pref,
@@ -446,20 +485,28 @@ int launch_itscp_hybrid_episode_fwd(
   Dims d{T, L, C, V, R, P, P2, K, W, nsf, n_phases, n_inter, mode};
   Consts k{u_max, dt, veh_len, static_speed, rare_den, third, amax,
            apref, tgt, min_space, time_pref, rho_hi, gate32};
-  return launch<float>(1, action, sched, mnext, mprev, rand, inj_routes,
+  (void)s_qw;
+  const Episodes ep{s_action, s_sched, s_mnext, s_mprev, s_rand, s_inj,
+                    s_emit, 0, 1};
+  return launch<float>(B, ep, action, sched, mnext, mprev, rand, inj_routes,
                        emit_routes, prog, lane_i, lane_f, out_reward,
                        out_queues, out_events, nullptr, nullptr, d, k,
                        stream);
 }
 
-// Backward of the soft (1) or straight-through (2) forward:
-// out_grad[n_phases * n_inter] = sum_t q_weight[t] * d(queue_t)/d(action),
-// one block per action entry; returns cudaGetLastError() of the launch.
+// Backward of the soft (1) or straight-through (2) forward of B episodes:
+// out_grad[B, n_phases * n_inter] = sum_t q_weight[e, t] *
+// d(queue_{e,t})/d(action_e), one block per episode and action entry
+// (episode-major); the strides as the forward's, s_qw q_weight's. Returns
+// cudaGetLastError() of the launch.
 int launch_itscp_hybrid_episode_bwd(
     const float* action, const float* sched, const int* mnext,
     const int* mprev, const float* rand, const int* inj_routes,
     const int* emit_routes, const float* prog, const int* lane_i,
-    const float* lane_f, const float* q_weight, float* out_grad, int T,
+    const float* lane_f, const float* q_weight, float* out_grad, int B,
+    long long s_action, long long s_sched, long long s_mnext,
+    long long s_mprev, long long s_rand, long long s_inj, long long s_emit,
+    long long s_qw, int T,
     int L, int C, int V, int R, int P, int P2, int K, int W, int nsf,
     int n_phases, int n_inter, int mode, float u_max, float dt,
     float veh_len, float static_speed, float rare_den, float third,
@@ -469,7 +516,9 @@ int launch_itscp_hybrid_episode_bwd(
   Dims d{T, L, C, V, R, P, P2, K, W, nsf, n_phases, n_inter, mode};
   Consts k{u_max, dt, veh_len, static_speed, rare_den, third, amax,
            apref, tgt, min_space, time_pref, rho_hi, gate32};
-  return launch<Dual>(n_phases * n_inter, action, sched, mnext, mprev, rand,
+  const Episodes ep{s_action, s_sched, s_mnext, s_mprev, s_rand, s_inj,
+                    s_emit, s_qw, n_phases * n_inter};
+  return launch<Dual>(B, ep, action, sched, mnext, mprev, rand,
                       inj_routes, emit_routes, prog, lane_i, lane_f, nullptr,
                       nullptr, nullptr, q_weight, out_grad, d, k, stream);
 }

@@ -780,7 +780,12 @@ size_t smem_of(int body, int L, int n) {
 template <class S, class Kernel>
 int run(Kernel kernel, int body, const ShardArgs& a, int repeat,
         void* stream) {
+  // B and Q size their shared memory by the scene's L (a step's gathered
+  // signals; Q's tile of whole rows): within the 48 KB a block takes
+  // without opting in up to thousands of lanes (10.4 KB and 46.7 KB for a
+  // Dual B and Q at the 9x9 scene's 1,296)
   const size_t smem = smem_of<S>(body, a.d.L, a.n);
+  if (smem > (size_t)Q_SMEM) return 1;  // cudaErrorInvalidValue
   const int threads = body == BODY_Q ? Q_THREADS : ((a.n + 31) / 32) * 32;
   const int blocks = body == BODY_Q ? a.N * q_tiles(a.d.T, a.d.L) : a.N;
   for (int r = 0; r < repeat; ++r) {
@@ -827,7 +832,7 @@ int launch_itscp_shard(int body, int dual, const void* args, int repeat,
   if (body == BODY_C && d.mode != HARD && !a->gsg) return 1;
   if (body < BODY_A || body > BODY_Q || (dual && !dual_ok) || a->N < 1 ||
       a->n < 1 || a->n > 1024 || a->off < 0 || a->off + a->n > d.L ||
-      d.L > 1024 || d.C < 1 || d.C > MAXC || d.V < 1 || d.R < 1 ||
+      d.C < 1 || d.C > MAXC || d.V < 1 || d.R < 1 ||
       d.K < 1 || d.mode < HARD || d.mode > SOFT || a->t < 0 ||
       a->t >= d.T || (dual && (d.mode == HARD || !a->dbuf)) ||
       (!dual && a->dbuf && dual_ok) || repeat < 1)

@@ -24,6 +24,13 @@ action.
   forward, its backward the backward kernel. The backward takes forward-mode
   tangents (one block per action entry) and needs only the forward's
   inputs, so they are what the Function saves.
+
+Every entry point takes B episodes per call (the JAX kernel's
+``episodes=B`` and its vmapped configurations): an input with a leading
+episode axis gives each episode its row, an input without it is shared
+(:func:`episode_count`). On the card one launch runs them all, one block
+per episode forward and one per episode and action entry backward; the
+plain versions loop over the episodes.
 """
 
 from __future__ import annotations
@@ -37,6 +44,7 @@ import torch
 from dhts_torch.models.vehicle import default_params
 from dhts_torch.ops.cuda._launch import check as _check
 from dhts_torch.ops.cuda._launch import device_of as _device_of
+from dhts_torch.ops.cuda._launch import raise_on as _raise_on
 from dhts_torch.ops.cuda._launch import stream as _stream
 
 SOURCE = "dhts_torch/ops/cuda/csrc/itscp_hybrid_episode.cu"
@@ -134,14 +142,59 @@ def make_plan(spec, meta, config, V: int, R: int, P: int, P_emit: int,
         floats=floats)
 
 
+EPISODE_INPUTS = ("action2d", "schedule", "mnext", "mprev", "rand",
+                  "inj_routes", "emit_routes")
+
+
+def _rows(plan: EpisodePlan) -> tuple:
+    """Each episode input's shape and dtype for one episode, in the order
+    of :data:`EPISODE_INPUTS`."""
+    T, L, R = plan.T, plan.L, plan.R
+    f32, i32 = torch.float32, torch.int32
+    return (((plan.n_phases, plan.n_inter), f32), ((T, L), f32),
+            ((T, L), i32), ((T, L), i32), ((T, L), f32),
+            ((L, plan.P, R), i32), ((L, plan.P2, R), i32))
+
+
+def episode_count(plan: EpisodePlan, inputs, q_weight=None) -> int | None:
+    """The number of episodes of a call: the leading size of the inputs that
+    have an episode axis (one dimension more than one episode's shape; the
+    others are shared by every episode), or None when none has one (one
+    episode, today's shapes). ``q_weight`` (the backward's ``[T]`` or
+    ``[B, T]``) counts as an input."""
+    sizes = {int(x.shape[0]) for x, (shape, _) in zip(inputs, _rows(plan))
+             if x.dim() == len(shape) + 1}
+    if q_weight is not None and q_weight.dim() == 2:
+        sizes.add(int(q_weight.shape[0]))
+    if len(sizes) > 1:
+        raise ValueError(f"the inputs' episode axes disagree: {sorted(sizes)}")
+    return sizes.pop() if sizes else None
+
+
+def _episode(x, shape, e: int):
+    """Episode ``e``'s row of an input (the input itself when shared)."""
+    return x[e] if x.dim() == len(shape) + 1 else x
+
+
 def plain_episode(plan: EpisodePlan, action2d, schedule, mnext, mprev, rand,
                   inj_routes, emit_routes):
     """Plain PyTorch version of the forward in ``plan.mode``: ``(-qsum,
     queues[T], events[T, 8])`` on the inputs' device, differentiable by
-    autograd in the soft modes."""
+    autograd in the soft modes. With an episode axis on any input (see
+    :func:`episode_count`) it runs the episodes one after another and
+    returns ``(reward[B], queues[B, T], events[B, T, 8])``."""
     from dhts_torch.apps.control.itscp import env as env_mod
     from dhts_torch.models import network
 
+    inputs = (action2d, schedule, mnext, mprev, rand, inj_routes,
+              emit_routes)
+    B = episode_count(plan, inputs)
+    if B is not None:
+        rows = _rows(plan)
+        outs = [plain_episode(plan, *(_episode(x, shape, e) for x, (shape, _)
+                                      in zip(inputs, rows)))
+                for e in range(B)]
+        return tuple(torch.stack(x) for x in zip(*outs))
     run = env_mod._make_episode_fn(plan.spec, plan.meta, plan.config,
                                    plan.mode != HARD).run
     state0 = network.empty_state(plan.spec, plan.V, plan.R, emit_routes)
@@ -153,7 +206,17 @@ def plain_episode(plan: EpisodePlan, action2d, schedule, mnext, mprev, rand,
 
 def plain_episode_bwd(plan: EpisodePlan, q_weight, action2d, *inputs):
     """Plain PyTorch version of the backward: ``sum_t q_weight[t] *
-    d(queues[t])/d(action2d)`` by autograd through :func:`plain_episode`."""
+    d(queues[t])/d(action2d)`` by autograd through :func:`plain_episode`;
+    with an episode axis, each episode's ``sum_t q_weight[e, t] *
+    d(queues[e, t])/d(action2d[e])``, ``[B, n_phases, n_inter]`` (a shared
+    action gets each episode's gradient in its row)."""
+    B = episode_count(plan, (action2d, *inputs), q_weight)
+    if B is not None:
+        rows = _rows(plan)
+        return torch.stack([plain_episode_bwd(
+            plan, q_weight[e] if q_weight.dim() == 2 else q_weight,
+            *(_episode(x, shape, e) for x, (shape, _) in
+              zip((action2d, *inputs), rows))) for e in range(B)])
     with torch.enable_grad():
         a = action2d.detach().requires_grad_(True)
         _, queues, _ = plain_episode(plan, a, *inputs)
@@ -162,7 +225,9 @@ def plain_episode_bwd(plan: EpisodePlan, q_weight, action2d, *inputs):
 
 
 _PTRS_FWD, _PTRS_BWD = 13, 12  # pointer arguments of the two launchers
-_TAIL = [ctypes.c_int] * 13 + [ctypes.c_float] * 13 + [ctypes.c_void_p]
+# the episode count and the eight episode strides, the sizes, the constants
+_TAIL = ([ctypes.c_int] + [ctypes.c_longlong] * 8 + [ctypes.c_int] * 13 +
+         [ctypes.c_float] * 13 + [ctypes.c_void_p])
 _ARGTYPES = [ctypes.c_void_p] * _PTRS_FWD + _TAIL
 _ARGTYPES_BWD = [ctypes.c_void_p] * _PTRS_BWD + _TAIL
 
@@ -188,49 +253,59 @@ def _library() -> ctypes.CDLL:
     return lib
 
 
-def kernel_args(plan: EpisodePlan, inputs, outputs, stream) -> tuple:
+def kernel_args(plan: EpisodePlan, inputs, outputs, stream, B: int = 1,
+                strides=(0,) * 8) -> tuple:
     """A C launcher's arguments: the seven inputs of the episode, the plan's
-    tables and the outputs as pointers, then the plan's sizes, gate mode and
-    constants. The forward's outputs are ``(reward, queues, events)``, the
-    backward's ``(q_weight, grad)``."""
+    tables and the outputs as pointers, then the episode count ``B`` and
+    each input's stride between episodes in elements (:func:`episode_rows`;
+    0: shared, the backward's ``q_weight`` last), the plan's sizes, gate
+    mode and constants. The forward's outputs are ``(reward[B], queues[B,
+    T], events[B, T, 8])``, the backward's ``(q_weight, grad[B, n_phases,
+    n_inter])``."""
     ptrs = [ctypes.c_void_p(x.data_ptr()) for x in
             (*inputs, plan.prog, plan.lane_i, plan.lane_f, *outputs)]
     ints = (plan.T, plan.L, plan.C, plan.V, plan.R, plan.P, plan.P2, plan.K,
             plan.W, plan.nsf, plan.n_phases, plan.n_inter, plan.mode)
-    return (*ptrs, *ints, *plan.floats, ctypes.c_void_p(stream))
+    return (*ptrs, int(B), *(int(x) for x in strides), *ints, *plan.floats,
+            ctypes.c_void_p(stream))
 
 
-def _check_inputs(plan: EpisodePlan, inputs):
-    action2d = inputs[0]
-    dev = action2d.device
-    T, L, R = plan.T, plan.L, plan.R
-    shapes = (("action2d", (plan.n_phases, plan.n_inter), torch.float32),
-              ("schedule", (T, L), torch.float32),
-              ("mnext", (T, L), torch.int32), ("mprev", (T, L), torch.int32),
-              ("rand", (T, L), torch.float32),
-              ("inj_routes", (L, plan.P, R), torch.int32),
-              ("emit_routes", (L, plan.P2, R), torch.int32))
-    for x, (name, shape, dtype) in zip(inputs, shapes):
-        _check(name, x, shape, dtype, dev)
+def episode_rows(plan: EpisodePlan, inputs, B: int | None):
+    """The tensors a launch of ``B`` episodes passes and their strides: an
+    input with an episode axis goes as it is (stride: one episode's
+    elements), unless it is a broadcast (``expand``, stride 0 on that axis:
+    its first row goes, stride 0); a shared input goes as it is, stride 0.
+    Every tensor is checked for shape, dtype, device and contiguity."""
+    dev = inputs[0].device
+    tensors, strides = [], []
+    for x, name, (shape, dtype) in zip(inputs, EPISODE_INPUTS, _rows(plan)):
+        batched = B is not None and x.dim() == len(shape) + 1
+        if batched and x.stride(0) == 0:
+            x, batched = x[0], False
+        if batched:
+            _check(name, x, (B, *shape), dtype, dev)
+        else:
+            _check(name, x, shape, dtype, dev)
+        tensors.append(x)
+        strides.append(int(np.prod(shape)) if batched else 0)
     for name in ("lane_i", "lane_f", "prog"):
         if getattr(plan, name).device != dev:
             raise ValueError(f"plan.{name} is on "
                              f"{getattr(plan, name).device}, expected {dev}")
-    return dev
+    return tensors, strides
 
 
-def _launch_fwd(plan: EpisodePlan, inputs):
-    dev = _check_inputs(plan, inputs)
+def _launch_fwd(plan: EpisodePlan, inputs, B: int | None):
+    tensors, strides = episode_rows(plan, inputs, B)
+    dev = tensors[0].device
     lib = _library()
-    T = plan.T
-    reward = torch.empty((), dtype=torch.float32, device=dev)
-    queues = torch.empty((T,), dtype=torch.float32, device=dev)
-    events = torch.empty((T, 8), dtype=torch.float32, device=dev)
-    err = lib.launch_itscp_hybrid_episode_fwd(
-        *kernel_args(plan, inputs, (reward, queues, events), _stream(dev)))
-    if err != 0:
-        raise RuntimeError(f"itscp_hybrid_episode forward launch failed: "
-                           f"CUDA error {err}")
+    lead = () if B is None else (B,)
+    reward = torch.empty(lead, dtype=torch.float32, device=dev)
+    queues = torch.empty((*lead, plan.T), dtype=torch.float32, device=dev)
+    events = torch.empty((*lead, plan.T, 8), dtype=torch.float32, device=dev)
+    _raise_on(lib.launch_itscp_hybrid_episode_fwd(*kernel_args(
+        plan, tensors, (reward, queues, events), _stream(dev), B or 1,
+        (*strides, 0))), "itscp_hybrid_episode forward")
     return reward, queues, events
 
 
@@ -238,16 +313,20 @@ def itscp_hybrid_episode_fwd(plan: EpisodePlan, action2d, schedule, mnext,
                              mprev, rand, inj_routes, emit_routes):
     """``(-qsum, queues[T], events[T, 8])`` of one episode in ``plan.mode``
     (hard, soft or straight-through), without a graph for autograd (that is
-    :class:`FusedEpisodeFunction`).
+    :class:`FusedEpisodeFunction`). With an episode axis on any input
+    (:func:`episode_count`), B episodes in one launch: ``(reward[B],
+    queues[B, T], events[B, T, 8])``.
 
     CPU tensors go to :func:`plain_episode`; CUDA tensors launch the kernel
-    (one launch per episode, counted in ``launches[plan.mode]``) or raise.
+    (one launch per call whatever B is, counted in ``launches[plan.mode]``)
+    or raise.
     """
     inputs = (action2d, schedule, mnext, mprev, rand, inj_routes,
               emit_routes)
+    B = episode_count(plan, inputs)
     if _device_of(action2d).type == "cpu":
         return plain_episode(plan, *inputs)
-    out = _launch_fwd(plan, inputs)
+    out = _launch_fwd(plan, inputs, B)
     itscp_hybrid_episode_fwd.launches[plan.mode] += 1
     return out
 
@@ -259,28 +338,35 @@ def itscp_hybrid_episode_bwd(plan: EpisodePlan, q_weight, action2d,
                              schedule, mnext, mprev, rand, inj_routes,
                              emit_routes):
     """``grad[n_phases, n_inter] = sum_t q_weight[t] * d(queues[t]) /
-    d(action2d)`` of the soft or straight-through episode.
+    d(action2d)`` of the soft or straight-through episode; with an episode
+    axis (on any input or ``q_weight[B, T]``), each episode's gradient with
+    respect to its action, ``[B, n_phases, n_inter]``.
 
     CPU tensors go to :func:`plain_episode_bwd`; CUDA tensors launch the
-    backward kernel (one launch, one block per action entry) or raise.
+    backward kernel (one launch, one block per episode and action entry)
+    or raise.
     """
     if plan.mode == HARD:
         raise ValueError("the hard episode has no gradient; use a soft or "
                          "st plan")
     inputs = (action2d, schedule, mnext, mprev, rand, inj_routes,
               emit_routes)
+    B = episode_count(plan, inputs, q_weight)
     if _device_of(action2d).type == "cpu":
         return plain_episode_bwd(plan, q_weight, *inputs)
-    dev = _check_inputs(plan, inputs)
-    _check("q_weight", q_weight, (plan.T,), torch.float32, dev)
+    tensors, strides = episode_rows(plan, inputs, B)
+    dev = tensors[0].device
+    qw_rows = q_weight.dim() == 2  # one row of loss weights per episode
+    _check("q_weight", q_weight, (B, plan.T) if qw_rows else (plan.T,),
+           torch.float32, dev)
     lib = _library()
-    grad = torch.empty((plan.n_phases, plan.n_inter), dtype=torch.float32,
-                       device=dev)
-    err = lib.launch_itscp_hybrid_episode_bwd(
-        *kernel_args(plan, inputs, (q_weight, grad), _stream(dev)))
-    if err != 0:
-        raise RuntimeError(f"itscp_hybrid_episode backward launch failed: "
-                           f"CUDA error {err}")
+    lead = () if B is None else (B,)
+    grad = torch.empty((*lead, plan.n_phases, plan.n_inter),
+                       dtype=torch.float32, device=dev)
+    _raise_on(lib.launch_itscp_hybrid_episode_bwd(*kernel_args(
+        plan, tensors, (q_weight, grad), _stream(dev), B or 1,
+        (*strides, plan.T if qw_rows else 0))),
+              "itscp_hybrid_episode backward")
     itscp_hybrid_episode_bwd.launches += 1
     return grad
 
@@ -292,8 +378,13 @@ class FusedEpisodeFunction(torch.autograd.Function):
     """The soft/``st`` episode on the card with its hand-written backward.
 
     ``apply(action2d, plan, schedule, mnext, mprev, rand, inj_routes,
-    emit_routes) -> (reward, queues[T], events[T, 8])``. Only ``action2d``
-    gets a gradient; events carry none (as in the JAX kernel's ``ep_bwd``).
+    emit_routes) -> (reward, queues[T], events[T, 8])``; with an episode
+    axis, ``(reward[B], queues[B, T], events[B, T, 8])`` from one forward
+    launch and a ``[B, n_phases, n_inter]`` gradient from one backward
+    launch. A caller whose episodes share one action passes it expanded to
+    ``[B, n_phases, n_inter]`` (stride 0, sent once), so that autograd sums
+    the episodes' gradients. Only ``action2d`` gets a gradient; events
+    carry none (as in the JAX kernel's ``ep_bwd``).
     """
 
     @staticmethod
@@ -309,13 +400,15 @@ class FusedEpisodeFunction(torch.autograd.Function):
     def backward(ctx, g_reward, g_queues, g_events):
         action2d, *inputs = ctx.saved_tensors
         plan = ctx.plan
+        B = episode_count(plan, (action2d, *inputs))
         # loss cotangent per queue: reward = -sum(queues)
-        w = torch.zeros((plan.T,), dtype=torch.float32,
+        lead = () if B is None else (B,)
+        w = torch.zeros((*lead, plan.T), dtype=torch.float32,
                         device=action2d.device)
         if g_queues is not None:
             w = w + g_queues
         if g_reward is not None:
-            w = w - g_reward
+            w = w - g_reward.unsqueeze(-1)
         grad = itscp_hybrid_episode_bwd(plan, w.contiguous(), action2d,
                                         *inputs)
         return (grad, None) + (None,) * len(inputs)
@@ -323,7 +416,8 @@ class FusedEpisodeFunction(torch.autograd.Function):
 
 def make_fused_itscp_episode(spec, meta, config, V: int, R: int, P: int,
                              P_emit: int, differentiable: bool = False, *,
-                             window: int | None = None):
+                             window: int | None = None,
+                             episodes: int | None = None):
     """Build the fused episode for a (possibly) hybrid scene.
 
     Returns ``fn(action2d, schedule[T, L], mnext[T, L], mprev[T, L],
@@ -334,11 +428,21 @@ def make_fused_itscp_episode(spec, meta, config, V: int, R: int, P: int,
     removals, max wave speed. ``window`` bounds the leader walk (at least
     :func:`leader_window` of every route pool; default ``R - 1``).
 
+    B episodes run in one launch (the JAX kernel's ``episodes=B`` and its
+    vmapped configurations): an input with a leading episode axis
+    (``action2d[B, n_phases, n_inter]``, ``rand[B, T, L]``, ``schedule[B,
+    T, L]``, ...) gives each episode its row, an input without it is shared
+    by every episode, and the outputs gain the leading B. ``episodes``
+    fixes B (inputs that all lack the axis then run B equal episodes);
+    left ``None``, B is the inputs' and a call without any episode axis is
+    one episode with the shapes above.
+
     ``differentiable`` runs the gates of ``config["gate_mode"]`` (``soft``
     or ``st``, sharpened by ``soft_gate_scale``) and makes ``reward`` and
     ``queues`` differentiable in ``action2d``: on the card through
-    :class:`FusedEpisodeFunction` (the kernel's forward and backward), on
-    the CPU through autograd of the plain version.
+    :class:`FusedEpisodeFunction` (the kernel's forward and backward, one
+    launch each for all B episodes), on the CPU through autograd of the
+    plain version.
     """
     plan = make_plan(spec, meta, config, V, R, P, P_emit, window,
                      differentiable)
@@ -346,7 +450,17 @@ def make_fused_itscp_episode(spec, meta, config, V: int, R: int, P: int,
     def fn(action2d, schedule, mnext, mprev, rand, inj_routes, emit_routes,
            with_events: bool = False):
         inputs = (schedule, mnext, mprev, rand, inj_routes, emit_routes)
-        action2d = action2d.contiguous()
+        B = episode_count(plan, (action2d, *inputs))
+        if episodes is not None:
+            if B not in (None, episodes):
+                raise ValueError(f"built for {episodes} episodes, the "
+                                 f"inputs have {B}")
+            B = episodes
+        if B is not None and action2d.dim() == 2:
+            # a shared action: autograd sums the episodes' gradients
+            action2d = action2d.expand(B, *action2d.shape)
+        if B is None or action2d.stride(0) != 0:  # not a broadcast
+            action2d = action2d.contiguous()
         if not differentiable:
             out = itscp_hybrid_episode_fwd(plan, action2d, *inputs)
         elif _device_of(action2d).type == "cpu":

@@ -1337,8 +1337,11 @@ def _check(plan, comm, inputs, dual):
     action2d, rand, sched, mnext, mprev, routes = inputs
     dev = rand.device
     T, L = plan.T, plan.L
-    if L > k6.MAX_LANES:
-        raise ValueError(f"{L} lanes exceed the cap of {k6.MAX_LANES}")
+    wide = [sh.n for sh in comm.shards if sh.n > k6.MAX_LANES]
+    if wide:
+        raise ValueError(f"a body runs one thread per local lane: a shard "
+                         f"of {wide[0]} lanes exceeds the cap of "
+                         f"{k6.MAX_LANES}")
     if comm.L != L:
         raise ValueError(f"the lane axis has {comm.L} lanes, the plan {L}")
     n_routes = L * plan.P + L * plan.P2

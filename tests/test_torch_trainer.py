@@ -83,8 +83,7 @@ def test_trainer_refuses_paths_not_ported():
     env = ItscpEnv(config=dict(CFG, num_intersection=1),
                    schedule_fn=problem.problem_1, device="cpu")
     env.reset()
-    for kwargs in (dict(multi_scenario=True), dict(packed=True),
-                   dict(mesh=object()), dict(render_eval=True)):
+    for kwargs in (dict(mesh=object()), dict(render_eval=True)):
         with pytest.raises(NotImplementedError, match="not ported yet"):
             Trainer(env, network_size=NET, **kwargs)
 
