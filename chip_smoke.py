@@ -26,6 +26,12 @@ phase prints one JSON line with its wall seconds:
 1. ``device``  card name and power limit (``nvidia-smi``), PyTorch/CUDA
 2. ``build``   every ``dhts_torch/ops/cuda/csrc/*.cu`` compiled with nvcc,
                all at once, one process each
+   ``k1_plain_submit``  the inputs of phases 3-5 and of
+               ``k1_batch_vs_plain``; their plain episodes (18 jobs, one
+               episode's forward or backward each) go to the gloo ranks of
+               both groups (six processes), which run them on the card
+               while this process goes on; phases 3-5 run after
+               ``inverse_hybrid`` and wait for them
 3. ``k1_vs_plain``  the hard forward against its plain PyTorch version on
                the card, same inputs: events[T, 8] exactly equal, reward rel
                <= 1e-4, queues abs <= 1e-4, at least one emission
@@ -125,8 +131,7 @@ phase prints one JSON line with its wall seconds:
                process, while the ranks work
 23. ``shard_train``  ``python -m dhts_torch.apps.control.itscp.run --mesh
                1,4 --mesh_fused`` in 4 ranks at the ``run_itscp_hybrid.sh``
-               flags, problem 1, 1 epoch with an evaluation (2 until K1's
-               episode axis; cut to keep the run within 300 s): losses
+               flags, problem 1, 2 epochs with an evaluation each: losses
                finite and equal on every rank, parameters equal on every
                rank afterwards, each body's launches, counted from 0 on each
                rank, T per forward episode (train step and evaluation) and
@@ -166,6 +171,11 @@ sharded step) adds, where they run:
   event rows, gradients), emitted > 0; the same for four draws of one
   scene with the scene data and action shared (stride 0; the preset's
   open boundaries are macro lanes, so its episodes read no draw);
+* after ``k1_bwd_vs_plain``, ``k1_batch_vs_plain``: one launch of the four
+  scenarios, hard and soft forward and the backward (loss weights -1),
+  against the plain version's four episodes with the tolerances of phases
+  3-5; the ``kernels`` line's batched rows take their error and the plain
+  ms (the four episodes' sum) from here;
 * ``packed_train``: ``Trainer(multi_scenario=True, packed=True)`` on those
   four scenarios takes 3 steps and 1 evaluation: exactly one soft forward
   and one backward launch per step and one hard launch for the
@@ -1178,7 +1188,7 @@ def run_shard_train(ranks, log_root: str) -> dict:
             "--n_intersection", "3", "--n_lane", "1", "--lane_length", "5",
             "--speed_limit", "60", "--simulation_length", "20",
             "--signal_length", "4", "--lr", "1e-4", "--seed", "3",
-            "--n_episode", "0", "--mesh", f"1,{SHARDS}", "--mesh_fused",
+            "--n_episode", "1", "--mesh", f"1,{SHARDS}", "--mesh_fused",
             "--log_root", log_root]
     outs = ranks.run(_shard_train_rank, (argv,))
     (metrics,) = Path(log_root).glob("hybrid_*/trial_0/metrics.jsonl")
@@ -1206,7 +1216,7 @@ def run_shard_train(ranks, log_root: str) -> dict:
         "pmax": fwd_eps}
     episodes = fwd_eps + bwd_eps
     per_step = {k: v / (T * episodes) for k, v in outs[0]["counts"].items()}
-    ok = (steps == 1 and len(evals) == 1 and
+    ok = (steps == 2 and len(evals) == 2 and
           all(o["launches"] == expected for o in outs) and
           all(o["counts"] == expected_coll for o in outs) and
           all(math.isfinite(x) for x in outs[0]["losses"] + evals) and
@@ -1783,6 +1793,148 @@ def k1_row(plan, inputs, e: int):
                  for x, (shape, _) in zip(inputs, k1._rows(plan)))
 
 
+def k1_batch_weights(B: int, T: int, dev):
+    """Seeded loss weights ``[B, T]`` of a batched backward, one row per
+    episode."""
+    import torch
+
+    return torch.as_tensor(np.random.default_rng(6).uniform(
+        -1.0, 1.0, (B, T)), dtype=torch.float32, device=dev)
+
+
+# K1's plain episodes run in the gloo ranks of both groups (PLAIN_WORKERS
+# processes; job i goes to worker i % PLAIN_WORKERS), on the card, while
+# this process goes on with the phases that follow; each job is one
+# episode's forward or backward
+PLAIN_WORKERS = SHARDS + 2
+_rank_envs = {}
+
+
+def k1_plain_job(gate_mode, differentiable: bool, inputs, w=None) -> dict:
+    """One episode of K1's plain version for a rank: the preset's plan in
+    ``gate_mode`` (None: the preset's own), the inputs, the backward's loss
+    weights ``[T]`` (None: the forward)."""
+    return dict(gate_mode=gate_mode, differentiable=differentiable,
+                inputs=tuple(x.cpu() for x in inputs),
+                w=None if w is None else w.cpu())
+
+
+def _k1_plain_rank(rank, S, jobs, first):
+    """This rank's jobs (worker ``first + rank``) on the card: each one's
+    outputs on the CPU and its ms, by job index."""
+    import torch
+
+    from dhts_torch.apps.control.itscp import problem
+    from dhts_torch.apps.control.itscp.env import ItscpEnv
+    from dhts_torch.ops.cuda import itscp_hybrid_episode as k1
+
+    dev, out = torch.device("cuda"), {}
+    for i, job in enumerate(jobs):
+        if i % PLAIN_WORKERS != first + rank:
+            continue
+        mode = job["gate_mode"]
+        if mode not in _rank_envs:
+            cfg = dict(PRESET, random_seed=3)
+            if mode is not None:
+                cfg["gate_mode"] = mode
+            _rank_envs[mode] = ItscpEnv(config=cfg, device=dev,
+                                        schedule_fn=problem.problem_1)
+            _rank_envs[mode].reset()
+        plan = _rank_envs[mode].fused_plan(job["differentiable"])
+        ins = [x.to(dev) for x in job["inputs"]]
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        if job["w"] is None:
+            with torch.no_grad():
+                res = k1.plain_episode(plan, *ins)
+        else:
+            res = (k1.plain_episode_bwd(plan, job["w"].to(dev), *ins),)
+        torch.cuda.synchronize()
+        out[i] = (tuple(x.cpu() for x in res),
+                  (time.perf_counter() - t0) * 1e3)
+    return out
+
+
+def submit_k1_plain(ranks: dict, jobs: dict):
+    """Start ``jobs`` (name -> :func:`k1_plain_job`, the longest first) in
+    the ranks of ``ranks`` (S -> LocalRanks); :func:`collect_k1_plain`
+    waits for them."""
+    first, calls = 0, []
+    for S, r in sorted(ranks.items(), reverse=True):
+        calls.append((r, r.submit(_k1_plain_rank, (list(jobs.values()),
+                                                   first))))
+        first += S
+    return list(jobs), calls
+
+
+def collect_k1_plain(submitted) -> dict:
+    """The jobs' results, name -> (outputs, ms)."""
+    names, calls = submitted
+    out = {}
+    for r, call in calls:
+        for part in r.result(call):
+            out.update(part)
+    return {name: out[i] for i, name in enumerate(names)}
+
+
+def check_k1_batch_plain(env, ins, w, plain) -> dict:
+    """``k1_batch_vs_plain``: one launch of the K1_BATCH scenarios, hard
+    and soft forward and the backward, against the plain version's
+    episodes from the ranks (``plain``, :func:`collect_k1_plain`), with the
+    single launches' tolerances; returns each launch's largest abs error
+    and the plain version's ms (its episodes' sum); raises on a failure."""
+    import torch
+
+    from dhts_torch.ops.cuda import itscp_hybrid_episode as k1
+
+    kfn, kfn_bwd = k1.itscp_hybrid_episode_fwd, k1.itscp_hybrid_episode_bwd
+    hard, soft = env.fused_plan(False), env.fused_plan(True)
+    recs, err, ms, ok = [], {}, {}, True
+    for key, plan in (("fwd", hard), ("fwd_soft", soft)):
+        r, q, ev = (x.cpu() for x in kfn(plan, *ins))
+        err[key], ms[key], emitted = 0.0, 0.0, 0.0
+        for e in range(K1_BATCH):
+            (pr, pq, pe), t = plain[f"batch_{key}_{e}"]
+            rel = abs(float(r[e]) - float(pr)) / max(abs(float(pr)), 1e-30)
+            q_err = float((q[e] - pq).abs().max())
+            err[key] = max(err[key], q_err, abs(float(r[e]) - float(pr)))
+            ms[key] += t
+            emitted += float(pe[:, 1].sum())
+            rec = dict(launch=key, episode=e,
+                       events_equal=bool(torch.equal(ev[e], pe)),
+                       reward_kernel=float(r[e]), reward_plain=float(pr),
+                       reward_rel_err=rel, queues_max_abs_err=q_err,
+                       plain_ms=t)
+            recs.append(rec)
+            ok = ok and rec["events_equal"] and rel <= 1e-4 and q_err <= 1e-4
+        ok = ok and emitted >= 1
+    g = kfn_bwd(soft, w, *ins).cpu()
+    err["bwd"], ms["bwd"] = 0.0, 0.0
+    for e in range(K1_BATCH):
+        (gp,), t = plain[f"batch_bwd_{e}"]
+        got, ref = g[e].double().flatten(), gp.double().flatten()
+        abs_err = float((got - ref).abs().max())
+        err["bwd"] = max(err["bwd"], abs_err)
+        ms["bwd"] += t
+        rec = dict(launch="bwd", episode=e, cos=cosine(got, ref),
+                   max_abs_err=abs_err, max_abs_ref=float(ref.abs().max()),
+                   finite=bool(torch.isfinite(got).all()),
+                   norm=float(got.norm()), plain_ms=t)
+        recs.append(rec)
+        close = bool(torch.allclose(got, ref, rtol=2e-2,
+                                    atol=2e-3 * float(ref.abs().max())))
+        ok = (ok and rec["cos"] > 0.999 and close and rec["finite"] and
+              rec["norm"] > 0)
+    report(B=K1_BATCH, checks=recs, plain_ms=ms, max_abs_err=err,
+           tolerance=dict(events="exact", reward_rel=1e-4, queues_abs=1e-4,
+                          gradient=dict(cos=0.999, rtol=2e-2,
+                                        atol="2e-3 * max|g_plain|")),
+           status="ok" if ok else "FAIL")
+    if not ok:
+        raise SystemExit("k1_batch_vs_plain failed")
+    return dict(err=err, plain_ms=ms)
+
+
 def check_k1_batch(env) -> dict:
     """``k1_batch_vs_single``: one launch of K1_BATCH episodes against as
     many launches of one episode, hard and soft forward and the backward,
@@ -1799,8 +1951,7 @@ def check_k1_batch(env) -> dict:
     for scenarios in (True, False):
         ins = k1_batch_inputs(env, B, 5, scenarios)
         strides = k1.episode_rows(hard, ins, B)[1]
-        w = torch.as_tensor(np.random.default_rng(6).uniform(
-            -1.0, 1.0, (B, T)), dtype=torch.float32, device=env.device)
+        w = k1_batch_weights(B, T, env.device)
         rec = dict(batch="scenarios" if scenarios else "draws",
                    episode_strides=strides)
         for key, plan in (("fwd", hard), ("fwd_soft", soft)):
@@ -2089,8 +2240,10 @@ def main() -> int:
         kfn.launches.update(dict.fromkeys(kfn.launches, 0))
         kfn_bwd.launches = 0
 
-    # ---- 3. K1 against its plain version, same inputs, on the card
-    phase("k1_vs_plain")
+    # ---- 3. K1's plain episodes, submitted to the gloo ranks: they run
+    # on the card while this process goes on, and phases 3-5 and
+    # k1_batch_vs_plain hold the kernels against them after slice 3
+    phase("k1_plain_submit")
     env = ItscpEnv(config=dict(PRESET, random_seed=3),
                    schedule_fn=problem.problem_1, device=dev)
     env.reset()
@@ -2106,118 +2259,44 @@ def main() -> int:
                 env.data.mroute_prev, rand, env.data.inj_routes,
                 env.base_state.route_pool)
 
-    checks, plain_hard_ms = [], []
-    max_abs_err = 0.0
-    for a in (0.3, 0.7):
-        inputs = k1_inputs(torch.full((env.action_size(),), a, device=dev))
-        kr, kq, ke = kfn(plan, *inputs)
-        torch.cuda.synchronize()
-        t0 = time.perf_counter()
-        pr, pq, pe = k1.plain_episode(plan, *inputs)
-        torch.cuda.synchronize()
-        plain_hard_ms.append((time.perf_counter() - t0) * 1e3)
-        ev_equal = bool(torch.equal(ke, pe))
-        rel = abs(float(kr) - float(pr)) / max(abs(float(pr)), 1e-30)
-        q_err = float((kq - pq).abs().max())
-        max_abs_err = max(max_abs_err, q_err, abs(float(kr) - float(pr)))
-        tot = pe[:, :3].sum(0).tolist()
-        rec = dict(action=a, events_equal=ev_equal,
-                   events_mismatch_steps=int((ke != pe).any(1).sum()),
-                   reward_kernel=float(kr), reward_plain=float(pr),
-                   reward_rel_err=rel, queues_max_abs_err=q_err,
-                   injected=tot[0], emitted=tot[1], absorbed=tot[2],
-                   finite=bool(torch.isfinite(kq).all()))
-        checks.append(rec)
-        ok = (ev_equal and rel <= 1e-4 and q_err <= 1e-4 and tot[1] >= 1
-              and rec["finite"] and tuple(kq.shape) == (T,)
-              and tuple(ke.shape) == (T, 8))
-        if not ok:
-            report(checks=checks, status="FAIL")
-            raise SystemExit(f"k1_vs_plain failed at action {a}: {rec}")
-    lib = k1._library()
-    modes = (("forward", 0), ("backward", 1))
-    smem_bytes = {kind: lib.itscp_hybrid_episode_smem(
-        plan.L, plan.C, plan.V, plan.K, tangent) for kind, tangent in modes}
-    # the most lanes one block's shared memory holds at these C, V, K
-    max_lanes = {kind: max(n for n in range(1, 1025) if
-                           lib.itscp_hybrid_episode_smem(
-                               n, plan.C, plan.V, plan.K, tangent) <=
-                           SMEM_PER_BLOCK) for kind, tangent in modes}
-    report(T=T, L=L, window=plan.W, smem_bytes=smem_bytes,
-           max_lanes=max_lanes, checks=checks,
-           tolerance=dict(events="exact", reward_rel=1e-4, queues_abs=1e-4))
-
-    # ---- 4. the soft and straight-through forward against the plain version
-    phase("k1_soft_vs_plain")
-    soft_env, soft_err, soft_checks, plain_soft_s = {}, 0.0, [], {}
+    soft_env = {}
     for mode in ("soft", "st"):
-        e = ItscpEnv(config=dict(PRESET, random_seed=3, gate_mode=mode),
-                     schedule_fn=problem.problem_1, device=dev)
-        e.reset()
-        soft_env[mode] = e
-        p = e.fused_plan(True)
-        inputs = k1_inputs(torch.full((e.action_size(),), 0.55, device=dev))
-        kr, kq, ke = kfn(p, *inputs)
-        torch.cuda.synchronize()
-        t0 = time.perf_counter()
-        with torch.no_grad():
-            pr, pq, pe = k1.plain_episode(p, *inputs)
-        torch.cuda.synchronize()
-        plain_soft_s[mode] = time.perf_counter() - t0
-        rel = abs(float(kr) - float(pr)) / max(abs(float(pr)), 1e-30)
-        q_err = float((kq - pq).abs().max())
-        soft_err = max(soft_err, q_err, abs(float(kr) - float(pr)))
-        tot = pe[:, :3].sum(0).tolist()
-        rec = dict(gate_mode=mode, mode=p.mode,
-                   events_equal=bool(torch.equal(ke, pe)),
-                   events_mismatch_steps=int((ke != pe).any(1).sum()),
-                   reward_kernel=float(kr), reward_plain=float(pr),
-                   reward_rel_err=rel, queues_max_abs_err=q_err,
-                   injected=tot[0], emitted=tot[1], absorbed=tot[2],
-                   plain_seconds=plain_soft_s[mode],
-                   finite=bool(torch.isfinite(kq).all()))
-        soft_checks.append(rec)
-        if not (rec["events_equal"] and rel <= 1e-4 and q_err <= 1e-4 and
-                tot[1] >= 1 and rec["finite"]):
-            report(checks=soft_checks, status="FAIL")
-            raise SystemExit(f"k1_soft_vs_plain failed for {mode}: {rec}")
-    report(checks=soft_checks,
-           tolerance=dict(events="exact", reward_rel=1e-4, queues_abs=1e-4))
-
-    # ---- 5. the backward against autograd of the plain version
-    phase("k1_bwd_vs_plain")
-    bwd_err, bwd_checks, plain_bwd_s = 0.0, [], {}
+        soft_env[mode] = ItscpEnv(
+            config=dict(PRESET, random_seed=3, gate_mode=mode),
+            schedule_fn=problem.problem_1, device=dev)
+        soft_env[mode].reset()
+    hard_inputs = {a: k1_inputs(torch.full((env.action_size(),), a,
+                                           device=dev)) for a in (0.3, 0.7)}
+    soft_inputs = k1_inputs(torch.full((env.action_size(),), 0.55,
+                                       device=dev))
     rng = np.random.default_rng(1)
-    action_off_grid = torch.as_tensor(
+    bwd_inputs = k1_inputs(torch.as_tensor(
         rng.uniform(0.3, 0.7, env.action_size()), dtype=torch.float32,
-        device=dev)
+        device=dev))
     w = torch.full((T,), -1.0, device=dev)  # d(reward)/d(queues)
+    # the scenario batch of slice 8 and its plain episodes
+    benv = batch_env(dev)
+    bins = k1_batch_inputs(benv, K1_BATCH, 5)
+    bw = torch.full((K1_BATCH, T), -1.0, device=dev)
+    bplan = benv.fused_plan(False)
+    jobs = {}  # the longest first
     for mode in ("soft", "st"):
-        p = soft_env[mode].fused_plan(True)
-        inputs = k1_inputs(action_off_grid)
-        g = kfn_bwd(p, w, *inputs)
-        torch.cuda.synchronize()
-        t0 = time.perf_counter()
-        g_ref = k1.plain_episode_bwd(p, w, *inputs)
-        torch.cuda.synchronize()
-        plain_bwd_s[mode] = time.perf_counter() - t0
-        got, ref = g.double().flatten(), g_ref.double().flatten()
-        cos = float(got @ ref / (got.norm() * ref.norm()))
-        abs_err = float((got - ref).abs().max())
-        bwd_err = max(bwd_err, abs_err)
-        rec = dict(gate_mode=mode, cos=cos, max_abs_err=abs_err,
-                   max_abs_ref=float(ref.abs().max()),
-                   max_rel_err=abs_err / max(float(ref.abs().max()), 1e-30),
-                   norm=float(got.norm()), plain_seconds=plain_bwd_s[mode],
-                   finite=bool(torch.isfinite(got).all()))
-        bwd_checks.append(rec)
-        close = bool(torch.allclose(got, ref, rtol=2e-2,
-                                    atol=2e-3 * float(ref.abs().max())))
-        if not (cos > 0.999 and close and rec["finite"] and rec["norm"] > 0):
-            report(checks=bwd_checks, status="FAIL")
-            raise SystemExit(f"k1_bwd_vs_plain failed for {mode}: {rec}")
-    report(checks=bwd_checks, tolerance=dict(cos=0.999, rtol=2e-2,
-                                             atol="2e-3 * max|g_plain|"))
+        jobs[f"bwd_{mode}"] = k1_plain_job(mode, True, bwd_inputs, w)
+    for e in range(K1_BATCH):
+        jobs[f"batch_bwd_{e}"] = k1_plain_job(
+            None, True, k1_row(bplan, bins, e), bw[e])
+    for a in (0.3, 0.7):
+        jobs[f"fwd_{a}"] = k1_plain_job(None, False, hard_inputs[a])
+    for mode in ("soft", "st"):
+        jobs[f"fwd_{mode}"] = k1_plain_job(mode, True, soft_inputs)
+    for e in range(K1_BATCH):
+        jobs[f"batch_fwd_{e}"] = k1_plain_job(None, False,
+                                              k1_row(bplan, bins, e))
+        jobs[f"batch_fwd_soft_{e}"] = k1_plain_job(None, True,
+                                                   k1_row(bplan, bins, e))
+    t_plain = time.perf_counter()
+    plain_calls = submit_k1_plain(shard_ranks, jobs)
+    report(jobs=len(jobs), workers=PLAIN_WORKERS)
 
     # ---- 4. serve: the main path, through the user's entry points
     phase("serve")
@@ -2290,7 +2369,6 @@ def main() -> int:
     # ---- slice 8: K1 with B episodes per launch, the packed Trainer
     t_slice8 = time.perf_counter()
     phase("k1_batch_vs_single")
-    benv = batch_env(dev)
     k1_batch_err = check_k1_batch(benv)
     with tempfile.TemporaryDirectory() as log_root:
         phase("packed_train")
@@ -2309,6 +2387,109 @@ def main() -> int:
         phase("inverse_hybrid")
         run_inverse_hybrid(dev, log_root)
     slice3_seconds = time.perf_counter() - t_slice3
+
+    # ---- 3-5. K1 against its plain version, same inputs, on the card
+    phase("k1_vs_plain")
+    t0 = time.perf_counter()
+    plain_out = collect_k1_plain(plain_calls)
+    plain_wait_s = time.perf_counter() - t0
+    plain_wall_s = time.perf_counter() - t_plain
+    checks, plain_hard_ms = [], []
+    max_abs_err = 0.0
+    for a in (0.3, 0.7):
+        kr, kq, ke = (x.cpu() for x in kfn(plan, *hard_inputs[a]))
+        (pr, pq, pe), ms = plain_out[f"fwd_{a}"]
+        plain_hard_ms.append(ms)
+        ev_equal = bool(torch.equal(ke, pe))
+        rel = abs(float(kr) - float(pr)) / max(abs(float(pr)), 1e-30)
+        q_err = float((kq - pq).abs().max())
+        max_abs_err = max(max_abs_err, q_err, abs(float(kr) - float(pr)))
+        tot = pe[:, :3].sum(0).tolist()
+        rec = dict(action=a, events_equal=ev_equal,
+                   events_mismatch_steps=int((ke != pe).any(1).sum()),
+                   reward_kernel=float(kr), reward_plain=float(pr),
+                   reward_rel_err=rel, queues_max_abs_err=q_err,
+                   injected=tot[0], emitted=tot[1], absorbed=tot[2],
+                   finite=bool(torch.isfinite(kq).all()))
+        checks.append(rec)
+        ok = (ev_equal and rel <= 1e-4 and q_err <= 1e-4 and tot[1] >= 1
+              and rec["finite"] and tuple(kq.shape) == (T,)
+              and tuple(ke.shape) == (T, 8))
+        if not ok:
+            report(checks=checks, status="FAIL")
+            raise SystemExit(f"k1_vs_plain failed at action {a}: {rec}")
+    lib = k1._library()
+    modes = (("forward", 0), ("backward", 1))
+    smem_bytes = {kind: lib.itscp_hybrid_episode_smem(
+        plan.L, plan.C, plan.V, plan.K, tangent) for kind, tangent in modes}
+    # the most lanes one block's shared memory holds at these C, V, K
+    max_lanes = {kind: max(n for n in range(1, 1025) if
+                           lib.itscp_hybrid_episode_smem(
+                               n, plan.C, plan.V, plan.K, tangent) <=
+                           SMEM_PER_BLOCK) for kind, tangent in modes}
+    report(T=T, L=L, window=plan.W, smem_bytes=smem_bytes,
+           max_lanes=max_lanes, checks=checks,
+           plain_jobs_wall_seconds=plain_wall_s,
+           plain_wait_seconds=plain_wait_s,
+           tolerance=dict(events="exact", reward_rel=1e-4, queues_abs=1e-4))
+
+    # ---- 4. the soft and straight-through forward against the plain version
+    phase("k1_soft_vs_plain")
+    soft_err, soft_checks, plain_soft_s = 0.0, [], {}
+    for mode in ("soft", "st"):
+        p = soft_env[mode].fused_plan(True)
+        kr, kq, ke = (x.cpu() for x in kfn(p, *soft_inputs))
+        (pr, pq, pe), ms = plain_out[f"fwd_{mode}"]
+        plain_soft_s[mode] = ms / 1e3
+        rel = abs(float(kr) - float(pr)) / max(abs(float(pr)), 1e-30)
+        q_err = float((kq - pq).abs().max())
+        soft_err = max(soft_err, q_err, abs(float(kr) - float(pr)))
+        tot = pe[:, :3].sum(0).tolist()
+        rec = dict(gate_mode=mode, mode=p.mode,
+                   events_equal=bool(torch.equal(ke, pe)),
+                   events_mismatch_steps=int((ke != pe).any(1).sum()),
+                   reward_kernel=float(kr), reward_plain=float(pr),
+                   reward_rel_err=rel, queues_max_abs_err=q_err,
+                   injected=tot[0], emitted=tot[1], absorbed=tot[2],
+                   plain_seconds=plain_soft_s[mode],
+                   finite=bool(torch.isfinite(kq).all()))
+        soft_checks.append(rec)
+        if not (rec["events_equal"] and rel <= 1e-4 and q_err <= 1e-4 and
+                tot[1] >= 1 and rec["finite"]):
+            report(checks=soft_checks, status="FAIL")
+            raise SystemExit(f"k1_soft_vs_plain failed for {mode}: {rec}")
+    report(checks=soft_checks,
+           tolerance=dict(events="exact", reward_rel=1e-4, queues_abs=1e-4))
+
+    # ---- 5. the backward against autograd of the plain version
+    phase("k1_bwd_vs_plain")
+    bwd_err, bwd_checks, plain_bwd_s = 0.0, [], {}
+    for mode in ("soft", "st"):
+        p = soft_env[mode].fused_plan(True)
+        g = kfn_bwd(p, w, *bwd_inputs).cpu()
+        (g_ref,), ms = plain_out[f"bwd_{mode}"]
+        plain_bwd_s[mode] = ms / 1e3
+        got, ref = g.double().flatten(), g_ref.double().flatten()
+        cos = float(got @ ref / (got.norm() * ref.norm()))
+        abs_err = float((got - ref).abs().max())
+        bwd_err = max(bwd_err, abs_err)
+        rec = dict(gate_mode=mode, cos=cos, max_abs_err=abs_err,
+                   max_abs_ref=float(ref.abs().max()),
+                   max_rel_err=abs_err / max(float(ref.abs().max()), 1e-30),
+                   norm=float(got.norm()), plain_seconds=plain_bwd_s[mode],
+                   finite=bool(torch.isfinite(got).all()))
+        bwd_checks.append(rec)
+        close = bool(torch.allclose(got, ref, rtol=2e-2,
+                                    atol=2e-3 * float(ref.abs().max())))
+        if not (cos > 0.999 and close and rec["finite"] and rec["norm"] > 0):
+            report(checks=bwd_checks, status="FAIL")
+            raise SystemExit(f"k1_bwd_vs_plain failed for {mode}: {rec}")
+    report(checks=bwd_checks, tolerance=dict(cos=0.999, rtol=2e-2,
+                                             atol="2e-3 * max|g_plain|"))
+
+    # ---- slice 8: the batched launches against the plain version
+    phase("k1_batch_vs_plain")
+    batch_plain = check_k1_batch_plain(benv, bins, bw, plain_out)
 
     # ---- 12-15. slice 4: training on the fused spatial step (mesh 1,1)
     t_slice4 = time.perf_counter()
@@ -2529,8 +2710,8 @@ def main() -> int:
             "batch": 1, "shards": SHARDS,
             "ms_by_batch": shard_times["ms"][body]})
     # K1's batched launches at K1_BATCH episodes, the packed Trainer's
-    # (packed_train); the plain version runs the episodes one after
-    # another: K1_BATCH times its single episode's ms above
+    # (packed_train), against the plain version's episodes
+    # (k1_batch_vs_plain; it loops over them: its ms is their sum)
     for key, replaces in (("fwd", k1.REPLACES_FWD),
                           ("fwd_soft", k1.REPLACES_FWD),
                           ("bwd", k1.REPLACES_BWD)):
@@ -2539,10 +2720,14 @@ def main() -> int:
             "name": f"itscp_hybrid_episode_{key}_batch", "route": "cuda",
             "source": k1.SOURCE, "replaces": replaces,
             "launches": packed_launches[key],
-            "max_abs_err": k1_batch_err[key],
+            "max_abs_err": batch_plain["err"][key],
             "ms": k1_batch_times["ms"][key][K1_BATCH],
-            "plain_ms": K1_BATCH * plain[key],
-            "plain_ms_from": f"{K1_BATCH} x the plain single episode's ms",
+            "plain_ms": batch_plain["plain_ms"][key],
+            "plain_ms_from": f"the sum of the plain version's {K1_BATCH} "
+                             "episodes, each timed in a gloo rank beside "
+                             "the others",
+            "bit_equal_to_single_launches": True,
+            "max_abs_err_vs_single_launches": k1_batch_err[key],
             "bound_ms": b["bound_ms"], "bound_by": b["bound_by"],
             "library_ms": None, "batch": K1_BATCH,
             "ms_by_batch": k1_batch_times["ms"][key]})

@@ -24,9 +24,10 @@
 // queue sum and events in its own shared memory, so B episodes in one
 // launch give what B launches give, bit for bit. No lane packing, no
 // lane-to-episode maps: a block is an episode. A launch of one episode
-// runs the kernel's instantiation without the episode axis (kBatch =
-// false): moving the input pointers to a block's episode cost a launch of
-// one episode 1.0-2.4 % forward on an H100. Cells, vehicles, counters and
+// runs the kernel's instantiation without the episode axis, with the
+// parameters and code the kernel had before it took one: moving the input
+// pointers to a block's episode cost a launch of one episode 1.0-2.4 %
+// forward on an H100. Cells, vehicles, counters and
 // flux capacitors live in shared memory. The [L, V, R] route container of the JAX kernel
 // is not materialised: every route in an episode is a row of one of the
 // two read-only pools (waiting pool [L, P, R], emission pool [L, P2, R]),
@@ -92,6 +93,14 @@ struct Episodes {
   int blocks;
 };
 
+// the episode axis of a kernel's parameters: none (one episode) or one
+__device__ __forceinline__ Episodes episodes_of() {
+  return Episodes{0, 0, 0, 0, 0, 0, 0, 0, 1};
+}
+__device__ __forceinline__ Episodes episodes_of(const Episodes& ep) {
+  return ep;
+}
+
 template <class S>
 struct Smem {
   S *r, *y, *pos, *vel, *av, *cap;
@@ -155,8 +164,9 @@ __device__ __forceinline__ float fold_mean(const Smem<S>& s, int L,
 // writes out_grad[e * n_act + j] = sum_t q_weight[e, t] *
 // d(queue_{e,t})/d(action_{e,j}) (the forward outputs are unused). The
 // per-lane phases are those of itscp_step.cuh on the state in shared
-// memory. kBatch = false: one episode (B = 1), `ep`'s strides unread.
-template <class S, bool kBatch>
+// memory. A launch of one episode passes no Episodes (Ep empty): that
+// instantiation has no episode axis in its parameters or its code.
+template <class S, class... Ep>
 __global__ void itscp_hybrid_episode_kernel(
     const float* __restrict__ action, const float* __restrict__ sched,
     const int* __restrict__ mnext, const int* __restrict__ mprev,
@@ -165,7 +175,9 @@ __global__ void itscp_hybrid_episode_kernel(
     const int* __restrict__ lane_i, const float* __restrict__ lane_f,
     float* __restrict__ out_reward, float* __restrict__ out_queues,
     float* __restrict__ out_events, const float* __restrict__ q_weight,
-    float* __restrict__ out_grad, Dims d, Consts k, Episodes ep) {
+    float* __restrict__ out_grad, Dims d, Consts k, Ep... eps) {
+  constexpr bool kBatch = sizeof...(Ep) > 0;
+  const Episodes ep = episodes_of(eps...);
   DHTS_DYNAMIC_SMEM(smem_raw);
   Smem<S> s;
   smem_bytes<S>(d, &s, smem_raw);
@@ -411,12 +423,30 @@ __global__ void itscp_hybrid_episode_kernel(
   }
   if (threadIdx.x == 0) {
     if (out_reward) out_reward[0] = -qsum;
-    if (out_grad) out_grad[blockIdx.x] = (float)grad;
+    if (out_grad) out_grad[kBatch ? (int)blockIdx.x : seed] = (float)grad;
   }
 }
 
+// one launch of `kernel` with `smem` bytes of dynamic shared memory
+template <class Kernel, class... Args>
+int start(Kernel kernel, int blocks, int threads, size_t smem, void* stream,
+          Args... args) {
+#ifdef DHTS_CPU_EMULATION
+  (void)stream;
+  dhts_emu::launch(blocks, threads, smem, kernel, args...);
+  return 0;
+#else
+  cudaError_t err = cudaFuncSetAttribute(
+      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+  if (err != cudaSuccess) return (int)err;
+  kernel<<<blocks, threads, smem, (cudaStream_t)stream>>>(args...);
+  return (int)cudaGetLastError();
+#endif
+}
+
 // shared launch path of the forward (S = float, one block per episode)
-// and the backward (S = Dual, one block per episode and action entry)
+// and the backward (S = Dual, one block per episode and action entry);
+// B = 1 launches the instantiation without the episode axis
 template <class S>
 int launch(int B, const Episodes& ep, const float* action, const float* sched,
            const int* mnext, const int* mprev, const float* rand,
@@ -431,25 +461,15 @@ int launch(int B, const Episodes& ep, const float* action, const float* sched,
   const int blocks = B * ep.blocks;
   const size_t smem = smem_bytes<S>(d, nullptr, nullptr);
   const int threads = ((d.L + 31) / 32) * 32;
-  auto kernel = B > 1 ? itscp_hybrid_episode_kernel<S, true>
-                      : itscp_hybrid_episode_kernel<S, false>;
-#ifdef DHTS_CPU_EMULATION
-  (void)stream;
-  dhts_emu::launch(blocks, threads, smem, kernel, action, sched, mnext,
-                   mprev, rand, inj_routes, emit_routes, prog, lane_i,
-                   lane_f, out_reward, out_queues, out_events, q_weight,
-                   out_grad, d, k, ep);
-  return 0;
-#else
-  cudaError_t err = cudaFuncSetAttribute(
-      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
-  if (err != cudaSuccess) return (int)err;
-  kernel<<<blocks, threads, smem, (cudaStream_t)stream>>>(
-      action, sched, mnext, mprev, rand, inj_routes, emit_routes, prog,
-      lane_i, lane_f, out_reward, out_queues, out_events, q_weight, out_grad,
-      d, k, ep);
-  return (int)cudaGetLastError();
-#endif
+  if (B == 1)
+    return start(itscp_hybrid_episode_kernel<S>, blocks, threads, smem,
+                 stream, action, sched, mnext, mprev, rand, inj_routes,
+                 emit_routes, prog, lane_i, lane_f, out_reward, out_queues,
+                 out_events, q_weight, out_grad, d, k);
+  return start(itscp_hybrid_episode_kernel<S, Episodes>, blocks, threads,
+               smem, stream, action, sched, mnext, mprev, rand, inj_routes,
+               emit_routes, prog, lane_i, lane_f, out_reward, out_queues,
+               out_events, q_weight, out_grad, d, k, ep);
 }
 
 }  // namespace

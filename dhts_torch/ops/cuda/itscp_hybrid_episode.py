@@ -156,14 +156,18 @@ def _rows(plan: EpisodePlan) -> tuple:
             ((L, plan.P, R), i32), ((L, plan.P2, R), i32))
 
 
-def episode_count(plan: EpisodePlan, inputs, q_weight=None) -> int | None:
+# one episode's dimensions of each input, in the order of EPISODE_INPUTS
+_NDIMS = (2, 2, 2, 2, 2, 3, 3)
+
+
+def episode_count(inputs, q_weight=None) -> int | None:
     """The number of episodes of a call: the leading size of the inputs that
     have an episode axis (one dimension more than one episode's shape; the
     others are shared by every episode), or None when none has one (one
     episode, today's shapes). ``q_weight`` (the backward's ``[T]`` or
     ``[B, T]``) counts as an input."""
-    sizes = {int(x.shape[0]) for x, (shape, _) in zip(inputs, _rows(plan))
-             if x.dim() == len(shape) + 1}
+    sizes = {int(x.shape[0]) for x, n in zip(inputs, _NDIMS)
+             if x.dim() == n + 1}
     if q_weight is not None and q_weight.dim() == 2:
         sizes.add(int(q_weight.shape[0]))
     if len(sizes) > 1:
@@ -188,7 +192,7 @@ def plain_episode(plan: EpisodePlan, action2d, schedule, mnext, mprev, rand,
 
     inputs = (action2d, schedule, mnext, mprev, rand, inj_routes,
               emit_routes)
-    B = episode_count(plan, inputs)
+    B = episode_count(inputs)
     if B is not None:
         rows = _rows(plan)
         outs = [plain_episode(plan, *(_episode(x, shape, e) for x, (shape, _)
@@ -210,7 +214,7 @@ def plain_episode_bwd(plan: EpisodePlan, q_weight, action2d, *inputs):
     with an episode axis, each episode's ``sum_t q_weight[e, t] *
     d(queues[e, t])/d(action2d[e])``, ``[B, n_phases, n_inter]`` (a shared
     action gets each episode's gradient in its row)."""
-    B = episode_count(plan, (action2d, *inputs), q_weight)
+    B = episode_count((action2d, *inputs), q_weight)
     if B is not None:
         rows = _rows(plan)
         return torch.stack([plain_episode_bwd(
@@ -323,10 +327,9 @@ def itscp_hybrid_episode_fwd(plan: EpisodePlan, action2d, schedule, mnext,
     """
     inputs = (action2d, schedule, mnext, mprev, rand, inj_routes,
               emit_routes)
-    B = episode_count(plan, inputs)
     if _device_of(action2d).type == "cpu":
         return plain_episode(plan, *inputs)
-    out = _launch_fwd(plan, inputs, B)
+    out = _launch_fwd(plan, inputs, episode_count(inputs))
     itscp_hybrid_episode_fwd.launches[plan.mode] += 1
     return out
 
@@ -351,9 +354,9 @@ def itscp_hybrid_episode_bwd(plan: EpisodePlan, q_weight, action2d,
                          "st plan")
     inputs = (action2d, schedule, mnext, mprev, rand, inj_routes,
               emit_routes)
-    B = episode_count(plan, inputs, q_weight)
     if _device_of(action2d).type == "cpu":
         return plain_episode_bwd(plan, q_weight, *inputs)
+    B = episode_count(inputs, q_weight)
     tensors, strides = episode_rows(plan, inputs, B)
     dev = tensors[0].device
     qw_rows = q_weight.dim() == 2  # one row of loss weights per episode
@@ -400,7 +403,7 @@ class FusedEpisodeFunction(torch.autograd.Function):
     def backward(ctx, g_reward, g_queues, g_events):
         action2d, *inputs = ctx.saved_tensors
         plan = ctx.plan
-        B = episode_count(plan, (action2d, *inputs))
+        B = episode_count((action2d, *inputs))
         # loss cotangent per queue: reward = -sum(queues)
         lead = () if B is None else (B,)
         w = torch.zeros((*lead, plan.T), dtype=torch.float32,
@@ -416,8 +419,7 @@ class FusedEpisodeFunction(torch.autograd.Function):
 
 def make_fused_itscp_episode(spec, meta, config, V: int, R: int, P: int,
                              P_emit: int, differentiable: bool = False, *,
-                             window: int | None = None,
-                             episodes: int | None = None):
+                             window: int | None = None):
     """Build the fused episode for a (possibly) hybrid scene.
 
     Returns ``fn(action2d, schedule[T, L], mnext[T, L], mprev[T, L],
@@ -432,10 +434,8 @@ def make_fused_itscp_episode(spec, meta, config, V: int, R: int, P: int,
     vmapped configurations): an input with a leading episode axis
     (``action2d[B, n_phases, n_inter]``, ``rand[B, T, L]``, ``schedule[B,
     T, L]``, ...) gives each episode its row, an input without it is shared
-    by every episode, and the outputs gain the leading B. ``episodes``
-    fixes B (inputs that all lack the axis then run B equal episodes);
-    left ``None``, B is the inputs' and a call without any episode axis is
-    one episode with the shapes above.
+    by every episode, and the outputs gain the leading B; a call without
+    any episode axis is one episode with the shapes above.
 
     ``differentiable`` runs the gates of ``config["gate_mode"]`` (``soft``
     or ``st``, sharpened by ``soft_gate_scale``) and makes ``reward`` and
@@ -450,12 +450,7 @@ def make_fused_itscp_episode(spec, meta, config, V: int, R: int, P: int,
     def fn(action2d, schedule, mnext, mprev, rand, inj_routes, emit_routes,
            with_events: bool = False):
         inputs = (schedule, mnext, mprev, rand, inj_routes, emit_routes)
-        B = episode_count(plan, (action2d, *inputs))
-        if episodes is not None:
-            if B not in (None, episodes):
-                raise ValueError(f"built for {episodes} episodes, the "
-                                 f"inputs have {B}")
-            B = episodes
+        B = episode_count((action2d, *inputs))
         if B is not None and action2d.dim() == 2:
             # a shared action: autograd sums the episodes' gradients
             action2d = action2d.expand(B, *action2d.shape)

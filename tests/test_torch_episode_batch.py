@@ -259,12 +259,7 @@ def test_episode_axes_must_agree():
     inputs = (action, bd.schedule, bd.mroute_next, bd.mroute_prev, rand,
               bd.inj_routes, env.base_state.route_pool)
     with pytest.raises(ValueError, match="disagree"):
-        k1.episode_count(plan, inputs)
-    fn = k1.make_fused_itscp_episode(
-        env.spec, env.meta, env.config, plan.V, plan.R, plan.P, plan.P2,
-        window=plan.W, episodes=2)
-    with pytest.raises(ValueError, match="built for 2 episodes"):
-        fn(action, *inputs[1:4], rand[:1].expand(B, -1, -1), *inputs[5:])
+        k1.episode_count(inputs)
 
 
 def test_run_cli_trains_packed(tmp_path):

@@ -115,7 +115,7 @@ def bwd(lib, plan, w, inputs, batch=None):
 def test_batched_forward_equals_single_launches(lib, mode, kind):
     plan, inputs = batch_case(FWD_CFG[kind], kind, mode != "hard",
                               "st" if mode == "st" else "soft")
-    assert k1.episode_count(plan, inputs) == B
+    assert k1.episode_count(inputs) == B
     strides = k1.episode_rows(plan, inputs, B)[1]
     if kind == "draws":  # scene data and action shared, stride 0
         assert strides == [0, 0, 0, 0, plan.T * plan.L, 0, 0]

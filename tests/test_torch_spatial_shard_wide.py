@@ -7,12 +7,13 @@ block holds applies to a shard, not to the scene.
 
 * The sharded episode at S = 4 (324 lanes a shard) in four gloo processes
   (``dhts_torch.parallel.local_ranks``; the plain bodies on the CPU),
-  hard and soft, against the port's scan env on the same draw, to the
-  tolerances of JAX's ``_check``: reward rtol 1e-5 (atol 1e-6), queues
-  rtol 1e-4 (atol 1e-6), injected, emitted and absorbed counts equal,
-  and the largest wave speed rtol 1e-5. At this horizon no vehicle
-  converts yet: the soft episode's queue gates and the waves carry the
-  check.
+  hard and soft, against JAX's scan env of the same scene on the same
+  draw (``uniform(PRNGKey(0), (T, L))``), to the tolerances of JAX's
+  ``_check``: reward rtol 1e-5 (atol 1e-6), queues rtol 1e-4 (atol
+  1e-6), injected, emitted and absorbed counts equal; and against the
+  port's scan env to the same tolerances and the largest wave speed rtol
+  1e-5. At this horizon no vehicle converts yet: the soft episode's
+  queue gates and the waves carry the check.
 * The bodies' CUDA source compiled for the host at that width: every launch
   of the first steps equals its plain body bit for bit
   (``ShardRun.checked_step``), and the whole episode equals the plain
@@ -58,6 +59,24 @@ def draw():
     return env.draw_rand(torch.Generator().manual_seed(0))
 
 
+def jax_episodes(action):
+    """JAX's scan env of the scene: its hard and soft episodes at
+    ``PRNGKey(0)`` and that key's draw ``[T, L]``."""
+    import jax
+    import jax.numpy as jnp
+
+    from dhts.apps.control.itscp.env import ItscpEnv as JaxEnv
+    from dhts.apps.control.itscp.problem import problem_1
+
+    jenv = JaxEnv(config=WIDE_CFG, schedule_fn=problem_1)
+    jenv.reset()
+    key = jax.random.PRNGKey(0)
+    rand = np.array(jax.random.uniform(key, (jenv.num_timestep,
+                                             jenv.spec.num_lanes)))
+    return rand, {diff: jenv.episode(jnp.asarray(action), diff, key)
+                  for diff in (False, True)}
+
+
 def _rank(rank, S, rand, action):
     """One rank's sharded episodes, hard and soft."""
     env = wide_env()
@@ -71,31 +90,37 @@ def _rank(rank, S, rand, action):
     return out
 
 
+def _check(res, ref):
+    """JAX's ``_check`` (``tests/test_spatial_fused.py``)."""
+    np.testing.assert_allclose(float(res.reward), float(ref.reward),
+                               rtol=1e-5, atol=1e-6)
+    np.testing.assert_allclose(res.queue_per_step.numpy(),
+                               np.asarray(ref.queue_per_step), rtol=1e-4,
+                               atol=1e-6)
+    for name in ("injected", "emitted", "absorbed"):
+        assert int(getattr(res, name)) == int(getattr(ref, name)), name
+
+
 def test_wide_scene_runs_sharded_across_ranks():
     env = wide_env()
-    rand = draw()
     action = np.full(env.action_size(), 0.45, np.float32)
-    outs = run_local(_rank, S, args=(rand.numpy(), action), timeout=300)
+    rand, jax_ref = jax_episodes(action)
+    outs = run_local(_rank, S, args=(rand, action), timeout=300)
     for diff in (False, True):
         with torch.no_grad():
-            ref = env.episode(torch.as_tensor(action), diff, rand=rand)
+            ref = env.episode(torch.as_tensor(action), diff,
+                              rand=torch.as_tensor(rand))
         for rank, o in enumerate(outs):
             res = o[diff]
-            np.testing.assert_allclose(float(res.reward), float(ref.reward),
-                                       rtol=1e-5, atol=1e-6)
-            np.testing.assert_allclose(res.queue_per_step.numpy(),
-                                       ref.queue_per_step.numpy(),
-                                       rtol=1e-4, atol=1e-6)
+            _check(res, jax_ref[diff])
+            _check(res, ref)
             np.testing.assert_allclose(float(res.max_wave_speed),
                                        float(ref.max_wave_speed), rtol=1e-5)
-            for name in ("injected", "emitted", "absorbed"):
-                assert int(getattr(res, name)) == int(getattr(ref, name)), \
-                    (rank, diff, name)
             assert torch.equal(res.queue_per_step,
                                outs[0][diff].queue_per_step), rank
     # at this horizon no vehicle converts yet; the soft queue gates see the
     # macro flow the signals hold back
-    assert float(ref.reward) < 0 and float(ref.max_wave_speed) > 0
+    assert float(jax_ref[True].reward) < 0 and float(ref.max_wave_speed) > 0
 
 
 @pytest.fixture(scope="module")

@@ -1,0 +1,126 @@
+"""K1's hard, soft and backward milliseconds per launch at the 3x3 hybrid
+preset of ``run_itscp_hybrid.sh`` (T = 600, 144 lanes, one episode per
+launch, action 0.5), on the card, with the ``dhts_torch`` package of a
+given checkout: the ``timing`` phase of ``chip_smoke.py`` (its preset and
+its ``cuda_ms``) for another tree, so that two trees can be timed in turns
+in one call on one card::
+
+    for i in 1 2 3 4 5; do for t in ../parent . . ../parent; do
+        python tools/k1_timing.py $t; done; done
+
+``TREE`` (default: this checkout) gives the package; the preset and the
+timer are this checkout's. Prints one JSON line: the tree, the card's name
+and power limit, and the median of ``--repeats`` CUDA-event timings of
+each launch after two warm-up launches, alone (``ms``: the wrapper's host
+time before the launch counts, as in ``timing``) and five back to back
+(``ms_back_to_back``: the host enqueues the next launch while the card
+runs the last, so the kernel's own time).
+
+``--sass`` prints instead, for each instantiation of K1's kernel in TREE's
+build, its SASS instruction count and the SHA-256 of its instructions
+(``cuobjdump -sass``, addresses and encodings dropped), and ptxas's lines
+of registers and stack: equal digests of two trees mean the same machine
+code.
+"""
+
+from __future__ import annotations
+
+import argparse
+import json
+import sys
+from pathlib import Path
+
+ROOT = Path(__file__).resolve().parents[1]
+
+
+def sass_digest() -> dict:
+    """K1's kernels in the imported package's build: ``{"sass": {kernel:
+    {"instructions": n, "sha256": digest}}, "ptxas": [...]}``; a kernel is
+    named by its scalar type and ``+episodes`` for an episode axis in its
+    parameters."""
+    import hashlib
+    import re
+    import subprocess
+
+    from dhts_torch.ops.cuda import _build
+
+    lib = _build.build("itscp_hybrid_episode")
+    cuobjdump = Path(_build.find_nvcc()).with_name("cuobjdump")
+    text = subprocess.run([str(cuobjdump), "-sass", str(lib)],
+                          capture_output=True, text=True, check=True,
+                          timeout=300).stdout
+    out, name = {}, None
+    for line in text.splitlines():
+        m = re.search(r"Function : (\S+)", line)
+        if m:
+            fn = m.group(1)
+            name = None
+            if "itscp_hybrid_episode_kernel" in fn:
+                name = ("Dual" if "Dual" in fn else "float") + (
+                    "+episodes" if "Episodes" in fn else "")
+                out[name] = []
+            continue
+        ins = re.match(r"\s*/\*[0-9a-f]{4,}\*/\s*(.*?)\s*;", line)
+        if name and ins:
+            out[name].append(ins.group(1))
+    ptxas = _build.BUILD_DIR / f"{lib.stem}.ptxas.txt"
+    return {"sass": {k: {"instructions": len(v), "sha256": hashlib.sha256(
+        "\n".join(v).encode()).hexdigest()} for k, v in out.items()},
+            "ptxas": [ln.strip() for ln in ptxas.read_text().splitlines()
+                      if "registers" in ln or "stack" in ln]
+            if ptxas.exists() else None}
+
+
+def main(argv=None) -> int:
+    p = argparse.ArgumentParser(description=__doc__.splitlines()[0])
+    p.add_argument("tree", nargs="?", default=str(ROOT))
+    p.add_argument("--repeats", type=int, default=10)
+    p.add_argument("--sass", action="store_true")
+    args = p.parse_args(argv)
+    sys.path.insert(0, str(ROOT))
+    import chip_smoke  # noqa: E402  (this checkout's preset and timer)
+
+    sys.path.insert(0, str(Path(args.tree).resolve()))
+    import torch
+
+    from dhts_torch.apps.control.itscp import problem
+    from dhts_torch.apps.control.itscp.env import ItscpEnv
+    from dhts_torch.ops.cuda import itscp_hybrid_episode as k1
+
+    if args.sass:
+        print(json.dumps({"tree": args.tree, **sass_digest()}), flush=True)
+        return 0
+    if not torch.cuda.is_available():
+        print("k1_timing.py needs a CUDA device", file=sys.stderr)
+        return 1
+    dev = torch.device("cuda")
+    env = ItscpEnv(config=dict(chip_smoke.PRESET, random_seed=3),
+                   schedule_fn=problem.problem_1, device=dev)
+    env.reset(3)
+    hard, soft = env.fused_plan(False), env.fused_plan(True)
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(1234)
+    rand = env.draw_rand(gen)
+    action = torch.full((env.n_phases, env.action_size() // env.n_phases),
+                        0.5, device=dev)
+    ins = (action, env.data.schedule, env.data.mroute_next,
+           env.data.mroute_prev, rand, env.data.inj_routes,
+           env.base_state.route_pool)
+    w = torch.full((hard.T,), -1.0, device=dev)
+    runs = {"fwd": lambda: k1.itscp_hybrid_episode_fwd(hard, *ins),
+            "fwd_soft": lambda: k1.itscp_hybrid_episode_fwd(soft, *ins),
+            "bwd": lambda: k1.itscp_hybrid_episode_bwd(soft, w, *ins)}
+    for fn in runs.values():
+        fn()
+        fn()
+    torch.cuda.synchronize()
+    ms = {k: chip_smoke.cuda_ms(fn, args.repeats) for k, fn in runs.items()}
+    b2b = {k: chip_smoke.cuda_ms(fn, args.repeats, 5)
+           for k, fn in runs.items()}
+    print(json.dumps({"tree": args.tree, "nvidia_smi": chip_smoke.nvidia_smi(),
+                      "ms": ms, "ms_back_to_back": b2b}), flush=True)
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())
