@@ -85,6 +85,41 @@ namespace {
 
 constexpr int NEV = 7;  // integer event rows
 
+// Cycle stamps (a build with -DDHTS_K1_CLOCK; dhts_torch.ops.cuda.k1_clock):
+// thread 0 of block 0 reads clock64() after each barrier of a step and
+// adds the cycles since its last stamp to the phase that ended there
+// (K1_A ... K1_D below), so each phase's count is the time the block spent
+// in it. Without the macro the stamps compile to nothing.
+enum K1Phase {
+  K1_A, K1_WALK, K1_BLEND, K1_B2, K1_C1, K1_C2, K1_C3, K1_STATIC, K1_QUEUE,
+  K1_D, K1_PHASES
+};
+#ifdef DHTS_K1_CLOCK
+__device__ long long k1_cycles[K1_PHASES];
+#define K1_CLOCK_START()                                   \
+  const bool k1_clk = threadIdx.x == 0 && blockIdx.x == 0; \
+  long long k1_ck[K1_PHASES] = {};                         \
+  long long k1_t0 = k1_clk ? clock64() : 0
+#define K1_STAMP(p)                     \
+  do {                                  \
+    if (k1_clk) {                       \
+      const long long k1_now = clock64(); \
+      k1_ck[p] += k1_now - k1_t0;       \
+      k1_t0 = k1_now;                   \
+    }                                   \
+  } while (0)
+#define K1_CLOCK_END()                                        \
+  do {                                                        \
+    if (k1_clk)                                               \
+      for (int k1_i = 0; k1_i < K1_PHASES; ++k1_i)            \
+        k1_cycles[k1_i] = k1_ck[k1_i];                        \
+  } while (0)
+#else
+#define K1_CLOCK_START() (void)0
+#define K1_STAMP(p) (void)0
+#define K1_CLOCK_END() (void)0
+#endif
+
 // the episode axis of a launch: each input's stride between episodes in
 // elements (0 when every episode reads the same tensor), and the blocks of
 // one episode (1 forward, n_phases * n_inter backward)
@@ -230,6 +265,7 @@ __global__ void itscp_hybrid_episode_kernel(
   float qsum = 0.0f;
   double grad = 0.0;
   __syncthreads();
+  K1_CLOCK_START();
 
   for (int t = 0; t < d.T; ++t) {
     const int tl = t * L + l;
@@ -243,6 +279,7 @@ __global__ void itscp_hybrid_episode_kernel(
       publish_edges<S>(st, s, l, last, u_max);
     }
     __syncthreads();
+    K1_STAMP(K1_A);
 
     // ================= B1: ghosts, leader walk (reads only) ============
     Ghosts<S> gh{0.f, 0.f, 0.f, 0.f};
@@ -328,6 +365,7 @@ __global__ void itscp_hybrid_episode_kernel(
         s.red_cnt[l] = blend ? 1 : 0;
       }
       __syncthreads();
+      K1_STAMP(K1_WALK);
       if (threadIdx.x == 0) {
         const float mean = fold_mean(s, L, 0, s.ms);
         s.ms[2] = k.gate32 / fmaxf(fabsf(mean), 1e-6f);
@@ -341,6 +379,7 @@ __global__ void itscp_hybrid_episode_kernel(
       }
     }
     __syncthreads();
+    if (mode == HARD) K1_STAMP(K1_WALK); else K1_STAMP(K1_BLEND);
 
     // ================= B2: Godunov (macro) and IDM (micro) =============
     float lane_wave = 0.0f;
@@ -351,15 +390,18 @@ __global__ void itscp_hybrid_episode_kernel(
         idm_lane<S>(st, l, hpd, hsd, k);
     }
     __syncthreads();
+    K1_STAMP(K1_B2);
 
     // ================= C1: conversion requests ==========================
     Request<S> rq;
     if (lane) rq = request<S>(st, s, sc, g, d, k, l, mnext[tl], last);
     __syncthreads();
+    K1_STAMP(K1_C1);
 
     // ================= C2: arbitration (pull, lowest source id) ========
     if (lane) arbitrate(s, sc, L, K, l);
     __syncthreads();
+    K1_STAMP(K1_C2);
 
     // ================= C3: verdicts, removals, inserts, deposits =======
     int n_after = 0;
@@ -384,12 +426,14 @@ __global__ void itscp_hybrid_episode_kernel(
       // micro vehicles; its detached mean sharpens the queue gates
       if (lane) static_partials<S>(st, s, g, L, l, n_after, k);
       __syncthreads();
+      K1_STAMP(K1_C3);
       if (threadIdx.x == 0) {
         fold_mean(s, L, 0, s.ms + 3);
         const float mean = fold_mean(s, L, L, s.ms + 3);
         s.ms[5] = 16.0f / fmaxf(fabsf(mean), 1e-6f);
       }
       __syncthreads();
+      K1_STAMP(K1_STATIC);
       c_st = s.ms[5];
     }
     if (lane) {
@@ -397,6 +441,7 @@ __global__ void itscp_hybrid_episode_kernel(
       s.red_q[l] = q_lane * q_lane;
     }
     __syncthreads();
+    if (mode == HARD) K1_STAMP(K1_C3); else K1_STAMP(K1_QUEUE);
 
     // ================= D: block reductions in lane order ===============
     if (threadIdx.x == 0) {
@@ -419,8 +464,10 @@ __global__ void itscp_hybrid_episode_kernel(
         out_events[t * 8 + 7] = wave;
       }
     }
+    K1_STAMP(K1_D);
     // the next step's first writes touch none of the reduced arrays
   }
+  K1_CLOCK_END();
   if (threadIdx.x == 0) {
     if (out_reward) out_reward[0] = -qsum;
     if (out_grad) out_grad[kBatch ? (int)blockIdx.x : seed] = (float)grad;
@@ -542,5 +589,28 @@ int launch_itscp_hybrid_episode_bwd(
                       inj_routes, emit_routes, prog, lane_i, lane_f, nullptr,
                       nullptr, nullptr, q_weight, out_grad, d, k, stream);
 }
+
+#ifdef DHTS_K1_CLOCK
+// The cycle stamps of the last clocked launch, k1_cycles[K1_PHASES] (see
+// K1Phase), into host memory `out`; `reset` zeroes them first instead.
+// Returns the CUDA error code (0: success).
+int itscp_hybrid_episode_clock(long long* out, int reset) {
+#ifdef DHTS_CPU_EMULATION
+  for (int i = 0; i < K1_PHASES; ++i) {
+    if (reset) k1_cycles[i] = 0;
+    out[i] = k1_cycles[i];
+  }
+  return 0;
+#else
+  if (reset) {
+    const long long zero[K1_PHASES] = {};
+    const cudaError_t err = cudaMemcpyToSymbol(k1_cycles, zero, sizeof(zero));
+    if (err != cudaSuccess) return (int)err;
+  }
+  return (int)cudaMemcpyFromSymbol(out, k1_cycles,
+                                   sizeof(long long) * K1_PHASES);
+#endif
+}
+#endif
 
 }  // extern "C"
