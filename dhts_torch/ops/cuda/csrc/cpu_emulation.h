@@ -19,8 +19,11 @@
 // -fmad=false. Only what the kernels use is provided: a 1-D grid,
 // threadIdx.x and blockIdx.x, __syncthreads() and the warp primitives
 // reached by every live thread of their group (the member mask is not
-// read), atomicAdd on int, __threadfence(), __ldcg() and a clock64() that
-// counts host nanoseconds.
+// read), atomicAdd on int, __threadfence(), __ldcg(), a clock64() that
+// counts host nanoseconds, and named barriers (PTX bar.sync / bar.arrive
+// with an id and a thread count: bar_sync and bar_arrive below; a barrier
+// completes when its count of threads has reached it, and then releases
+// the threads that wait at it).
 #pragma once
 
 #include <math.h>
@@ -55,7 +58,11 @@ inline void (*body)(void*) = nullptr;
 inline void* body_arg = nullptr;
 
 // what each fiber of the running block waits for
-enum Wait : char { RUN, BLOCK, WARP, DONE };
+enum Wait : char { RUN, BLOCK, WARP, NAMED, DONE };
+constexpr int NAMED_BARRIERS = 16;
+inline int named_count[NAMED_BARRIERS];  // threads that reached barrier id
+inline char* named_id = nullptr;         // [threads] the barrier it waits at
+inline int block_threads = 0;
 inline int current = 0;            // the running fiber
 inline Wait* waits = nullptr;      // [threads]
 inline char* parity = nullptr;     // [threads] the slot of its next shuffle
@@ -72,6 +79,22 @@ inline void wait_for(Wait w) {
 }
 inline void sync_threads() { wait_for(BLOCK); }
 inline void sync_warp() { wait_for(WARP); }
+
+// this fiber reaches named barrier `id` of `count` threads; true when it
+// completes the barrier, which then releases its waiters and resets
+inline bool named_reach(int id, int count) {
+  if (++named_count[id] < count) return false;
+  named_count[id] = 0;
+  for (int i = 0; i < block_threads; ++i)
+    if (waits[i] == NAMED && named_id[i] == id) waits[i] = RUN;
+  return true;
+}
+inline void named_sync(int id, int count) {
+  if (named_reach(id, count)) return;
+  named_id[current] = static_cast<char>(id);
+  wait_for(NAMED);
+}
+inline void named_arrive(int id, int count) { named_reach(id, count); }
 
 // one exchange round: the value of lane `src` of this fiber's warp
 template <class T>
@@ -128,6 +151,7 @@ void launch(int blocks, int threads, size_t smem, Kernel kernel,
   std::vector<ucontext_t> ctx(threads);
   std::vector<Wait> wait(threads);
   std::vector<char> par(threads);
+  std::vector<char> nid(threads);
   std::vector<uint64_t> slot(size_t(warps) * 64);
   auto call = [&] { kernel(args...); };
   using Call = decltype(call);
@@ -136,9 +160,12 @@ void launch(int blocks, int threads, size_t smem, Kernel kernel,
   dyn_smem = buf.data();
   waits = wait.data();
   parity = par.data();
+  named_id = nid.data();
+  block_threads = threads;
   slots = slot.data();
   for (int b = 0; b < blocks; ++b) {
     block_idx.x = static_cast<unsigned>(b);
+    for (int& c : named_count) c = 0;
     for (int i = 0; i < threads; ++i) {
       getcontext(&ctx[i]);
       ctx[i].uc_stack.ss_sp = stacks.data() + size_t(i) * STACK;
@@ -158,7 +185,10 @@ void launch(int blocks, int threads, size_t smem, Kernel kernel,
         swapcontext(&scheduler, &ctx[i]);
         if (finished) { wait[i] = DONE; --live; }
       }
-      if (live > 0 && !release(threads)) {
+      // a named barrier may have released fibers this pass has passed
+      bool any_run = false;
+      for (int i = 0; i < threads; ++i) any_run = any_run || wait[i] == RUN;
+      if (live > 0 && !any_run && !release(threads)) {
         std::fprintf(stderr, "cpu_emulation: block %d deadlocked (a "
                      "barrier or warp exchange some threads never reach)\n",
                      b);
@@ -170,6 +200,7 @@ void launch(int blocks, int threads, size_t smem, Kernel kernel,
   running = nullptr;
   waits = nullptr;
   parity = nullptr;
+  named_id = nullptr;
   slots = nullptr;
 }
 }  // namespace dhts_emu
@@ -180,6 +211,13 @@ void launch(int blocks, int threads, size_t smem, Kernel kernel,
 #define DHTS_DYNAMIC_SMEM(name) char* name = ::dhts_emu::dyn_smem
 
 inline void __syncwarp(unsigned = 0xffffffffu) { ::dhts_emu::sync_warp(); }
+
+// PTX bar.sync / bar.arrive: wait at, or only arrive at, named barrier `id`
+// (1-15; 0 is __syncthreads') that completes with `count` threads
+inline void bar_sync(int id, int count) { ::dhts_emu::named_sync(id, count); }
+inline void bar_arrive(int id, int count) {
+  ::dhts_emu::named_arrive(id, count);
+}
 
 // The shuffles of CUDA's warp-level primitives. `width` splits the warp
 // into segments; a lane whose source lies outside its segment (up: below

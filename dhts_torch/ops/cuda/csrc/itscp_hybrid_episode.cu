@@ -77,47 +77,101 @@
 // Bound. The episode is a chain of T dependent steps, each a handful of
 // block-wide barriers and short dependent global loads (the route walk);
 // its inputs and outputs are a few MB, so it is latency-bound, far above
-// the bytes / 3.35 TB/s floor.
-
 #include "itscp_step.cuh"
 
 namespace {
 
 constexpr int NEV = 7;  // integer event rows
+constexpr int WARP = 32;
+constexpr unsigned FULL_MASK = 0xffffffffu;
+// named barriers (0 is __syncthreads): the lane threads' barrier inside a
+// step, and per step parity the records' FULL (the lanes arrive, the
+// reduction warp waits) and EMPTY (the reduction warp arrives, the lanes
+// wait at their first barrier of the step two steps on)
+constexpr int BAR_LANES = 1, BAR_FULL = 2, BAR_EMPTY = 4;
+// the warps' partial sums of the running means: the blend's, the static
+// mean's cells, its vehicles; at most 1024 / 32 lane warps each
+constexpr int PART_BLEND = 0, PART_CELLS = 1, PART_VEHS = 2, PARTS = 3;
+constexpr int MAX_WARPS = 32;
 
 // Cycle stamps (a build with -DDHTS_K1_CLOCK; dhts_torch.ops.cuda.k1_clock):
-// thread 0 of block 0 reads clock64() after each barrier of a step and
+// thread 0 of block 0 reads the clock after each barrier of a step and
 // adds the cycles since its last stamp to the phase that ended there
-// (K1_A ... K1_D below), so each phase's count is the time the block spent
-// in it. Without the macro the stamps compile to nothing.
+// (K1_A ... K1_QUEUE below), so each phase's count is the time the lanes
+// spent in it. Beside the lanes' path: the first thread of block 0's
+// reduction warp adds its busy cycles of each step to K1_RED, and thread 0
+// and the first micro lane's thread their own B2 work (before the
+// barrier) to K1_B2_MACRO and K1_B2_MICRO. K1_D, the block reductions by
+// thread 0 on the lanes' path before this design, stays 0. Without the
+// macro the stamps compile to nothing.
 enum K1Phase {
   K1_A, K1_WALK, K1_BLEND, K1_B2, K1_C1, K1_C2, K1_C3, K1_STATIC, K1_QUEUE,
-  K1_D, K1_PHASES
+  K1_D, K1_RED, K1_B2_MACRO, K1_B2_MICRO, K1_PHASES
 };
 #ifdef DHTS_K1_CLOCK
 __device__ long long k1_cycles[K1_PHASES];
-#define K1_CLOCK_START()                                   \
-  const bool k1_clk = threadIdx.x == 0 && blockIdx.x == 0; \
-  long long k1_ck[K1_PHASES] = {};                         \
-  long long k1_t0 = k1_clk ? clock64() : 0
-#define K1_STAMP(p)                     \
-  do {                                  \
-    if (k1_clk) {                       \
-      const long long k1_now = clock64(); \
-      k1_ck[p] += k1_now - k1_t0;       \
-      k1_t0 = k1_now;                   \
-    }                                   \
+// the SM's clock, read by a volatile asm with a memory clobber: the
+// compiler keeps it in order with the barriers' asm (clock64() may move
+// across them)
+__device__ __forceinline__ long long k1_now() {
+#ifdef DHTS_CPU_EMULATION
+  return clock64();
+#else
+  long long t;
+  asm volatile("mov.u64 %0, %%clock64;" : "=l"(t)::"memory");
+  return t;
+#endif
+}
+#define K1_CLOCK_START(who)                             \
+  const bool k1_clk = (who) && blockIdx.x == 0;         \
+  long long k1_ck[K1_PHASES] = {};                      \
+  long long k1_t0 = k1_clk ? k1_now() : 0
+#define K1_MARK()                    \
+  do {                               \
+    if (k1_clk) k1_t0 = k1_now();    \
   } while (0)
-#define K1_CLOCK_END()                                        \
-  do {                                                        \
-    if (k1_clk)                                               \
-      for (int k1_i = 0; k1_i < K1_PHASES; ++k1_i)            \
-        k1_cycles[k1_i] = k1_ck[k1_i];                        \
+#define K1_STAMP(p)                         \
+  do {                                      \
+    if (k1_clk) {                           \
+      const long long k1_t = k1_now();      \
+      k1_ck[p] += k1_t - k1_t0;             \
+      k1_t0 = k1_t;                         \
+    }                                       \
+  } while (0)
+// the cycles since the last stamp, added to p without a new stamp
+#define K1_PEEK(p)                                 \
+  do {                                             \
+    if (k1_clk) k1_ck[p] += k1_now() - k1_t0;      \
+  } while (0)
+// each phase k1_i this thread counted and `keep` names
+#define K1_CLOCK_END(keep)                                       \
+  do {                                                           \
+    if (k1_clk)                                                  \
+      for (int k1_i = 0; k1_i < K1_PHASES; ++k1_i)               \
+        if (k1_ck[k1_i] && (keep)) k1_cycles[k1_i] = k1_ck[k1_i]; \
   } while (0)
 #else
-#define K1_CLOCK_START() (void)0
+#define K1_CLOCK_START(who) (void)0
+#define K1_MARK() (void)0
 #define K1_STAMP(p) (void)0
-#define K1_CLOCK_END() (void)0
+#define K1_PEEK(p) (void)0
+#define K1_CLOCK_END(keep) (void)0
+#endif
+
+// PTX named barriers (the host build has its own, cpu_emulation.h): wait
+// at, or only arrive at, barrier `id`, which completes when `count` threads
+// have reached it. A warp must reach one converged (bar.sync and bar.arrive
+// are .aligned), hence the __syncwarp() after lane-dependent branches.
+#ifdef DHTS_CPU_EMULATION
+#define CONVERGE() (void)0
+#else
+#define CONVERGE() __syncwarp()
+__device__ __forceinline__ void bar_sync(int id, int count) {
+  asm volatile("bar.sync %0, %1;" ::"r"(id), "r"(count) : "memory");
+}
+__device__ __forceinline__ void bar_arrive(int id, int count) {
+  asm volatile("bar.arrive %0, %1;" ::"r"(id), "r"(count) : "memory");
+}
 #endif
 
 // the episode axis of a launch: each input's stride between episodes in
@@ -140,12 +194,17 @@ template <class S>
 struct Smem {
   S *r, *y, *pos, *vel, *av, *cap;
   S *sig, *r_last, *u_last, *r_first, *u_first;
-  S *cap_val, *hs_pos, *hs_vel, *hs_a, *red_q;
-  float *red_wave, *ms;  // ms: signal (sum, count, const), static (same)
-  double *red_sum;       // [2 L] running-mean partial sums per lane
-  int *red_cnt;          // [2 L] running-mean partial counts per lane
+  S *u_emit;  // the last cell's speed after the physics (request, convert)
+  S *cap_val, *hs_pos, *hs_vel, *hs_a;
+  S *rec_q;          // [2, L] each lane's q^2, by step parity
+  float *rec_wave;   // [2, L] its largest wave speed
+  int *rec_ev;       // [2, L] its event bits (bit e: event row e)
+  double *red_sum;   // [2 L] the static mean's partial sums per lane
+  int *red_cnt;      // [2 L] and counts
+  double *part_sum;  // [PARTS, MAX_WARPS] the warps' sums of a mean
+  int *part_cnt;     // [PARTS, MAX_WARPS] and counts
   int *rid, *ridx, *count, *inj_left, *cursor;
-  int *want, *mn, *hn, *hs_rid, *hs_ridx, *best, *dep_best, *red_ev;
+  int *want, *mn, *hn, *hs_rid, *hs_ridx, *best, *dep_best;
 };
 
 template <class S>
@@ -156,41 +215,124 @@ __host__ __device__ inline size_t smem_bytes(const Dims& d, Smem<S>* s,
   Smem<S>* t = s ? s : &dummy;
   char* b = s ? base : nullptr;
   const size_t L = d.L, LC = d.L * d.C, LV = d.L * d.V, LK = d.L * d.K;
+  const size_t NP = PARTS * MAX_WARPS;
   carve(&t->r, LC, b, off); carve(&t->y, LC, b, off);
   carve(&t->pos, LV, b, off); carve(&t->vel, LV, b, off);
   carve(&t->av, LV, b, off); carve(&t->cap, LK, b, off);
   carve(&t->sig, L, b, off); carve(&t->r_last, L, b, off);
   carve(&t->u_last, L, b, off); carve(&t->r_first, L, b, off);
-  carve(&t->u_first, L, b, off); carve(&t->cap_val, L, b, off);
+  carve(&t->u_first, L, b, off); carve(&t->u_emit, L, b, off);
+  carve(&t->cap_val, L, b, off);
   carve(&t->hs_pos, L, b, off); carve(&t->hs_vel, L, b, off);
-  carve(&t->hs_a, L, b, off); carve(&t->red_q, L, b, off);
-  carve(&t->red_wave, L, b, off); carve(&t->ms, 8, b, off);
+  carve(&t->hs_a, L, b, off); carve(&t->rec_q, 2 * L, b, off);
+  carve(&t->rec_wave, 2 * L, b, off); carve(&t->rec_ev, 2 * L, b, off);
   carve(&t->red_sum, 2 * L, b, off); carve(&t->red_cnt, 2 * L, b, off);
+  carve(&t->part_sum, NP, b, off); carve(&t->part_cnt, NP, b, off);
   carve(&t->rid, LV, b, off); carve(&t->ridx, LV, b, off);
   carve(&t->count, L, b, off); carve(&t->inj_left, L, b, off);
   carve(&t->cursor, L, b, off); carve(&t->want, L, b, off);
   carve(&t->mn, L, b, off); carve(&t->hn, L, b, off);
   carve(&t->hs_rid, L, b, off); carve(&t->hs_ridx, L, b, off);
   carve(&t->best, L, b, off); carve(&t->dep_best, L, b, off);
-  carve(&t->red_ev, NEV * L, b, off);
   return off;
 }
 
-// Thread 0 folds the lanes' partial sums red_sum[base .. base + L) into a
-// running mean (sum += float(sum64), count += n; rms.update_mean_masked)
-// at ms[0..1] and returns its mean (rms.mean_of with default 1).
-template <class S>
-__device__ __forceinline__ float fold_mean(const Smem<S>& s, int L,
-                                           int base, float* ms) {
-  double tot = 0.0;
-  int cnt = 0;
-  for (int j = 0; j < L; ++j) {
-    tot += s.red_sum[base + j];
-    cnt += s.red_cnt[base + j];
+// A warp's sum of its threads' terms by a fixed shuffle tree (offsets 16,
+// 8, 4, 2, 1), written by its first thread to part_sum/part_cnt[w]. The
+// order is fixed, so every launch folds the same way.
+__device__ __forceinline__ void warp_part(double x, int n, double* ps,
+                                          int* pc, int w) {
+  for (int o = WARP / 2; o > 0; o >>= 1) {
+    x += __shfl_down_sync(FULL_MASK, x, o);
+    n += __shfl_down_sync(FULL_MASK, n, o);
   }
-  ms[0] = ms[0] + (float)tot;
-  ms[1] = ms[1] + (float)cnt;
-  return ms[1] > 0.0f ? ms[0] / fmaxf(ms[1], 1.0f) : 1.0f;
+  if (threadIdx.x % WARP == 0) {
+    ps[w] = x;
+    pc[w] = n;
+  }
+}
+
+// Every lane thread folds the nw warps' partial sums, in warp order, into
+// its copy of a running mean (sum += float(sum64), count += n;
+// rms.update_mean_masked) and returns its mean (rms.mean_of with default
+// 1): the same operations on the same values in every thread.
+__device__ __forceinline__ float fold_parts(const double* ps, const int* pc,
+                                            int nw, float& sum, float& cnt) {
+  double tot = 0.0;
+  int n = 0;
+  for (int w = 0; w < nw; ++w) {
+    tot += ps[w];
+    n += pc[w];
+  }
+  sum = sum + (float)tot;
+  cnt = cnt + (float)n;
+  return cnt > 0.0f ? sum / fmaxf(cnt, 1.0f) : 1.0f;
+}
+
+// The reduction warp: for each step, once the lanes' records of it are in
+// (FULL), the queue sum_l q^2 * dt in lane order (float32, or dual numbers
+// whose value and tangent are each added in lane order: PR 11's order),
+// the seven event counts (integer sums) and the largest wave speed, then
+// frees the records' slot for the step two on (EMPTY). The lanes go on
+// meanwhile. Writes queues[t] and events[t, 8] (the forward) and, at the
+// end, the reward or the gradient sum_t w[t] * d(queue_t)/d(action_j).
+template <class S>
+__device__ void reduce_steps(const Smem<S>& s, const Dims& d,
+                             const Consts& k, int lane_threads,
+                             const float* __restrict__ q_weight,
+                             float* __restrict__ out_queues,
+                             float* __restrict__ out_events,
+                             float* __restrict__ out_reward,
+                             float* __restrict__ out_grad) {
+  const int L = d.L, T = d.T, wl = threadIdx.x % WARP;
+  const int n_bar = lane_threads + WARP;
+  K1_CLOCK_START(wl == 0);
+  for (int p = 0; p < 2 && p < T; ++p) bar_arrive(BAR_EMPTY + p, n_bar);
+  float qsum = 0.0f;
+  double grad = 0.0;
+  for (int t = 0; t < T; ++t) {
+    const int slot = t & 1;
+    bar_sync(BAR_FULL + slot, n_bar);
+    K1_MARK();
+    const S* rq = s.rec_q + slot * L;
+    const float* rw = s.rec_wave + slot * L;
+    const int* re = s.rec_ev + slot * L;
+    int cnt[NEV];
+    for (int e = 0; e < NEV; ++e) cnt[e] = 0;
+    float wave = 0.0f;
+    if (out_queues) {
+      for (int j = wl; j < L; j += WARP) {
+        const int bits = re[j];
+        for (int e = 0; e < NEV; ++e) cnt[e] += (bits >> e) & 1;
+        wave = fmaxf(wave, rw[j]);
+      }
+      for (int o = WARP / 2; o > 0; o >>= 1) {
+        for (int e = 0; e < NEV; ++e)
+          cnt[e] += __shfl_down_sync(FULL_MASK, cnt[e], o);
+        wave = fmaxf(wave, __shfl_down_sync(FULL_MASK, wave, o));
+      }
+    }
+    if (wl == 0) {
+      S qs = 0.0f;
+      for (int j = 0; j < L; ++j) qs = qs + rq[j];
+      const S queue = qs * S(k.dt);
+      qsum += val(queue);
+      if (q_weight) grad += (double)q_weight[t] * (double)tangent(queue);
+      if (out_queues) {
+        out_queues[t] = val(queue);
+        for (int e = 0; e < NEV; ++e) out_events[t * 8 + e] = (float)cnt[e];
+        out_events[t * 8 + 7] = wave;
+      }
+    }
+    CONVERGE();
+    if (t + 2 < T) bar_arrive(BAR_EMPTY + slot, n_bar);
+    K1_STAMP(K1_RED);
+  }
+  K1_CLOCK_END(true);
+  if (wl == 0) {
+    if (out_reward) out_reward[0] = -qsum;
+    if (out_grad) out_grad[0] = (float)grad;
+  }
 }
 
 // One episode per block. S = float: the forward; block e writes reward[e],
@@ -198,9 +340,12 @@ __device__ __forceinline__ float fold_mean(const Smem<S>& s, int L,
 // the backward; block e * n_act + j seeds action entry j of episode e and
 // writes out_grad[e * n_act + j] = sum_t q_weight[e, t] *
 // d(queue_{e,t})/d(action_{e,j}) (the forward outputs are unused). The
-// per-lane phases are those of itscp_step.cuh on the state in shared
-// memory. A launch of one episode passes no Episodes (Ep empty): that
-// instantiation has no episode axis in its parameters or its code.
+// block's first `lane_threads` threads run the lanes, thread i the lane
+// thread_lane[i] (-1: an idle thread of a warp's padding), with the
+// per-lane phases of itscp_step.cuh on the state in shared memory; its
+// last warp reduces the steps (reduce_steps). A launch of one episode
+// passes no Episodes (Ep empty): that instantiation has no episode axis in
+// its parameters or its code.
 template <class S, class... Ep>
 __global__ void itscp_hybrid_episode_kernel(
     const float* __restrict__ action, const float* __restrict__ sched,
@@ -208,9 +353,10 @@ __global__ void itscp_hybrid_episode_kernel(
     const float* __restrict__ rand, const int* __restrict__ inj_routes,
     const int* __restrict__ emit_routes, const float* __restrict__ prog,
     const int* __restrict__ lane_i, const float* __restrict__ lane_f,
-    float* __restrict__ out_reward, float* __restrict__ out_queues,
-    float* __restrict__ out_events, const float* __restrict__ q_weight,
-    float* __restrict__ out_grad, Dims d, Consts k, Ep... eps) {
+    const int* __restrict__ thread_lane, float* __restrict__ out_reward,
+    float* __restrict__ out_queues, float* __restrict__ out_events,
+    const float* __restrict__ q_weight, float* __restrict__ out_grad,
+    Dims d, Consts k, int lane_threads, Ep... eps) {
   constexpr bool kBatch = sizeof...(Ep) > 0;
   const Episodes ep = episodes_of(eps...);
   DHTS_DYNAMIC_SMEM(smem_raw);
@@ -219,7 +365,10 @@ __global__ void itscp_hybrid_episode_kernel(
 
   const int L = d.L, C = d.C, V = d.V, K = d.K;
   const int mode = d.mode;
-  const int l = threadIdx.x;
+  const int NT = lane_threads;
+  const bool reducer = (int)threadIdx.x >= NT;
+  const int l = reducer ? -1 : thread_lane[threadIdx.x];
+  const int warp = threadIdx.x / WARP, n_warps = NT / WARP;
   const int seed = kBatch ? blockIdx.x % ep.blocks : blockIdx.x;
   if (kBatch) {
     // this block's episode
@@ -234,7 +383,7 @@ __global__ void itscp_hybrid_episode_kernel(
       out_events += (size_t)e * d.T * 8;
     }
   }
-  const bool lane = l < L;
+  const bool lane = l >= 0;
   const float u_max = k.u_max;
   const Scene sc{lane_i, lane_f, inj_routes, emit_routes};
   LaneState<S, S*, false> st{s.r, s.y, s.pos, s.vel, s.av, s.cap,
@@ -242,6 +391,11 @@ __global__ void itscp_hybrid_episode_kernel(
                       s.rid, s.ridx, s.count, s.inj_left, s.cursor,
                       C, 1, V, 1, K, 1};
   set_defaults(st, k);
+  // the conversion's view: the speed of the last cell after the physics
+  // goes to u_emit, so that the next step's edges (u_last) may be written
+  // while a slower lane still reads it
+  Smem<S> sv = s;
+  sv.u_last = s.u_emit;
 
   const LaneGeom g = lane ? lane_geom(sc, L, K, l) : LaneGeom();
   auto clampL = [&](int j) { return min(max(j, 0), L - 1); };
@@ -260,25 +414,51 @@ __global__ void itscp_hybrid_episode_kernel(
     s.inj_left[l] = (!g.has_prev && !g.is_macro) ? d.P : 0;
     s.cursor[l] = 0;
   }
-  if (threadIdx.x == 0)
-    for (int i = 0; i < 8; ++i) s.ms[i] = 0.0f;
-  float qsum = 0.0f;
-  double grad = 0.0;
   __syncthreads();
-  K1_CLOCK_START();
+  if (reducer) {
+    reduce_steps<S>(s, d, k, NT, q_weight, out_queues, out_events,
+                    out_reward,
+                    out_grad ? out_grad + (kBatch ? (int)blockIdx.x : seed)
+                             : nullptr);
+    return;
+  }
+  // thread 0 stamps the lanes' path, the first micro lane's thread its B2
+  K1_CLOCK_START(threadIdx.x == 0 ||
+                 (lane && !g.is_macro && threadIdx.x % WARP == 0 &&
+                  (thread_lane[threadIdx.x - 1] < 0 ||
+                   sc.macro_at(thread_lane[threadIdx.x - 1]))));
+  // the running means (sum, count), the same in every lane thread: the
+  // micro blend's signal, the queue gates' static speed
+  float sig_sum = 0.0f, sig_cnt = 0.0f, st_sum = 0.0f, st_cnt = 0.0f;
+  // the step's input rows, loaded a step ahead
+  float nx_sched = 0.0f, nx_rand = 0.0f;
+  int nx_mprev = -1, nx_mnext = -1;
+  if (lane) {
+    nx_sched = sched[l]; nx_rand = rand[l];
+    nx_mprev = mprev[l]; nx_mnext = mnext[l];
+  }
 
   for (int t = 0; t < d.T; ++t) {
-    const int tl = t * L + l;
+    const int slot = t & 1;
+    const float sch = nx_sched, rnd = nx_rand;
+    const int mp = nx_mprev, mnx = nx_mnext;
+    if (lane && t + 1 < d.T) {
+      const int tn = (t + 1) * L + l;
+      nx_sched = sched[tn]; nx_rand = rand[tn];
+      nx_mprev = mprev[tn]; nx_mnext = mnext[tn];
+    }
     // ================= A: signal, injection, boundary cells ============
     int ev_inj = 0;
     float incoming = -1.0f;
     if (lane) {
       s.sig[l] = lane_signal<S>(action, prog, d, k, g, t, seed);
-      incoming = g.has_prev ? -1.0f : sched[tl];
-      ev_inj = inject<S>(st, g, d, k, l, rand[tl], incoming) ? 1 : 0;
+      incoming = g.has_prev ? -1.0f : sch;
+      ev_inj = inject<S>(st, g, d, k, l, rnd, incoming) ? 1 : 0;
       publish_edges<S>(st, s, l, last, u_max);
     }
-    __syncthreads();
+    // the records' slot of step t - 2 is free once this completes
+    CONVERGE();
+    bar_sync(BAR_EMPTY + slot, NT + WARP);
     K1_STAMP(K1_A);
 
     // ================= B1: ghosts, leader walk (reads only) ============
@@ -288,7 +468,7 @@ __global__ void itscp_hybrid_episode_kernel(
     S pd_g = 0.f, sd_g = 0.f, red_pd = 0.f, fsig = 0.f;
     bool blend = false;
     if (lane) {
-      gh = ghosts<S>(s, sc, g, L, l, mprev[tl], mnext[tl], incoming, mode,
+      gh = ghosts<S>(s, sc, g, L, l, mp, mnx, incoming, mode,
                      k);
       if (!g.is_macro) {
         // virtual leader: walk the head vehicle's route
@@ -359,54 +539,63 @@ __global__ void itscp_hybrid_episode_kernel(
     }
     if (mode != HARD) {
       // running mean of the blended signal; its detached mean sharpens
-      // the blend gate (env boundary_and_step, signal_ms)
-      if (lane) {
-        s.red_sum[l] = blend ? (double)val(fsig) : 0.0;
-        s.red_cnt[l] = blend ? 1 : 0;
-      }
-      __syncthreads();
+      // the blend gate (env boundary_and_step, signal_ms). The walk's
+      // reads end at this barrier, before any lane writes its state.
+      warp_part(blend ? (double)val(fsig) : 0.0, blend ? 1 : 0,
+                s.part_sum + PART_BLEND * MAX_WARPS,
+                s.part_cnt + PART_BLEND * MAX_WARPS, warp);
+      CONVERGE();
+      bar_sync(BAR_LANES, NT);
       K1_STAMP(K1_WALK);
-      if (threadIdx.x == 0) {
-        const float mean = fold_mean(s, L, 0, s.ms);
-        s.ms[2] = k.gate32 / fmaxf(fabsf(mean), 1e-6f);
-      }
-      __syncthreads();
+      const float mean = fold_parts(s.part_sum + PART_BLEND * MAX_WARPS,
+                                    s.part_cnt + PART_BLEND * MAX_WARPS,
+                                    n_warps, sig_sum, sig_cnt);
       if (blend) {
-        const float c = s.ms[2];
+        const float c = k.gate32 / fmaxf(fabsf(mean), 1e-6f);
         const S fs = stg(val(fsig) >= 0.5f, soft(fsig - S(0.5f), c), mode);
         hpd = pd_g * fs + red_pd * (S(1.0f) - fs);
         hsd = sd_g * fs;
       }
+    } else {
+      CONVERGE();
+      bar_sync(BAR_LANES, NT);
+      K1_STAMP(K1_WALK);
     }
-    __syncthreads();
-    if (mode == HARD) K1_STAMP(K1_WALK); else K1_STAMP(K1_BLEND);
 
     // ================= B2: Godunov (macro) and IDM (micro) =============
     float lane_wave = 0.0f;
     if (lane) {
-      if (g.is_macro)
+      if (g.is_macro) {
         lane_wave = godunov_lane<S>(st, g, l, C, gh, k);
-      else
+        K1_PEEK(K1_B2_MACRO);
+      } else {
         idm_lane<S>(st, l, hpd, hsd, k);
+        K1_PEEK(K1_B2_MICRO);
+      }
     }
-    __syncthreads();
+    CONVERGE();
+    bar_sync(BAR_LANES, NT);
     K1_STAMP(K1_B2);
 
     // ================= C1: conversion requests ==========================
     Request<S> rq;
-    if (lane) rq = request<S>(st, s, sc, g, d, k, l, mnext[tl], last);
-    __syncthreads();
+    if (lane) rq = request<S>(st, sv, sc, g, d, k, l, mnx, last);
+    CONVERGE();
+    bar_sync(BAR_LANES, NT);
     K1_STAMP(K1_C1);
 
     // ================= C2: arbitration (pull, lowest source id) ========
     if (lane) arbitrate(s, sc, L, K, l);
-    __syncthreads();
+    CONVERGE();
+    bar_sync(BAR_LANES, NT);
     K1_STAMP(K1_C2);
 
     // ================= C3: verdicts, removals, inserts, deposits =======
-    int n_after = 0;
+    // (reads only other lanes' C1/C2 summaries, which no lane writes
+    // again before the next step's first barrier)
+    int n_after = 0, ev_bits = 0;
     if (lane) {
-      const Verdict vd = convert<S>(st, s, sc, g, rq, d, k, l);
+      const Verdict vd = convert<S>(st, sv, sc, g, rq, d, k, l);
       n_after = vd.n;
       const int ev[NEV] = {ev_inj,
                            vd.is_emit,
@@ -415,8 +604,7 @@ __global__ void itscp_hybrid_episode_kernel(
                            vd.tr_win,
                            vd.dep_win,
                            vd.remove};
-      s.red_wave[l] = lane_wave;
-      for (int e = 0; e < NEV; ++e) s.red_ev[e * L + l] = ev[e];
+      for (int e = 0; e < NEV; ++e) ev_bits |= (ev[e] ? 1 : 0) << e;
     }
 
     // ---- queue of this lane
@@ -424,54 +612,41 @@ __global__ void itscp_hybrid_episode_kernel(
     if (mode != HARD) {
       // running mean of (static_speed - speed) over macro cells, then over
       // micro vehicles; its detached mean sharpens the queue gates
-      if (lane) static_partials<S>(st, s, g, L, l, n_after, k);
-      __syncthreads();
-      K1_STAMP(K1_C3);
-      if (threadIdx.x == 0) {
-        fold_mean(s, L, 0, s.ms + 3);
-        const float mean = fold_mean(s, L, L, s.ms + 3);
-        s.ms[5] = 16.0f / fmaxf(fabsf(mean), 1e-6f);
+      double cells = 0.0, vehs = 0.0;
+      int n_cells = 0, n_vehs = 0;
+      if (lane) {
+        static_partials<S>(st, s, g, L, l, n_after, k);
+        cells = s.red_sum[l]; n_cells = s.red_cnt[l];
+        vehs = s.red_sum[L + l]; n_vehs = s.red_cnt[L + l];
       }
-      __syncthreads();
-      K1_STAMP(K1_STATIC);
-      c_st = s.ms[5];
+      warp_part(cells, n_cells, s.part_sum + PART_CELLS * MAX_WARPS,
+                s.part_cnt + PART_CELLS * MAX_WARPS, warp);
+      warp_part(vehs, n_vehs, s.part_sum + PART_VEHS * MAX_WARPS,
+                s.part_cnt + PART_VEHS * MAX_WARPS, warp);
+      CONVERGE();
+      bar_sync(BAR_LANES, NT);
+      K1_STAMP(K1_C3);
+      fold_parts(s.part_sum + PART_CELLS * MAX_WARPS,
+                 s.part_cnt + PART_CELLS * MAX_WARPS, n_warps, st_sum,
+                 st_cnt);
+      const float mean = fold_parts(s.part_sum + PART_VEHS * MAX_WARPS,
+                                    s.part_cnt + PART_VEHS * MAX_WARPS,
+                                    n_warps, st_sum, st_cnt);
+      c_st = 16.0f / fmaxf(fabsf(mean), 1e-6f);
     }
     if (lane) {
       const S q_lane = lane_queue<S>(st, g, l, n_after, mode, c_st, k);
-      s.red_q[l] = q_lane * q_lane;
+      s.rec_q[slot * L + l] = q_lane * q_lane;
+      s.rec_wave[slot * L + l] = lane_wave;
+      s.rec_ev[slot * L + l] = ev_bits;
     }
-    __syncthreads();
+    // ================= D: the reduction warp takes the records =========
+    CONVERGE();
+    bar_arrive(BAR_FULL + slot, NT + WARP);
     if (mode == HARD) K1_STAMP(K1_C3); else K1_STAMP(K1_QUEUE);
-
-    // ================= D: block reductions in lane order ===============
-    if (threadIdx.x == 0) {
-      S qs = 0.0f;
-      float wave = 0.0f;
-      for (int j = 0; j < L; ++j) {
-        qs = qs + s.red_q[j];
-        wave = fmaxf(wave, s.red_wave[j]);
-      }
-      const S queue = qs * S(k.dt);
-      qsum += val(queue);
-      if (q_weight) grad += (double)q_weight[t] * (double)tangent(queue);
-      if (out_queues) {
-        out_queues[t] = val(queue);
-        for (int e = 0; e < NEV; ++e) {
-          int tot = 0;
-          for (int j = 0; j < L; ++j) tot += s.red_ev[e * L + j];
-          out_events[t * 8 + e] = (float)tot;
-        }
-        out_events[t * 8 + 7] = wave;
-      }
-    }
-    K1_STAMP(K1_D);
-    // the next step's first writes touch none of the reduced arrays
   }
-  K1_CLOCK_END();
-  if (threadIdx.x == 0) {
-    if (out_reward) out_reward[0] = -qsum;
-    if (out_grad) out_grad[kBatch ? (int)blockIdx.x : seed] = (float)grad;
-  }
+  K1_CLOCK_END(threadIdx.x == 0 ? k1_i != K1_B2_MICRO
+                                : k1_i == K1_B2_MICRO);
 }
 
 // one launch of `kernel` with `smem` bytes of dynamic shared memory
@@ -492,31 +667,37 @@ int start(Kernel kernel, int blocks, int threads, size_t smem, void* stream,
 }
 
 // shared launch path of the forward (S = float, one block per episode)
-// and the backward (S = Dual, one block per episode and action entry);
-// B = 1 launches the instantiation without the episode axis
+// and the backward (S = Dual, one block per episode and action entry):
+// lane_threads lane threads (whole warps) and the reduction warp; B = 1
+// launches the instantiation without the episode axis
 template <class S>
 int launch(int B, const Episodes& ep, const float* action, const float* sched,
            const int* mnext, const int* mprev, const float* rand,
            const int* inj_routes, const int* emit_routes, const float* prog,
-           const int* lane_i, const float* lane_f, float* out_reward,
-           float* out_queues, float* out_events, const float* q_weight,
-           float* out_grad, const Dims& d, const Consts& k, void* stream) {
+           const int* lane_i, const float* lane_f, const int* thread_lane,
+           int lane_threads, float* out_reward, float* out_queues,
+           float* out_events, const float* q_weight, float* out_grad,
+           const Dims& d, const Consts& k, void* stream) {
   if (d.L < 1 || d.L > 1024 || d.C < 1 || d.C > MAXC || d.V < 1 ||
       d.R < 1 || d.K < 1 || d.mode < HARD || d.mode > ST || B < 1 ||
-      ep.blocks < 1 || (long long)B * ep.blocks > 0x7fffffffLL)
+      lane_threads < d.L || lane_threads % WARP != 0 ||
+      lane_threads + WARP > 1024 || ep.blocks < 1 ||
+      (long long)B * ep.blocks > 0x7fffffffLL)
     return 1;  // cudaErrorInvalidValue
   const int blocks = B * ep.blocks;
   const size_t smem = smem_bytes<S>(d, nullptr, nullptr);
-  const int threads = ((d.L + 31) / 32) * 32;
+  const int threads = lane_threads + WARP;
   if (B == 1)
     return start(itscp_hybrid_episode_kernel<S>, blocks, threads, smem,
                  stream, action, sched, mnext, mprev, rand, inj_routes,
-                 emit_routes, prog, lane_i, lane_f, out_reward, out_queues,
-                 out_events, q_weight, out_grad, d, k);
+                 emit_routes, prog, lane_i, lane_f, thread_lane, out_reward,
+                 out_queues, out_events, q_weight, out_grad, d, k,
+                 lane_threads);
   return start(itscp_hybrid_episode_kernel<S, Episodes>, blocks, threads,
                smem, stream, action, sched, mnext, mprev, rand, inj_routes,
-               emit_routes, prog, lane_i, lane_f, out_reward, out_queues,
-               out_events, q_weight, out_grad, d, k, ep);
+               emit_routes, prog, lane_i, lane_f, thread_lane, out_reward,
+               out_queues, out_events, q_weight, out_grad, d, k,
+               lane_threads, ep);
 }
 
 }  // namespace
@@ -532,21 +713,54 @@ size_t itscp_hybrid_episode_smem(int L, int C, int V, int K, int tangent) {
                  : smem_bytes<float>(d, nullptr, nullptr);
 }
 
+// Blocks of the forward (tangent = 0) or the backward (tangent = 1) that
+// one SM holds at once for these sizes and lane_threads, or -1 on an
+// error (the host build: 0).
+int itscp_hybrid_episode_blocks_per_sm(int L, int C, int V, int K,
+                                       int tangent, int lane_threads) {
+#ifdef DHTS_CPU_EMULATION
+  (void)L; (void)C; (void)V; (void)K; (void)tangent; (void)lane_threads;
+  return 0;
+#else
+  const size_t smem = itscp_hybrid_episode_smem(L, C, V, K, tangent);
+  int n = -1;
+  cudaError_t err;
+  if (tangent) {
+    auto kernel = itscp_hybrid_episode_kernel<Dual>;
+    err = cudaFuncSetAttribute(
+        kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+    if (err == cudaSuccess)
+      err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(
+          &n, kernel, lane_threads + WARP, smem);
+  } else {
+    auto kernel = itscp_hybrid_episode_kernel<float>;
+    err = cudaFuncSetAttribute(
+        kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+    if (err == cudaSuccess)
+      err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(
+          &n, kernel, lane_threads + WARP, smem);
+  }
+  return err == cudaSuccess ? n : -1;
+#endif
+}
+
 // Forward: B episodes in gate mode `mode` (0 hard, 1 soft, 2
 // straight-through) on `stream`, one block each: out_reward[B],
-// out_queues[B, T], out_events[B, T, 8]. s_* is each input's stride
-// between episodes in elements (0: shared; s_qw unused here). Returns
-// cudaGetLastError() of the launch.
+// out_queues[B, T], out_events[B, T, 8]. thread_lane[lane_threads]: the
+// lane each lane thread runs (-1: none; whole warps of one lane kind). s_*
+// is each input's stride between episodes in elements (0: shared; s_qw
+// unused here). Returns cudaGetLastError() of the launch.
 int launch_itscp_hybrid_episode_fwd(
     const float* action, const float* sched, const int* mnext,
     const int* mprev, const float* rand, const int* inj_routes,
     const int* emit_routes, const float* prog, const int* lane_i,
-    const float* lane_f, float* out_reward, float* out_queues,
-    float* out_events, int B, long long s_action, long long s_sched,
-    long long s_mnext, long long s_mprev, long long s_rand, long long s_inj,
-    long long s_emit, long long s_qw, int T, int L, int C, int V, int R, int P, int P2,
-    int K, int W, int nsf, int n_phases, int n_inter, int mode, float u_max,
-    float dt, float veh_len, float static_speed, float rare_den, float third,
+    const float* lane_f, const int* thread_lane, float* out_reward,
+    float* out_queues, float* out_events, int B, long long s_action,
+    long long s_sched, long long s_mnext, long long s_mprev, long long s_rand,
+    long long s_inj, long long s_emit, long long s_qw, int T, int L, int C,
+    int V, int R, int P, int P2, int K, int W, int nsf, int n_phases,
+    int n_inter, int mode, int lane_threads, float u_max, float dt,
+    float veh_len, float static_speed, float rare_den, float third,
     float amax, float apref, float tgt, float min_space, float time_pref,
     float rho_hi, float gate32, void* stream) {
   Dims d{T, L, C, V, R, P, P2, K, W, nsf, n_phases, n_inter, mode};
@@ -556,29 +770,29 @@ int launch_itscp_hybrid_episode_fwd(
   const Episodes ep{s_action, s_sched, s_mnext, s_mprev, s_rand, s_inj,
                     s_emit, 0, 1};
   return launch<float>(B, ep, action, sched, mnext, mprev, rand, inj_routes,
-                       emit_routes, prog, lane_i, lane_f, out_reward,
-                       out_queues, out_events, nullptr, nullptr, d, k,
-                       stream);
+                       emit_routes, prog, lane_i, lane_f, thread_lane,
+                       lane_threads, out_reward, out_queues, out_events,
+                       nullptr, nullptr, d, k, stream);
 }
 
 // Backward of the soft (1) or straight-through (2) forward of B episodes:
 // out_grad[B, n_phases * n_inter] = sum_t q_weight[e, t] *
 // d(queue_{e,t})/d(action_e), one block per episode and action entry
-// (episode-major); the strides as the forward's, s_qw q_weight's. Returns
-// cudaGetLastError() of the launch.
+// (episode-major); thread_lane and the strides as the forward's, s_qw
+// q_weight's. Returns cudaGetLastError() of the launch.
 int launch_itscp_hybrid_episode_bwd(
     const float* action, const float* sched, const int* mnext,
     const int* mprev, const float* rand, const int* inj_routes,
     const int* emit_routes, const float* prog, const int* lane_i,
-    const float* lane_f, const float* q_weight, float* out_grad, int B,
-    long long s_action, long long s_sched, long long s_mnext,
-    long long s_mprev, long long s_rand, long long s_inj, long long s_emit,
-    long long s_qw, int T,
-    int L, int C, int V, int R, int P, int P2, int K, int W, int nsf,
-    int n_phases, int n_inter, int mode, float u_max, float dt,
-    float veh_len, float static_speed, float rare_den, float third,
-    float amax, float apref, float tgt, float min_space, float time_pref,
-    float rho_hi, float gate32, void* stream) {
+    const float* lane_f, const int* thread_lane, const float* q_weight,
+    float* out_grad, int B, long long s_action, long long s_sched,
+    long long s_mnext, long long s_mprev, long long s_rand, long long s_inj,
+    long long s_emit, long long s_qw, int T, int L, int C, int V, int R,
+    int P, int P2, int K, int W, int nsf, int n_phases, int n_inter,
+    int mode, int lane_threads, float u_max, float dt, float veh_len,
+    float static_speed, float rare_den, float third, float amax,
+    float apref, float tgt, float min_space, float time_pref, float rho_hi,
+    float gate32, void* stream) {
   if (mode == HARD || n_phases < 1 || n_inter < 1) return 1;
   Dims d{T, L, C, V, R, P, P2, K, W, nsf, n_phases, n_inter, mode};
   Consts k{u_max, dt, veh_len, static_speed, rare_den, third, amax,
@@ -586,8 +800,9 @@ int launch_itscp_hybrid_episode_bwd(
   const Episodes ep{s_action, s_sched, s_mnext, s_mprev, s_rand, s_inj,
                     s_emit, s_qw, n_phases * n_inter};
   return launch<Dual>(B, ep, action, sched, mnext, mprev, rand,
-                      inj_routes, emit_routes, prog, lane_i, lane_f, nullptr,
-                      nullptr, nullptr, q_weight, out_grad, d, k, stream);
+                      inj_routes, emit_routes, prog, lane_i, lane_f,
+                      thread_lane, lane_threads, nullptr, nullptr, nullptr,
+                      q_weight, out_grad, d, k, stream);
 }
 
 #ifdef DHTS_K1_CLOCK

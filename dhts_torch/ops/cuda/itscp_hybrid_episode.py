@@ -71,6 +71,17 @@ def leader_window(is_macro, routes) -> int:
     return int((c - latched).max()) + 1
 
 
+def lane_layout(is_macro) -> np.ndarray:
+    """K1's lane threads: the lane each thread runs, the macro lanes first
+    and then the micro lanes, each group padded with -1 (an idle thread)
+    to whole warps of 32, so that no warp runs both kinds of lane."""
+    is_macro = np.asarray(is_macro).astype(bool)
+    out = []
+    for group in (np.flatnonzero(is_macro), np.flatnonzero(~is_macro)):
+        out += [*group.tolist(), *[-1] * (-len(group) % 32)]
+    return np.asarray(out, dtype=np.int32)
+
+
 class EpisodePlan(NamedTuple):
     """Static inputs of one scene: the geometry tables the kernel reads,
     the sizes and constants, and the scene itself for the plain version."""
@@ -80,6 +91,7 @@ class EpisodePlan(NamedTuple):
     config: dict
     lane_i: torch.Tensor  # i32[8 + 2K, L]
     lane_f: torch.Tensor  # f32[2, L]
+    lane_perm: torch.Tensor  # i32[lane threads], lane_layout
     prog: torch.Tensor  # f32[nsf] phase progress table
     T: int
     L: int
@@ -133,9 +145,11 @@ def make_plan(spec, meta, config, V: int, R: int, P: int, P_emit: int,
     mode = HARD
     if differentiable:
         mode = ST if str(config.get("gate_mode", "soft")) == "st" else SOFT
+    lane_perm = torch.as_tensor(lane_layout(spec.is_macro.cpu().numpy()),
+                                device=dev)
     return EpisodePlan(
         spec=spec, meta=meta, config=dict(config), lane_i=lane_i,
-        lane_f=lane_f,
+        lane_f=lane_f, lane_perm=lane_perm,
         prog=torch.as_tensor(signal_progress_table(nsf), device=dev),
         T=T, L=L, C=C, V=int(V), R=int(R), P=int(P), P2=int(P_emit), K=K,
         W=W, nsf=nsf, n_phases=n_phases, n_inter=n_inter, mode=mode,
@@ -228,9 +242,10 @@ def plain_episode_bwd(plan: EpisodePlan, q_weight, action2d, *inputs):
     return grad
 
 
-_PTRS_FWD, _PTRS_BWD = 13, 12  # pointer arguments of the two launchers
-# the episode count and the eight episode strides, the sizes, the constants
-_TAIL = ([ctypes.c_int] + [ctypes.c_longlong] * 8 + [ctypes.c_int] * 13 +
+_PTRS_FWD, _PTRS_BWD = 14, 13  # pointer arguments of the two launchers
+# the episode count and the eight episode strides, the sizes, gate mode and
+# lane threads, the constants
+_TAIL = ([ctypes.c_int] + [ctypes.c_longlong] * 8 + [ctypes.c_int] * 14 +
          [ctypes.c_float] * 13 + [ctypes.c_void_p])
 _ARGTYPES = [ctypes.c_void_p] * _PTRS_FWD + _TAIL
 _ARGTYPES_BWD = [ctypes.c_void_p] * _PTRS_BWD + _TAIL
@@ -245,6 +260,8 @@ def bind(lib: ctypes.CDLL) -> ctypes.CDLL:
         fn.restype = ctypes.c_int
     lib.itscp_hybrid_episode_smem.argtypes = [ctypes.c_int] * 5
     lib.itscp_hybrid_episode_smem.restype = ctypes.c_size_t
+    lib.itscp_hybrid_episode_blocks_per_sm.argtypes = [ctypes.c_int] * 6
+    lib.itscp_hybrid_episode_blocks_per_sm.restype = ctypes.c_int
     return lib
 
 
@@ -260,16 +277,18 @@ def _library() -> ctypes.CDLL:
 def kernel_args(plan: EpisodePlan, inputs, outputs, stream, B: int = 1,
                 strides=(0,) * 8) -> tuple:
     """A C launcher's arguments: the seven inputs of the episode, the plan's
-    tables and the outputs as pointers, then the episode count ``B`` and
-    each input's stride between episodes in elements (:func:`episode_rows`;
-    0: shared, the backward's ``q_weight`` last), the plan's sizes, gate
-    mode and constants. The forward's outputs are ``(reward[B], queues[B,
+    tables (``lane_perm`` last) and the outputs as pointers, then the
+    episode count ``B`` and each input's stride between episodes in
+    elements (:func:`episode_rows`; 0: shared, the backward's ``q_weight``
+    last), the plan's sizes, gate mode and lane threads, and constants. The forward's outputs are ``(reward[B], queues[B,
     T], events[B, T, 8])``, the backward's ``(q_weight, grad[B, n_phases,
     n_inter])``."""
     ptrs = [ctypes.c_void_p(x.data_ptr()) for x in
-            (*inputs, plan.prog, plan.lane_i, plan.lane_f, *outputs)]
+            (*inputs, plan.prog, plan.lane_i, plan.lane_f, plan.lane_perm,
+             *outputs)]
     ints = (plan.T, plan.L, plan.C, plan.V, plan.R, plan.P, plan.P2, plan.K,
-            plan.W, plan.nsf, plan.n_phases, plan.n_inter, plan.mode)
+            plan.W, plan.nsf, plan.n_phases, plan.n_inter, plan.mode,
+            plan.lane_perm.numel())
     return (*ptrs, int(B), *(int(x) for x in strides), *ints, *plan.floats,
             ctypes.c_void_p(stream))
 
@@ -292,7 +311,7 @@ def episode_rows(plan: EpisodePlan, inputs, B: int | None):
             _check(name, x, shape, dtype, dev)
         tensors.append(x)
         strides.append(int(np.prod(shape)) if batched else 0)
-    for name in ("lane_i", "lane_f", "prog"):
+    for name in ("lane_i", "lane_f", "lane_perm", "prog"):
         if getattr(plan, name).device != dev:
             raise ValueError(f"plan.{name} is on "
                              f"{getattr(plan, name).device}, expected {dev}")

@@ -3,16 +3,19 @@
     python -m dhts_torch.ops.cuda.k1_clock [--repeats 5]
 
 Builds ``csrc/itscp_hybrid_episode.cu`` with ``-DDHTS_K1_CLOCK`` (thread 0
-of block 0 reads ``clock64()`` after each barrier of a step and adds up the
+of block 0 reads the clock after each barrier of a step and adds up the
 cycles of each phase: A, the B1 leader walk, the B1 blend fold, B2, C1, C2,
-C3, the static fold, the lane queue, D) and runs one episode of the 3x3
-hybrid preset of ``run_itscp_hybrid.sh`` (T = 600, 144 lanes, B = 1,
+C3, the static fold, the lane queue, D; beside the lanes' path, the first
+thread of the reduction warp its busy cycles and the first macro and
+micro lane's threads their B2 work) and runs one episode of the
+3x3 hybrid preset of ``run_itscp_hybrid.sh`` (T = 600, 144 lanes, B = 1,
 action 0.5) on the card in three kernels: the hard forward, the soft
 forward and the backward (``Dual``, block 0 seeds action entry 0). Prints
-one JSON line per kernel: the cycles per step of each phase, their shares,
-the clocked kernel's ms and the build without stamps' ms (CUDA events,
-median of ``--repeats`` runs of 5 launches back to back), and the
-unstamped step's us split in the stamps' shares. The clocked and unclocked
+one JSON line per kernel: the cycles per step of each phase, their shares
+of the lanes' path, the clocked kernel's ms and the build without stamps'
+ms (CUDA events, median of ``--repeats`` runs of 5 launches back to back),
+the unstamped step's us split in the stamps' shares, and the blocks an SM
+holds at once. The clocked and unclocked
 outputs must be bit-equal (the stamps change nothing). Then the card's
 name, power limit and SM clocks. Needs one CUDA device.
 """
@@ -29,9 +32,13 @@ import torch
 from dhts_torch.ops.cuda import _build, _launch
 from dhts_torch.ops.cuda import itscp_hybrid_episode as k1
 
-# the phases of csrc/itscp_hybrid_episode.cu's K1Phase, in order
+# the phases of csrc/itscp_hybrid_episode.cu's K1Phase, in order; the last
+# three are beside the lanes' path: the reduction warp's busy cycles and
+# the B2 work of a macro lane's and of a micro lane's thread
 PHASES = ("A", "walk", "blend_fold", "B2", "C1", "C2", "C3", "static_fold",
-          "lane_queue", "D")
+          "lane_queue", "D", "reduction_warp", "B2_macro_work",
+          "B2_micro_work")
+OFF_PATH = ("reduction_warp", "B2_macro_work", "B2_micro_work")
 # the 3x3 hybrid preset of run_itscp_hybrid.sh (problem 1)
 PRESET = dict(num_intersection=3, num_lane=1, lane_length=5, speed_limit=60,
               policy_length=20, signal_length=4, simulation_frequency=30,
@@ -117,7 +124,10 @@ def main() -> int:
         calls = {"ms_clocked": lambda: getattr(clocked, launcher)(*kargs),
                  "ms": lambda: getattr(plain, launcher)(*kargs)}
         results, rec = {}, {"kernel": name, "T": plan.T, "L": plan.L,
-                            "B": 1}
+                            "B": 1, "lane_threads": plan.lane_perm.numel()}
+        rec["blocks_per_sm"] = plain.itscp_hybrid_episode_blocks_per_sm(
+            plan.L, plan.C, plan.V, plan.K, int(name == "dual"),
+            plan.lane_perm.numel())
         written = outs[1:] if name == "dual" else outs
         for key, call in calls.items():
             for x in written:
@@ -132,11 +142,12 @@ def main() -> int:
         read_cycles(clocked, reset=True)
         _launch.raise_on(calls["ms_clocked"](), name)
         torch.cuda.synchronize()
-        cyc = read_cycles(clocked)
-        total = sum(cyc)
-        rec["cycles_per_step"] = {p: c / plan.T for p, c in zip(PHASES, cyc)}
+        cyc = dict(zip(PHASES, read_cycles(clocked)))
+        total = sum(c for p, c in cyc.items() if p not in OFF_PATH)
+        rec["cycles_per_step"] = {p: c / plan.T for p, c in cyc.items()}
         rec["cycles_per_step_total"] = total / plan.T
-        rec["share"] = {p: c / max(total, 1) for p, c in zip(PHASES, cyc)}
+        # shares of the lanes' path (the reduction warp's of it too)
+        rec["share"] = {p: c / max(total, 1) for p, c in cyc.items()}
         rec["us_per_step"] = rec["ms"] * 1e3 / plan.T
         rec["us_per_step_by_phase"] = {
             p: rec["us_per_step"] * v for p, v in rec["share"].items()}

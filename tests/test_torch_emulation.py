@@ -11,7 +11,10 @@ it for down) keeps its own value. A second kernel runs a different number
 of shuffles in each warp between two block barriers, reduces a warp's
 maximum with ``__shfl_down_sync`` and reads the other warp's result
 through shared memory after ``__syncthreads()`` and ``__syncwarp()``;
-``clock64()`` does not run backwards.
+``clock64()`` does not run backwards. A third hands values from two
+producer warps to a consumer warp through a two-slot ring guarded by
+named barriers (``bar_sync`` / ``bar_arrive``, as K1's reduction warp
+takes the lanes' records), for longer than the ring.
 """
 
 import ctypes
@@ -66,14 +69,44 @@ __global__ void warps_apart(Args a) {
   a.clocks[k] = clock64() - t0;
 }
 
+// n producer threads write round t's values into slot t % 2 once the
+// consumer warp has read round t - 2 (EMPTY, barrier 4 + slot), sync among
+// themselves (barrier 1) and hand the slot over (FULL, barrier 2 + slot);
+// the consumer warp sums each round's values j and j + 32 of its lane
+__global__ void ring(Args a) {
+  DHTS_DYNAMIC_SMEM(smem);
+  float* slot = reinterpret_cast<float*>(smem);  // [2, n]
+  const int i = threadIdx.x, n = a.n, T = a.arg, all = n + 32;
+  if (i >= n) {
+    for (int s = 0; s < 2 && s < T; ++s) bar_arrive(4 + s, all);
+    for (int t = 0; t < T; ++t) {
+      bar_sync(2 + t % 2, all);
+      float sum = 0.0f;
+      for (int j = i - n; j < n; j += 32) sum += slot[t % 2 * n + j];
+      a.out1[(blockIdx.x * T + t) * 32 + i - n] = sum;
+      if (t + 2 < T) bar_arrive(4 + t % 2, all);
+    }
+    return;
+  }
+  for (int t = 0; t < T; ++t) {
+    const float v = a.in[blockIdx.x * n + i] * (float)(t + 1);
+    bar_sync(4 + t % 2, all);
+    slot[t % 2 * n + i] = v;
+    bar_sync(1, n);
+    bar_arrive(2 + t % 2, all);
+  }
+}
+
 extern "C" int run(int kernel, const float* in, float* out1, float* out2,
                    int op, int arg, int width, int n, int blocks,
                    long long* clocks) {
   const Args a{in, out1, out2, op, arg, width, n, clocks};
   if (kernel == 0)
     dhts_emu::launch(blocks, n, 0, shuffles, a);
-  else
+  else if (kernel == 1)
     dhts_emu::launch(blocks, n, 64, warps_apart, a);
+  else
+    dhts_emu::launch(blocks, n + 32, 2 * n * sizeof(float), ring, a);
   return 0;
 }
 """
@@ -157,3 +190,17 @@ def test_warps_on_different_paths_meet_at_the_barrier(lib):
     np.testing.assert_array_equal(out2,
                                   np.repeat(warp_max, 32, axis=1).reshape(-1))
     assert (clocks >= 0).all() and clocks.max() > 0
+
+
+def test_named_barriers_hand_a_ring_over(lib):
+    T = 7  # rounds, more than the ring's two slots
+    x = np.random.default_rng(5).standard_normal(N * BLOCKS).astype(
+        np.float32)
+    out = np.full(BLOCKS * T * 32, np.nan, dtype=np.float32)
+    ptr = lambda a: a.ctypes.data_as(ctypes.c_void_p)
+    assert lib.run(2, ptr(x), ptr(out), ptr(out), 0, T, 32, N, BLOCKS,
+                   ptr(np.zeros(1, np.int64))) == 0
+    v = x.reshape(BLOCKS, 1, N) * np.arange(1, T + 1, dtype=np.float32)[
+        None, :, None]
+    want = (np.float32(0) + v[..., :32]) + v[..., 32:]
+    np.testing.assert_array_equal(out, want.reshape(-1))

@@ -8,7 +8,9 @@ short hybrid episode (T = 60) with emissions: the stamped build's reward,
 queues, events and gradient equal the plain build's bit for bit, and its
 events equal the plain PyTorch version's (reward rel 1e-5, queues abs
 1e-5, the lane sums' order), in hard, soft and ``st`` mode and backward.
-Every phase that the mode runs gets stamps; the others none.
+Every phase that ends at a barrier of the mode gets stamps, and so do the
+reduction warp and the B2 work of a macro and a micro lane's thread; the
+others none.
 """
 
 import ctypes
@@ -33,8 +35,12 @@ CFG = dict(num_intersection=3, num_lane=1, lane_length=10.0,
            speed_limit=30.0, cell_length=10.0, policy_length=15,
            signal_length=15, simulation_frequency=4, random_seed=3,
            max_num_micro_vehicle_per_lane=4, mode="hybrid")
-# phases without a barrier of their own in hard mode (csrc K1Phase)
-SOFT_ONLY = ("blend_fold", "static_fold", "lane_queue")
+# the phases (csrc K1Phase) that get stamps: in hard mode C3 runs on to
+# the step's end; in soft mode the blend's and the static mean's folds end
+# at the barriers of the walk and of C3, and the lane queue follows
+HARD_PHASES = ("A", "walk", "B2", "C1", "C2", "C3", "reduction_warp",
+               "B2_macro_work", "B2_micro_work")
+SOFT_PHASES = HARD_PHASES + ("lane_queue",)
 
 
 @pytest.fixture(scope="module")
@@ -92,11 +98,9 @@ def test_stamped_forward_equals_unstamped_and_plain(libs, gate_mode):
     assert float(got[0]) == pytest.approx(float(pr), rel=1e-5, abs=1e-6)
     np.testing.assert_allclose(got[1].numpy(), pq.detach().numpy(), rtol=0,
                                atol=1e-5)
+    stamped = HARD_PHASES if gate_mode == "hard" else SOFT_PHASES
     for name, c in cycles.items():
-        if gate_mode == "hard" and name in SOFT_ONLY:
-            assert c == 0, name
-        else:
-            assert c > 0, name
+        assert (c > 0) == (name in stamped), (name, c)
 
 
 def test_stamped_backward_equals_unstamped(libs):
@@ -113,4 +117,6 @@ def test_stamped_backward_equals_unstamped(libs):
         grads.append(grad)
     assert torch.equal(grads[0], grads[1])
     assert torch.isfinite(grads[0]).all() and grads[0].norm() > 0
-    assert all(c > 0 for c in k1_clock.read_cycles(clocked))
+    cycles = dict(zip(k1_clock.PHASES, k1_clock.read_cycles(clocked)))
+    for name, c in cycles.items():
+        assert (c > 0) == (name in SOFT_PHASES), (name, c)

@@ -14,13 +14,23 @@ and power limit, and the median of ``--repeats`` CUDA-event timings of
 each launch after two warm-up launches, alone (``ms``: the wrapper's host
 time before the launch counts, as in ``timing``) and five back to back
 (``ms_back_to_back``: the host enqueues the next launch while the card
-runs the last, so the kernel's own time).
+runs the last, so the kernel's own time); with ``--batches 1,4,8,32``
+also each launch of B episodes of ``chip_smoke.py``'s four scenarios
+(alone, after a warm-up; ``k1_batch_timing``'s inputs) and fwd+bwd
+episodes per second at each B.
 
 ``--sass`` prints instead, for each instantiation of K1's kernel in TREE's
 build, its SASS instruction count and the SHA-256 of its instructions
 (``cuobjdump -sass``, addresses and encodings dropped), and ptxas's lines
 of registers and stack: equal digests of two trees mean the same machine
 code.
+
+``--compare TREE`` prints instead the largest absolute difference between
+TREE's K1 and this checkout's on the same inputs: reward, queues and
+events of the hard and the soft forward and the backward's gradient, at
+the preset (B = 1) and on the four scenarios of ``chip_smoke.py``'s batch
+in one launch (B = 4); 0 everywhere means bit-equal outputs. TREE's
+outputs come from a child process (``--dump``).
 """
 
 from __future__ import annotations
@@ -71,12 +81,61 @@ def sass_digest() -> dict:
             if ptxas.exists() else None}
 
 
+def outputs(chip_smoke, benv, k1, ins, hard, soft) -> dict:
+    """K1's outputs at the preset (B = 1) and on the batch of four
+    scenarios (B = 4): ``{run: [tensors]}`` on the host."""
+    import torch
+
+    dev = ins[0].device
+    w = torch.full((hard.T,), -1.0, device=dev)
+    bins = chip_smoke.k1_batch_inputs(benv, chip_smoke.K1_BATCH, 5)
+    bw = torch.full((chip_smoke.K1_BATCH, hard.T), -1.0, device=dev)
+    bhard, bsoft = benv.fused_plan(False), benv.fused_plan(True)
+    runs = {"hard": lambda: k1.itscp_hybrid_episode_fwd(hard, *ins),
+            "soft": lambda: k1.itscp_hybrid_episode_fwd(soft, *ins),
+            "bwd": lambda: (k1.itscp_hybrid_episode_bwd(soft, w, *ins),),
+            "hard_b4": lambda: k1.itscp_hybrid_episode_fwd(bhard, *bins),
+            "soft_b4": lambda: k1.itscp_hybrid_episode_fwd(bsoft, *bins),
+            "bwd_b4": lambda: (k1.itscp_hybrid_episode_bwd(bsoft, bw, *bins),)}
+    return {k: [x.cpu() for x in fn()] for k, fn in runs.items()}
+
+
+def compare(mine: dict, theirs: dict) -> dict:
+    """The largest absolute difference of each output of each run."""
+    names = {"bwd": ("gradient",), "bwd_b4": ("gradient",)}
+    out = {}
+    for run, xs in mine.items():
+        keys = names.get(run, ("reward", "queues", "events"))
+        out[run] = {k: float((a.double() - b.double()).abs().max())
+                    for k, a, b in zip(keys, xs, theirs[run])}
+    return out
+
+
 def main(argv=None) -> int:
     p = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     p.add_argument("tree", nargs="?", default=str(ROOT))
     p.add_argument("--repeats", type=int, default=10)
     p.add_argument("--sass", action="store_true")
+    p.add_argument("--batches", metavar="B,B,...",
+                   help="also time B episodes per launch of the batch's "
+                        "scenarios (single launches)")
+    p.add_argument("--compare", metavar="TREE")
+    p.add_argument("--dump", metavar="PATH", help=argparse.SUPPRESS)
     args = p.parse_args(argv)
+    if args.compare:
+        import subprocess
+        import tempfile
+
+        with tempfile.TemporaryDirectory() as tmp:
+            path = str(Path(tmp) / "theirs.pt")
+            subprocess.run([sys.executable, __file__, args.compare,
+                            "--dump", path], check=True, timeout=600)
+            import torch
+
+            theirs = torch.load(path)
+        args.tree, args.dump = str(ROOT), None
+    else:
+        theirs = None
     sys.path.insert(0, str(ROOT))
     import chip_smoke  # noqa: E402  (this checkout's preset and timer)
 
@@ -106,6 +165,17 @@ def main(argv=None) -> int:
     ins = (action, env.data.schedule, env.data.mroute_next,
            env.data.mroute_prev, rand, env.data.inj_routes,
            env.base_state.route_pool)
+    if args.dump or theirs is not None:
+        mine = outputs(chip_smoke, chip_smoke.batch_env(dev), k1, ins, hard,
+                       soft)
+        if args.dump:
+            torch.save(mine, args.dump)
+            return 0
+        print(json.dumps({"tree": str(ROOT), "versus": args.compare,
+                          "nvidia_smi": chip_smoke.nvidia_smi(),
+                          "max_abs_diff": compare(mine, theirs)}),
+              flush=True)
+        return 0
     w = torch.full((hard.T,), -1.0, device=dev)
     runs = {"fwd": lambda: k1.itscp_hybrid_episode_fwd(hard, *ins),
             "fwd_soft": lambda: k1.itscp_hybrid_episode_fwd(soft, *ins),
@@ -117,8 +187,28 @@ def main(argv=None) -> int:
     ms = {k: chip_smoke.cuda_ms(fn, args.repeats) for k, fn in runs.items()}
     b2b = {k: chip_smoke.cuda_ms(fn, args.repeats, 5)
            for k, fn in runs.items()}
-    print(json.dumps({"tree": args.tree, "nvidia_smi": chip_smoke.nvidia_smi(),
-                      "ms": ms, "ms_back_to_back": b2b}), flush=True)
+    rec = {"tree": args.tree, "nvidia_smi": chip_smoke.nvidia_smi(),
+           "ms": ms, "ms_back_to_back": b2b}
+    if args.batches:
+        benv = chip_smoke.batch_env(dev)
+        bhard, bsoft = benv.fused_plan(False), benv.fused_plan(True)
+        by_b, eps = {}, {}
+        for B in (int(x) for x in args.batches.split(",")):
+            bins = chip_smoke.k1_batch_inputs(benv, B, 100 + B)
+            bw = torch.full((B, hard.T), -1.0, device=dev)
+            runs = {"fwd": lambda: k1.itscp_hybrid_episode_fwd(bhard, *bins),
+                    "fwd_soft": lambda: k1.itscp_hybrid_episode_fwd(
+                        bsoft, *bins),
+                    "bwd": lambda: k1.itscp_hybrid_episode_bwd(bsoft, bw,
+                                                               *bins)}
+            for fn in runs.values():
+                fn()
+            torch.cuda.synchronize()
+            by_b[B] = {k: chip_smoke.cuda_ms(fn, args.repeats)
+                       for k, fn in runs.items()}
+            eps[B] = B * 1e3 / (by_b[B]["fwd_soft"] + by_b[B]["bwd"])
+        rec.update(ms_by_batch=by_b, fwd_bwd_episodes_per_s=eps)
+    print(json.dumps(rec), flush=True)
     return 0
 
 
