@@ -16,39 +16,61 @@
 // build passes -fmad=false and no fast math), so events agree bit for bit
 // and queues to the rounding of the lane sums.
 //
-// Design. One thread block per episode and one thread per lane; the T loop
-// runs inside the kernel. A launch runs B independent episodes (the JAX
-// kernel's `episodes=B` and its vmapped configurations), block e the
-// episode e: each input has an episode stride in elements (0: shared by
-// every episode), and each block keeps its own state, running means,
-// queue sum and events in its own shared memory, so B episodes in one
-// launch give what B launches give, bit for bit. No lane packing, no
-// lane-to-episode maps: a block is an episode. A launch of one episode
-// runs the kernel's instantiation without the episode axis, with the
-// parameters and code the kernel had before it took one: moving the input
-// pointers to a block's episode cost a launch of one episode 1.0-2.4 %
-// forward on an H100. Cells, vehicles, counters and
-// flux capacitors live in shared memory. The [L, V, R] route container of the JAX kernel
-// is not materialised: every route in an episode is a row of one of the
-// two read-only pools (waiting pool [L, P, R], emission pool [L, P2, R]),
-// and vehicles only ever copy routes, so each vehicle slot holds a route
-// id (the pool row) and route entries are read from global memory, where
-// the pools stay L2-resident. Each step syncs the block where a lane reads
-// another lane's values: after injection (signals, boundary cells), after
-// the boundary/leader reads (before lanes write their new state), after
-// the lanes' forward step, after the conversion requests are published,
-// after arbitration, and after the conversion (before the block
-// reductions); the soft modes add two syncs around each running-mean
-// reduction.
+// Design. One thread block per episode; the T loop runs inside the kernel.
+// A launch runs B independent episodes (the JAX kernel's `episodes=B` and
+// its vmapped configurations), block e the episode e: each input has an
+// episode stride in elements (0: shared by every episode), and each block
+// keeps its own state, running means, queue sum and events in its own
+// shared memory, so B episodes in one launch give what B launches give,
+// bit for bit. No lane packing, no lane-to-episode maps: a block is an
+// episode. A launch of one episode runs the kernel's instantiation without
+// the episode axis: moving the input pointers to a block's episode cost a
+// launch of one episode 1.0-2.4 % forward on an H100. Cells, vehicles,
+// counters and flux capacitors live in shared memory. The [L, V, R] route
+// container of the JAX kernel is not materialised: every route in an
+// episode is a row of one of the two read-only pools (waiting pool [L, P,
+// R], emission pool [L, P2, R]), and vehicles only ever copy routes, so
+// each vehicle slot holds a route id (the pool row) and route entries are
+// read from global memory, where the pools stay L2-resident.
+//   threads      one thread per lane, in whole warps of one lane kind: the
+//                wrapper's lane_layout lists the macro lanes and then the
+//                micro lanes, each padded to a multiple of 32, and thread
+//                i runs lane thread_lane[i]; so no warp runs both the
+//                Godunov update and the IDM update, and only the micro
+//                warps walk routes. Every shared array is indexed by lane
+//                id, so the layout changes no value. Behind the lane
+//                threads, one reduction warp.
+//   barriers     the lane threads sync among themselves (named barrier
+//                BAR_LANES, the reduction warp not counted) where a lane
+//                reads another lane's values: after injection (signals,
+//                boundary cells), after the boundary/leader reads (before
+//                lanes write their new state), after the forward step,
+//                after the conversion requests are published and after
+//                arbitration; the soft modes add one for each running
+//                mean. The conversion's speed of the last cell goes to its
+//                own array (u_emit), so that a lane may publish the next
+//                step's edges while a slower one still reads it.
+//   reductions   each lane writes its step's records (q^2, the wave speed,
+//                the event bits) into one of two slots; the reduction warp
+//                takes slot t % 2 once the lanes arrive at its FULL
+//                barrier and reduces it while they run step t + 1: the
+//                queue in lane order (float32, or dual numbers: PR 11's
+//                chain), event counts and the wave as integer sums and a
+//                maximum (exact in any order); it frees the slot (EMPTY)
+//                for step t + 2, whose first barrier waits for that. The
+//                running means (float64 partial sums, rounded once, like
+//                the plain version's dhts_torch/utils/rms.py) fold each
+//                warp's terms by a fixed shuffle tree and the warps' sums
+//                in warp order, one barrier each, every lane thread taking
+//                the same mean: deterministic, so a batch equals single
+//                launches bit for bit.
+//   inputs       each step's rows of the schedule, the draws and the macro
+//                routes are loaded a step ahead.
 // The per-lane phases are in itscp_step.cuh, shared with the fused spatial
 // step (itscp_spatial_step.cu), which addresses the same state in global
 // memory.
 //   arbitration  pull form: each destination scans its predecessor list
 //                and takes the lowest source id that wants in; no atomics.
-//   reductions   queue, event counts, max wave speed and the running-mean
-//                sums are taken by one thread in lane order: deterministic.
-//                The running-mean sums are float64, rounded once, like the
-//                plain version's (dhts_torch/utils/rms.py).
 //   randomness   rand[T, L] is an input.
 //   sigmoid      1 / (1 + exp(-x)) in float64, rounded once to float32,
 //                like the plain version's dmath.sigmoid.
@@ -75,8 +97,12 @@
 // deposit's density clamp is straight-through (st_clip).
 //
 // Bound. The episode is a chain of T dependent steps, each a handful of
-// block-wide barriers and short dependent global loads (the route walk);
-// its inputs and outputs are a few MB, so it is latency-bound, far above
+// barriers between per-lane loops of IEEE divisions and roots (the
+// Godunov update's C + 1 Riemann solves, the queue's cells) and short
+// dependent global loads (the route walk); its inputs and outputs are a
+// few MB, so it is bound by that chain, far above the bytes / 3.35 TB/s
+// floor.
+
 #include "itscp_step.cuh"
 
 namespace {
@@ -609,13 +635,14 @@ __global__ void itscp_hybrid_episode_kernel(
 
     // ---- queue of this lane
     float c_st = 0.0f;
+    S u_cells[MAXC];  // soft modes: the cells' speeds, taken once
     if (mode != HARD) {
       // running mean of (static_speed - speed) over macro cells, then over
       // micro vehicles; its detached mean sharpens the queue gates
       double cells = 0.0, vehs = 0.0;
       int n_cells = 0, n_vehs = 0;
       if (lane) {
-        static_partials<S>(st, s, g, L, l, n_after, k);
+        static_partials<S>(st, s, g, L, l, n_after, k, u_cells);
         cells = s.red_sum[l]; n_cells = s.red_cnt[l];
         vehs = s.red_sum[L + l]; n_vehs = s.red_cnt[L + l];
       }
@@ -635,7 +662,8 @@ __global__ void itscp_hybrid_episode_kernel(
       c_st = 16.0f / fmaxf(fabsf(mean), 1e-6f);
     }
     if (lane) {
-      const S q_lane = lane_queue<S>(st, g, l, n_after, mode, c_st, k);
+      const S q_lane = lane_queue<S>(st, g, l, n_after, mode, c_st, k,
+                                     mode != HARD ? u_cells : nullptr);
       s.rec_q[slot * L + l] = q_lane * q_lane;
       s.rec_wave[slot * L + l] = lane_wave;
       s.rec_ev[slot * L + l] = ev_bits;

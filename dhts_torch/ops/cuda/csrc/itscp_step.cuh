@@ -551,18 +551,23 @@ __device__ __forceinline__ Verdict convert(St& st, const Sm& s,
 // ---------------------------------------------------------------------------
 
 // sum of (static_speed - speed) over the macro lane's cells (slot l) or
-// the micro lane's n vehicles (slot L + l), in float64, with the counts
+// the micro lane's n vehicles (slot L + l), in float64, with the counts;
+// `u_cells` (K1), when given, receives the macro lane's cell speeds for
+// lane_queue
 template <class S, class St, class Sm>
 __device__ __forceinline__ void static_partials(const St& st, Sm& s,
                                                 const LaneGeom& g, int L,
                                                 int l, int n,
-                                                const Consts& k) {
+                                                const Consts& k,
+                                                S* u_cells = nullptr) {
   double cells = 0.0, vehs = 0.0;
   if (g.is_macro) {
-    for (int c = 0; c < g.num_cell; ++c)
-      cells += (double)(k.static_speed -
-                        val(comp_u(ld<S>(st.r, st.ci(l, c)),
-                                   ld<S>(st.y, st.ci(l, c)), k.u_max)));
+    for (int c = 0; c < g.num_cell; ++c) {
+      const S u = comp_u(ld<S>(st.r, st.ci(l, c)), ld<S>(st.y, st.ci(l, c)),
+                         k.u_max);
+      if (u_cells) u_cells[c] = u;
+      cells += (double)(k.static_speed - val(u));
+    }
   } else {
     for (int v = 0; v < n; ++v)
       vehs += (double)(k.static_speed - val(ld<S>(st.vel, st.vi(l, v))));
@@ -573,17 +578,21 @@ __device__ __forceinline__ void static_partials(const St& st, Sm& s,
 
 // the lane's queue: stopped vehicles of a macro lane's cells, or stopped
 // vehicles of a micro lane's n; soft gates sharpened by `c_st` (the
-// detached static running mean's constant) outside hard mode
+// detached static running mean's constant) outside hard mode; `u_cells`
+// (K1), when given, holds the cells' speeds from static_partials on the
+// same state
 template <class S, class St>
 __device__ __forceinline__ S lane_queue(const St& st, const LaneGeom& g,
                                         int l, int n, int mode, float c_st,
-                                        const Consts& k) {
+                                        const Consts& k,
+                                        const S* u_cells = nullptr) {
   const float ss = k.static_speed;
   S q = 0.0f;
   if (g.is_macro) {
     for (int c = 0; c < g.num_cell; ++c) {
       const S rc = ld<S>(st.r, st.ci(l, c));
-      const S u = comp_u(rc, ld<S>(st.y, st.ci(l, c)), k.u_max);
+      const S u = u_cells ? u_cells[c]
+                          : comp_u(rc, ld<S>(st.y, st.ci(l, c)), k.u_max);
       const S stat = mode == HARD ? S(val(u) < ss ? 1.0f : 0.0f)
                                   : stg(val(u) < ss, soft(S(ss) - u, c_st),
                                         mode);

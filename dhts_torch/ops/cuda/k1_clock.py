@@ -1,6 +1,6 @@
 """Where a step of K1 goes, from in-kernel cycle stamps.
 
-    python -m dhts_torch.ops.cuda.k1_clock [--repeats 5]
+    python -m dhts_torch.ops.cuda.k1_clock [--repeats 5] [--define M=V]
 
 Builds ``csrc/itscp_hybrid_episode.cu`` with ``-DDHTS_K1_CLOCK`` (thread 0
 of block 0 reads the clock after each barrier of a step and adds up the
@@ -14,10 +14,12 @@ forward and the backward (``Dual``, block 0 seeds action entry 0). Prints
 one JSON line per kernel: the cycles per step of each phase, their shares
 of the lanes' path, the clocked kernel's ms and the build without stamps'
 ms (CUDA events, median of ``--repeats`` runs of 5 launches back to back),
-the unstamped step's us split in the stamps' shares, and the blocks an SM
-holds at once. The clocked and unclocked
-outputs must be bit-equal (the stamps change nothing). Then the card's
-name, power limit and SM clocks. Needs one CUDA device.
+the unstamped step's us split in the stamps' shares, and the threads of a
+block and the blocks an SM holds at once. The clocked and unclocked
+outputs must be bit-equal (the stamps change nothing); ``--define``
+builds the clocked kernel with a macro of the source set (a variant, held
+against the default build's outputs). Then the card's name, power limit
+and SM clocks. Needs one CUDA device.
 """
 
 from __future__ import annotations
@@ -45,10 +47,11 @@ PRESET = dict(num_intersection=3, num_lane=1, lane_length=5, speed_limit=60,
               mode="hybrid", use_fused_episode=True, random_seed=3)
 
 
-def clocked_library():
-    """The clocked build, its launchers bound, and its stamp reader."""
+def clocked_library(defines=()):
+    """The clocked build (with the macros ``defines`` besides), its
+    launchers bound, and its stamp reader."""
     lib = k1.bind(ctypes.CDLL(str(_build.build(
-        "itscp_hybrid_episode", defines=("DHTS_K1_CLOCK",)))))
+        "itscp_hybrid_episode", defines=("DHTS_K1_CLOCK", *defines)))))
     lib.itscp_hybrid_episode_clock.argtypes = [ctypes.c_void_p, ctypes.c_int]
     lib.itscp_hybrid_episode_clock.restype = ctypes.c_int
     return lib
@@ -110,11 +113,15 @@ def events_ms(fn, repeats: int, launches: int = 5) -> float:
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--repeats", type=int, default=5)
+    ap.add_argument("--define", action="append", default=[],
+                    metavar="NAME[=VALUE]",
+                    help="a macro of the clocked build (a variant of the "
+                         "source, e.g. DHTS_K1_ILP=1), repeatable")
     args = ap.parse_args()
     if not torch.cuda.is_available():
         raise SystemExit("k1_clock: needs a CUDA device")
     dev = torch.device("cuda")
-    clocked = clocked_library()
+    clocked = clocked_library(args.define)
     plain = k1._library()
     hard, soft, ins = preset_inputs(dev)
     stream = _launch.stream(dev)
@@ -123,9 +130,10 @@ def main() -> int:
         kargs = k1.kernel_args(plan, ins, outs, stream)
         calls = {"ms_clocked": lambda: getattr(clocked, launcher)(*kargs),
                  "ms": lambda: getattr(plain, launcher)(*kargs)}
-        results, rec = {}, {"kernel": name, "T": plan.T, "L": plan.L,
-                            "B": 1, "lane_threads": plan.lane_perm.numel()}
-        rec["blocks_per_sm"] = plain.itscp_hybrid_episode_blocks_per_sm(
+        results, rec = {}, {"kernel": name, "defines": args.define,
+                            "T": plan.T, "L": plan.L, "B": 1,
+                            "threads": plan.lane_perm.numel() + 32}
+        rec["blocks_per_sm"] = clocked.itscp_hybrid_episode_blocks_per_sm(
             plan.L, plan.C, plan.V, plan.K, int(name == "dual"),
             plan.lane_perm.numel())
         written = outs[1:] if name == "dual" else outs
