@@ -54,10 +54,11 @@
 //                the event bits) into one of two slots; the reduction warp
 //                takes slot t % 2 once the lanes arrive at its FULL
 //                barrier and reduces it while they run step t + 1: the
-//                queue in lane order (float32, or dual numbers: PR 11's
-//                chain), event counts and the wave as integer sums and a
-//                maximum (exact in any order); it frees the slot (EMPTY)
-//                for step t + 2, whose first barrier waits for that. The
+//                queue in lane order (float32, or dual numbers whose two
+//                halves each add in lane order), event counts and the
+//                wave as integer sums and a maximum (exact in any order);
+//                it frees the slot (EMPTY) for step t + 2, whose first
+//                barrier waits for that. The
 //                running means (float64 partial sums, rounded once, like
 //                the plain version's dhts_torch/utils/rms.py) fold each
 //                warp's terms by a fixed shuffle tree and the warps' sums
@@ -124,15 +125,16 @@ constexpr int MAX_WARPS = 32;
 // thread 0 of block 0 reads the clock after each barrier of a step and
 // adds the cycles since its last stamp to the phase that ended there
 // (K1_A ... K1_QUEUE below), so each phase's count is the time the lanes
-// spent in it. Beside the lanes' path: the first thread of block 0's
-// reduction warp adds its busy cycles of each step to K1_RED, and thread 0
-// and the first micro lane's thread their own B2 work (before the
-// barrier) to K1_B2_MACRO and K1_B2_MICRO. K1_D, the block reductions by
-// thread 0 on the lanes' path before this design, stays 0. Without the
-// macro the stamps compile to nothing.
+// spent in it: the soft blend fold ends the walk's phase, the static fold
+// C3's, and the step ends with the lane queue (hard mode: with C3).
+// Beside the lanes' path: the first thread of block 0's reduction warp
+// adds its cycles from each step's records to their release to K1_RED,
+// and thread 0 and the first micro lane's thread their own B2 work
+// (before the barrier) to K1_B2_MACRO and K1_B2_MICRO. Without the macro
+// the stamps compile to nothing.
 enum K1Phase {
-  K1_A, K1_WALK, K1_BLEND, K1_B2, K1_C1, K1_C2, K1_C3, K1_STATIC, K1_QUEUE,
-  K1_D, K1_RED, K1_B2_MACRO, K1_B2_MICRO, K1_PHASES
+  K1_A, K1_WALK, K1_B2, K1_C1, K1_C2, K1_C3, K1_QUEUE, K1_RED, K1_B2_MACRO,
+  K1_B2_MICRO, K1_PHASES
 };
 #ifdef DHTS_K1_CLOCK
 __device__ long long k1_cycles[K1_PHASES];
@@ -297,7 +299,7 @@ __device__ __forceinline__ float fold_parts(const double* ps, const int* pc,
 
 // The reduction warp: for each step, once the lanes' records of it are in
 // (FULL), the queue sum_l q^2 * dt in lane order (float32, or dual numbers
-// whose value and tangent are each added in lane order: PR 11's order),
+// whose value and tangent are each added in lane order),
 // the seven event counts (integer sums) and the largest wave speed, then
 // frees the records' slot for the step two on (EMPTY). The lanes go on
 // meanwhile. Writes queues[t] and events[t, 8] (the forward) and, at the

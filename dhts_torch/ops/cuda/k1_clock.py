@@ -1,25 +1,24 @@
 """Where a step of K1 goes, from in-kernel cycle stamps.
 
-    python -m dhts_torch.ops.cuda.k1_clock [--repeats 5] [--define M=V]
+    python -m dhts_torch.ops.cuda.k1_clock [--repeats 5]
 
 Builds ``csrc/itscp_hybrid_episode.cu`` with ``-DDHTS_K1_CLOCK`` (thread 0
 of block 0 reads the clock after each barrier of a step and adds up the
-cycles of each phase: A, the B1 leader walk, the B1 blend fold, B2, C1, C2,
-C3, the static fold, the lane queue, D; beside the lanes' path, the first
-thread of the reduction warp its busy cycles and the first macro and
-micro lane's threads their B2 work) and runs one episode of the
-3x3 hybrid preset of ``run_itscp_hybrid.sh`` (T = 600, 144 lanes, B = 1,
-action 0.5) on the card in three kernels: the hard forward, the soft
-forward and the backward (``Dual``, block 0 seeds action entry 0). Prints
+cycles of each phase: A, the B1 leader walk (with the soft blend fold),
+B2, C1, C2, C3 (with the soft static fold), the lane queue; beside the
+lanes' path, the first thread of the reduction warp its cycles from a
+step's records to their release, and the first macro and micro lane's
+threads their B2 work) and runs one episode of the 3x3 hybrid preset of
+``run_itscp_hybrid.sh`` (T = 600, 144 lanes, B = 1, action 0.5) on the
+card in three kernels: the hard forward, the soft forward and the
+backward (``Dual``, block 0 seeds action entry 0). Prints
 one JSON line per kernel: the cycles per step of each phase, their shares
 of the lanes' path, the clocked kernel's ms and the build without stamps'
 ms (CUDA events, median of ``--repeats`` runs of 5 launches back to back),
 the unstamped step's us split in the stamps' shares, and the threads of a
 block and the blocks an SM holds at once. The clocked and unclocked
-outputs must be bit-equal (the stamps change nothing); ``--define``
-builds the clocked kernel with a macro of the source set (a variant, held
-against the default build's outputs). Then the card's name, power limit
-and SM clocks. Needs one CUDA device.
+outputs must be bit-equal (the stamps change nothing). Then the card's
+name, power limit and SM clocks. Needs one CUDA device.
 """
 
 from __future__ import annotations
@@ -35,11 +34,10 @@ from dhts_torch.ops.cuda import _build, _launch
 from dhts_torch.ops.cuda import itscp_hybrid_episode as k1
 
 # the phases of csrc/itscp_hybrid_episode.cu's K1Phase, in order; the last
-# three are beside the lanes' path: the reduction warp's busy cycles and
-# the B2 work of a macro lane's and of a micro lane's thread
-PHASES = ("A", "walk", "blend_fold", "B2", "C1", "C2", "C3", "static_fold",
-          "lane_queue", "D", "reduction_warp", "B2_macro_work",
-          "B2_micro_work")
+# three are beside the lanes' path: the reduction warp's cycles and the B2
+# work of a macro lane's and of a micro lane's thread
+PHASES = ("A", "walk", "B2", "C1", "C2", "C3", "lane_queue",
+          "reduction_warp", "B2_macro_work", "B2_micro_work")
 OFF_PATH = ("reduction_warp", "B2_macro_work", "B2_micro_work")
 # the 3x3 hybrid preset of run_itscp_hybrid.sh (problem 1)
 PRESET = dict(num_intersection=3, num_lane=1, lane_length=5, speed_limit=60,
@@ -47,11 +45,10 @@ PRESET = dict(num_intersection=3, num_lane=1, lane_length=5, speed_limit=60,
               mode="hybrid", use_fused_episode=True, random_seed=3)
 
 
-def clocked_library(defines=()):
-    """The clocked build (with the macros ``defines`` besides), its
-    launchers bound, and its stamp reader."""
+def clocked_library():
+    """The clocked build, its launchers bound, and its stamp reader."""
     lib = k1.bind(ctypes.CDLL(str(_build.build(
-        "itscp_hybrid_episode", defines=("DHTS_K1_CLOCK", *defines)))))
+        "itscp_hybrid_episode", defines=("DHTS_K1_CLOCK",)))))
     lib.itscp_hybrid_episode_clock.argtypes = [ctypes.c_void_p, ctypes.c_int]
     lib.itscp_hybrid_episode_clock.restype = ctypes.c_int
     return lib
@@ -113,15 +110,11 @@ def events_ms(fn, repeats: int, launches: int = 5) -> float:
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--repeats", type=int, default=5)
-    ap.add_argument("--define", action="append", default=[],
-                    metavar="NAME[=VALUE]",
-                    help="a macro of the clocked build (a variant of the "
-                         "source, e.g. DHTS_K1_ILP=1), repeatable")
     args = ap.parse_args()
     if not torch.cuda.is_available():
         raise SystemExit("k1_clock: needs a CUDA device")
     dev = torch.device("cuda")
-    clocked = clocked_library(args.define)
+    clocked = clocked_library()
     plain = k1._library()
     hard, soft, ins = preset_inputs(dev)
     stream = _launch.stream(dev)
@@ -130,8 +123,7 @@ def main() -> int:
         kargs = k1.kernel_args(plan, ins, outs, stream)
         calls = {"ms_clocked": lambda: getattr(clocked, launcher)(*kargs),
                  "ms": lambda: getattr(plain, launcher)(*kargs)}
-        results, rec = {}, {"kernel": name, "defines": args.define,
-                            "T": plan.T, "L": plan.L, "B": 1,
+        results, rec = {}, {"kernel": name, "T": plan.T, "L": plan.L, "B": 1,
                             "threads": plan.lane_perm.numel() + 32}
         rec["blocks_per_sm"] = clocked.itscp_hybrid_episode_blocks_per_sm(
             plan.L, plan.C, plan.V, plan.K, int(name == "dual"),
