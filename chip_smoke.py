@@ -26,12 +26,13 @@ phase prints one JSON line with its wall seconds:
 1. ``device``  card name and power limit (``nvidia-smi``), PyTorch/CUDA
 2. ``build``   every ``dhts_torch/ops/cuda/csrc/*.cu`` compiled with nvcc,
                all at once, one process each
-   ``k1_plain_submit``  the inputs of phases 3-5 and of
-               ``k1_batch_vs_plain``; their plain episodes (18 jobs, one
-               episode's forward or backward each) go to the gloo ranks of
-               both groups (six processes), which run them on the card
-               while this process goes on; phases 3-5 run after
-               ``inverse_hybrid`` and wait for them
+   ``plain_submit``  the inputs of phases 3-5, of ``k1_batch_vs_plain``
+               and of ``k4_vs_plain``; their plain episodes (18 K1 jobs and
+               16 K4 jobs, one episode's forward or backward each, K4's
+               with its gradients) go to the gloo ranks of both groups
+               (six processes), which run them on the card while this
+               process goes on; phases 3-5 run after ``inverse_hybrid``
+               and wait for them
 3. ``k1_vs_plain``  the hard forward against its plain PyTorch version on
                the card, same inputs: events[T, 8] exactly equal, reward rel
                <= 1e-4, queues abs <= 1e-4, at least one emission
@@ -98,7 +99,8 @@ phase prints one JSON line with its wall seconds:
                queues abs <= 1e-4), the action, r0 and y0 gradients against
                its autograd (cosine > 0.999, allclose(rtol 2e-2, atol 2e-3
                * max|g|), finite, nonzero, padded cells exactly 0), one case
-               with a loss on queues[t]
+               with a loss on queues[t]; the plain episodes ran in the gloo
+               ranks (``plain_submit``)
 17. ``k4_vs_scan``  K4 against the port's eager soft scan episode at the
                macro preset: reward rel 2e-4, queues rtol 2e-3 atol 1e-5,
                action gradient rtol 1e-2 atol 1e-5
@@ -111,7 +113,8 @@ phase prints one JSON line with its wall seconds:
 20. ``k4_timing``  K4 forward, backward with the action alone and with all
                three gradients, ms per launch at both scenes (median of 5
                runs of 20 launches back to back) with their bounds, and the
-               plain version's ms (median of the k4_vs_plain runs)
+               plain version's ms (median of the k4_vs_plain runs, each
+               timed in a gloo rank beside the others)
 21. ``shard_vs_plain``  the sharded forward at the preset, hard and soft,
                B = 1, on S = 4 ranks: at every 50th step each rank holds the
                inputs of its seven launches through the plain bodies on the
@@ -1453,13 +1456,63 @@ def k4_inputs(env, plan, action: float, seeded: bool):
             y0.contiguous())
 
 
-def check_k4_plain(scenes) -> dict:
+def k4_cases(scenes) -> dict:
+    """K4's check cases: both scenes, actions 0.3 and 0.7, empty and seeded
+    initial state; on the seeded state at action 0.7 the loss also weights
+    queues[t]. ``{key: (scene, action, seeded, inputs, w)}``."""
+    import torch
+
+    cases = {}
+    for name, (env, fn) in scenes.items():
+        plan = fn.plan
+        for action in (0.3, 0.7):
+            for seeded in (False, True):
+                w = torch.full((plan.T,), -1.0, device=env.device)
+                if seeded and action == 0.7:
+                    w = w + torch.linspace(0.0, 2.0, plan.T,
+                                           device=env.device)
+                cases[f"k4_{name}_{action}_{int(seeded)}"] = (
+                    name, action, seeded,
+                    k4_inputs(env, plan, action, seeded), w)
+    return cases
+
+
+def k4_plain_job(scene: str, inputs, w) -> dict:
+    """One case of K4's plain version for a rank: the scene's name (of
+    ``K4_SCENES``), the inputs and the loss weights ``[T]``."""
+    return dict(kind="k4", scene=scene, inputs=tuple(x.cpu() for x in inputs),
+                w=w.cpu())
+
+
+def k4_plain_run(plan, ins, w):
+    """K4's plain forward with its graph and the three gradients of
+    ``sum(queues * w)`` by autograd, on the card: ``(reward, queues, g_action,
+    g_r0, g_y0)`` on the CPU and the ms of the forward and of both."""
+    import torch
+
+    from dhts_torch.ops.cuda import itscp_macro_episode as k4
+
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    with torch.enable_grad():
+        leaves = [ins[i].detach().requires_grad_(True) for i in (0, 4, 5)]
+        pr, pq = k4.plain_macro_episode(plan, leaves[0], *ins[1:4],
+                                        leaves[1], leaves[2])
+        torch.cuda.synchronize()
+        t1 = time.perf_counter()
+        pg = torch.autograd.grad(torch.sum(pq * w), leaves)
+    torch.cuda.synchronize()
+    t2 = time.perf_counter()
+    return ((pr.detach().cpu(), pq.detach().cpu(), *(g.cpu() for g in pg)),
+            ((t1 - t0) * 1e3, (t2 - t0) * 1e3))
+
+
+def check_k4_plain(scenes, cases, plain) -> dict:
     """K4's forward and backward (all three gradients) against the plain
-    version on the card, at both scenes, actions 0.3 and 0.7, empty and
-    seeded initial state; on the seeded state at action 0.7 the loss also
-    weights queues[t]. Returns the largest errors and the plain version's
-    ms (median of the scene's four runs: the forward with its graph, and
-    forward plus backward). Raises on a failed check."""
+    version on the card, case by case (:func:`k4_cases`), the plain
+    episodes from the ranks (``plain``). Returns the largest errors and the
+    plain version's ms (median of the scene's four runs: the forward with
+    its graph, and forward plus backward). Raises on a failed check."""
     import torch
 
     from dhts_torch.ops.cuda import itscp_macro_episode as k4
@@ -1469,61 +1522,46 @@ def check_k4_plain(scenes) -> dict:
     ok = True
     for name, (env, fn) in scenes.items():
         plan = fn.plan
-        pad = ~plan.cell_mask
+        pad = (~plan.cell_mask).cpu()
         t_fwd, t_bwd = [], []
-        for action in (0.3, 0.7):
-            for seeded in (False, True):
-                ins = k4_inputs(env, plan, action, seeded)
-                w = torch.full((plan.T,), -1.0, device=env.device)
-                if seeded and action == 0.7:
-                    w = w + torch.linspace(0.0, 2.0, plan.T,
-                                           device=env.device)
-                kr, kq = k4.macro_episode_fwd(plan, *ins)
-                kg = k4.macro_episode_bwd(plan, w, *ins)
-                torch.cuda.synchronize()
-                t0 = time.perf_counter()
-                with torch.enable_grad():
-                    leaves = [ins[i].detach().requires_grad_(True)
-                              for i in (0, 4, 5)]
-                    pr, pq = k4.plain_macro_episode(
-                        plan, leaves[0], *ins[1:4], leaves[1], leaves[2])
-                    torch.cuda.synchronize()
-                    t1 = time.perf_counter()
-                    pg = torch.autograd.grad(torch.sum(pq * w), leaves)
-                pr, pq = pr.detach(), pq.detach()
-                torch.cuda.synchronize()
-                t2 = time.perf_counter()
-                t_fwd.append((t1 - t0) * 1e3)
-                t_bwd.append((t2 - t0) * 1e3)
-                rel = abs(float(kr) - float(pr)) / abs(float(pr))
-                q_err = float((kq - pq).abs().max())
-                fwd_err = max(fwd_err, q_err, abs(float(kr) - float(pr)))
-                rec = dict(scene=name, action=action, seeded=seeded,
-                           queue_weights=bool(seeded and action == 0.7),
-                           reward_kernel=float(kr),
-                           reward_plain=float(pr), reward_rel_err=rel,
-                           queues_max_abs_err=q_err,
-                           finite=bool(torch.isfinite(kq).all()))
-                c_ok = (rel <= 1e-5 and q_err <= 1e-4 and rec["finite"] and
-                        tuple(kq.shape) == (plan.T,))
-                for gname, a, b in zip(("action", "r0", "y0"), kg, pg):
-                    pad_zero = gname == "action" or \
-                        float(a[pad].abs().max()) == 0.0
-                    a, b = a.double().flatten(), b.double().flatten()
-                    scale = float(b.abs().max())
-                    err = float((a - b).abs().max())
-                    bwd_err = max(bwd_err, err)
-                    g = dict(cos=cosine(a, b), max_abs_err=err,
-                             max_abs_ref=scale, padded_zero=pad_zero,
-                             finite=bool(torch.isfinite(a).all()))
-                    g["ok"] = (g["finite"] and scale > 0 and pad_zero and
-                               g["cos"] > 0.999 and
-                               bool(torch.allclose(a, b, rtol=2e-2,
-                                                   atol=2e-3 * scale)))
-                    rec[f"grad_{gname}"] = g
-                    c_ok = c_ok and g["ok"]
-                checks.append(dict(rec, ok=c_ok))
-                ok = ok and c_ok
+        for key, (scene, action, seeded, ins, w) in cases.items():
+            if scene != name:
+                continue
+            kr, kq = k4.macro_episode_fwd(plan, *ins)
+            kg = k4.macro_episode_bwd(plan, w, *ins)
+            (pr, pq, *pg), (ms_fwd, ms_bwd) = plain[key]
+            kr, kq, kg = kr.cpu(), kq.cpu(), [g.cpu() for g in kg]
+            t_fwd.append(ms_fwd)
+            t_bwd.append(ms_bwd)
+            rel = abs(float(kr) - float(pr)) / abs(float(pr))
+            q_err = float((kq - pq).abs().max())
+            fwd_err = max(fwd_err, q_err, abs(float(kr) - float(pr)))
+            rec = dict(scene=name, action=action, seeded=seeded,
+                       queue_weights=bool(seeded and action == 0.7),
+                       reward_kernel=float(kr),
+                       reward_plain=float(pr), reward_rel_err=rel,
+                       queues_max_abs_err=q_err,
+                       finite=bool(torch.isfinite(kq).all()))
+            c_ok = (rel <= 1e-5 and q_err <= 1e-4 and rec["finite"] and
+                    tuple(kq.shape) == (plan.T,))
+            for gname, a, b in zip(("action", "r0", "y0"), kg, pg):
+                pad_zero = gname == "action" or \
+                    float(a[pad].abs().max()) == 0.0
+                a, b = a.double().flatten(), b.double().flatten()
+                scale = float(b.abs().max())
+                err = float((a - b).abs().max())
+                bwd_err = max(bwd_err, err)
+                g = dict(cos=cosine(a, b), max_abs_err=err,
+                         max_abs_ref=scale, padded_zero=pad_zero,
+                         finite=bool(torch.isfinite(a).all()))
+                g["ok"] = (g["finite"] and scale > 0 and pad_zero and
+                           g["cos"] > 0.999 and
+                           bool(torch.allclose(a, b, rtol=2e-2,
+                                               atol=2e-3 * scale)))
+                rec[f"grad_{gname}"] = g
+                c_ok = c_ok and g["ok"]
+            checks.append(dict(rec, ok=c_ok))
+            ok = ok and c_ok
         plain_ms[name] = dict(fwd=float(np.median(t_fwd)),
                               bwd=float(np.median(t_bwd)))
     report(checks=checks, plain_ms=plain_ms,
@@ -1802,10 +1840,10 @@ def k1_batch_weights(B: int, T: int, dev):
         -1.0, 1.0, (B, T)), dtype=torch.float32, device=dev)
 
 
-# K1's plain episodes run in the gloo ranks of both groups (PLAIN_WORKERS
-# processes; job i goes to worker i % PLAIN_WORKERS), on the card, while
-# this process goes on with the phases that follow; each job is one
-# episode's forward or backward
+# K1's and K4's plain episodes run in the gloo ranks of both groups
+# (PLAIN_WORKERS processes; job i goes to worker i % PLAIN_WORKERS), on the
+# card, while this process goes on with the phases that follow; each job is
+# one episode's forward or backward
 PLAIN_WORKERS = SHARDS + 2
 _rank_envs = {}
 
@@ -1814,12 +1852,13 @@ def k1_plain_job(gate_mode, differentiable: bool, inputs, w=None) -> dict:
     """One episode of K1's plain version for a rank: the preset's plan in
     ``gate_mode`` (None: the preset's own), the inputs, the backward's loss
     weights ``[T]`` (None: the forward)."""
-    return dict(gate_mode=gate_mode, differentiable=differentiable,
+    return dict(kind="k1", gate_mode=gate_mode,
+                differentiable=differentiable,
                 inputs=tuple(x.cpu() for x in inputs),
                 w=None if w is None else w.cpu())
 
 
-def _k1_plain_rank(rank, S, jobs, first):
+def _plain_rank(rank, S, jobs, first):
     """This rank's jobs (worker ``first + rank``) on the card: each one's
     outputs on the CPU and its ms, by job index."""
     import torch
@@ -1831,6 +1870,14 @@ def _k1_plain_rank(rank, S, jobs, first):
     dev, out = torch.device("cuda"), {}
     for i, job in enumerate(jobs):
         if i % PLAIN_WORKERS != first + rank:
+            continue
+        if job["kind"] == "k4":
+            key = ("k4", job["scene"])
+            if key not in _rank_envs:
+                _rank_envs[key] = k4_scene(K4_SCENES[job["scene"]], dev)
+            out[i] = k4_plain_run(_rank_envs[key][1].plan,
+                                  [x.to(dev) for x in job["inputs"]],
+                                  job["w"].to(dev))
             continue
         mode = job["gate_mode"]
         if mode not in _rank_envs:
@@ -1855,19 +1902,19 @@ def _k1_plain_rank(rank, S, jobs, first):
     return out
 
 
-def submit_k1_plain(ranks: dict, jobs: dict):
-    """Start ``jobs`` (name -> :func:`k1_plain_job`, the longest first) in
-    the ranks of ``ranks`` (S -> LocalRanks); :func:`collect_k1_plain`
-    waits for them."""
+def submit_plain(ranks: dict, jobs: dict):
+    """Start ``jobs`` (name -> :func:`k1_plain_job` or :func:`k4_plain_job`,
+    the longest first) in the ranks of ``ranks`` (S -> LocalRanks);
+    :func:`collect_plain` waits for them."""
     first, calls = 0, []
     for S, r in sorted(ranks.items(), reverse=True):
-        calls.append((r, r.submit(_k1_plain_rank, (list(jobs.values()),
-                                                   first))))
+        calls.append((r, r.submit(_plain_rank, (list(jobs.values()),
+                                                first))))
         first += S
     return list(jobs), calls
 
 
-def collect_k1_plain(submitted) -> dict:
+def collect_plain(submitted) -> dict:
     """The jobs' results, name -> (outputs, ms)."""
     names, calls = submitted
     out = {}
@@ -1880,7 +1927,7 @@ def collect_k1_plain(submitted) -> dict:
 def check_k1_batch_plain(env, ins, w, plain) -> dict:
     """``k1_batch_vs_plain``: one launch of the K1_BATCH scenarios, hard
     and soft forward and the backward, against the plain version's
-    episodes from the ranks (``plain``, :func:`collect_k1_plain`), with the
+    episodes from the ranks (``plain``, :func:`collect_plain`), with the
     single launches' tolerances; returns each launch's largest abs error
     and the plain version's ms (its episodes' sum); raises on a failure."""
     import torch
@@ -2240,10 +2287,10 @@ def main() -> int:
         kfn.launches.update(dict.fromkeys(kfn.launches, 0))
         kfn_bwd.launches = 0
 
-    # ---- 3. K1's plain episodes, submitted to the gloo ranks: they run
-    # on the card while this process goes on, and phases 3-5 and
-    # k1_batch_vs_plain hold the kernels against them after slice 3
-    phase("k1_plain_submit")
+    # ---- 3. K1's and K4's plain episodes, submitted to the gloo ranks:
+    # they run on the card while this process goes on, and phases 3-5,
+    # k1_batch_vs_plain and k4_vs_plain hold the kernels against them
+    phase("plain_submit")
     env = ItscpEnv(config=dict(PRESET, random_seed=3),
                    schedule_fn=problem.problem_1, device=dev)
     env.reset()
@@ -2294,8 +2341,13 @@ def main() -> int:
                                               k1_row(bplan, bins, e))
         jobs[f"batch_fwd_soft_{e}"] = k1_plain_job(None, True,
                                                    k1_row(bplan, bins, e))
+    # slice 5's all-macro scenes and K4's check cases
+    k4_scenes = {name: k4_scene(cfg, dev) for name, cfg in K4_SCENES.items()}
+    k4_checks = k4_cases(k4_scenes)
+    for key, (scene, _, _, ins, kw) in k4_checks.items():
+        jobs[key] = k4_plain_job(scene, ins, kw)
     t_plain = time.perf_counter()
-    plain_calls = submit_k1_plain(shard_ranks, jobs)
+    plain_calls = submit_plain(shard_ranks, jobs)
     report(jobs=len(jobs), workers=PLAIN_WORKERS)
 
     # ---- 4. serve: the main path, through the user's entry points
@@ -2391,7 +2443,7 @@ def main() -> int:
     # ---- 3-5. K1 against its plain version, same inputs, on the card
     phase("k1_vs_plain")
     t0 = time.perf_counter()
-    plain_out = collect_k1_plain(plain_calls)
+    plain_out = collect_plain(plain_calls)
     plain_wait_s = time.perf_counter() - t0
     plain_wall_s = time.perf_counter() - t_plain
     checks, plain_hard_ms = [], []
@@ -2510,8 +2562,7 @@ def main() -> int:
     # ---- 16-20. slice 5: the all-macro episode through K4
     t_slice5 = time.perf_counter()
     phase("k4_vs_plain")
-    k4_scenes = {name: k4_scene(cfg, dev) for name, cfg in K4_SCENES.items()}
-    k4_check = check_k4_plain(k4_scenes)
+    k4_check = check_k4_plain(k4_scenes, k4_checks, plain_out)
     phase("k4_vs_scan")
     check_k4_scan(*k4_scenes["macro_preset"])
     phase("k4_vs_k1")
