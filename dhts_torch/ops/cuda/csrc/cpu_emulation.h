@@ -66,7 +66,8 @@ inline int block_threads = 0;
 inline int current = 0;            // the running fiber
 inline Wait* waits = nullptr;      // [threads]
 inline char* parity = nullptr;     // [threads] the slot of its next shuffle
-inline uint64_t* slots = nullptr;  // [warps][2][32] shuffled values
+constexpr int SLOT_WORDS = 4;     // a shuffled value: up to 32 bytes
+inline uint64_t* slots = nullptr;  // [warps][2][32][SLOT_WORDS] values
 
 inline void fiber_entry() {
   body(body_arg);
@@ -96,19 +97,21 @@ inline void named_sync(int id, int count) {
 }
 inline void named_arrive(int id, int count) { named_reach(id, count); }
 
-// one exchange round: the value of lane `src` of this fiber's warp
+// one exchange round: the value of lane `src` of this fiber's warp (a
+// scalar, or a plain struct of up to 32 bytes, which a kernel's CUDA build
+// shuffles word by word)
 template <class T>
 T exchange(T v, int src) {
-  static_assert(sizeof(T) <= sizeof(uint64_t), "shuffle of a wide type");
+  static_assert(sizeof(T) <= SLOT_WORDS * sizeof(uint64_t),
+                "shuffle of a wide type");
   const int lane = current % 32;
-  uint64_t* slot = slots + size_t(current / 32) * 64 + 32 * parity[current];
+  uint64_t* slot = slots + (size_t(current / 32) * 64 +
+                            32 * parity[current]) * SLOT_WORDS;
   parity[current] ^= 1;
-  uint64_t bits = 0;
-  std::memcpy(&bits, &v, sizeof(T));
-  slot[lane] = bits;
+  std::memcpy(slot + lane * SLOT_WORDS, &v, sizeof(T));
   sync_warp();
   T out;
-  std::memcpy(&out, &slot[src], sizeof(T));
+  std::memcpy(&out, slot + src * SLOT_WORDS, sizeof(T));
   return out;
 }
 
@@ -152,7 +155,7 @@ void launch(int blocks, int threads, size_t smem, Kernel kernel,
   std::vector<Wait> wait(threads);
   std::vector<char> par(threads);
   std::vector<char> nid(threads);
-  std::vector<uint64_t> slot(size_t(warps) * 64);
+  std::vector<uint64_t> slot(size_t(warps) * 64 * SLOT_WORDS);
   auto call = [&] { kernel(args...); };
   using Call = decltype(call);
   body = [](void* p) { (*static_cast<Call*>(p))(); };

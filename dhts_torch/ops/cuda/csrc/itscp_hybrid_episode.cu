@@ -55,17 +55,16 @@
 //                takes slot t % 2 once the lanes arrive at its FULL
 //                barrier and reduces it while they run step t + 1: the
 //                queue in lane order (float32, or dual numbers whose two
-//                halves each add in lane order), the event counts and the
-//                wave's maximum, by its first thread; it frees the slot
-//                (EMPTY) for step t + 2, whose first barrier waits for
-//                that. The
+//                halves each add in lane order) by its first thread, the
+//                event counts and the wave's maximum (exact in any order)
+//                by a shuffle tree; it frees the slot (EMPTY) for step
+//                t + 2, whose first barrier waits for that. The
 //                running means (float64 partial sums, rounded once, like
 //                the plain version's dhts_torch/utils/rms.py) fold each
-//                warp's terms by a fixed pairwise tree (a shuffle-down
-//                fold's pairing, taken by the warp's first thread) and the
-//                warps' sums in warp order, one barrier each, every lane
-//                thread taking the same mean: deterministic, so a batch
-//                equals single launches bit for bit.
+//                warp's terms by a fixed shuffle tree and the warps' sums
+//                in warp order, one barrier each, every lane thread taking
+//                the same mean: deterministic, so a batch equals single
+//                launches bit for bit.
 //   inputs       each step's rows of the schedule, the draws and the macro
 //                routes are loaded a step ahead.
 // The per-lane phases are in itscp_step.cuh, shared with the fused spatial
@@ -105,12 +104,15 @@
 // few MB, so it is bound by that chain, far above the bytes / 3.35 TB/s
 // floor.
 
+#include <cstring>
+
 #include "itscp_step.cuh"
 
 namespace {
 
 constexpr int NEV = 7;  // integer event rows
 constexpr int WARP = 32;
+constexpr unsigned FULL_MASK = 0xffffffffu;
 // named barriers (0 is __syncthreads): the lane threads' barrier inside a
 // step, and per step parity the records' FULL (the lanes arrive, the
 // reduction warp waits) and EMPTY (the reduction warp arrives, the lanes
@@ -227,8 +229,8 @@ struct Smem {
   S *rec_q;          // [2, L] each lane's q^2, by step parity
   float *rec_wave;   // [2, L] its largest wave speed
   int *rec_ev;       // [2, L] its event bits (bit e: event row e)
-  double *red_sum;   // [2 L] a running mean's terms per lane (the blend's
-  int *red_cnt;      // at l; the static mean's cells at l, vehicles L + l)
+  double *red_sum;   // [2 L] the static mean's partial sums per lane
+  int *red_cnt;      // [2 L] and counts
   double *part_sum;  // [PARTS, MAX_WARPS] the warps' sums of a mean
   int *part_cnt;     // [PARTS, MAX_WARPS] and counts
   int *rid, *ridx, *count, *inj_left, *cursor;
@@ -265,49 +267,50 @@ __host__ __device__ inline size_t smem_bytes(const Dims& d, Smem<S>* s,
   return off;
 }
 
-// bit k of a warp's thread index reversed (5 bits)
-__host__ __device__ constexpr int bitrev5(int k) {
-  return ((k & 1) << 4) | ((k & 2) << 2) | (k & 4) | ((k & 8) >> 2) |
-         ((k & 16) >> 4);
+// A shuffle down (by `o` lanes) of every 32-bit word of a plain struct:
+// one exchange round in the host build, one SHFL a word on the card.
+template <class T>
+__device__ __forceinline__ T shfl_down_words(T v, int o) {
+#ifdef DHTS_CPU_EMULATION
+  return __shfl_down_sync(FULL_MASK, v, o);
+#else
+  static_assert(sizeof(T) % 4 == 0, "a struct of 32-bit words");
+  unsigned w[sizeof(T) / 4];
+  memcpy(w, &v, sizeof(T));
+#pragma unroll
+  for (int i = 0; i < (int)(sizeof(T) / 4); ++i)
+    w[i] = __shfl_down_sync(FULL_MASK, w[i], o);
+  memcpy(&v, w, sizeof(T));
+  return v;
+#endif
 }
 
-// The sum of a warp's terms x[lanes[i]] (and counts n[lanes[i]]; 0 for a
-// padding thread, lanes[i] < 0) over its N threads from k on, taken in
-// bit-reversed thread order by adjacent pairs: the tree of a shuffle-down
-// fold (thread i with i + 16, then i + 8, ...) in one thread's registers,
-// its depth at most five partial sums.
-template <int N>
-struct PairTree {
-  __device__ static void sum(const double* x, const int* n,
-                             const int* lanes, int k, double& xs, int& ns) {
-    double x2;
-    int n2;
-    PairTree<N / 2>::sum(x, n, lanes, k, xs, ns);
-    PairTree<N / 2>::sum(x, n, lanes, k + N / 2, x2, n2);
-    xs = xs + x2;
-    ns = ns + n2;
-  }
-};
-template <>
-struct PairTree<1> {
-  __device__ static void sum(const double* x, const int* n, const int* lanes,
-                             int k, double& xs, int& ns) {
-    const int l = lanes[bitrev5(k)];
-    xs = l >= 0 ? x[l] : 0.0;
-    ns = l >= 0 ? n[l] : 0;
-  }
+// K running means' terms of one thread: float64 sums and counts
+template <int K>
+struct Terms {
+  double x[K];
+  int n[K];
 };
 
-// A warp's part of a running mean: once its threads have written their
-// lanes' terms x[l] and counts n[l] (__syncwarp), its first thread sums
-// them by a fixed tree (PairTree) into ps[w], pc[w]. The order is fixed,
-// so every launch folds the same way.
-__device__ __forceinline__ void warp_part(const double* x, const int* n,
-                                          const int* lanes, double* ps,
-                                          int* pc, int w) {
-  __syncwarp();
-  if (threadIdx.x % WARP == 0) PairTree<WARP>::sum(x, n, lanes, 0, ps[w],
-                                                   pc[w]);
+// The warp's sums of its threads' terms by a fixed shuffle tree (offsets
+// 16, 8, 4, 2, 1), written by its first thread to ps/pc[k * MAX_WARPS +
+// w] for each mean k. The order is fixed, so every launch folds the same
+// way.
+template <int K>
+__device__ __forceinline__ void warp_part(Terms<K> v, double* ps, int* pc,
+                                          int w) {
+  for (int o = WARP / 2; o > 0; o >>= 1) {
+    const Terms<K> u = shfl_down_words(v, o);
+    for (int k = 0; k < K; ++k) {
+      v.x[k] += u.x[k];
+      v.n[k] += u.n[k];
+    }
+  }
+  if (threadIdx.x % WARP == 0)
+    for (int k = 0; k < K; ++k) {
+      ps[k * MAX_WARPS + w] = v.x[k];
+      pc[k * MAX_WARPS + w] = v.n[k];
+    }
 }
 
 // Every lane thread folds the nw warps' partial sums, in warp order, into
@@ -327,11 +330,17 @@ __device__ __forceinline__ float fold_parts(const double* ps, const int* pc,
   return cnt > 0.0f ? sum / fmaxf(cnt, 1.0f) : 1.0f;
 }
 
+// a step's event counts and largest wave speed (the reduction warp)
+struct Events {
+  int cnt[NEV];
+  float wave;
+};
+
 // The reduction warp: for each step, once the lanes' records of it are in
-// (FULL), its first thread takes the queue sum_l q^2 * dt in lane order
+// (FULL), the queue sum_l q^2 * dt in lane order by its first thread
 // (float32, or dual numbers whose value and tangent are each added in lane
-// order), the seven event counts and the largest wave speed, then the warp
-// frees the records' slot for the step two on (EMPTY). The lanes go on
+// order), the seven event counts and the largest wave speed by the warp,
+// then it frees the records' slot for the step two on (EMPTY). The lanes go on
 // meanwhile. Writes queues[t] and events[t, 8] (the forward) and, at the
 // end, the reward or the gradient sum_t w[t] * d(queue_t)/d(action_j).
 template <class S>
@@ -355,6 +364,21 @@ __device__ void reduce_steps(const Smem<S>& s, const Dims& d,
     const S* rq = s.rec_q + slot * L;
     const float* rw = s.rec_wave + slot * L;
     const int* re = s.rec_ev + slot * L;
+    // the event counts (integer sums) and the largest wave speed, exact in
+    // any order: each thread takes every 32nd lane, then a shuffle tree
+    Events ev{};
+    if (out_queues) {
+      for (int j = wl; j < L; j += WARP) {
+        const int bits = re[j];
+        for (int e = 0; e < NEV; ++e) ev.cnt[e] += (bits >> e) & 1;
+        ev.wave = fmaxf(ev.wave, rw[j]);
+      }
+      for (int o = WARP / 2; o > 0; o >>= 1) {
+        const Events u = shfl_down_words(ev, o);
+        for (int e = 0; e < NEV; ++e) ev.cnt[e] += u.cnt[e];
+        ev.wave = fmaxf(ev.wave, u.wave);
+      }
+    }
     if (wl == 0) {
       S qs = 0.0f;
       for (int j = 0; j < L; ++j) qs = qs + rq[j];
@@ -362,14 +386,8 @@ __device__ void reduce_steps(const Smem<S>& s, const Dims& d,
       qsum += val(queue);
       if (q_weight) grad += (double)q_weight[t] * (double)tangent(queue);
       if (out_queues) {
-        int cnt[NEV];
-        for (int e = 0; e < NEV; ++e) cnt[e] = 0;
-        float wave = 0.0f;
-        for (int j = 0; j < L; ++j) {
-          const int bits = re[j];
-          for (int e = 0; e < NEV; ++e) cnt[e] += (bits >> e) & 1;
-          wave = fmaxf(wave, rw[j]);
-        }
+        const int* cnt = ev.cnt;
+        const float wave = ev.wave;
         out_queues[t] = val(queue);
         for (int e = 0; e < NEV; ++e) out_events[t * 8 + e] = (float)cnt[e];
         out_events[t * 8 + 7] = wave;
@@ -420,7 +438,6 @@ __global__ void itscp_hybrid_episode_kernel(
   const bool reducer = (int)threadIdx.x >= NT;
   const int l = reducer ? -1 : thread_lane[threadIdx.x];
   const int warp = threadIdx.x / WARP, n_warps = NT / WARP;
-  const int* warp_lanes = thread_lane + warp * WARP;  // this warp's lanes
   const int seed = kBatch ? blockIdx.x % ep.blocks : blockIdx.x;
   if (kBatch) {
     // this block's episode
@@ -593,11 +610,7 @@ __global__ void itscp_hybrid_episode_kernel(
       // running mean of the blended signal; its detached mean sharpens
       // the blend gate (env boundary_and_step, signal_ms). The walk's
       // reads end at this barrier, before any lane writes its state.
-      if (lane) {
-        s.red_sum[l] = blend ? (double)val(fsig) : 0.0;
-        s.red_cnt[l] = blend ? 1 : 0;
-      }
-      warp_part(s.red_sum, s.red_cnt, warp_lanes,
+      warp_part(Terms<1>{{blend ? (double)val(fsig) : 0.0}, {blend ? 1 : 0}},
                 s.part_sum + PART_BLEND * MAX_WARPS,
                 s.part_cnt + PART_BLEND * MAX_WARPS, warp);
       CONVERGE();
@@ -669,14 +682,14 @@ __global__ void itscp_hybrid_episode_kernel(
     if (mode != HARD) {
       // running mean of (static_speed - speed) over macro cells, then over
       // micro vehicles; its detached mean sharpens the queue gates
-      if (lane) static_partials<S>(st, s, g, L, l, n_after, k, u_cells);
-      warp_part(s.red_sum, s.red_cnt, warp_lanes,
-                s.part_sum + PART_CELLS * MAX_WARPS,
+      Terms<2> terms{{0.0, 0.0}, {0, 0}};  // cells, vehicles
+      if (lane) {
+        static_partials<S>(st, s, g, L, l, n_after, k, u_cells);
+        terms = Terms<2>{{s.red_sum[l], s.red_sum[L + l]},
+                         {s.red_cnt[l], s.red_cnt[L + l]}};
+      }
+      warp_part(terms, s.part_sum + PART_CELLS * MAX_WARPS,
                 s.part_cnt + PART_CELLS * MAX_WARPS, warp);
-      if (threadIdx.x % WARP == 0)
-        PairTree<WARP>::sum(s.red_sum + L, s.red_cnt + L, warp_lanes, 0,
-                            s.part_sum[PART_VEHS * MAX_WARPS + warp],
-                            s.part_cnt[PART_VEHS * MAX_WARPS + warp]);
       CONVERGE();
       bar_sync(BAR_LANES, NT);
       K1_STAMP(K1_C3);

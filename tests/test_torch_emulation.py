@@ -14,7 +14,9 @@ through shared memory after ``__syncthreads()`` and ``__syncwarp()``;
 ``clock64()`` does not run backwards. A third hands values from two
 producer warps to a consumer warp through a two-slot ring guarded by
 named barriers (``bar_sync`` / ``bar_arrive``, as K1's reduction warp
-takes the lanes' records), for longer than the ring.
+takes the lanes' records), for longer than the ring. A fourth shuffles a
+32-byte struct down in one exchange round (K1's folds shuffle their terms
+so, word by word on the card).
 """
 
 import ctypes
@@ -97,6 +99,20 @@ __global__ void ring(Args a) {
   }
 }
 
+// a struct of 32 bytes shuffled down by `arg` lanes in one exchange round
+struct Wide {
+  double a;
+  int c[4];
+  float d, e;
+};
+__global__ void wide(Args a) {
+  const int i = threadIdx.x, k = blockIdx.x * a.n + i;
+  const Wide w{(double)a.in[k], {k, 2 * k, 3 * k, 4 * k}, 0.5f, 0.25f};
+  const Wide r = __shfl_down_sync(0xffffffffu, w, a.arg);
+  a.out1[k] = (float)r.a;
+  a.out2[k] = (float)(r.c[0] + r.c[3]) + r.d + r.e;
+}
+
 extern "C" int run(int kernel, const float* in, float* out1, float* out2,
                    int op, int arg, int width, int n, int blocks,
                    long long* clocks) {
@@ -105,8 +121,10 @@ extern "C" int run(int kernel, const float* in, float* out1, float* out2,
     dhts_emu::launch(blocks, n, 0, shuffles, a);
   else if (kernel == 1)
     dhts_emu::launch(blocks, n, 64, warps_apart, a);
-  else
+  else if (kernel == 2)
     dhts_emu::launch(blocks, n + 32, 2 * n * sizeof(float), ring, a);
+  else
+    dhts_emu::launch(blocks, n, 0, wide, a);
   return 0;
 }
 """
@@ -204,3 +222,17 @@ def test_named_barriers_hand_a_ring_over(lib):
         None, :, None]
     want = (np.float32(0) + v[..., :32]) + v[..., 32:]
     np.testing.assert_array_equal(out, want.reshape(-1))
+
+
+@pytest.mark.parametrize("delta", [1, 4, 16])
+def test_a_struct_shuffles_down_as_its_fields(lib, delta):
+    x = np.random.default_rng(delta).standard_normal(N * BLOCKS).astype(
+        np.float32)
+    out1, out2, _ = call(lib, 3, x, 0, delta, 32)
+    k = np.arange(N * BLOCKS, dtype=np.float32)
+    want_x = np.concatenate([model(b, "down", delta, 32)
+                             for b in x.reshape(BLOCKS, N)])
+    want_k = np.concatenate([model(b, "down", delta, 32)
+                             for b in k.reshape(BLOCKS, N)])
+    np.testing.assert_array_equal(out1, want_x)
+    np.testing.assert_array_equal(out2, 5 * want_k + np.float32(0.75))
