@@ -15,28 +15,106 @@
 // forward agrees with it bit for bit. The six per-vehicle parameters are
 // shared by the batch, as in the JAX kernel.
 //
-// Design. One thread block per scenario and one thread per vehicle; the
-// platoon lives in shared memory, double-buffered, so each step has one
-// barrier. The JAX kernel's padding (vehicles to 8 sublanes, the batch to
-// 128 lanes, frozen padding rows) is not carried over. The forward keeps no
-// trajectory.
+// Design, V <= 32 (the inverse benchmark's V = 10). Forward: one warp per
+// scenario; lane v holds vehicle v's position, speed and constants in
+// registers and gets its leader's state by __shfl_down_sync. Lanes past
+// the platoon repeat its head, so that they take the head's path and no
+// other; the head's deltas are a select. The time loop has no shared
+// memory and no barrier. Given a trajectory buffer (the wrapper allocates
+// one only when autograd will need it) the forward writes every step's
+// state into it, [B, T, 2, V]: the JAX kernel's residuals (traj_p, traj_v).
+// Backward: the JAX kernel's reverse sweep, one warp per scenario. Lane v
+// carries the cotangents of vehicle v's position and speed from t = T back
+// to 0; at step t it recomputes the step from the saved state (the same
+// float operations, so the same collisions, gap floors, spacing clips and
+// acceleration floors), takes the new speed's partial derivatives by hand
+// and pulls the cotangents back, its leader's share by __shfl_up_sync. A
+// speed the acceleration floor stopped passes no gradient, a tie of a max
+// splits it 0.5 / 0.5 and a collision zeroes both deltas' partials, as
+// autograd of the plain version does. Only the short cotangent update is
+// carried from step to step: a step's rows are loaded a step ahead. Without
+// a saved trajectory (micro_rollout_bwd's own calls) the same launch first
+// replays the forward into a scratch trajectory the wrapper allocates.
 //
-// Backward: forward-mode tangents, as K1's and K2's. Block (b, j) runs
-// scenario b on dual numbers (dhts_scalar.cuh) whose tangent seeds entry j
-// of 2V (pos0[b, 0..V), vel0[b, 0..V)) and writes
+// Divisions. On an H100 the step's four IEEE divisions took 58 % of the
+// forward's stamped step and 75 % of the Dual one's (python -m
+// dhts_torch.ops.cuda.k3_clock); a zero dividend sends a division to its
+// slow path, about 100 cycles more: the head's 0 / idm_den at every step
+// (its speed delta is 0 at the benchmark), 0 / tgt and -0 / dt for a
+// stopped vehicle, and one lane on the slow path holds its warp. The warp
+// kernels divide with div_ieee: a zero dividend over a finite nonzero
+// divisor gives a * b, the zero the IEEE quotient is (its sign the XOR of
+// the operands' signs), while the division runs on 1; every other quotient
+// is the division's own. No division by a constant is replaced by a
+// product: that is not correctly rounded for every dividend.
+//
+// Above one warp (V > 32) the PR 6 kernels stay: one block per scenario,
+// one thread per vehicle, the platoon double-buffered in shared memory
+// with one barrier a step; and the backward in forward mode, block (b, j)
+// running scenario b on dual numbers (dhts_scalar.cuh) whose tangent seeds
+// entry j of 2V (pos0[b, 0..V), vel0[b, 0..V)), writing
 //     g_in[b, j] = sum_v g_pT[b, v] d posT[b, v]/d in_j
 //                        + g_vT[b, v] d velT[b, v]/d in_j.
-// A speed stopped by the acceleration floor gets a zero tangent
-// (idm_step), as the plain version detaches it.
+// The launchers choose by V; launch_micro_rollout_fwd_smem and
+// launch_micro_rollout_bwd run those kernels at any V.
 //
-// Bound. Inputs and outputs are a few floats per vehicle, so the floor is
-// the T V B IDM updates' float32 operations; the kernel is latency-bound
-// instead: T dependent steps, each a chain of about 25 operations with
-// three divisions and one barrier, in one warp per scenario.
+// Bound. Inputs and outputs are a few floats per vehicle (the trajectory
+// 8 T V bytes a scenario), so the floor is the T V B IDM updates' float32
+// operations; the kernels are latency-bound instead: T dependent steps,
+// each a chain of about 25 operations with two divisions on it, in one
+// warp per scenario.
 
 #include "dhts_scalar.cuh"
 
+// Cycle stamps: built with -DDHTS_STEP_CLOCK (python -m
+// dhts_torch.ops.cuda.k3_clock), every thread adds up the clock64() cycles
+// of each part of its steps, and thread 0 of block 0 writes its sums to
+// the launch's `cycles`. A part ends when its last value is ready: the mark
+// first stores that value to a volatile sink, which waits for it, and then
+// reads the clock. Parts 0-9 are a forward step's (PR 6's kernel stamps
+// its step through idm_step_marked, a copy of idm_step with the marks),
+// 10-13 a reverse step's. Without the macro the stamps compile to nothing
+// and PR 6's kernel is its unstamped text.
+#ifdef DHTS_STEP_CLOCK
+constexpr int CLOCK_PARTS = 14;
+__device__ float clock_sink_value;
+struct Clock {
+  long long t, c[CLOCK_PARTS];
+  __device__ void start() {
+    for (int k = 0; k < CLOCK_PARTS; ++k) c[k] = 0;
+    t = clock64();
+  }
+  __device__ __forceinline__ void sink(float x) {
+    *(volatile float*)&clock_sink_value = x;
+  }
+  __device__ __forceinline__ void sink(Dual x) {
+    sink(x.v);
+    sink(x.d);
+  }
+  __device__ __forceinline__ void mark(int k) {
+    const long long now = clock64();
+    c[k] += now - t;
+    t = now;
+  }
+  __device__ void save(long long* out) const {
+    if (out && blockIdx.x == 0 && threadIdx.x == 0)
+      for (int k = 0; k < CLOCK_PARTS; ++k) out[k] = c[k];
+  }
+};
+#else
+struct Clock {
+  __device__ void start() {}
+  template <class S>
+  __device__ __forceinline__ void sink(const S&) {}
+  __device__ __forceinline__ void mark(int) {}
+  __device__ void save(long long*) const {}
+};
+#endif
+
 namespace {
+
+constexpr unsigned FULL = 0xffffffffu;
+constexpr int WARP_VEHICLES = 32;  // the most vehicles of the warp kernels
 
 template <class S>
 __device__ __forceinline__ S seeded(float x, bool) {
@@ -56,7 +134,50 @@ struct Args {
   float* g_in;                 // backward output [B, 2V]
   int T, V;
   float head_pd, head_sd, dt;
+#ifdef DHTS_STEP_CLOCK
+  long long* cycles;           // [CLOCK_PARTS] of block 0, thread 0
+#endif
 };
+
+#ifdef DHTS_STEP_CLOCK
+// idm_step (dhts_scalar.cuh) op for op, closing parts 2-8 of the step: 2
+// the collision, the gap's floor and (sp sdel) / idm_den; 3 the spacing's
+// sum and clip; 4 sp / tgt; 5 os / pdel; 6 the acceleration; 7 -sp / dt; 8
+// the floor's max and the Euler update
+template <class S>
+__device__ __forceinline__ void idm_step_marked(
+    S p, S sp, S pdel, S sdel, float amax, float tgt, float min_space,
+    float time_pref, float idm_den, float dt, S& new_p, S& new_v,
+    Clock& clk) {
+  if (val(pdel) < 0.0f) { pdel = 0.0f; sdel = 0.0f; }
+  pdel = vmax(pdel, S(EPS));
+  const S sds = (sp * sdel) / S(idm_den);
+  clk.sink(sds);
+  clk.mark(2);
+  const S os = vmax((S(min_space) + sp * S(time_pref)) + sds, S(0.0f));
+  clk.sink(os);
+  clk.mark(3);
+  const S q = sp / S(tgt);
+  clk.sink(q);
+  clk.mark(4);
+  const S q2 = q * q;
+  const S z = os / pdel;
+  clk.sink(z);
+  clk.mark(5);
+  const S acc_raw = S(amax) * ((S(1.0f) - q2 * q2) - z * z);
+  clk.sink(acc_raw);
+  clk.mark(6);
+  const S acc_floor = -sp / S(dt);
+  clk.sink(acc_floor);
+  clk.mark(7);
+  const S acc = vmax(acc_raw, acc_floor);
+  new_p = p + S(dt) * sp;
+  const S nv = sp + S(dt) * acc;
+  new_v = val(acc_raw) < val(acc_floor) ? detached(nv) : nv;
+  clk.sink(new_v);
+  clk.mark(8);
+}
+#endif
 
 // Dynamic shared memory: positions and speeds [2][V] as S (two buffers).
 template <class S>
@@ -64,6 +185,8 @@ __host__ __device__ inline size_t smem_bytes(int V) {
   return sizeof(S) * (size_t)(4 * V);
 }
 
+// PR 6's kernel: one block per scenario (forward) or per scenario and
+// seeded entry (Dual backward), one thread per vehicle.
 template <class S>
 __global__ void micro_rollout_kernel(Args a) {
   DHTS_DYNAMIC_SMEM(smem_raw);
@@ -95,6 +218,41 @@ __global__ void micro_rollout_kernel(Args a) {
   __syncthreads();
 
   int cur = 0;
+#ifdef DHTS_STEP_CLOCK
+  Clock clk;
+  clk.start();
+  for (int t = 0; t < a.T; ++t) {
+    if (veh) {
+      const S p = pos[cur * V + v], sp = vel[cur * V + v];
+      S pdel, sdel;
+      if (v == V - 1) {
+        pdel = S(a.head_pd);
+        sdel = S(a.head_sd);
+      } else {
+        const S lp = pos[cur * V + v + 1], ls = vel[cur * V + v + 1];
+        clk.sink(p);
+        clk.sink(sp);
+        clk.sink(lp);
+        clk.sink(ls);
+        clk.mark(0);  // the neighbour exchange: shared-memory loads
+        pdel = vabs(lp - p) - S(half_len);
+        sdel = sp - ls;
+      }
+      clk.sink(pdel);
+      clk.sink(sdel);
+      clk.mark(1);  // the gap and the speed difference
+      S np_, nv_;
+      idm_step_marked(p, sp, pdel, sdel, amax, tgt, min_space, time_pref,
+                      idm_den, a.dt, np_, nv_, clk);
+      pos[(1 - cur) * V + v] = np_;
+      vel[(1 - cur) * V + v] = nv_;
+    }
+    cur = 1 - cur;
+    __syncthreads();
+    clk.mark(9);  // the stores and the barrier
+  }
+  clk.save(a.cycles);
+#else
   for (int t = 0; t < a.T; ++t) {
     if (veh) {
       const S p = pos[cur * V + v], sp = vel[cur * V + v];
@@ -115,6 +273,7 @@ __global__ void micro_rollout_kernel(Args a) {
     cur = 1 - cur;
     __syncthreads();
   }
+#endif
 
   if (!bwd) {
     if (veh) {
@@ -146,23 +305,348 @@ int launch(int blocks, const Args& a, void* stream) {
 #endif
 }
 
+// ---------------------------------------------------------------------------
+// the warp kernels (V <= 32)
+// ---------------------------------------------------------------------------
+
+struct WarpArgs {
+  const float *pos0, *vel0;
+  const float* params;         // [6, V], as Args
+  float *posT, *velT;          // forward outputs
+  const float *g_pT, *g_vT;    // backward cotangents
+  float* g_in;                 // backward output [B, 2V]
+  float* traj;                 // [B, T, 2, V] or null (forward)
+  int T, V;
+  float head_pd, head_sd, dt;
+  long long* cycles;           // DHTS_STEP_CLOCK: [CLOCK_PARTS]
+};
+
+// a / b, IEEE-rounded (see the note at the top): a zero dividend over a
+// finite nonzero divisor is the zero a * b, and the division runs on 1
+__device__ __forceinline__ float div_ieee(float a, float b) {
+  const bool zero = a == 0.0f && b != 0.0f && fabsf(b) < INFINITY;
+  const float q = (zero ? 1.0f : a) / b;
+  return zero ? a * b : q;
+}
+
+// vehicle i's constants
+struct Vehicle {
+  float amax, tgt, min_space, time_pref, idm_den, half_len;
+  __device__ Vehicle(const float* params, int V, int i) {
+    amax = params[0 * V + i];
+    const float apref = params[1 * V + i];
+    tgt = params[2 * V + i];
+    min_space = params[3 * V + i];
+    time_pref = params[4 * V + i];
+    const float len = params[5 * V + i];
+    const float lead_len = i + 1 < V ? params[5 * V + i + 1] : 0.0f;
+    idm_den = 2.0f * sqrtf(amax * apref);
+    half_len = (lead_len + len) * 0.5f;
+  }
+};
+
+// A step's values: idm_step's operations in its order, its divisions by
+// div_ieee, with what the reverse sweep differentiates.
+struct Step {
+  float pdel, sdel;  // after the collision's zeroing; pdel after its floor
+  bool collided, floored;
+  float sds, os, q, z, acc_raw, acc_floor, new_p, new_v;
+};
+
+// One step of a vehicle from its gap `pdel` and speed difference `sdel`;
+// the stamps close parts 2-8 as idm_step_marked's
+__device__ __forceinline__ Step step_of(float p, float sp, float pdel,
+                                        float sdel, const Vehicle& c,
+                                        float dt, Clock& clk) {
+  Step s;
+  s.collided = pdel < 0.0f;
+  s.pdel = fmaxf(s.collided ? 0.0f : pdel, EPS);
+  s.sdel = s.collided ? 0.0f : sdel;
+  s.sds = div_ieee(sp * s.sdel, c.idm_den);
+  clk.sink(s.sds);
+  clk.mark(2);
+  s.os = fmaxf((c.min_space + sp * c.time_pref) + s.sds, 0.0f);
+  clk.sink(s.os);
+  clk.mark(3);
+  s.q = div_ieee(sp, c.tgt);
+  clk.sink(s.q);
+  clk.mark(4);
+  const float q2 = s.q * s.q;
+  s.z = div_ieee(s.os, s.pdel);
+  clk.sink(s.z);
+  clk.mark(5);
+  s.acc_raw = c.amax * ((1.0f - q2 * q2) - s.z * s.z);
+  clk.sink(s.acc_raw);
+  clk.mark(6);
+  s.acc_floor = div_ieee(-sp, dt);
+  clk.sink(s.acc_floor);
+  clk.mark(7);
+  const float acc = fmaxf(s.acc_raw, s.acc_floor);
+  s.new_p = p + dt * sp;
+  s.new_v = sp + dt * acc;
+  s.floored = s.acc_raw < s.acc_floor;
+  clk.sink(s.new_v);
+  clk.mark(8);
+  return s;
+}
+
+// The gap and speed difference of lane `head` or of a follower, from the
+// leader's state (lp, ls): a select, not a branch
+__device__ __forceinline__ void deltas(float p, float sp, float lp, float ls,
+                                       bool head, const Vehicle& c,
+                                       const WarpArgs& a, float& pdel,
+                                       float& sdel) {
+  pdel = head ? a.head_pd : fabsf(lp - p) - c.half_len;
+  sdel = head ? a.head_sd : sp - ls;
+}
+
+// T forward steps of the warp's platoon from (p, sp); with kSave, lanes
+// below V write the state before each step to traj[t][0 / 1][lane]
+template <bool kSave>
+__device__ __forceinline__ void forward_steps(const WarpArgs& a,
+                                              const Vehicle& c, bool head,
+                                              float& p, float& sp,
+                                              float* traj, Clock& clk) {
+  const int V = a.V, lane = threadIdx.x;
+  for (int t = 0; t < a.T; ++t) {
+    if (kSave && lane < V) {
+      traj[(2 * t) * V + lane] = p;
+      traj[(2 * t + 1) * V + lane] = sp;
+    }
+    clk.mark(9);  // the trajectory's stores
+    const float lp = __shfl_down_sync(FULL, p, 1);
+    const float ls = __shfl_down_sync(FULL, sp, 1);
+    clk.sink(lp);
+    clk.sink(ls);
+    clk.mark(0);  // the neighbour exchange: two shuffles
+    float pdel, sdel;
+    deltas(p, sp, lp, ls, head, c, a, pdel, sdel);
+    clk.sink(pdel);
+    clk.sink(sdel);
+    clk.mark(1);  // the gap and the speed difference
+    const Step s = step_of(p, sp, pdel, sdel, c, a.dt, clk);
+    p = s.new_p;
+    sp = s.new_v;
+  }
+}
+
+// One warp per scenario; lane v is vehicle min(v, V - 1).
+template <bool kSave>
+__global__ void micro_rollout_warp(WarpArgs a) {
+  const int V = a.V, b = blockIdx.x, lane = threadIdx.x;
+  const int i = min(lane, V - 1);
+  const Vehicle c(a.params, V, i);
+  float p = a.pos0[b * V + i], sp = a.vel0[b * V + i];
+  Clock clk;
+  clk.start();
+  forward_steps<kSave>(a, c, i == V - 1, p, sp,
+                       a.traj + (size_t)b * a.T * 2 * V, clk);
+  clk.save(a.cycles);
+  if (lane < V) {
+    a.posT[b * V + lane] = p;
+    a.velT[b * V + lane] = sp;
+  }
+}
+
+// d new_v / d (own position, own speed, leader's position, leader's speed)
+struct Partials {
+  float p, sp, lp, ls;
+};
+
+// 1 above, 0 below, 0.5 at a tie: the share of max(x, y)'s gradient x gets
+__device__ __forceinline__ float max_share(float x, float y) {
+  return x > y ? 1.0f : (x < y ? 0.0f : 0.5f);
+}
+
+// The step's partials, from its recomputed values (autograd of the plain
+// step: a floored speed passes nothing, ties split, a collision or the
+// head's constant deltas pass nothing to the gap and speed difference)
+__device__ __forceinline__ Partials partials_of(const Step& s, float sp,
+                                                float gap_sign, bool head,
+                                                float pdel_raw,
+                                                const Vehicle& c, float dt,
+                                                float inv_dt, float inv_tgt,
+                                                float inv_den) {
+  const bool live = !s.floored;
+  const float w_raw = max_share(s.acc_raw, s.acc_floor);
+  const float c_raw = live ? dt * w_raw : 0.0f;  // d new_v / d acc_raw
+  const float c_flr = live ? dt * (1.0f - w_raw) : 0.0f;
+  const float os_raw = (c.min_space + sp * c.time_pref) + s.sds;
+  const float m_os = max_share(os_raw, 0.0f);
+  const bool deltas_live = !head && !s.collided;
+  const float m_pd = deltas_live ? max_share(pdel_raw, EPS) : 0.0f;
+  const float m_sd = deltas_live ? 1.0f : 0.0f;
+  const float inv_pdel = 1.0f / s.pdel;
+  const float k_z = c_raw * (-2.0f * c.amax * s.z);  // d new_v / d z
+  const float k_os = k_z * inv_pdel * m_os;           // ... / d os_raw
+  const float k_pd = -(k_z * s.z * inv_pdel) * m_pd;  // ... / d pdel_raw
+  const float k_sd = k_os * sp * inv_den * m_sd;      // ... / d sdel_raw
+  const float q2 = s.q * s.q;
+  Partials d;
+  d.sp = ((live ? 1.0f : 0.0f) - c_flr * inv_dt) +
+         c_raw * (-4.0f * c.amax * q2 * s.q) * inv_tgt +
+         k_os * (c.time_pref + s.sdel * inv_den) + k_sd;
+  d.ls = -k_sd;
+  d.p = -gap_sign * k_pd;
+  d.lp = gap_sign * k_pd;
+  return d;
+}
+
+// The reverse sweep, one warp per scenario (lane v is vehicle min(v, V -
+// 1)); kReplay: replay the forward into traj first.
+template <bool kReplay>
+__global__ void micro_rollout_reverse(WarpArgs a) {
+  const int V = a.V, T = a.T, b = blockIdx.x, lane = threadIdx.x;
+  const int i = min(lane, V - 1), li = min(i + 1, V - 1);
+  const bool head = i == V - 1;
+  const Vehicle c(a.params, V, i);
+  const float* traj = a.traj + (size_t)b * T * 2 * V;
+  Clock clk;
+  clk.start();
+  if (kReplay) {
+    float p = a.pos0[b * V + i], sp = a.vel0[b * V + i];
+    forward_steps<true>(a, c, head, p, sp, a.traj + (size_t)b * T * 2 * V,
+                        clk);
+    __syncwarp();
+  }
+  const float dt = a.dt, inv_dt = 1.0f / dt, inv_tgt = 1.0f / c.tgt;
+  const float inv_den = 1.0f / c.idm_den;
+  float gp = a.g_pT[b * V + i], gv = a.g_vT[b * V + i];
+  // own and leader's position and speed of step t, a step ahead
+  float np_ = 0.0f, nsp = 0.0f, nlp = 0.0f, nls = 0.0f;
+  if (T > 0) {
+    const float* row = traj + (size_t)(T - 1) * 2 * V;
+    np_ = row[i];
+    nsp = row[V + i];
+    nlp = row[li];
+    nls = row[V + li];
+  }
+#pragma unroll 2
+  for (int t = T - 1; t >= 0; --t) {
+    const float p = np_, sp = nsp, lp = nlp, ls = nls;
+    if (t > 0) {
+      const float* row = traj + (size_t)(t - 1) * 2 * V;
+      np_ = row[i];
+      nsp = row[V + i];
+      nlp = row[li];
+      nls = row[V + li];
+    }
+    clk.sink(p);
+    clk.sink(sp);
+    clk.sink(lp);
+    clk.sink(ls);
+    clk.mark(10);  // the step's rows
+    float pdel, sdel;
+    deltas(p, sp, lp, ls, head, c, a, pdel, sdel);
+    Clock quiet;  // the recomputed step's own parts are not stamped
+    const Step s = step_of(p, sp, pdel, sdel, c, dt, quiet);
+    clk.sink(s.new_v);
+    clk.mark(11);  // the step recomputed
+    const float gap = lp - p;
+    const float sign = gap > 0.0f ? 1.0f : (gap < 0.0f ? -1.0f : 0.0f);
+    const Partials d = partials_of(s, sp, sign, head, pdel, c, dt, inv_dt,
+                                   inv_tgt, inv_den);
+    clk.sink(d.p);
+    clk.sink(d.sp);
+    clk.sink(d.lp);
+    clk.sink(d.ls);
+    clk.mark(12);  // the partials
+    // the follower's (lane - 1's) share of this vehicle's cotangents
+    float fp = __shfl_up_sync(FULL, gv * d.lp, 1);
+    float fv = __shfl_up_sync(FULL, gv * d.ls, 1);
+    if (lane == 0) fp = fv = 0.0f;
+    const float gp_new = (gp + gv * d.p) + fp;
+    gv = (gp * dt + gv * d.sp) + fv;
+    gp = gp_new;
+    clk.sink(gp);
+    clk.sink(gv);
+    clk.mark(13);  // the cotangents' update
+  }
+  clk.save(a.cycles);
+  if (lane < V) {
+    a.g_in[b * 2 * V + lane] = gp;
+    a.g_in[b * 2 * V + V + lane] = gv;
+  }
+}
+
+template <class A>
+int launch_warp(void (*kernel)(A), int B, const A& a, void* stream) {
+#ifdef DHTS_CPU_EMULATION
+  (void)stream;
+  dhts_emu::launch(B, WARP_VEHICLES, 0, kernel, a);
+  return 0;
+#else
+  kernel<<<B, WARP_VEHICLES, 0, (cudaStream_t)stream>>>(a);
+  return (int)cudaGetLastError();
+#endif
+}
+
+bool warp_sizes_ok(int B, int T, int V) {
+  return B >= 1 && T >= 0 && V >= 1 && V <= WARP_VEHICLES;
+}
+
+// the warp forward; saves the trajectory if traj is not null
+int launch_forward_warp(int B, const WarpArgs& a, void* stream) {
+  if (!warp_sizes_ok(B, a.T, a.V)) return 1;
+  return a.traj ? launch_warp(micro_rollout_warp<true>, B, a, stream)
+                : launch_warp(micro_rollout_warp<false>, B, a, stream);
+}
+
+// the reverse sweep over a saved trajectory, or (replay) over the
+// trajectory it first writes there
+int launch_reverse(int B, const WarpArgs& a, void* stream, bool replay) {
+  if (!warp_sizes_ok(B, a.T, a.V) || (a.T > 0 && !a.traj)) return 1;
+  return replay ? launch_warp(micro_rollout_reverse<true>, B, a, stream)
+                : launch_warp(micro_rollout_reverse<false>, B, a, stream);
+}
+
 }  // namespace
 
 extern "C" {
 
-// Forward: B platoons of V vehicles, T steps; posT, velT [B, V]. Returns
+// Forward: B platoons of V vehicles, T steps; posT, velT [B, V]; the warp
+// kernel for V <= 32, the shared-memory one above. Returns
 // cudaGetLastError() of the launch (1 for invalid sizes).
 int launch_micro_rollout_fwd(const float* pos0, const float* vel0,
                              const float* params, float* posT, float* velT,
                              int B, int T, int V, float head_pd,
                              float head_sd, float dt, void* stream) {
+  if (V <= WARP_VEHICLES) {
+    const WarpArgs w{pos0, vel0, params, posT, velT, nullptr, nullptr,
+                     nullptr, nullptr, T, V, head_pd, head_sd, dt, nullptr};
+    return launch_forward_warp(B, w, stream);
+  }
   const Args a{pos0, vel0, params, posT, velT, nullptr, nullptr, nullptr,
                T, V, head_pd, head_sd, dt};
   return launch<float>(B, a, stream);
 }
 
-// Backward: g_in[B, 2V] = the cotangents (g_pT, g_vT [B, V]) pulled back to
-// (pos0, vel0), one block per (b, entry).
+// The warp forward (V <= 32) that also writes each step's state to traj
+// [B, T, 2, V] (positions, then speeds), unless traj is null.
+int launch_micro_rollout_fwd_save(const float* pos0, const float* vel0,
+                                  const float* params, float* posT,
+                                  float* velT, float* traj, int B, int T,
+                                  int V, float head_pd, float head_sd,
+                                  float dt, void* stream) {
+  const WarpArgs w{pos0, vel0, params, posT, velT, nullptr, nullptr,
+                   nullptr, traj, T, V, head_pd, head_sd, dt, nullptr};
+  return launch_forward_warp(B, w, stream);
+}
+
+// The forward through the shared-memory kernel at any V.
+int launch_micro_rollout_fwd_smem(const float* pos0, const float* vel0,
+                                  const float* params, float* posT,
+                                  float* velT, int B, int T, int V,
+                                  float head_pd, float head_sd, float dt,
+                                  void* stream) {
+  const Args a{pos0, vel0, params, posT, velT, nullptr, nullptr, nullptr,
+               T, V, head_pd, head_sd, dt};
+  return launch<float>(B, a, stream);
+}
+
+// Backward in forward mode at any V (the launcher above one warp):
+// g_in[B, 2V] = the cotangents (g_pT, g_vT [B, V]) pulled back to (pos0,
+// vel0), one Dual block per (b, entry).
 int launch_micro_rollout_bwd(const float* pos0, const float* vel0,
                              const float* params, const float* g_pT,
                              const float* g_vT, float* g_in, int B, int T,
@@ -172,5 +656,73 @@ int launch_micro_rollout_bwd(const float* pos0, const float* vel0,
                T, V, head_pd, head_sd, dt};
   return launch<Dual>(B * 2 * V, a, stream);
 }
+
+// Backward by the reverse sweep (V <= 32) over the trajectory
+// launch_micro_rollout_fwd_save wrote for the same inputs; g_in as above.
+int launch_micro_rollout_bwd_saved(const float* pos0, const float* vel0,
+                                   const float* params, const float* g_pT,
+                                   const float* g_vT, float* g_in,
+                                   float* traj, int B, int T, int V,
+                                   float head_pd, float head_sd, float dt,
+                                   void* stream) {
+  const WarpArgs w{pos0, vel0, params, nullptr, nullptr, g_pT, g_vT, g_in,
+                   traj, T, V, head_pd, head_sd, dt, nullptr};
+  return launch_reverse(B, w, stream, false);
+}
+
+// The same after replaying the forward into `scratch` [B, T, 2, V], in the
+// same launch: the backward without a saved trajectory.
+int launch_micro_rollout_bwd_replay(const float* pos0, const float* vel0,
+                                    const float* params, const float* g_pT,
+                                    const float* g_vT, float* g_in,
+                                    float* scratch, int B, int T, int V,
+                                    float head_pd, float head_sd, float dt,
+                                    void* stream) {
+  const WarpArgs w{pos0, vel0, params, nullptr, nullptr, g_pT, g_vT, g_in,
+                   scratch, T, V, head_pd, head_sd, dt, nullptr};
+  return launch_reverse(B, w, stream, true);
+}
+
+#ifdef DHTS_STEP_CLOCK
+// The forward (kernel 0: the shared-memory kernel; 1: the warp kernel,
+// saving into traj unless it is null) and the backward (kernel 0: the Dual
+// blocks; 1: the reverse sweep over traj; 2: the same after replaying into
+// traj) with the steps' cycle stamps of block 0, thread 0 in
+// cycles[CLOCK_PARTS]; 1 for an unknown kernel or invalid sizes.
+int launch_micro_rollout_fwd_clock(const float* pos0, const float* vel0,
+                                   const float* params, float* posT,
+                                   float* velT, float* traj, int B, int T,
+                                   int V, float head_pd, float head_sd,
+                                   float dt, void* stream, int kernel,
+                                   long long* cycles) {
+  if (kernel == 1) {
+    const WarpArgs w{pos0, vel0, params, posT, velT, nullptr, nullptr,
+                     nullptr, traj, T, V, head_pd, head_sd, dt, cycles};
+    return launch_forward_warp(B, w, stream);
+  }
+  Args a{pos0, vel0, params, posT, velT, nullptr, nullptr, nullptr,
+         T, V, head_pd, head_sd, dt};
+  a.cycles = cycles;
+  return kernel == 0 ? launch<float>(B, a, stream) : 1;
+}
+
+int launch_micro_rollout_bwd_clock(const float* pos0, const float* vel0,
+                                   const float* params, const float* g_pT,
+                                   const float* g_vT, float* g_in,
+                                   float* traj, int B, int T, int V,
+                                   float head_pd, float head_sd, float dt,
+                                   void* stream, int kernel,
+                                   long long* cycles) {
+  if (kernel == 1 || kernel == 2) {
+    const WarpArgs w{pos0, vel0, params, nullptr, nullptr, g_pT, g_vT,
+                     g_in, traj, T, V, head_pd, head_sd, dt, cycles};
+    return launch_reverse(B, w, stream, kernel == 2);
+  }
+  Args a{pos0, vel0, params, nullptr, nullptr, g_pT, g_vT, g_in,
+         T, V, head_pd, head_sd, dt};
+  a.cycles = cycles;
+  return kernel == 0 ? launch<Dual>(B * 2 * V, a, stream) : 1;
+}
+#endif
 
 }  // extern "C"

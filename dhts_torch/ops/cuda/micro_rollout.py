@@ -10,7 +10,11 @@ per-vehicle parameters ``[V]`` are shared by the batch.
   wrappers: on CUDA tensors each launches the hand-written kernel of
   ``csrc/micro_rollout.cu`` and counts the launch in its ``launches``, on
   CPU tensors each calls its plain version; there is no fallback from the
-  card to the plain version.
+  card to the plain version. Up to :data:`WARP_VEHICLES` vehicles the
+  kernels run a platoon in one warp: the forward can save the trajectory
+  ``[B, T, 2, V]`` (``trajectory=True``) and the backward is a reverse
+  sweep over it, or over one the same launch replays first; wider platoons
+  take PR 6's shared-memory forward and forward-mode backward.
 * :func:`plain_micro_rollout` is the plain PyTorch version of the forward,
   :func:`dhts_torch.models.lane.micro_rollout` with every slot active, and
   the kernel's specification, op for op; :func:`plain_micro_rollout_bwd` is
@@ -21,7 +25,8 @@ per-vehicle parameters ``[V]`` are shared by the batch.
   JAX factory's signature, plus the device): ``fn(pos0, vel0) -> (posT,
   velT)``, differentiable in both.
 * :func:`floor_hits` counts the vehicle-steps where the acceleration floor
-  binds, a diagnostic of the plain version.
+  binds, a diagnostic of the plain version; :func:`plain_micro_trajectory`
+  is the plain version of the saved trajectory.
 """
 
 from __future__ import annotations
@@ -41,6 +46,7 @@ from dhts_torch.ops.cuda import _launch
 SOURCE = "dhts_torch/ops/cuda/csrc/micro_rollout.cu"
 REPLACES_FWD = "dhts/ops/pallas/micro_rollout.py:123"
 REPLACES_BWD = "dhts/ops/pallas/micro_rollout.py:152"
+WARP_VEHICLES = 32  # the most vehicles of the warp kernels
 # rows of MicroConsts.params, the order the kernel reads them in
 PARAM_ROWS = ("accel_max", "accel_pref", "target_speed", "min_space",
               "time_pref", "length")
@@ -101,43 +107,76 @@ def plain_micro_rollout_bwd(consts: MicroConsts, pos0, vel0, g_pT, g_vT):
         return torch.autograd.grad((pT, vT), ins, (g_pT, g_vT))
 
 
-def floor_hits(consts: MicroConsts, pos0, vel0) -> torch.Tensor:
-    """Vehicle-steps ``[B]`` of the plain rollout in which the acceleration
-    floor ``-speed / dt`` binds (the vehicle stops)."""
+def _plain_steps(consts: MicroConsts, pos0, vel0):
+    """The plain version's steps: ``(position, speed, result)`` of each,
+    the state before the step and its :func:`idm.micro_lane_step`."""
     p = consts.vehicle_params()
     active = torch.ones(pos0.shape[-1:], dtype=torch.bool,
                         device=pos0.device)
     pos, vel = pos0, vel0
+    for _ in range(consts.num_steps):
+        res = idm.micro_lane_step(
+            pos, vel, p.accel_max, p.accel_pref, p.target_speed,
+            p.min_space, p.time_pref, p.length, consts.head_position_delta,
+            consts.head_speed_delta, active, consts.delta_time)
+        yield pos, vel, res
+        pos, vel = res.position, res.speed
+
+
+def floor_hits(consts: MicroConsts, pos0, vel0) -> torch.Tensor:
+    """Vehicle-steps ``[B]`` of the plain rollout in which the acceleration
+    floor ``-speed / dt`` binds (the vehicle stops)."""
     hits = torch.zeros(pos0.shape[:-1], dtype=torch.int64,
                        device=pos0.device)
     with torch.no_grad():
-        for _ in range(consts.num_steps):
-            res = idm.micro_lane_step(
-                pos, vel, p.accel_max, p.accel_pref, p.target_speed,
-                p.min_space, p.time_pref, p.length,
-                consts.head_position_delta, consts.head_speed_delta, active,
-                consts.delta_time)
+        for _, vel, res in _plain_steps(consts, pos0, vel0):
             floor = arz.div(-vel, consts.delta_time)
             hits += (res.acceleration == floor).sum(-1)
-            pos, vel = res.position, res.speed
     return hits
 
 
-# forward: pos0, vel0, params, posT, velT; backward: pos0, vel0, params,
-# g_pT, g_vT, g_in; then B, T, V, three constants, the stream
+def plain_micro_trajectory(consts: MicroConsts, pos0, vel0) -> torch.Tensor:
+    """Plain version of the saved trajectory: ``[B, T, 2, V]``, the
+    positions and speeds before each step."""
+    B, V = pos0.shape
+    with torch.no_grad():
+        rows = [torch.stack((pos, vel), 1)
+                for pos, vel, _ in _plain_steps(consts, pos0, vel0)]
+    if not rows:
+        return pos0.new_empty((B, 0, 2, V))
+    return torch.stack(rows, 1)
+
+
+# each launcher's pointers (pos0, vel0, params, then the forward's posT,
+# velT or the backward's g_pT, g_vT, g_in, then a trajectory), then B, T,
+# V, three constants, the stream
 _TAIL = [ctypes.c_int] * 3 + [ctypes.c_float] * 3 + [ctypes.c_void_p]
-_FWD_ARGS = [ctypes.c_void_p] * 5 + _TAIL
-_BWD_ARGS = [ctypes.c_void_p] * 6 + _TAIL
+LAUNCHERS = {"launch_micro_rollout_fwd": 5,
+             "launch_micro_rollout_fwd_save": 6,
+             "launch_micro_rollout_fwd_smem": 5,
+             "launch_micro_rollout_bwd": 6,
+             "launch_micro_rollout_bwd_saved": 7,
+             "launch_micro_rollout_bwd_replay": 7}
 
 
 def bind(lib: ctypes.CDLL) -> ctypes.CDLL:
     """Declare the launchers' C signatures on a loaded library (the card's
-    build or the host build of the same source)."""
-    for fn, types in ((lib.launch_micro_rollout_fwd, _FWD_ARGS),
-                      (lib.launch_micro_rollout_bwd, _BWD_ARGS)):
-        fn.argtypes = types
-        fn.restype = ctypes.c_int
+    build or the host build of the same source); a launcher the library
+    lacks (an older tree's) is left out."""
+    for name, n_ptr in LAUNCHERS.items():
+        if hasattr(lib, name):
+            fn = getattr(lib, name)
+            fn.argtypes = [ctypes.c_void_p] * n_ptr + _TAIL
+            fn.restype = ctypes.c_int
     return lib
+
+
+def launch_checked(lib, name: str, consts, tensors, B: int, V: int,
+                   stream) -> None:
+    """Call launcher ``name`` of ``lib`` on ``tensors`` (see
+    :func:`kernel_args`) and raise on its error."""
+    _launch.raise_on(getattr(lib, name)(*kernel_args(consts, tensors, B, V,
+                                                     stream)), name)
 
 
 def _library() -> ctypes.CDLL:
@@ -153,9 +192,10 @@ def kernel_args(consts: MicroConsts, tensors, B: int, V: int,
                 stream) -> tuple:
     """A launcher's arguments: ``tensors`` (``pos0, vel0``, then the
     forward's two outputs or the backward's two cotangents and its
-    gradient) as pointers, with the parameters after the inputs, then the
-    sizes and the constants."""
-    ptrs = [ctypes.c_void_p(x.data_ptr()) for x in
+    gradient, then the trajectory where the launcher takes one; None for a
+    null pointer) as pointers, with the parameters after the inputs, then
+    the sizes and the constants."""
+    ptrs = [ctypes.c_void_p(None if x is None else x.data_ptr()) for x in
             (*tensors[:2], consts.params, *tensors[2:])]
     return (*ptrs, B, int(consts.num_steps), V, *consts.kernel_floats(),
             ctypes.c_void_p(stream))
@@ -173,35 +213,64 @@ def _check_inputs(consts: MicroConsts, pos0, vel0):
     return dev, B, V
 
 
-def micro_rollout_fwd(consts: MicroConsts, pos0, vel0):
-    """``(posT[B, V], velT[B, V])`` of ``consts.num_steps`` steps, without a
-    graph for autograd (that is :class:`MicroRolloutFunction`).
+def _check_trajectory(traj, B: int, T: int, V: int, dev):
+    _launch.check("traj", traj, (B, T, 2, V), torch.float32, dev)
 
-    CPU tensors go to :func:`plain_micro_rollout`; CUDA tensors launch the
-    kernel (one launch, one block per scenario, counted in ``launches``) or
-    raise.
+
+def micro_rollout_fwd(consts: MicroConsts, pos0, vel0,
+                      trajectory: bool = False):
+    """``(posT[B, V], velT[B, V])`` of ``consts.num_steps`` steps, without a
+    graph for autograd (that is :class:`MicroRolloutFunction`);
+    ``trajectory``: also the trajectory ``[B, T, 2, V]`` for
+    :func:`micro_rollout_bwd`, or None above :data:`WARP_VEHICLES`
+    vehicles, whose backward reads none.
+
+    CPU tensors go to :func:`plain_micro_rollout` (and
+    :func:`plain_micro_trajectory`); CUDA tensors launch the kernel (one
+    launch, one warp per scenario up to 32 vehicles, else one block,
+    counted in ``launches``) or raise.
     """
+    B, V = pos0.shape[0], pos0.shape[-1]
+    save = trajectory and V <= WARP_VEHICLES
     if _launch.device_of(pos0).type == "cpu":
-        return plain_micro_rollout(consts, pos0, vel0)
+        out = plain_micro_rollout(consts, pos0, vel0)
+        if not trajectory:
+            return out
+        return (*out, plain_micro_trajectory(consts, pos0, vel0)
+                if save else None)
     dev, B, V = _check_inputs(consts, pos0, vel0)
     posT = torch.empty((B, V), dtype=torch.float32, device=dev)
     velT = torch.empty((B, V), dtype=torch.float32, device=dev)
-    err = _library().launch_micro_rollout_fwd(*kernel_args(
-        consts, (pos0, vel0, posT, velT), B, V, _launch.stream(dev)))
+    lib, stream = _library(), _launch.stream(dev)
+    if save:
+        traj = torch.empty((B, consts.num_steps, 2, V), dtype=torch.float32,
+                           device=dev)
+        err = lib.launch_micro_rollout_fwd_save(*kernel_args(
+            consts, (pos0, vel0, posT, velT, traj), B, V, stream))
+    else:
+        traj = None
+        err = lib.launch_micro_rollout_fwd(*kernel_args(
+            consts, (pos0, vel0, posT, velT), B, V, stream))
     _launch.raise_on(err, "micro_rollout forward")
     micro_rollout_fwd.launches += 1
-    return posT, velT
+    return (posT, velT, traj) if trajectory else (posT, velT)
 
 
 micro_rollout_fwd.launches = 0
 
 
-def micro_rollout_bwd(consts: MicroConsts, pos0, vel0, g_pT, g_vT):
+def micro_rollout_bwd(consts: MicroConsts, pos0, vel0, g_pT, g_vT,
+                      traj=None):
     """The cotangents ``(g_pT, g_vT)`` of ``(posT, velT)`` pulled back to
-    ``(g_pos0[B, V], g_vel0[B, V])``.
+    ``(g_pos0[B, V], g_vel0[B, V])``; ``traj``: the trajectory
+    ``micro_rollout_fwd(..., trajectory=True)`` returned for these inputs.
 
-    CPU tensors go to :func:`plain_micro_rollout_bwd`; CUDA tensors launch
-    the backward kernel (one launch, ``2 B V`` blocks) or raise.
+    CPU tensors go to :func:`plain_micro_rollout_bwd`. CUDA tensors launch
+    one kernel (counted in ``launches``) or raise: up to
+    :data:`WARP_VEHICLES` vehicles the reverse sweep, one warp per scenario,
+    over ``traj`` or, without it, over a trajectory the launch replays
+    first into scratch; above, the forward-mode backward (``2 B V``
+    blocks), which reads no trajectory.
     """
     if _launch.device_of(pos0).type == "cpu":
         return plain_micro_rollout_bwd(consts, pos0, vel0, g_pT, g_vT)
@@ -209,8 +278,22 @@ def micro_rollout_bwd(consts: MicroConsts, pos0, vel0, g_pT, g_vT):
     _launch.check("g_pT", g_pT, (B, V), torch.float32, dev)
     _launch.check("g_vT", g_vT, (B, V), torch.float32, dev)
     g_in = torch.empty((B, 2 * V), dtype=torch.float32, device=dev)
-    err = _library().launch_micro_rollout_bwd(*kernel_args(
-        consts, (pos0, vel0, g_pT, g_vT, g_in), B, V, _launch.stream(dev)))
+    lib, stream, T = _library(), _launch.stream(dev), consts.num_steps
+    tensors = (pos0, vel0, g_pT, g_vT, g_in)
+    if V > WARP_VEHICLES:
+        if traj is not None:
+            raise ValueError(f"no trajectory is read above {WARP_VEHICLES} "
+                             f"vehicles (V = {V})")
+        err = lib.launch_micro_rollout_bwd(*kernel_args(
+            consts, tensors, B, V, stream))
+    elif traj is not None:
+        _check_trajectory(traj, B, T, V, dev)
+        err = lib.launch_micro_rollout_bwd_saved(*kernel_args(
+            consts, (*tensors, traj), B, V, stream))
+    else:
+        scratch = torch.empty((B, T, 2, V), dtype=torch.float32, device=dev)
+        err = lib.launch_micro_rollout_bwd_replay(*kernel_args(
+            consts, (*tensors, scratch), B, V, stream))
     _launch.raise_on(err, "micro_rollout backward")
     micro_rollout_bwd.launches += 1
     return g_in[:, :V], g_in[:, V:]
@@ -221,22 +304,26 @@ micro_rollout_bwd.launches = 0
 
 class MicroRolloutFunction(torch.autograd.Function):
     """``apply(pos0, vel0, consts) -> (posT, velT)`` with the backward of
-    :func:`micro_rollout_bwd`."""
+    :func:`micro_rollout_bwd`. On the card, when autograd will ask for a
+    gradient, the forward saves the trajectory the backward sweeps."""
 
     @staticmethod
     def forward(ctx, pos0, vel0, consts):
-        posT, velT = micro_rollout_fwd(consts, pos0, vel0)
+        save = pos0.is_cuda and any(ctx.needs_input_grad[:2])
+        posT, velT, traj = micro_rollout_fwd(consts, pos0, vel0,
+                                             trajectory=True) if save \
+            else (*micro_rollout_fwd(consts, pos0, vel0), None)
         ctx.consts = consts
-        ctx.save_for_backward(pos0, vel0)
+        ctx.save_for_backward(pos0, vel0, traj)
         return posT, velT
 
     @staticmethod
     def backward(ctx, g_pT, g_vT):
-        pos0, vel0 = ctx.saved_tensors
+        pos0, vel0, traj = ctx.saved_tensors
         zero = lambda g: torch.zeros_like(pos0) if g is None else \
             g.contiguous()
         g_p, g_v = micro_rollout_bwd(ctx.consts, pos0, vel0, zero(g_pT),
-                                     zero(g_vT))
+                                     zero(g_vT), traj=traj)
         return g_p, g_v, None
 
 
