@@ -57,7 +57,11 @@ phase prints one JSON line with its wall seconds:
                lane above one warp of cells)
 9. ``k3_vs_plain``  K3 at the micro defaults (V = 10, T = 500), B = 12, half
                the platoons dense: the same, atol 1e-5 * max|g|; prints the
-               acceleration-floor hits, which must be > 0
+               acceleration-floor hits, which must be > 0; the backward
+               replaying its trajectory, over the trajectory the forward
+               saved, and through ``MicroRolloutFunction``'s autograd (the
+               forward saves, the backward sweeps it); all of it again at
+               V = 40 (above one warp: PR 6's kernels)
 10. ``inverse``  MacroInverseProblem and MicroInverseProblem at the CLI
                defaults with the fused rollout, 1 trial, 100 episodes, all
                four methods: errors finite, GD's last end error below its
@@ -241,6 +245,7 @@ OPS_PER_VEHICLE = 30
 MACRO = dict(u_max=30.0, dt=0.01, dx=5.0, T=500, C=10)
 K2_WIDE_C = 40  # a lane above one warp of cells (K2's shared-memory kernel)
 MICRO = dict(u_max=30.0, dt=0.01, T=500, V=10)
+K3_WIDE_V = 40  # a platoon above one warp (K3's shared-memory kernels)
 INVERSE_EPISODES = 100
 ROLLOUT_BATCHES = (1, 12, 128)
 PRESET = dict(num_intersection=3, num_lane=1, lane_length=5, speed_limit=60,
@@ -345,7 +350,7 @@ def macro_inputs(B: int, seed: int, dev, C: int = MACRO["C"]):
     return (r0, y0, *ghosts)
 
 
-def micro_inputs(B: int, seed: int, dev):
+def micro_inputs(B: int, seed: int, dev, V: int = MICRO["V"]):
     """Seeded platoons of the micro benchmark (about four lengths apart,
     0.3-0.7 of the speed limit); from scenario B // 2 on, dense and slow
     platoons (gaps of -1 to 0.6 m, speeds under 3 m/s), where the
@@ -353,7 +358,7 @@ def micro_inputs(B: int, seed: int, dev):
     import torch
 
     rng = np.random.default_rng(seed)
-    V, u_max = MICRO["V"], MICRO["u_max"]
+    u_max = MICRO["u_max"]
     gap = 20.0 + rng.uniform(0, 10.0, (B, V))
     vel = (0.3 + 0.4 * rng.uniform(0, 1, (B, V))) * u_max
     dense = slice(B // 2, B)
@@ -436,48 +441,75 @@ def check_k2(dev) -> dict:
 
 def check_k3(dev) -> dict:
     """K3 forward and backward against the plain version at the micro
-    defaults, B = 12, half of the platoons dense; raises on a failed
-    check."""
+    defaults, B = 12, half of the platoons dense, and at V = 40 vehicles
+    (above one warp: the shared-memory kernels); the backward without a
+    trajectory, over the saved one, and through MicroRolloutFunction's
+    autograd; raises on a failed check."""
     import torch
 
     from dhts_torch.models.vehicle import default_params
     from dhts_torch.ops.cuda import micro_rollout as k3
 
-    B, V = 12, MICRO["V"]
-    consts = k3.micro_consts(default_params(MICRO["u_max"], (V,)), 1000.0,
-                             0.0, MICRO["dt"], MICRO["T"], dev)
-    inputs = micro_inputs(B, 14, dev)
-    out = k3.micro_rollout_fwd(consts, *inputs)
-    ref = k3.plain_micro_rollout(consts, *inputs)
-    hits = k3.floor_hits(consts, *inputs)
-    torch.cuda.synchronize()
-    fwd_err = max(float((a - b).abs().max()) for a, b in zip(out, ref))
-    fwd_ok = all(bool(torch.isfinite(a).all()) and
-                 bool(torch.allclose(a, b, rtol=1e-6, atol=1e-6))
-                 for a, b in zip(out, ref))
-    rng = np.random.default_rng(15)
-    cot = [torch.as_tensor(rng.normal(size=(B, V)), dtype=torch.float32,
-                           device=dev) for _ in range(2)]
-    got = k3.micro_rollout_bwd(consts, *inputs, *cot)
-    want = k3.plain_micro_rollout_bwd(consts, *inputs, *cot)
-    torch.cuda.synchronize()
-    grads, bwd_err, bwd_ok = {}, 0.0, True
-    for name, a, b in zip(("pos0", "vel0"), got, want):
-        err = float((a - b).abs().max())
-        bwd_err = max(bwd_err, err)
-        scale = float(b.abs().max())
-        rec = dict(max_abs_err=err, max_abs_ref=scale, cos=cosine(a, b),
-                   finite=bool(torch.isfinite(a).all()))
-        ok = (rec["finite"] and scale > 0 and rec["cos"] > 0.9999 and
-              bool(torch.allclose(a, b, rtol=5e-3, atol=1e-5 * scale)))
-        grads[name] = dict(rec, ok=ok)
-        bwd_ok = bwd_ok and ok
-    rec = dict(B=B, forward_max_abs_err=fwd_err, forward_ok=fwd_ok,
-               floor_hits=hits.tolist(), grads=grads,
+    B = 12
+    cases, fwd_err, bwd_err, ok = [], 0.0, 0.0, True
+    for V in (MICRO["V"], K3_WIDE_V):
+        params = default_params(MICRO["u_max"], (V,))
+        consts = k3.micro_consts(params, 1000.0, 0.0, MICRO["dt"],
+                                 MICRO["T"], dev)
+        inputs = micro_inputs(B, 14, dev, V)
+        out = k3.micro_rollout_fwd(consts, *inputs, trajectory=True)
+        ref = k3.plain_micro_rollout(consts, *inputs)
+        hits = k3.floor_hits(consts, *inputs)
+        torch.cuda.synchronize()
+        f_err = max(float((a - b).abs().max()) for a, b in zip(out, ref))
+        f_ok = all(bool(torch.isfinite(a).all()) and
+                   bool(torch.allclose(a, b, rtol=1e-6, atol=1e-6))
+                   for a, b in zip(out, ref))
+        traj = out[2]
+        traj_equal = None if traj is None else bool(torch.equal(
+            traj, k3.plain_micro_trajectory(consts, *inputs)))
+        f_ok = f_ok and traj_equal is not False
+        rng = np.random.default_rng(15)
+        cot = [torch.as_tensor(rng.normal(size=(B, V)), dtype=torch.float32,
+                               device=dev) for _ in range(2)]
+        want = k3.plain_micro_rollout_bwd(consts, *inputs, *cot)
+        fn = k3.make_fused_micro_rollout(MICRO["dt"], MICRO["T"], V, B,
+                                         params, 1000.0, 0.0, device=dev)
+        x = [t.clone().requires_grad_(True) for t in inputs]
+        torch.autograd.backward(fn(*x), cot)
+        routes = {"own_trajectory": k3.micro_rollout_bwd(consts, *inputs,
+                                                         *cot),
+                  "autograd": [t.grad for t in x]}
+        if traj is not None:
+            routes["saved_trajectory"] = k3.micro_rollout_bwd(
+                consts, *inputs, *cot, traj=traj)
+        torch.cuda.synchronize()
+        grads, b_err, b_ok = {}, 0.0, True
+        for route, got in routes.items():
+            for name, a, b in zip(("pos0", "vel0"), got, want):
+                err = float((a - b).abs().max())
+                b_err = max(b_err, err)
+                scale = float(b.abs().max())
+                rec = dict(max_abs_err=err, max_abs_ref=scale,
+                           cos=cosine(a, b),
+                           finite=bool(torch.isfinite(a).all()))
+                g_ok = (rec["finite"] and scale > 0 and rec["cos"] > 0.9999
+                        and bool(torch.allclose(a, b, rtol=5e-3,
+                                                atol=1e-5 * scale)))
+                grads[f"{route}.{name}"] = dict(rec, ok=g_ok)
+                b_ok = b_ok and g_ok
+        cases.append(dict(V=V, B=B, forward_max_abs_err=f_err,
+                          forward_bit_equal=all(bool(torch.equal(a, b))
+                                                for a, b in zip(out, ref)),
+                          trajectory_bit_equal=traj_equal, forward_ok=f_ok,
+                          floor_hits=hits.tolist(), grads=grads))
+        fwd_err, bwd_err = max(fwd_err, f_err), max(bwd_err, b_err)
+        ok = ok and f_ok and b_ok and int(hits.sum()) > 0
+    rec = dict(cases=cases,
                tolerance=dict(forward="allclose(rtol 1e-6, atol 1e-6)",
                               backward="cos > 0.9999, allclose(rtol 5e-3, "
                                        "atol 1e-5 * max|g_plain|)"))
-    if not (fwd_ok and bwd_ok and int(hits.sum()) > 0):
+    if not ok:
         report(**rec, status="FAIL")
         raise SystemExit("k3_vs_plain failed")
     report(**rec)
@@ -568,8 +600,11 @@ def time_rollouts(dev) -> dict:
     """K2 and K3 ms per launch, forward and backward, at B = 1, 12, 128
     (CUDA events, median of 5 runs of 20 back-to-back launches after two
     warm-up launches), each with its bound; the plain versions' ms at B = 1
-    (one run each). Timing launches are not the main path's: the counters
-    are restored."""
+    (one run each). K3's forward also saving the trajectory (``k3_fwd_save``,
+    a GD episode's), its backward over that trajectory (``k3_bwd``, the GD
+    episode's) and replaying its own (``k3_bwd_replay``); K3's ms are its
+    launchers' called directly, ``ms_wrapper`` the wrapper's calls. Timing
+    launches are not the main path's: the counters are restored."""
     import torch
 
     from dhts_torch.models.vehicle import default_params
@@ -583,34 +618,60 @@ def time_rollouts(dev) -> dict:
     saved = [(fn, fn.launches) for fn in (
         k2.macro_rollout_fwd, k2.macro_rollout_bwd, k3.micro_rollout_fwd,
         k3.micro_rollout_bwd)]
-    ms, bounds, plain = {}, {}, {}
+    ms, ms_wrapper, bounds, plain = {}, {}, {}, {}
     for B in ROLLOUT_BATCHES:
         mi = macro_inputs(B, 21, dev)
         ui = micro_inputs(B, 22, dev)
         mcot = [torch.ones((B, C), device=dev)] * 2
         ucot = [torch.ones((B, V), device=dev)] * 2
+        traj = k3.micro_rollout_fwd(uc, *ui, trajectory=True)[2]
         runs = {"k2_fwd": lambda: k2.macro_rollout_fwd(mc, *mi),
                 "k2_bwd": lambda: k2.macro_rollout_bwd(mc, *mi, *mcot),
                 "k3_fwd": lambda: k3.micro_rollout_fwd(uc, *ui),
-                "k3_bwd": lambda: k3.micro_rollout_bwd(uc, *ui, *ucot)}
+                "k3_fwd_save": lambda: k3.micro_rollout_fwd(
+                    uc, *ui, trajectory=True),
+                "k3_bwd": lambda: k3.micro_rollout_bwd(uc, *ui, *ucot,
+                                                       traj=traj),
+                "k3_bwd_replay": lambda: k3.micro_rollout_bwd(uc, *ui,
+                                                              *ucot)}
         for fn in runs.values():
             fn()
             fn()
         torch.cuda.synchronize()
         for name, fn in runs.items():
             ms.setdefault(name, {})[B] = cuda_ms(fn, 5, launches=20)
+        # K3's kernels alone: the wrapper's host time per call (above) is
+        # longer than the warp kernels, so back to back it would time the
+        # host; its launchers with their arguments made once
+        lib, stream = k3._library(), torch.cuda.current_stream().cuda_stream
+        out = [torch.empty((B, V), device=dev) for _ in range(2)]
+        g = torch.empty((B, 2 * V), device=dev)
+        scratch = torch.empty_like(traj)
+        direct = {"k3_fwd": ("fwd", (*ui, *out)),
+                  "k3_fwd_save": ("fwd_save", (*ui, *out, scratch)),
+                  "k3_bwd": ("bwd_saved", (*ui, *ucot, g, traj)),
+                  "k3_bwd_replay": ("bwd_replay", (*ui, *ucot, g, scratch))}
+        for name, (launcher, ts) in direct.items():
+            args = k3.kernel_args(uc, ts, B, V, stream)
+            fn = getattr(lib, f"launch_micro_rollout_{launcher}")
+            ms_wrapper.setdefault(name, {})[B] = ms[name][B]
+            ms[name][B] = cuda_ms(lambda: fn(*args), 5, launches=20)
         # bytes: each input read once, each output written once; ops: the
         # Riemann solves and cell updates (K2) or IDM updates (K3) of T
         # steps, 3x for a vector-Jacobian product
         k2_ops = T * B * ((C + 1) * OPS_PER_INTERFACE + C * OPS_PER_CELL)
         k3_ops = T * B * V * OPS_PER_VEHICLE
         k2_in, k3_in = (2 * C + 4) * B * 4, (2 * V * B + 6 * V) * 4
+        k3_traj = 2 * T * V * B * 4  # the saved trajectory
         work = {"k2_fwd": (k2_in + (2 * C + 1) * B * 4, k2_ops),
                 "k2_bwd": (k2_in + 2 * C * B * 4 + (2 * C + 4) * B * 4,
                            k2_ops * VJP_OPS_MULTIPLE),
                 "k3_fwd": (k3_in + 2 * V * B * 4, k3_ops),
-                "k3_bwd": (k3_in + 4 * V * B * 4,
-                           k3_ops * VJP_OPS_MULTIPLE)}
+                "k3_fwd_save": (k3_in + 2 * V * B * 4 + k3_traj, k3_ops),
+                "k3_bwd": (k3_in + 4 * V * B * 4 + k3_traj,
+                           k3_ops * VJP_OPS_MULTIPLE),
+                "k3_bwd_replay": (k3_in + 4 * V * B * 4,
+                                  k3_ops * VJP_OPS_MULTIPLE)}
         for name, (nbytes, nops) in work.items():
             bounds.setdefault(name, {})[B] = bound_of(nbytes, nops)
         if B == 1:
@@ -625,7 +686,7 @@ def time_rollouts(dev) -> dict:
         fn.launches = n
     ms_over_bound = {name: {B: ms[name][B] / bounds[name][B]["bound_ms"]
                             for B in ROLLOUT_BATCHES} for name in ms}
-    return dict(ms=ms, bounds=bounds, plain_ms=plain,
+    return dict(ms=ms, ms_wrapper=ms_wrapper, bounds=bounds, plain_ms=plain,
                 ms_over_bound=ms_over_bound)
 
 
@@ -2697,6 +2758,19 @@ def main() -> int:
             "bound_ms": b1["bound_ms"], "bound_by": b1["bound_by"],
             "library_ms": None, "batch": 1,
             "ms_by_batch": rollouts["ms"][key]})
+        if key in rollouts["ms_wrapper"]:
+            kernels[-1]["ms_wrapper"] = rollouts["ms_wrapper"][key][1]
+        # K3's other launches of the inverse path: the GD episodes'
+        # forward saves the trajectory; the backward without one (this
+        # script's checks) replays it first
+        tag, other = {"k3_fwd": ("save", "k3_fwd_save"),
+                      "k3_bwd": ("replay", "k3_bwd_replay")}.get(key,
+                                                                 (0, 0))
+        if other:
+            kernels[-1].update({
+                f"ms_{tag}": rollouts["ms"][other][1],
+                f"bound_ms_{tag}": rollouts["bounds"][other][1]["bound_ms"],
+                f"ms_{tag}_by_batch": rollouts["ms"][other]})
     # the STEP kernels at B = 1, the CLI's episodes per launch at mesh 1,1
     from dhts_torch.ops.cuda import itscp_spatial_step as k6
 

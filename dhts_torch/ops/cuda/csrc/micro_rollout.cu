@@ -38,16 +38,18 @@
 //
 // Divisions. On an H100 the step's four IEEE divisions took 58 % of the
 // forward's stamped step and 75 % of the Dual one's (python -m
-// dhts_torch.ops.cuda.k3_clock); a zero dividend sends a division to its
-// slow path, about 100 cycles more: the head's 0 / idm_den at every step
-// (its speed delta is 0 at the benchmark), 0 / tgt and -0 / dt for a
-// stopped vehicle, and one lane on the slow path holds its warp. The warp
-// kernels divide with div_ieee: a zero dividend over a finite nonzero
-// divisor gives a * b, the zero the IEEE quotient is (its sign the XOR of
-// the operands' signs), while the division runs on 1; every other quotient
-// is the division's own. No division by a constant is replaced by a
-// product: that is not correctly rounded for every dividend.
-//
+// dhts_torch.ops.cuda.k3_clock), and in a first warp kernel still about
+// 70 %: each division is a block of its own behind its slow path's branch
+// (BSSY/BSYNC), so nothing overlaps it, and a zero or denormal dividend
+// (the head's 0 / idm_den at the benchmark; a stopped vehicle's speed)
+// takes that path, about 100 cycles more. The warp kernels divide with
+// div_checked: a quotient from a reciprocal (of a constant divisor rounded
+// once, of the gap MUFU.RCP) and one correction, accepted only where its
+// exact remainder shows it is the nearest float to the true quotient,
+// which is the IEEE division's result; where a lane's check fails, that
+// lane computes the step again with IEEE divisions. So the step has no
+// division branch, and every quotient is the IEEE division's.
+
 // Above one warp (V > 32) the PR 6 kernels stay: one block per scenario,
 // one thread per vehicle, the platoon double-buffered in shared memory
 // with one barrier a step; and the backward in forward mode, block (b, j)
@@ -62,7 +64,8 @@
 // 8 T V bytes a scenario), so the floor is the T V B IDM updates' float32
 // operations; the kernels are latency-bound instead: T dependent steps,
 // each a chain of about 25 operations with two divisions on it, in one
-// warp per scenario.
+// warp per scenario (the backward's steps overlap, its carried chain is
+// two shuffles and a few products).
 
 #include "dhts_scalar.cuh"
 
@@ -321,17 +324,74 @@ struct WarpArgs {
   long long* cycles;           // DHTS_STEP_CLOCK: [CLOCK_PARTS]
 };
 
-// a / b, IEEE-rounded (see the note at the top): a zero dividend over a
-// finite nonzero divisor is the zero a * b, and the division runs on 1
-__device__ __forceinline__ float div_ieee(float a, float b) {
-  const bool zero = a == 0.0f && b != 0.0f && fabsf(b) < INFINITY;
-  const float q = (zero ? 1.0f : a) / b;
-  return zero ? a * b : q;
+#ifdef DHTS_CPU_EMULATION
+inline unsigned float_bits(float x) {
+  unsigned u;
+  memcpy(&u, &x, sizeof u);
+  return u;
+}
+inline float bits_float(unsigned u) {
+  float x;
+  memcpy(&x, &u, sizeof x);
+  return x;
+}
+// the host's stand-in for the card's approximate reciprocal: one ulp off
+// the rounded one, so that the correction and its check do work here too
+inline float rcp_approx(float b) { return nextafterf(1.0f / b, INFINITY); }
+#else
+__device__ __forceinline__ unsigned float_bits(float x) {
+  return __float_as_uint(x);
+}
+__device__ __forceinline__ float bits_float(unsigned u) {
+  return __uint_as_float(u);
+}
+// MUFU.RCP: 1 / b within about an ulp, no branch
+__device__ __forceinline__ float rcp_approx(float b) {
+  float y;
+  asm("rcp.approx.ftz.f32 %0, %1;" : "=f"(y) : "f"(b));
+  return y;
+}
+#endif
+
+// The biased exponent field of x, shifted down.
+__device__ __forceinline__ unsigned exponent_of(float x) {
+  return (float_bits(x) >> 23) & 0xffu;
+}
+// |x| in [2^-100, 2^100]: the range where div_checked trusts its check
+__device__ __forceinline__ bool moderate(float x) {
+  const unsigned e = exponent_of(x);
+  return e >= 127u - 100u && e <= 127u + 100u;
 }
 
-// vehicle i's constants
+// a / b rounded to nearest, as the IEEE division gives it, from y, an
+// approximation of 1 / b within a few ulps, without a branch: q = a y and
+// one correction, q += (a - q b) y. q is the nearest float to a / b iff
+// |a / b - q| < ulp(q) / 2 (a quotient of two floats is never halfway
+// between two floats), that is |a - q b| < |b| ulp(q) / 2, if q is not a
+// power of two (whose lower neighbour is nearer). With a, b and q in
+// [2^-100, 2^100] the right side is exact, and the remainder fma(-q, b,
+// a) is exact when q is right, and when q is wrong it is no smaller than
+// the bound (rounding is monotonic and the bound is a float), so the test
+// never accepts a wrong q. A zero a gives the zero a y, the IEEE
+// quotient's. `ok` turns false where the test does not accept: the caller
+// then divides.
+__device__ __forceinline__ float div_checked(float a, float b, float y,
+                                             bool& ok) {
+  const float q0 = a * y;
+  const float q = fmaf(fmaf(-q0, b, a), y, q0);
+  const float r = fmaf(-q, b, a);
+  const float half_ulp = bits_float((exponent_of(q) - 24u) << 23);
+  const bool pow2 = (float_bits(q) & 0x7fffffu) == 0u;
+  const bool exact = moderate(a) && moderate(q) && !pow2 &&
+                     fabsf(r) < fabsf(b) * half_ulp;
+  ok = ok && moderate(b) && (a == 0.0f || exact);
+  return a == 0.0f ? q0 : q;
+}
+
+// vehicle i's constants, and the reciprocals of its constant divisors
 struct Vehicle {
   float amax, tgt, min_space, time_pref, idm_den, half_len;
+  float inv_tgt, inv_den;
   __device__ Vehicle(const float* params, int V, int i) {
     amax = params[0 * V + i];
     const float apref = params[1 * V + i];
@@ -342,43 +402,53 @@ struct Vehicle {
     const float lead_len = i + 1 < V ? params[5 * V + i + 1] : 0.0f;
     idm_den = 2.0f * sqrtf(amax * apref);
     half_len = (lead_len + len) * 0.5f;
+    inv_tgt = 1.0f / tgt;
+    inv_den = 1.0f / idm_den;
   }
 };
 
-// A step's values: idm_step's operations in its order, its divisions by
-// div_ieee, with what the reverse sweep differentiates.
+// A step's values: idm_step's operations in its order, with what the
+// reverse sweep differentiates.
 struct Step {
   float pdel, sdel;  // after the collision's zeroing; pdel after its floor
   bool collided, floored;
   float sds, os, q, z, acc_raw, acc_floor, new_p, new_v;
+  float inv_pdel;    // about 1 / pdel
 };
 
-// One step of a vehicle from its gap `pdel` and speed difference `sdel`;
-// the stamps close parts 2-8 as idm_step_marked's
-__device__ __forceinline__ Step step_of(float p, float sp, float pdel,
-                                        float sdel, const Vehicle& c,
-                                        float dt, Clock& clk) {
-  Step s;
+// The step's values with the divisions of div_checked (kIeee: the IEEE
+// divisions); false if a check failed. The stamps close parts 2-8 as
+// idm_step_marked's.
+template <bool kIeee>
+__device__ __forceinline__ bool step_values(float p, float sp, float pdel,
+                                            float sdel, const Vehicle& c,
+                                            float dt, float inv_dt, Step& s,
+                                            Clock& clk) {
+  bool ok = true;
+  auto div = [&](float a, float b, float y) {
+    return kIeee ? a / b : div_checked(a, b, y, ok);
+  };
   s.collided = pdel < 0.0f;
   s.pdel = fmaxf(s.collided ? 0.0f : pdel, EPS);
   s.sdel = s.collided ? 0.0f : sdel;
-  s.sds = div_ieee(sp * s.sdel, c.idm_den);
+  s.inv_pdel = rcp_approx(s.pdel);
+  s.sds = div(sp * s.sdel, c.idm_den, c.inv_den);
   clk.sink(s.sds);
   clk.mark(2);
   s.os = fmaxf((c.min_space + sp * c.time_pref) + s.sds, 0.0f);
   clk.sink(s.os);
   clk.mark(3);
-  s.q = div_ieee(sp, c.tgt);
+  s.q = div(sp, c.tgt, c.inv_tgt);
   clk.sink(s.q);
   clk.mark(4);
   const float q2 = s.q * s.q;
-  s.z = div_ieee(s.os, s.pdel);
+  s.z = div(s.os, s.pdel, s.inv_pdel);
   clk.sink(s.z);
   clk.mark(5);
   s.acc_raw = c.amax * ((1.0f - q2 * q2) - s.z * s.z);
   clk.sink(s.acc_raw);
   clk.mark(6);
-  s.acc_floor = div_ieee(-sp, dt);
+  s.acc_floor = div(-sp, dt, inv_dt);
   clk.sink(s.acc_floor);
   clk.mark(7);
   const float acc = fmaxf(s.acc_raw, s.acc_floor);
@@ -387,6 +457,21 @@ __device__ __forceinline__ Step step_of(float p, float sp, float pdel,
   s.floored = s.acc_raw < s.acc_floor;
   clk.sink(s.new_v);
   clk.mark(8);
+  return ok;
+}
+
+// One step of a vehicle from its gap `pdel` and speed difference `sdel`:
+// the checked divisions, and the step again with IEEE divisions where a
+// lane's check failed (small or denormal quotients, a stopped vehicle's
+// speed after the floor)
+__device__ __forceinline__ Step step_of(float p, float sp, float pdel,
+                                        float sdel, const Vehicle& c,
+                                        float dt, float inv_dt, Clock& clk) {
+  Step s;
+  if (!step_values<false>(p, sp, pdel, sdel, c, dt, inv_dt, s, clk)) {
+    Clock quiet;
+    step_values<true>(p, sp, pdel, sdel, c, dt, inv_dt, s, quiet);
+  }
   return s;
 }
 
@@ -400,18 +485,21 @@ __device__ __forceinline__ void deltas(float p, float sp, float lp, float ls,
   sdel = head ? a.head_sd : sp - ls;
 }
 
-// T forward steps of the warp's platoon from (p, sp); with kSave, lanes
-// below V write the state before each step to traj[t][0 / 1][lane]
+// T forward steps of the warp's platoon from (p, sp) of vehicle i; with
+// kSave, each lane writes the state before each step to traj[t][0 / 1][i]
+// (lanes past the platoon write the head's own values: no branch)
 template <bool kSave>
 __device__ __forceinline__ void forward_steps(const WarpArgs& a,
-                                              const Vehicle& c, bool head,
+                                              const Vehicle& c, int i,
                                               float& p, float& sp,
                                               float* traj, Clock& clk) {
-  const int V = a.V, lane = threadIdx.x;
+  const int V = a.V;
+  const bool head = i == V - 1;
+  const float inv_dt = 1.0f / a.dt;
   for (int t = 0; t < a.T; ++t) {
-    if (kSave && lane < V) {
-      traj[(2 * t) * V + lane] = p;
-      traj[(2 * t + 1) * V + lane] = sp;
+    if (kSave) {
+      traj[(2 * t) * V + i] = p;
+      traj[(2 * t + 1) * V + i] = sp;
     }
     clk.mark(9);  // the trajectory's stores
     const float lp = __shfl_down_sync(FULL, p, 1);
@@ -424,7 +512,7 @@ __device__ __forceinline__ void forward_steps(const WarpArgs& a,
     clk.sink(pdel);
     clk.sink(sdel);
     clk.mark(1);  // the gap and the speed difference
-    const Step s = step_of(p, sp, pdel, sdel, c, a.dt, clk);
+    const Step s = step_of(p, sp, pdel, sdel, c, a.dt, inv_dt, clk);
     p = s.new_p;
     sp = s.new_v;
   }
@@ -439,8 +527,8 @@ __global__ void micro_rollout_warp(WarpArgs a) {
   float p = a.pos0[b * V + i], sp = a.vel0[b * V + i];
   Clock clk;
   clk.start();
-  forward_steps<kSave>(a, c, i == V - 1, p, sp,
-                       a.traj + (size_t)b * a.T * 2 * V, clk);
+  forward_steps<kSave>(a, c, i, p, sp, a.traj + (size_t)b * a.T * 2 * V,
+                       clk);
   clk.save(a.cycles);
   if (lane < V) {
     a.posT[b * V + lane] = p;
@@ -465,8 +553,7 @@ __device__ __forceinline__ Partials partials_of(const Step& s, float sp,
                                                 float gap_sign, bool head,
                                                 float pdel_raw,
                                                 const Vehicle& c, float dt,
-                                                float inv_dt, float inv_tgt,
-                                                float inv_den) {
+                                                float inv_dt) {
   const bool live = !s.floored;
   const float w_raw = max_share(s.acc_raw, s.acc_floor);
   const float c_raw = live ? dt * w_raw : 0.0f;  // d new_v / d acc_raw
@@ -476,7 +563,8 @@ __device__ __forceinline__ Partials partials_of(const Step& s, float sp,
   const bool deltas_live = !head && !s.collided;
   const float m_pd = deltas_live ? max_share(pdel_raw, EPS) : 0.0f;
   const float m_sd = deltas_live ? 1.0f : 0.0f;
-  const float inv_pdel = 1.0f / s.pdel;
+  const float inv_pdel = s.inv_pdel;
+  const float inv_den = c.inv_den;
   const float k_z = c_raw * (-2.0f * c.amax * s.z);  // d new_v / d z
   const float k_os = k_z * inv_pdel * m_os;           // ... / d os_raw
   const float k_pd = -(k_z * s.z * inv_pdel) * m_pd;  // ... / d pdel_raw
@@ -484,7 +572,7 @@ __device__ __forceinline__ Partials partials_of(const Step& s, float sp,
   const float q2 = s.q * s.q;
   Partials d;
   d.sp = ((live ? 1.0f : 0.0f) - c_flr * inv_dt) +
-         c_raw * (-4.0f * c.amax * q2 * s.q) * inv_tgt +
+         c_raw * (-4.0f * c.amax * q2 * s.q) * c.inv_tgt +
          k_os * (c.time_pref + s.sdel * inv_den) + k_sd;
   d.ls = -k_sd;
   d.p = -gap_sign * k_pd;
@@ -505,12 +593,11 @@ __global__ void micro_rollout_reverse(WarpArgs a) {
   clk.start();
   if (kReplay) {
     float p = a.pos0[b * V + i], sp = a.vel0[b * V + i];
-    forward_steps<true>(a, c, head, p, sp, a.traj + (size_t)b * T * 2 * V,
+    forward_steps<true>(a, c, i, p, sp, a.traj + (size_t)b * T * 2 * V,
                         clk);
     __syncwarp();
   }
-  const float dt = a.dt, inv_dt = 1.0f / dt, inv_tgt = 1.0f / c.tgt;
-  const float inv_den = 1.0f / c.idm_den;
+  const float dt = a.dt, inv_dt = 1.0f / dt;
   float gp = a.g_pT[b * V + i], gv = a.g_vT[b * V + i];
   // own and leader's position and speed of step t, a step ahead
   float np_ = 0.0f, nsp = 0.0f, nlp = 0.0f, nls = 0.0f;
@@ -539,13 +626,12 @@ __global__ void micro_rollout_reverse(WarpArgs a) {
     float pdel, sdel;
     deltas(p, sp, lp, ls, head, c, a, pdel, sdel);
     Clock quiet;  // the recomputed step's own parts are not stamped
-    const Step s = step_of(p, sp, pdel, sdel, c, dt, quiet);
+    const Step s = step_of(p, sp, pdel, sdel, c, dt, inv_dt, quiet);
     clk.sink(s.new_v);
     clk.mark(11);  // the step recomputed
     const float gap = lp - p;
     const float sign = gap > 0.0f ? 1.0f : (gap < 0.0f ? -1.0f : 0.0f);
-    const Partials d = partials_of(s, sp, sign, head, pdel, c, dt, inv_dt,
-                                   inv_tgt, inv_den);
+    const Partials d = partials_of(s, sp, sign, head, pdel, c, dt, inv_dt);
     clk.sink(d.p);
     clk.sink(d.sp);
     clk.sink(d.lp);
@@ -600,9 +686,39 @@ int launch_reverse(int B, const WarpArgs& a, void* stream, bool replay) {
                 : launch_warp(micro_rollout_reverse<false>, B, a, stream);
 }
 
+// div_checked on n pairs, its y from MUFU.RCP (rounded: y = 1 / b rounded
+// once, as for a constant divisor); ok[k] = 1 where the check accepted
+__global__ void div_check_kernel(const float* a, const float* b, float* q,
+                                 int* ok, int n, int rounded) {
+  const int k = blockIdx.x * 256 + threadIdx.x;  // 256 threads a block
+  if (k >= n) return;
+  bool good = true;
+  const float y = rounded ? 1.0f / b[k] : rcp_approx(b[k]);
+  q[k] = div_checked(a[k], b[k], y, good);
+  ok[k] = good;
+}
+
 }  // namespace
 
 extern "C" {
+
+// The test of div_checked: q[k] and ok[k] for a[k] / b[k], k < n.
+int launch_micro_rollout_div_check(const float* a, const float* b, float* q,
+                                   int* ok, int n, int rounded,
+                                   void* stream) {
+  if (n < 1) return 1;
+  const int blocks = (n + 255) / 256;
+#ifdef DHTS_CPU_EMULATION
+  (void)stream;
+  dhts_emu::launch(blocks, 256, 0, div_check_kernel, a, b, q, ok, n,
+                   rounded);
+  return 0;
+#else
+  div_check_kernel<<<blocks, 256, 0, (cudaStream_t)stream>>>(a, b, q, ok, n,
+                                                            rounded);
+  return (int)cudaGetLastError();
+#endif
+}
 
 // Forward: B platoons of V vehicles, T steps; posT, velT [B, V]; the warp
 // kernel for V <= 32, the shared-memory one above. Returns

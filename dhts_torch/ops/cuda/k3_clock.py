@@ -71,11 +71,11 @@ def platoon(V: int, dense: bool, seed: int, dev):
     return t(np.cumsum(gap, axis=1)), t(vel)
 
 
-def clocked_library():
-    """The stamped build with its launchers bound (the clocked ones take
-    the kernel id and the stamps' pointer after the stream)."""
-    lib = k3.bind(ctypes.CDLL(str(_build.build(
-        "micro_rollout", defines=("DHTS_STEP_CLOCK",)))))
+def bind_clock(lib: ctypes.CDLL) -> ctypes.CDLL:
+    """Declare a stamped build's launchers (the card's or the host's): the
+    clocked ones take a trajectory after the outputs, and the kernel id and
+    the stamps' pointer after the stream."""
+    k3.bind(lib)
     for name, n_ptr in (("launch_micro_rollout_fwd_clock", 6),
                         ("launch_micro_rollout_bwd_clock", 7)):
         fn = getattr(lib, name)
@@ -84,6 +84,12 @@ def clocked_library():
                        [ctypes.c_void_p, ctypes.c_int, ctypes.c_void_p])
         fn.restype = ctypes.c_int
     return lib
+
+
+def clocked_library():
+    """The stamped build for the card, its launchers bound."""
+    return bind_clock(ctypes.CDLL(str(_build.build(
+        "micro_rollout", defines=("DHTS_STEP_CLOCK",)))))
 
 
 def events_ms(fn, repeats: int, launches: int = 20) -> float:

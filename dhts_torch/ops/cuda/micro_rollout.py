@@ -171,6 +171,24 @@ def bind(lib: ctypes.CDLL) -> ctypes.CDLL:
     return lib
 
 
+def div_check(lib, a, b, rounded: bool, stream=0):
+    """The warp kernels' checked division on float32 tensors ``a``, ``b``
+    (one device, contiguous) through ``lib``'s test launcher: ``(q, ok)``,
+    ``ok`` where the check accepted ``q`` (elsewhere the kernels divide);
+    its reciprocal of ``b`` rounded once (``rounded``, a constant
+    divisor's) or approximate (the gap's)."""
+    fn = lib.launch_micro_rollout_div_check
+    fn.argtypes = [ctypes.c_void_p] * 4 + [ctypes.c_int] * 2 + [
+        ctypes.c_void_p]
+    fn.restype = ctypes.c_int
+    q = torch.empty_like(a)
+    ok = torch.empty(a.shape, dtype=torch.int32, device=a.device)
+    ptr = lambda x: ctypes.c_void_p(x.data_ptr())
+    _launch.raise_on(fn(ptr(a), ptr(b), ptr(q), ptr(ok), a.numel(),
+                        int(rounded), ctypes.c_void_p(stream)), "div_check")
+    return q, ok.bool()
+
+
 def launch_checked(lib, name: str, consts, tensors, B: int, V: int,
                    stream) -> None:
     """Call launcher ``name`` of ``lib`` on ``tensors`` (see

@@ -71,7 +71,9 @@ def build_tree(tree: Path, name: str) -> Path:
 
 
 def sass_digest(lib: Path) -> dict:
-    """``{kernel: {"instructions": n, "sha256": digest}}`` of a library."""
+    """``{kernel: {"instructions": n, "sha256": digest}}`` of a library; a
+    kernel's mangled name without its anonymous namespace's tag, which
+    differs between two trees' builds."""
     from dhts_torch.ops.cuda import _build
 
     cuobjdump = Path(_build.find_nvcc()).with_name("cuobjdump")
@@ -82,7 +84,8 @@ def sass_digest(lib: Path) -> dict:
     for line in text.splitlines():
         m = re.search(r"Function : (\S+)", line)
         if m:
-            name = m.group(1)
+            name = re.sub(r"_GLOBAL__N__\w+?_cu_[0-9a-f]{8}", "(anon)",
+                          m.group(1))
             out[name] = []
             continue
         ins = re.match(r"\s*/\*[0-9a-f]{4,}\*/\s*(.*?)\s*;", line)
@@ -106,7 +109,9 @@ def sass(parent: Path) -> dict:
     theirs = {n: sass_digest(libs[parent, n]) for n in names}
     equal = {n: {k: theirs[n].get(k) == d for k, d in mine[n].items()}
              for n in names}
-    return {"sass": mine, "parent_sass": theirs, "equal": equal}
+    return {"unequal": [f"{n}: {k}" for n in names for k, e in
+                        equal[n].items() if not e],
+            "sass": mine, "parent_sass": theirs}
 
 
 def runs(lib, consts, B: int, dev) -> dict:
@@ -131,8 +136,9 @@ def runs(lib, consts, B: int, dev) -> dict:
     for key, ts in tensors.items():
         name = f"launch_micro_rollout_{key}"
         if hasattr(lib, name):
+            # the call keeps its tensors alive: the launcher gets pointers
             args = k3.kernel_args(consts, ts, B, V, s)
-            calls[key] = (lambda f=getattr(lib, name), a=args:
+            calls[key] = (lambda f=getattr(lib, name), a=args, keep=ts:
                           _launch.raise_on(f(*a), "k3"))
     if "fwd_save" in calls:  # the trajectory bwd_saved reads
         calls["fwd_save"]()
