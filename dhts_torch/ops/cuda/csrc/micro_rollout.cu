@@ -353,39 +353,32 @@ __device__ __forceinline__ float rcp_approx(float b) {
 }
 #endif
 
-// The biased exponent field of x, shifted down.
-__device__ __forceinline__ unsigned exponent_of(float x) {
-  return (float_bits(x) >> 23) & 0xffu;
-}
-// |x| in [2^-100, 2^100]: the range where div_checked trusts its check
-__device__ __forceinline__ bool moderate(float x) {
-  const unsigned e = exponent_of(x);
-  return e >= 127u - 100u && e <= 127u + 100u;
-}
-
 // a / b rounded to nearest, as the IEEE division gives it, from y, an
 // approximation of 1 / b within a few ulps, without a branch: q = a y and
-// one correction, q += (a - q b) y. q is the nearest float to a / b iff
-// |a / b - q| < ulp(q) / 2 (a quotient of two floats is never halfway
-// between two floats), that is |a - q b| < |b| ulp(q) / 2, if q is not a
-// power of two (whose lower neighbour is nearer). With a, b and q in
-// [2^-100, 2^100] the right side is exact, and the remainder fma(-q, b,
-// a) is exact when q is right, and when q is wrong it is no smaller than
-// the bound (rounding is monotonic and the bound is a float), so the test
-// never accepts a wrong q. A zero a gives the zero a y, the IEEE
-// quotient's. `ok` turns false where the test does not accept: the caller
-// then divides.
+// one correction, q += (a - q b) y. A normal q that is not a power of two
+// has neighbours an ulp away on both sides, so it is the nearest float to
+// a / b iff |a / b - q| < ulp(q) / 2 (a quotient of two floats is never
+// halfway between two floats), that is |a - q b| < |b| ulp(q) / 2. Both
+// sides are computed with one rounding each (the remainder by an fma, the
+// bound by a product with a power of two), and rounding is monotonic, so
+// the test never accepts a q that is not the nearest; where the two are
+// exact it accepts the nearest. A zero a over a normal b gives the zero a
+// y, the IEEE quotient's. `ok` turns false where the test does not accept:
+// the caller then divides.
 __device__ __forceinline__ float div_checked(float a, float b, float y,
                                              bool& ok) {
   const float q0 = a * y;
   const float q = fmaf(fmaf(-q0, b, a), y, q0);
   const float r = fmaf(-q, b, a);
-  const float half_ulp = bits_float((exponent_of(q) - 24u) << 23);
-  const bool pow2 = (float_bits(q) & 0x7fffffu) == 0u;
-  const bool exact = moderate(a) && moderate(q) && !pow2 &&
-                     fabsf(r) < fabsf(b) * half_ulp;
-  ok = ok && moderate(b) && (a == 0.0f || exact);
-  return a == 0.0f ? q0 : q;
+  const unsigned bits = float_bits(q), e = bits & 0x7f800000u;
+  const float half_ulp = bits_float(e - (24u << 23));  // if e >= 25 << 23
+  const bool nearest = e - (25u << 23) <= (229u << 23) &&
+                       (bits & 0x7fffffu) != 0u &&
+                       fabsf(r) < fabsf(b) * half_ulp;
+  const bool zero = a == 0.0f &&
+                    (float_bits(b) & 0x7f800000u) - (1u << 23) < (254u << 23);
+  ok = ok && (nearest || zero);
+  return zero ? q0 : q;
 }
 
 // vehicle i's constants, and the reciprocals of its constant divisors
@@ -580,8 +573,57 @@ __device__ __forceinline__ Partials partials_of(const Step& s, float sp,
   return d;
 }
 
+// A reverse step's inputs: the own and the leader's position and speed
+// before step t
+struct Rows {
+  float p, sp, lp, ls;
+};
+
+__device__ __forceinline__ Rows rows_at(const float* traj, int t, int V,
+                                        int i, int li) {
+  const float* row = traj + (size_t)t * 2 * V;
+  return Rows{row[i], row[V + i], row[li], row[V + li]};
+}
+
+// A step recomputed from its rows: its values (kIeee: with the IEEE
+// divisions) and its raw gap; false if a check failed
+template <bool kIeee>
+__device__ __forceinline__ bool recompute(const Rows& r, bool head,
+                                          const Vehicle& c,
+                                          const WarpArgs& a, float inv_dt,
+                                          float& pdel, Step& s) {
+  float sdel;
+  deltas(r.p, r.sp, r.lp, r.ls, head, c, a, pdel, sdel);
+  Clock quiet;  // a recomputed step's own parts are not stamped
+  return step_values<kIeee>(r.p, r.sp, pdel, sdel, c, a.dt, inv_dt, s,
+                            quiet);
+}
+
+__device__ __forceinline__ Partials partials_at(const Rows& r, const Step& s,
+                                                float pdel, bool head,
+                                                const Vehicle& c, float dt,
+                                                float inv_dt) {
+  const float gap = r.lp - r.p;
+  const float sign = gap > 0.0f ? 1.0f : (gap < 0.0f ? -1.0f : 0.0f);
+  return partials_of(s, r.sp, sign, head, pdel, c, dt, inv_dt);
+}
+
+// The cotangents pulled back through a step, the follower's (lane - 1's)
+// share of this vehicle's by a shuffle
+__device__ __forceinline__ void pull_back(const Partials& d, float dt,
+                                          int lane, float& gp, float& gv) {
+  float fp = __shfl_up_sync(FULL, gv * d.lp, 1);
+  float fv = __shfl_up_sync(FULL, gv * d.ls, 1);
+  if (lane == 0) fp = fv = 0.0f;
+  const float gp_new = (gp + gv * d.p) + fp;
+  gv = (gp * dt + gv * d.sp) + fv;
+  gp = gp_new;
+}
+
 // The reverse sweep, one warp per scenario (lane v is vehicle min(v, V -
-// 1)); kReplay: replay the forward into traj first.
+// 1)); kReplay: replay the forward into traj first. Two steps a round:
+// both are recomputed before the one branch to their IEEE fallback, so
+// their chains overlap; the next round's rows load during this one.
 template <bool kReplay>
 __global__ void micro_rollout_reverse(WarpArgs a) {
   const int V = a.V, T = a.T, b = blockIdx.x, lane = threadIdx.x;
@@ -599,53 +641,47 @@ __global__ void micro_rollout_reverse(WarpArgs a) {
   }
   const float dt = a.dt, inv_dt = 1.0f / dt;
   float gp = a.g_pT[b * V + i], gv = a.g_vT[b * V + i];
-  // own and leader's position and speed of step t, a step ahead
-  float np_ = 0.0f, nsp = 0.0f, nlp = 0.0f, nls = 0.0f;
-  if (T > 0) {
-    const float* row = traj + (size_t)(T - 1) * 2 * V;
-    np_ = row[i];
-    nsp = row[V + i];
-    nlp = row[li];
-    nls = row[V + li];
+  int t = T - 1;
+  if (T % 2 == 1) {  // the last step alone, then pairs
+    const Rows r = rows_at(traj, t, V, i, li);
+    float pdel;
+    Step s;
+    if (!recompute<false>(r, head, c, a, inv_dt, pdel, s))
+      recompute<true>(r, head, c, a, inv_dt, pdel, s);
+    pull_back(partials_at(r, s, pdel, head, c, dt, inv_dt), dt, lane, gp,
+              gv);
+    --t;
   }
-#pragma unroll 2
-  for (int t = T - 1; t >= 0; --t) {
-    const float p = np_, sp = nsp, lp = nlp, ls = nls;
-    if (t > 0) {
-      const float* row = traj + (size_t)(t - 1) * 2 * V;
-      np_ = row[i];
-      nsp = row[V + i];
-      nlp = row[li];
-      nls = row[V + li];
+  Rows na{}, nb{};
+  if (t >= 1) {
+    na = rows_at(traj, t, V, i, li);
+    nb = rows_at(traj, t - 1, V, i, li);
+  }
+  for (; t >= 1; t -= 2) {
+    const Rows ra = na, rb = nb;  // steps t and t - 1
+    if (t >= 3) {
+      na = rows_at(traj, t - 2, V, i, li);
+      nb = rows_at(traj, t - 3, V, i, li);
     }
-    clk.sink(p);
-    clk.sink(sp);
-    clk.sink(lp);
-    clk.sink(ls);
-    clk.mark(10);  // the step's rows
-    float pdel, sdel;
-    deltas(p, sp, lp, ls, head, c, a, pdel, sdel);
-    Clock quiet;  // the recomputed step's own parts are not stamped
-    const Step s = step_of(p, sp, pdel, sdel, c, dt, inv_dt, quiet);
-    clk.sink(s.new_v);
-    clk.mark(11);  // the step recomputed
-    const float gap = lp - p;
-    const float sign = gap > 0.0f ? 1.0f : (gap < 0.0f ? -1.0f : 0.0f);
-    const Partials d = partials_of(s, sp, sign, head, pdel, c, dt, inv_dt);
-    clk.sink(d.p);
-    clk.sink(d.sp);
-    clk.sink(d.lp);
-    clk.sink(d.ls);
+    clk.sink(ra.p + ra.sp + ra.lp + ra.ls + rb.p + rb.sp + rb.lp + rb.ls);
+    clk.mark(10);  // the rows
+    float pa, pb;
+    Step sa, sb;
+    const bool ok = recompute<false>(ra, head, c, a, inv_dt, pa, sa) &
+                    recompute<false>(rb, head, c, a, inv_dt, pb, sb);
+    if (!ok) {
+      recompute<true>(ra, head, c, a, inv_dt, pa, sa);
+      recompute<true>(rb, head, c, a, inv_dt, pb, sb);
+    }
+    clk.sink(sa.new_v + sb.new_v);
+    clk.mark(11);  // the steps recomputed
+    const Partials da = partials_at(ra, sa, pa, head, c, dt, inv_dt);
+    const Partials db = partials_at(rb, sb, pb, head, c, dt, inv_dt);
+    clk.sink(da.p + da.sp + da.lp + da.ls + db.p + db.sp + db.lp + db.ls);
     clk.mark(12);  // the partials
-    // the follower's (lane - 1's) share of this vehicle's cotangents
-    float fp = __shfl_up_sync(FULL, gv * d.lp, 1);
-    float fv = __shfl_up_sync(FULL, gv * d.ls, 1);
-    if (lane == 0) fp = fv = 0.0f;
-    const float gp_new = (gp + gv * d.p) + fp;
-    gv = (gp * dt + gv * d.sp) + fv;
-    gp = gp_new;
-    clk.sink(gp);
-    clk.sink(gv);
+    pull_back(da, dt, lane, gp, gv);
+    pull_back(db, dt, lane, gp, gv);
+    clk.sink(gp + gv);
     clk.mark(13);  // the cotangents' update
   }
   clk.save(a.cycles);
