@@ -355,26 +355,26 @@ __device__ __forceinline__ float rcp_approx(float b) {
 
 // a / b rounded to nearest, as the IEEE division gives it, from y, an
 // approximation of 1 / b within a few ulps, without a branch: q = a y and
-// one correction, q += (a - q b) y. A normal q that is not a power of two
-// has neighbours an ulp away on both sides, so it is the nearest float to
-// a / b iff |a / b - q| < ulp(q) / 2 (a quotient of two floats is never
-// halfway between two floats), that is |a - q b| < |b| ulp(q) / 2. Both
-// sides are computed with one rounding each (the remainder by an fma, the
-// bound by a product with a power of two), and rounding is monotonic, so
-// the test never accepts a q that is not the nearest; where the two are
-// exact it accepts the nearest. A zero a over a normal b gives the zero a
-// y, the IEEE quotient's. `ok` turns false where the test does not accept:
-// the caller then divides.
+// one correction, q += (a - q b) y. A normal q is the nearest float to a /
+// b if |a / b - q| < ulp(q) / 2, that is |a - q b| < |b| ulp(q) / 2 (a
+// quotient of two floats is never halfway between two floats); a power of
+// two, whose lower neighbour is half as far, if |a - q b| < |b| ulp(q) /
+// 4. Both sides are computed with one rounding each (the remainder by an
+// fma, the bound by a product with a power of two), and rounding is
+// monotonic, so the test never accepts a q that is not the nearest; where
+// the two are exact it accepts the nearest. A zero a over a normal b gives
+// the zero a y, the IEEE quotient's. `ok` turns false where the test does
+// not accept: the caller then divides.
 __device__ __forceinline__ float div_checked(float a, float b, float y,
                                              bool& ok) {
   const float q0 = a * y;
   const float q = fmaf(fmaf(-q0, b, a), y, q0);
   const float r = fmaf(-q, b, a);
   const unsigned bits = float_bits(q), e = bits & 0x7f800000u;
-  const float half_ulp = bits_float(e - (24u << 23));  // if e >= 25 << 23
-  const bool nearest = e - (25u << 23) <= (229u << 23) &&
-                       (bits & 0x7fffffu) != 0u &&
-                       fabsf(r) < fabsf(b) * half_ulp;
+  const unsigned shift = (bits & 0x7fffffu) ? 24u << 23 : 25u << 23;
+  const float bound = bits_float(e - shift);  // a float if e >= 26 << 23
+  const bool nearest = e - (26u << 23) <= (228u << 23) &&
+                       fabsf(r) < fabsf(b) * bound;
   const bool zero = a == 0.0f &&
                     (float_bits(b) & 0x7f800000u) - (1u << 23) < (254u << 23);
   ok = ok && (nearest || zero);
@@ -453,19 +453,15 @@ __device__ __forceinline__ bool step_values(float p, float sp, float pdel,
   return ok;
 }
 
-// One step of a vehicle from its gap `pdel` and speed difference `sdel`:
-// the checked divisions, and the step again with IEEE divisions where a
-// lane's check failed (small or denormal quotients, a stopped vehicle's
-// speed after the floor)
-__device__ __forceinline__ Step step_of(float p, float sp, float pdel,
-                                        float sdel, const Vehicle& c,
-                                        float dt, float inv_dt, Clock& clk) {
-  Step s;
-  if (!step_values<false>(p, sp, pdel, sdel, c, dt, inv_dt, s, clk)) {
-    Clock quiet;
-    step_values<true>(p, sp, pdel, sdel, c, dt, inv_dt, s, quiet);
-  }
-  return s;
+// Whether any lane of the warp has x
+__device__ __forceinline__ bool warp_any(bool x) {
+#ifdef DHTS_CPU_EMULATION
+  int v = x;
+  for (int o = 16; o > 0; o >>= 1) v |= __shfl_down_sync(FULL, v, o);
+  return __shfl_sync(FULL, v, 0) != 0;
+#else
+  return __any_sync(FULL, x);
+#endif
 }
 
 // The gap and speed difference of lane `head` or of a follower, from the
@@ -478,18 +474,20 @@ __device__ __forceinline__ void deltas(float p, float sp, float lp, float ls,
   sdel = head ? a.head_sd : sp - ls;
 }
 
-// T forward steps of the warp's platoon from (p, sp) of vehicle i; with
-// kSave, each lane writes the state before each step to traj[t][0 / 1][i]
-// (lanes past the platoon write the head's own values: no branch)
-template <bool kSave>
-__device__ __forceinline__ void forward_steps(const WarpArgs& a,
+// Steps t0 .. t1 - 1 of the warp's platoon from (p, sp) of vehicle i
+// (kIeee: with the IEEE divisions); with kSave, each lane writes the state
+// before each step to traj[t][0 / 1][i] (lanes past the platoon write the
+// head's own values: no branch). False if a check failed.
+template <bool kSave, bool kIeee>
+__device__ __forceinline__ bool forward_chunk(const WarpArgs& a,
                                               const Vehicle& c, int i,
+                                              float inv_dt, int t0, int t1,
                                               float& p, float& sp,
                                               float* traj, Clock& clk) {
   const int V = a.V;
   const bool head = i == V - 1;
-  const float inv_dt = 1.0f / a.dt;
-  for (int t = 0; t < a.T; ++t) {
+  bool ok = true;
+  for (int t = t0; t < t1; ++t) {
     if (kSave) {
       traj[(2 * t) * V + i] = p;
       traj[(2 * t + 1) * V + i] = sp;
@@ -505,9 +503,38 @@ __device__ __forceinline__ void forward_steps(const WarpArgs& a,
     clk.sink(pdel);
     clk.sink(sdel);
     clk.mark(1);  // the gap and the speed difference
-    const Step s = step_of(p, sp, pdel, sdel, c, a.dt, inv_dt, clk);
+    Step s;
+    ok &= step_values<kIeee>(p, sp, pdel, sdel, c, a.dt, inv_dt, s, clk);
     p = s.new_p;
     sp = s.new_v;
+  }
+  return ok;
+}
+
+// Steps of one chunk between two checks: a chunk whose checks failed in
+// any lane runs again from its first state with the IEEE divisions
+constexpr int CHUNK = 16;
+
+// T forward steps of the warp's platoon from (p, sp) of vehicle i, in
+// chunks of CHUNK steps; kSave as forward_chunk's
+template <bool kSave>
+__device__ __forceinline__ void forward_steps(const WarpArgs& a,
+                                              const Vehicle& c, int i,
+                                              float& p, float& sp,
+                                              float* traj, Clock& clk) {
+  const float inv_dt = 1.0f / a.dt;
+  for (int t0 = 0; t0 < a.T; t0 += CHUNK) {
+    const int t1 = min(t0 + CHUNK, a.T);
+    const float p0 = p, sp0 = sp;
+    const bool ok = forward_chunk<kSave, false>(a, c, i, inv_dt, t0, t1, p,
+                                                sp, traj, clk);
+    if (warp_any(!ok)) {
+      p = p0;
+      sp = sp0;
+      Clock quiet;
+      forward_chunk<kSave, true>(a, c, i, inv_dt, t0, t1, p, sp, traj,
+                                 quiet);
+    }
   }
 }
 

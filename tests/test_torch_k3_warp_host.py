@@ -6,10 +6,12 @@ JAX's K3.
 
 * The warp forward (V = 1, 10, 31, 32) and PR 6's shared-memory forward
   (V = 33, 40; also at V = 10 through its own launcher) equal the plain
-  version bit for bit, on spaced platoons at the benchmark's head deltas
-  and on dense ones behind a virtual leader they overlap (the acceleration
-  floor binds and vehicles collide, the head too), at T = 0, 1 and 60; the
-  saved trajectory equals the plain one.
+  version bit for bit, on spaced platoons at the benchmark's head deltas,
+  on dense ones behind a virtual leader they overlap (the acceleration
+  floor binds and vehicles collide, the head too) and on spaced ones with
+  tiny and denormal speeds (whose quotients fail the checked division, so
+  the kernels take their IEEE fallback), at T = 0, 1 and 60; the saved
+  trajectory equals the plain one.
 * The reverse sweep, over the saved trajectory and replaying its own,
   matches autograd of the plain version: cosine > 0.9999, allclose(rtol
   5e-3, atol 1e-5 * max|g|), finite, nonzero; at T = 0 it returns the
@@ -40,7 +42,9 @@ torch.set_num_threads(1)
 U_MAX, DT = 30.0, 0.01
 # the benchmark's head deltas; dense platoons follow a virtual leader
 # they overlap
-HEAD = {False: (1000.0, 0.0), True: (-0.2, 1.0)}
+HEAD = {"spaced": (1000.0, 0.0), "dense": (-0.2, 1.0), "tiny": (1000.0, 0.0)}
+KINDS = tuple(HEAD)
+TINY = (1e-40, -2e-39, 1e-33, 0.0, 3e-38)  # speeds of the "tiny" platoons
 B = 3
 
 
@@ -54,20 +58,25 @@ def lib(tmp_path_factory):
     return k3.bind(ctypes.CDLL(str(path)))
 
 
-def case(seed, V, dense):
-    """``case(..., dense=True)`` of ``tests/test_torch_micro_rollout.py``:
-    slow vehicles a few decimetres apart or overlapping."""
+def case(seed, V, kind):
+    """``case(..., dense=True)`` of ``tests/test_torch_micro_rollout.py``
+    for "dense": slow vehicles a few decimetres apart or overlapping; its
+    spaced platoons, for "tiny" with the first vehicles' speeds from
+    TINY."""
     rng = np.random.default_rng(seed)
-    if dense:
+    if kind == "dense":
         gap, vel = rng.uniform(4.0, 5.6, (B, V)), rng.uniform(0, 3, (B, V))
     else:
         gap, vel = rng.uniform(8.0, 20.0, (B, V)), rng.uniform(2, 20, (B, V))
+    vel = vel.astype(np.float32)
+    if kind == "tiny":
+        vel[:, :len(TINY)] = np.array(TINY, np.float32)[:V]
     return (torch.as_tensor(np.cumsum(gap, axis=1), dtype=torch.float32),
-            torch.as_tensor(vel, dtype=torch.float32))
+            torch.as_tensor(vel))
 
 
-def consts_for(V, T, dense):
-    return k3.micro_consts(default_params(U_MAX, (V,)), *HEAD[dense], DT, T,
+def consts_for(V, T, kind):
+    return k3.micro_consts(default_params(U_MAX, (V,)), *HEAD[kind], DT, T,
                            "cpu")
 
 
@@ -88,14 +97,17 @@ def floor_hits_and_collisions(consts, ins):
 
 
 @pytest.mark.parametrize("T", [0, 1, 60])
-@pytest.mark.parametrize("dense", [False, True], ids=["spaced", "dense"])
+@pytest.mark.parametrize("kind", KINDS)
 @pytest.mark.parametrize("V", [1, 10, 31, 32, 33, 40])
-def test_forward_is_bit_equal_to_plain_version(lib, V, dense, T):
-    consts = consts_for(V, T, dense)
-    ins = case(V + T, V, dense)
+def test_forward_is_bit_equal_to_plain_version(lib, V, kind, T):
+    consts = consts_for(V, T, kind)
+    ins = case(V + T, V, kind)
     if T == 60:
         hits, coll = floor_hits_and_collisions(consts, ins)
-        assert (hits > 0 and coll > 0) == dense, (hits, coll)
+        assert (hits > 0 and coll > 0) == (kind == "dense"), (hits, coll)
+    if kind == "tiny":  # the first step's sp / tgt fails the check
+        tgt = consts.params[2].expand(B, V).contiguous()
+        assert not bool(k3.div_check(lib, ins[1], tgt, True)[1].all())
     ref = k3.plain_micro_rollout(consts, *ins)
     launchers = {"launch_micro_rollout_fwd": ()}
     if V <= k3.WARP_VEHICLES:
@@ -115,9 +127,9 @@ def test_forward_is_bit_equal_to_plain_version(lib, V, dense, T):
 def test_shared_memory_forward_below_one_warp(lib):
     """PR 6's kernel, which the launchers take above 32 vehicles, through
     its own launcher at the benchmark's V = 10."""
-    for dense in (False, True):
-        consts = consts_for(10, 60, dense)
-        ins = case(5, 10, dense)
+    for kind in KINDS:
+        consts = consts_for(10, 60, kind)
+        ins = case(5, 10, kind)
         out = (torch.empty(B, 10), torch.empty(B, 10))
         k3.launch_checked(lib, "launch_micro_rollout_fwd_smem", consts,
                           (*ins, *out), B, 10, 0)
@@ -155,12 +167,12 @@ def assert_close(g, ref):
 
 
 @pytest.mark.parametrize("T", [0, 1, 60])
-@pytest.mark.parametrize("dense", [False, True], ids=["spaced", "dense"])
+@pytest.mark.parametrize("kind", KINDS)
 @pytest.mark.parametrize("V", [1, 10, 31, 32])
 @pytest.mark.parametrize("saved", [True, False], ids=["saved", "replay"])
-def test_reverse_sweep_matches_autograd(lib, saved, V, dense, T):
-    consts = consts_for(V, T, dense)
-    ins = case(2 * V + T, V, dense)
+def test_reverse_sweep_matches_autograd(lib, saved, V, kind, T):
+    consts = consts_for(V, T, kind)
+    ins = case(2 * V + T, V, kind)
     cot = cotangents(V)
     g = reverse(lib, consts, ins, cot, saved)
     if T == 0:
@@ -175,14 +187,14 @@ def test_reverse_sweep_matches_jax_kernel_off_the_floor(lib):
     acceleration floor (JAX keeps a rounding residue there, the port a zero
     gradient); the loss of ``tests/test_torch_micro_rollout.py``."""
     V, T = 10, 50
-    consts = consts_for(V, T, False)
-    ins = case(5, V, False)
+    consts = consts_for(V, T, "spaced")
+    ins = case(5, V, "spaced")
     assert int(k3.floor_hits(consts, *ins).sum()) == 0
     pT, vT = k3.plain_micro_rollout(consts, *ins)
     cot = [2e-4 * pT, 2e-2 * vT]  # d(sum pT^2 1e-4 + sum vT^2 1e-2)
     fused = jk3.make_fused_micro_rollout(DT, T, V, B,
                                          jdefault_params(U_MAX, (V,)),
-                                         *HEAD[False], interpret=True)
+                                         *HEAD["spaced"], interpret=True)
 
     def loss(p, v):
         p, v = fused(p, v)
