@@ -647,9 +647,12 @@ __device__ __forceinline__ void pull_back(const Partials& d, float dt,
   gp = gp_new;
 }
 
+// Steps a round of the reverse sweep
+constexpr int ROUND = 4;
+
 // The reverse sweep, one warp per scenario (lane v is vehicle min(v, V -
-// 1)); kReplay: replay the forward into traj first. Two steps a round:
-// both are recomputed before the one branch to their IEEE fallback, so
+// 1)); kReplay: replay the forward into traj first. ROUND steps a round:
+// all are recomputed before the one branch to their IEEE fallback, so
 // their chains overlap; the next round's rows load during this one.
 template <bool kReplay>
 __global__ void micro_rollout_reverse(WarpArgs a) {
@@ -669,7 +672,7 @@ __global__ void micro_rollout_reverse(WarpArgs a) {
   const float dt = a.dt, inv_dt = 1.0f / dt;
   float gp = a.g_pT[b * V + i], gv = a.g_vT[b * V + i];
   int t = T - 1;
-  if (T % 2 == 1) {  // the last step alone, then pairs
+  for (; t >= 0 && (t + 1) % ROUND != 0; --t) {  // the last steps alone
     const Rows r = rows_at(traj, t, V, i, li);
     float pdel;
     Step s;
@@ -677,37 +680,44 @@ __global__ void micro_rollout_reverse(WarpArgs a) {
       recompute<true>(r, head, c, a, inv_dt, pdel, s);
     pull_back(partials_at(r, s, pdel, head, c, dt, inv_dt), dt, lane, gp,
               gv);
-    --t;
   }
-  Rows na{}, nb{};
-  if (t >= 1) {
-    na = rows_at(traj, t, V, i, li);
-    nb = rows_at(traj, t - 1, V, i, li);
+  Rows next[ROUND];  // steps t, t - 1, ...
+  if (t >= 0) {
+#pragma unroll
+    for (int k = 0; k < ROUND; ++k) next[k] = rows_at(traj, t - k, V, i, li);
   }
-  for (; t >= 1; t -= 2) {
-    const Rows ra = na, rb = nb;  // steps t and t - 1
-    if (t >= 3) {
-      na = rows_at(traj, t - 2, V, i, li);
-      nb = rows_at(traj, t - 3, V, i, li);
+  for (; t >= 0; t -= ROUND) {
+    Rows r[ROUND];
+#pragma unroll
+    for (int k = 0; k < ROUND; ++k) r[k] = next[k];
+    if (t >= ROUND) {
+#pragma unroll
+      for (int k = 0; k < ROUND; ++k)
+        next[k] = rows_at(traj, t - ROUND - k, V, i, li);
     }
-    clk.sink(ra.p + ra.sp + ra.lp + ra.ls + rb.p + rb.sp + rb.lp + rb.ls);
+    clk.sink(r[0].p + r[0].sp + r[ROUND - 1].lp + r[ROUND - 1].ls);
     clk.mark(10);  // the rows
-    float pa, pb;
-    Step sa, sb;
-    const bool ok = recompute<false>(ra, head, c, a, inv_dt, pa, sa) &
-                    recompute<false>(rb, head, c, a, inv_dt, pb, sb);
+    float pdel[ROUND];
+    Step s[ROUND];
+    bool ok = true;
+#pragma unroll
+    for (int k = 0; k < ROUND; ++k)
+      ok &= recompute<false>(r[k], head, c, a, inv_dt, pdel[k], s[k]);
     if (!ok) {
-      recompute<true>(ra, head, c, a, inv_dt, pa, sa);
-      recompute<true>(rb, head, c, a, inv_dt, pb, sb);
+#pragma unroll
+      for (int k = 0; k < ROUND; ++k)
+        recompute<true>(r[k], head, c, a, inv_dt, pdel[k], s[k]);
     }
-    clk.sink(sa.new_v + sb.new_v);
+    clk.sink(s[0].new_v + s[ROUND - 1].new_v);
     clk.mark(11);  // the steps recomputed
-    const Partials da = partials_at(ra, sa, pa, head, c, dt, inv_dt);
-    const Partials db = partials_at(rb, sb, pb, head, c, dt, inv_dt);
-    clk.sink(da.p + da.sp + da.lp + da.ls + db.p + db.sp + db.lp + db.ls);
+    Partials d[ROUND];
+#pragma unroll
+    for (int k = 0; k < ROUND; ++k)
+      d[k] = partials_at(r[k], s[k], pdel[k], head, c, dt, inv_dt);
+    clk.sink(d[0].sp + d[ROUND - 1].sp);
     clk.mark(12);  // the partials
-    pull_back(da, dt, lane, gp, gv);
-    pull_back(db, dt, lane, gp, gv);
+#pragma unroll
+    for (int k = 0; k < ROUND; ++k) pull_back(d[k], dt, lane, gp, gv);
     clk.sink(gp + gv);
     clk.mark(13);  // the cotangents' update
   }

@@ -13,9 +13,9 @@ JAX's K3.
   the kernels take their IEEE fallback), at T = 0, 1 and 60; the saved
   trajectory equals the plain one.
 * The reverse sweep, over the saved trajectory and replaying its own,
-  matches autograd of the plain version: cosine > 0.9999, allclose(rtol
-  5e-3, atol 1e-5 * max|g|), finite, nonzero; at T = 0 it returns the
-  cotangents exactly.
+  matches autograd of the plain version at T = 1, 7 (steps alone, then a
+  round of four) and 60: cosine > 0.9999, allclose(rtol 5e-3, atol 1e-5 *
+  max|g|), finite, nonzero; at T = 0 it returns the cotangents exactly.
 * Off the floor it matches ``dhts.ops.pallas.make_fused_micro_rollout``
   (interpret mode) at ``tests/test_torch_micro_rollout.py``'s tolerance.
 * The checked division accepts no quotient but the IEEE one (here with a
@@ -166,7 +166,7 @@ def assert_close(g, ref):
     assert torch.allclose(a, b, rtol=5e-3, atol=1e-5 * float(b.abs().max()))
 
 
-@pytest.mark.parametrize("T", [0, 1, 60])
+@pytest.mark.parametrize("T", [0, 1, 7, 60])
 @pytest.mark.parametrize("kind", KINDS)
 @pytest.mark.parametrize("V", [1, 10, 31, 32])
 @pytest.mark.parametrize("saved", [True, False], ids=["saved", "replay"])
