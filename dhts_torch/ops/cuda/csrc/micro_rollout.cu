@@ -32,23 +32,25 @@
 // speed the acceleration floor stopped passes no gradient, a tie of a max
 // splits it 0.5 / 0.5 and a collision zeroes both deltas' partials, as
 // autograd of the plain version does. Only the short cotangent update is
-// carried from step to step: a step's rows are loaded a step ahead. Without
-// a saved trajectory (micro_rollout_bwd's own calls) the same launch first
-// replays the forward into a scratch trajectory the wrapper allocates.
+// carried from step to step, so ROUND steps are recomputed together and
+// the next round's rows load during this one. Without a saved trajectory
+// (micro_rollout_bwd's own calls) the same launch first replays the
+// forward into a scratch trajectory the wrapper allocates.
 //
-// Divisions. On an H100 the step's four IEEE divisions took 58 % of the
-// forward's stamped step and 75 % of the Dual one's (python -m
-// dhts_torch.ops.cuda.k3_clock), and in a first warp kernel still about
-// 70 %: each division is a block of its own behind its slow path's branch
-// (BSSY/BSYNC), so nothing overlaps it, and a zero or denormal dividend
-// (the head's 0 / idm_den at the benchmark; a stopped vehicle's speed)
-// takes that path, about 100 cycles more. The warp kernels divide with
-// div_checked: a quotient from a reciprocal (of a constant divisor rounded
-// once, of the gap MUFU.RCP) and one correction, accepted only where its
-// exact remainder shows it is the nearest float to the true quotient,
-// which is the IEEE division's result; where a lane's check fails, that
-// lane computes the step again with IEEE divisions. So the step has no
-// division branch, and every quotient is the IEEE division's.
+// Divisions. An IEEE division is a block of its own behind its slow
+// path's branch (BSSY/BSYNC), so nothing overlaps it, and a zero dividend
+// (the head's 0 / idm_den at the benchmark, a stopped vehicle's 0 / tgt)
+// takes that path, about 100 cycles more: on an H100 the four divisions
+// took 58 % of PR 6's stamped forward step, 75 % of its Dual step and
+// about 70 % of a warp kernel's (python -m dhts_torch.ops.cuda.k3_clock).
+// The warp kernels divide with div_checked: a quotient from a reciprocal
+// (of a constant divisor rounded once, of the gap MUFU.RCP) and one
+// correction, accepted only where its exact remainder shows it is the
+// nearest float, which is the IEEE quotient. The forward checks a chunk of
+// CHUNK steps at once and runs a chunk in which any lane's check failed
+// again from its first state with IEEE divisions; the reverse sweep
+// recomputes a round so when a check fails. So the steps have no division
+// branch, and every quotient is the IEEE division's.
 
 // Above one warp (V > 32) the PR 6 kernels stay: one block per scenario,
 // one thread per vehicle, the platoon double-buffered in shared memory
@@ -64,8 +66,8 @@
 // 8 T V bytes a scenario), so the floor is the T V B IDM updates' float32
 // operations; the kernels are latency-bound instead: T dependent steps,
 // each a chain of about 25 operations with two divisions on it, in one
-// warp per scenario (the backward's steps overlap, its carried chain is
-// two shuffles and a few products).
+// warp per scenario (the backward's steps overlap; it is bound by the
+// warp's issue of a step's recomputation, partials and checks).
 
 #include "dhts_scalar.cuh"
 

@@ -231,42 +231,33 @@ def _check_inputs(consts: MicroConsts, pos0, vel0):
     return dev, B, V
 
 
-def _check_trajectory(traj, B: int, T: int, V: int, dev):
-    _launch.check("traj", traj, (B, T, 2, V), torch.float32, dev)
-
-
 def micro_rollout_fwd(consts: MicroConsts, pos0, vel0,
                       trajectory: bool = False):
     """``(posT[B, V], velT[B, V])`` of ``consts.num_steps`` steps, without a
     graph for autograd (that is :class:`MicroRolloutFunction`);
-    ``trajectory``: also the trajectory ``[B, T, 2, V]`` for
-    :func:`micro_rollout_bwd`, or None above :data:`WARP_VEHICLES`
-    vehicles, whose backward reads none.
+    ``trajectory``: also the trajectory ``[B, T, 2, V]`` that
+    :func:`micro_rollout_bwd` sweeps, saved on CUDA tensors up to
+    :data:`WARP_VEHICLES` vehicles and None elsewhere, whose backwards read
+    none.
 
-    CPU tensors go to :func:`plain_micro_rollout` (and
-    :func:`plain_micro_trajectory`); CUDA tensors launch the kernel (one
-    launch, one warp per scenario up to 32 vehicles, else one block,
-    counted in ``launches``) or raise.
+    CPU tensors go to :func:`plain_micro_rollout`; CUDA tensors launch the
+    kernel (one launch, one warp per scenario up to 32 vehicles, else one
+    block, counted in ``launches``) or raise.
     """
-    B, V = pos0.shape[0], pos0.shape[-1]
-    save = trajectory and V <= WARP_VEHICLES
     if _launch.device_of(pos0).type == "cpu":
         out = plain_micro_rollout(consts, pos0, vel0)
-        if not trajectory:
-            return out
-        return (*out, plain_micro_trajectory(consts, pos0, vel0)
-                if save else None)
+        return (*out, None) if trajectory else out
     dev, B, V = _check_inputs(consts, pos0, vel0)
     posT = torch.empty((B, V), dtype=torch.float32, device=dev)
     velT = torch.empty((B, V), dtype=torch.float32, device=dev)
     lib, stream = _library(), _launch.stream(dev)
-    if save:
+    traj = None
+    if trajectory and V <= WARP_VEHICLES:
         traj = torch.empty((B, consts.num_steps, 2, V), dtype=torch.float32,
                            device=dev)
         err = lib.launch_micro_rollout_fwd_save(*kernel_args(
             consts, (pos0, vel0, posT, velT, traj), B, V, stream))
     else:
-        traj = None
         err = lib.launch_micro_rollout_fwd(*kernel_args(
             consts, (pos0, vel0, posT, velT), B, V, stream))
     _launch.raise_on(err, "micro_rollout forward")
@@ -305,7 +296,7 @@ def micro_rollout_bwd(consts: MicroConsts, pos0, vel0, g_pT, g_vT,
         err = lib.launch_micro_rollout_bwd(*kernel_args(
             consts, tensors, B, V, stream))
     elif traj is not None:
-        _check_trajectory(traj, B, T, V, dev)
+        _launch.check("traj", traj, (B, T, 2, V), torch.float32, dev)
         err = lib.launch_micro_rollout_bwd_saved(*kernel_args(
             consts, (*tensors, traj), B, V, stream))
     else:
@@ -322,18 +313,16 @@ micro_rollout_bwd.launches = 0
 
 class MicroRolloutFunction(torch.autograd.Function):
     """``apply(pos0, vel0, consts) -> (posT, velT)`` with the backward of
-    :func:`micro_rollout_bwd`. On the card, when autograd will ask for a
-    gradient, the forward saves the trajectory the backward sweeps."""
+    :func:`micro_rollout_bwd`; when autograd will ask for a gradient, the
+    forward saves the trajectory the backward sweeps."""
 
     @staticmethod
     def forward(ctx, pos0, vel0, consts):
-        save = pos0.is_cuda and any(ctx.needs_input_grad[:2])
-        posT, velT, traj = micro_rollout_fwd(consts, pos0, vel0,
-                                             trajectory=True) if save \
-            else (*micro_rollout_fwd(consts, pos0, vel0), None)
+        save = any(ctx.needs_input_grad[:2])
+        out = micro_rollout_fwd(consts, pos0, vel0, trajectory=save)
         ctx.consts = consts
-        ctx.save_for_backward(pos0, vel0, traj)
-        return posT, velT
+        ctx.save_for_backward(pos0, vel0, out[2] if save else None)
+        return out[:2]
 
     @staticmethod
     def backward(ctx, g_pT, g_vT):

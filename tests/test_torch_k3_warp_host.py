@@ -233,3 +233,22 @@ def test_checked_division_accepts_only_the_ieee_quotient(lib):
         assert not bool((ok & (q.view(torch.int32) != want)).any())
         assert bool(ok[: n].any()) and bool((~ok[: n]).any())
         assert float(ok[-n:].float().mean()) > 0.99
+
+
+def test_trajectory_only_where_the_backward_reads_one():
+    """On CPU tensors the wrapper's backward is autograd of the plain
+    version, which reads no trajectory: ``trajectory=True`` returns None
+    beside the plain version's outputs, and the autograd Function asks for
+    one only when a gradient is needed."""
+    consts = consts_for(4, 20, "spaced")
+    ins = case(3, 4, "spaced")
+    posT, velT, traj = k3.micro_rollout_fwd(consts, *ins, trajectory=True)
+    assert traj is None
+    for a, b in zip((posT, velT), k3.plain_micro_rollout(consts, *ins)):
+        assert torch.equal(a, b)
+    fn = k3.make_fused_micro_rollout(DT, 20, 4, B, default_params(U_MAX, (4,)),
+                                     *HEAD["spaced"], device="cpu")
+    with torch.no_grad():
+        out = fn(*ins)
+    for a, b in zip(out, (posT, velT)):
+        assert torch.equal(a, b)
