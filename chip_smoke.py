@@ -643,7 +643,9 @@ def time_rollouts(dev) -> dict:
         # K3's kernels alone: the wrapper's host time per call (above) is
         # longer than the warp kernels, so back to back it would time the
         # host; its launchers with their arguments made once
-        lib, stream = k3._library(), torch.cuda.current_stream().cuda_stream
+        from dhts_torch.ops.cuda import _launch
+
+        lib, stream = k3._library(), _launch.stream(dev)
         out = [torch.empty((B, V), device=dev) for _ in range(2)]
         g = torch.empty((B, 2 * V), device=dev)
         scratch = torch.empty_like(traj)
@@ -654,6 +656,7 @@ def time_rollouts(dev) -> dict:
         for name, (launcher, ts) in direct.items():
             args = k3.kernel_args(uc, ts, B, V, stream)
             fn = getattr(lib, f"launch_micro_rollout_{launcher}")
+            _launch.raise_on(fn(*args), name)
             ms_wrapper.setdefault(name, {})[B] = ms[name][B]
             ms[name][B] = cuda_ms(lambda: fn(*args), 5, launches=20)
         # bytes: each input read once, each output written once; ops: the
