@@ -34,6 +34,7 @@ import torch
 from dhts_torch.models.vehicle import default_params
 from dhts_torch.ops.cuda import _build, _launch
 from dhts_torch.ops.cuda import micro_rollout as k3
+from dhts_torch.ops.cuda.step_clock import events_ms
 
 # the stamp slots of csrc/micro_rollout.cu: a forward step (the smem
 # kernel's last part is its stores and barrier, the warp kernel's its
@@ -90,20 +91,6 @@ def clocked_library():
     """The stamped build for the card, its launchers bound."""
     return bind_clock(ctypes.CDLL(str(_build.build(
         "micro_rollout", defines=("DHTS_STEP_CLOCK",)))))
-
-
-def events_ms(fn, repeats: int, launches: int = 20) -> float:
-    times = []
-    for _ in range(repeats):
-        start = torch.cuda.Event(enable_timing=True)
-        end = torch.cuda.Event(enable_timing=True)
-        start.record()
-        for _ in range(launches):
-            fn()
-        end.record()
-        end.synchronize()
-        times.append(start.elapsed_time(end) / launches)
-    return sorted(times)[repeats // 2]
 
 
 def measure(clocked, plain, kernel: str, consts, ins, repeats: int):
