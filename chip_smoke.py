@@ -88,13 +88,14 @@ phase prints one JSON line with its wall seconds:
                --mesh 1,1 --mesh_fused`` at the ``run_itscp_hybrid.sh``
                flags, problem 1, 2 epochs with an evaluation each, the CLI's
                own one episode per epoch: losses finite, and the STEP
-               kernels' launches, counted from 0 in this phase, equal to T
+               kernels' steps, counted from 0 in this phase, equal to T
                per train step plus T per evaluation (forward) and T per
-               train step (derivative)
-15. ``spatial_timing``  STEP forward and derivative ms per launch at B = 1
-               and 4 (CUDA events, median of 5 runs of 50 launches back to
-               back) and per episode (T launches), with their bounds, and
-               the plain step's ms at B = 1
+               train step (derivative), in one kernel launch per episode
+15. ``spatial_timing``  STEP forward (hard and soft) and derivative ms per
+               step at B = 1 and 4 (CUDA events around one launcher call
+               of 50 steps from the state after 100, restored before each;
+               median of 5) and per episode (one call of T steps), with
+               their bounds, and the plain step's ms at B = 1
 16. ``k4_vs_plain``  K4 (the all-macro episode) at the macro preset of
                ``run_itscp_macro.sh`` (L = 40, C = 7, T = 300) and the 3x3
                preset in macro mode (L = 144, C = 4, T = 600), actions 0.3
@@ -314,6 +315,26 @@ def cuda_ms(fn, repeats: int, launches: int = 1):
         end.record()
         end.synchronize()
         times.append(start.elapsed_time(end) / launches)
+    times.sort()
+    return times[len(times) // 2]
+
+
+def restored_ms(fn, restore, repeats: int) -> float:
+    """Median milliseconds of one ``fn()`` over ``repeats`` runs, each
+    timed by CUDA events around ``fn()`` alone, after ``restore()`` (the
+    state it advances) outside the events."""
+    import torch
+
+    times = []
+    for _ in range(repeats):
+        restore()
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        start.record()
+        fn()
+        end.record()
+        end.synchronize()
+        times.append(start.elapsed_time(end))
     times.sort()
     return times[len(times) // 2]
 
@@ -858,8 +879,10 @@ def run_spatial_train(log_root: str) -> dict:
             "--n_episode", "1", "--mesh", "1,1", "--mesh_fused",
             "--log_root", log_root]
     k6.launches.update(fwd=0, bwd=0)
+    k6.kernel_launches.update(fwd=0, bwd=0)
     run.main(argv)
     launches = dict(k6.launches)
+    kernel_launches = dict(k6.kernel_launches)
     (metrics,) = Path(log_root).glob("hybrid_*/trial_0/metrics.jsonl")
     rows = [json.loads(x) for x in metrics.read_text().splitlines()]
     losses = [r["loss_train"] for r in rows if "loss_train" in r]
@@ -867,27 +890,35 @@ def run_spatial_train(log_root: str) -> dict:
     T, steps, ep_per_epoch = 600, len(losses), 1
     expected = dict(fwd=T * (steps * ep_per_epoch + len(evals)),
                     bwd=T * steps)
+    # one kernel launch runs an episode's T steps
+    expected_kernel = {k: v // T for k, v in expected.items()}
     ok = (steps == 2 and len(evals) == 2 and launches == expected and
+          kernel_launches == expected_kernel and
           all(math.isfinite(x) for x in losses + evals))
     report(argv=argv, episodes_per_epoch=ep_per_epoch, losses=losses,
            eval_rewards=evals, launches=launches, expected_launches=expected,
+           kernel_launches=kernel_launches,
+           expected_kernel_launches=expected_kernel,
            status="ok" if ok else "FAIL")
     if not ok:
         raise SystemExit("spatial_train failed")
-    return launches
+    return dict(steps=launches, kernel=kernel_launches)
 
 
 def time_spatial(env, vehicles_per_step: float) -> dict:
-    """STEP forward and derivative ms per launch at B = 1 and 4 (median of
-    5 runs of 50 launches back to back, after a warm-up) and per episode (T
-    launches, state set-up included), with bounds; the plain step's ms at B
-    = 1. Timing launches are not the main path's: the counters are
-    restored."""
+    """STEP forward (hard, and soft: the train path's mode) and derivative
+    ms per step at B = 1 and 4 (one launcher call of 50 steps from the
+    state after 100, the state restored before each call outside the CUDA
+    events; median of 5) and per episode (one call of T steps from the
+    empty state, state set-up included; median of 3), with bounds; the
+    plain step's ms at B = 1. Timing launches are not the main path's: the
+    counters are restored."""
     import torch
 
     from dhts_torch.ops.cuda import itscp_spatial_step as k6
 
     saved = dict(k6.launches)
+    saved_kernel = dict(k6.kernel_launches)
     dev = env.device
     soft, hard = k6.make_plan(env, True), k6.make_plan(env, False)
     T, L, C = soft.T, soft.L, soft.C
@@ -917,27 +948,40 @@ def time_spatial(env, vehicles_per_step: float) -> dict:
     for B in (1, 4):
         ins = spatial_inputs(env, B, 300 + B, np.full(env.action_size(),
                                                       0.55))
-        fb, ib = k6.empty_state(hard, B, dev)
         q = torch.zeros((B, T), device=dev)
         ev = torch.zeros((B, T, 3), dtype=torch.int32, device=dev)
         w = torch.zeros((B, T), device=dev)
-        db_f, db_d, db_i = k6.dual_state(soft, B, dev)
-        g64 = torch.zeros(db_f.shape[0], dtype=torch.float64, device=dev)
         wq = torch.ones((B, T), device=dev)
-        # time steps 100 to 149 of states that have run the first 100
-        k6.spatial_step_fwd(hard, fb, ib, 0, 100, ins, q, ev, w)
-        k6.spatial_step_bwd(soft, db_f, db_d, db_i, 0, 100, ins, wq, g64)
-        runs = {"fwd": lambda: k6.spatial_step_fwd(hard, fb, ib, 100, 50,
-                                                   ins, q, ev, w),
-                "bwd": lambda: k6.spatial_step_bwd(soft, db_f, db_d, db_i,
-                                                   100, 50, ins, wq, g64)}
-        for fn in runs.values():
-            fn()
-        torch.cuda.synchronize()
-        for name, fn in runs.items():
-            ms.setdefault(name, {})[B] = cuda_ms(fn, 5) / 50
+        states = {"fwd": k6.empty_state(hard, B, dev),
+                  "fwd_soft": k6.empty_state(soft, B, dev),
+                  "bwd": k6.dual_state(soft, B, dev)}
+        g64 = torch.zeros(states["bwd"][0].shape[0], dtype=torch.float64,
+                          device=dev)
+        calls = {
+            "fwd": lambda st, t0, n: k6.spatial_step_fwd(
+                hard, *st, t0, n, ins, q, ev, w),
+            "fwd_soft": lambda st, t0, n: k6.spatial_step_fwd(
+                soft, *st, t0, n, ins, q, ev, w),
+            "bwd": lambda st, t0, n: k6.spatial_step_bwd(
+                soft, *st, t0, n, ins, wq, g64)}
+        for name, call in calls.items():
+            # time steps 100 to 149 of a state that has run the first 100
+            st = states[name]
+            call(st, 0, 100)
+            warm = [x.clone() for x in st]
+            g_warm = g64.clone()
+
+            def restore(st=st, warm=warm, g_warm=g_warm):
+                for x, y in zip(st, warm):
+                    x.copy_(y)
+                g64.copy_(g_warm)
+
+            ms.setdefault(name, {})[B] = restored_ms(
+                lambda: call(st, 100, 50), restore, 5) / 50
         per_episode.setdefault("fwd", {})[B] = cuda_ms(
             lambda: k6.spatial_episode_fwd(hard, *ins), 3)
+        per_episode.setdefault("fwd_soft", {})[B] = cuda_ms(
+            lambda: k6.spatial_episode_fwd(soft, *ins), 3)
         per_episode.setdefault("bwd", {})[B] = cuda_ms(
             lambda: k6.spatial_episode_bwd(soft, wq, *ins), 3)
         # bytes: that state, the step's rows of the draws and scene data,
@@ -950,6 +994,7 @@ def time_spatial(env, vehicles_per_step: float) -> dict:
             (soft.lane_i, soft.lane_f, soft.prog))
         nbytes = B * state + step_in + B * 5 * 4
         bounds.setdefault("fwd", {})[B] = bound_of(nbytes, B * step_ops)
+        bounds.setdefault("fwd_soft", {})[B] = bounds["fwd"][B]
         bounds.setdefault("bwd", {})[B] = bound_of(
             B * state + step_in + B * 4 + B * n_act * 8,
             B * step_ops * VJP_OPS_MULTIPLE)
@@ -960,10 +1005,15 @@ def time_spatial(env, vehicles_per_step: float) -> dict:
         soft, carry, sg, ss, 100, ins[0], ins[1][:, 100], ins[2][100],
         ins[3][100], ins[4][100], ins[5], g), 5)
     k6.launches.update(saved)
-    smem = k6._library().itscp_spatial_step_smem
+    k6.kernel_launches.update(saved_kernel)
+    lib = k6._library()
+    smem = lib.itscp_spatial_step_smem
+    carry = lambda dual: lib.itscp_spatial_step_smem_carry(
+        L, C, soft.V, K, dual)
     return dict(ms=ms, ms_per_episode=per_episode, bounds=bounds,
                 state_bytes_per_episode=state, plain_step_ms=plain_ms,
                 smem_bytes=dict(fwd=smem(L, 0), bwd=smem(L, 1)),
+                smem_bytes_with_carry=dict(fwd=carry(0), bwd=carry(1)),
                 ms_over_bound={n: {B: ms[n][B] / bounds[n][B]["bound_ms"]
                                    for B in ms[n]} for n in ms})
 
@@ -2786,12 +2836,20 @@ def main() -> int:
         kernels.append({
             "name": f"itscp_spatial_step_{key}", "route": "cuda",
             "source": k6.SOURCE, "replaces": replaces,
-            "body": k6.REPLACES_STEP, "launches": spatial_launches[key],
+            "body": k6.REPLACES_STEP,
+            "launches": spatial_launches["steps"][key],
+            "kernel_launches": spatial_launches["kernel"][key],
             "max_abs_err": err, "ms": spatial_times["ms"][key][1],
             "plain_ms": plain_ms, "bound_ms": b1["bound_ms"],
             "bound_by": b1["bound_by"], "library_ms": None, "batch": 1,
             "ms_by_batch": spatial_times["ms"][key],
             "ms_per_episode": spatial_times["ms_per_episode"][key]})
+        if key == "fwd":
+            kernels[-1].update(
+                ms_soft=spatial_times["ms"]["fwd_soft"][1],
+                ms_soft_by_batch=spatial_times["ms"]["fwd_soft"],
+                ms_soft_per_episode=spatial_times["ms_per_episode"][
+                    "fwd_soft"])
     # K4 at the macro preset, the shape of the k4_train phase (the
     # backward with the action alone, as training asks)
     from dhts_torch.ops.cuda import itscp_macro_episode as k4

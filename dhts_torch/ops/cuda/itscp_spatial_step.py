@@ -28,14 +28,16 @@ route of an episode is such a row and vehicles only ever copy routes.
   :func:`plain_spatial_episode` loops it over T, and autograd through it is
   the derivative's specification.
 * :func:`spatial_step_fwd` is the wrapper of the forward kernel
-  (``csrc/itscp_spatial_step.cu``, one launch per step, one block per
-  episode) and :func:`spatial_step_bwd` that of the derivative kernel
-  (forward-mode dual numbers, one launch per step, one block per (episode,
-  action entry)); :func:`spatial_episode_fwd` and
-  :func:`spatial_episode_bwd` run them over a whole episode from the empty
-  state. On CUDA tensors they launch the kernels and count each launch in
-  ``launches``; on CPU tensors they run the plain versions (the derivative's
-  is :func:`plain_spatial_step_bwd`, the plain step in forward-mode AD).
+  (``csrc/itscp_spatial_step.cu``, one launch per call, which runs the
+  call's steps one after another, one block per episode) and
+  :func:`spatial_step_bwd` that of the derivative kernel (forward-mode dual
+  numbers, one block per (episode, action entry)); :func:`spatial_episode_fwd`
+  and :func:`spatial_episode_bwd` run them over a whole episode from the
+  empty state. On CUDA tensors they launch the kernels, count the steps in
+  ``launches`` (one per step of one launch, a step as the JAX episode's
+  scan launches it) and the kernel launches in ``kernel_launches``; on CPU
+  tensors they run the plain versions (the derivative's is
+  :func:`plain_spatial_step_bwd`, the plain step in forward-mode AD).
 * :func:`make_spatial_episode_op` is K5's op around the episode
   (:func:`dhts_torch.ops.cuda.dkernel.make_dkernel`): its derivative is the
   action gradient of a whole episode in forward mode, the design of K1's
@@ -71,9 +73,11 @@ CARRY_DIFF = (0, 1, 2, 3, 4, 14)  # r y pos vel av cap
 PARAMS = ("p_amax", "p_apref", "p_vt", "p_ms", "p_tp", "p_len")
 MAX_LANES = 1024  # one thread per lane
 
-# launches of the forward (one step of B episodes) and derivative (one
-# step of B x n_act dual episodes) kernels
+# steps run by the forward (one step of B episodes) and derivative (one
+# step of B x n_act dual episodes) kernels, and their kernel launches (one
+# per call, whatever its steps)
 launches = {"fwd": 0, "bwd": 0}
+kernel_launches = {"fwd": 0, "bwd": 0}
 
 
 def make_plan(env, differentiable: bool) -> k1.EpisodePlan:
@@ -376,6 +380,11 @@ def bind(lib: ctypes.CDLL) -> ctypes.CDLL:
         fn.restype = ctypes.c_int
     lib.itscp_spatial_step_smem.argtypes = [ctypes.c_int] * 2
     lib.itscp_spatial_step_smem.restype = ctypes.c_size_t
+    if hasattr(lib, "itscp_spatial_step_smem_carry"):
+        lib.itscp_spatial_step_smem_carry.argtypes = [ctypes.c_int] * 5
+        lib.itscp_spatial_step_smem_carry.restype = ctypes.c_size_t
+        lib.itscp_spatial_step_set_smem_cap.argtypes = [ctypes.c_longlong]
+        lib.itscp_spatial_step_set_smem_cap.restype = None
     return lib
 
 
@@ -445,8 +454,9 @@ def spatial_step_fwd(plan, fbuf, ibuf, t0: int, n_steps: int, inputs,
     rand[B, T, L], sched, mnext, mprev, routes)``.
 
     CPU tensors run :func:`plain_spatial_step`; CUDA tensors launch the
-    forward kernel once per step (one block per episode), counted in
-    ``launches["fwd"]``, or raise.
+    forward kernel once (one block per episode, the steps in a loop), the
+    steps counted in ``launches["fwd"]`` and the launch in
+    ``kernel_launches["fwd"]``, or raise.
     """
     B = fbuf.shape[0]
     dev = _check(plan, inputs, B)
@@ -477,12 +487,14 @@ def spatial_step_fwd(plan, fbuf, ibuf, t0: int, n_steps: int, inputs,
         n_steps, _launch.stream(dev)))
     _launch.raise_on(err, "itscp_spatial_step forward")
     launches["fwd"] += n_steps
+    kernel_launches["fwd"] += n_steps > 0
 
 
 def spatial_episode_fwd(plan, action2d, rand, sched, mnext, mprev, routes):
     """``(queues[B, T], events[B, T, 3], max_wave[B, T])`` of B episodes
     from the empty state, without a graph for autograd; CPU tensors run
-    :func:`plain_spatial_episode`, CUDA tensors T forward launches."""
+    :func:`plain_spatial_episode`, CUDA tensors one forward launch of T
+    steps."""
     if _launch.device_of(action2d).type == "cpu":
         return plain_spatial_episode(plan, action2d, rand, sched, mnext,
                                      mprev, routes)
@@ -552,8 +564,9 @@ def spatial_step_bwd(plan, fbuf, dbuf, ibuf, t0: int, n_steps: int, inputs,
     d(queue_t)/d(action_j)`` to ``grad64[b * n_act + j]`` (float64).
 
     CPU tensors run :func:`plain_spatial_step_bwd`; CUDA tensors launch the
-    derivative kernel once per step (one block per episode and action
-    entry), counted in ``launches["bwd"]``, or raise."""
+    derivative kernel once (one block per episode and action entry, the
+    steps in a loop), the steps counted in ``launches["bwd"]`` and the
+    launch in ``kernel_launches["bwd"]``, or raise."""
     n_act = plan.n_phases * plan.n_inter
     N = fbuf.shape[0]
     if N % n_act:
@@ -575,14 +588,16 @@ def spatial_step_bwd(plan, fbuf, dbuf, ibuf, t0: int, n_steps: int, inputs,
         n_steps, _launch.stream(dev)))
     _launch.raise_on(err, "itscp_spatial_step derivative")
     launches["bwd"] += n_steps
+    kernel_launches["bwd"] += n_steps > 0
 
 
 def spatial_episode_bwd(plan, q_weight, action2d, rand, sched, mnext, mprev,
                         routes):
     """``grad[n_phases, n_inter] = sum_{b,t} q_weight[b, t] *
     d(queues[b, t]) / d(action2d)`` of the soft episodes. CPU tensors use
-    :func:`plain_spatial_episode_bwd`; CUDA tensors T launches of the
-    derivative kernel (one block per episode and action entry)."""
+    :func:`plain_spatial_episode_bwd`; CUDA tensors one launch of the
+    derivative kernel over T steps (one block per episode and action
+    entry)."""
     inputs = (action2d, rand, sched, mnext, mprev, routes)
     if _launch.device_of(action2d).type == "cpu":
         return plain_spatial_episode_bwd(plan, q_weight, *inputs)
