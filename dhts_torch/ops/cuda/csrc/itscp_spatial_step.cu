@@ -74,18 +74,23 @@ namespace {
 
 // Cycle stamps (a build with -DDHTS_STEP_CLOCK; python -m
 // dhts_torch.ops.cuda.spatial_clock): thread 0 of block 0 reads the clock
-// after each barrier of a step, and after its own reductions, and adds the
-// cycles since its last stamp to the part that ended there (SP_PROLOGUE
-// ... SP_FINAL), so each part's count is the time thread 0 spent in it
-// (SP_PROLOGUE: from kernel entry to the first step, and the carry's store
-// at the end); a launch adds its sums and the steps it ran to
-// step_cycles. Without the macro the stamps compile to nothing.
+// after each barrier of a step and adds the cycles since its last stamp to
+// the part that ended there (SP_PROLOGUE ... SP_FINAL), so each part's
+// count is the time the lanes spent in it (SP_PROLOGUE: from kernel entry
+// to the first step, and the carry's store at the end; with a reduction
+// warp, a mean's part is the wait for it and SP_FINAL is 0). Beside the
+// lanes' path, the reduction warp's first thread adds its cycles from each
+// record's arrival to its release to SP_RED, and each lane thread of block
+// 0 its own cycles in C to lane_c_cycles. A launch adds its sums and the
+// steps it ran to step_cycles. Without the macro the stamps compile to
+// nothing.
 enum StepPart {
   SP_PROLOGUE, SP_A, SP_B, SP_SIGNAL_MEAN, SP_C, SP_D1, SP_D2, SP_D3,
-  SP_STATIC_MEAN, SP_E, SP_FINAL, SP_PARTS
+  SP_STATIC_MEAN, SP_E, SP_FINAL, SP_RED, SP_PARTS
 };
 #ifdef DHTS_STEP_CLOCK
 __device__ long long step_cycles[SP_PARTS + 1];  // the parts, then steps
+__device__ long long lane_c_cycles[1024];
 // the SM's clock, read by a volatile asm with a memory clobber: the
 // compiler keeps it in order with the barriers
 __device__ __forceinline__ long long sp_now() {
@@ -97,10 +102,14 @@ __device__ __forceinline__ long long sp_now() {
   return t;
 #endif
 }
-#define SP_CLOCK_START()                                    \
-  const bool sp_clk = threadIdx.x == 0 && blockIdx.x == 0;  \
-  long long sp_ck[SP_PARTS] = {};                           \
+#define SP_CLOCK_START(who)                         \
+  const bool sp_clk = (who) && blockIdx.x == 0;     \
+  long long sp_ck[SP_PARTS] = {};                   \
   long long sp_t0 = sp_clk ? sp_now() : 0
+#define SP_MARK()                    \
+  do {                               \
+    if (sp_clk) sp_t0 = sp_now();    \
+  } while (0)
 #define SP_STAMP(p)                        \
   do {                                     \
     if (sp_clk) {                          \
@@ -109,23 +118,24 @@ __device__ __forceinline__ long long sp_now() {
       sp_t0 = sp_t;                        \
     }                                      \
   } while (0)
+// each clocking thread adds the parts it counted (thread 0 and the
+// reduction warp's count disjoint parts, so neither overwrites the other)
 #define SP_CLOCK_END(steps)                                    \
   do {                                                         \
     if (sp_clk) {                                              \
       for (int sp_i = 0; sp_i < SP_PARTS; ++sp_i)              \
-        step_cycles[sp_i] += sp_ck[sp_i];                      \
-      step_cycles[SP_PARTS] += (steps);                        \
+        if (sp_ck[sp_i]) step_cycles[sp_i] += sp_ck[sp_i];     \
+      if (steps) step_cycles[SP_PARTS] += (steps);             \
     }                                                          \
   } while (0)
-// beside the block's path: each lane's own cycles in C (block 0)
-__device__ long long lane_c_cycles[1024];
 #define SP_LANE_BEGIN() const long long sp_c0 = sp_now()
 #define SP_LANE_END(l)                                              \
   do {                                                              \
     if (blockIdx.x == 0) lane_c_cycles[l] += sp_now() - sp_c0;      \
   } while (0)
 #else
-#define SP_CLOCK_START() (void)0
+#define SP_CLOCK_START(who) (void)0
+#define SP_MARK() (void)0
 #define SP_STAMP(p) (void)0
 #define SP_CLOCK_END(steps) (void)0
 #define SP_LANE_BEGIN() (void)0
@@ -185,6 +195,29 @@ __device__ __forceinline__ Dual from_parts<Dual>(float v, float d) {
 constexpr int WARP = 32;
 constexpr unsigned FULL_MASK = 0xffffffffu;
 constexpr int MAX_WARPS = 32;  // MAX_LANES / 32
+// named barriers (0 is __syncthreads): the lane threads' own; by step
+// parity, the records of B, of D3 and of E (the lanes arrive, the
+// reduction warp waits) and the release of a parity's records (the
+// reduction warp arrives, the lanes wait two steps on); the soft means'
+// release (the reduction warp arrives, the lanes that read the mean wait)
+constexpr int BAR_LANES = 1, BAR_B = 2, BAR_D3 = 4, BAR_E = 6,
+              BAR_EMPTY = 8, BAR_SIG = 10, BAR_STAT = 11;
+
+// PTX named barriers (the host build has its own, cpu_emulation.h): wait
+// at, or only arrive at, barrier `id`, which completes when `count` threads
+// have reached it. A warp must reach one converged (bar.sync and bar.arrive
+// are .aligned), hence the __syncwarp() after lane-dependent branches.
+#ifdef DHTS_CPU_EMULATION
+#define CONVERGE() (void)0
+#else
+#define CONVERGE() __syncwarp()
+__device__ __forceinline__ void bar_sync(int id, int count) {
+  asm volatile("bar.sync %0, %1;" ::"r"(id), "r"(count) : "memory");
+}
+__device__ __forceinline__ void bar_arrive(int id, int count) {
+  asm volatile("bar.arrive %0, %1;" ::"r"(id), "r"(count) : "memory");
+}
+#endif
 
 // a warp's exact partial results, folded by a shuffle tree: integer counts
 // and the largest wave speed (order-free), never a float sum
@@ -193,18 +226,20 @@ struct WarpPart {
   float wave;
 };
 
-// per-lane summaries other lanes read, the block's reduction scratch and,
-// where it fits, the episode's carry
+// per-lane summaries other lanes read, the step's records by step parity
+// (what the reductions read) and, where it fits, the episode's carry
 template <class S>
 struct Smem {
   S *sig, *r_last, *u_last, *r_first, *u_first, *tpos, *tvel, *cap_val;
-  S *hs_pos, *hs_vel, *hs_a, *red_q;
+  S *hs_pos, *hs_vel, *hs_a;
+  S* red_q;          // [2][L] each lane's q^2
   float *tlen, *hs_len, *hs_par, *ms;  // hs_par: [5 L]
-  double* sig_term;  // [L] the blend's terms of the signal running mean
-  double* red_sum;   // [2 L] the static partials (cells, vehicles)
-  int* red_cnt;      // [2 L] and their counts
-  int* part_blend;   // [MAX_WARPS] each warp's blend count
-  WarpPart* part;    // [MAX_WARPS]
+  double* sig_term;  // [2][L] the blend's terms of the signal running mean
+  double* red_sum;   // [2][2 L] the static partials (cells, vehicles)
+  int* red_cnt;      // [2][2 L] and their counts
+  int* part_blend;   // [2][MAX_WARPS] each warp's blend count
+  WarpPart* part;    // [2][MAX_WARPS]
+  int* warp_micro;   // [MAX_WARPS] whether a warp runs a micro lane
   int *count, *want, *mn, *hn, *hs_rid, *hs_ridx, *best, *dep_best;
   // the carry (`carry`): the float row, the tangents of r, y, pos, vel, av
   // and then cap (Dual), the int row
@@ -222,14 +257,16 @@ __host__ __device__ inline size_t smem_bytes(const Dims& d, Smem<S>* s,
   const size_t L = d.L;
   S** sf[] = {&t->sig, &t->r_last, &t->u_last, &t->r_first, &t->u_first,
               &t->tpos, &t->tvel, &t->cap_val, &t->hs_pos, &t->hs_vel,
-              &t->hs_a, &t->red_q};
+              &t->hs_a};
   for (S** p : sf) carve(p, L, b, off);
+  carve(&t->red_q, 2 * L, b, off);
   carve(&t->tlen, L, b, off); carve(&t->hs_len, L, b, off);
   carve(&t->hs_par, 5 * L, b, off); carve(&t->ms, 4, b, off);
-  carve(&t->sig_term, L, b, off); carve(&t->red_sum, 2 * L, b, off);
-  carve(&t->red_cnt, 2 * L, b, off);
-  carve(&t->part_blend, MAX_WARPS, b, off);
-  carve(&t->part, MAX_WARPS, b, off);
+  carve(&t->sig_term, 2 * L, b, off); carve(&t->red_sum, 4 * L, b, off);
+  carve(&t->red_cnt, 4 * L, b, off);
+  carve(&t->part_blend, 2 * MAX_WARPS, b, off);
+  carve(&t->part, 2 * MAX_WARPS, b, off);
+  carve(&t->warp_micro, MAX_WARPS, b, off);
   int** si[] = {&t->count, &t->want, &t->mn, &t->hn, &t->hs_rid,
                 &t->hs_ridx, &t->best, &t->dep_best};
   for (int** p : si) carve(p, L, b, off);
@@ -269,28 +306,36 @@ struct Terms {
 
 // K float64 sums over j = 0 .. n - 1 in index order, ((0 + x_0) + x_1) +
 // ..., the plain version's sequential sum (lane_sum32, _seq_sum64):
-// `get(j)` returns term j of each (by value, so that the batch stays in
-// registers); the terms of 8 indices are loaded before their adds, so only
-// the adds form the chain.
+// `get(j)` returns term j of each (by value, so that the terms stay in
+// registers). The terms go in batches of 8, each batch's loads issued
+// before the last batch's adds, so only the adds form the chain.
 template <int K, class Get>
 __device__ __forceinline__ Terms<K> seq_sums(int n, Get get) {
   Terms<K> acc;
 #pragma unroll
   for (int k = 0; k < K; ++k) acc.v[k] = 0.0;
-  int j = 0;
-  for (; j + 8 <= n; j += 8) {
-    Terms<K> x[8];
+  const int nb = n / 8;
+  Terms<K> x[8];
+  if (nb > 0) {
 #pragma unroll
-    for (int i = 0; i < 8; ++i) x[i] = get(j + i);
+    for (int i = 0; i < 8; ++i) x[i] = get(i);
+  }
+  for (int b = 0; b < nb; ++b) {
+    // the next batch (past the last, a harmless reload of term n - 1)
+    Terms<K> nx[8];
+#pragma unroll
+    for (int i = 0; i < 8; ++i) nx[i] = get(min((b + 1) * 8 + i, n - 1));
 #pragma unroll
     for (int i = 0; i < 8; ++i)
 #pragma unroll
       for (int k = 0; k < K; ++k) acc.v[k] += x[i].v[k];
-  }
-  for (; j < n; ++j) {
-    const Terms<K> x = get(j);
 #pragma unroll
-    for (int k = 0; k < K; ++k) acc.v[k] += x.v[k];
+    for (int i = 0; i < 8; ++i) x[i] = nx[i];
+  }
+  for (int j = nb * 8; j < n; ++j) {
+    const Terms<K> t = get(j);
+#pragma unroll
+    for (int k = 0; k < K; ++k) acc.v[k] += t.v[k];
   }
   return acc;
 }
@@ -363,21 +408,26 @@ __device__ __forceinline__ float godunov_known(St& st, const LaneGeom& g,
 // episode e) or of one dual episode (S = Dual; block e is episode e / n_act
 // seeding action entry e % n_act). The per-lane phases are those of
 // itscp_step.cuh; the carry is in shared memory during the launch
-// (`carry`) or in global memory.
+// (`carry`) or in global memory. With `red`, a reduction warp behind the
+// lane warps takes each step's records; without it (more than 992 lanes),
+// thread 0 reduces them between barriers.
 template <class S>
-__global__ void spatial_step_kernel(Ptrs p, Dims d, Consts k, int t0,
-                                    int n_steps, int carry) {
-  SP_CLOCK_START();
+__device__ __forceinline__ void spatial_steps(Ptrs p, Dims d, Consts k,
+                                              int t0, int n_steps, int carry,
+                                              int red) {
   DHTS_DYNAMIC_SMEM(smem_raw);
   Smem<S> s;
   smem_bytes<S>(d, &s, smem_raw, carry != 0);
 
   const int L = d.L, C = d.C, V = d.V, K = d.K, R = d.R;
   const bool soft_mode = d.mode != HARD;
+  const int n_warps = (L + WARP - 1) / WARP, NT = n_warps * WARP;
+  const int NB = NT + WARP;  // the lanes and the reduction warp
+  const bool reducer = red && (int)threadIdx.x >= NT;
   const int l = threadIdx.x;
   const bool lane = l < L;
   const int warp = l / WARP, wl = l % WARP;
-  const int n_warps = (L + WARP - 1) / WARP, NT = n_warps * WARP;
+  SP_CLOCK_START(threadIdx.x == 0 || (reducer && wl == 0));
   const int e = blockIdx.x;
   const bool dual = p.dbuf != nullptr;
   const int n_act = d.n_phases * d.n_inter;
@@ -386,7 +436,7 @@ __global__ void spatial_step_kernel(Ptrs p, Dims d, Consts k, int t0,
 
   // this episode's carry: in shared memory for the launch, or in place
   const Layout o = layout(d);
-  const int KL = K * L;
+  const int KL = K * L, NTH = NT + (red ? WARP : 0);
   float* Fg = p.fbuf + (size_t)e * o.fsize;
   float* Dg = dual ? p.dbuf + (size_t)e * o.fsize : nullptr;
   int* Ig = p.ibuf + (size_t)e * o.isize;
@@ -394,13 +444,12 @@ __global__ void spatial_step_kernel(Ptrs p, Dims d, Consts k, int t0,
   int* I = Ig;
   if (carry) {
     F = s.cf; I = s.ci;
-    for (int i = threadIdx.x; i < o.fsize; i += NT) F[i] = Fg[i];
-    for (int i = threadIdx.x; i < o.isize; i += NT) I[i] = Ig[i];
+    for (int i = threadIdx.x; i < o.fsize; i += NTH) F[i] = Fg[i];
+    for (int i = threadIdx.x; i < o.isize; i += NTH) I[i] = Ig[i];
     if (dual) {
       D = s.cd; Dcap = s.cd + o.amax;
-      for (int i = threadIdx.x; i < o.amax; i += NT) D[i] = Dg[i];
-      for (int i = threadIdx.x; i < KL; i += NT)
-        Dcap[i] = Dg[o.cap + i];
+      for (int i = threadIdx.x; i < o.amax; i += NTH) D[i] = Dg[i];
+      for (int i = threadIdx.x; i < KL; i += NTH) Dcap[i] = Dg[o.cap + i];
     }
   }
   auto fa = [&](int off) { return FA{F + off, D ? D + off : nullptr}; };
@@ -419,12 +468,112 @@ __global__ void spatial_step_kernel(Ptrs p, Dims d, Consts k, int t0,
   const LaneGeom g = lane ? lane_geom(sc, L, K, l) : LaneGeom();
   auto clampL = [&](int j) { return min(max(j, 0), L - 1); };
   const int last = min(max(g.num_cell - 1, 0), C - 1);
+  {
+    // the warps that run a micro lane (they read the soft signal mean)
+    int micro = lane && !g.is_macro ? 1 : 0;
+    for (int off = WARP / 2; off > 0; off >>= 1)
+      micro |= __shfl_down_sync(FULL_MASK, micro, off);
+    if (!reducer && wl == 0) s.warp_micro[warp] = micro;
+  }
+  __syncthreads();
+  int n_sig = 0;
+  for (int w = 0; w < n_warps; ++w) n_sig += s.warp_micro[w];
+  const bool waits_sig = !reducer && s.warp_micro[warp] != 0;
+
+  // ---- the step's reductions, by one thread (the reduction warp's first
+  // or thread 0), on the records of step parity `slot`
+  double grad = 0.0;  // the derivative's accumulator
+  // the signal running mean (sum, count) in lane order; its detached mean
+  // sharpens the soft blend gate
+  auto signal_mean = [&](int slot) {
+    const double* terms = s.sig_term + slot * L;
+    const Terms<1> tot = seq_sums<1>(L, [=](int j) {
+      return Terms<1>{{terms[j]}};
+    });
+    int cnt = 0;
+    for (int w = 0; w < n_warps; ++w) cnt += s.part_blend[slot * MAX_WARPS + w];
+    sg_ms[0] = sg_ms[0] + (float)tot.v[0];
+    sg_ms[1] = sg_ms[1] + (float)cnt;
+    const float mean = sg_ms[0] / fmaxf(sg_ms[1], 1.0f);
+    s.ms[0] = k.gate32 / fmaxf(fabsf(mean), 1e-6f);
+  };
+  // the static running mean over the cells, then the vehicles; its
+  // detached mean sharpens the soft queue gates
+  auto static_mean = [&](int slot) {
+    const double* terms = s.red_sum + slot * 2 * L;
+    const Terms<2> sums = seq_sums<2>(L, [=](int j) {  // cells, vehicles
+      return Terms<2>{{terms[j], terms[L + j]}};
+    });
+    int nc = 0, nv = 0;
+    for (int w = 0; w < n_warps; ++w) {
+      nc += s.part[slot * MAX_WARPS + w].n[0];
+      nv += s.part[slot * MAX_WARPS + w].n[1];
+    }
+    ss_ms[0] = ss_ms[0] + ((float)sums.v[0] + (float)sums.v[1]);
+    ss_ms[1] = ss_ms[1] + ((float)nc + (float)nv);
+    const float mean = ss_ms[0] / fmaxf(ss_ms[1], 1.0f);
+    s.ms[1] = 16.0f / fmaxf(fabsf(mean), 1e-6f);
+  };
+  // step t's queue sum_l q^2 * dt in lane order (a Dual's value and
+  // tangent each), events and largest wave speed
+  auto step_outputs = [&](int slot, int t) {
+    const S* terms = s.red_q + slot * L;
+    const Terms<2> qs = seq_sums<2>(L, [=](int j) {  // values, tangents
+      return Terms<2>{{(double)val(terms[j]), (double)tangent(terms[j])}};
+    });
+    const S queue = from_parts<S>((float)qs.v[0], (float)qs.v[1]) *
+                    S(k.dt);
+    const size_t bt = (size_t)b * d.T + t;
+    if (dual) {
+      grad += (double)p.q_weight[bt] * (double)tangent(queue);
+    } else {
+      int ev[3] = {0, 0, 0};
+      float wave = 0.0f;
+      for (int w = 0; w < n_warps; ++w) {
+        const WarpPart& wp = s.part[slot * MAX_WARPS + w];
+        for (int q = 0; q < 3; ++q) ev[q] += wp.n[2 + q];
+        wave = fmaxf(wave, wp.wave);
+      }
+      p.out_queue[bt] = val(queue);
+      for (int q = 0; q < 3; ++q) p.out_events[bt * 3 + q] = ev[q];
+      p.out_wave[bt] = wave;
+    }
+  };
+  const bool reduces = red ? reducer && wl == 0 : threadIdx.x == 0;
+  if (dual && reduces) grad = p.grad[e];
+  if (!reducer) SP_STAMP(SP_PROLOGUE);
+
+  if (reducer) {
+    // ================= the reduction warp ==============================
+    for (int i = 0; i < 2 && i < n_steps; ++i) bar_arrive(BAR_EMPTY + i, NB);
+    for (int i = 0; i < n_steps; ++i) {
+      const int slot = i & 1;
+      bar_sync(BAR_B + slot, NB);
+      SP_MARK();
+      if (wl == 0) signal_mean(slot);
+      CONVERGE();
+      SP_STAMP(SP_RED);
+      if (soft_mode && n_sig > 0) bar_arrive(BAR_SIG, WARP * (n_sig + 1));
+      bar_sync(BAR_D3 + slot, NB);
+      SP_MARK();
+      if (wl == 0) static_mean(slot);
+      CONVERGE();
+      SP_STAMP(SP_RED);
+      if (soft_mode) bar_arrive(BAR_STAT, NB);
+      bar_sync(BAR_E + slot, NB);
+      SP_MARK();
+      if (wl == 0) step_outputs(slot, t0 + i);
+      CONVERGE();
+      SP_STAMP(SP_RED);
+      if (i + 2 < n_steps) bar_arrive(BAR_EMPTY + slot, NB);
+    }
+  }
+
+  // ================= the lanes (the reduction warp skips the loop) ======
   // the cells' speeds the last step's static partials took on the state
   // this step starts from (none at a launch's first step)
   S u_cells[MAXC];
   int n_known = 0;
-  // the gradient accumulator (derivative), thread 0's
-  double grad = dual && threadIdx.x == 0 ? p.grad[e] : 0.0;
   // the step's input rows, loaded a step ahead
   auto row = [&](int t, float& sch, float& rnd, int& mp, int& mn) {
     if (!lane || t >= t0 + n_steps) return;
@@ -435,10 +584,17 @@ __global__ void spatial_step_kernel(Ptrs p, Dims d, Consts k, int t0,
   float nx_sched = 0.0f, nx_rand = 0.0f;
   int nx_mprev = -1, nx_mnext = -1;
   row(t0, nx_sched, nx_rand, nx_mprev, nx_mnext);
-  __syncthreads();
-  SP_STAMP(SP_PROLOGUE);
+  auto lane_sync = [&]() {
+    if (red) {
+      CONVERGE();
+      bar_sync(BAR_LANES, NT);
+    } else {
+      __syncthreads();
+    }
+  };
 
-  for (int t = t0; t < t0 + n_steps; ++t) {
+  for (int i = 0; i < (reducer ? 0 : n_steps); ++i) {
+    const int t = t0 + i, slot = i & 1;
     const float sch = nx_sched, rnd = nx_rand;
     const int mprev_t = nx_mprev, mnext_t = nx_mnext;
     row(t + 1, nx_sched, nx_rand, nx_mprev, nx_mnext);
@@ -457,7 +613,13 @@ __global__ void spatial_step_kernel(Ptrs p, Dims d, Consts k, int t0,
       s.tvel[l] = ld<S>(st.vel, l);
       s.tlen[l] = len_[l];
     }
-    __syncthreads();
+    if (red) {
+      // also: the records of this parity (step t - 2) are free
+      CONVERGE();
+      bar_sync(BAR_EMPTY + slot, NB);
+    } else {
+      __syncthreads();
+    }
     SP_STAMP(SP_A);
 
     // ================= B: ghosts, leader walk, the head's signal =========
@@ -526,33 +688,28 @@ __global__ void spatial_step_kernel(Ptrs p, Dims d, Consts k, int t0,
         fsig = fsig + (next_exist ? n_sc * sig_at(next_l) : S(0.0f));
         blend = exists;
       }
-      s.sig_term[l] = blend ? (double)val(fsig) : 0.0;
+      s.sig_term[slot * L + l] = blend ? (double)val(fsig) : 0.0;
     }
     {
       // the warp's blend count (exact in any order)
       int nb = blend ? 1 : 0;
       for (int off = WARP / 2; off > 0; off >>= 1)
         nb += __shfl_down_sync(FULL_MASK, nb, off);
-      if (wl == 0) s.part_blend[warp] = nb;
+      if (wl == 0) s.part_blend[slot * MAX_WARPS + warp] = nb;
     }
-    __syncthreads();
-    SP_STAMP(SP_B);
-    if (threadIdx.x == 0) {
-      // signal running mean (sum, count) in lane order; its detached mean
-      // sharpens the soft blend gate
-      const double* terms = s.sig_term;
-      const Terms<1> tot = seq_sums<1>(L, [=](int j) {
-        return Terms<1>{{terms[j]}};
-      });
-      int cnt = 0;
-      for (int w = 0; w < n_warps; ++w) cnt += s.part_blend[w];
-      sg_ms[0] = sg_ms[0] + (float)tot.v[0];
-      sg_ms[1] = sg_ms[1] + (float)cnt;
-      const float mean = sg_ms[0] / fmaxf(sg_ms[1], 1.0f);
-      s.ms[0] = k.gate32 / fmaxf(fabsf(mean), 1e-6f);
+    if (red) {
+      CONVERGE();
+      bar_arrive(BAR_B + slot, NB);
+      bar_sync(BAR_LANES, NT);
+      SP_STAMP(SP_B);
+      // only the soft blend reads the mean within the step
+      if (soft_mode && waits_sig) bar_sync(BAR_SIG, WARP * (n_sig + 1));
+    } else {
+      __syncthreads();
+      SP_STAMP(SP_B);
+      if (threadIdx.x == 0) signal_mean(slot);
+      if (soft_mode) __syncthreads();
     }
-    // only the soft blend reads the mean within the step
-    if (soft_mode) __syncthreads();
     SP_STAMP(SP_SIGNAL_MEAN);
 
     // ================= C: physics =======================================
@@ -578,18 +735,18 @@ __global__ void spatial_step_kernel(Ptrs p, Dims d, Consts k, int t0,
       }
       SP_LANE_END(l);
     }
-    __syncthreads();
+    lane_sync();
     SP_STAMP(SP_C);
 
     // ================= D1: conversion requests ==========================
     Request<S> rq;
     if (lane) rq = request<S>(st, s, sc, g, d, k, l, mnext_t, last);
-    __syncthreads();
+    lane_sync();
     SP_STAMP(SP_D1);
 
     // ================= D2: arbitration (pull, lowest source id) =========
     if (lane) arbitrate(s, sc, L, K, l);
-    __syncthreads();
+    lane_sync();
     SP_STAMP(SP_D2);
 
     // ================= D3: verdicts, removals, inserts, deposits ========
@@ -599,7 +756,10 @@ __global__ void spatial_step_kernel(Ptrs p, Dims d, Consts k, int t0,
       const Verdict vd = convert<S>(st, s, sc, g, rq, d, k, l);
       // static running-mean partial sums of this lane, after the
       // conversion; the cells' speeds serve the queue and the next step
-      static_partials<S>(st, s, g, L, l, vd.n, k, u_cells);
+      Smem<S> sv = s;
+      sv.red_sum = s.red_sum + slot * 2 * L;
+      sv.red_cnt = s.red_cnt + slot * 2 * L;
+      static_partials<S>(st, sv, g, L, l, vd.n, k, u_cells);
       if (g.is_macro) n_known = min(g.num_cell, C);
       wp = WarpPart{{g.is_macro ? g.num_cell : 0, g.is_macro ? 0 : vd.n,
                      ev_inj, vd.is_emit ? 1 : 0,
@@ -611,83 +771,90 @@ __global__ void spatial_step_kernel(Ptrs p, Dims d, Consts k, int t0,
       for (int q = 0; q < 5; ++q) wp.n[q] += u.n[q];
       wp.wave = fmaxf(wp.wave, u.wave);
     }
-    if (wl == 0) s.part[warp] = wp;
-    __syncthreads();
-    SP_STAMP(SP_D3);
-    if (threadIdx.x == 0) {
-      const double* terms = s.red_sum;
-      const Terms<2> sums = seq_sums<2>(L, [=](int j) {  // cells, vehicles
-        return Terms<2>{{terms[j], terms[L + j]}};
-      });
-      int nc = 0, nv = 0;
-      for (int w = 0; w < n_warps; ++w) {
-        nc += s.part[w].n[0]; nv += s.part[w].n[1];
+    if (wl == 0) s.part[slot * MAX_WARPS + warp] = wp;
+    if (red) {
+      CONVERGE();
+      bar_arrive(BAR_D3 + slot, NB);
+      // the soft mean's release also tells that every lane is past D3
+      if (soft_mode) {
+        SP_STAMP(SP_D3);
+        bar_sync(BAR_STAT, NB);
+      } else {
+        bar_sync(BAR_LANES, NT);
+        SP_STAMP(SP_D3);
       }
-      ss_ms[0] = ss_ms[0] + ((float)sums.v[0] + (float)sums.v[1]);
-      ss_ms[1] = ss_ms[1] + ((float)nc + (float)nv);
-      const float mean = ss_ms[0] / fmaxf(ss_ms[1], 1.0f);
-      s.ms[1] = 16.0f / fmaxf(fabsf(mean), 1e-6f);
+    } else {
+      __syncthreads();
+      SP_STAMP(SP_D3);
+      if (threadIdx.x == 0) static_mean(slot);
+      // only the soft queue gates read the mean
+      if (soft_mode) __syncthreads();
     }
-    // only the soft queue gates read the mean
-    if (soft_mode) __syncthreads();
     SP_STAMP(SP_STATIC_MEAN);
 
     // ================= E: the queue of this lane =========================
     if (lane) {
       const S q = lane_queue<S>(st, g, l, st.count[l], d.mode,
                                 soft_mode ? s.ms[1] : 0.0f, k, u_cells);
-      s.red_q[l] = q * q;
+      s.red_q[slot * L + l] = q * q;
     }
-    __syncthreads();
-    SP_STAMP(SP_E);
-
-    // ================= the step's reductions (thread 0) =================
-    // The next step's phase A reads and writes none of what this reads,
-    // so the other lanes go on meanwhile.
-    if (threadIdx.x == 0) {
-      const S* terms = s.red_q;
-      const Terms<2> qs = seq_sums<2>(L, [=](int j) {  // values, tangents
-        return Terms<2>{{(double)val(terms[j]), (double)tangent(terms[j])}};
-      });
-      const S queue = from_parts<S>((float)qs.v[0], (float)qs.v[1]) *
-                      S(k.dt);
-      const size_t bt = (size_t)b * d.T + t;
-      if (dual) {
-        grad += (double)p.q_weight[bt] * (double)tangent(queue);
-      } else {
-        int ev[3] = {0, 0, 0};
-        float wave = 0.0f;
-        for (int w = 0; w < n_warps; ++w) {
-          for (int q = 0; q < 3; ++q) ev[q] += s.part[w].n[2 + q];
-          wave = fmaxf(wave, s.part[w].wave);
-        }
-        p.out_queue[bt] = val(queue);
-        for (int q = 0; q < 3; ++q) p.out_events[bt * 3 + q] = ev[q];
-        p.out_wave[bt] = wave;
-      }
+    if (red) {
+      // the next step's A reads and writes nothing a slower lane's E
+      // still reads: no barrier
+      CONVERGE();
+      bar_arrive(BAR_E + slot, NB);
+      SP_STAMP(SP_E);
+    } else {
+      __syncthreads();
+      SP_STAMP(SP_E);
+      // the next step's A reads and writes none of what this reads, so the
+      // other lanes go on meanwhile
+      if (threadIdx.x == 0) step_outputs(slot, t);
     }
     SP_STAMP(SP_FINAL);
   }
 
   // the carry back to its rows
   __syncthreads();
-  if (dual && threadIdx.x == 0) p.grad[e] = grad;
+  if (dual && reduces) p.grad[e] = grad;
   if (carry) {
-    for (int i = threadIdx.x; i < o.fsize; i += NT) Fg[i] = F[i];
-    for (int i = threadIdx.x; i < o.isize; i += NT) Ig[i] = I[i];
+    for (int i = threadIdx.x; i < o.fsize; i += NTH) Fg[i] = F[i];
+    for (int i = threadIdx.x; i < o.isize; i += NTH) Ig[i] = I[i];
     if (dual) {
-      for (int i = threadIdx.x; i < o.amax; i += NT) Dg[i] = D[i];
-      for (int i = threadIdx.x; i < KL; i += NT)
-        Dg[o.cap + i] = Dcap[i];
+      for (int i = threadIdx.x; i < o.amax; i += NTH) Dg[i] = D[i];
+      for (int i = threadIdx.x; i < KL; i += NTH) Dg[o.cap + i] = Dcap[i];
     }
   }
-  SP_STAMP(SP_PROLOGUE);
-  SP_CLOCK_END(n_steps);
+  if (!reducer) SP_STAMP(SP_PROLOGUE);
+  SP_CLOCK_END(threadIdx.x == 0 ? n_steps : 0);
+}
+
+template <class S>
+__global__ void spatial_step_kernel(Ptrs p, Dims d, Consts k, int t0,
+                                    int n_steps, int carry, int red) {
+  spatial_steps<S>(p, d, k, t0, n_steps, carry, red);
+}
+
+// The same with at most LEAN_REGS registers a thread, so that two blocks
+// of up to 8 warps share an SM: a grid of more blocks than one wave of the
+// other kernel holds (the derivative at B = 4: 180 blocks) runs in one
+// wave, its carry in global memory.
+constexpr int LEAN_REGS = 128;
+template <class S>
+__global__ void
+#ifndef DHTS_CPU_EMULATION
+__maxnreg__(LEAN_REGS)
+#endif
+spatial_step_kernel_lean(Ptrs p, Dims d, Consts k, int t0, int n_steps,
+                         int carry, int red) {
+  spatial_steps<S>(p, d, k, t0, n_steps, carry, red);
 }
 
 // the most dynamic shared memory a block may take (the card's opt-in
-// limit), and a smaller cap set for tests (< 0: none)
+// limit), and a smaller cap set for tests (< 0: none); whether a block
+// may take a reduction warp (tests turn it off)
 long long smem_cap = -1;
+int reduction_warp = 1;
 
 // One launch of n_steps steps from step t0: forward (S = float, B blocks)
 // or derivative (S = Dual, B * n_act blocks). The carry goes to shared
@@ -702,12 +869,15 @@ int launch(int blocks, const Ptrs& p, const Dims& d, const Consts& k,
   if (n_steps == 0) return 0;
   const size_t lean = smem_bytes<S>(d, nullptr, nullptr, false);
   const size_t full = smem_bytes<S>(d, nullptr, nullptr, true);
-  const int threads = ((d.L + WARP - 1) / WARP) * WARP;
+  // the lane warps, and a reduction warp where a block may hold one more
+  const int lanes = ((d.L + WARP - 1) / WARP) * WARP;
+  const int red = reduction_warp && lanes + WARP <= MAX_WARPS * WARP;
+  const int threads = lanes + (red ? WARP : 0);
 #ifdef DHTS_CPU_EMULATION
   (void)stream;
   const int carry = smem_cap < 0 || (long long)full <= smem_cap;
   dhts_emu::launch(blocks, threads, carry ? full : lean,
-                   spatial_step_kernel<S>, p, d, k, t0, n_steps, carry);
+                   spatial_step_kernel<S>, p, d, k, t0, n_steps, carry, red);
   return 0;
 #else
   static int sms = 0, optin = 0;
@@ -722,28 +892,63 @@ int launch(int blocks, const Ptrs& p, const Dims& d, const Consts& k,
             cudaSuccess)
       return (int)err;
   }
+  // the blocks an SM holds of `fn` at `smem` bytes (0: it does not fit)
+  auto per_sm = [&](const void* fn, size_t smem, int& n) {
+    n = 0;
+    cudaError_t e = cudaFuncSetAttribute(
+        fn, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+    if (e != cudaSuccess) {
+      cudaGetLastError();
+      return cudaSuccess;
+    }
+    return cudaOccupancyMaxActiveBlocksPerMultiprocessor(&n, fn, threads,
+                                                         smem);
+  };
+  // in order of preference: the carry in shared memory; in global memory;
+  // in global memory with the registers capped; the first that runs the
+  // grid in one wave, else the one with the most blocks an SM
+  const void* fns[3] = {(const void*)spatial_step_kernel<S>,
+                        (const void*)spatial_step_kernel<S>,
+                        (const void*)spatial_step_kernel_lean<S>};
+  const size_t sizes[3] = {full, lean, lean};
   const long long cap = smem_cap < 0 ? optin : smem_cap;
-  int carry = (long long)full <= cap;
-  if (carry) {
-    err = cudaFuncSetAttribute(spatial_step_kernel<S>,
-                               cudaFuncAttributeMaxDynamicSharedMemorySize,
-                               (int)full);
-    if (err != cudaSuccess) return (int)err;
-    int per_sm = 0;
-    err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(
-        &per_sm, spatial_step_kernel<S>, threads, full);
-    if (err != cudaSuccess) return (int)err;
-    carry = blocks <= per_sm * sms;
+  // the last choice, kept for calls of the same shapes
+  static long long last_key[6] = {-1, 0, 0, 0, 0, 0};
+  static int last_pick = -1;
+  const long long key[6] = {(long long)full, (long long)lean, threads,
+                            blocks, cap, sizeof(S)};
+  bool same = true;
+  for (int i = 0; i < 6; ++i) same = same && key[i] == last_key[i];
+  int pick = same ? last_pick : -1, best = 0;
+  for (int i = 0; i < 3 && !same; ++i) {
+    if (i == 0 && (long long)full > cap) continue;
+    int n;
+    if ((err = per_sm(fns[i], sizes[i], n)) != cudaSuccess) return (int)err;
+    if (n * sms >= blocks) {
+      pick = i;
+      break;
+    }
+    if (n > best) {
+      best = n;
+      pick = i;
+    }
   }
-  const size_t smem = carry ? full : lean;
-  if (!carry) {
-    err = cudaFuncSetAttribute(spatial_step_kernel<S>,
-                               cudaFuncAttributeMaxDynamicSharedMemorySize,
-                               (int)smem);
-    if (err != cudaSuccess) return (int)err;
-  }
-  spatial_step_kernel<S><<<blocks, threads, smem, (cudaStream_t)stream>>>(
-      p, d, k, t0, n_steps, carry);
+  if (pick < 0) return 1;
+  for (int i = 0; i < 6; ++i) last_key[i] = key[i];
+  last_pick = pick;
+  const int carry = pick == 0;
+  if ((err = cudaFuncSetAttribute(fns[pick],
+                                  cudaFuncAttributeMaxDynamicSharedMemorySize,
+                                  (int)sizes[pick])) != cudaSuccess)
+    return (int)err;
+  if (pick == 2)
+    spatial_step_kernel_lean<S>
+        <<<blocks, threads, sizes[pick], (cudaStream_t)stream>>>(
+            p, d, k, t0, n_steps, carry, red);
+  else
+    spatial_step_kernel<S>
+        <<<blocks, threads, sizes[pick], (cudaStream_t)stream>>>(
+            p, d, k, t0, n_steps, carry, red);
   return (int)cudaGetLastError();
 #endif
 }
@@ -774,6 +979,10 @@ size_t itscp_spatial_step_smem_carry(int L, int C, int V, int K,
 // Caps the shared memory a launch may take for the carry at `bytes` (< 0:
 // the card's limit; 0: the carry stays in global memory). For tests.
 void itscp_spatial_step_set_smem_cap(long long bytes) { smem_cap = bytes; }
+
+// Whether a block may take a reduction warp (1, the default) or reduces
+// in thread 0 between barriers (0, as beyond 992 lanes). For tests.
+void itscp_spatial_step_set_reduction_warp(int on) { reduction_warp = on; }
 
 // Forward: n_steps steps from t0 of the B episodes packed in (fbuf, ibuf),
 // in place; writes queues[B, T], events[B, T, 3] (int32) and waves[B, T]
@@ -830,13 +1039,14 @@ int launch_itscp_spatial_step_bwd(
 }
 
 // The kernel's registers a thread, local (stack) bytes a thread, and the
-// blocks an SM holds with the carry in shared memory and without, at L
-// lanes, C cells, V vehicles and K capacitor slots, into out[0..3]
-// (forward: tangent = 0; derivative: 1); zeros in the host build. Returns
-// the CUDA error code.
+// blocks an SM holds with the carry in shared memory and without, then the
+// register-capped kernel's registers and blocks an SM (the carry in global
+// memory), at L lanes, C cells, V vehicles and K capacitor slots, into
+// out[0..5] (forward: tangent = 0; derivative: 1); zeros in the host
+// build. Returns the CUDA error code.
 int itscp_spatial_step_kernel_info(int L, int C, int V, int K, int tangent,
                                    int* out) {
-  for (int i = 0; i < 4; ++i) out[i] = 0;
+  for (int i = 0; i < 6; ++i) out[i] = 0;
 #ifdef DHTS_CPU_EMULATION
   (void)L; (void)C; (void)V; (void)K; (void)tangent;
   return 0;
@@ -850,7 +1060,8 @@ int itscp_spatial_step_kernel_info(int L, int C, int V, int K, int tangent,
   const size_t lean = tangent
                           ? smem_bytes<Dual>(d, nullptr, nullptr, false)
                           : smem_bytes<float>(d, nullptr, nullptr, false);
-  const int threads = ((L + WARP - 1) / WARP) * WARP;
+  const int lanes = ((L + WARP - 1) / WARP) * WARP;
+  const int threads = lanes + (lanes + WARP <= MAX_WARPS * WARP ? WARP : 0);
   cudaFuncAttributes attr;
   cudaError_t err = cudaFuncGetAttributes(&attr, fn);
   if (err != cudaSuccess) return (int)err;
@@ -869,7 +1080,19 @@ int itscp_spatial_step_kernel_info(int L, int C, int V, int K, int tangent,
                                                         threads, sizes[i]);
     if (err != cudaSuccess) return (int)err;
   }
-  return 0;
+  const void* lean_fn =
+      tangent ? (const void*)spatial_step_kernel_lean<Dual>
+              : (const void*)spatial_step_kernel_lean<float>;
+  if ((err = cudaFuncGetAttributes(&attr, lean_fn)) != cudaSuccess)
+    return (int)err;
+  out[4] = attr.numRegs;
+  if ((err = cudaFuncSetAttribute(lean_fn,
+                                  cudaFuncAttributeMaxDynamicSharedMemorySize,
+                                  (int)lean)) != cudaSuccess)
+    return (int)err;
+  err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&out[5], lean_fn,
+                                                      threads, lean);
+  return (int)err;
 #endif
 }
 

@@ -385,6 +385,8 @@ def bind(lib: ctypes.CDLL) -> ctypes.CDLL:
         lib.itscp_spatial_step_smem_carry.restype = ctypes.c_size_t
         lib.itscp_spatial_step_set_smem_cap.argtypes = [ctypes.c_longlong]
         lib.itscp_spatial_step_set_smem_cap.restype = None
+        lib.itscp_spatial_step_set_reduction_warp.argtypes = [ctypes.c_int]
+        lib.itscp_spatial_step_set_reduction_warp.restype = None
     return lib
 
 

@@ -37,7 +37,8 @@ from dhts_torch.ops.cuda import itscp_spatial_step as k6
 
 # the parts of csrc/itscp_spatial_step.cu's StepPart, in order
 PARTS = ("prologue", "A", "B", "signal_mean", "C", "D1", "D2", "D3",
-         "static_mean", "E", "final")
+         "static_mean", "E", "final", "reduction_warp")
+OFF_PATH = ("reduction_warp",)  # beside the lanes' path
 WARM, STEPS = 100, 50
 # the 3x3 hybrid preset of run_itscp_hybrid.sh (problem 1)
 PRESET = dict(num_intersection=3, num_lane=1, lane_length=5, speed_limit=60,
@@ -74,16 +75,18 @@ def read_lane_cycles(lib, L: int, reset: bool = False) -> list[int]:
 
 
 def kernel_info(lib, plan, dual: bool) -> dict:
-    """Registers and stack bytes a thread, and blocks an SM with the carry
-    in shared memory and without."""
-    out = (ctypes.c_int * 4)()
+    """Registers and stack bytes a thread, blocks an SM with the carry in
+    shared memory and without, and the register-capped kernel's registers
+    and blocks an SM."""
+    out = (ctypes.c_int * 6)()
     fn = lib.itscp_spatial_step_kernel_info
     fn.argtypes = [ctypes.c_int] * 5 + [ctypes.c_void_p]
     fn.restype = ctypes.c_int
     _launch.raise_on(fn(plan.L, plan.C, plan.V, plan.K, int(dual), out),
                      "spatial step kernel info")
     return dict(zip(("registers", "stack_bytes", "blocks_per_sm_carry_smem",
-                     "blocks_per_sm_carry_global"), out))
+                     "blocks_per_sm_carry_global", "lean_registers",
+                     "lean_blocks_per_sm"), out))
 
 
 def preset_env(dev):
@@ -216,7 +219,7 @@ def main() -> int:
         ok = ok and rec["bit_equal"]
         steps = stamps[-1]
         cyc = dict(zip(PARTS, stamps[:-1]))
-        total = sum(cyc.values())
+        total = sum(c for q, c in cyc.items() if q not in OFF_PATH)
         rec["steps_stamped"] = steps
         rec["cycles_per_step"] = {p: c / max(steps, 1)
                                   for p, c in cyc.items()}

@@ -16,9 +16,12 @@ after step 120):
   step and calls split at odd steps give the same bits, and those bits are
   the plain step's at every step (the packed carry after each one-step
   call; the queues, events and waves of every step; the final carry), with
-  the carry in shared memory (B = 1 and 4) and in global memory (B = 4).
+  the carry in shared memory and a reduction warp (B = 1 and 4), and with
+  the carry in global memory and the reductions in thread 0 (B = 4; the
+  kernel's way beyond 992 lanes).
 * Derivative (forward-mode tangents, B = 2): one call, calls split at odd
-  steps and one call with the carry in global memory give the same bits;
+  steps and one call with the carry in global memory and the reductions in
+  thread 0 give the same bits;
   in the micro scenes, against the wrapper's plain version (the plain step
   in PyTorch's forward-mode AD) values equal, tangents and the float64
   gradient allclose(rtol 1e-5, atol 1e-6 * max), as in
@@ -65,7 +68,14 @@ def lib(tmp_path_factory):
         pytest.skip(f"no host build of the kernel source: {err}")
     lib = k6.bind(ctypes.CDLL(str(path)))
     yield lib
-    lib.itscp_spatial_step_set_smem_cap(-1)
+    place(lib, "smem")
+
+
+def place(lib, carry):
+    """The carry in shared memory with a reduction warp ("smem"), or in
+    global memory with the reductions in thread 0 ("global")."""
+    lib.itscp_spatial_step_set_smem_cap(-1 if carry == "smem" else 0)
+    lib.itscp_spatial_step_set_reduction_warp(int(carry == "smem"))
 
 
 def case(cfg, differentiable, B, seed=12):
@@ -145,7 +155,7 @@ def test_forward_calls_match_plain_step(lib, scene, differentiable, B,
                                         carry):
     plan, inputs, t0, plain = plain_case(scene, differentiable, B)
     start, packed, q, ev, w = plain
-    lib.itscp_spatial_step_set_smem_cap(-1 if carry == "smem" else 0)
+    place(lib, carry)
     t1 = t0 + q.shape[1]
 
     def same_as_plain(t, fb, ib):
@@ -187,7 +197,7 @@ def test_derivative_calls_match_forward_mode_plain_step(lib, scene):
            *(x[:plan.T].contiguous() for x in inputs[2:5]), inputs[5])
     runs = []
     for carry, how in (("smem", "one"), ("smem", "odd"), ("global", "one")):
-        lib.itscp_spatial_step_set_smem_cap(-1 if carry == "smem" else 0)
+        place(lib, carry)
         runs.append(kernel_derivative(lib, plan, ins, wq, B, how))
     for run in runs[1:]:
         for a, b in zip(runs[0], run):
