@@ -23,28 +23,43 @@
 // and route index [V, L]; waiting-pool and emission-pool cursors [L]); the
 // offsets are `layout` here and float_layout/int_layout in the wrapper.
 // During a launch the block holds the rows in shared memory (loaded at its
-// start, stored at its end), where they fit and the grid still runs in one
-// wave of blocks (else they stay in global memory): a call of T steps, T
-// calls of one step and any split in between give the same bits. A lane's
-// thread reads and writes its own lane of the carry; what other lanes read
-// (signals, edge cells, tails, heads, wants, arbitration verdicts) goes
-// through per-lane summaries in shared memory, the port of the JAX step's
-// gathered summary rows. The block syncs where a lane reads another's
-// summary: after injection, after the leader walks, after the physics,
-// after the conversion requests, after arbitration, after the conversion
-// and after the queues; soft mode adds one after each running mean, which
-// its gates read (hard mode reads neither within the step). The running
-// means' and the queue's sums stay float64 sums in lane order, taken by
-// thread 0 with the terms of 8 lanes loaded ahead of their adds; counts,
-// events and the wave maximum, exact in any order, go through a shuffle
-// tree per warp. The step's queue, events and wave are reduced while the
-// other lanes start the next step. The speeds a macro lane's static
-// partials take of its cells after the conversion serve its queue, the
-// next step's edge summaries and the next Godunov update's first cells,
-// whose states they are. The per-lane phases (signal, injection, ghosts,
-// Godunov and IDM updates, conversion requests, arbitration, verdicts and
-// deposits, queue) are K1's, from itscp_step.cuh; the leader walk, the
-// blend and the reductions follow body_STEP.
+// start, stored at its end) where they fit and the grid still runs in one
+// wave of blocks, else they stay in global memory: a call of T steps, T
+// calls of one step and any split in between give the same bits.
+//   lanes       A lane's thread reads and writes its own lane of the carry;
+//               what other lanes read (signals, edge cells, tails, heads,
+//               wants, arbitration verdicts) goes through per-lane
+//               summaries in shared memory, the port of the JAX step's
+//               gathered summary rows. The lane threads sync among
+//               themselves (named barrier BAR_LANES) where a lane reads
+//               another's summary: after injection, after the leader
+//               walks, after the physics, after the conversion requests,
+//               after arbitration and after the conversion.
+//   reductions  Behind the lane warps, one reduction warp takes each
+//               step's records (the blend's terms, the static partials,
+//               q^2; by step parity, two steps' worth) once the lanes
+//               arrive at their named barriers, and frees a parity's
+//               records for the step two on. The float64 sums of the
+//               running means and of the queue stay in lane order: each of
+//               its lanes loads one term of a chunk of 32 and every lane
+//               adds the chunk's terms in order as shuffles bring them.
+//               Counts, events and the wave maximum, exact in any order,
+//               go through a shuffle tree per lane warp. Only the soft
+//               gates wait for a mean: the warps that run a micro lane for
+//               the signal mean (the blend), every lane for the static
+//               mean (the queue gates); hard mode waits for none. A block
+//               of more than 992 lanes has no room for the warp, and warp
+//               0 of the lanes reduces between barriers instead.
+//   speeds      The speeds a macro lane's static partials take of its
+//               cells after the conversion serve its queue, the next
+//               step's edge summaries and the next Godunov update's first
+//               cells, whose states they are.
+//   inputs      Each step's rows of the schedule, the draws and the macro
+//               routes are loaded a step ahead.
+// The per-lane phases (signal, injection, ghosts, Godunov and IDM updates,
+// conversion requests, arbitration, verdicts and deposits, queue) are
+// K1's, from itscp_step.cuh; the leader walk, the blend and the reductions
+// follow body_STEP.
 //
 // Derivative: forward-mode tangents. The step is a template on its scalar
 // type: `float` in the forward, `Dual` (value, tangent) in the derivative,
@@ -52,8 +67,8 @@
 // d(carry)/d(action_j) beside the values in a tangent row of the same
 // layout (in shared memory the tangents of r, y, pos, vel, av and cap
 // only: no other field has one). Each step adds w[b, t] *
-// d(queue_t)/d(action_j) to a float64 accumulator; the value half repeats the forward's float operations, so
-// no residuals are saved. Local derivatives follow autograd of the plain
+// d(queue_t)/d(action_j) to a float64 accumulator; the value half repeats
+// the forward's float operations, so no residuals are saved. Local derivatives follow autograd of the plain
 // step (max/min split a tie 0.5/0.5, a `where` takes the selected branch's
 // tangent, detached running means and decremented capacitors, the emitted
 // vehicle's mass carries the capacitor's tangent, the deposit's clamp is
@@ -66,6 +81,7 @@
 // cells, the vehicles present and the counters of each episode, tens of
 // KB, so it is latency-bound, far above the bytes / 3.35 TB/s floor.
 
+#include <climits>
 #include <cstring>
 
 #include "itscp_step.cuh"
@@ -304,38 +320,117 @@ struct Terms {
   double v[K];
 };
 
+// A shuffle (from lane `src`) of every 32-bit word of a plain struct: one
+// exchange round in the host build, one SHFL a word on the card.
+template <class T>
+__device__ __forceinline__ T shfl_words(T v, int src) {
+#ifdef DHTS_CPU_EMULATION
+  return __shfl_sync(FULL_MASK, v, src);
+#else
+  static_assert(sizeof(T) % 4 == 0, "a struct of 32-bit words");
+  unsigned w[sizeof(T) / 4];
+  memcpy(w, &v, sizeof(T));
+#pragma unroll
+  for (int i = 0; i < (int)(sizeof(T) / 4); ++i)
+    w[i] = __shfl_sync(FULL_MASK, w[i], src);
+  memcpy(&v, w, sizeof(T));
+  return v;
+#endif
+}
+
+// The exponent of the lowest set bit of a finite double d != 0 (d is a
+// multiple of 2^that); INT_MAX for a zero; INT_MIN for an infinity or a NaN.
+__device__ __forceinline__ int low_bit(double d) {
+  long long bits;
+  memcpy(&bits, &d, sizeof bits);
+  const int e = (int)((bits >> 52) & 0x7ff);
+  long long m = bits & ((1LL << 52) - 1);
+  if (e == 0x7ff) return INT_MIN;
+  if (e == 0 && m == 0) return INT_MAX;
+  if (e != 0) m |= 1LL << 52;
+#ifdef DHTS_CPU_EMULATION
+  const int tz = __builtin_ctzll((unsigned long long)m);
+#else
+  const int tz = __ffsll(m) - 1;
+#endif
+  return (e == 0 ? -1074 : e - 1075) + tz;
+}
+
 // K float64 sums over j = 0 .. n - 1 in index order, ((0 + x_0) + x_1) +
-// ..., the plain version's sequential sum (lane_sum32, _seq_sum64):
-// `get(j)` returns term j of each (by value, so that the terms stay in
-// registers). The terms go in batches of 8, each batch's loads issued
-// before the last batch's adds, so only the adds form the chain.
+// ..., the plain version's sequential sum (lane_sum32, _seq_sum64), by a
+// whole warp (every lane calls; every lane returns the sums; `get(j)`
+// returns term j of each). Where the terms are multiples of 2^G and the
+// sum of their magnitudes is at most 2^(G + 53), every partial sum in any
+// order is an exact double, so the sum in any order is the sequential
+// one's: the warp adds them in a tree (their magnitudes' sum is taken to
+// 2^-43 relative, hence the test against 2^(G + 52); a final + 0.0 gives
+// the chain's +0.0 where all terms are zeros). Elsewhere lane i loads term
+// base + i of each chunk of 32 and every lane adds the chunk's nonzero
+// terms in order as shuffles bring them (adding a zero changes no sum that
+// started at +0.0).
 template <int K, class Get>
-__device__ __forceinline__ Terms<K> seq_sums(int n, Get get) {
-  Terms<K> acc;
-#pragma unroll
-  for (int k = 0; k < K; ++k) acc.v[k] = 0.0;
-  const int nb = n / 8;
-  Terms<K> x[8];
-  if (nb > 0) {
-#pragma unroll
-    for (int i = 0; i < 8; ++i) x[i] = get(i);
+__device__ __forceinline__ Terms<K> warp_seq_sums(int n, Get get) {
+  const int wl = threadIdx.x % WARP;
+  // the exact case: sums and magnitudes, and the lowest bits
+  struct SumMag {
+    double sum[K], mag[K];
+  } sm;
+  struct Low {
+    int low[K];
+  } lo;
+  for (int k = 0; k < K; ++k) {
+    sm.sum[k] = 0.0; sm.mag[k] = 0.0; lo.low[k] = INT_MAX;
   }
-  for (int b = 0; b < nb; ++b) {
-    // the next batch (past the last, a harmless reload of term n - 1)
-    Terms<K> nx[8];
-#pragma unroll
-    for (int i = 0; i < 8; ++i) nx[i] = get(min((b + 1) * 8 + i, n - 1));
-#pragma unroll
-    for (int i = 0; i < 8; ++i)
-#pragma unroll
-      for (int k = 0; k < K; ++k) acc.v[k] += x[i].v[k];
-#pragma unroll
-    for (int i = 0; i < 8; ++i) x[i] = nx[i];
-  }
-  for (int j = nb * 8; j < n; ++j) {
+  for (int j = wl; j < n; j += WARP) {
     const Terms<K> t = get(j);
-#pragma unroll
-    for (int k = 0; k < K; ++k) acc.v[k] += t.v[k];
+    for (int k = 0; k < K; ++k) {
+      sm.sum[k] += t.v[k];
+      sm.mag[k] += fabs(t.v[k]);
+      lo.low[k] = min(lo.low[k], low_bit(t.v[k]));
+    }
+  }
+  for (int off = WARP / 2; off > 0; off >>= 1) {
+    const SumMag o = shfl_down_words(sm, off);
+    const Low ol = shfl_down_words(lo, off);
+    for (int k = 0; k < K; ++k) {
+      sm.sum[k] += o.sum[k]; sm.mag[k] += o.mag[k];
+      lo.low[k] = min(lo.low[k], ol.low[k]);
+    }
+  }
+  sm = shfl_words(sm, 0);
+  lo = shfl_words(lo, 0);
+  bool exact = true;
+  for (int k = 0; k < K; ++k)
+    exact = exact && lo.low[k] != INT_MIN &&
+            (lo.low[k] == INT_MAX ||
+             sm.mag[k] <= ldexp(1.0, min(lo.low[k], 1100) + 52));
+  Terms<K> acc;
+  if (exact) {
+    for (int k = 0; k < K; ++k) acc.v[k] = sm.sum[k] + 0.0;
+    return acc;
+  }
+  // the sequential chain
+  for (int k = 0; k < K; ++k) acc.v[k] = 0.0;
+  for (int base = 0; base < n; base += WARP) {
+    Terms<K> x;
+    for (int k = 0; k < K; ++k) x.v[k] = 0.0;
+    if (base + wl < n) x = get(base + wl);
+    bool nz = false;
+    for (int k = 0; k < K; ++k) nz = nz || x.v[k] != 0.0;
+    unsigned m = nz ? 1u << wl : 0u;
+    for (int off = WARP / 2; off > 0; off >>= 1)
+      m |= __shfl_down_sync(FULL_MASK, m, off);
+    m = __shfl_sync(FULL_MASK, m, 0);
+    while (m) {
+#ifdef DHTS_CPU_EMULATION
+      const int i = __builtin_ctz(m);
+#else
+      const int i = __ffs(m) - 1;
+#endif
+      const Terms<K> t = shfl_words(x, i);
+      for (int k = 0; k < K; ++k) acc.v[k] += t.v[k];
+      m &= m - 1;
+    }
   }
   return acc;
 }
@@ -480,16 +575,18 @@ __device__ __forceinline__ void spatial_steps(Ptrs p, Dims d, Consts k,
   for (int w = 0; w < n_warps; ++w) n_sig += s.warp_micro[w];
   const bool waits_sig = !reducer && s.warp_micro[warp] != 0;
 
-  // ---- the step's reductions, by one thread (the reduction warp's first
-  // or thread 0), on the records of step parity `slot`
+  // ---- the step's reductions, by a warp (the reduction warp, or warp 0
+  // of the lanes), on the records of step parity `slot`; its first thread
+  // writes the results
   double grad = 0.0;  // the derivative's accumulator
   // the signal running mean (sum, count) in lane order; its detached mean
   // sharpens the soft blend gate
   auto signal_mean = [&](int slot) {
     const double* terms = s.sig_term + slot * L;
-    const Terms<1> tot = seq_sums<1>(L, [=](int j) {
+    const Terms<1> tot = warp_seq_sums<1>(L, [=](int j) {
       return Terms<1>{{terms[j]}};
     });
+    if (wl != 0) return;
     int cnt = 0;
     for (int w = 0; w < n_warps; ++w) cnt += s.part_blend[slot * MAX_WARPS + w];
     sg_ms[0] = sg_ms[0] + (float)tot.v[0];
@@ -501,9 +598,11 @@ __device__ __forceinline__ void spatial_steps(Ptrs p, Dims d, Consts k,
   // detached mean sharpens the soft queue gates
   auto static_mean = [&](int slot) {
     const double* terms = s.red_sum + slot * 2 * L;
-    const Terms<2> sums = seq_sums<2>(L, [=](int j) {  // cells, vehicles
+    // cells, vehicles
+    const Terms<2> sums = warp_seq_sums<2>(L, [=](int j) {
       return Terms<2>{{terms[j], terms[L + j]}};
     });
+    if (wl != 0) return;
     int nc = 0, nv = 0;
     for (int w = 0; w < n_warps; ++w) {
       nc += s.part[slot * MAX_WARPS + w].n[0];
@@ -518,9 +617,11 @@ __device__ __forceinline__ void spatial_steps(Ptrs p, Dims d, Consts k,
   // tangent each), events and largest wave speed
   auto step_outputs = [&](int slot, int t) {
     const S* terms = s.red_q + slot * L;
-    const Terms<2> qs = seq_sums<2>(L, [=](int j) {  // values, tangents
+    // values, tangents
+    const Terms<2> qs = warp_seq_sums<2>(L, [=](int j) {
       return Terms<2>{{(double)val(terms[j]), (double)tangent(terms[j])}};
     });
+    if (wl != 0) return;
     const S queue = from_parts<S>((float)qs.v[0], (float)qs.v[1]) *
                     S(k.dt);
     const size_t bt = (size_t)b * d.T + t;
@@ -550,19 +651,19 @@ __device__ __forceinline__ void spatial_steps(Ptrs p, Dims d, Consts k,
       const int slot = i & 1;
       bar_sync(BAR_B + slot, NB);
       SP_MARK();
-      if (wl == 0) signal_mean(slot);
+      signal_mean(slot);
       CONVERGE();
       SP_STAMP(SP_RED);
       if (soft_mode && n_sig > 0) bar_arrive(BAR_SIG, WARP * (n_sig + 1));
       bar_sync(BAR_D3 + slot, NB);
       SP_MARK();
-      if (wl == 0) static_mean(slot);
+      static_mean(slot);
       CONVERGE();
       SP_STAMP(SP_RED);
       if (soft_mode) bar_arrive(BAR_STAT, NB);
       bar_sync(BAR_E + slot, NB);
       SP_MARK();
-      if (wl == 0) step_outputs(slot, t0 + i);
+      step_outputs(slot, t0 + i);
       CONVERGE();
       SP_STAMP(SP_RED);
       if (i + 2 < n_steps) bar_arrive(BAR_EMPTY + slot, NB);
@@ -707,7 +808,7 @@ __device__ __forceinline__ void spatial_steps(Ptrs p, Dims d, Consts k,
     } else {
       __syncthreads();
       SP_STAMP(SP_B);
-      if (threadIdx.x == 0) signal_mean(slot);
+      if (warp == 0) signal_mean(slot);
       if (soft_mode) __syncthreads();
     }
     SP_STAMP(SP_SIGNAL_MEAN);
@@ -786,7 +887,7 @@ __device__ __forceinline__ void spatial_steps(Ptrs p, Dims d, Consts k,
     } else {
       __syncthreads();
       SP_STAMP(SP_D3);
-      if (threadIdx.x == 0) static_mean(slot);
+      if (warp == 0) static_mean(slot);
       // only the soft queue gates read the mean
       if (soft_mode) __syncthreads();
     }
@@ -809,7 +910,7 @@ __device__ __forceinline__ void spatial_steps(Ptrs p, Dims d, Consts k,
       SP_STAMP(SP_E);
       // the next step's A reads and writes none of what this reads, so the
       // other lanes go on meanwhile
-      if (threadIdx.x == 0) step_outputs(slot, t);
+      if (warp == 0) step_outputs(slot, t);
     }
     SP_STAMP(SP_FINAL);
   }
@@ -835,11 +936,25 @@ __global__ void spatial_step_kernel(Ptrs p, Dims d, Consts k, int t0,
   spatial_steps<S>(p, d, k, t0, n_steps, carry, red);
 }
 
-// The same with at most LEAN_REGS registers a thread, so that two blocks
-// of up to 8 warps share an SM: a grid of more blocks than one wave of the
-// other kernel holds (the derivative at B = 4: 180 blocks) runs in one
-// wave, its carry in global memory.
-constexpr int LEAN_REGS = 128;
+// warp_seq_sums on rows of doubles, for tests: block b sums x[b, 0..n)
+// and x[b, n..2n) (K = 2) into out[2 b], out[2 b + 1], one warp a block
+__global__ void seq_sums_kernel(const double* x, int n, double* out) {
+  const double* row = x + (size_t)blockIdx.x * 2 * n;
+  const Terms<2> r = warp_seq_sums<2>(n, [=](int j) {
+    return Terms<2>{{row[j], row[n + j]}};
+  });
+  if (threadIdx.x == 0) {
+    out[2 * blockIdx.x] = r.v[0];
+    out[2 * blockIdx.x + 1] = r.v[1];
+  }
+}
+
+// The same with at most LEAN_REGS registers a thread, launched without the
+// reduction warp and with the carry in global memory, so that two blocks
+// of up to 5 warps share an SM: a grid of more blocks than one wave of the
+// other kernel holds (the derivative at B = 4: 180 blocks at the 3x3
+// preset's 144 lanes) runs in one wave.
+constexpr int LEAN_REGS = 200;
 template <class S>
 __global__ void
 #ifndef DHTS_CPU_EMULATION
@@ -892,8 +1007,9 @@ int launch(int blocks, const Ptrs& p, const Dims& d, const Consts& k,
             cudaSuccess)
       return (int)err;
   }
-  // the blocks an SM holds of `fn` at `smem` bytes (0: it does not fit)
-  auto per_sm = [&](const void* fn, size_t smem, int& n) {
+  // the blocks an SM holds of `fn` at `smem` bytes and `nt` threads (0: it
+  // does not fit)
+  auto per_sm = [&](const void* fn, size_t smem, int nt, int& n) {
     n = 0;
     cudaError_t e = cudaFuncSetAttribute(
         fn, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
@@ -901,16 +1017,17 @@ int launch(int blocks, const Ptrs& p, const Dims& d, const Consts& k,
       cudaGetLastError();
       return cudaSuccess;
     }
-    return cudaOccupancyMaxActiveBlocksPerMultiprocessor(&n, fn, threads,
-                                                         smem);
+    return cudaOccupancyMaxActiveBlocksPerMultiprocessor(&n, fn, nt, smem);
   };
   // in order of preference: the carry in shared memory; in global memory;
-  // in global memory with the registers capped; the first that runs the
-  // grid in one wave, else the one with the most blocks an SM
+  // in global memory with the registers capped and no reduction warp; the
+  // first that runs the grid in one wave, else the one with the most
+  // blocks an SM
   const void* fns[3] = {(const void*)spatial_step_kernel<S>,
                         (const void*)spatial_step_kernel<S>,
                         (const void*)spatial_step_kernel_lean<S>};
   const size_t sizes[3] = {full, lean, lean};
+  const int nts[3] = {threads, threads, lanes};
   const long long cap = smem_cap < 0 ? optin : smem_cap;
   // the last choice, kept for calls of the same shapes
   static long long last_key[6] = {-1, 0, 0, 0, 0, 0};
@@ -923,7 +1040,8 @@ int launch(int blocks, const Ptrs& p, const Dims& d, const Consts& k,
   for (int i = 0; i < 3 && !same; ++i) {
     if (i == 0 && (long long)full > cap) continue;
     int n;
-    if ((err = per_sm(fns[i], sizes[i], n)) != cudaSuccess) return (int)err;
+    if ((err = per_sm(fns[i], sizes[i], nts[i], n)) != cudaSuccess)
+      return (int)err;
     if (n * sms >= blocks) {
       pick = i;
       break;
@@ -943,8 +1061,8 @@ int launch(int blocks, const Ptrs& p, const Dims& d, const Consts& k,
     return (int)err;
   if (pick == 2)
     spatial_step_kernel_lean<S>
-        <<<blocks, threads, sizes[pick], (cudaStream_t)stream>>>(
-            p, d, k, t0, n_steps, carry, red);
+        <<<blocks, lanes, sizes[pick], (cudaStream_t)stream>>>(
+            p, d, k, t0, n_steps, carry, 0);
   else
     spatial_step_kernel<S>
         <<<blocks, threads, sizes[pick], (cudaStream_t)stream>>>(
@@ -979,6 +1097,23 @@ size_t itscp_spatial_step_smem_carry(int L, int C, int V, int K,
 // Caps the shared memory a launch may take for the carry at `bytes` (< 0:
 // the card's limit; 0: the carry stays in global memory). For tests.
 void itscp_spatial_step_set_smem_cap(long long bytes) { smem_cap = bytes; }
+
+// The reductions' lane-order float64 sums on B rows of 2 n doubles x (a
+// test): out[2 b] = sum of x[b, 0..n) and out[2 b + 1] = sum of x[b,
+// n..2n), each in index order from +0.0, as the reduction warp takes them.
+// Returns the CUDA error code.
+int launch_itscp_spatial_step_seq_sums(const double* x, int B, int n,
+                                       double* out, void* stream) {
+  if (B < 1 || n < 0) return 1;
+#ifdef DHTS_CPU_EMULATION
+  (void)stream;
+  dhts_emu::launch(B, WARP, 0, seq_sums_kernel, x, n, out);
+  return 0;
+#else
+  seq_sums_kernel<<<B, WARP, 0, (cudaStream_t)stream>>>(x, n, out);
+  return (int)cudaGetLastError();
+#endif
+}
 
 // Whether a block may take a reduction warp (1, the default) or reduces
 // in thread 0 between barriers (0, as beyond 992 lanes). For tests.
@@ -1091,7 +1226,7 @@ int itscp_spatial_step_kernel_info(int L, int C, int V, int K, int tangent,
                                   (int)lean)) != cudaSuccess)
     return (int)err;
   err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&out[5], lean_fn,
-                                                      threads, lean);
+                                                      lanes, lean);
   return (int)err;
 #endif
 }
