@@ -40,16 +40,16 @@
 //               q^2; by step parity, two steps' worth) once the lanes
 //               arrive at their named barriers, and frees a parity's
 //               records for the step two on. The float64 sums of the
-//               running means and of the queue stay in lane order: each of
-//               its lanes loads one term of a chunk of 32 and every lane
-//               adds the chunk's terms in order as shuffles bring them.
-//               Counts, events and the wave maximum, exact in any order,
+//               running means and of the queue stay in lane order, taken
+//               by its first thread with the terms of 8 lanes loaded ahead
+//               of their adds. Counts, events and the wave maximum, exact
+//               in any order,
 //               go through a shuffle tree per lane warp. Only the soft
 //               gates wait for a mean: the warps that run a micro lane for
 //               the signal mean (the blend), every lane for the static
 //               mean (the queue gates); hard mode waits for none. A block
-//               of more than 992 lanes has no room for the warp, and warp
-//               0 of the lanes reduces between barriers instead.
+//               of more than 992 lanes has no room for the warp, and
+//               thread 0 reduces between barriers instead.
 //   speeds      The speeds a macro lane's static partials take of its
 //               cells after the conversion serve its queue, the next
 //               step's edge summaries and the next Godunov update's first
@@ -81,7 +81,6 @@
 // cells, the vehicles present and the counters of each episode, tens of
 // KB, so it is latency-bound, far above the bytes / 3.35 TB/s floor.
 
-#include <climits>
 #include <cstring>
 
 #include "itscp_step.cuh"
@@ -320,117 +319,30 @@ struct Terms {
   double v[K];
 };
 
-// A shuffle (from lane `src`) of every 32-bit word of a plain struct: one
-// exchange round in the host build, one SHFL a word on the card.
-template <class T>
-__device__ __forceinline__ T shfl_words(T v, int src) {
-#ifdef DHTS_CPU_EMULATION
-  return __shfl_sync(FULL_MASK, v, src);
-#else
-  static_assert(sizeof(T) % 4 == 0, "a struct of 32-bit words");
-  unsigned w[sizeof(T) / 4];
-  memcpy(w, &v, sizeof(T));
-#pragma unroll
-  for (int i = 0; i < (int)(sizeof(T) / 4); ++i)
-    w[i] = __shfl_sync(FULL_MASK, w[i], src);
-  memcpy(&v, w, sizeof(T));
-  return v;
-#endif
-}
-
-// The exponent of the lowest set bit of a finite double d != 0 (d is a
-// multiple of 2^that); INT_MAX for a zero; INT_MIN for an infinity or a NaN.
-__device__ __forceinline__ int low_bit(double d) {
-  long long bits;
-  memcpy(&bits, &d, sizeof bits);
-  const int e = (int)((bits >> 52) & 0x7ff);
-  long long m = bits & ((1LL << 52) - 1);
-  if (e == 0x7ff) return INT_MIN;
-  if (e == 0 && m == 0) return INT_MAX;
-  if (e != 0) m |= 1LL << 52;
-#ifdef DHTS_CPU_EMULATION
-  const int tz = __builtin_ctzll((unsigned long long)m);
-#else
-  const int tz = __ffsll(m) - 1;
-#endif
-  return (e == 0 ? -1074 : e - 1075) + tz;
-}
-
 // K float64 sums over j = 0 .. n - 1 in index order, ((0 + x_0) + x_1) +
-// ..., the plain version's sequential sum (lane_sum32, _seq_sum64), by a
-// whole warp (every lane calls; every lane returns the sums; `get(j)`
-// returns term j of each). Where the terms are multiples of 2^G and the
-// sum of their magnitudes is at most 2^(G + 53), every partial sum in any
-// order is an exact double, so the sum in any order is the sequential
-// one's: the warp adds them in a tree (their magnitudes' sum is taken to
-// 2^-43 relative, hence the test against 2^(G + 52); a final + 0.0 gives
-// the chain's +0.0 where all terms are zeros). Elsewhere lane i loads term
-// base + i of each chunk of 32 and every lane adds the chunk's nonzero
-// terms in order as shuffles bring them (adding a zero changes no sum that
-// started at +0.0).
+// ..., the plain version's sequential sum (lane_sum32, _seq_sum64), by one
+// thread: `get(j)` returns term j of each (by value, so that the terms
+// stay in registers); the terms of 8 indices are loaded before their adds,
+// so only the adds form the chain.
 template <int K, class Get>
-__device__ __forceinline__ Terms<K> warp_seq_sums(int n, Get get) {
-  const int wl = threadIdx.x % WARP;
-  // the exact case: sums and magnitudes, and the lowest bits
-  struct SumMag {
-    double sum[K], mag[K];
-  } sm;
-  struct Low {
-    int low[K];
-  } lo;
-  for (int k = 0; k < K; ++k) {
-    sm.sum[k] = 0.0; sm.mag[k] = 0.0; lo.low[k] = INT_MAX;
-  }
-  for (int j = wl; j < n; j += WARP) {
-    const Terms<K> t = get(j);
-    for (int k = 0; k < K; ++k) {
-      sm.sum[k] += t.v[k];
-      sm.mag[k] += fabs(t.v[k]);
-      lo.low[k] = min(lo.low[k], low_bit(t.v[k]));
-    }
-  }
-  for (int off = WARP / 2; off > 0; off >>= 1) {
-    const SumMag o = shfl_down_words(sm, off);
-    const Low ol = shfl_down_words(lo, off);
-    for (int k = 0; k < K; ++k) {
-      sm.sum[k] += o.sum[k]; sm.mag[k] += o.mag[k];
-      lo.low[k] = min(lo.low[k], ol.low[k]);
-    }
-  }
-  sm = shfl_words(sm, 0);
-  lo = shfl_words(lo, 0);
-  bool exact = true;
-  for (int k = 0; k < K; ++k)
-    exact = exact && lo.low[k] != INT_MIN &&
-            (lo.low[k] == INT_MAX ||
-             sm.mag[k] <= ldexp(1.0, min(lo.low[k], 1100) + 52));
+__device__ __forceinline__ Terms<K> seq_sums(int n, Get get) {
   Terms<K> acc;
-  if (exact) {
-    for (int k = 0; k < K; ++k) acc.v[k] = sm.sum[k] + 0.0;
-    return acc;
-  }
-  // the sequential chain
+#pragma unroll
   for (int k = 0; k < K; ++k) acc.v[k] = 0.0;
-  for (int base = 0; base < n; base += WARP) {
-    Terms<K> x;
-    for (int k = 0; k < K; ++k) x.v[k] = 0.0;
-    if (base + wl < n) x = get(base + wl);
-    bool nz = false;
-    for (int k = 0; k < K; ++k) nz = nz || x.v[k] != 0.0;
-    unsigned m = nz ? 1u << wl : 0u;
-    for (int off = WARP / 2; off > 0; off >>= 1)
-      m |= __shfl_down_sync(FULL_MASK, m, off);
-    m = __shfl_sync(FULL_MASK, m, 0);
-    while (m) {
-#ifdef DHTS_CPU_EMULATION
-      const int i = __builtin_ctz(m);
-#else
-      const int i = __ffs(m) - 1;
-#endif
-      const Terms<K> t = shfl_words(x, i);
-      for (int k = 0; k < K; ++k) acc.v[k] += t.v[k];
-      m &= m - 1;
-    }
+  int j = 0;
+  for (; j + 8 <= n; j += 8) {
+    Terms<K> x[8];
+#pragma unroll
+    for (int i = 0; i < 8; ++i) x[i] = get(j + i);
+#pragma unroll
+    for (int i = 0; i < 8; ++i)
+#pragma unroll
+      for (int k = 0; k < K; ++k) acc.v[k] += x[i].v[k];
+  }
+  for (; j < n; ++j) {
+    const Terms<K> x = get(j);
+#pragma unroll
+    for (int k = 0; k < K; ++k) acc.v[k] += x.v[k];
   }
   return acc;
 }
@@ -575,18 +487,16 @@ __device__ __forceinline__ void spatial_steps(Ptrs p, Dims d, Consts k,
   for (int w = 0; w < n_warps; ++w) n_sig += s.warp_micro[w];
   const bool waits_sig = !reducer && s.warp_micro[warp] != 0;
 
-  // ---- the step's reductions, by a warp (the reduction warp, or warp 0
-  // of the lanes), on the records of step parity `slot`; its first thread
-  // writes the results
+  // ---- the step's reductions, by one thread (the reduction warp's first,
+  // or thread 0), on the records of step parity `slot`
   double grad = 0.0;  // the derivative's accumulator
   // the signal running mean (sum, count) in lane order; its detached mean
   // sharpens the soft blend gate
   auto signal_mean = [&](int slot) {
     const double* terms = s.sig_term + slot * L;
-    const Terms<1> tot = warp_seq_sums<1>(L, [=](int j) {
+    const Terms<1> tot = seq_sums<1>(L, [=](int j) {
       return Terms<1>{{terms[j]}};
     });
-    if (wl != 0) return;
     int cnt = 0;
     for (int w = 0; w < n_warps; ++w) cnt += s.part_blend[slot * MAX_WARPS + w];
     sg_ms[0] = sg_ms[0] + (float)tot.v[0];
@@ -599,10 +509,9 @@ __device__ __forceinline__ void spatial_steps(Ptrs p, Dims d, Consts k,
   auto static_mean = [&](int slot) {
     const double* terms = s.red_sum + slot * 2 * L;
     // cells, vehicles
-    const Terms<2> sums = warp_seq_sums<2>(L, [=](int j) {
+    const Terms<2> sums = seq_sums<2>(L, [=](int j) {
       return Terms<2>{{terms[j], terms[L + j]}};
     });
-    if (wl != 0) return;
     int nc = 0, nv = 0;
     for (int w = 0; w < n_warps; ++w) {
       nc += s.part[slot * MAX_WARPS + w].n[0];
@@ -618,10 +527,9 @@ __device__ __forceinline__ void spatial_steps(Ptrs p, Dims d, Consts k,
   auto step_outputs = [&](int slot, int t) {
     const S* terms = s.red_q + slot * L;
     // values, tangents
-    const Terms<2> qs = warp_seq_sums<2>(L, [=](int j) {
+    const Terms<2> qs = seq_sums<2>(L, [=](int j) {
       return Terms<2>{{(double)val(terms[j]), (double)tangent(terms[j])}};
     });
-    if (wl != 0) return;
     const S queue = from_parts<S>((float)qs.v[0], (float)qs.v[1]) *
                     S(k.dt);
     const size_t bt = (size_t)b * d.T + t;
@@ -651,19 +559,19 @@ __device__ __forceinline__ void spatial_steps(Ptrs p, Dims d, Consts k,
       const int slot = i & 1;
       bar_sync(BAR_B + slot, NB);
       SP_MARK();
-      signal_mean(slot);
+      if (wl == 0) signal_mean(slot);
       CONVERGE();
       SP_STAMP(SP_RED);
       if (soft_mode && n_sig > 0) bar_arrive(BAR_SIG, WARP * (n_sig + 1));
       bar_sync(BAR_D3 + slot, NB);
       SP_MARK();
-      static_mean(slot);
+      if (wl == 0) static_mean(slot);
       CONVERGE();
       SP_STAMP(SP_RED);
       if (soft_mode) bar_arrive(BAR_STAT, NB);
       bar_sync(BAR_E + slot, NB);
       SP_MARK();
-      step_outputs(slot, t0 + i);
+      if (wl == 0) step_outputs(slot, t0 + i);
       CONVERGE();
       SP_STAMP(SP_RED);
       if (i + 2 < n_steps) bar_arrive(BAR_EMPTY + slot, NB);
@@ -808,7 +716,7 @@ __device__ __forceinline__ void spatial_steps(Ptrs p, Dims d, Consts k,
     } else {
       __syncthreads();
       SP_STAMP(SP_B);
-      if (warp == 0) signal_mean(slot);
+      if (threadIdx.x == 0) signal_mean(slot);
       if (soft_mode) __syncthreads();
     }
     SP_STAMP(SP_SIGNAL_MEAN);
@@ -887,7 +795,7 @@ __device__ __forceinline__ void spatial_steps(Ptrs p, Dims d, Consts k,
     } else {
       __syncthreads();
       SP_STAMP(SP_D3);
-      if (warp == 0) static_mean(slot);
+      if (threadIdx.x == 0) static_mean(slot);
       // only the soft queue gates read the mean
       if (soft_mode) __syncthreads();
     }
@@ -910,7 +818,7 @@ __device__ __forceinline__ void spatial_steps(Ptrs p, Dims d, Consts k,
       SP_STAMP(SP_E);
       // the next step's A reads and writes none of what this reads, so the
       // other lanes go on meanwhile
-      if (warp == 0) step_outputs(slot, t);
+      if (threadIdx.x == 0) step_outputs(slot, t);
     }
     SP_STAMP(SP_FINAL);
   }
@@ -936,25 +844,23 @@ __global__ void spatial_step_kernel(Ptrs p, Dims d, Consts k, int t0,
   spatial_steps<S>(p, d, k, t0, n_steps, carry, red);
 }
 
-// warp_seq_sums on rows of doubles, for tests: block b sums x[b, 0..n)
-// and x[b, n..2n) (K = 2) into out[2 b], out[2 b + 1], one warp a block
+// seq_sums on rows of doubles, for tests: block b sums x[b, 0..n) and
+// x[b, n..2n) (K = 2) into out[2 b], out[2 b + 1]
 __global__ void seq_sums_kernel(const double* x, int n, double* out) {
   const double* row = x + (size_t)blockIdx.x * 2 * n;
-  const Terms<2> r = warp_seq_sums<2>(n, [=](int j) {
+  const Terms<2> r = seq_sums<2>(n, [=](int j) {
     return Terms<2>{{row[j], row[n + j]}};
   });
-  if (threadIdx.x == 0) {
-    out[2 * blockIdx.x] = r.v[0];
-    out[2 * blockIdx.x + 1] = r.v[1];
-  }
+  out[2 * blockIdx.x] = r.v[0];
+  out[2 * blockIdx.x + 1] = r.v[1];
 }
 
-// The same with at most LEAN_REGS registers a thread, launched without the
-// reduction warp and with the carry in global memory, so that two blocks
-// of up to 5 warps share an SM: a grid of more blocks than one wave of the
-// other kernel holds (the derivative at B = 4: 180 blocks at the 3x3
-// preset's 144 lanes) runs in one wave.
-constexpr int LEAN_REGS = 200;
+// The same with at most LEAN_REGS registers a thread and the carry in
+// global memory, so that two blocks of up to 6 warps share an SM (an SM
+// quarter's 16,384 registers hold 3 warps of 168): a grid of more blocks
+// than one wave of the other kernel holds (the derivative at B = 4: 180
+// blocks at the 3x3 preset's 144 lanes) runs in one wave.
+constexpr int LEAN_REGS = 168;
 template <class S>
 __global__ void
 #ifndef DHTS_CPU_EMULATION
@@ -1007,9 +913,8 @@ int launch(int blocks, const Ptrs& p, const Dims& d, const Consts& k,
             cudaSuccess)
       return (int)err;
   }
-  // the blocks an SM holds of `fn` at `smem` bytes and `nt` threads (0: it
-  // does not fit)
-  auto per_sm = [&](const void* fn, size_t smem, int nt, int& n) {
+  // the blocks an SM holds of `fn` at `smem` bytes (0: it does not fit)
+  auto per_sm = [&](const void* fn, size_t smem, int& n) {
     n = 0;
     cudaError_t e = cudaFuncSetAttribute(
         fn, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
@@ -1017,17 +922,16 @@ int launch(int blocks, const Ptrs& p, const Dims& d, const Consts& k,
       cudaGetLastError();
       return cudaSuccess;
     }
-    return cudaOccupancyMaxActiveBlocksPerMultiprocessor(&n, fn, nt, smem);
+    return cudaOccupancyMaxActiveBlocksPerMultiprocessor(&n, fn, threads,
+                                                         smem);
   };
   // in order of preference: the carry in shared memory; in global memory;
-  // in global memory with the registers capped and no reduction warp; the
-  // first that runs the grid in one wave, else the one with the most
-  // blocks an SM
+  // in global memory with the registers capped; the first that runs the
+  // grid in one wave, else the one with the most blocks an SM
   const void* fns[3] = {(const void*)spatial_step_kernel<S>,
                         (const void*)spatial_step_kernel<S>,
                         (const void*)spatial_step_kernel_lean<S>};
   const size_t sizes[3] = {full, lean, lean};
-  const int nts[3] = {threads, threads, lanes};
   const long long cap = smem_cap < 0 ? optin : smem_cap;
   // the last choice, kept for calls of the same shapes
   static long long last_key[6] = {-1, 0, 0, 0, 0, 0};
@@ -1040,8 +944,7 @@ int launch(int blocks, const Ptrs& p, const Dims& d, const Consts& k,
   for (int i = 0; i < 3 && !same; ++i) {
     if (i == 0 && (long long)full > cap) continue;
     int n;
-    if ((err = per_sm(fns[i], sizes[i], nts[i], n)) != cudaSuccess)
-      return (int)err;
+    if ((err = per_sm(fns[i], sizes[i], n)) != cudaSuccess) return (int)err;
     if (n * sms >= blocks) {
       pick = i;
       break;
@@ -1061,8 +964,8 @@ int launch(int blocks, const Ptrs& p, const Dims& d, const Consts& k,
     return (int)err;
   if (pick == 2)
     spatial_step_kernel_lean<S>
-        <<<blocks, lanes, sizes[pick], (cudaStream_t)stream>>>(
-            p, d, k, t0, n_steps, carry, 0);
+        <<<blocks, threads, sizes[pick], (cudaStream_t)stream>>>(
+            p, d, k, t0, n_steps, carry, red);
   else
     spatial_step_kernel<S>
         <<<blocks, threads, sizes[pick], (cudaStream_t)stream>>>(
@@ -1100,17 +1003,17 @@ void itscp_spatial_step_set_smem_cap(long long bytes) { smem_cap = bytes; }
 
 // The reductions' lane-order float64 sums on B rows of 2 n doubles x (a
 // test): out[2 b] = sum of x[b, 0..n) and out[2 b + 1] = sum of x[b,
-// n..2n), each in index order from +0.0, as the reduction warp takes them.
+// n..2n), each in index order from +0.0, as the reductions take them.
 // Returns the CUDA error code.
 int launch_itscp_spatial_step_seq_sums(const double* x, int B, int n,
                                        double* out, void* stream) {
   if (B < 1 || n < 0) return 1;
 #ifdef DHTS_CPU_EMULATION
   (void)stream;
-  dhts_emu::launch(B, WARP, 0, seq_sums_kernel, x, n, out);
+  dhts_emu::launch(B, 1, 0, seq_sums_kernel, x, n, out);
   return 0;
 #else
-  seq_sums_kernel<<<B, WARP, 0, (cudaStream_t)stream>>>(x, n, out);
+  seq_sums_kernel<<<B, 1, 0, (cudaStream_t)stream>>>(x, n, out);
   return (int)cudaGetLastError();
 #endif
 }
@@ -1176,12 +1079,12 @@ int launch_itscp_spatial_step_bwd(
 // The kernel's registers a thread, local (stack) bytes a thread, and the
 // blocks an SM holds with the carry in shared memory and without, then the
 // register-capped kernel's registers and blocks an SM (the carry in global
-// memory), at L lanes, C cells, V vehicles and K capacitor slots, into
-// out[0..5] (forward: tangent = 0; derivative: 1); zeros in the host
-// build. Returns the CUDA error code.
+// memory) and without dynamic shared memory, at L lanes, C cells, V
+// vehicles and K capacitor slots, into out[0..6] (forward: tangent = 0;
+// derivative: 1); zeros in the host build. Returns the CUDA error code.
 int itscp_spatial_step_kernel_info(int L, int C, int V, int K, int tangent,
                                    int* out) {
-  for (int i = 0; i < 6; ++i) out[i] = 0;
+  for (int i = 0; i < 7; ++i) out[i] = 0;
 #ifdef DHTS_CPU_EMULATION
   (void)L; (void)C; (void)V; (void)K; (void)tangent;
   return 0;
@@ -1226,7 +1129,11 @@ int itscp_spatial_step_kernel_info(int L, int C, int V, int K, int tangent,
                                   (int)lean)) != cudaSuccess)
     return (int)err;
   err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&out[5], lean_fn,
-                                                      lanes, lean);
+                                                      threads, lean);
+  if (err != cudaSuccess) return (int)err;
+  // and without dynamic shared memory: what its registers allow
+  err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&out[6], lean_fn,
+                                                      threads, 0);
   return (int)err;
 #endif
 }

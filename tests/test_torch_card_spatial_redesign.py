@@ -17,11 +17,10 @@ steps at 30 Hz, 45 actions).
   the STEP episode on the same draws: queues, events and waves bit-equal
   (both add each step's lanes in lane order); its derivative's cosine >
   0.99999 against STEP's.
-* The reductions' float64 sums (a warp adds the terms in a tree where
-  every partial sum is exact, else in lane order) on rows of zeros,
-  signed zeros, sparse terms, one binade, float32 terms over a few
-  binades and doubles over the whole range: equal bit for bit to numpy's
-  sum in index order from +0.0.
+* The reductions' float64 sums (terms loaded 8 ahead of their adds) on
+  rows of zeros, signed zeros, sparse terms, one binade, float32 terms
+  over a few binades and doubles over the whole range: equal bit for bit
+  to numpy's sum in index order from +0.0.
 
 This file imports nothing of JAX::
 

@@ -28,11 +28,10 @@ after step 120):
   ``tests/test_torch_spatial_host.py`` (the two round their tangent
   formulas differently), which holds the hybrid scene's derivative against
   autograd.
-* The reductions' float64 sums (a warp adds terms in a tree where every
-  partial sum is exact, else in lane order): on rows of zeros, signed
-  zeros, sparse terms, terms of one binade, float32 terms over a few
-  binades and doubles over the whole range, each equal bit for bit to
-  numpy's sum in index order from +0.0.
+* The reductions' float64 sums (terms loaded 8 ahead of their adds): on
+  rows of zeros, signed zeros, sparse terms, terms of one binade, float32
+  terms over a few binades and doubles over the whole range, each equal
+  bit for bit to numpy's sum in index order from +0.0.
 """
 
 import ctypes
@@ -236,7 +235,8 @@ def test_launch_of_no_steps_changes_nothing(lib):
 
 
 def seq_rows(rng, n):
-    """Rows of doubles whose lane-order sums take both of the warp's ways."""
+    """Rows of doubles of zeros, signed zeros, sparse terms and terms of
+    narrow and wide ranges."""
     f32 = lambda x: x.astype(np.float32).astype(np.float64)
     rows = [np.zeros(n), -np.zeros(n),
             np.where(rng.random(n) < 0.1, f32(rng.uniform(0, 1, n)), 0.0),
