@@ -68,12 +68,12 @@
 // layout (in shared memory the tangents of r, y, pos, vel, av and cap
 // only: no other field has one). Each step adds w[b, t] *
 // d(queue_t)/d(action_j) to a float64 accumulator; the value half repeats
-// the forward's float operations, so no residuals are saved. Local derivatives follow autograd of the plain
-// step (max/min split a tie 0.5/0.5, a `where` takes the selected branch's
-// tangent, detached running means and decremented capacitors, the emitted
-// vehicle's mass carries the capacitor's tangent, the deposit's clamp is
-// straight through, and a speed stopped by the acceleration floor has a
-// zero tangent).
+// the forward's float operations, so no residuals are saved. Local
+// derivatives follow autograd of the plain step (max/min split a tie
+// 0.5/0.5, a `where` takes the selected branch's tangent, detached running
+// means and decremented capacitors, the emitted vehicle's mass carries the
+// capacitor's tangent, the deposit's clamp is straight through, and a
+// speed stopped by the acceleration floor has a zero tangent).
 //
 // Bound. A step is a handful of block-wide barriers between per-lane
 // chains of IEEE divisions and roots (the Godunov update, the cells'
@@ -255,6 +255,7 @@ struct Smem {
   int* part_blend;   // [2][MAX_WARPS] each warp's blend count
   WarpPart* part;    // [2][MAX_WARPS]
   int* warp_micro;   // [MAX_WARPS] whether a warp runs a micro lane
+  int* micro;        // [L] the micro lanes in lane order, then their count
   int *count, *want, *mn, *hn, *hs_rid, *hs_ridx, *best, *dep_best;
   // the carry (`carry`): the float row, the tangents of r, y, pos, vel, av
   // and then cap (Dual), the int row
@@ -282,6 +283,7 @@ __host__ __device__ inline size_t smem_bytes(const Dims& d, Smem<S>* s,
   carve(&t->part_blend, 2 * MAX_WARPS, b, off);
   carve(&t->part, 2 * MAX_WARPS, b, off);
   carve(&t->warp_micro, MAX_WARPS, b, off);
+  carve(&t->micro, L + 1, b, off);
   int** si[] = {&t->count, &t->want, &t->mn, &t->hn, &t->hs_rid,
                 &t->hs_ridx, &t->best, &t->dep_best};
   for (int** p : si) carve(p, L, b, off);
@@ -482,6 +484,13 @@ __device__ __forceinline__ void spatial_steps(Ptrs p, Dims d, Consts k,
       micro |= __shfl_down_sync(FULL_MASK, micro, off);
     if (!reducer && wl == 0) s.warp_micro[warp] = micro;
   }
+  if (threadIdx.x == 0) {
+    // the lanes whose blend can add a signal term (a macro lane's is 0)
+    int n = 0;
+    for (int j = 0; j < L; ++j)
+      if (!sc.macro_at(j)) s.micro[n++] = j;
+    s.micro[L] = n;
+  }
   __syncthreads();
   int n_sig = 0;
   for (int w = 0; w < n_warps; ++w) n_sig += s.warp_micro[w];
@@ -491,14 +500,17 @@ __device__ __forceinline__ void spatial_steps(Ptrs p, Dims d, Consts k,
   // or thread 0), on the records of step parity `slot`
   double grad = 0.0;  // the derivative's accumulator
   // the signal running mean (sum, count) in lane order; its detached mean
-  // sharpens the soft blend gate
+  // sharpens the soft blend gate. Only the micro lanes' terms are added:
+  // the others are +0.0, which leave a sum that started at +0.0 as it is
   auto signal_mean = [&](int slot) {
     const double* terms = s.sig_term + slot * L;
-    const Terms<1> tot = seq_sums<1>(L, [=](int j) {
-      return Terms<1>{{terms[j]}};
+    const int* micro = s.micro;
+    const Terms<1> tot = seq_sums<1>(micro[L], [=](int j) {
+      return Terms<1>{{terms[micro[j]]}};
     });
     int cnt = 0;
-    for (int w = 0; w < n_warps; ++w) cnt += s.part_blend[slot * MAX_WARPS + w];
+    for (int w = 0; w < n_warps; ++w)
+      cnt += s.part_blend[slot * MAX_WARPS + w];
     sg_ms[0] = sg_ms[0] + (float)tot.v[0];
     sg_ms[1] = sg_ms[1] + (float)cnt;
     const float mean = sg_ms[0] / fmaxf(sg_ms[1], 1.0f);
