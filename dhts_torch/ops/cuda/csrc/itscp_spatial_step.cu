@@ -856,17 +856,6 @@ __global__ void spatial_step_kernel(Ptrs p, Dims d, Consts k, int t0,
   spatial_steps<S>(p, d, k, t0, n_steps, carry, red);
 }
 
-// seq_sums on rows of doubles, for tests: block b sums x[b, 0..n) and
-// x[b, n..2n) (K = 2) into out[2 b], out[2 b + 1]
-__global__ void seq_sums_kernel(const double* x, int n, double* out) {
-  const double* row = x + (size_t)blockIdx.x * 2 * n;
-  const Terms<2> r = seq_sums<2>(n, [=](int j) {
-    return Terms<2>{{row[j], row[n + j]}};
-  });
-  out[2 * blockIdx.x] = r.v[0];
-  out[2 * blockIdx.x + 1] = r.v[1];
-}
-
 // The same with at most LEAN_REGS registers a thread and the carry in
 // global memory, so that two blocks of up to 6 warps share an SM (an SM
 // quarter's 16,384 registers hold 3 warps of 168): a grid of more blocks
@@ -1013,23 +1002,6 @@ size_t itscp_spatial_step_smem_carry(int L, int C, int V, int K,
 // the card's limit; 0: the carry stays in global memory). For tests.
 void itscp_spatial_step_set_smem_cap(long long bytes) { smem_cap = bytes; }
 
-// The reductions' lane-order float64 sums on B rows of 2 n doubles x (a
-// test): out[2 b] = sum of x[b, 0..n) and out[2 b + 1] = sum of x[b,
-// n..2n), each in index order from +0.0, as the reductions take them.
-// Returns the CUDA error code.
-int launch_itscp_spatial_step_seq_sums(const double* x, int B, int n,
-                                       double* out, void* stream) {
-  if (B < 1 || n < 0) return 1;
-#ifdef DHTS_CPU_EMULATION
-  (void)stream;
-  dhts_emu::launch(B, 1, 0, seq_sums_kernel, x, n, out);
-  return 0;
-#else
-  seq_sums_kernel<<<B, 1, 0, (cudaStream_t)stream>>>(x, n, out);
-  return (int)cudaGetLastError();
-#endif
-}
-
 // Whether a block may take a reduction warp (1, the default) or reduces
 // in thread 0 between barriers (0, as beyond 992 lanes). For tests.
 void itscp_spatial_step_set_reduction_warp(int on) { reduction_warp = on; }
@@ -1091,12 +1063,12 @@ int launch_itscp_spatial_step_bwd(
 // The kernel's registers a thread, local (stack) bytes a thread, and the
 // blocks an SM holds with the carry in shared memory and without, then the
 // register-capped kernel's registers and blocks an SM (the carry in global
-// memory) and without dynamic shared memory, at L lanes, C cells, V
-// vehicles and K capacitor slots, into out[0..6] (forward: tangent = 0;
-// derivative: 1); zeros in the host build. Returns the CUDA error code.
+// memory), at L lanes, C cells, V vehicles and K capacitor slots, into
+// out[0..5] (forward: tangent = 0; derivative: 1); zeros in the host
+// build. Returns the CUDA error code.
 int itscp_spatial_step_kernel_info(int L, int C, int V, int K, int tangent,
                                    int* out) {
-  for (int i = 0; i < 7; ++i) out[i] = 0;
+  for (int i = 0; i < 6; ++i) out[i] = 0;
 #ifdef DHTS_CPU_EMULATION
   (void)L; (void)C; (void)V; (void)K; (void)tangent;
   return 0;
@@ -1142,10 +1114,6 @@ int itscp_spatial_step_kernel_info(int L, int C, int V, int K, int tangent,
     return (int)err;
   err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&out[5], lean_fn,
                                                       threads, lean);
-  if (err != cudaSuccess) return (int)err;
-  // and without dynamic shared memory: what its registers allow
-  err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&out[6], lean_fn,
-                                                      threads, 0);
   return (int)err;
 #endif
 }

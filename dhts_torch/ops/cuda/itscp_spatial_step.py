@@ -390,21 +390,6 @@ def bind(lib: ctypes.CDLL) -> ctypes.CDLL:
     return lib
 
 
-def seq_sums(lib, x, stream=0):
-    """The reductions' lane-order float64 sums through ``lib``'s test
-    launcher: ``x [B, 2, n]`` (float64, one device, contiguous) to ``[B,
-    2]``, each row summed in index order from +0.0."""
-    fn = lib.launch_itscp_spatial_step_seq_sums
-    fn.argtypes = [ctypes.c_void_p, ctypes.c_int, ctypes.c_int,
-                   ctypes.c_void_p, ctypes.c_void_p]
-    fn.restype = ctypes.c_int
-    out = torch.empty(x.shape[:2], dtype=torch.float64, device=x.device)
-    _launch.raise_on(fn(ctypes.c_void_p(x.data_ptr()), x.shape[0],
-                        x.shape[2], ctypes.c_void_p(out.data_ptr()),
-                        ctypes.c_void_p(stream)), "seq_sums")
-    return out
-
-
 def _library() -> ctypes.CDLL:
     from dhts_torch.ops.cuda import _build
 

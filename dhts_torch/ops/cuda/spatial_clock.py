@@ -78,7 +78,7 @@ def kernel_info(lib, plan, dual: bool) -> dict:
     """Registers and stack bytes a thread, blocks an SM with the carry in
     shared memory and without, and the register-capped kernel's registers
     and blocks an SM."""
-    out = (ctypes.c_int * 7)()
+    out = (ctypes.c_int * 6)()
     fn = lib.itscp_spatial_step_kernel_info
     fn.argtypes = [ctypes.c_int] * 5 + [ctypes.c_void_p]
     fn.restype = ctypes.c_int
@@ -86,7 +86,7 @@ def kernel_info(lib, plan, dual: bool) -> dict:
                      "spatial step kernel info")
     return dict(zip(("registers", "stack_bytes", "blocks_per_sm_carry_smem",
                      "blocks_per_sm_carry_global", "lean_registers",
-                     "lean_blocks_per_sm", "lean_blocks_per_sm_no_smem"), out))
+                     "lean_blocks_per_sm"), out))
 
 
 def preset_env(dev):

@@ -28,10 +28,6 @@ after step 120):
   ``tests/test_torch_spatial_host.py`` (the two round their tangent
   formulas differently), which holds the hybrid scene's derivative against
   autograd.
-* The reductions' float64 sums (terms loaded 8 ahead of their adds): on
-  rows of zeros, signed zeros, sparse terms, terms of one binade, float32
-  terms over a few binades and doubles over the whole range, each equal
-  bit for bit to numpy's sum in index order from +0.0.
 """
 
 import ctypes
@@ -233,31 +229,3 @@ def test_launch_of_no_steps_changes_nothing(lib):
                                              1) > \
         lib.itscp_spatial_step_smem_carry(plan.L, plan.C, plan.V, plan.K, 0)
 
-
-def seq_rows(rng, n):
-    """Rows of doubles of zeros, signed zeros, sparse terms and terms of
-    narrow and wide ranges."""
-    f32 = lambda x: x.astype(np.float32).astype(np.float64)
-    rows = [np.zeros(n), -np.zeros(n),
-            np.where(rng.random(n) < 0.1, f32(rng.uniform(0, 1, n)), 0.0),
-            f32(rng.uniform(1, 2, n)),
-            f32(rng.uniform(0, 60, n) - 30),
-            f32(rng.uniform(0, 1, n) * np.exp2(rng.integers(-30, 1, n))),
-            rng.uniform(-1, 1, n) * np.exp2(rng.integers(-300, 300, n)),
-            rng.standard_normal(n)]
-    return rows
-
-
-def test_lane_order_sums_equal_the_sequential_sum(lib):
-    rng = np.random.default_rng(3)
-    for n in (0, 1, 31, 32, 33, 144):
-        rows = seq_rows(rng, n)
-        x = np.stack([np.stack([a, b]) for a in rows for b in rows[::3]])
-        got = k6.seq_sums(lib, torch.as_tensor(x)).numpy()
-        want = np.zeros(x.shape[:2])
-        for i in np.ndindex(*x.shape[:2]):
-            acc = 0.0
-            for v in x[i]:
-                acc = acc + v
-            want[i] = acc
-        assert np.array_equal(got.view(np.int64), want.view(np.int64)), n
