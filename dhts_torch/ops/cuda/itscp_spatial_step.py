@@ -380,6 +380,8 @@ def bind(lib: ctypes.CDLL) -> ctypes.CDLL:
         fn.restype = ctypes.c_int
     lib.itscp_spatial_step_smem.argtypes = [ctypes.c_int] * 2
     lib.itscp_spatial_step_smem.restype = ctypes.c_size_t
+    # (an earlier tree's library, which tools/step_timing.py loads, has
+    # only the launchers and the smem size)
     if hasattr(lib, "itscp_spatial_step_smem_carry"):
         lib.itscp_spatial_step_smem_carry.argtypes = [ctypes.c_int] * 5
         lib.itscp_spatial_step_smem_carry.restype = ctypes.c_size_t
@@ -489,7 +491,7 @@ def spatial_step_fwd(plan, fbuf, ibuf, t0: int, n_steps: int, inputs,
         n_steps, _launch.stream(dev)))
     _launch.raise_on(err, "itscp_spatial_step forward")
     launches["fwd"] += n_steps
-    kernel_launches["fwd"] += n_steps > 0
+    kernel_launches["fwd"] += int(n_steps > 0)
 
 
 def spatial_episode_fwd(plan, action2d, rand, sched, mnext, mprev, routes):
@@ -590,7 +592,7 @@ def spatial_step_bwd(plan, fbuf, dbuf, ibuf, t0: int, n_steps: int, inputs,
         n_steps, _launch.stream(dev)))
     _launch.raise_on(err, "itscp_spatial_step derivative")
     launches["bwd"] += n_steps
-    kernel_launches["bwd"] += n_steps > 0
+    kernel_launches["bwd"] += int(n_steps > 0)
 
 
 def spatial_episode_bwd(plan, q_weight, action2d, rand, sched, mnext, mprev,

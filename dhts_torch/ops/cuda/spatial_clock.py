@@ -13,13 +13,17 @@ hard forward, the soft forward and the derivative (``Dual``, 45 blocks,
 block 0 seeds action entry 0). Each runs the first 100 steps unstamped,
 then steps 100 to 149 in one launcher call from that state, stamped and
 unstamped. Prints one JSON line per kernel: the cycles per step of each
-part and their shares, the launcher call's ms of both builds (CUDA events,
-median of ``--repeats`` calls, the state restored before each), the
-unstamped step's us split in the stamps' shares, and the launch gap: the
-unstamped call's time less 50 times the stamped step's cycles at the SM
-clock. The stamped and unstamped outputs (carry, queues, events, waves;
-the derivative's carry, tangents and gradient) must be bit-equal. Then the
-card's name, power limit and SM clocks. Needs one CUDA device.
+part on the lanes' path and their shares, beside it the reduction warp's
+cycles (``reduction_warp``) and each lane's own C cycles (the most and
+the mean over macro and over micro lanes), the launcher call's ms of both
+builds (CUDA events, median of ``--repeats`` calls, the state restored
+before each), the unstamped step's us split in the stamps' shares, the
+launch gap (the unstamped call's time less 50 times the stamped step's
+cycles at the SM clock; it holds the carry's load and store too), and
+the kernels' registers and blocks an SM. The stamped and unstamped
+outputs (carry, queues, events, waves; the derivative's carry, tangents
+and gradient) must be bit-equal. Then the card's name, power limit and SM
+clocks. Needs one CUDA device.
 """
 
 from __future__ import annotations
@@ -151,8 +155,9 @@ class Run:
                 x.copy_(y)
 
     def call(self, lib, t0: int, n: int):
+        stream = _launch.stream(self.ins[0].device)
         args = k6.kernel_args(self.plan, self.state, self.ins, self.outs,
-                              self.B, t0, n, _launch.stream(self.ins[0].device))
+                              self.B, t0, n, stream)
         _launch.raise_on(getattr(lib, self.launcher)(*args), self.kernel)
 
     def results(self):

@@ -99,8 +99,9 @@ class Case:
         from dhts_torch.ops.cuda import _launch
         from dhts_torch.ops.cuda import itscp_spatial_step as k6
 
+        stream = _launch.stream(self.ins[0].device)
         args = k6.kernel_args(self.plan, self.state, self.ins, self.outs,
-                              self.B, t0, n, _launch.stream(self.ins[0].device))
+                              self.B, t0, n, stream)
         _launch.raise_on(getattr(lib, self.launcher)(*args), self.kind)
 
     def written(self):
