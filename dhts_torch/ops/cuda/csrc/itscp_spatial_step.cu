@@ -850,26 +850,31 @@ __device__ __forceinline__ void spatial_steps(Ptrs p, Dims d, Consts k,
   SP_CLOCK_END(threadIdx.x == 0 ? n_steps : 0);
 }
 
-template <class S>
+// The forward's kernel, and the derivative's with at most DUAL_REGS
+// registers a thread: two of its blocks of up to 6 warps (the 3x3 preset's
+// 144 lanes and the reduction warp) then share an SM, as its grid of more
+// than one wave needs (B = 4: 180 blocks; an SM quarter's 16,384
+// registers hold three warps of 168, and at 183 the occupancy call gives
+// one block an SM).
+constexpr int DUAL_REGS = 168;
 __global__ void spatial_step_kernel(Ptrs p, Dims d, Consts k, int t0,
                                     int n_steps, int carry, int red) {
-  spatial_steps<S>(p, d, k, t0, n_steps, carry, red);
+  spatial_steps<float>(p, d, k, t0, n_steps, carry, red);
 }
-
-// The same with at most LEAN_REGS registers a thread and the carry in
-// global memory, so that two blocks of up to 6 warps share an SM (an SM
-// quarter's 16,384 registers hold 3 warps of 168): a grid of more blocks
-// than one wave of the other kernel holds (the derivative at B = 4: 180
-// blocks at the 3x3 preset's 144 lanes) runs in one wave.
-constexpr int LEAN_REGS = 168;
-template <class S>
 __global__ void
 #ifndef DHTS_CPU_EMULATION
-__maxnreg__(LEAN_REGS)
+__maxnreg__(DUAL_REGS)
 #endif
-spatial_step_kernel_lean(Ptrs p, Dims d, Consts k, int t0, int n_steps,
+spatial_step_dual_kernel(Ptrs p, Dims d, Consts k, int t0, int n_steps,
                          int carry, int red) {
-  spatial_steps<S>(p, d, k, t0, n_steps, carry, red);
+  spatial_steps<Dual>(p, d, k, t0, n_steps, carry, red);
+}
+template <class S>
+constexpr auto kernel_of() {
+  if constexpr (sizeof(S) == sizeof(float))
+    return spatial_step_kernel;
+  else
+    return spatial_step_dual_kernel;
 }
 
 // the most dynamic shared memory a block may take (the card's opt-in
@@ -880,7 +885,8 @@ int reduction_warp = 1;
 
 // One launch of n_steps steps from step t0: forward (S = float, B blocks)
 // or derivative (S = Dual, B * n_act blocks). The carry goes to shared
-// memory if it fits and the grid then still runs in one wave of blocks.
+// memory if it fits and the grid then still runs in one wave of blocks,
+// else it stays in global memory.
 template <class S>
 int launch(int blocks, const Ptrs& p, const Dims& d, const Consts& k,
            int t0, int n_steps, void* stream) {
@@ -895,11 +901,12 @@ int launch(int blocks, const Ptrs& p, const Dims& d, const Consts& k,
   const int lanes = ((d.L + WARP - 1) / WARP) * WARP;
   const int red = reduction_warp && lanes + WARP <= MAX_WARPS * WARP;
   const int threads = lanes + (red ? WARP : 0);
+  constexpr auto kernel = kernel_of<S>();
 #ifdef DHTS_CPU_EMULATION
   (void)stream;
   const int carry = smem_cap < 0 || (long long)full <= smem_cap;
-  dhts_emu::launch(blocks, threads, carry ? full : lean,
-                   spatial_step_kernel<S>, p, d, k, t0, n_steps, carry, red);
+  dhts_emu::launch(blocks, threads, carry ? full : lean, kernel, p, d, k,
+                   t0, n_steps, carry, red);
   return 0;
 #else
   static int sms = 0, optin = 0;
@@ -914,63 +921,35 @@ int launch(int blocks, const Ptrs& p, const Dims& d, const Consts& k,
             cudaSuccess)
       return (int)err;
   }
-  // the blocks an SM holds of `fn` at `smem` bytes (0: it does not fit)
-  auto per_sm = [&](const void* fn, size_t smem, int& n) {
-    n = 0;
-    cudaError_t e = cudaFuncSetAttribute(
-        fn, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
-    if (e != cudaSuccess) {
-      cudaGetLastError();
-      return cudaSuccess;
-    }
-    return cudaOccupancyMaxActiveBlocksPerMultiprocessor(&n, fn, threads,
-                                                         smem);
-  };
-  // in order of preference: the carry in shared memory; in global memory;
-  // in global memory with the registers capped; the first that runs the
-  // grid in one wave, else the one with the most blocks an SM
-  const void* fns[3] = {(const void*)spatial_step_kernel<S>,
-                        (const void*)spatial_step_kernel<S>,
-                        (const void*)spatial_step_kernel_lean<S>};
-  const size_t sizes[3] = {full, lean, lean};
   const long long cap = smem_cap < 0 ? optin : smem_cap;
   // the last choice, kept for calls of the same shapes
-  static long long last_key[6] = {-1, 0, 0, 0, 0, 0};
-  static int last_pick = -1;
-  const long long key[6] = {(long long)full, (long long)lean, threads,
-                            blocks, cap, sizeof(S)};
+  static long long last_key[4] = {-1, 0, 0, 0};
+  static int last_carry = 0;
+  const long long key[4] = {(long long)full, threads, blocks, cap};
   bool same = true;
-  for (int i = 0; i < 6; ++i) same = same && key[i] == last_key[i];
-  int pick = same ? last_pick : -1, best = 0;
-  for (int i = 0; i < 3 && !same; ++i) {
-    if (i == 0 && (long long)full > cap) continue;
-    int n;
-    if ((err = per_sm(fns[i], sizes[i], n)) != cudaSuccess) return (int)err;
-    if (n * sms >= blocks) {
-      pick = i;
-      break;
+  for (int i = 0; i < 4; ++i) same = same && key[i] == last_key[i];
+  int carry = last_carry;
+  if (!same) {
+    int per_sm = 0;
+    if ((long long)full <= cap) {
+      if ((err = cudaFuncSetAttribute(
+               kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+               (int)full)) != cudaSuccess ||
+          (err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(
+               &per_sm, kernel, threads, full)) != cudaSuccess)
+        return (int)err;
     }
-    if (n > best) {
-      best = n;
-      pick = i;
-    }
+    carry = per_sm > 0 && per_sm * sms >= blocks;
+    for (int i = 0; i < 4; ++i) last_key[i] = key[i];
+    last_carry = carry;
   }
-  if (pick < 0) return 1;
-  for (int i = 0; i < 6; ++i) last_key[i] = key[i];
-  last_pick = pick;
-  const int carry = pick == 0;
-  if ((err = cudaFuncSetAttribute(fns[pick],
+  const size_t smem = carry ? full : lean;
+  if ((err = cudaFuncSetAttribute(kernel,
                                   cudaFuncAttributeMaxDynamicSharedMemorySize,
-                                  (int)sizes[pick])) != cudaSuccess)
+                                  (int)smem)) != cudaSuccess)
     return (int)err;
-  if (pick == 2)
-    spatial_step_kernel_lean<S>
-        <<<blocks, threads, sizes[pick], (cudaStream_t)stream>>>(
-            p, d, k, t0, n_steps, carry, red);
-  else
-    spatial_step_kernel<S>
-        <<<blocks, threads, sizes[pick], (cudaStream_t)stream>>>(
-            p, d, k, t0, n_steps, carry, red);
+  kernel<<<blocks, threads, smem, (cudaStream_t)stream>>>(p, d, k, t0,
+                                                          n_steps, carry, red);
   return (int)cudaGetLastError();
 #endif
 }
@@ -1061,22 +1040,21 @@ int launch_itscp_spatial_step_bwd(
 }
 
 // The kernel's registers a thread, local (stack) bytes a thread, and the
-// blocks an SM holds with the carry in shared memory and without, then the
-// register-capped kernel's registers and blocks an SM (the carry in global
-// memory), at L lanes, C cells, V vehicles and K capacitor slots, into
-// out[0..5] (forward: tangent = 0; derivative: 1); zeros in the host
-// build. Returns the CUDA error code.
+// blocks an SM holds with the carry in shared memory and without, at L
+// lanes, C cells, V vehicles and K capacitor slots, into out[0..3]
+// (forward: tangent = 0; derivative: 1); zeros in the host build. Returns
+// the CUDA error code.
 int itscp_spatial_step_kernel_info(int L, int C, int V, int K, int tangent,
                                    int* out) {
-  for (int i = 0; i < 6; ++i) out[i] = 0;
+  for (int i = 0; i < 4; ++i) out[i] = 0;
 #ifdef DHTS_CPU_EMULATION
   (void)L; (void)C; (void)V; (void)K; (void)tangent;
   return 0;
 #else
   Dims d{};
   d.L = L; d.C = C; d.V = V; d.K = K;
-  const void* fn = tangent ? (const void*)spatial_step_kernel<Dual>
-                           : (const void*)spatial_step_kernel<float>;
+  const void* fn = tangent ? (const void*)spatial_step_dual_kernel
+                           : (const void*)spatial_step_kernel;
   const size_t full = tangent ? smem_bytes<Dual>(d, nullptr, nullptr, true)
                               : smem_bytes<float>(d, nullptr, nullptr, true);
   const size_t lean = tangent
@@ -1102,19 +1080,7 @@ int itscp_spatial_step_kernel_info(int L, int C, int V, int K, int tangent,
                                                         threads, sizes[i]);
     if (err != cudaSuccess) return (int)err;
   }
-  const void* lean_fn =
-      tangent ? (const void*)spatial_step_kernel_lean<Dual>
-              : (const void*)spatial_step_kernel_lean<float>;
-  if ((err = cudaFuncGetAttributes(&attr, lean_fn)) != cudaSuccess)
-    return (int)err;
-  out[4] = attr.numRegs;
-  if ((err = cudaFuncSetAttribute(lean_fn,
-                                  cudaFuncAttributeMaxDynamicSharedMemorySize,
-                                  (int)lean)) != cudaSuccess)
-    return (int)err;
-  err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&out[5], lean_fn,
-                                                      threads, lean);
-  return (int)err;
+  return 0;
 #endif
 }
 

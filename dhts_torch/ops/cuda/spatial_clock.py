@@ -79,18 +79,16 @@ def read_lane_cycles(lib, L: int, reset: bool = False) -> list[int]:
 
 
 def kernel_info(lib, plan, dual: bool) -> dict:
-    """Registers and stack bytes a thread, blocks an SM with the carry in
-    shared memory and without, and the register-capped kernel's registers
-    and blocks an SM."""
-    out = (ctypes.c_int * 6)()
+    """Registers and stack bytes a thread, and blocks an SM with the carry
+    in shared memory and without."""
+    out = (ctypes.c_int * 4)()
     fn = lib.itscp_spatial_step_kernel_info
     fn.argtypes = [ctypes.c_int] * 5 + [ctypes.c_void_p]
     fn.restype = ctypes.c_int
     _launch.raise_on(fn(plan.L, plan.C, plan.V, plan.K, int(dual), out),
                      "spatial step kernel info")
     return dict(zip(("registers", "stack_bytes", "blocks_per_sm_carry_smem",
-                     "blocks_per_sm_carry_global", "lean_registers",
-                     "lean_blocks_per_sm"), out))
+                     "blocks_per_sm_carry_global"), out))
 
 
 def preset_env(dev):
