@@ -319,26 +319,6 @@ def cuda_ms(fn, repeats: int, launches: int = 1):
     return times[len(times) // 2]
 
 
-def restored_ms(fn, restore, repeats: int) -> float:
-    """Median milliseconds of one ``fn()`` over ``repeats`` runs, each
-    timed by CUDA events around ``fn()`` alone, after ``restore()`` (the
-    state it advances) outside the events."""
-    import torch
-
-    times = []
-    for _ in range(repeats):
-        restore()
-        start = torch.cuda.Event(enable_timing=True)
-        end = torch.cuda.Event(enable_timing=True)
-        start.record()
-        fn()
-        end.record()
-        end.synchronize()
-        times.append(start.elapsed_time(end))
-    times.sort()
-    return times[len(times) // 2]
-
-
 def bound_of(nbytes: float, nops: float) -> dict:
     """The least time of a kernel: the larger of its bytes over the card's
     memory rate and its float32 operations over the card's peak rate."""
@@ -732,9 +712,11 @@ def spatial_inputs(env, B: int, seed: int, action):
 
 
 def check_spatial_fwd(env) -> dict:
-    """STEP forward, hard and soft, B = 1 and 4: every 50th step against
-    the plain step on the card, each episode against K1; raises on a failed
-    check. Returns the largest error and the mean vehicles per step."""
+    """STEP forward, hard and soft, B = 1 and 4: every 50th step of T
+    calls of one step against the plain step on the card, the episode in
+    one call (the main path's launch) bit-equal to those calls, each
+    episode against K1; raises on a failed check. Returns the largest error
+    and the mean vehicles per step."""
     import torch
 
     from dhts_torch.ops.cuda import itscp_hybrid_episode as k1
@@ -776,6 +758,14 @@ def check_spatial_fwd(env) -> dict:
                                                    rtol=1e-6, atol=1e-6)))
                     n_veh += int(ib[0, :plan.L].sum())
             veh_steps.append(n_veh * 50 / plan.T)
+            # the main path's launch: the whole episode in one call, whose
+            # steps keep the carry on chip; bit-equal to the calls of one
+            # step just held against the plain step
+            fb1, ib1 = k6.empty_state(plan, B, dev)
+            q1, ev1, w1 = (torch.zeros_like(x) for x in (q, ev, w))
+            k6.spatial_step_fwd(plan, fb1, ib1, 0, plan.T, ins, q1, ev1, w1)
+            one_call_ok = all(bool(torch.equal(x, y)) for x, y in (
+                (fb1, fb), (ib1, ib), (q1, q), (ev1, ev), (w1, w)))
             ep_ok, ep_err = True, 0.0
             for b in range(B):
                 r1, q1, e1 = k1.itscp_hybrid_episode_fwd(
@@ -791,16 +781,20 @@ def check_spatial_fwd(env) -> dict:
             tot = ev.sum((0, 1)).tolist()
             rec = dict(mode="soft" if differentiable else "hard", B=B,
                        step_checks_ok=step_ok, step_max_abs_err=step_err,
+                       one_call_equals_steps=one_call_ok,
                        k1_ok=ep_ok, k1_queues_max_abs_err=ep_err,
                        injected=tot[0], emitted=tot[1], absorbed=tot[2],
                        finite=bool(torch.isfinite(q).all()))
             checks.append(rec)
             max_err = max(max_err, step_err, ep_err)
-            if not (step_ok and ep_ok and tot[1] > 0 and rec["finite"]):
+            if not (step_ok and one_call_ok and ep_ok and tot[1] > 0 and
+                    rec["finite"]):
                 report(checks=checks, status="FAIL")
                 raise SystemExit(f"spatial_vs_plain failed: {rec}")
     report(checks=checks, tolerance=dict(
         step="integers equal, floats allclose(rtol 1e-6, atol 1e-6)",
+        one_call="carry, queues, events, waves after one call of T steps "
+                 "bit-equal to T calls of one step",
         vs_k1="events equal, reward rel 1e-5, queues abs 1e-4"))
     return dict(max_abs_err=max_err,
                 vehicles_per_step=sum(veh_steps) / len(veh_steps))
@@ -808,8 +802,9 @@ def check_spatial_fwd(env) -> dict:
 
 def check_spatial_bwd(env) -> dict:
     """STEP derivative against autograd of the plain episode over the first
-    60 steps (B = 2) and against K1's backward at T = 600 (B = 1); raises on
-    a failed check. Returns the errors and the plain derivative's ms per
+    60 steps (B = 2) and against K1's backward at T = 600 (B = 1), and the
+    latter's one call of T steps bit-equal to T calls of one step; raises
+    on a failed check. Returns the errors and the plain derivative's ms per
     step."""
     import torch
 
@@ -842,6 +837,16 @@ def check_spatial_bwd(env) -> dict:
                                                   env.action_size()))
     wf = torch.full((1, plan.T), -1.0, device=dev)
     got = k6.spatial_episode_bwd(plan, wf, *ins).double().flatten()
+    # the main path's launch (one call of T steps) against T calls of one
+    # step: carry, tangents and float64 gradient bit-equal
+    split = []
+    for n_steps in (plan.T, 1):
+        st = k6.dual_state(plan, 1, dev)
+        g64 = torch.zeros(st[0].shape[0], dtype=torch.float64, device=dev)
+        for t in range(0, plan.T, n_steps):
+            k6.spatial_step_bwd(plan, *st, t, n_steps, ins, wf, g64)
+        split.append((*st, g64))
+    one_call_ok = all(bool(torch.equal(x, y)) for x, y in zip(*split))
     ref = k1.itscp_hybrid_episode_bwd(
         env.fused_plan(True), wf[0], ins[0], ins[2], ins[3], ins[4],
         ins[1][0], env.data.inj_routes,
@@ -851,13 +856,16 @@ def check_spatial_bwd(env) -> dict:
                   max_abs_err=float((got - ref).abs().max()),
                   max_abs_ref=float(ref.abs().max()),
                   finite=bool(torch.isfinite(got).all()))
-    ok600 = rec600["finite"] and rec600["cos"] > 0.99999
+    ok600 = rec600["finite"] and rec600["cos"] > 0.99999 and one_call_ok
+    rec600["one_call_equals_steps"] = one_call_ok
     report(vs_plain_autograd=rec60, vs_k1_backward=rec600,
            note="the plain autograd check runs the first 60 of 600 steps "
                 "to keep the phase short",
            tolerance=dict(vs_plain="cos > 0.9999, allclose(rtol 2e-2, atol "
                                    "2e-3 * max|g_plain|)",
-                          vs_k1="cos > 0.99999"),
+                          vs_k1="cos > 0.99999",
+                          one_call="carry, tangents, float64 gradient "
+                                   "bit-equal"),
            status="ok" if ok60 and ok600 else "FAIL")
     if not (ok60 and ok600):
         raise SystemExit("spatial_bwd_vs_plain failed")
@@ -907,19 +915,22 @@ def run_spatial_train(log_root: str) -> dict:
 
 def time_spatial(env, vehicles_per_step: float) -> dict:
     """STEP forward (hard, and soft: the train path's mode) and derivative
-    ms per step at B = 1 and 4 (one launcher call of 50 steps from the
-    state after 100, the state restored before each call outside the CUDA
-    events; median of 5) and per episode (one call of T steps from the
-    empty state, state set-up included; median of 3), with bounds; the
-    plain step's ms at B = 1. Timing launches are not the main path's: the
-    counters are restored."""
+    ms per step at B = 1 and 4 (the launcher called directly, one call of
+    50 steps from the state after 100, the state restored before each call
+    outside the CUDA events; median of 5) and per episode (the wrapper, one
+    call of T steps from the empty state, state set-up included; median of
+    3), with the bounds of both calls; the plain step's ms at B = 1. Timing
+    launches are not the main path's: the wrappers' counters are
+    restored."""
     import torch
 
     from dhts_torch.ops.cuda import itscp_spatial_step as k6
+    from dhts_torch.ops.cuda import spatial_clock as clock
 
     saved = dict(k6.launches)
     saved_kernel = dict(k6.kernel_launches)
     dev = env.device
+    lib = k6._library()
     soft, hard = k6.make_plan(env, True), k6.make_plan(env, False)
     T, L, C = soft.T, soft.L, soft.C
     n_act = soft.n_phases * soft.n_inter
@@ -936,68 +947,57 @@ def time_spatial(env, vehicles_per_step: float) -> dict:
     # macro lanes and the IDM updates of this run's vehicles
     step_ops = (n_macro * ((C + 1) * OPS_PER_INTERFACE + C * OPS_PER_CELL) +
                 vehicles_per_step * OPS_PER_VEHICLE)
-    # the state one step of one episode must read and write: r, y of the
-    # macro lanes' cells; pos, vel, av, five IDM parameters, length, route
-    # id and index of this run's vehicles; those capacitors; the lane
-    # counters (vehicles, waiting pool, emission cursor); the two running
-    # means. The empty vehicle slots, and the vehicle slots of macro lanes,
-    # which never hold a vehicle, need not move.
+    # the state one episode must read and write once a launcher call (the
+    # call keeps it on chip between its steps): r, y of the macro lanes'
+    # cells; pos, vel, av, five IDM parameters, length, route id and index
+    # of this run's vehicles; those capacitors; the lane counters
+    # (vehicles, waiting pool, emission cursor); the two running means. The
+    # empty vehicle slots, and the vehicle slots of macro lanes, which
+    # never hold a vehicle, need not move.
     state = 2 * 4 * (2 * n_cells + 11 * vehicles_per_step + n_caps +
                      3 * L + 4)
-    ms, per_episode, bounds = {}, {}, {}
+    tables = sum(x.numel() * x.element_size() for x in
+                 (soft.lane_i, soft.lane_f, soft.prog))
+
+    def call_bound(B: int, n: int, dual: bool) -> dict:
+        """The bound of one launcher call of n steps of B episodes: the
+        state, the static tables and the action once a call; each step's
+        rows of the draws and scene data and its outputs (queue, 3 event
+        counts, wave; the derivative reads the loss weight instead and
+        writes the float64 gradient once, and does one vector-Jacobian
+        product's operations). The route entries the leader walks read
+        depend on the data and are not counted."""
+        per_step = (B * L + 3 * L) * 4 + B * (4 if dual else 5 * 4)
+        nbytes = (B * state + tables + n_act * 4 + n * per_step +
+                  (B * n_act * 8 if dual else 0))
+        ops = n * B * step_ops * (VJP_OPS_MULTIPLE if dual else 1)
+        return bound_of(nbytes, ops)
+
+    def per_step(bound: dict, n: int) -> dict:
+        return {k: v / n for k, v in bound.items() if k != "bound_by"} | \
+            dict(bound_by=bound["bound_by"])
+
+    ms, per_episode, bounds, episode_bounds = {}, {}, {}, {}
     for B in (1, 4):
+        for name, kernel in (("fwd", "hard"), ("fwd_soft", "soft"),
+                             ("bwd", "dual")):
+            # steps 100 to 149 of a state that has run the first 100
+            run = clock.Run(kernel, env, B, dev, lib, seed=300 + B)
+            ms.setdefault(name, {})[B] = clock.timed_ms(
+                run, lib, 5) / clock.STEPS
+            bounds.setdefault(name, {})[B] = per_step(call_bound(
+                B, clock.STEPS, name == "bwd"), clock.STEPS)
+            episode_bounds.setdefault(name, {})[B] = call_bound(
+                B, T, name == "bwd")
         ins = spatial_inputs(env, B, 300 + B, np.full(env.action_size(),
                                                       0.55))
-        q = torch.zeros((B, T), device=dev)
-        ev = torch.zeros((B, T, 3), dtype=torch.int32, device=dev)
-        w = torch.zeros((B, T), device=dev)
         wq = torch.ones((B, T), device=dev)
-        states = {"fwd": k6.empty_state(hard, B, dev),
-                  "fwd_soft": k6.empty_state(soft, B, dev),
-                  "bwd": k6.dual_state(soft, B, dev)}
-        g64 = torch.zeros(states["bwd"][0].shape[0], dtype=torch.float64,
-                          device=dev)
-        calls = {
-            "fwd": lambda st, t0, n: k6.spatial_step_fwd(
-                hard, *st, t0, n, ins, q, ev, w),
-            "fwd_soft": lambda st, t0, n: k6.spatial_step_fwd(
-                soft, *st, t0, n, ins, q, ev, w),
-            "bwd": lambda st, t0, n: k6.spatial_step_bwd(
-                soft, *st, t0, n, ins, wq, g64)}
-        for name, call in calls.items():
-            # time steps 100 to 149 of a state that has run the first 100
-            st = states[name]
-            call(st, 0, 100)
-            warm = [x.clone() for x in st]
-            g_warm = g64.clone()
-
-            def restore(st=st, warm=warm, g_warm=g_warm):
-                for x, y in zip(st, warm):
-                    x.copy_(y)
-                g64.copy_(g_warm)
-
-            ms.setdefault(name, {})[B] = restored_ms(
-                lambda: call(st, 100, 50), restore, 5) / 50
         per_episode.setdefault("fwd", {})[B] = cuda_ms(
             lambda: k6.spatial_episode_fwd(hard, *ins), 3)
         per_episode.setdefault("fwd_soft", {})[B] = cuda_ms(
             lambda: k6.spatial_episode_fwd(soft, *ins), 3)
         per_episode.setdefault("bwd", {})[B] = cuda_ms(
             lambda: k6.spatial_episode_bwd(soft, wq, *ins), 3)
-        # bytes: that state, the step's rows of the draws and scene data,
-        # the static tables, the outputs; the derivative reads the
-        # forward's inputs and the loss weight and writes the gradient, and
-        # does one vector-Jacobian product's operations. The route entries
-        # the leader walks read depend on the data and are not counted.
-        step_in = (B * L + 3 * L + n_act) * 4 + sum(
-            x.numel() * x.element_size() for x in
-            (soft.lane_i, soft.lane_f, soft.prog))
-        nbytes = B * state + step_in + B * 5 * 4
-        bounds.setdefault("fwd", {})[B] = bound_of(nbytes, B * step_ops)
-        bounds.setdefault("fwd_soft", {})[B] = bounds["fwd"][B]
-        bounds.setdefault("bwd", {})[B] = bound_of(
-            B * state + step_in + B * 4 + B * n_act * 8,
-            B * step_ops * VJP_OPS_MULTIPLE)
     ins = spatial_inputs(env, 1, 310, np.full(env.action_size(), 0.55))
     carry, sg, ss = k6.initial_carry(soft, 1, dev)
     g = k6.geometry(soft, dev)
@@ -1006,16 +1006,25 @@ def time_spatial(env, vehicles_per_step: float) -> dict:
         ins[3][100], ins[4][100], ins[5], g), 5)
     k6.launches.update(saved)
     k6.kernel_launches.update(saved_kernel)
-    lib = k6._library()
     smem = lib.itscp_spatial_step_smem
     carry = lambda dual: lib.itscp_spatial_step_smem_carry(
         L, C, soft.V, K, dual)
     return dict(ms=ms, ms_per_episode=per_episode, bounds=bounds,
-                state_bytes_per_episode=state, plain_step_ms=plain_ms,
+                bounds_per_episode=episode_bounds,
+                bound_note=f"bounds: per step of a {clock.STEPS}-step "
+                           "call (state, tables and action once a call, "
+                           f"divided by {clock.STEPS}); per episode: one "
+                           f"call of {T} steps",
+                state_bytes_per_episode=state, table_bytes=tables,
+                plain_step_ms=plain_ms,
                 smem_bytes=dict(fwd=smem(L, 0), bwd=smem(L, 1)),
                 smem_bytes_with_carry=dict(fwd=carry(0), bwd=carry(1)),
                 ms_over_bound={n: {B: ms[n][B] / bounds[n][B]["bound_ms"]
-                                   for B in ms[n]} for n in ms})
+                                   for B in ms[n]} for n in ms},
+                ms_per_episode_over_bound={
+                    n: {B: per_episode[n][B] /
+                        episode_bounds[n][B]["bound_ms"]
+                        for B in per_episode[n]} for n in per_episode})
 
 
 # ---------------------------------------------------------------------------
@@ -2843,7 +2852,10 @@ def main() -> int:
             "plain_ms": plain_ms, "bound_ms": b1["bound_ms"],
             "bound_by": b1["bound_by"], "library_ms": None, "batch": 1,
             "ms_by_batch": spatial_times["ms"][key],
-            "ms_per_episode": spatial_times["ms_per_episode"][key]})
+            "ms_per_episode": spatial_times["ms_per_episode"][key],
+            "bound_ms_per_episode": {
+                B: b["bound_ms"] for B, b in
+                spatial_times["bounds_per_episode"][key].items()}})
         if key == "fwd":
             kernels[-1].update(
                 ms_soft=spatial_times["ms"]["fwd_soft"][1],

@@ -113,14 +113,16 @@ def inputs(env, B: int, seed: int, action: float):
 
 
 class Run:
-    """One kernel's packed state after the warm-up, its outputs, and a
-    launcher call over steps [t0, t0 + n) from a restored state."""
+    """One kernel's packed state and outputs at B episodes of ``env``'s
+    scene (draws from ``seed``), kept empty and after the first ``warm``
+    steps, and a launcher call over steps [t0, t0 + n) of ``lib``."""
 
-    def __init__(self, kernel: str, env, B: int, dev, lib):
+    def __init__(self, kernel: str, env, B: int, dev, lib, seed: int = 1234,
+                 warm: int = WARM):
         self.kernel = kernel
         soft = kernel != "hard"
         self.plan = plan = k6.make_plan(env, soft)
-        self.ins = inputs(env, B, 1234, 0.55)
+        self.ins = inputs(env, B, seed, 0.55)
         T = plan.T
         if kernel == "dual":
             self.launcher = "launch_itscp_spatial_step_bwd"
@@ -140,15 +142,20 @@ class Run:
                          torch.zeros((B, T), device=dev)]
             self.written = [0, 1, 2]
         self.B = B
-        self.call(lib, 0, WARM)
-        torch.cuda.synchronize()
-        self.saved = [None if x is None else x.clone() for x in self.state]
-        self.saved_outs = [None if x is None else x.clone()
-                           for x in self.outs]
+        self.empty = self.snapshot()
+        if warm:
+            self.call(lib, 0, warm)
+            torch.cuda.synchronize()
+        self.saved = self.snapshot()
 
-    def restore(self):
-        for x, y in zip(self.state + self.outs,
-                        self.saved + self.saved_outs):
+    def snapshot(self):
+        return [None if x is None else x.clone()
+                for x in self.state + self.outs]
+
+    def restore(self, snap=None):
+        """Set state and outputs to ``snap`` (by default after the
+        warm-up)."""
+        for x, y in zip(self.state + self.outs, snap or self.saved):
             if x is not None:
                 x.copy_(y)
 
@@ -163,16 +170,18 @@ class Run:
             self.outs[i].clone() for i in self.written]
 
 
-def timed_ms(run: Run, lib, repeats: int) -> float:
-    """Median ms of one launcher call of STEPS steps from the restored
-    state (CUDA events around the call alone)."""
+def timed_ms(run: Run, lib, repeats: int, t0: int = WARM, n: int = STEPS,
+             snap=None) -> float:
+    """Median ms of one launcher call of n steps from t0, the state
+    restored to ``snap`` (by default after the warm-up) before each call
+    (CUDA events around the call alone)."""
     times = []
     for _ in range(repeats):
-        run.restore()
+        run.restore(snap)
         start = torch.cuda.Event(enable_timing=True)
         end = torch.cuda.Event(enable_timing=True)
         start.record()
-        run.call(lib, WARM, STEPS)
+        run.call(lib, t0, n)
         end.record()
         end.synchronize()
         times.append(start.elapsed_time(end))

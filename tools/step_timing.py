@@ -12,9 +12,11 @@ is built with this checkout's ``nvcc`` flags into this checkout's build
 directory and loaded beside this checkout's library, so both run in one
 process on one card through the same C launchers (the same signature since
 the kernel's port). The cases are the 3x3 hybrid preset of
-``run_itscp_hybrid.sh`` (T = 600, 144 lanes, action 0.55, ``chip_smoke.py``'s
-draws) at B = 1 and 4: the hard forward, the soft forward (the train path's
-mode) and the derivative (``Dual``, 45 B dual episodes).
+``run_itscp_hybrid.sh`` (T = 600, 144 lanes, action 0.55, the draws of
+``chip_smoke.py``'s ``spatial_timing``) at B = 1 and 4, each a
+``dhts_torch.ops.cuda.spatial_clock.Run``: the hard forward, the soft
+forward (the train path's mode) and the derivative (``Dual``, 45 B dual
+episodes).
 
 ``--parent`` times, in each of ``--pairs`` pairs, the parent, this checkout,
 this checkout, the parent; each visit takes every case's ms a step (one
@@ -50,82 +52,6 @@ sys.path.insert(0, str(ROOT / "tools"))
 
 BATCHES = (1, 4)
 CASES = ("hard", "soft", "dual")
-WARM, STEPS = 100, 50
-
-
-class Case:
-    """One case's plan, inputs, packed state and outputs at B episodes;
-    ``call(lib, t0, n)`` runs the launcher on them."""
-
-    def __init__(self, env, kind: str, B: int):
-        import chip_smoke
-        import numpy as np
-        import torch
-
-        from dhts_torch.ops.cuda import itscp_spatial_step as k6
-
-        dev = env.device
-        self.plan = plan = k6.make_plan(env, kind != "hard")
-        self.kind, self.B = kind, B
-        self.ins = chip_smoke.spatial_inputs(env, B, 300 + B, np.full(
-            env.action_size(), 0.55))
-        T = plan.T
-        if kind == "dual":
-            self.launcher = "launch_itscp_spatial_step_bwd"
-            self.state = list(k6.dual_state(plan, B, dev))
-            self.outs = [torch.ones((B, T), device=dev),
-                         torch.zeros(self.state[0].shape[0],
-                                     dtype=torch.float64, device=dev), None]
-        else:
-            self.launcher = "launch_itscp_spatial_step_fwd"
-            fb, ib = k6.empty_state(plan, B, dev)
-            self.state = [fb, None, ib]
-            self.outs = [torch.zeros((B, T), device=dev),
-                         torch.zeros((B, T, 3), dtype=torch.int32,
-                                     device=dev),
-                         torch.zeros((B, T), device=dev)]
-        self.empty = self.snapshot()
-
-    def snapshot(self):
-        return [None if x is None else x.clone()
-                for x in self.state + self.outs]
-
-    def restore(self, snap):
-        for x, y in zip(self.state + self.outs, snap):
-            if x is not None:
-                x.copy_(y)
-
-    def call(self, lib, t0: int, n: int):
-        from dhts_torch.ops.cuda import _launch
-        from dhts_torch.ops.cuda import itscp_spatial_step as k6
-
-        stream = _launch.stream(self.ins[0].device)
-        args = k6.kernel_args(self.plan, self.state, self.ins, self.outs,
-                              self.B, t0, n, stream)
-        _launch.raise_on(getattr(lib, self.launcher)(*args), self.kind)
-
-    def written(self):
-        """Everything a call writes: state, then the outputs in use."""
-        outs = self.outs[1:2] if self.kind == "dual" else self.outs
-        return [x for x in self.state + outs if x is not None]
-
-
-def events_ms(case: Case, snap, lib, t0: int, n: int, repeats: int) -> float:
-    """Median ms of one launcher call of n steps from t0, the state
-    restored to ``snap`` before each (outside the events)."""
-    import torch
-
-    times = []
-    for _ in range(repeats):
-        case.restore(snap)
-        start = torch.cuda.Event(enable_timing=True)
-        end = torch.cuda.Event(enable_timing=True)
-        start.record()
-        case.call(lib, t0, n)
-        end.record()
-        end.synchronize()
-        times.append(start.elapsed_time(end))
-    return sorted(times)[repeats // 2]
 
 
 def libraries(parent: Path):
@@ -143,16 +69,19 @@ def compare(env, libs) -> dict:
     of every case's whole episode (one call of T steps)."""
     import torch
 
+    from dhts_torch.ops.cuda import spatial_clock as clock
+
     out = {}
     for B in BATCHES:
         for kind in CASES:
-            case = Case(env, kind, B)
+            run = clock.Run(kind, env, B, env.device, libs["this"],
+                            seed=300 + B, warm=0)
             res = {}
             for name, lib in libs.items():
-                case.restore(case.empty)
-                case.call(lib, 0, case.plan.T)
+                run.restore(run.empty)
+                run.call(lib, 0, run.plan.T)
                 torch.cuda.synchronize()
-                res[name] = [x.clone() for x in case.written()]
+                res[name] = run.results()
             names = (["fbuf", "dbuf", "ibuf", "grad"] if kind == "dual" else
                      ["fbuf", "ibuf", "queues", "events", "waves"])
             out[f"{kind}_B{B}"] = {
@@ -169,26 +98,21 @@ def stats(xs):
 
 
 def pairs(env, libs, n_pairs: int, repeats: int) -> dict:
-    import torch
+    from dhts_torch.ops.cuda import spatial_clock as clock
 
-    cases = {(kind, B): Case(env, kind, B) for B in BATCHES
-             for kind in CASES}
-    warm = {}
-    for key, case in cases.items():
-        case.call(libs["this"], 0, WARM)
-        torch.cuda.synchronize()
-        warm[key] = case.snapshot()
+    runs = {(kind, B): clock.Run(kind, env, B, env.device, libs["this"],
+                                 seed=300 + B)
+            for B in BATCHES for kind in CASES}
     # a first call of each library builds nothing more and warms the card
     for lib in libs.values():
-        for key, case in cases.items():
-            events_ms(case, warm[key], lib, WARM, STEPS, 1)
+        for run in runs.values():
+            clock.timed_ms(run, lib, 1)
 
     def visit(lib):
         rec = {}
-        for (kind, B), case in cases.items():
-            step = events_ms(case, warm[kind, B], lib, WARM, STEPS,
-                             repeats) / STEPS
-            episode = events_ms(case, case.empty, lib, 0, case.plan.T, 3)
+        for (kind, B), run in runs.items():
+            step = clock.timed_ms(run, lib, repeats) / clock.STEPS
+            episode = clock.timed_ms(run, lib, 3, 0, run.plan.T, run.empty)
             rec[f"{kind}_B{B}"] = {"ms_per_step": step,
                                    "ms_per_episode": episode}
         return rec
@@ -235,7 +159,9 @@ def main(argv=None) -> int:
     if not torch.cuda.is_available():
         print("step_timing.py needs a CUDA device", file=sys.stderr)
         return 1
-    env = chip_smoke.preset_env(torch.device("cuda"))
+    from dhts_torch.ops.cuda import spatial_clock as clock
+
+    env = clock.preset_env(torch.device("cuda"))
     libs = libraries(tree)
     rec = {"tree": str(ROOT), "parent": str(tree),
            "nvidia_smi": chip_smoke.nvidia_smi()}
