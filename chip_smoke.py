@@ -130,9 +130,10 @@ phase prints one JSON line with its wall seconds:
                in this process): events, queues, waves bit-equal, emitted >
                0; the ranks' draws and scene agree; the host-staged gloo
                time per collective call
-22. ``shard_bwd_vs_plain``  the sharded derivative (S = 4, T = 600) against
-               the STEP derivative (cosine > 0.99999, allclose(rtol 2e-2,
-               atol 2e-3 * max|g|), finite; its Q kernel bit-equal to
+22. ``shard_bwd_vs_plain``  the sharded derivative (S = 4 in the ranks, S = 2
+               in this process, T = 600) against the STEP derivative
+               (bit-equal, cosine > 0.99999, allclose(rtol 2e-2, atol 2e-3
+               * max|g|), finite; its Q kernel bit-equal to
                ``plain_gradient`` of the same gathered tangent rows) and
                over the first 60 steps against the plain forward-mode
                derivative (one shard); both references run once, in this
@@ -1246,6 +1247,9 @@ def check_shard_bwd(ranks) -> dict:
     env = preset_env(torch.device("cuda"))
     (plan, ins, wf), (p60, ins60, w60) = _shard_bwd_inputs(env)
     ref = k6.spatial_episode_bwd(plan, wf, *ins).cpu()
+    # the derivative on S = 2 shards in this process
+    two = ks.ShardRun(plan, ks.LaneComm(plan.L, ks.shards_of(plan.L, 2)),
+                      ins, dual=True).run().gradient(wf).cpu()
     torch.cuda.synchronize()
     t0 = time.perf_counter()
     ref60 = ks.plain_sharded_episode_bwd(p60, ks.LaneComm.whole(p60.L), w60,
@@ -1263,23 +1267,25 @@ def check_shard_bwd(ranks) -> dict:
                     close=bool(torch.allclose(g, r, rtol=2e-2,
                                               atol=2e-3 * scale)), **extra)
 
-    ok, recs = True, []
+    s2 = versus(two, ref, T=plan.T, S=2)
+    ok, recs = s2["bit_equal"], []
     for o in outs:
         a = versus(o["grad"], ref, T=plan.T,
                    wall_s_host_staged_gloo=o["wall_s"])
         b = versus(o["grad60"], ref60, T=p60.T, plain_wall_s=plain_s)
         ok = (ok and a["finite"] and a["cos"] > 0.99999 and a["close"] and
-              a["max_abs_ref"] > 0 and b["finite"] and b["cos"] > 0.99999
-              and b["close"] and b["max_abs_ref"] > 0 and
+              a["max_abs_ref"] > 0 and a["bit_equal"] and b["finite"] and
+              b["cos"] > 0.99999 and b["close"] and b["max_abs_ref"] > 0 and
               o["q_kernel_equal"])
         recs.append((a, b))
-    report(S=SHARDS, vs_step_derivative=recs[0][0],
+    report(S=SHARDS, vs_step_derivative=recs[0][0], S2_vs_step_derivative=s2,
            vs_plain_forward_mode=recs[0][1],
            q_kernel_max_abs_err=max(o["q_kernel_max_abs_err"] for o in outs),
            ranks_equal=all(torch.equal(o["grad"], outs[0]["grad"])
                            for o in outs),
-           tolerance=dict(vs_step="cos > 0.99999, allclose(rtol 2e-2, atol "
-                                  "2e-3 * max|g|); bit-equal expected",
+           tolerance=dict(vs_step="bit-equal at S = 4 (the ranks) and S = "
+                                  "2 (this process); cos > 0.99999, "
+                                  "allclose(rtol 2e-2, atol 2e-3 * max|g|)",
                           vs_plain="first 60 steps: cos > 0.99999, the same "
                                    "allclose",
                           q_kernel="bit-equal to plain_gradient of the same "
@@ -1364,18 +1370,12 @@ def run_shard_train(ranks, log_root: str) -> dict:
 
 
 def _quiet_step(run, t0: int) -> int:
-    """Step a ShardRun of one process (all shards local) from t0 to the
-    first step without an injection, a conversion want or an arbitrated
-    insert or deposit, and return it: every body can be relaunched there
-    on that step's inputs without growing a lane's vehicles."""
-    for t in range(t0, run.plan.T):
-        run.step(t)
-        if all(float(b["sumA_v"][:, 8].sum()) == 0.0 and
-               int(b["pred"].abs().sum()) == 0 and
-               bool((b["bd"] == run.plan.L).all())
-               for _, _, b, _ in run.shards):
-            return t
-    raise RuntimeError("no quiet step to time the bodies at")
+    """The first quiet step from t0 (``shard_clock.quiet_step``: no
+    injection, conversion want or arbitrated insert or deposit), stepping
+    the run to it."""
+    from dhts_torch.ops.cuda import shard_clock
+
+    return shard_clock.quiet_step(run, t0)
 
 
 def _plain_call(run, body: str, t: int):

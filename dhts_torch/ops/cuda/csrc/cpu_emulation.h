@@ -5,8 +5,11 @@
 //   g++ -std=c++20 -O2 -ffp-contract=off -DDHTS_CPU_EMULATION -x c++
 //       -shared -fPIC -pthread -o libk.so kernel.cu
 //
-// Each CUDA thread of a block is a fiber (ucontext) on the calling host
-// thread; the blocks of a grid run one after another. A fiber runs until it
+// Each CUDA thread of a block is a fiber on the calling host thread (on
+// x86-64 switched by a few instructions that save the callee-saved
+// registers and the stack pointer, elsewhere by ucontext, whose switch
+// also saves the signal mask with a system call); the blocks of a grid run
+// one after another. A fiber runs until it
 // waits: at __syncthreads() for every live thread of its block, at a warp
 // exchange (__syncwarp(), a shuffle) for every live thread of its warp of
 // 32. The scheduler resumes the waiting fibers once their group is
@@ -35,6 +38,7 @@
 #include <cstdio>
 #include <cstdlib>
 #include <cstring>
+#include <memory>
 #include <vector>
 
 #define __global__
@@ -46,13 +50,57 @@
 inline int min(int a, int b) { return a < b ? a : b; }
 inline int max(int a, int b) { return a > b ? a : b; }
 
+#if defined(__x86_64__)
+// dhts_emu_swap(&save, load): push the callee-saved registers, the SSE
+// control word and the x87 control word on this stack, store the stack
+// pointer in `save`, load `load` (a stack left by this function, or a new
+// one laid out as it leaves one) and pop them there; hidden and weak, so
+// that each library keeps its own and a second copy merges
+extern "C" void dhts_emu_swap(void** save, void* load);
+__asm__(
+    ".text\n"
+    ".p2align 4\n"
+    ".weak dhts_emu_swap\n"
+    ".hidden dhts_emu_swap\n"
+    ".type dhts_emu_swap,@function\n"
+    "dhts_emu_swap:\n"
+    "  pushq %rbp\n"
+    "  pushq %rbx\n"
+    "  pushq %r12\n"
+    "  pushq %r13\n"
+    "  pushq %r14\n"
+    "  pushq %r15\n"
+    "  subq $8, %rsp\n"
+    "  stmxcsr (%rsp)\n"
+    "  fnstcw 4(%rsp)\n"
+    "  movq %rsp, (%rdi)\n"
+    "  movq %rsi, %rsp\n"
+    "  ldmxcsr (%rsp)\n"
+    "  fldcw 4(%rsp)\n"
+    "  addq $8, %rsp\n"
+    "  popq %r15\n"
+    "  popq %r14\n"
+    "  popq %r13\n"
+    "  popq %r12\n"
+    "  popq %rbx\n"
+    "  popq %rbp\n"
+    "  ret\n"
+    ".size dhts_emu_swap, .-dhts_emu_swap\n");
+#define DHTS_EMU_FAST_SWITCH 1
+#endif
+
 namespace dhts_emu {
 struct Idx { unsigned x = 0, y = 0, z = 0; };
 inline Idx thread_idx;
 inline Idx block_idx;
 inline char* dyn_smem = nullptr;
+#ifdef DHTS_EMU_FAST_SWITCH
+inline void* scheduler = nullptr;  // the scheduler's saved stack pointer
+inline void** running = nullptr;   // where the running fiber's is saved
+#else
 inline ucontext_t scheduler;
 inline ucontext_t* running = nullptr;
+#endif
 inline bool finished = false;
 inline void (*body)(void*) = nullptr;
 inline void* body_arg = nullptr;
@@ -69,6 +117,38 @@ inline char* parity = nullptr;     // [threads] the slot of its next shuffle
 constexpr int SLOT_WORDS = 4;     // a shuffled value: up to 32 bytes
 inline uint64_t* slots = nullptr;  // [warps][2][32][SLOT_WORDS] values
 
+#ifdef DHTS_EMU_FAST_SWITCH
+// a fiber's first frame: run the kernel, then hand back to the scheduler
+// for good
+inline void fiber_entry() {
+  body(body_arg);
+  finished = true;
+  dhts_emu_swap(running, scheduler);
+  __builtin_unreachable();
+}
+
+// the stack pointer of a new fiber on `stack` (`size` bytes): the frame
+// dhts_emu_swap pops (the control words of this thread, zeroed callee-saved
+// registers) and fiber_entry as its return address, 16-byte aligned as a
+// call leaves it
+inline void* new_fiber(char* stack, size_t size) {
+  uintptr_t top = (reinterpret_cast<uintptr_t>(stack) + size) & ~uintptr_t(15);
+  void** sp = reinterpret_cast<void**>(top) - 9;
+  uint32_t words[2] = {0, 0};
+  __asm__ volatile("stmxcsr %0\n\tfnstcw %1"
+                   : "=m"(words[0]), "=m"(words[1]));
+  std::memcpy(sp, words, sizeof words);
+  for (int i = 1; i < 7; ++i) sp[i] = nullptr;
+  sp[7] = reinterpret_cast<void*>(&fiber_entry);
+  sp[8] = nullptr;
+  return sp;
+}
+
+inline void wait_for(Wait w) {
+  waits[current] = w;
+  dhts_emu_swap(running, scheduler);
+}
+#else
 inline void fiber_entry() {
   body(body_arg);
   finished = true;  // returns to `scheduler` through uc_link
@@ -78,6 +158,7 @@ inline void wait_for(Wait w) {
   waits[current] = w;
   swapcontext(running, &scheduler);
 }
+#endif
 inline void sync_threads() { wait_for(BLOCK); }
 inline void sync_warp() { wait_for(WARP); }
 
@@ -144,14 +225,31 @@ inline bool release(int threads) {
   return any;
 }
 
+// the fibers' stacks, `bytes` of them, kept from launch to launch on this
+// host thread and never cleared (a page a fiber does not touch costs
+// nothing)
+inline char* fiber_stacks(size_t bytes) {
+  static thread_local std::unique_ptr<char[]> buf;
+  static thread_local size_t have = 0;
+  if (bytes > have) {
+    buf.reset(new char[bytes]);
+    have = bytes;
+  }
+  return buf.get();
+}
+
 template <class Kernel, class... Args>
 void launch(int blocks, int threads, size_t smem, Kernel kernel,
             Args... args) {
   constexpr size_t STACK = size_t(1) << 18;
   const int warps = (threads + 31) / 32;
   std::vector<char> buf(smem + 16);
-  std::vector<char> stacks(size_t(threads) * STACK);
+  char* stacks = fiber_stacks(size_t(threads) * STACK);
+#ifdef DHTS_EMU_FAST_SWITCH
+  std::vector<void*> ctx(threads);
+#else
   std::vector<ucontext_t> ctx(threads);
+#endif
   std::vector<Wait> wait(threads);
   std::vector<char> par(threads);
   std::vector<char> nid(threads);
@@ -170,11 +268,15 @@ void launch(int blocks, int threads, size_t smem, Kernel kernel,
     block_idx.x = static_cast<unsigned>(b);
     for (int& c : named_count) c = 0;
     for (int i = 0; i < threads; ++i) {
+#ifdef DHTS_EMU_FAST_SWITCH
+      ctx[i] = new_fiber(stacks + size_t(i) * STACK, STACK);
+#else
       getcontext(&ctx[i]);
-      ctx[i].uc_stack.ss_sp = stacks.data() + size_t(i) * STACK;
+      ctx[i].uc_stack.ss_sp = stacks + size_t(i) * STACK;
       ctx[i].uc_stack.ss_size = STACK;
       ctx[i].uc_link = &scheduler;
       makecontext(&ctx[i], fiber_entry, 0);
+#endif
       wait[i] = RUN;
       par[i] = 0;
     }
@@ -185,7 +287,11 @@ void launch(int blocks, int threads, size_t smem, Kernel kernel,
         current = i;
         running = &ctx[i];
         finished = false;
+#ifdef DHTS_EMU_FAST_SWITCH
+        dhts_emu_swap(&scheduler, ctx[i]);
+#else
         swapcontext(&scheduler, &ctx[i]);
+#endif
         if (finished) { wait[i] = DONE; --live; }
       }
       // a named barrier may have released fibers this pass has passed

@@ -19,7 +19,8 @@
 // each barrier at which one lane reads another's summary replaced by a
 // kernel boundary and a collective over the lane axis. One launch is one
 // body of one simulation step: one block per episode (forward) or per
-// (episode, action entry) (derivative, `Dual`), one thread per local lane.
+// (episode, action entry) (derivative, `Dual`), one thread per local lane
+// (C: SPLIT where it fits, below).
 // A shard holds lanes [off, off + n) of the scene; its carry stays in global
 // memory, packed as the STEP kernel packs it at n lanes. What other lanes
 // read goes out as the shard's summary rows [rows, n] and comes back
@@ -30,16 +31,26 @@
 // local lane l - off, while route ids and arbitration compare global ids.
 //
 // Sums: the signal and static running means and the queue are summed from
-// per-lane terms gathered over the lane axis, by one thread in lane order in
-// float64 and rounded once, as the STEP kernel sums them, so the sharded
-// episode equals the single-shard one bit for bit at any shard count. In
-// hard mode the signal mean sharpens nothing, and a split lane axis does not
-// gather its terms (C then leaves it as it is), as JAX's sharded step.
+// per-lane terms gathered over the lane axis in float64 and rounded once,
+// as the STEP kernel sums them in lane order, so the sharded episode equals
+// the single-shard one bit for bit at any shard count. C and E fold their
+// mean in a reduction warp beside the lane warps (warp_fold): a shuffle
+// tree where every partial sum is provably exact (then any order gives the
+// lane-order chain's bits), else one thread's chain in lane order. In hard
+// mode the signal mean sharpens nothing, and a split lane axis does not
+// gather its terms (C then leaves it as it is), as JAX's sharded step;
+// nothing waits for E's static mean in hard mode.
+//
+// C spreads a lane over SPLIT threads where it fits (one Riemann solve or
+// a few vehicles a thread, the fluxes handed on by shuffles): a macro
+// lane's serial Godunov update set its launch before.
 //
 // Bound. Each launch moves the shard's share of a step's state (the macro
 // cells, the vehicles present, the counters) and the gathered rows, a few
 // KB per episode, through short chains of dependent loads: latency-bound,
 // far above the bytes / 3.35 TB/s floor. Q (below) is bound by its bytes.
+
+#include <cstring>
 
 #include "itscp_step.cuh"
 
@@ -230,6 +241,240 @@ __device__ __forceinline__ Block<S> block_of(const ShardArgs& a) {
   return k;
 }
 
+// block_of for lane j of a block of G threads a lane (C's split)
+template <class S>
+__device__ __forceinline__ Block<S> lane_block_of(const ShardArgs& a,
+                                                  int j) {
+  Block<S> k = block_of<S>(a);
+  k.j = j;
+  k.lane = j < a.n;
+  k.gl = a.off + j;
+  k.g = k.lane ? lane_geom(k.sc, a.d.L, a.d.K, k.gl) : LaneGeom();
+  return k;
+}
+
+// Cycle stamps (a build with -DDHTS_SHARD_CLOCK; python -m
+// dhts_torch.ops.cuda.shard_clock): in block 0, the thread that does a
+// part adds the cycles it took to shard_cycles[part]: the fold of a
+// running mean (the thread that folds it), and on thread 0's path its
+// set-up (and any wait for the fold before its lane starts), its lane's
+// update (with any wait between the kinds), the rows out, its wait for the
+// other lanes and the wave maximum (C); its way to its gates (set-up,
+// first cells, any wait), its lane's queue and the store (E); and each
+// kernel's whole launch. Each lane's first thread in block 0 adds its
+// lane's own update's cycles in C (Godunov, or the blend and IDM, after
+// any wait) to shard_lane_cycles[local lane]. The last two counts are the
+// C and E launches stamped. Without the macro the stamps compile to
+// nothing.
+enum ShardPart {
+  SH_C_FOLD, SH_C_WAIT, SH_C_LANE, SH_C_ROWS, SH_C_END_WAIT, SH_C_WAVE,
+  SH_C_TOTAL, SH_E_FOLD, SH_E_WAIT, SH_E_QUEUE, SH_E_STORE, SH_E_TOTAL,
+  SH_PARTS
+};
+#ifdef DHTS_SHARD_CLOCK
+__device__ long long shard_cycles[SH_PARTS + 2];  // parts; C, E launches
+__device__ long long shard_lane_cycles[1024];
+// the SM's clock, read by a volatile asm with a memory clobber: the
+// compiler keeps it in order with the barriers
+__device__ __forceinline__ long long sh_now() {
+#ifdef DHTS_CPU_EMULATION
+  return clock64();
+#else
+  long long t;
+  asm volatile("mov.u64 %0, %%clock64;" : "=l"(t)::"memory");
+  return t;
+#endif
+}
+#define SH_CLOCK(...) __VA_ARGS__
+// the cycles since `t` into `part`, and `t` moved to now, where `who`
+#define SH_ADD(who, part, t)                        \
+  do {                                              \
+    if ((who) && blockIdx.x == 0) {                 \
+      const long long sh_t = sh_now();              \
+      shard_cycles[part] += sh_t - (t);             \
+      (t) = sh_t;                                   \
+    }                                               \
+  } while (0)
+#else
+#define SH_CLOCK(...)
+#define SH_ADD(who, part, t) (void)0
+#endif
+
+// ---------------------------------------------------------------------------
+// C's and E's block: the lane warps and a reduction warp behind them
+// ---------------------------------------------------------------------------
+
+constexpr int WARP = 32;
+constexpr unsigned FULL_MASK = 0xffffffffu;
+constexpr int MAX_THREADS = 1024;
+constexpr int MAX_WARPS = MAX_THREADS / WARP;
+// C's threads a lane where its Godunov interfaces (C + 1) and its vehicles
+// (up to SPLIT_VEH each) spread over them
+constexpr int SPLIT = 8, SPLIT_VEH = 4;  // SPLIT_VEH even
+// named barrier (0 is __syncthreads): the soft running mean's release (the
+// reduction warp arrives, the lane warps wait)
+constexpr int BAR_MEAN = 1;
+
+// PTX named barriers (the host build has its own, cpu_emulation.h): wait
+// at, or only arrive at, barrier `id`, which completes when `count` threads
+// have reached it. A warp must reach one converged (bar.sync and bar.arrive
+// are .aligned), hence the __syncwarp() after lane-dependent branches.
+#ifdef DHTS_CPU_EMULATION
+#define CONVERGE() (void)0
+#else
+#define CONVERGE() __syncwarp()
+__device__ __forceinline__ void bar_sync(int id, int count) {
+  asm volatile("bar.sync %0, %1;" ::"r"(id), "r"(count) : "memory");
+}
+__device__ __forceinline__ void bar_arrive(int id, int count) {
+  asm volatile("bar.arrive %0, %1;" ::"r"(id), "r"(count) : "memory");
+}
+#endif
+
+// How a launch of C or E lays out its block: G threads a lane (C: 1 or
+// SPLIT), `lanes` threads for the lanes (n G rounded up to whole warps),
+// and with `red` a reduction warp behind them that folds the running mean.
+struct Geo {
+  int G, lanes, red;
+};
+
+__device__ __forceinline__ float shfl_down_w(float x, int o, int w) {
+  return __shfl_down_sync(FULL_MASK, x, o, w);
+}
+__device__ __forceinline__ Dual shfl_down_w(Dual x, int o, int w) {
+  return Dual(__shfl_down_sync(FULL_MASK, x.v, o, w),
+              __shfl_down_sync(FULL_MASK, x.d, o, w));
+}
+
+// the exponent of the lowest set bit of a finite x != 0: x is an integer
+// multiple of 2^low_bit(x)
+__device__ __forceinline__ int low_bit(double x) {
+  unsigned long long b;
+  memcpy(&b, &x, sizeof b);
+  const int e = (int)((b >> 52) & 0x7ff);
+  unsigned long long m = b & 0xfffffffffffffull;
+  if (e != 0) m |= 1ull << 52;
+#ifdef DHTS_CPU_EMULATION
+  const int tz = __builtin_ctzll(m);
+#else
+  const int tz = __ffsll((long long)m) - 1;
+#endif
+  return (e != 0 ? e - 1075 : -1074) + tz;
+}
+
+// 2^k for -1022 <= k <= 1023
+__device__ __forceinline__ double pow2(int k) {
+  const unsigned long long b = (unsigned long long)(k + 1023) << 52;
+  double x;
+  memcpy(&x, &b, sizeof x);
+  return x;
+}
+
+constexpr int NO_BIT = 1 << 20;  // the lowest bit among no nonzero term
+
+// K float64 sums and K integer counts of a fold
+template <int K>
+struct Fold {
+  double s[K];
+  int n[K];
+};
+
+// K float64 sums over the terms j = 0 .. n - 1, each as the plain version
+// adds it, ((0 + x_0) + x_1) + ... in index order, rounded once, and K
+// integer counts, by one warp; the results in its lane 0. `get(j, x, c)`
+// gives term j of each sum and of each count. Each lane loads the terms j
+// = lane, lane + 32, ... (four rounds of loads in flight), stages them in
+// `stage` ([K][n], for the chain below) and adds its own; a shuffle tree
+// adds the lanes' sums and counts. Where every term is an integer multiple
+// of 2^e (e the lowest set bit among them) and a sum's magnitudes add up to
+// at most 2^(e + 52), every partial sum in any order is exact, so the
+// tree's sum is the chain's bit for bit (a sum of +0.0 terms stays +0.0 on
+// both). Otherwise (a NaN or an infinity among the terms, or magnitudes
+// too far apart) lane 0 adds the staged terms in index order, the loads of
+// 8 terms ahead of their adds. Counts are exact in any order.
+template <int K, class Get>
+__device__ __forceinline__ Fold<K> warp_fold(int n, Get get, double* stage,
+                                             int wl) {
+  constexpr int U = 4;
+  double acc[K], mag[K];
+  int cnt[K];
+  int low = NO_BIT, finite = 1;
+#pragma unroll
+  for (int k = 0; k < K; ++k) { acc[k] = 0.0; mag[k] = 0.0; cnt[k] = 0; }
+  for (int j0 = 0; j0 < n; j0 += U * WARP) {
+    double x[U][K];
+    int c[U][K];
+#pragma unroll
+    for (int u = 0; u < U; ++u) {
+      const int j = j0 + u * WARP + wl;
+      if (j < n) {
+        get(j, x[u], c[u]);
+      } else {
+#pragma unroll
+        for (int k = 0; k < K; ++k) { x[u][k] = 0.0; c[u][k] = 0; }
+      }
+    }
+#pragma unroll
+    for (int u = 0; u < U; ++u) {
+      const int j = j0 + u * WARP + wl;
+#pragma unroll
+      for (int k = 0; k < K; ++k) {
+        const double v = x[u][k];
+        if (j < n) stage[k * n + j] = v;
+        acc[k] += v;
+        mag[k] += fabs(v);
+        cnt[k] += c[u][k];
+        if (v != 0.0) {
+          if (isfinite(v)) low = min(low, low_bit(v));
+          else finite = 0;
+        }
+      }
+    }
+  }
+  for (int o = WARP / 2; o > 0; o >>= 1) {
+#pragma unroll
+    for (int k = 0; k < K; ++k) {
+      acc[k] += __shfl_down_sync(FULL_MASK, acc[k], o);
+      mag[k] += __shfl_down_sync(FULL_MASK, mag[k], o);
+      cnt[k] += __shfl_down_sync(FULL_MASK, cnt[k], o);
+    }
+    low = min(low, __shfl_down_sync(FULL_MASK, low, o));
+    finite &= __shfl_down_sync(FULL_MASK, finite, o);
+  }
+  __syncwarp();  // the staged terms, for lane 0's chain
+  Fold<K> f;
+  if (wl != 0) return f;
+  bool tree = finite;
+#pragma unroll
+  for (int k = 0; k < K; ++k) {
+    f.n[k] = cnt[k];
+    tree = tree && (low == NO_BIT || mag[k] <= pow2(min(low + 52, 1023)));
+  }
+  if (tree) {
+#pragma unroll
+    for (int k = 0; k < K; ++k) f.s[k] = acc[k];
+    return f;
+  }
+#pragma unroll
+  for (int k = 0; k < K; ++k) f.s[k] = 0.0;
+  int j = 0;
+  for (; j + 8 <= n; j += 8) {
+    double v[8][K];
+#pragma unroll
+    for (int i = 0; i < 8; ++i)
+#pragma unroll
+      for (int k = 0; k < K; ++k) v[i][k] = stage[k * n + j + i];
+#pragma unroll
+    for (int i = 0; i < 8; ++i)
+#pragma unroll
+      for (int k = 0; k < K; ++k) f.s[k] += v[i][k];
+  }
+  for (; j < n; ++j)
+#pragma unroll
+    for (int k = 0; k < K; ++k) f.s[k] += stage[k * n + j];
+  return f;
+}
+
 // ======================= A: pre-physics summary ==========================
 template <class S>
 __global__ void shard_A(ShardArgs a) {
@@ -410,117 +655,312 @@ __global__ void shard_B(ShardArgs a) {
 }
 
 // ====== C: signal blend, physics, flux capacitors, post-physics rows ======
-template <class S>
-__global__ void shard_C(ShardArgs a) {
+// The block: the lane threads (G a lane, `geo.lanes` in whole warps) and,
+// where the soft signal mean is folded here (a.gsg) and the block has room,
+// a reduction warp behind them that folds it (warp_fold) while the lanes
+// run. The macro lanes' Godunov update reads no mean and starts at once;
+// in the soft modes the lane warps then wait on BAR_MEAN for it (the micro
+// lanes' blend gate reads it), in hard mode for nothing. Without the
+// reduction warp, warp 0 folds first and every thread waits.
+// With G = SPLIT threads a lane (where C + 1 and V / SPLIT_VEH fit and the
+// block stays within 1,024 threads), thread r of a macro lane's group
+// solves interface r's Riemann problem and updates cell r with its own flux
+// and interface r + 1's (a shuffle), and a micro lane's group updates
+// vehicles r, r + G, ...: each from the state before the update, by the
+// operations of itscp_step.cuh's godunov_lane and idm_lane (bit-equal).
+// The group's first thread reads what its rows need of the state the
+// update leaves alone (counts, route ids, parameters, the capacitor) before
+// the update, and writes the rows after it. The wave maximum: a shuffle
+// tree per warp, then thread 0 over the warps (exact in any order).
+template <class S, int G>
+__device__ __forceinline__ void body_C(const ShardArgs& a, const Geo& geo) {
   DHTS_DYNAMIC_SMEM(smem_raw);
   const Dims& d = a.d;
   const Consts& c = a.k;
   const int L = d.L, V = d.V, K = d.K, n = a.n, t = a.t;
+  SH_CLOCK(const bool clk = threadIdx.x == 0; long long sh_t0 = 0;
+           if (clk) sh_t0 = sh_now(); long long sh_p = sh_t0;)
   float* ms = nullptr;
-  float* wave_l = nullptr;
+  float* wave_w = nullptr;
+  double* stage = nullptr;
   size_t off_s = 0;
   carve(&ms, 1, smem_raw, off_s);
-  carve(&wave_l, n, smem_raw, off_s);
-  Block<S> k = block_of<S>(a);
-  auto& st = k.st;
-  const LaneGeom& g = k.g;
-  const Scene& sc = k.sc;
-  const int gl = k.gl;
-  auto clampL = [&](int q) { return min(max(q, 0), L - 1); };
-  if (threadIdx.x == 0 && a.gsg != nullptr) {
-    // signal running mean from the gathered per-lane terms, in lane order;
-    // its detached mean sharpens the blend gate (soft modes only)
-    const float* gs = a.gsg + (size_t)k.e * 2 * L;
-    double tot = 0.0;
-    int cnt = 0;
-    for (int q = 0; q < L; ++q) { tot += (double)gs[q]; cnt += (int)gs[L + q]; }
-    float* sg_ms = k.F + k.o.sg;
-    sg_ms[0] = sg_ms[0] + (float)tot;
-    sg_ms[1] = sg_ms[1] + (float)cnt;
-    const float mean = sg_ms[0] / fmaxf(sg_ms[1], 1.0f);
-    ms[0] = c.gate32 / fmaxf(fabsf(mean), 1e-6f);
+  carve(&wave_w, MAX_WARPS, smem_raw, off_s);
+  carve(&stage, L, smem_raw, off_s);
+  const int tid = threadIdx.x, wl = tid % WARP, warp = tid / WARP;
+  const int NB = geo.lanes + (geo.red ? WARP : 0);
+  const bool fold = a.gsg != nullptr, soft_mode = d.mode != HARD;
+  const bool reducer = geo.red && tid >= geo.lanes;
+  const bool dual = a.dbuf != nullptr;
+  const int e = blockIdx.x;
+  if (fold && (reducer || (!geo.red && warp == 0))) {
+    // the signal running mean from the gathered per-lane terms, in lane
+    // order; its detached mean sharpens the soft blend gate
+    SH_CLOCK(long long sh_f = 0; if (wl == 0) sh_f = sh_now();)
+    const float* gs = a.gsg + (size_t)e * 2 * L;
+    const Fold<1> f = warp_fold<1>(
+        L,
+        [&](int j, double* x, int* cn) {
+          x[0] = (double)gs[j];
+          cn[0] = (int)gs[L + j];
+        },
+        stage, wl);
+    if (wl == 0) {
+      float* sg_ms = a.fbuf + (size_t)e * layout(d, n).fsize +
+                     layout(d, n).sg;
+      sg_ms[0] = sg_ms[0] + (float)f.s[0];
+      sg_ms[1] = sg_ms[1] + (float)f.n[0];
+      const float mean = sg_ms[0] / fmaxf(sg_ms[1], 1.0f);
+      ms[0] = c.gate32 / fmaxf(fabsf(mean), 1e-6f);
+    }
+    SH_ADD(wl == 0, SH_C_FOLD, sh_f);
   }
-  __syncthreads();
-
-  if (k.lane) {
-    const float* bv = a.bc_v + (size_t)k.e * BC_ROWS * n + k.j;
-    const float* bdp = k.dual ? a.bc_d + (size_t)k.e * BC_ROWS * n + k.j
+  if (!geo.red && fold) __syncthreads();
+  if (reducer) {
+    if (fold && soft_mode) {
+      CONVERGE();
+      bar_arrive(BAR_MEAN, NB);
+    }
+  } else {
+    const int j = tid / G, r = tid % G;
+    Block<S> k = lane_block_of<S>(a, j);
+    auto& st = k.st;
+    const LaneGeom& g = k.g;
+    const Scene& sc = k.sc;
+    const int gl = k.gl;
+    auto clampL = [&](int q) { return min(max(q, 0), L - 1); };
+    const bool lead = k.lane && r == 0;
+    SH_ADD(clk, SH_C_WAIT, sh_p);
+    S bl_r = 0.0f, bl_u = 0.0f, sg = 0.0f, gr_r = 0.0f, gr_u = 0.0f;
+    S pd_g = 0.0f, sd_g = 0.0f, red_pd = 0.0f, fsig = 0.0f;
+    bool blend = false;
+    if (k.lane) {
+      const float* bv = a.bc_v + (size_t)e * BC_ROWS * n + j;
+      const float* bdp = dual ? a.bc_d + (size_t)e * BC_ROWS * n + j
                               : nullptr;
-    auto bc = [&](int r) { return from_parts<S>(bv[r * n], bdp, r * n); };
-    const S bl_r = bc(0), bl_u = bc(1), gr_r = bc(2), gr_u = bc(3);
-    const S sig_l = bc(4), pd_g = bc(5), sd_g = bc(6), red_pd = bc(7);
-    const S fsig = bc(8);
-    const bool blend = bv[9 * n] > 0.5f;
-    S sg;
-    if (d.mode == HARD) {
-      sg = val(sig_l) > 0.5f ? 1.0f : 0.0f;
-    } else {
-      sg = stg(val(sig_l) > 0.5f, soft(sig_l - S(0.5f), c.gate32), d.mode);
+      auto bc = [&](int q) { return from_parts<S>(bv[q * n], bdp, q * n); };
+      bl_r = bc(0); bl_u = bc(1); gr_r = bc(2); gr_u = bc(3);
+      const S sig_l = bc(4);
+      pd_g = bc(5); sd_g = bc(6); red_pd = bc(7); fsig = bc(8);
+      blend = bv[9 * n] > 0.5f;
+      if (d.mode == HARD) {
+        sg = val(sig_l) > 0.5f ? 1.0f : 0.0f;
+      } else {
+        sg = stg(val(sig_l) > 0.5f, soft(sig_l - S(0.5f), c.gate32),
+                 d.mode);
+      }
     }
     const Ghosts<S> gh{bl_r, bl_u, gr_r * sg + S(1.0f) * (S(1.0f) - sg),
                        gr_u * sg};
+    // what the rows read of the state the update leaves alone, loaded
+    // before it (the head's route after it: a third dependent load)
+    int mn = -1, slot = -1, cnt = 0, i0 = 0, hi = 0, hrid = 0, hridx = 0;
+    bool next_macro = false;
+    float len0 = 0.0f, hpar[6] = {};
+    S cap_old = 0.0f, hav = 0.0f;
+    if (lead) {
+      mn = a.mnext[t * L + gl];
+      cnt = st.count[gl];
+      for (int q = 0; q < K; ++q) {
+        const int nq = sc.lane_i[(8 + K + q) * L + gl];
+        if (slot < 0 && nq >= 0 && nq == mn) slot = q;
+      }
+      next_macro = sc.macro_at(clampL(mn));
+      i0 = st.vi(gl, 0);
+      hi = st.vi(gl, min(max(cnt - 1, 0), V - 1));
+      hrid = st.rid[hi];
+      hridx = st.ridx[hi];
+      len0 = st.param(5, i0);
+      for (int q = 0; q < 6; ++q) hpar[q] = st.param(q, hi);
+      if (slot >= 0) cap_old = ld<S>(st.cap, st.ki(gl, slot));
+      hav = ld<S>(st.av, hi);
+    }
+    SH_CLOCK(long long sh_l = sh_now();)
+    // ---- the macro lanes' Godunov update (no wait)
     float lane_wave = 0.0f;
-    if (g.is_macro) {
-      lane_wave = godunov_lane<S>(st, g, gl, d.C, gh, c);
+    if constexpr (G == 1) {
+      if (k.lane && g.is_macro)
+        lane_wave = godunov_lane<S>(st, g, gl, d.C, gh, c);
     } else {
-      S pd = pd_g, sd = sd_g;
-      if (blend) {
-        if (d.mode != HARD) {
-          const S fs = soft(fsig - S(0.5f), ms[0]);
-          pd = pd_g * fs + red_pd * (S(1.0f) - fs);
-          sd = sd_g * fs;
-        } else {
-          const bool green = val(fsig) >= 0.5f;
-          pd = green ? pd_g : red_pd;
-          sd = green ? sd_g : S(0.0f);
+      const float u_max = c.u_max;
+      const int C = d.C;
+      S fr = 0.0f, fy = 0.0f, rc = 0.0f, yc = 0.0f;
+      const bool iface = k.lane && g.is_macro && r <= C;
+      if (iface) {
+        // interface r between cell r - 1 (or the left ghost) and cell r
+        // (or the right ghost); cells past the lane's are the right ghost.
+        // Every thread takes every candidate and selects (no divergent
+        // solves): the same values as godunov_lane's
+        const S right_y = comp_y(gh.br_r, gh.br_u, u_max);
+        const S left_y = comp_y(gh.bl_r, gh.bl_u, u_max);
+        auto cell = [&](int q, S& rq, S& yq) {
+          const bool in = q >= 0 && q < C && q < g.num_cell;
+          rq = in ? ld<S>(st.r, st.ci(gl, q)) : gh.br_r;
+          yq = in ? ld<S>(st.y, st.ci(gl, q)) : right_y;
+        };
+        S rl, yl;
+        cell(r - 1, rl, yl);
+        cell(r, rc, yc);
+        const S ul = comp_u(rl, yl, u_max), ur = comp_u(rc, yc, u_max);
+        const bool first = r == 0, end = r == C;
+        riemann(first ? gh.bl_r : rl, first ? left_y : yl,
+                first ? gh.bl_u : ul, end ? gh.br_r : rc,
+                end ? gh.br_u : ur, u_max, c.rare_den, c.third, fr, fy,
+                lane_wave);
+      }
+      // interface r + 1's fluxes (every thread of the warp shuffles)
+      const S fr1 = shfl_down_w(fr, 1, G), fy1 = shfl_down_w(fy, 1, G);
+      __syncwarp();  // every read of the cells before the first write
+      if (iface && r < C && r < g.num_cell) {
+        const S coeff = S(c.dt / g.cell_len);
+        put(st.r, st.ci(gl, r), rc + (fr - fr1) * coeff);
+        put(st.y, st.ci(gl, r), yc + (fy - fy1) * coeff);
+      }
+    }
+    SH_CLOCK(if (k.lane && g.is_macro && blockIdx.x == 0 && r == 0)
+                 shard_lane_cycles[j] += sh_now() - sh_l;)
+    // ---- the soft signal mean (the micro lanes' blend gate)
+    if (soft_mode && fold && geo.red) {
+      CONVERGE();
+      bar_sync(BAR_MEAN, NB);
+    }
+    SH_CLOCK(long long sh_m = sh_now();)
+    // ---- the micro lanes' IDM update
+    S hpd = pd_g, hsd = sd_g;
+    if (k.lane && !g.is_macro && blend) {
+      if (d.mode != HARD) {
+        const S fs = soft(fsig - S(0.5f), ms[0]);
+        hpd = pd_g * fs + red_pd * (S(1.0f) - fs);
+        hsd = sd_g * fs;
+      } else {
+        const bool green = val(fsig) >= 0.5f;
+        hpd = green ? pd_g : red_pd;
+        hsd = green ? sd_g : S(0.0f);
+      }
+    }
+    if constexpr (G == 1) {
+      if (k.lane && !g.is_macro) idm_lane<S>(st, gl, hpd, hsd, c);
+    } else {
+      const bool micro = k.lane && !g.is_macro;
+      const int nv = micro ? st.count[gl] : 0;
+      S np_[SPLIT_VEH], nv_[SPLIT_VEH];
+      // two vehicles a thread at a time: their and their leaders' state
+      // loaded, then their updates
+#pragma unroll
+      for (int q0 = 0; q0 < SPLIT_VEH; q0 += 2) {
+        if (q0 * G >= V) break;
+        S pv[2], sp[2], pj[2], vj[2];
+        float len[2], lenj[2], par[2][4], den[2];
+#pragma unroll
+        for (int u = 0; u < 2; ++u) {
+          const int v = r + (q0 + u) * G;
+          if (v >= nv) continue;
+          const int i = st.vi(gl, v), jv = st.vi(gl, min(v + 1, nv - 1));
+          pv[u] = ld<S>(st.pos, i); sp[u] = ld<S>(st.vel, i);
+          pj[u] = ld<S>(st.pos, jv); vj[u] = ld<S>(st.vel, jv);
+          len[u] = st.param(5, i); lenj[u] = st.param(5, jv);
+          par[u][0] = st.param(0, i); par[u][1] = st.param(2, i);
+          par[u][2] = st.param(3, i); par[u][3] = st.param(4, i);
+          den[u] = st.idm_den(i);
+        }
+#pragma unroll
+        for (int u = 0; u < 2; ++u) {
+          const int v = r + (q0 + u) * G;
+          if (v >= nv) continue;
+          S pdel, sdel;
+          if (v == nv - 1) {
+            pdel = hpd; sdel = hsd;
+          } else {
+            pdel = vabs(pj[u] - pv[u]) - S((lenj[u] + len[u]) * 0.5f);
+            sdel = sp[u] - vj[u];
+          }
+          idm_step(pv[u], sp[u], pdel, sdel, par[u][0], par[u][1],
+                   par[u][2], par[u][3], den[u], c.dt, np_[q0 + u],
+                   nv_[q0 + u]);
         }
       }
-      idm_lane<S>(st, gl, pd, sd, c);
+      __syncwarp();  // every read of the vehicles before the first write
+#pragma unroll
+      for (int q = 0; q < SPLIT_VEH; ++q) {
+        const int v = r + q * G;
+        if (v >= nv) continue;
+        const int i = st.vi(gl, v);
+        put(st.pos, i, np_[q]);
+        put(st.vel, i, nv_[q]);
+      }
+      __syncwarp();  // the group's updates, for its first thread's rows
     }
-    wave_l[k.j] = lane_wave;
+    SH_CLOCK(if (k.lane && !g.is_macro && blockIdx.x == 0 && r == 0)
+                 shard_lane_cycles[j] += sh_now() - sh_m;)
+    SH_ADD(clk, SH_C_LANE, sh_p);
 
-    // the flux capacitor toward the next lane, and the post-physics rows
-    const int last = min(max(g.num_cell - 1, 0), d.C - 1);
-    const S rl = ld<S>(st.r, st.ci(gl, last));
-    const S ul = comp_u(rl, ld<S>(st.y, st.ci(gl, last)), c.u_max);
-    const int mn = a.mnext[t * L + gl];
-    const int mn_c = clampL(mn);
-    const bool next_is_micro = g.is_macro && mn >= 0 && !sc.macro_at(mn_c);
-    const S inc = next_is_micro ? (rl * ul) * S(c.dt) : S(0.0f);
-    int slot = -1;
-    for (int q = 0; q < K; ++q) {
-      const int nq = sc.lane_i[(8 + K + q) * L + gl];
-      if (nq >= 0 && nq == mn) { slot = q; break; }
+    // ---- the flux capacitor toward the next lane, and the rows out
+    if (lead) {
+      const int last = min(max(g.num_cell - 1, 0), d.C - 1);
+      const S rl = ld<S>(st.r, st.ci(gl, last));
+      const S ul = comp_u(rl, ld<S>(st.y, st.ci(gl, last)), c.u_max);
+      const bool next_is_micro = g.is_macro && mn >= 0 && !next_macro;
+      const S inc = next_is_micro ? (rl * ul) * S(c.dt) : S(0.0f);
+      S cap_v = 0.0f;
+      if (slot >= 0) {
+        cap_v = cap_old + inc;
+        put(st.cap, st.ki(gl, slot), cap_v);
+      }
+      const S rows[F_ROWS] = {
+          rl, ul, S((float)cnt), ld<S>(st.pos, i0), S(len0), cap_v,
+          ld<S>(st.pos, hi), ld<S>(st.vel, hi), S(hpar[5]), hav, S(hpar[0]),
+          S(hpar[1]), S(hpar[2]), S(hpar[3]), S(hpar[4])};
+      const size_t base_f = (size_t)e * F_ROWS * n + j;
+      for (int q = 0; q < F_ROWS; ++q)
+        put_row(a.sumF_v, a.sumF_d, base_f + (size_t)q * n, rows[q]);
+      int* si = a.sumI + (size_t)e * I_ROWS * n + j;
+      si[I_MN * n] = mn;
+      si[I_RIDX * n] = hridx;
+      si[I_HNEXT * n] = route_at(sc.inj, sc.emit, hrid, hridx + 1, d);
+      si[I_RID * n] = hrid;
     }
-    S cap_v = 0.0f;
-    if (slot >= 0) {
-      cap_v = ld<S>(st.cap, st.ki(gl, slot)) + inc;
-      put(st.cap, st.ki(gl, slot), cap_v);
+    SH_ADD(clk, SH_C_ROWS, sh_p);
+    // this warp's largest wave speed
+    if (!dual) {
+      float w = lane_wave;
+      for (int o = WARP / 2; o > 0; o >>= 1)
+        w = fmaxf(w, __shfl_down_sync(FULL_MASK, w, o));
+      if (wl == 0) wave_w[warp] = w;
     }
-    const int cnt = st.count[gl];
-    const int i0 = st.vi(gl, 0);
-    const int hi = st.vi(gl, min(max(cnt - 1, 0), V - 1));
-    const S rows[F_ROWS] = {
-        rl, ul, S((float)cnt), ld<S>(st.pos, i0), S(st.param(5, i0)), cap_v,
-        ld<S>(st.pos, hi), ld<S>(st.vel, hi), S(st.param(5, hi)),
-        ld<S>(st.av, hi), S(st.param(0, hi)), S(st.param(1, hi)),
-        S(st.param(2, hi)), S(st.param(3, hi)), S(st.param(4, hi))};
-    const size_t base_f = (size_t)k.e * F_ROWS * n + k.j;
-    for (int r = 0; r < F_ROWS; ++r)
-      put_row(a.sumF_v, a.sumF_d, base_f + (size_t)r * n, rows[r]);
-    const int hrid = st.rid[hi], hridx = st.ridx[hi];
-    int* si = a.sumI + (size_t)k.e * I_ROWS * n + k.j;
-    si[I_MN * n] = mn;
-    si[I_RIDX * n] = hridx;
-    si[I_HNEXT * n] = route_at(sc.inj, sc.emit, hrid, hridx + 1, d);
-    si[I_RID * n] = hrid;
   }
-  __syncthreads();
-  if (threadIdx.x == 0 && !k.dual) {
-    float wave = 0.0f;
-    for (int q = 0; q < n; ++q) wave = fmaxf(wave, wave_l[q]);
-    a.waves[(size_t)k.e * d.T + t] = wave;
+  if (!dual) {
+    __syncthreads();
+    SH_ADD(clk, SH_C_END_WAIT, sh_p);
+    if (warp == 0) {
+      float w = wl < geo.lanes / WARP ? wave_w[wl] : 0.0f;
+      for (int o = WARP / 2; o > 0; o >>= 1)
+        w = fmaxf(w, __shfl_down_sync(FULL_MASK, w, o));
+      if (wl == 0) a.waves[(size_t)e * d.T + t] = w;
+    }
+    SH_ADD(clk, SH_C_WAVE, sh_p);
   }
+  SH_ADD(clk, SH_C_TOTAL, sh_t0);
+  SH_CLOCK(if (clk && blockIdx.x == 0) shard_cycles[SH_PARTS] += 1;)
+}
+
+// C's kernels: one thread a lane, and SPLIT threads a lane with at most
+// SPLIT_REGS registers a thread, so that two blocks of the 3x3 preset's
+// shards of 36 lanes (10 warps, the reduction warp's included) share an SM
+// (the derivative's grid of 180 blocks at B = 4 runs in one wave) and a
+// block of 72 lanes (19 warps) fits one (an SM quarter's 16,384 registers
+// hold five warps of 96)
+constexpr int SPLIT_REGS = 96;
+template <class S>
+__global__ void shard_C(ShardArgs a, Geo geo) {
+  body_C<S, 1>(a, geo);
+}
+template <class S>
+__global__ void
+#ifndef DHTS_CPU_EMULATION
+__maxnreg__(SPLIT_REGS)
+#endif
+shard_C_split(ShardArgs a, Geo geo) {
+  body_C<S, SPLIT>(a, geo);
 }
 
 // ================ D1: wants at the gathered destinations ================
@@ -636,38 +1076,140 @@ __global__ void shard_D3(ShardArgs a) {
   }
 }
 
-// ====================== E: the lanes' squared queues ======================
+// itscp_step.cuh's lane_queue with the loads of each chunk of QCHUNK cells
+// or vehicles issued before its arithmetic (the same operations in the same
+// order): a chunk's state, and a macro lane's cell speeds
+constexpr int QCHUNK = 8;
 template <class S>
-__global__ void shard_E(ShardArgs a) {
+struct QueueChunk {
+  S x[QCHUNK], u[QCHUNK];  // the cells' densities and speeds; the speeds
+};
+
+template <class S, class St>
+__device__ __forceinline__ void queue_chunk(const St& st, const LaneGeom& g,
+                                            int l, int n, int c0,
+                                            const Consts& k,
+                                            QueueChunk<S>& q) {
+  if (g.is_macro) {
+    S y[QCHUNK];
+#pragma unroll
+    for (int i = 0; i < QCHUNK; ++i)
+      if (c0 + i < g.num_cell) {
+        q.x[i] = ld<S>(st.r, st.ci(l, c0 + i));
+        y[i] = ld<S>(st.y, st.ci(l, c0 + i));
+      }
+#pragma unroll
+    for (int i = 0; i < QCHUNK; ++i)
+      if (c0 + i < g.num_cell) q.u[i] = comp_u(q.x[i], y[i], k.u_max);
+  } else {
+#pragma unroll
+    for (int i = 0; i < QCHUNK; ++i)
+      if (c0 + i < n) q.u[i] = ld<S>(st.vel, st.vi(l, c0 + i));
+  }
+}
+
+// the lane's queue (lane_queue's value) from its first chunk `q0`, the
+// later chunks loaded here
+template <class S, class St>
+__device__ __forceinline__ S queue_of(const St& st, const LaneGeom& g, int l,
+                                      int n, int mode, float c_st,
+                                      const Consts& k, QueueChunk<S>& q0) {
+  const float ss = k.static_speed;
+  const int m = g.is_macro ? g.num_cell : n;
+  S q = 0.0f;
+  for (int c0 = 0; c0 < m; c0 += QCHUNK) {
+    if (c0 > 0) queue_chunk<S>(st, g, l, n, c0, k, q0);
+#pragma unroll
+    for (int i = 0; i < QCHUNK; ++i) {
+      if (c0 + i >= m) break;
+      const S u = q0.u[i];
+      const S stat = mode == HARD ? S(val(u) < ss ? 1.0f : 0.0f)
+                                  : stg(val(u) < ss, soft(S(ss) - u, c_st),
+                                        mode);
+      q = g.is_macro ? q + stat * ((q0.x[i] * S(g.cell_len)) / S(k.veh_len))
+                     : q + stat;
+    }
+  }
+  return q;
+}
+
+// ====================== E: the lanes' squared queues ======================
+// The block: the lane threads (one a lane, in whole warps) and, where the
+// block has room, a reduction warp behind them that folds the static
+// running mean (warp_fold: the gathered terms loaded by the whole warp)
+// into the carry. In hard mode nothing waits for it: the lanes' queues do
+// not read it. In the soft modes each lane loads its first 8 cells' or
+// vehicles' state and takes the cells' speeds, then waits on BAR_MEAN for
+// the mean's constant and computes its gates. Without the reduction warp,
+// warp 0 folds first and every thread waits.
+template <class S>
+__global__ void shard_E(ShardArgs a, Geo geo) {
   DHTS_DYNAMIC_SMEM(smem_raw);
   const Dims& d = a.d;
   const int L = d.L, n = a.n;
+  SH_CLOCK(const bool clk = threadIdx.x == 0; long long sh_t0 = 0;
+           if (clk) sh_t0 = sh_now(); long long sh_p = sh_t0;)
   float* ms = nullptr;
+  double* stage = nullptr;
   size_t off_s = 0;
   carve(&ms, 1, smem_raw, off_s);
-  Block<S> k = block_of<S>(a);
-  if (threadIdx.x == 0) {
-    // static running mean from the gathered per-lane terms, in lane order
-    const double* gs = a.gss + (size_t)k.e * 2 * L;
-    const int* gn = a.gssn + (size_t)k.e * 2 * L;
-    double cells = 0.0, vehs = 0.0;
-    int nc = 0, nv = 0;
-    for (int q = 0; q < L; ++q) {
-      cells += gs[q]; vehs += gs[L + q];
-      nc += gn[q]; nv += gn[L + q];
+  carve(&stage, 2 * L, smem_raw, off_s);
+  const int tid = threadIdx.x, wl = tid % WARP, warp = tid / WARP;
+  const int NB = geo.lanes + (geo.red ? WARP : 0);
+  const bool soft_mode = d.mode != HARD;
+  const bool reducer = geo.red && tid >= geo.lanes;
+  const int e = blockIdx.x;
+  if (reducer || (!geo.red && warp == 0)) {
+    // the static running mean from the gathered per-lane terms (cells,
+    // vehicles), in lane order
+    SH_CLOCK(long long sh_f = 0; if (wl == 0) sh_f = sh_now();)
+    const double* gs = a.gss + (size_t)e * 2 * L;
+    const int* gn = a.gssn + (size_t)e * 2 * L;
+    const Fold<2> f = warp_fold<2>(
+        L,
+        [&](int j, double* x, int* cn) {
+          x[0] = gs[j]; x[1] = gs[L + j];
+          cn[0] = gn[j]; cn[1] = gn[L + j];
+        },
+        stage, wl);
+    if (wl == 0) {
+      float* ss_ms = a.fbuf + (size_t)e * layout(d, n).fsize +
+                     layout(d, n).ss;
+      ss_ms[0] = ss_ms[0] + ((float)f.s[0] + (float)f.s[1]);
+      ss_ms[1] = ss_ms[1] + ((float)f.n[0] + (float)f.n[1]);
+      const float mean = ss_ms[0] / fmaxf(ss_ms[1], 1.0f);
+      ms[0] = 16.0f / fmaxf(fabsf(mean), 1e-6f);
     }
-    float* ss_ms = k.F + k.o.ss;
-    ss_ms[0] = ss_ms[0] + ((float)cells + (float)vehs);
-    ss_ms[1] = ss_ms[1] + ((float)nc + (float)nv);
-    const float mean = ss_ms[0] / fmaxf(ss_ms[1], 1.0f);
-    ms[0] = 16.0f / fmaxf(fabsf(mean), 1e-6f);
+    SH_ADD(wl == 0, SH_E_FOLD, sh_f);
+    if (reducer) {
+      if (soft_mode) {
+        CONVERGE();
+        bar_arrive(BAR_MEAN, NB);
+      }
+      return;
+    }
   }
-  __syncthreads();
+  if (!geo.red) __syncthreads();
+  Block<S> k = block_of<S>(a);
+  const LaneGeom& g = k.g;
+  const Consts& c = a.k;
+  const int cnt = k.lane ? k.st.count[k.gl] : 0;
+  // the lane's first chunk of cells (state, speeds) or vehicles (speeds)
+  QueueChunk<S> q0;
+  if (k.lane) queue_chunk<S>(k.st, g, k.gl, cnt, 0, c, q0);
+  if (soft_mode && geo.red) {
+    CONVERGE();
+    bar_sync(BAR_MEAN, NB);
+  }
+  SH_ADD(clk, SH_E_WAIT, sh_p);
   if (k.lane) {
-    const S q = lane_queue<S>(k.st, k.g, k.gl, k.st.count[k.gl], d.mode,
-                              ms[0], a.k);
-    put_row(a.q_v, a.q_d, ((size_t)k.e * d.T + a.t) * n + k.j, q * q);
+    const S q = queue_of<S>(k.st, g, k.gl, cnt, d.mode, ms[0], c, q0);
+    SH_ADD(clk, SH_E_QUEUE, sh_p);
+    put_row(a.q_v, a.q_d, ((size_t)e * d.T + a.t) * n + k.j, q * q);
+    SH_ADD(clk, SH_E_STORE, sh_p);
   }
+  SH_ADD(clk, SH_E_TOTAL, sh_t0);
+  SH_CLOCK(if (clk && blockIdx.x == 0) shard_cycles[SH_PARTS + 1] += 1;)
 }
 
 // s + x[0] + x[1] + ... + x[n - 1] in float64, one add after another; the
@@ -760,14 +1302,18 @@ size_t smem_of(int body, int L, int n) {
     carve(&i, n, none, off);
   } else if (body == BODY_C) {
     float* f = nullptr;
+    double* x = nullptr;
     carve(&f, 1, none, off);
-    carve(&f, n, none, off);
+    carve(&f, MAX_WARPS, none, off);
+    carve(&x, L, none, off);
   } else if (body == BODY_D3) {
     int* i = nullptr;
     carve(&i, 2 * n, none, off);
   } else if (body == BODY_E) {
     float* f = nullptr;
+    double* x = nullptr;
     carve(&f, 1, none, off);
+    carve(&x, 2 * L, none, off);
   } else if (body == BODY_Q) {
     int* i = nullptr;
     float* f = nullptr;
@@ -777,23 +1323,105 @@ size_t smem_of(int body, int L, int n) {
   return off;
 }
 
-template <class S, class Kernel>
+// whether C's lanes may take the split (1, the default; tests and
+// timings turn it off)
+int split_lanes = 1;
+
+// C's and E's block (Geo) with G threads a lane: a reduction warp where the
+// body folds a mean (E always, C where the signal terms were gathered) and
+// it fits
+Geo geo_of(int body, const ShardArgs& a, int G) {
+  Geo g;
+  g.G = G;
+  g.lanes = (a.n * G + WARP - 1) / WARP * WARP;
+  g.red = (body == BODY_E || a.gsg != nullptr) &&
+          g.lanes + WARP <= MAX_THREADS;
+  return g;
+}
+int threads_of(const Geo& g) { return g.lanes + (g.red ? WARP : 0); }
+
+// blocks of `threads` of `kernel` an SM holds (its registers decide),
+// asked once for each width in warps; `cache` [MAX_WARPS + 2]
+template <class Kernel>
+int blocks_per_sm(Kernel kernel, int threads, size_t smem, int* cache) {
+#ifdef DHTS_CPU_EMULATION
+  (void)kernel, (void)smem, (void)cache;
+  return threads <= MAX_THREADS;
+#else
+  int& n = cache[(threads + WARP - 1) / WARP];
+  if (n < 0 &&
+      cudaOccupancyMaxActiveBlocksPerMultiprocessor(&n, kernel, threads,
+                                                    smem) != cudaSuccess)
+    n = 0;
+  return n;
+#endif
+}
+
+// the card's SMs (1 in the host build)
+int sm_count() {
+#ifdef DHTS_CPU_EMULATION
+  return 1;
+#else
+  static int n = -1;
+  if (n < 0) {
+    int dev = 0;
+    if (cudaGetDevice(&dev) != cudaSuccess ||
+        cudaDeviceGetAttribute(&n, cudaDevAttrMultiProcessorCount, dev) !=
+            cudaSuccess)
+      n = 1;
+  }
+  return n;
+#endif
+}
+
+// C's threads a lane: SPLIT where a lane's interfaces and vehicles fit,
+// the block stays within MAX_THREADS, an SM holds one, and its grid runs
+// in no more waves than one thread a lane's does (a derivative's 180
+// blocks of 72 lanes: one an SM, two waves, where one thread a lane runs
+// them in one); else 1
+template <class S>
+int c_threads_a_lane(const ShardArgs& a, size_t smem) {
+  static int split_cache[MAX_WARPS + 2], one_cache[MAX_WARPS + 2];
+  static bool init = false;
+  if (!init) {
+    for (int i = 0; i < MAX_WARPS + 2; ++i) split_cache[i] = one_cache[i] = -1;
+    init = true;
+  }
+  const Geo split = geo_of(BODY_C, a, SPLIT), one = geo_of(BODY_C, a, 1);
+  if (!split_lanes || a.d.C + 1 > SPLIT || a.d.V > SPLIT * SPLIT_VEH ||
+      threads_of(split) > MAX_THREADS)
+    return 1;
+  const int per_split = blocks_per_sm(shard_C_split<S>, threads_of(split),
+                                      smem, split_cache);
+  const int per_one =
+      blocks_per_sm(shard_C<S>, threads_of(one), smem, one_cache);
+  if (per_split < 1) return 1;
+  const auto waves = [&](int per_sm) {
+    const int wave = sm_count() * per_sm;
+    return (a.N + wave - 1) / wave;
+  };
+  return per_one < 1 || waves(per_split) <= waves(per_one) ? SPLIT : 1;
+}
+
+// `repeat` launches of `kernel` with the arguments `a`, then `x`; a block
+// of `threads` (a lane each unless the body's Geo says otherwise)
+template <class S, class Kernel, class... X>
 int run(Kernel kernel, int body, const ShardArgs& a, int repeat,
-        void* stream) {
-  // B and Q size their shared memory by the scene's L (a step's gathered
-  // signals; Q's tile of whole rows): within the 48 KB a block takes
-  // without opting in up to thousands of lanes (10.4 KB and 46.7 KB for a
-  // Dual B and Q at the 9x9 scene's 1,296)
+        void* stream, int threads, X... x) {
+  // B, C, E and Q size their shared memory by the scene's L (a step's
+  // gathered signals; the folds' staged terms; Q's tile of whole rows):
+  // within the 48 KB a block takes without opting in up to thousands of
+  // lanes (10.4 KB, 10.5 KB, 20.7 KB and 46.7 KB for a Dual B, C, E and Q
+  // at the 9x9 scene's 1,296)
   const size_t smem = smem_of<S>(body, a.d.L, a.n);
   if (smem > (size_t)Q_SMEM) return 1;  // cudaErrorInvalidValue
-  const int threads = body == BODY_Q ? Q_THREADS : ((a.n + 31) / 32) * 32;
   const int blocks = body == BODY_Q ? a.N * q_tiles(a.d.T, a.d.L) : a.N;
   for (int r = 0; r < repeat; ++r) {
 #ifdef DHTS_CPU_EMULATION
     (void)stream;
-    dhts_emu::launch(blocks, threads, smem, kernel, a);
+    dhts_emu::launch(blocks, threads, smem, kernel, a, x...);
 #else
-    kernel<<<blocks, threads, smem, (cudaStream_t)stream>>>(a);
+    kernel<<<blocks, threads, smem, (cudaStream_t)stream>>>(a, x...);
     const cudaError_t err = cudaGetLastError();
     if (err != cudaSuccess) return (int)err;
 #endif
@@ -837,27 +1465,98 @@ int launch_itscp_shard(int body, int dual, const void* args, int repeat,
       a->t >= d.T || (dual && (d.mode == HARD || !a->dbuf)) ||
       (!dual && a->dbuf && dual_ok) || repeat < 1)
     return 1;
-  const int r = repeat;
+  const int r = repeat, nt = (a->n + WARP - 1) / WARP * WARP;
+  const size_t smem_c = dual ? smem_of<Dual>(BODY_C, d.L, a->n)
+                             : smem_of<float>(BODY_C, d.L, a->n);
+  const int G = body != BODY_C ? 1
+                : dual         ? c_threads_a_lane<Dual>(*a, smem_c)
+                               : c_threads_a_lane<float>(*a, smem_c);
+  const Geo g = geo_of(body, *a, G);
+  const int gt = threads_of(g);
   if (dual) {
     switch (body) {
-      case BODY_A: return run<Dual>(shard_A<Dual>, body, *a, r, stream);
-      case BODY_B: return run<Dual>(shard_B<Dual>, body, *a, r, stream);
-      case BODY_C: return run<Dual>(shard_C<Dual>, body, *a, r, stream);
-      case BODY_D3: return run<Dual>(shard_D3<Dual>, body, *a, r, stream);
-      case BODY_E: return run<Dual>(shard_E<Dual>, body, *a, r, stream);
-      default: return run<float>(shard_Q, body, *a, r, stream);
+      case BODY_A: return run<Dual>(shard_A<Dual>, body, *a, r, stream, nt);
+      case BODY_B: return run<Dual>(shard_B<Dual>, body, *a, r, stream, nt);
+      case BODY_C:
+        return g.G == SPLIT
+                   ? run<Dual>(shard_C_split<Dual>, body, *a, r, stream, gt,
+                               g)
+                   : run<Dual>(shard_C<Dual>, body, *a, r, stream, gt, g);
+      case BODY_D3:
+        return run<Dual>(shard_D3<Dual>, body, *a, r, stream, nt);
+      case BODY_E:
+        return run<Dual>(shard_E<Dual>, body, *a, r, stream, gt, g);
+      default:
+        return run<float>(shard_Q, body, *a, r, stream, Q_THREADS);
     }
   }
   switch (body) {
-    case BODY_A: return run<float>(shard_A<float>, body, *a, r, stream);
-    case BODY_B: return run<float>(shard_B<float>, body, *a, r, stream);
-    case BODY_C: return run<float>(shard_C<float>, body, *a, r, stream);
-    case BODY_D1: return run<float>(shard_D1, body, *a, r, stream);
-    case BODY_D2: return run<float>(shard_D2, body, *a, r, stream);
-    case BODY_D3: return run<float>(shard_D3<float>, body, *a, r, stream);
-    case BODY_E: return run<float>(shard_E<float>, body, *a, r, stream);
-    default: return run<float>(shard_Q, body, *a, r, stream);
+    case BODY_A: return run<float>(shard_A<float>, body, *a, r, stream, nt);
+    case BODY_B: return run<float>(shard_B<float>, body, *a, r, stream, nt);
+    case BODY_C:
+      return g.G == SPLIT
+                 ? run<float>(shard_C_split<float>, body, *a, r, stream, gt,
+                              g)
+                 : run<float>(shard_C<float>, body, *a, r, stream, gt, g);
+    case BODY_D1: return run<float>(shard_D1, body, *a, r, stream, nt);
+    case BODY_D2: return run<float>(shard_D2, body, *a, r, stream, nt);
+    case BODY_D3:
+      return run<float>(shard_D3<float>, body, *a, r, stream, nt);
+    case BODY_E: return run<float>(shard_E<float>, body, *a, r, stream, gt, g);
+    default: return run<float>(shard_Q, body, *a, r, stream, Q_THREADS);
   }
 }
+
+// Whether C may spread a lane over SPLIT threads (1, the default) or runs
+// one thread a lane (0; the tests and timings hold both)
+void itscp_shard_set_split(int on) { split_lanes = on; }
+
+#ifdef DHTS_SHARD_CLOCK
+// The cycle stamps summed since the last reset, shard_cycles[SH_PARTS + 2]
+// (the parts of ShardPart, then the C and E launches stamped), into host
+// memory `out`; `reset` zeroes them first instead. Returns the CUDA error
+// code.
+int itscp_shard_clock(long long* out, int reset) {
+#ifdef DHTS_CPU_EMULATION
+  for (int i = 0; i < SH_PARTS + 2; ++i) {
+    if (reset) shard_cycles[i] = 0;
+    out[i] = shard_cycles[i];
+  }
+  return 0;
+#else
+  if (reset) {
+    const long long zero[SH_PARTS + 2] = {};
+    const cudaError_t err =
+        cudaMemcpyToSymbol(shard_cycles, zero, sizeof(zero));
+    if (err != cudaSuccess) return (int)err;
+  }
+  return (int)cudaMemcpyFromSymbol(out, shard_cycles,
+                                   sizeof(long long) * (SH_PARTS + 2));
+#endif
+}
+
+// Each local lane's own C cycles summed since the last reset (block 0),
+// shard_lane_cycles[0..n), into host memory `out`; `reset` zeroes them
+// first instead. Returns the CUDA error code.
+int itscp_shard_clock_lanes(long long* out, int n, int reset) {
+  if (n < 0 || n > 1024) return 1;
+#ifdef DHTS_CPU_EMULATION
+  for (int i = 0; i < n; ++i) {
+    if (reset) shard_lane_cycles[i] = 0;
+    out[i] = shard_lane_cycles[i];
+  }
+  return 0;
+#else
+  if (reset) {
+    long long zero[1024] = {};
+    const cudaError_t err = cudaMemcpyToSymbol(shard_lane_cycles, zero,
+                                               sizeof(long long) * n);
+    if (err != cudaSuccess) return (int)err;
+  }
+  return (int)cudaMemcpyFromSymbol(out, shard_lane_cycles,
+                                   sizeof(long long) * n);
+#endif
+}
+#endif
 
 }  // extern "C"

@@ -1201,6 +1201,86 @@ class ShardRun:
                 self.gather(names, spec.kind)
         return errs
 
+    def checked_dual_step(self, t: int, bodies=("C", "E"), rtol=1e-5,
+                          atol=1e-5, value_tol=(0.0, 0.0)):
+        """Step t of a derivative with each launch of ``bodies`` (C, E)
+        held against its plain body under forward-mode AD on the same dual
+        inputs: integers equal, values allclose(*value_tol) (equal by
+        default), tangents allclose(rtol, atol * the output's largest
+        reference tangent). Returns ``{body: max_abs_tangent_err}`` and
+        raises ``AssertionError`` naming the first output that
+        differs."""
+        import torch.autograd.forward_ad as fwad
+
+        if not self.dual or not set(bodies) <= {"C", "E"}:
+            raise ValueError("the dual check runs C and E of a derivative")
+        errs = {}
+
+        def parts(x):
+            p, d = fwad.unpack_dual(x)
+            return p.clone(), None if d is None else d.clone()
+
+        def same(body, name, ref, got):
+            (rv, rd), (gv, gd) = ref, got
+            rv = rv.to(gv.dtype)
+            ok = (torch.allclose(rv, gv, *value_tol)
+                  if gv.is_floating_point() and any(value_tol)
+                  else torch.equal(rv, gv))
+            if not ok:
+                raise AssertionError(f"step {t}, body {body}: {name} values "
+                                     f"differ from its plain body")
+            if gd is None:
+                return
+            rd = torch.zeros_like(gv) if rd is None else rd
+            err = float((rd - gd).abs().max()) if gd.numel() else 0.0
+            errs[body] = max(errs.get(body, 0.0), err)
+            scale = float(rd.abs().max()) if rd.numel() else 0.0
+            if not torch.allclose(rd, gd, rtol=rtol, atol=atol * scale):
+                raise AssertionError(f"step {t}, body {body}: {name} "
+                                     f"tangents differ from its plain body")
+
+        self.g = {}
+        for body, spec in STEP.items():
+            if body in ("D1", "D2"):
+                self._sg(body, t)
+            elif body in bodies:
+                with torch.no_grad(), fwad.dual_level():
+                    refs = [{k: tuple(parts(x) for x in v) if k == "carry"
+                             else parts(v)
+                             for k, v in self.plain(body, i, t).items()
+                             if k != "wave"}
+                            for i in range(len(self.shards))]
+                self.launch(body, t)
+                for i, ref in enumerate(refs):
+                    got = self._dual_written(body, i, t)
+                    for name, r in ref.items():
+                        if name == "carry":
+                            for cn, a, b in zip(k6.CNAMES, r, got[name]):
+                                same(body, cn, a, b)
+                        else:
+                            same(body, name, r, got[name])
+            else:
+                self.launch(body, t)
+            names = self.gathers_after(body)
+            if names:
+                self.gather(names, spec.kind)
+        return errs
+
+    def _dual_written(self, body: str, i: int, t: int) -> dict:
+        """What C or E of step t wrote on shard i of a derivative:
+        ``{output: (values, tangents or None)}``."""
+        _, p_n, b, _ = self.shards[i]
+        carry, sg_ms, ss_ms = k6.unpack(p_n, b["fbuf"], b["ibuf"])
+        tans = k6.unpack(p_n, b["dbuf"], b["ibuf"])[0]
+        carry = tuple((x, tans[j] if j in k6.CARRY_DIFF else None)
+                      for j, x in enumerate(carry))
+        if body == "C":
+            return dict(carry=carry, sg_ms=(sg_ms, None),
+                        sumF=(b["sumF_v"], b["sumF_d"]),
+                        sumI=(b["sumI"], None))
+        return dict(carry=carry, ss_ms=(ss_ms, None),
+                    q2=(b["q_v"][:, t], b["q_d"][:, t]))
+
     def outputs(self):
         """The episode's queues ``[B, T]``, events and wave maxima (every
         rank the whole result) after :meth:`run` of a forward: the lanes'
