@@ -5,12 +5,12 @@
 //   g++ -std=c++20 -O2 -ffp-contract=off -DDHTS_CPU_EMULATION -x c++
 //       -shared -fPIC -pthread -o libk.so kernel.cu
 //
-// Each CUDA thread of a block is a fiber on the calling host thread (on
-// x86-64 switched by a few instructions that save the callee-saved
-// registers and the stack pointer, elsewhere by ucontext, whose switch
-// also saves the signal mask with a system call); the blocks of a grid run
-// one after another. A fiber runs until it
-// waits: at __syncthreads() for every live thread of its block, at a warp
+// Each CUDA thread of a block is a fiber on the calling host thread,
+// switched by a few x86-64 instructions that save the callee-saved
+// registers and the stack pointer (an x86-64 host only: ucontext's switch,
+// which also saves the signal mask with a system call, made the host
+// tests several times slower); the blocks of a grid run one after
+// another. A fiber runs until it waits: at __syncthreads() for every live thread of its block, at a warp
 // exchange (__syncwarp(), a shuffle) for every live thread of its warp of
 // 32. The scheduler resumes the waiting fibers once their group is
 // complete, so warps that take different paths between two block barriers
@@ -30,7 +30,6 @@
 #pragma once
 
 #include <math.h>
-#include <ucontext.h>
 
 #include <chrono>
 #include <cstddef>
@@ -50,7 +49,10 @@
 inline int min(int a, int b) { return a < b ? a : b; }
 inline int max(int a, int b) { return a > b ? a : b; }
 
-#if defined(__x86_64__)
+#if !defined(__x86_64__)
+#error "the host emulation switches fibers with x86-64 instructions"
+#endif
+
 // dhts_emu_swap(&save, load): push the callee-saved registers, the SSE
 // control word and the x87 control word on this stack, store the stack
 // pointer in `save`, load `load` (a stack left by this function, or a new
@@ -86,21 +88,14 @@ __asm__(
     "  popq %rbp\n"
     "  ret\n"
     ".size dhts_emu_swap, .-dhts_emu_swap\n");
-#define DHTS_EMU_FAST_SWITCH 1
-#endif
 
 namespace dhts_emu {
 struct Idx { unsigned x = 0, y = 0, z = 0; };
 inline Idx thread_idx;
 inline Idx block_idx;
 inline char* dyn_smem = nullptr;
-#ifdef DHTS_EMU_FAST_SWITCH
 inline void* scheduler = nullptr;  // the scheduler's saved stack pointer
 inline void** running = nullptr;   // where the running fiber's is saved
-#else
-inline ucontext_t scheduler;
-inline ucontext_t* running = nullptr;
-#endif
 inline bool finished = false;
 inline void (*body)(void*) = nullptr;
 inline void* body_arg = nullptr;
@@ -117,7 +112,6 @@ inline char* parity = nullptr;     // [threads] the slot of its next shuffle
 constexpr int SLOT_WORDS = 4;     // a shuffled value: up to 32 bytes
 inline uint64_t* slots = nullptr;  // [warps][2][32][SLOT_WORDS] values
 
-#ifdef DHTS_EMU_FAST_SWITCH
 // a fiber's first frame: run the kernel, then hand back to the scheduler
 // for good
 inline void fiber_entry() {
@@ -148,17 +142,6 @@ inline void wait_for(Wait w) {
   waits[current] = w;
   dhts_emu_swap(running, scheduler);
 }
-#else
-inline void fiber_entry() {
-  body(body_arg);
-  finished = true;  // returns to `scheduler` through uc_link
-}
-
-inline void wait_for(Wait w) {
-  waits[current] = w;
-  swapcontext(running, &scheduler);
-}
-#endif
 inline void sync_threads() { wait_for(BLOCK); }
 inline void sync_warp() { wait_for(WARP); }
 
@@ -245,11 +228,7 @@ void launch(int blocks, int threads, size_t smem, Kernel kernel,
   const int warps = (threads + 31) / 32;
   std::vector<char> buf(smem + 16);
   char* stacks = fiber_stacks(size_t(threads) * STACK);
-#ifdef DHTS_EMU_FAST_SWITCH
   std::vector<void*> ctx(threads);
-#else
-  std::vector<ucontext_t> ctx(threads);
-#endif
   std::vector<Wait> wait(threads);
   std::vector<char> par(threads);
   std::vector<char> nid(threads);
@@ -268,15 +247,7 @@ void launch(int blocks, int threads, size_t smem, Kernel kernel,
     block_idx.x = static_cast<unsigned>(b);
     for (int& c : named_count) c = 0;
     for (int i = 0; i < threads; ++i) {
-#ifdef DHTS_EMU_FAST_SWITCH
       ctx[i] = new_fiber(stacks + size_t(i) * STACK, STACK);
-#else
-      getcontext(&ctx[i]);
-      ctx[i].uc_stack.ss_sp = stacks + size_t(i) * STACK;
-      ctx[i].uc_stack.ss_size = STACK;
-      ctx[i].uc_link = &scheduler;
-      makecontext(&ctx[i], fiber_entry, 0);
-#endif
       wait[i] = RUN;
       par[i] = 0;
     }
@@ -287,11 +258,7 @@ void launch(int blocks, int threads, size_t smem, Kernel kernel,
         current = i;
         running = &ctx[i];
         finished = false;
-#ifdef DHTS_EMU_FAST_SWITCH
         dhts_emu_swap(&scheduler, ctx[i]);
-#else
-        swapcontext(&scheduler, &ctx[i]);
-#endif
         if (finished) { wait[i] = DONE; --live; }
       }
       // a named barrier may have released fibers this pass has passed

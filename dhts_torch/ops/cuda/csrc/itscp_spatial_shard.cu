@@ -34,12 +34,11 @@
 // per-lane terms gathered over the lane axis in float64 and rounded once,
 // as the STEP kernel sums them in lane order, so the sharded episode equals
 // the single-shard one bit for bit at any shard count. C and E fold their
-// mean in a reduction warp beside the lane warps (warp_fold): a shuffle
-// tree where every partial sum is provably exact (then any order gives the
-// lane-order chain's bits), else one thread's chain in lane order. In hard
-// mode the signal mean sharpens nothing, and a split lane axis does not
-// gather its terms (C then leaves it as it is), as JAX's sharded step;
-// nothing waits for E's static mean in hard mode.
+// mean in a reduction warp beside the lane warps (warp_fold: the warp loads
+// the terms, one thread adds them in lane order), so a shard holds at most
+// MAX_LANES lanes. In hard mode the signal mean sharpens nothing, and a
+// split lane axis does not gather its terms (C then leaves it as it is), as
+// JAX's sharded step; nothing waits for E's static mean in hard mode.
 //
 // C spreads a lane over SPLIT threads where it fits (one Riemann solve or
 // a few vehicles a thread, the fluxes handed on by shuffles): a macro
@@ -50,7 +49,7 @@
 // KB per episode, through short chains of dependent loads: latency-bound,
 // far above the bytes / 3.35 TB/s floor. Q (below) is bound by its bytes.
 
-#include <cstring>
+#include <vector>
 
 #include "itscp_step.cuh"
 
@@ -308,6 +307,8 @@ constexpr int WARP = 32;
 constexpr unsigned FULL_MASK = 0xffffffffu;
 constexpr int MAX_THREADS = 1024;
 constexpr int MAX_WARPS = MAX_THREADS / WARP;
+// a shard's lanes: one thread each and the reduction warp in one block
+constexpr int MAX_LANES = MAX_THREADS - WARP;
 // C's threads a lane where its Godunov interfaces (C + 1) and its vehicles
 // (up to SPLIT_VEH each) spread over them
 constexpr int SPLIT = 8, SPLIT_VEH = 4;  // SPLIT_VEH even
@@ -346,32 +347,6 @@ __device__ __forceinline__ Dual shfl_down_w(Dual x, int o, int w) {
               __shfl_down_sync(FULL_MASK, x.d, o, w));
 }
 
-// the exponent of the lowest set bit of a finite x != 0: x is an integer
-// multiple of 2^low_bit(x)
-__device__ __forceinline__ int low_bit(double x) {
-  unsigned long long b;
-  memcpy(&b, &x, sizeof b);
-  const int e = (int)((b >> 52) & 0x7ff);
-  unsigned long long m = b & 0xfffffffffffffull;
-  if (e != 0) m |= 1ull << 52;
-#ifdef DHTS_CPU_EMULATION
-  const int tz = __builtin_ctzll(m);
-#else
-  const int tz = __ffsll((long long)m) - 1;
-#endif
-  return (e != 0 ? e - 1075 : -1074) + tz;
-}
-
-// 2^k for -1022 <= k <= 1023
-__device__ __forceinline__ double pow2(int k) {
-  const unsigned long long b = (unsigned long long)(k + 1023) << 52;
-  double x;
-  memcpy(&x, &b, sizeof x);
-  return x;
-}
-
-constexpr int NO_BIT = 1 << 20;  // the lowest bit among no nonzero term
-
 // K float64 sums and K integer counts of a fold
 template <int K>
 struct Fold {
@@ -383,80 +358,48 @@ struct Fold {
 // adds it, ((0 + x_0) + x_1) + ... in index order, rounded once, and K
 // integer counts, by one warp; the results in its lane 0. `get(j, x, c)`
 // gives term j of each sum and of each count. Each lane loads the terms j
-// = lane, lane + 32, ... (four rounds of loads in flight), stages them in
-// `stage` ([K][n], for the chain below) and adds its own; a shuffle tree
-// adds the lanes' sums and counts. Where every term is an integer multiple
-// of 2^e (e the lowest set bit among them) and a sum's magnitudes add up to
-// at most 2^(e + 52), every partial sum in any order is exact, so the
-// tree's sum is the chain's bit for bit (a sum of +0.0 terms stays +0.0 on
-// both). Otherwise (a NaN or an infinity among the terms, or magnitudes
-// too far apart) lane 0 adds the staged terms in index order, the loads of
-// 8 terms ahead of their adds. Counts are exact in any order.
+// = lane, lane + 32, ... (four rounds of loads in flight) and stages them
+// in `stage` ([K][n]); the counts go by a shuffle tree (exact in any
+// order); lane 0 adds the staged terms in index order, the loads of 8
+// terms ahead of their adds.
 template <int K, class Get>
 __device__ __forceinline__ Fold<K> warp_fold(int n, Get get, double* stage,
                                              int wl) {
   constexpr int U = 4;
-  double acc[K], mag[K];
   int cnt[K];
-  int low = NO_BIT, finite = 1;
 #pragma unroll
-  for (int k = 0; k < K; ++k) { acc[k] = 0.0; mag[k] = 0.0; cnt[k] = 0; }
+  for (int k = 0; k < K; ++k) cnt[k] = 0;
   for (int j0 = 0; j0 < n; j0 += U * WARP) {
     double x[U][K];
     int c[U][K];
 #pragma unroll
     for (int u = 0; u < U; ++u) {
       const int j = j0 + u * WARP + wl;
-      if (j < n) {
-        get(j, x[u], c[u]);
-      } else {
-#pragma unroll
-        for (int k = 0; k < K; ++k) { x[u][k] = 0.0; c[u][k] = 0; }
-      }
+      if (j < n) get(j, x[u], c[u]);
     }
 #pragma unroll
     for (int u = 0; u < U; ++u) {
       const int j = j0 + u * WARP + wl;
+      if (j >= n) continue;
 #pragma unroll
       for (int k = 0; k < K; ++k) {
-        const double v = x[u][k];
-        if (j < n) stage[k * n + j] = v;
-        acc[k] += v;
-        mag[k] += fabs(v);
+        stage[k * n + j] = x[u][k];
         cnt[k] += c[u][k];
-        if (v != 0.0) {
-          if (isfinite(v)) low = min(low, low_bit(v));
-          else finite = 0;
-        }
       }
     }
   }
-  for (int o = WARP / 2; o > 0; o >>= 1) {
+  for (int o = WARP / 2; o > 0; o >>= 1)
 #pragma unroll
-    for (int k = 0; k < K; ++k) {
-      acc[k] += __shfl_down_sync(FULL_MASK, acc[k], o);
-      mag[k] += __shfl_down_sync(FULL_MASK, mag[k], o);
+    for (int k = 0; k < K; ++k)
       cnt[k] += __shfl_down_sync(FULL_MASK, cnt[k], o);
-    }
-    low = min(low, __shfl_down_sync(FULL_MASK, low, o));
-    finite &= __shfl_down_sync(FULL_MASK, finite, o);
-  }
   __syncwarp();  // the staged terms, for lane 0's chain
   Fold<K> f;
   if (wl != 0) return f;
-  bool tree = finite;
 #pragma unroll
   for (int k = 0; k < K; ++k) {
     f.n[k] = cnt[k];
-    tree = tree && (low == NO_BIT || mag[k] <= pow2(min(low + 52, 1023)));
+    f.s[k] = 0.0;
   }
-  if (tree) {
-#pragma unroll
-    for (int k = 0; k < K; ++k) f.s[k] = acc[k];
-    return f;
-  }
-#pragma unroll
-  for (int k = 0; k < K; ++k) f.s[k] = 0.0;
   int j = 0;
   for (; j + 8 <= n; j += 8) {
     double v[8][K];
@@ -656,12 +599,12 @@ __global__ void shard_B(ShardArgs a) {
 
 // ====== C: signal blend, physics, flux capacitors, post-physics rows ======
 // The block: the lane threads (G a lane, `geo.lanes` in whole warps) and,
-// where the soft signal mean is folded here (a.gsg) and the block has room,
-// a reduction warp behind them that folds it (warp_fold) while the lanes
-// run. The macro lanes' Godunov update reads no mean and starts at once;
-// in the soft modes the lane warps then wait on BAR_MEAN for it (the micro
-// lanes' blend gate reads it), in hard mode for nothing. Without the
-// reduction warp, warp 0 folds first and every thread waits.
+// where the signal mean is folded here (a.gsg: the soft modes, and hard
+// mode on an unsplit lane axis), a reduction warp behind them that folds it
+// (warp_fold) while the lanes run. The macro lanes' Godunov update reads no
+// mean and starts at once; in the soft modes the lane warps then wait on
+// BAR_MEAN for it (the micro lanes' blend gate reads it), in hard mode for
+// nothing.
 // With G = SPLIT threads a lane (where C + 1 and V / SPLIT_VEH fit and the
 // block stays within 1,024 threads), thread r of a macro lane's group
 // solves interface r's Riemann problem and updates cell r with its own flux
@@ -689,11 +632,11 @@ __device__ __forceinline__ void body_C(const ShardArgs& a, const Geo& geo) {
   carve(&stage, L, smem_raw, off_s);
   const int tid = threadIdx.x, wl = tid % WARP, warp = tid / WARP;
   const int NB = geo.lanes + (geo.red ? WARP : 0);
-  const bool fold = a.gsg != nullptr, soft_mode = d.mode != HARD;
+  const bool soft_mode = d.mode != HARD;
   const bool reducer = geo.red && tid >= geo.lanes;
   const bool dual = a.dbuf != nullptr;
   const int e = blockIdx.x;
-  if (fold && (reducer || (!geo.red && warp == 0))) {
+  if (reducer) {
     // the signal running mean from the gathered per-lane terms, in lane
     // order; its detached mean sharpens the soft blend gate
     SH_CLOCK(long long sh_f = 0; if (wl == 0) sh_f = sh_now();)
@@ -714,10 +657,7 @@ __device__ __forceinline__ void body_C(const ShardArgs& a, const Geo& geo) {
       ms[0] = c.gate32 / fmaxf(fabsf(mean), 1e-6f);
     }
     SH_ADD(wl == 0, SH_C_FOLD, sh_f);
-  }
-  if (!geo.red && fold) __syncthreads();
-  if (reducer) {
-    if (fold && soft_mode) {
+    if (soft_mode) {
       CONVERGE();
       bar_arrive(BAR_MEAN, NB);
     }
@@ -820,7 +760,7 @@ __device__ __forceinline__ void body_C(const ShardArgs& a, const Geo& geo) {
     SH_CLOCK(if (k.lane && g.is_macro && blockIdx.x == 0 && r == 0)
                  shard_lane_cycles[j] += sh_now() - sh_l;)
     // ---- the soft signal mean (the micro lanes' blend gate)
-    if (soft_mode && fold && geo.red) {
+    if (soft_mode) {
       CONVERGE();
       bar_sync(BAR_MEAN, NB);
     }
@@ -1134,14 +1074,13 @@ __device__ __forceinline__ S queue_of(const St& st, const LaneGeom& g, int l,
 }
 
 // ====================== E: the lanes' squared queues ======================
-// The block: the lane threads (one a lane, in whole warps) and, where the
-// block has room, a reduction warp behind them that folds the static
-// running mean (warp_fold: the gathered terms loaded by the whole warp)
-// into the carry. In hard mode nothing waits for it: the lanes' queues do
-// not read it. In the soft modes each lane loads its first 8 cells' or
-// vehicles' state and takes the cells' speeds, then waits on BAR_MEAN for
-// the mean's constant and computes its gates. Without the reduction warp,
-// warp 0 folds first and every thread waits.
+// The block: the lane threads (one a lane, in whole warps) and a reduction
+// warp behind them that folds the static running mean (warp_fold: the
+// gathered terms loaded by the whole warp) into the carry. In hard mode
+// nothing waits for it: the lanes' queues do not read it. In the soft modes
+// each lane loads its first 8 cells' or vehicles' state and takes the
+// cells' speeds, then waits on BAR_MEAN for the mean's constant and
+// computes its gates.
 template <class S>
 __global__ void shard_E(ShardArgs a, Geo geo) {
   DHTS_DYNAMIC_SMEM(smem_raw);
@@ -1154,12 +1093,11 @@ __global__ void shard_E(ShardArgs a, Geo geo) {
   size_t off_s = 0;
   carve(&ms, 1, smem_raw, off_s);
   carve(&stage, 2 * L, smem_raw, off_s);
-  const int tid = threadIdx.x, wl = tid % WARP, warp = tid / WARP;
-  const int NB = geo.lanes + (geo.red ? WARP : 0);
+  const int tid = threadIdx.x, wl = tid % WARP;
+  const int NB = geo.lanes + WARP;
   const bool soft_mode = d.mode != HARD;
-  const bool reducer = geo.red && tid >= geo.lanes;
   const int e = blockIdx.x;
-  if (reducer || (!geo.red && warp == 0)) {
+  if (tid >= geo.lanes) {
     // the static running mean from the gathered per-lane terms (cells,
     // vehicles), in lane order
     SH_CLOCK(long long sh_f = 0; if (wl == 0) sh_f = sh_now();)
@@ -1181,15 +1119,12 @@ __global__ void shard_E(ShardArgs a, Geo geo) {
       ms[0] = 16.0f / fmaxf(fabsf(mean), 1e-6f);
     }
     SH_ADD(wl == 0, SH_E_FOLD, sh_f);
-    if (reducer) {
-      if (soft_mode) {
-        CONVERGE();
-        bar_arrive(BAR_MEAN, NB);
-      }
-      return;
+    if (soft_mode) {
+      CONVERGE();
+      bar_arrive(BAR_MEAN, NB);
     }
+    return;
   }
-  if (!geo.red) __syncthreads();
   Block<S> k = block_of<S>(a);
   const LaneGeom& g = k.g;
   const Consts& c = a.k;
@@ -1197,7 +1132,7 @@ __global__ void shard_E(ShardArgs a, Geo geo) {
   // the lane's first chunk of cells (state, speeds) or vehicles (speeds)
   QueueChunk<S> q0;
   if (k.lane) queue_chunk<S>(k.st, g, k.gl, cnt, 0, c, q0);
-  if (soft_mode && geo.red) {
+  if (soft_mode) {
     CONVERGE();
     bar_sync(BAR_MEAN, NB);
   }
@@ -1323,36 +1258,41 @@ size_t smem_of(int body, int L, int n) {
   return off;
 }
 
-// whether C's lanes may take the split (1, the default; tests and
-// timings turn it off)
-int split_lanes = 1;
-
 // C's and E's block (Geo) with G threads a lane: a reduction warp where the
-// body folds a mean (E always, C where the signal terms were gathered) and
-// it fits
+// body folds a mean (E always, C where the signal terms were gathered)
 Geo geo_of(int body, const ShardArgs& a, int G) {
   Geo g;
   g.G = G;
   g.lanes = (a.n * G + WARP - 1) / WARP * WARP;
-  g.red = (body == BODY_E || a.gsg != nullptr) &&
-          g.lanes + WARP <= MAX_THREADS;
+  g.red = body == BODY_E || a.gsg != nullptr;
   return g;
 }
 int threads_of(const Geo& g) { return g.lanes + (g.red ? WARP : 0); }
 
-// blocks of `threads` of `kernel` an SM holds (its registers decide),
-// asked once for each width in warps; `cache` [MAX_WARPS + 2]
+// blocks of `threads` of `kernel` an SM holds with `smem` bytes of shared
+// memory (its registers and shared memory decide), asked once for each
+// kernel, width and shared memory
 template <class Kernel>
-int blocks_per_sm(Kernel kernel, int threads, size_t smem, int* cache) {
+int blocks_per_sm(Kernel kernel, int threads, size_t smem) {
 #ifdef DHTS_CPU_EMULATION
-  (void)kernel, (void)smem, (void)cache;
+  (void)kernel, (void)smem;
   return threads <= MAX_THREADS;
 #else
-  int& n = cache[(threads + WARP - 1) / WARP];
-  if (n < 0 &&
-      cudaOccupancyMaxActiveBlocksPerMultiprocessor(&n, kernel, threads,
+  struct Asked {
+    Kernel kernel;
+    int threads;
+    size_t smem;
+    int n;
+  };
+  static std::vector<Asked> asked;
+  for (const Asked& q : asked)
+    if (q.kernel == kernel && q.threads == threads && q.smem == smem)
+      return q.n;
+  int n = 0;
+  if (cudaOccupancyMaxActiveBlocksPerMultiprocessor(&n, kernel, threads,
                                                     smem) != cudaSuccess)
     n = 0;
+  asked.push_back({kernel, threads, smem, n});
   return n;
 #endif
 }
@@ -1378,29 +1318,29 @@ int sm_count() {
 // the block stays within MAX_THREADS, an SM holds one, and its grid runs
 // in no more waves than one thread a lane's does (a derivative's 180
 // blocks of 72 lanes: one an SM, two waves, where one thread a lane runs
-// them in one); else 1
+// them in one); else 1. A build with -DDHTS_SHARD_ONE_THREAD takes 1
+// always (tools/shard_timing.py times the split against it; the host tests
+// hold both).
 template <class S>
 int c_threads_a_lane(const ShardArgs& a, size_t smem) {
-  static int split_cache[MAX_WARPS + 2], one_cache[MAX_WARPS + 2];
-  static bool init = false;
-  if (!init) {
-    for (int i = 0; i < MAX_WARPS + 2; ++i) split_cache[i] = one_cache[i] = -1;
-    init = true;
-  }
+#ifdef DHTS_SHARD_ONE_THREAD
+  (void)a, (void)smem;
+  return 1;
+#else
   const Geo split = geo_of(BODY_C, a, SPLIT), one = geo_of(BODY_C, a, 1);
-  if (!split_lanes || a.d.C + 1 > SPLIT || a.d.V > SPLIT * SPLIT_VEH ||
+  if (a.d.C + 1 > SPLIT || a.d.V > SPLIT * SPLIT_VEH ||
       threads_of(split) > MAX_THREADS)
     return 1;
-  const int per_split = blocks_per_sm(shard_C_split<S>, threads_of(split),
-                                      smem, split_cache);
-  const int per_one =
-      blocks_per_sm(shard_C<S>, threads_of(one), smem, one_cache);
+  const int per_split =
+      blocks_per_sm(shard_C_split<S>, threads_of(split), smem);
+  const int per_one = blocks_per_sm(shard_C<S>, threads_of(one), smem);
   if (per_split < 1) return 1;
   const auto waves = [&](int per_sm) {
     const int wave = sm_count() * per_sm;
     return (a.N + wave - 1) / wave;
   };
   return per_one < 1 || waves(per_split) <= waves(per_one) ? SPLIT : 1;
+#endif
 }
 
 // `repeat` launches of `kernel` with the arguments `a`, then `x`; a block
@@ -1445,7 +1385,8 @@ size_t itscp_shard_args_size() { return sizeof(ShardArgs); }
 // is not in the time); `args` points to a ShardArgs (taken as void*: the
 // struct's type has internal linkage, and a function with C linkage must
 // not name it). Returns cudaGetLastError() of the launches, or 1
-// (cudaErrorInvalidValue) for arguments it refuses.
+// (cudaErrorInvalidValue) for arguments it refuses, such as a shard of more
+// than MAX_LANES (992) lanes.
 int launch_itscp_shard(int body, int dual, const void* args, int repeat,
                        void* stream) {
   const ShardArgs* a = static_cast<const ShardArgs*>(args);
@@ -1459,7 +1400,7 @@ int launch_itscp_shard(int body, int dual, const void* args, int repeat,
     return 1;
   if (body == BODY_C && d.mode != HARD && !a->gsg) return 1;
   if (body < BODY_A || body > BODY_Q || (dual && !dual_ok) || a->N < 1 ||
-      a->n < 1 || a->n > 1024 || a->off < 0 || a->off + a->n > d.L ||
+      a->n < 1 || a->n > MAX_LANES || a->off < 0 || a->off + a->n > d.L ||
       d.C < 1 || d.C > MAXC || d.V < 1 || d.R < 1 ||
       d.K < 1 || d.mode < HARD || d.mode > SOFT || a->t < 0 ||
       a->t >= d.T || (dual && (d.mode == HARD || !a->dbuf)) ||
@@ -1506,10 +1447,6 @@ int launch_itscp_shard(int body, int dual, const void* args, int repeat,
     default: return run<float>(shard_Q, body, *a, r, stream, Q_THREADS);
   }
 }
-
-// Whether C may spread a lane over SPLIT threads (1, the default) or runs
-// one thread a lane (0; the tests and timings hold both)
-void itscp_shard_set_split(int on) { split_lanes = on; }
 
 #ifdef DHTS_SHARD_CLOCK
 // The cycle stamps summed since the last reset, shard_cycles[SH_PARTS + 2]

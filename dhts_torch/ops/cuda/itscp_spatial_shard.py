@@ -93,6 +93,9 @@ REPLACES = {"A": f"{PALLAS}:279", "B": f"{PALLAS}:302", "C": f"{PALLAS}:440",
 # backward, and make_kernel_sg for D1 and D2
 REPLACES_SG = "dhts/ops/pallas/dkernel.py:154"
 HARD = k6.HARD
+# a shard's lanes: one thread each, and C's and E's reduction warp beside
+# them, in a block of 1,024 threads (MAX_LANES in the kernels' source)
+MAX_LANES = k6.MAX_LANES - 32
 
 BODIES = ("A", "B", "C", "D1", "D2", "D3", "E")
 DUAL_BODIES = ("A", "B", "C", "D3", "E")  # D1, D2 are wholly discrete
@@ -1417,11 +1420,12 @@ def _check(plan, comm, inputs, dual):
     action2d, rand, sched, mnext, mprev, routes = inputs
     dev = rand.device
     T, L = plan.T, plan.L
-    wide = [sh.n for sh in comm.shards if sh.n > k6.MAX_LANES]
+    wide = [sh.n for sh in comm.shards if sh.n > MAX_LANES]
     if wide:
-        raise ValueError(f"a body runs one thread per local lane: a shard "
-                         f"of {wide[0]} lanes exceeds the cap of "
-                         f"{k6.MAX_LANES}")
+        raise ValueError(f"a body runs one thread per local lane and C's "
+                         f"and E's a reduction warp beside them: a shard of "
+                         f"{wide[0]} lanes exceeds the cap of {MAX_LANES}; "
+                         f"take more shards")
     if comm.L != L:
         raise ValueError(f"the lane axis has {comm.L} lanes, the plan {L}")
     n_routes = L * plan.P + L * plan.P2

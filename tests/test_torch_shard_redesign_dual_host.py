@@ -31,8 +31,7 @@ STEPS = 64
 @pytest.mark.parametrize("shards", [2, 3, 4, ((0, 50), (50, 94))],
                          ids=["S2", "S3", "S4", "uneven"])
 def test_derivative_matches_plain_and_step_kernel(libs, shards, how):
-    lib, step_lib = libs
-    variant(lib, how)
+    lib, step_lib = variant(libs, how), libs[1]
     plan, inputs = case("two_phase", True, steps=STEPS)
     wq = torch.as_tensor(np.random.default_rng(0).uniform(
         -1, 1, (B, plan.T)), dtype=torch.float32)
@@ -54,8 +53,7 @@ def test_derivative_matches_plain_and_step_kernel(libs, shards, how):
 
 
 def test_long_micro_derivative_launches(libs):
-    lib, _ = libs
-    variant(lib, "split")
+    lib = variant(libs, "split")
     plan, inputs = case("long_micro", True)
     run = ks.ShardRun(plan, comm_of(plan.L, 4), inputs, dual=True, lib=lib)
     most = 0

@@ -5,7 +5,9 @@ single-shard STEP kernel.
 
 ``csrc/itscp_spatial_shard.cu`` and ``csrc/itscp_spatial_step.cu`` are
 built with g++ against ``csrc/cpu_emulation.h`` and driven through the
-same launchers as on the card, the shards in one process.
+same launchers as on the card, the shards in one process; the shard's
+source also with ``-DDHTS_SHARD_ONE_THREAD`` (C one thread a lane
+always).
 
 * Every launch of a forward step equals its plain body bit for bit
   (``ShardRun.checked_step``), hard and soft, B = 2, at S = 1 (C's lanes
@@ -14,17 +16,17 @@ same launchers as on the card, the shards in one process.
   widths are not multiples of 32; on a micro scene of 28 lanes (not a
   multiple of 8) whose lanes hold more than SPLIT vehicles; on a scene of
   C = 7 cells (C + 1 = SPLIT interfaces); with C's lanes split and one
-  thread each (``itscp_shard_set_split(0)``).
+  thread each (the ``-DDHTS_SHARD_ONE_THREAD`` build).
   The whole episode's queues, events and waves equal the STEP kernel's.
 * The derivative: ``tests/test_torch_shard_redesign_dual_host.py``.
-* The folds on terms where the tree is not exact (magnitudes 2^60 apart,
-  a NaN, an infinity: the lane-order chain) and where it is: the carry's
-  running mean and the launch's outputs equal ``fold_sg`` / ``fold_ss``
-  and the plain bodies.
+* The folds on terms whose order of addition changes their sum
+  (magnitudes 2^60 apart), a NaN, an infinity, and plain terms: the
+  carry's running mean and the launch's outputs equal ``fold_sg`` /
+  ``fold_ss`` and the plain bodies.
 * The 9x9 scene (1,296 lanes) at S = 4 (324 lanes a shard: C one thread
-  a lane; E's staged terms 20.7 KB of shared memory) and on shards of
-  1,000 and 296 lanes (no room for a reduction warp: warp 0 folds first),
-  T cut to 8.
+  a lane; E's staged terms 20.7 KB of shared memory) and on shards of 992
+  lanes (the widest with room for the reduction warp) and 304, T cut to
+  8. A shard of 1,000 lanes is refused.
 """
 
 import ctypes
@@ -64,20 +66,24 @@ SCENES = {"hybrid": HYBRID, "two_phase": TWO_PHASE, "long_micro": LONG_MICRO,
 
 @pytest.fixture(scope="module")
 def libs(tmp_path_factory):
+    """The shard's library (C's lanes split where they fit), the STEP
+    kernel's, and the shard's with C one thread a lane."""
     out = tmp_path_factory.mktemp("k6redesign")
     try:
         shard = _build.build_cpu_emulation("itscp_spatial_shard", out)
         step = _build.build_cpu_emulation("itscp_spatial_step", out)
+        one = _build.build_cpu_emulation("itscp_spatial_shard", out,
+                                         defines=("DHTS_SHARD_ONE_THREAD",))
     except RuntimeError as err:
         pytest.skip(f"no host build of the kernel sources: {err}")
-    lib = ks.bind(ctypes.CDLL(str(shard)))
-    yield lib, k6.bind(ctypes.CDLL(str(step)))
-    lib.itscp_shard_set_split(1)
+    return (ks.bind(ctypes.CDLL(str(shard))), k6.bind(ctypes.CDLL(str(step))),
+            ks.bind(ctypes.CDLL(str(one))))
 
 
-def variant(lib, name):
-    """C's lanes split where they fit (default) or one thread each."""
-    lib.itscp_shard_set_split(int(name != "one_thread"))
+def variant(libs, name):
+    """The shard's library with C's lanes split where they fit (default)
+    or one thread each."""
+    return libs[2] if name == "one_thread" else libs[0]
 
 
 def case(scene, differentiable, b=B, steps=None):
@@ -140,8 +146,7 @@ def step_forward(lib, step_lib, scene, shards, mode, checked, b=B):
 @pytest.mark.parametrize("shards", [1, 2, 3, 4, ((0, 50), (50, 94))],
                          ids=["S1", "S2", "S3", "S4", "uneven"])
 def test_hybrid_launches_match_plain_bodies(libs, shards, mode, how):
-    lib, step_lib = libs
-    variant(lib, how)
+    lib, step_lib = variant(libs, how), libs[1]
     _, (queues, events, _) = step_forward(lib, step_lib, "hybrid", shards,
                                           mode, lambda t: t % 16 == 3)
     assert int(events[..., 1].sum()) > 0 and float(queues.max()) > 0
@@ -155,8 +160,7 @@ def test_hybrid_launches_match_plain_bodies(libs, shards, mode, how):
                          ids=["micro-S2", "micro-S4", "cells-S2",
                               "cells-uneven"])
 def test_launches_match_plain_bodies(libs, scene, shards, mode):
-    lib, step_lib = libs
-    variant(lib, "split")
+    lib, step_lib = variant(libs, "split"), libs[1]
     most, _ = step_forward(lib, step_lib, scene, shards, mode,
                            lambda t: t % 10 == 9)
     if scene == "long_micro":
@@ -171,8 +175,8 @@ def ks_split():
     return int(src.split("constexpr int SPLIT = ")[1].split(",")[0])
 
 
-# terms where the tree is not exact (magnitudes 2^60 apart, a NaN, an
-# infinity), and terms of float32 values, where it is
+# terms whose sum depends on the order of addition (magnitudes 2^60
+# apart), a NaN, an infinity, and terms of float32 values
 f32 = lambda x: x.astype(np.float32).astype(np.float64)
 FOLD_CASES = {
     "spread": lambda rng, L: np.where(np.arange(L) % 7 == 0, 2.0 ** 60,
@@ -204,8 +208,7 @@ def test_folds_on_hard_terms(libs, kind, how):
     magnitude with fmaxf, which takes 1e-6 for a NaN, where the plain
     version's maximum propagates it (a difference of every version of the
     kernels, outside the folds)."""
-    lib, _ = libs
-    variant(lib, how)
+    lib = variant(libs, how)
     plan, inputs = case("hybrid", True, steps=6)
     run = ks.ShardRun(plan, comm_of(plan.L, 4), inputs, dual=False, lib=lib)
     t = plan.T - 1
@@ -247,11 +250,11 @@ def test_folds_on_hard_terms(libs, kind, how):
 
 
 @pytest.mark.parametrize("mode", ["hard", "soft"])
-@pytest.mark.parametrize("shards", [4, ((0, 1000), (1000, 296))],
-                         ids=["S4", "no_reduction_warp"])
+@pytest.mark.parametrize("shards", [4, ((0, ks.MAX_LANES),
+                                        (ks.MAX_LANES, 1296 - ks.MAX_LANES))],
+                         ids=["S4", "widest"])
 def test_nine_by_nine(libs, shards, mode):
-    lib, _ = libs
-    variant(lib, "split")
+    lib = variant(libs, "split")
     plan, inputs = case("nine", mode == "soft", 1, steps=8)
     assert plan.L == 1296
     comm = comm_of(plan.L, shards)
@@ -265,3 +268,16 @@ def test_nine_by_nine(libs, shards, mode):
     ref = ks.plain_sharded_episode(plan, ks.LaneComm.whole(plan.L), *inputs)
     for a, r in zip(got, ref):
         assert torch.equal(a, r)
+
+
+def test_shard_wider_than_a_block_is_refused(libs):
+    """A shard of 1,000 lanes (no room for the reduction warp beside one
+    thread a lane): the entry point and the launcher refuse it."""
+    lib = variant(libs, "split")
+    plan, inputs = case("nine", False, 1, steps=2)
+    comm = comm_of(plan.L, ((0, 1000), (1000, 296)))
+    with pytest.raises(ValueError, match="exceeds the cap of 992"):
+        ks.shard_episode_fwd(plan, comm, *inputs)
+    run = ks.ShardRun(plan, comm, inputs, dual=False, lib=lib)
+    with pytest.raises(RuntimeError):
+        run.step(0)

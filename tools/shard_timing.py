@@ -24,7 +24,8 @@ checkout, this checkout, the parent; each visit takes every case's ms a
 launch of shard 0's C and E (``shard_clock.timed_ms``: 50 launches back to
 back between CUDA events, the state restored before each, median of
 ``--repeats``). Then as many pairs of this checkout's C with its lanes one
-thread each (``itscp_shard_set_split(0)``) and split. Prints one JSON
+thread each (its source built with ``-DDHTS_SHARD_ONE_THREAD``) and split
+where they fit. Prints one JSON
 line: the card's name and power limit, each pair's ms (the mean of its
 two visits), the medians and interquartile ranges of both arms, and how
 many pairs the second arm won.
@@ -66,6 +67,15 @@ def libraries(parent: Path):
     return {"parent": ks.bind(ctypes.CDLL(str(build_tree(
                 parent, "itscp_spatial_shard")))),
             "this": ks._library()}
+
+
+def one_thread_library():
+    """This checkout's source built with C one thread a lane always."""
+    from dhts_torch.ops.cuda import _build
+    from dhts_torch.ops.cuda import itscp_spatial_shard as ks
+
+    return ks.bind(ctypes.CDLL(str(_build.build(
+        "itscp_spatial_shard", defines=("DHTS_SHARD_ONE_THREAD",)))))
 
 
 def case_inputs(env, B: int):
@@ -129,35 +139,27 @@ def quiet_runs(env, plans, lib) -> dict:
 
 
 def pairs(quiet, arms, n_pairs: int, repeats: int, bodies=BODIES) -> dict:
-    """``n_pairs`` pairs of the two ``arms`` (``(name, library, split)``:
-    ``split`` 0 or 1 sets this checkout's C split before each visit, None
-    leaves a library as it is), the first, the second, the second, the
-    first; each visit times ``bodies`` in every case."""
+    """``n_pairs`` pairs of the two ``arms`` (``(name, library)``), the
+    first, the second, the second, the first; each visit times ``bodies``
+    in every case."""
     from dhts_torch.ops.cuda import shard_clock
 
-    def use(lib, split):
-        if split is not None:
-            lib.itscp_shard_set_split(split)
-
     # a first launch of each arm warms the card
-    for _, lib, split in arms:
-        use(lib, split)
+    for _, lib in arms:
         for q in quiet.values():
             for body in bodies:
                 shard_clock.timed_ms(q, lib, body, 5, 1)
 
-    def visit(lib, split):
-        use(lib, split)
+    def visit(lib):
         return {f"{body}_{kind}_S{S}_B{B}":
                 shard_clock.timed_ms(q, lib, body, 50, repeats)
                 for (kind, S, B), q in quiet.items() for body in bodies}
 
-    (a, lib_a, split_a), (b, lib_b, split_b) = arms
+    (a, lib_a), (b, lib_b) = arms
     visits = {a: [], b: []}
     for _ in range(n_pairs):
-        for t, lib, split in ((a, lib_a, split_a), (b, lib_b, split_b),
-                              (b, lib_b, split_b), (a, lib_a, split_a)):
-            visits[t].append(visit(lib, split))
+        for t, lib in ((a, lib_a), (b, lib_b), (b, lib_b), (a, lib_a)):
+            visits[t].append(visit(lib))
     per_pair = {t: [{k: (vs[2 * i][k] + vs[2 * i + 1][k]) / 2
                      for k in vs[2 * i]} for i in range(n_pairs)]
                 for t, vs in visits.items()}
@@ -214,13 +216,12 @@ def main(argv=None) -> int:
                           for (k, S, B), q in quiet.items()}
     rec["pairs"] = args.pairs
     rec["parent_vs_this"] = pairs(
-        quiet, (("parent", libs["parent"], None), ("this", this, 1)),
-        args.pairs, args.repeats)
+        quiet, (("parent", libs["parent"]), ("this", this)), args.pairs,
+        args.repeats)
     # C's lanes one thread each against the split, in this checkout
     rec["one_thread_vs_split"] = pairs(
-        quiet, (("one_thread", this, 0), ("split", this, 1)), args.pairs,
-        args.repeats, ("C",))
-    this.itscp_shard_set_split(1)
+        quiet, (("one_thread", one_thread_library()), ("split", this)),
+        args.pairs, args.repeats, ("C",))
     print(json.dumps(rec), flush=True)
     return 0
 
