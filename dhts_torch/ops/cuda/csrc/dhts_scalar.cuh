@@ -52,16 +52,44 @@ __device__ __forceinline__ float val(Dual x) { return x.v; }
 __device__ __forceinline__ float tangent(float) { return 0.0f; }
 __device__ __forceinline__ float tangent(Dual x) { return x.d; }
 
+// The float max and min of every clamp. A source that defines
+// DHTS_KEEP_NAN (the ITSCP step's kernels, through itscp_step.cuh) keeps a
+// NaN operand, as torch.maximum and jnp.maximum do: PTX max.NaN / min.NaN
+// (sm_80 and later, one instruction as fmaxf). The rollouts' kernels (K2,
+// K3) take fmaxf / fminf, which return the other operand.
+__device__ __forceinline__ float max_of(float a, float b) {
+#if !defined(DHTS_KEEP_NAN)
+  return fmaxf(a, b);
+#elif defined(DHTS_CPU_EMULATION)
+  return a != a || b != b ? a + b : fmaxf(a, b);
+#else
+  float r;
+  asm("max.NaN.f32 %0, %1, %2;" : "=f"(r) : "f"(a), "f"(b));
+  return r;
+#endif
+}
+__device__ __forceinline__ float min_of(float a, float b) {
+#if !defined(DHTS_KEEP_NAN)
+  return fminf(a, b);
+#elif defined(DHTS_CPU_EMULATION)
+  return a != a || b != b ? a + b : fminf(a, b);
+#else
+  float r;
+  asm("min.NaN.f32 %0, %1, %2;" : "=f"(r) : "f"(a), "f"(b));
+  return r;
+#endif
+}
+
 // max/min with a tie splitting the tangent 0.5/0.5 (jnp.maximum, and
 // torch.maximum between tensors)
-__device__ __forceinline__ float vmax(float a, float b) { return fmaxf(a, b); }
-__device__ __forceinline__ float vmin(float a, float b) { return fminf(a, b); }
+__device__ __forceinline__ float vmax(float a, float b) { return max_of(a, b); }
+__device__ __forceinline__ float vmin(float a, float b) { return min_of(a, b); }
 __device__ __forceinline__ Dual vmax(Dual a, Dual b) {
-  return Dual(fmaxf(a.v, b.v),
+  return Dual(max_of(a.v, b.v),
               a.v > b.v ? a.d : (a.v < b.v ? b.d : 0.5f * (a.d + b.d)));
 }
 __device__ __forceinline__ Dual vmin(Dual a, Dual b) {
-  return Dual(fminf(a.v, b.v),
+  return Dual(min_of(a.v, b.v),
               a.v < b.v ? a.d : (a.v > b.v ? b.d : 0.5f * (a.d + b.d)));
 }
 __device__ __forceinline__ float vabs(float a) { return fabsf(a); }
@@ -103,10 +131,10 @@ __device__ __forceinline__ Dual grad_carrier(float value, Dual src) {
 }
 // x - detach(x - clip(x, lo, hi)): the clipped value, x's tangent
 __device__ __forceinline__ float st_clip(float x, float hi) {
-  return x - (x - fminf(fmaxf(x, EPS), hi));
+  return x - (x - min_of(max_of(x, EPS), hi));
 }
 __device__ __forceinline__ Dual st_clip(Dual x, float hi) {
-  return Dual(x.v - (x.v - fminf(fmaxf(x.v, EPS), hi)), x.d);
+  return Dual(x.v - (x.v - min_of(max_of(x.v, EPS), hi)), x.d);
 }
 // the action entry as a scalar; a backward block differentiates with
 // respect to the entry it seeds
@@ -230,7 +258,7 @@ __device__ __forceinline__ void riemann(S rl, S yl, S ul, S rr, S ur,
   if (c != 0) y0 = comp_y(r0, u0, u_max);
   fr = r0 * u0;
   fy = y0 * u0;
-  wave = fmaxf(fabsf(speed0), fabsf(speed1));
+  wave = max_of(fabsf(speed0), fabsf(speed1));
 }
 
 // ---------------------------------------------------------------------------

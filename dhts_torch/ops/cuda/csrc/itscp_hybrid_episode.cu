@@ -371,12 +371,12 @@ __device__ void reduce_steps(const Smem<S>& s, const Dims& d,
       for (int j = wl; j < L; j += WARP) {
         const int bits = re[j];
         for (int e = 0; e < NEV; ++e) ev.cnt[e] += (bits >> e) & 1;
-        ev.wave = fmaxf(ev.wave, rw[j]);
+        ev.wave = max_of(ev.wave, rw[j]);
       }
       for (int o = WARP / 2; o > 0; o >>= 1) {
         const Events u = shfl_down_words(ev, o);
         for (int e = 0; e < NEV; ++e) ev.cnt[e] += u.cnt[e];
-        ev.wave = fmaxf(ev.wave, u.wave);
+        ev.wave = max_of(ev.wave, u.wave);
       }
     }
     if (wl == 0) {
@@ -620,7 +620,7 @@ __global__ void itscp_hybrid_episode_kernel(
                                     s.part_cnt + PART_BLEND * MAX_WARPS,
                                     n_warps, sig_sum, sig_cnt);
       if (blend) {
-        const float c = k.gate32 / fmaxf(fabsf(mean), 1e-6f);
+        const float c = sharpness(k.gate32, mean);
         const S fs = stg(val(fsig) >= 0.5f, soft(fsig - S(0.5f), c), mode);
         hpd = pd_g * fs + red_pd * (S(1.0f) - fs);
         hsd = sd_g * fs;
@@ -699,7 +699,7 @@ __global__ void itscp_hybrid_episode_kernel(
       const float mean = fold_parts(s.part_sum + PART_VEHS * MAX_WARPS,
                                     s.part_cnt + PART_VEHS * MAX_WARPS,
                                     n_warps, st_sum, st_cnt);
-      c_st = 16.0f / fmaxf(fabsf(mean), 1e-6f);
+      c_st = sharpness(16.0f, mean);
     }
     if (lane) {
       const S q_lane = lane_queue<S>(st, g, l, n_after, mode, c_st, k,

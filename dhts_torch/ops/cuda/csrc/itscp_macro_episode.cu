@@ -198,7 +198,7 @@ __global__ void itscp_macro_episode_kernel(
       }
       s.ms[0] = s.ms[0] + (float)tot;
       s.ms[1] = s.ms[1] + (float)cnt;
-      s.ms[2] = 16.0f / fmaxf(fabsf(s.ms[0] / s.ms[1]), 1e-6f);
+      s.ms[2] = sharpness(16.0f, s.ms[0] / s.ms[1]);
     }
     __syncthreads();
 

@@ -654,7 +654,7 @@ __device__ __forceinline__ void body_C(const ShardArgs& a, const Geo& geo) {
       sg_ms[0] = sg_ms[0] + (float)f.s[0];
       sg_ms[1] = sg_ms[1] + (float)f.n[0];
       const float mean = sg_ms[0] / fmaxf(sg_ms[1], 1.0f);
-      ms[0] = c.gate32 / fmaxf(fabsf(mean), 1e-6f);
+      ms[0] = sharpness(c.gate32, mean);
     }
     SH_ADD(wl == 0, SH_C_FOLD, sh_f);
     if (soft_mode) {
@@ -864,7 +864,7 @@ __device__ __forceinline__ void body_C(const ShardArgs& a, const Geo& geo) {
     if (!dual) {
       float w = lane_wave;
       for (int o = WARP / 2; o > 0; o >>= 1)
-        w = fmaxf(w, __shfl_down_sync(FULL_MASK, w, o));
+        w = max_of(w, __shfl_down_sync(FULL_MASK, w, o));
       if (wl == 0) wave_w[warp] = w;
     }
   }
@@ -874,7 +874,7 @@ __device__ __forceinline__ void body_C(const ShardArgs& a, const Geo& geo) {
     if (warp == 0) {
       float w = wl < geo.lanes / WARP ? wave_w[wl] : 0.0f;
       for (int o = WARP / 2; o > 0; o >>= 1)
-        w = fmaxf(w, __shfl_down_sync(FULL_MASK, w, o));
+        w = max_of(w, __shfl_down_sync(FULL_MASK, w, o));
       if (wl == 0) a.waves[(size_t)e * d.T + t] = w;
     }
     SH_ADD(clk, SH_C_WAVE, sh_p);
@@ -1116,7 +1116,7 @@ __global__ void shard_E(ShardArgs a, Geo geo) {
       ss_ms[0] = ss_ms[0] + ((float)f.s[0] + (float)f.s[1]);
       ss_ms[1] = ss_ms[1] + ((float)f.n[0] + (float)f.n[1]);
       const float mean = ss_ms[0] / fmaxf(ss_ms[1], 1.0f);
-      ms[0] = 16.0f / fmaxf(fabsf(mean), 1e-6f);
+      ms[0] = sharpness(16.0f, mean);
     }
     SH_ADD(wl == 0, SH_E_FOLD, sh_f);
     if (soft_mode) {

@@ -403,7 +403,7 @@ __device__ __forceinline__ float godunov_known(St& st, const LaneGeom& g,
     else
       riemann(rp[i - 1], yp[i - 1], up[i - 1], rp[i], up[i], u_max,
               k.rare_den, k.third, fr, fy, wave);
-    lane_wave = i == 0 ? wave : fmaxf(lane_wave, wave);
+    lane_wave = i == 0 ? wave : max_of(lane_wave, wave);
     if (i > 0 && i - 1 < g.num_cell) {
       put(st.r, st.ci(l, i - 1), rp[i - 1] + (fr_prev - fr) * S(coeff));
       put(st.y, st.ci(l, i - 1), yp[i - 1] + (fy_prev - fy) * S(coeff));
@@ -514,7 +514,7 @@ __device__ __forceinline__ void spatial_steps(Ptrs p, Dims d, Consts k,
     sg_ms[0] = sg_ms[0] + (float)tot.v[0];
     sg_ms[1] = sg_ms[1] + (float)cnt;
     const float mean = sg_ms[0] / fmaxf(sg_ms[1], 1.0f);
-    s.ms[0] = k.gate32 / fmaxf(fabsf(mean), 1e-6f);
+    s.ms[0] = sharpness(k.gate32, mean);
   };
   // the static running mean over the cells, then the vehicles; its
   // detached mean sharpens the soft queue gates
@@ -532,7 +532,7 @@ __device__ __forceinline__ void spatial_steps(Ptrs p, Dims d, Consts k,
     ss_ms[0] = ss_ms[0] + ((float)sums.v[0] + (float)sums.v[1]);
     ss_ms[1] = ss_ms[1] + ((float)nc + (float)nv);
     const float mean = ss_ms[0] / fmaxf(ss_ms[1], 1.0f);
-    s.ms[1] = 16.0f / fmaxf(fabsf(mean), 1e-6f);
+    s.ms[1] = sharpness(16.0f, mean);
   };
   // step t's queue sum_l q^2 * dt in lane order (a Dual's value and
   // tangent each), events and largest wave speed
@@ -553,7 +553,7 @@ __device__ __forceinline__ void spatial_steps(Ptrs p, Dims d, Consts k,
       for (int w = 0; w < n_warps; ++w) {
         const WarpPart& wp = s.part[slot * MAX_WARPS + w];
         for (int q = 0; q < 3; ++q) ev[q] += wp.n[2 + q];
-        wave = fmaxf(wave, wp.wave);
+        wave = max_of(wave, wp.wave);
       }
       p.out_queue[bt] = val(queue);
       for (int q = 0; q < 3; ++q) p.out_events[bt * 3 + q] = ev[q];
@@ -790,7 +790,7 @@ __device__ __forceinline__ void spatial_steps(Ptrs p, Dims d, Consts k,
     for (int off = WARP / 2; off > 0; off >>= 1) {
       const WarpPart u = shfl_down_words(wp, off);
       for (int q = 0; q < 5; ++q) wp.n[q] += u.n[q];
-      wp.wave = fmaxf(wp.wave, u.wave);
+      wp.wave = max_of(wp.wave, u.wave);
     }
     if (wl == 0) s.part[slot * MAX_WARPS + warp] = wp;
     if (red) {

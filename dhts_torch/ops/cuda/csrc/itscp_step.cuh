@@ -23,6 +23,8 @@
 // and the block reductions, which each repeat their own plain version.
 #pragma once
 
+// every clamp keeps a NaN, as the plain versions' (dhts_scalar.cuh)
+#define DHTS_KEEP_NAN
 #include "dhts_scalar.cuh"
 
 namespace {
@@ -59,6 +61,12 @@ __device__ __forceinline__ Dual st_value(Dual soft, float hard) {
 template <class S>
 __device__ __forceinline__ S stg(bool hard, S soft_val, int mode) {
   return mode == ST ? st_value(soft_val, hard ? 1.0f : 0.0f) : soft_val;
+}
+
+// a soft gate's sharpness from a detached running mean, num / max(|mean|,
+// 1e-6): NaN for a NaN mean, as jnp.maximum and torch.maximum keep it
+__device__ __forceinline__ float sharpness(float num, float mean) {
+  return num / max_of(fabsf(mean), 1e-6f);
 }
 
 // ---------------------------------------------------------------------------
@@ -334,7 +342,7 @@ __device__ __forceinline__ float godunov_lane(St& st, const LaneGeom& g,
     else
       riemann(rp[i - 1], yp[i - 1], up[i - 1], rp[i], up[i], u_max,
               k.rare_den, k.third, fr, fy, wave);
-    lane_wave = i == 0 ? wave : fmaxf(lane_wave, wave);
+    lane_wave = i == 0 ? wave : max_of(lane_wave, wave);
     if (i > 0 && i - 1 < g.num_cell) {
       put(st.r, st.ci(l, i - 1), rp[i - 1] + (fr_prev - fr) * S(coeff));
       put(st.y, st.ci(l, i - 1), yp[i - 1] + (fy_prev - fy) * S(coeff));
