@@ -260,19 +260,30 @@ __device__ __forceinline__ Block<S> lane_block_of(const ShardArgs& a,
 // update (with any wait between the kinds), the rows out, its wait for the
 // other lanes and the wave maximum (C); its way to its gates (set-up,
 // first cells, any wait), its lane's queue and the store (E); and each
-// kernel's whole launch. Each lane's first thread in block 0 adds its
-// lane's own update's cycles in C (Godunov, or the blend and IDM, after
-// any wait) to shard_lane_cycles[local lane]. The last two counts are the
-// C and E launches stamped. Without the macro the stamps compile to
+// kernel's whole launch. In B and D3 the parts are those of the path of
+// local lane shard_clock_lane's thread (0 unless the host sets it):
+// block set-up, the signals, the injection and the ghosts, the head's
+// blend, the leader walk, the rows out and the injection count with any
+// wait for the other lanes (B); set-up, convert, static_partials and the
+// emit and absorb counts with any wait (D3). Each lane's first thread in
+// block 0 adds its lane's own cycles to shard_lane_cycles[local lane]: its
+// update's in C (Godunov, or the blend and IDM, after any wait), its whole
+// path before the count in B and D3. The last four counts are the C, E, B
+// and D3 launches stamped. Without the macro the stamps compile to
 // nothing.
 enum ShardPart {
   SH_C_FOLD, SH_C_WAIT, SH_C_LANE, SH_C_ROWS, SH_C_END_WAIT, SH_C_WAVE,
   SH_C_TOTAL, SH_E_FOLD, SH_E_WAIT, SH_E_QUEUE, SH_E_STORE, SH_E_TOTAL,
-  SH_PARTS
+  SH_B_SETUP, SH_B_SIGNALS, SH_B_GHOSTS, SH_B_BLEND, SH_B_WALK, SH_B_ROWS,
+  SH_B_COUNT, SH_B_TOTAL, SH_D3_SETUP, SH_D3_CONVERT, SH_D3_STATIC,
+  SH_D3_COUNT, SH_D3_TOTAL, SH_PARTS
 };
+// the launches stamped, after the parts
+enum ShardLaunch { SH_N_C, SH_N_E, SH_N_B, SH_N_D3, SH_LAUNCHES };
 #ifdef DHTS_SHARD_CLOCK
-__device__ long long shard_cycles[SH_PARTS + 2];  // parts; C, E launches
+__device__ long long shard_cycles[SH_PARTS + SH_LAUNCHES];
 __device__ long long shard_lane_cycles[1024];
+__device__ int shard_clock_lane;  // B's and D3's stamping lane
 // the SM's clock, read by a volatile asm with a memory clobber: the
 // compiler keeps it in order with the barriers
 __device__ __forceinline__ long long sh_now() {
@@ -456,12 +467,15 @@ __global__ void shard_B(ShardArgs a) {
   const Dims& d = a.d;
   const Consts& c = a.k;
   const int L = d.L, V = d.V, n = a.n, t = a.t;
+  SH_CLOCK(const bool clk = (int)threadIdx.x == shard_clock_lane;
+           long long sh_t0 = sh_now(); long long sh_p = sh_t0;)
   S* sig = nullptr;
   int* inj_n = nullptr;
   size_t off_s = 0;
   carve(&sig, L, smem_raw, off_s);
   carve(&inj_n, n, smem_raw, off_s);
   Block<S> k = block_of<S>(a);
+  SH_ADD(clk, SH_B_SETUP, sh_p);
   auto& st = k.st;
   const LaneGeom& g = k.g;
   const Scene& sc = k.sc;
@@ -473,6 +487,7 @@ __global__ void shard_B(ShardArgs a) {
     sig[i] = lane_signal<S>(a.action, a.prog, d, c,
                             lane_geom(sc, L, d.K, i), t, k.seed);
   __syncthreads();
+  SH_ADD(clk, SH_B_SIGNALS, sh_p);
 
   int injected = 0;
   if (k.lane) {
@@ -516,6 +531,7 @@ __global__ void shard_B(ShardArgs a) {
         (g.num_next > 0) && (adjn >= 0) && sc.macro_at(adjn_c);
     const S gr_r = use_r ? gA(0, adjn_c) : S(0.0f);
     const S gr_u = use_r ? gA(1, adjn_c) : S(c.u_max);
+    SH_ADD(clk, SH_B_GHOSTS, sh_p);
 
     // virtual leader: walk the head vehicle's route over the gathered
     // counts and tails (after this step's injections)
@@ -556,6 +572,7 @@ __global__ void shard_B(ShardArgs a) {
       pd_g = 1000.0f;
       sd_g = 0.0f;
     }
+    SH_ADD(clk, SH_B_WALK, sh_p);
     // the signal the head sees, blended over its previous, current and next
     // route lane
     const S red_pd = vmax((S(g.length) - hpos) - S(hlen * 0.5f), S(0.0f));
@@ -578,6 +595,7 @@ __global__ void shard_B(ShardArgs a) {
     fsig = fsig + (prev_exist ? p_sc * sig_at(prev_l) : S(0.0f));
     fsig = fsig + (next_exist ? n_sc * sig_at(next_l) : S(0.0f));
     const bool blend = exists && !g.is_macro;
+    SH_ADD(clk, SH_B_BLEND, sh_p);
 
     const size_t base_bc = (size_t)k.e * BC_ROWS * n + k.j;
     const S rows[BC_ROWS] = {bl_r, bl_u, gr_r, gr_u, sig[gl], pd_g, sd_g,
@@ -588,6 +606,8 @@ __global__ void shard_B(ShardArgs a) {
     a.sg[base_sg] = blend ? val(fsig) : 0.0f;
     a.sg[base_sg + n] = blend ? 1.0f : 0.0f;
     inj_n[k.j] = injected;
+    SH_ADD(clk, SH_B_ROWS, sh_p);
+    SH_CLOCK(if (blockIdx.x == 0) shard_lane_cycles[k.j] += sh_now() - sh_t0;)
   }
   __syncthreads();
   if (threadIdx.x == 0 && !k.dual) {
@@ -595,6 +615,9 @@ __global__ void shard_B(ShardArgs a) {
     for (int q = 0; q < n; ++q) tot += inj_n[q];
     a.events[((size_t)k.e * d.T + t) * 3] = tot;
   }
+  SH_ADD(clk, SH_B_COUNT, sh_p);
+  SH_ADD(clk, SH_B_TOTAL, sh_t0);
+  SH_CLOCK(if (clk && blockIdx.x == 0) shard_cycles[SH_PARTS + SH_N_B] += 1;)
 }
 
 // ====== C: signal blend, physics, flux capacitors, post-physics rows ======
@@ -880,7 +903,7 @@ __device__ __forceinline__ void body_C(const ShardArgs& a, const Geo& geo) {
     SH_ADD(clk, SH_C_WAVE, sh_p);
   }
   SH_ADD(clk, SH_C_TOTAL, sh_t0);
-  SH_CLOCK(if (clk && blockIdx.x == 0) shard_cycles[SH_PARTS] += 1;)
+  SH_CLOCK(if (clk && blockIdx.x == 0) shard_cycles[SH_PARTS + SH_N_C] += 1;)
 }
 
 // C's kernels: one thread a lane, and SPLIT threads a lane with at most
@@ -968,6 +991,8 @@ __global__ void shard_D3(ShardArgs a) {
   const Dims& d = a.d;
   const Consts& c = a.k;
   const int L = d.L, K = d.K, n = a.n, t = a.t;
+  SH_CLOCK(const bool clk = (int)threadIdx.x == shard_clock_lane;
+           long long sh_t0 = sh_now(); long long sh_p = sh_t0;)
   int* ev = nullptr;
   size_t off_s = 0;
   carve(&ev, 2 * n, smem_raw, off_s);
@@ -997,7 +1022,9 @@ __global__ void shard_D3(ShardArgs a) {
       if (nq >= 0 && nq == q.mn) { q.slot = r; break; }
     }
     q.cap_v = q.slot >= 0 ? s.cap_val[gl] : S(0.0f);
+    SH_ADD(clk, SH_D3_SETUP, sh_p);
     const Verdict vd = convert<S>(k.st, s, k.sc, k.g, q, d, c, gl);
+    SH_ADD(clk, SH_D3_CONVERT, sh_p);
     ev[j] = vd.is_emit ? 1 : 0;
     ev[n + j] = (vd.exit_none || vd.dep_win) ? 1 : 0;
     // this lane's static running-mean terms, after the conversion (rows of
@@ -1005,6 +1032,8 @@ __global__ void shard_D3(ShardArgs a) {
     TermRows terms{a.ss + (size_t)k.e * 2 * n - a.off,
                    a.ssn + (size_t)k.e * 2 * n - a.off};
     static_partials<S>(k.st, terms, k.g, n, gl, vd.n, c);
+    SH_ADD(clk, SH_D3_STATIC, sh_p);
+    SH_CLOCK(if (blockIdx.x == 0) shard_lane_cycles[j] += sh_now() - sh_t0;)
   }
   __syncthreads();
   if (threadIdx.x == 0 && !k.dual) {
@@ -1014,6 +1043,9 @@ __global__ void shard_D3(ShardArgs a) {
     out[1] = emit;
     out[2] = absorb;
   }
+  SH_ADD(clk, SH_D3_COUNT, sh_p);
+  SH_ADD(clk, SH_D3_TOTAL, sh_t0);
+  SH_CLOCK(if (clk && blockIdx.x == 0) shard_cycles[SH_PARTS + SH_N_D3] += 1;)
 }
 
 // itscp_step.cuh's lane_queue with the loads of each chunk of QCHUNK cells
@@ -1144,7 +1176,7 @@ __global__ void shard_E(ShardArgs a, Geo geo) {
     SH_ADD(clk, SH_E_STORE, sh_p);
   }
   SH_ADD(clk, SH_E_TOTAL, sh_t0);
-  SH_CLOCK(if (clk && blockIdx.x == 0) shard_cycles[SH_PARTS + 1] += 1;)
+  SH_CLOCK(if (clk && blockIdx.x == 0) shard_cycles[SH_PARTS + SH_N_E] += 1;)
 }
 
 // s + x[0] + x[1] + ... + x[n - 1] in float64, one add after another; the
@@ -1449,30 +1481,43 @@ int launch_itscp_shard(int body, int dual, const void* args, int repeat,
 }
 
 #ifdef DHTS_SHARD_CLOCK
-// The cycle stamps summed since the last reset, shard_cycles[SH_PARTS + 2]
-// (the parts of ShardPart, then the C and E launches stamped), into host
-// memory `out`; `reset` zeroes them first instead. Returns the CUDA error
-// code.
+// The cycle stamps summed since the last reset, shard_cycles[SH_PARTS +
+// SH_LAUNCHES] (the parts of ShardPart, then the C, E, B and D3 launches
+// stamped), into host memory `out`; `reset` zeroes them first instead.
+// Returns the CUDA error code.
 int itscp_shard_clock(long long* out, int reset) {
 #ifdef DHTS_CPU_EMULATION
-  for (int i = 0; i < SH_PARTS + 2; ++i) {
+  for (int i = 0; i < SH_PARTS + SH_LAUNCHES; ++i) {
     if (reset) shard_cycles[i] = 0;
     out[i] = shard_cycles[i];
   }
   return 0;
 #else
   if (reset) {
-    const long long zero[SH_PARTS + 2] = {};
+    const long long zero[SH_PARTS + SH_LAUNCHES] = {};
     const cudaError_t err =
         cudaMemcpyToSymbol(shard_cycles, zero, sizeof(zero));
     if (err != cudaSuccess) return (int)err;
   }
   return (int)cudaMemcpyFromSymbol(out, shard_cycles,
-                                   sizeof(long long) * (SH_PARTS + 2));
+                                   sizeof(long long) *
+                                       (SH_PARTS + SH_LAUNCHES));
 #endif
 }
 
-// Each local lane's own C cycles summed since the last reset (block 0),
+// The local lane whose thread stamps B's and D3's parts. Returns the CUDA
+// error code.
+int itscp_shard_clock_lane(int lane) {
+  if (lane < 0 || lane >= MAX_LANES) return 1;
+#ifdef DHTS_CPU_EMULATION
+  shard_clock_lane = lane;
+  return 0;
+#else
+  return (int)cudaMemcpyToSymbol(shard_clock_lane, &lane, sizeof(int));
+#endif
+}
+
+// Each local lane's own cycles summed since the last reset (block 0),
 // shard_lane_cycles[0..n), into host memory `out`; `reset` zeroes them
 // first instead. Returns the CUDA error code.
 int itscp_shard_clock_lanes(long long* out, int n, int reset) {

@@ -1,5 +1,5 @@
-"""Where a launch of the lane-sharded step's C and E goes, from in-kernel
-cycle stamps.
+"""Where a launch of the lane-sharded step's B, C, D3 and E goes, from
+in-kernel cycle stamps.
 
     python -m dhts_torch.ops.cuda.shard_clock [--launches 50] [--repeats 5]
 
@@ -8,18 +8,25 @@ block 0, the thread that does a part adds up its cycles: the running
 mean's fold, and on thread 0's path its set-up and any wait for the mean,
 its own lane's update, the rows out, its wait for the other lanes and the
 wave maximum in C; its way to its gates (set-up, first cells, any wait),
-its lane's queue and the store in E; the whole launch; each lane its own
-update's cycles in C) and runs the 3x3 hybrid preset
+its lane's queue and the store in E; on the path of one lane's thread its
+set-up, its signals, the injection and ghosts, the head's blend, the
+leader walk, the rows out and the injection count (with any wait for the
+other lanes) in B, and its set-up, ``convert``, ``static_partials`` and
+the emit and absorb counts in D3; the whole launch; each lane its own
+update's cycles in C, its whole path before the count in B and D3) and
+runs the 3x3 hybrid preset
 of ``run_itscp_hybrid.sh`` (T = 600, 144 lanes, S = 4 shards of 36 lanes,
 all in this process, B = 1, action 0.55, the draws of ``chip_smoke.py``'s
 ``shard_timing``) on the card through three kernels of each body: the
 hard forward, the soft forward and the derivative (``Dual``, 45 blocks,
 block 0 seeds action entry 0). Each steps the episode to the first quiet
 step from 100 (:func:`quiet_step`, the step ``shard_timing`` times at) and
-relaunches each shard's C and E there (shard 0 first: ``shard_timing``
-times it), with that step's gathered rows in place. Prints one JSON line
-per kernel, shard and body: the stamped launch's
-cycles by part, each lane's own C cycles (the most and the mean over macro
+relaunches each shard's B, C, D3 and E there (shard 0 first:
+``shard_timing`` times it), with that step's gathered rows in place. B's
+and D3's parts are stamped on the path of the lane that took the most
+cycles in a first stamped run (its local index is ``clock_lane``). Prints
+one JSON line per kernel, shard and body: the stamped launch's
+cycles by part, each lane's own cycles (the most and the mean over macro
 and over micro lanes), the ms a launch of both builds (CUDA events around
 ``--launches`` launches back to back, median of ``--repeats``, the state
 restored before each), the launch's cycles at the SM clock beside its ms,
@@ -42,9 +49,15 @@ from dhts_torch.ops.cuda import itscp_spatial_shard as ks
 from dhts_torch.ops.cuda import itscp_spatial_step as k6
 from dhts_torch.ops.cuda import spatial_clock
 
-# the parts of csrc/itscp_spatial_shard.cu's ShardPart, in order
+# the parts of csrc/itscp_spatial_shard.cu's ShardPart, in order, and the
+# bodies whose launches it counts (ShardLaunch)
 PARTS = ("C_fold", "C_wait", "C_lane", "C_rows", "C_end_wait", "C_wave",
-         "C_total", "E_fold", "E_wait", "E_queue", "E_store", "E_total")
+         "C_total", "E_fold", "E_wait", "E_queue", "E_store", "E_total",
+         "B_setup", "B_signals", "B_ghosts", "B_blend", "B_walk", "B_rows",
+         "B_count", "B_total", "D3_setup", "D3_convert", "D3_static",
+         "D3_count", "D3_total")
+LAUNCHED = ("C", "E", "B", "D3")
+BODIES = ("B", "C", "D3", "E")
 SHARDS, WARM = 4, 100
 KINDS = ("hard", "soft", "dual")
 
@@ -57,20 +70,23 @@ def bind_clock(lib: ctypes.CDLL) -> ctypes.CDLL:
     lib.itscp_shard_clock_lanes.argtypes = [ctypes.c_void_p, ctypes.c_int,
                                             ctypes.c_int]
     lib.itscp_shard_clock_lanes.restype = ctypes.c_int
+    lib.itscp_shard_clock_lane.argtypes = [ctypes.c_int]
+    lib.itscp_shard_clock_lane.restype = ctypes.c_int
     return lib
 
 
 def read_cycles(lib, reset: bool = False) -> list[int]:
     """The stamps summed since the last reset: one count per part, then
-    the C and the E launches stamped (``reset``: zero them)."""
-    buf = (ctypes.c_longlong * (len(PARTS) + 2))()
+    the launches stamped of each body of :data:`LAUNCHED` (``reset``: zero
+    them)."""
+    buf = (ctypes.c_longlong * (len(PARTS) + len(LAUNCHED)))()
     _launch.raise_on(lib.itscp_shard_clock(buf, int(reset)), "shard clock")
     return list(buf)
 
 
 def read_lane_cycles(lib, n: int, reset: bool = False) -> list[int]:
-    """Each local lane's own C cycles (block 0) summed since the last
-    reset."""
+    """Each local lane's own cycles (block 0; C's update, B's and D3's
+    path before the count) summed since the last reset."""
     buf = (ctypes.c_longlong * n)()
     _launch.raise_on(lib.itscp_shard_clock_lanes(buf, n, int(reset)),
                      "shard lane clock")
@@ -172,7 +188,7 @@ def timed_ms(q: Quiet, lib, body: str, launches: int, repeats: int) -> float:
 
 
 def lane_summary(plan, shard, per_launch) -> dict:
-    """The most and the mean of the lanes' own C cycles a launch, by
+    """The most and the mean of the lanes' own cycles a launch, by
     kind."""
     macro = plan.lane_i[0, shard.off:shard.off + shard.n].cpu().numpy() != 0
     per = np.asarray(per_launch, dtype=np.float64)
@@ -183,9 +199,12 @@ def lane_summary(plan, shard, per_launch) -> dict:
             for kind, m in (("macro", macro), ("micro", ~macro)) if m.any()}
 
 
-def stamp(q: Quiet, clocked, body: str, launches: int) -> dict:
+def stamp(q: Quiet, clocked, body: str, launches: int,
+          lane: int = 0) -> dict:
     """The stamped build's cycles a launch of ``body`` by part (over
-    ``launches`` launches from the saved state), and C's lanes' own."""
+    ``launches`` launches from the saved state; B's and D3's on the path of
+    local lane ``lane``'s thread), and the lanes' own."""
+    _launch.raise_on(clocked.itscp_shard_clock_lane(lane), "shard clock")
     read_cycles(clocked, reset=True)
     read_lane_cycles(clocked, q.shard.n, reset=True)
     q.restore()
@@ -195,14 +214,23 @@ def stamp(q: Quiet, clocked, body: str, launches: int) -> dict:
     cyc = read_cycles(clocked)
     lanes = read_lane_cycles(clocked, q.shard.n)
     q.restore()
-    n = cyc[len(PARTS) + (0 if body == "C" else 1)]
+    n = cyc[len(PARTS) + LAUNCHED.index(body)]
     parts = {p: c / max(n, 1) for p, c in zip(PARTS, cyc)
              if p.startswith(body + "_")}
     rec = {"launches_stamped": n, "cycles_per_launch": parts}
-    if body == "C":
-        rec["C_lane_cycles_per_launch"] = lane_summary(
+    if body != "E":
+        rec[f"{body}_lane_cycles_per_launch"] = lane_summary(
             q.plan, q.shard, [c / max(n, 1) for c in lanes])
+    if body in ("B", "D3"):
+        rec["clock_lane"] = lane
     return rec
+
+
+def slowest_lane(rec, body: str) -> int:
+    """The global id of the lane that took the most cycles in ``rec`` (a
+    :func:`stamp` record of ``body``)."""
+    return max(rec[f"{body}_lane_cycles_per_launch"].values(),
+               key=lambda v: v["max"])["argmax"]
 
 
 def main() -> int:
@@ -223,7 +251,7 @@ def main() -> int:
     for kind in KINDS:
         ins = spatial_clock.inputs(env, 1, 301, 0.55)
         q = Quiet(plans, kind, ins, plain)
-        for i, body in ((i, b) for i in range(SHARDS) for b in ("C", "E")):
+        for i, body in ((i, b) for i in range(SHARDS) for b in BODIES):
             if q.i != i:
                 q.use(i)
             rec = {"kernel": kind, "body": body, "S": SHARDS, "shard": i,
@@ -232,6 +260,9 @@ def main() -> int:
             rec["bit_equal"] = q.same_bits((clocked, plain), body)
             ok = ok and rec["bit_equal"]
             rec.update(stamp(q, clocked, body, args.launches))
+            if body in ("B", "D3"):
+                lane = slowest_lane(rec, body) - q.shard.off
+                rec.update(stamp(q, clocked, body, args.launches, lane))
             rec["ms_stamped"] = timed_ms(q, clocked, body, args.launches,
                                          args.repeats)
             rec["ms"] = timed_ms(q, plain, body, args.launches, args.repeats)
