@@ -20,7 +20,8 @@
 // not yet read). Dynamic shared memory is one host buffer. Float arithmetic
 // stays IEEE single precision without contraction, as on the card with
 // -fmad=false. Only what the kernels use is provided: a 1-D grid,
-// threadIdx.x and blockIdx.x, __syncthreads() and the warp primitives
+// threadIdx.x and blockIdx.x, __syncthreads(), __syncthreads_count() (a
+// count of the block's live threads) and the warp primitives
 // reached by every live thread of their group (the member mask is not
 // read), atomicAdd on int, __threadfence(), __ldcg(), a clock64() that
 // counts host nanoseconds, and named barriers (PTX bar.sync / bar.arrive
@@ -108,6 +109,7 @@ inline char* named_id = nullptr;         // [threads] the barrier it waits at
 inline int block_threads = 0;
 inline int current = 0;            // the running fiber
 inline Wait* waits = nullptr;      // [threads]
+inline int* counted = nullptr;     // [threads] __syncthreads_count's term
 inline char* parity = nullptr;     // [threads] the slot of its next shuffle
 constexpr int SLOT_WORDS = 4;     // a shuffled value: up to 32 bytes
 inline uint64_t* slots = nullptr;  // [warps][2][32][SLOT_WORDS] values
@@ -143,6 +145,17 @@ inline void wait_for(Wait w) {
   dhts_emu_swap(running, scheduler);
 }
 inline void sync_threads() { wait_for(BLOCK); }
+// __syncthreads_count: the live threads whose `pred` is nonzero, after the
+// barrier; a second barrier keeps the next count from overwriting a term
+// not yet read (a thread that has returned counts 0)
+inline int sync_threads_count(int pred) {
+  counted[current] = pred != 0;
+  sync_threads();
+  int n = 0;
+  for (int i = 0; i < block_threads; ++i) n += counted[i];
+  sync_threads();
+  return n;
+}
 inline void sync_warp() { wait_for(WARP); }
 
 // this fiber reaches named barrier `id` of `count` threads; true when it
@@ -232,6 +245,7 @@ void launch(int blocks, int threads, size_t smem, Kernel kernel,
   std::vector<Wait> wait(threads);
   std::vector<char> par(threads);
   std::vector<char> nid(threads);
+  std::vector<int> cnt(threads);
   std::vector<uint64_t> slot(size_t(warps) * 64 * SLOT_WORDS);
   auto call = [&] { kernel(args...); };
   using Call = decltype(call);
@@ -241,6 +255,7 @@ void launch(int blocks, int threads, size_t smem, Kernel kernel,
   waits = wait.data();
   parity = par.data();
   named_id = nid.data();
+  counted = cnt.data();
   block_threads = threads;
   slots = slot.data();
   for (int b = 0; b < blocks; ++b) {
@@ -250,6 +265,7 @@ void launch(int blocks, int threads, size_t smem, Kernel kernel,
       ctx[i] = new_fiber(stacks + size_t(i) * STACK, STACK);
       wait[i] = RUN;
       par[i] = 0;
+      cnt[i] = 0;
     }
     for (int live = threads; live > 0;) {
       for (int i = 0; i < threads; ++i) {
@@ -259,7 +275,7 @@ void launch(int blocks, int threads, size_t smem, Kernel kernel,
         running = &ctx[i];
         finished = false;
         dhts_emu_swap(&scheduler, ctx[i]);
-        if (finished) { wait[i] = DONE; --live; }
+        if (finished) { wait[i] = DONE; cnt[i] = 0; --live; }
       }
       // a named barrier may have released fibers this pass has passed
       bool any_run = false;
@@ -277,6 +293,7 @@ void launch(int blocks, int threads, size_t smem, Kernel kernel,
   waits = nullptr;
   parity = nullptr;
   named_id = nullptr;
+  counted = nullptr;
   slots = nullptr;
 }
 }  // namespace dhts_emu
@@ -284,6 +301,7 @@ void launch(int blocks, int threads, size_t smem, Kernel kernel,
 #define threadIdx (::dhts_emu::thread_idx)
 #define blockIdx (::dhts_emu::block_idx)
 #define __syncthreads() (::dhts_emu::sync_threads())
+#define __syncthreads_count(p) (::dhts_emu::sync_threads_count(p))
 #define DHTS_DYNAMIC_SMEM(name) char* name = ::dhts_emu::dyn_smem
 
 inline void __syncwarp(unsigned = 0xffffffffu) { ::dhts_emu::sync_warp(); }

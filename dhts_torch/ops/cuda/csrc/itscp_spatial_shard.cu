@@ -42,7 +42,11 @@
 //
 // C spreads a lane over SPLIT threads where it fits (one Riemann solve or
 // a few vehicles a thread, the fluxes handed on by shuffles): a macro
-// lane's serial Godunov update set its launch before.
+// lane's serial Godunov update set its launch before. B and D3 share
+// nothing in the block: each lane computes the signals it reads in
+// registers (a table of every lane's signal took a third of B), loads
+// what it reads ahead of its use, and the forward's counts are a
+// barrier's count (thread 0 added them after a barrier before).
 //
 // Bound. Each launch moves the shard's share of a step's state (the macro
 // cells, the vehicles present, the counters) and the gathered rows, a few
@@ -176,10 +180,10 @@ __device__ __forceinline__ void put_row(float* v, float* d, size_t i,
 }
 
 // what convert() reads of the gathered rows (the STEP kernel's shared
-// summaries)
-template <class S>
+// summaries); `Best`: how it reads the arbitration's winners
+template <class S, class Best = const int*>
 struct ConvRows {
-  const int *best, *dep_best;
+  Best best, dep_best;
   RowS<S> u_last, cap_val, hs_pos, hs_vel, hs_a;
   const float *hs_len, *hs_par;  // hs_par: rows F_AMAX.. at stride L
   const int *hs_rid, *hs_ridx;
@@ -461,6 +465,16 @@ __global__ void shard_A(ShardArgs a) {
 }
 
 // ============ B: injection, ghosts, leader walk, the head's signal =========
+// One thread a lane. The signals B reads take their few distinct values
+// from a table of 2 n_inter entries in shared memory, one per intersection
+// and direction (lane_signal's gate; 1 for a lane no signal controls), which
+// the block fills in one round before a barrier while each lane's first
+// loads are in flight (a table of every lane's signal, L entries, took a
+// third of B). Loads are issued ahead of the branches that read them: the
+// ghosts' gathered edge cells with the neighbour's kind, the leader walk's
+// first lane (the head's next) with the blend's route lanes. The forward's
+// injection count is a barrier's count (__syncthreads_count); the
+// derivative counts nothing.
 template <class S>
 __global__ void shard_B(ShardArgs a) {
   DHTS_DYNAMIC_SMEM(smem_raw);
@@ -469,39 +483,46 @@ __global__ void shard_B(ShardArgs a) {
   const int L = d.L, V = d.V, n = a.n, t = a.t;
   SH_CLOCK(const bool clk = (int)threadIdx.x == shard_clock_lane;
            long long sh_t0 = sh_now(); long long sh_p = sh_t0;)
-  S* sig = nullptr;
-  int* inj_n = nullptr;
+  S* sig_tbl = nullptr;
   size_t off_s = 0;
-  carve(&sig, L, smem_raw, off_s);
-  carve(&inj_n, n, smem_raw, off_s);
+  carve(&sig_tbl, 2 * d.n_inter, smem_raw, off_s);
   Block<S> k = block_of<S>(a);
   SH_ADD(clk, SH_B_SETUP, sh_p);
-  auto& st = k.st;
-  const LaneGeom& g = k.g;
   const Scene& sc = k.sc;
-  const int gl = k.gl;
   auto clampL = [&](int q) { return min(max(q, 0), L - 1); };
-  // every lane's signal (the ghosts and the head's blend read others')
-  const int threads = ((n + 31) / 32) * 32;  // the launch's block size
-  for (int i = threadIdx.x; i < L; i += threads)
-    sig[i] = lane_signal<S>(a.action, a.prog, d, c,
-                            lane_geom(sc, L, d.K, i), t, k.seed);
+  // lane q's signal: its intersection's and direction's gate
+  auto signal_of = [&](int q) {
+    const int* li = sc.lane_i;
+    return li[2 * L + q] ? sig_tbl[2 * li[4 * L + q] + (li[3 * L + q] != 0)]
+                         : S(1.0f);
+  };
+  const float* gv = a.gA_v + (size_t)k.e * A_ROWS * L;
+  const float* gd = k.dual ? a.gA_d + (size_t)k.e * A_ROWS * L : nullptr;
+  auto gA = [&](int r, int i) {
+    return from_parts<S>(gv[r * L + i], gd, (size_t)r * L + i);
+  };
+  auto g_inj = [&](int i) { return gv[8 * L + i] > 0.5f; };
+  auto g_count = [&](int i) {
+    return (int)gv[4 * L + i] + (g_inj(i) ? 1 : 0);
+  };
+  const int gl = k.gl;
+  const int mp = k.lane ? a.mprev[t * L + gl] : -1;
+  const int mn = k.lane ? a.mnext[t * L + gl] : -1;
+  const int threads = (n + WARP - 1) / WARP * WARP;  // the block's
+  for (int i = threadIdx.x; i < 2 * d.n_inter; i += threads) {
+    LaneGeom gi;
+    gi.approaching = 1;
+    gi.is_we = i & 1;
+    gi.inter = i >> 1;
+    sig_tbl[i] = lane_signal<S>(a.action, a.prog, d, c, gi, t, k.seed);
+  }
   __syncthreads();
   SH_ADD(clk, SH_B_SIGNALS, sh_p);
-
   int injected = 0;
   if (k.lane) {
-    const float* gv = a.gA_v + (size_t)k.e * A_ROWS * L;
-    const float* gd = k.dual ? a.gA_d + (size_t)k.e * A_ROWS * L : nullptr;
-    auto gA = [&](int r, int i) {
-      return from_parts<S>(gv[r * L + i], gd, (size_t)r * L + i);
-    };
-    auto g_inj = [&](int i) { return gv[8 * L + i] > 0.5f; };
-    auto g_count = [&](int i) {
-      return (int)gv[4 * L + i] + (g_inj(i) ? 1 : 0);
-    };
+    auto& st = k.st;
+    const LaneGeom& g = k.g;
     const float incoming = g.has_prev ? -1.0f : a.sched[t * L + gl];
-
     // apply the injection of this lane's gathered bit
     if (g_inj(gl)) {
       const int pool_idx = min(max(d.P - st.inj_left[gl], 0), d.P - 1);
@@ -512,46 +533,82 @@ __global__ void shard_B(ShardArgs a) {
       injected = 1;
     }
 
-    // macro ghosts from the neighbours' gathered edge cells
-    const int mp = a.mprev[t * L + gl], mn = a.mnext[t * L + gl];
+    // macro ghosts from the neighbours' gathered edge cells, and the
+    // signal the left one sees
     const int adjp = g.num_prev == 1 ? g.prev0 : mp;
     const int adjp_c = clampL(adjp);
-    const bool use_l =
-        (g.num_prev > 0) && (adjp >= 0) && sc.macro_at(adjp_c);
-    S gl_r = use_l ? gA(2, adjp_c) : S(0.0f);
-    S gl_u = use_l ? gA(3, adjp_c) : S(c.u_max);
-    if (!g.has_prev) { gl_r = incoming; gl_u = u_eq(S(incoming), c.u_max); }
-    const S prev_sig = !g.has_prev ? S(1.0f)
-                                   : (mp < 0 ? S(0.0f) : sig[clampL(mp)]);
-    const S bl_r = gl_r * prev_sig;
-    const S bl_u = gl_u * prev_sig + S(c.u_max) * (S(1.0f) - prev_sig);
     const int adjn = g.num_next == 1 ? g.next0 : mn;
     const int adjn_c = clampL(adjn);
+    const S l_r = gA(2, adjp_c), l_u = gA(3, adjp_c);
+    const S r_r = gA(0, adjn_c), r_u = gA(1, adjn_c);
+    const S prev_sig = !g.has_prev ? S(1.0f)
+                       : (mp < 0 ? S(0.0f) : signal_of(clampL(mp)));
+    const bool use_l =
+        (g.num_prev > 0) && (adjp >= 0) && sc.macro_at(adjp_c);
+    S gl_r = use_l ? l_r : S(0.0f);
+    S gl_u = use_l ? l_u : S(c.u_max);
+    if (!g.has_prev) { gl_r = incoming; gl_u = u_eq(S(incoming), c.u_max); }
+    const S bl_r = gl_r * prev_sig;
+    const S bl_u = gl_u * prev_sig + S(c.u_max) * (S(1.0f) - prev_sig);
     const bool use_r =
         (g.num_next > 0) && (adjn >= 0) && sc.macro_at(adjn_c);
-    const S gr_r = use_r ? gA(0, adjn_c) : S(0.0f);
-    const S gr_u = use_r ? gA(1, adjn_c) : S(c.u_max);
+    const S gr_r = use_r ? r_r : S(0.0f);
+    const S gr_u = use_r ? r_u : S(c.u_max);
     SH_ADD(clk, SH_B_GHOSTS, sh_p);
 
-    // virtual leader: walk the head vehicle's route over the gathered
-    // counts and tails (after this step's injections)
-    float* len_ = st.par[5];
+    // the head (after this step's injection)
     const int cnt = st.count[gl];
     const bool exists = cnt > 0;
     const int hi = st.vi(gl, min(max(cnt - 1, 0), V - 1));
     const S hpos = ld<S>(st.pos, hi), hvel = ld<S>(st.vel, hi);
-    const float hlen = len_[hi];
+    const float hlen = st.par[5][hi];
     const int hrid = st.rid[hi], hridx = st.ridx[hi];
+    // the signal the head sees, blended over its previous, current and next
+    // route lane
+    const int prev_l = route_at(sc.inj, sc.emit, hrid, hridx - 1, d);
+    const int next_l = route_at(sc.inj, sc.emit, hrid, hridx + 1, d);
+    const int curr_l = route_at(sc.inj, sc.emit, hrid, hridx, d);
+    const bool prev_exist = prev_l >= 0, next_exist = next_l >= 0;
+    auto sig_at = [&](int q) {
+      return q >= 0 ? signal_of(clampL(q)) : S(0.0f);
+    };
+    const S sig_c = sig_at(curr_l), sig_p = sig_at(prev_l),
+            sig_n = sig_at(next_l);
+    // the walk's first lane, the head's next, as the walk reads it
+    const int w0 = clampL(next_l);
+    const bool w0_macro = sc.macro_at(w0);
+    const int w0_count = g_count(w0);
+    const S red_pd = vmax((S(g.length) - hpos) - S(hlen * 0.5f), S(0.0f));
+    S p_sc, c_sc, n_sc;
+    if (d.mode != HARD) {
+      p_sc = prev_exist ? soft(-hpos, 16.0f) : S(0.0f);
+      c_sc = soft(hpos, 16.0f) * soft(S(g.length) - hpos, 16.0f);
+      n_sc = next_exist ? soft(hpos - S(g.length), 16.0f) : S(0.0f);
+    } else {
+      p_sc = 0.0f; c_sc = 1.0f; n_sc = 0.0f;
+    }
+    const S ssum = (p_sc + c_sc) + n_sc;
+    p_sc = p_sc / ssum; c_sc = c_sc / ssum; n_sc = n_sc / ssum;
+    S fsig = c_sc * sig_c;
+    fsig = fsig + (prev_exist ? p_sc * sig_p : S(0.0f));
+    fsig = fsig + (next_exist ? n_sc * sig_n : S(0.0f));
+    const bool blend = exists && !g.is_macro;
+    SH_ADD(clk, SH_B_BLEND, sh_p);
+
+    // virtual leader: walk the head vehicle's route over the gathered
+    // counts and tails (after this step's injections)
     const S base = (S(g.length) - hpos) - S(hlen * 0.5f);
     bool done = !exists, found = false;
     int wstar = -1;
     S cdel_st = 0.0f, cur = base;
     for (int q = 0; q < d.W && !done; ++q) {
-      const int wl = route_at(sc.inj, sc.emit, hrid, hridx + 1 + q, d);
+      const int wl = q == 0 ? next_l
+                            : route_at(sc.inj, sc.emit, hrid, hridx + 1 + q,
+                                       d);
       const bool ex = wl >= 0;
       const int wc = clampL(wl);
-      const bool w_macro = ex && sc.macro_at(wc);
-      if (ex && !w_macro && g_count(wc) > 0) {
+      const bool w_macro = ex && (q == 0 ? w0_macro : sc.macro_at(wc));
+      if (ex && !w_macro && (q == 0 ? w0_count : g_count(wc)) > 0) {
         wstar = wl; cdel_st = detached(cur); found = true; done = true;
       } else if (!ex || w_macro) {
         done = true;
@@ -573,47 +630,22 @@ __global__ void shard_B(ShardArgs a) {
       sd_g = 0.0f;
     }
     SH_ADD(clk, SH_B_WALK, sh_p);
-    // the signal the head sees, blended over its previous, current and next
-    // route lane
-    const S red_pd = vmax((S(g.length) - hpos) - S(hlen * 0.5f), S(0.0f));
-    const int prev_l = route_at(sc.inj, sc.emit, hrid, hridx - 1, d);
-    const int next_l = route_at(sc.inj, sc.emit, hrid, hridx + 1, d);
-    const int curr_l = route_at(sc.inj, sc.emit, hrid, hridx, d);
-    const bool prev_exist = prev_l >= 0, next_exist = next_l >= 0;
-    S p_sc, c_sc, n_sc;
-    if (d.mode != HARD) {
-      p_sc = prev_exist ? soft(-hpos, 16.0f) : S(0.0f);
-      c_sc = soft(hpos, 16.0f) * soft(S(g.length) - hpos, 16.0f);
-      n_sc = next_exist ? soft(hpos - S(g.length), 16.0f) : S(0.0f);
-    } else {
-      p_sc = 0.0f; c_sc = 1.0f; n_sc = 0.0f;
-    }
-    const S ssum = (p_sc + c_sc) + n_sc;
-    p_sc = p_sc / ssum; c_sc = c_sc / ssum; n_sc = n_sc / ssum;
-    auto sig_at = [&](int q) { return q >= 0 ? sig[clampL(q)] : S(0.0f); };
-    S fsig = c_sc * sig_at(curr_l);
-    fsig = fsig + (prev_exist ? p_sc * sig_at(prev_l) : S(0.0f));
-    fsig = fsig + (next_exist ? n_sc * sig_at(next_l) : S(0.0f));
-    const bool blend = exists && !g.is_macro;
-    SH_ADD(clk, SH_B_BLEND, sh_p);
 
+    const S sig_l = signal_of(gl);
     const size_t base_bc = (size_t)k.e * BC_ROWS * n + k.j;
-    const S rows[BC_ROWS] = {bl_r, bl_u, gr_r, gr_u, sig[gl], pd_g, sd_g,
+    const S rows[BC_ROWS] = {bl_r, bl_u, gr_r, gr_u, sig_l, pd_g, sd_g,
                              red_pd, fsig, S(blend ? 1.0f : 0.0f)};
     for (int r = 0; r < BC_ROWS; ++r)
       put_row(a.bc_v, a.bc_d, base_bc + (size_t)r * n, rows[r]);
     const size_t base_sg = (size_t)k.e * 2 * n + k.j;
     a.sg[base_sg] = blend ? val(fsig) : 0.0f;
     a.sg[base_sg + n] = blend ? 1.0f : 0.0f;
-    inj_n[k.j] = injected;
     SH_ADD(clk, SH_B_ROWS, sh_p);
     SH_CLOCK(if (blockIdx.x == 0) shard_lane_cycles[k.j] += sh_now() - sh_t0;)
   }
-  __syncthreads();
-  if (threadIdx.x == 0 && !k.dual) {
-    int tot = 0;
-    for (int q = 0; q < n; ++q) tot += inj_n[q];
-    a.events[((size_t)k.e * d.T + t) * 3] = tot;
+  if (!k.dual) {
+    const int tot = __syncthreads_count(injected);
+    if (threadIdx.x == 0) a.events[((size_t)k.e * d.T + t) * 3] = tot;
   }
   SH_ADD(clk, SH_B_COUNT, sh_p);
   SH_ADD(clk, SH_B_TOTAL, sh_t0);
@@ -985,20 +1017,78 @@ __global__ void shard_D2(ShardArgs a) {
 }
 
 // ===== D3: verdicts, removals, inserts, deposits, static-mean terms =====
+// The gathered arbitration rows (best, dep_best) at the three lanes convert
+// reads them at (the lane's own, its next lane's and its head's next
+// lane's), loaded before convert's first store
+struct Picked {
+  int at[3], v[3];
+  __device__ int operator[](int i) const {
+    return i == at[0] ? v[0] : (i == at[1] ? v[1] : v[2]);
+  }
+};
+__device__ __forceinline__ Picked pick(const int* row, int l, int mn_c,
+                                      int hn_c) {
+  return Picked{{l, mn_c, hn_c}, {row[l], row[mn_c], row[hn_c]}};
+}
+
+// E's queue chunks and D3's static terms take QCHUNK vehicles at a time
+constexpr int QCHUNK = 8;
+
+// itscp_step.cuh's static_partials (values only) with the state of every
+// cell, or of QCHUNK vehicles at a time, loaded before the sums: the same
+// operations in the same order. The loads are unconditional (indices
+// clamped to the lane's last cell or vehicle), so that none waits behind a
+// branch
+template <class St>
+__device__ __forceinline__ void static_terms(const St& st, const TermRows& s,
+                                             const LaneGeom& g, int rows,
+                                             int l, int n, const Consts& k) {
+  double cells = 0.0, vehs = 0.0;
+  if (g.is_macro) {
+    const int last = max(g.num_cell - 1, 0);
+    float r[MAXC], y[MAXC];
+#pragma unroll
+    for (int c = 0; c < MAXC; ++c) {
+      r[c] = ld<float>(st.r, st.ci(l, min(c, last)));
+      y[c] = ld<float>(st.y, st.ci(l, min(c, last)));
+    }
+#pragma unroll
+    for (int c = 0; c < MAXC; ++c)
+      if (c < g.num_cell)
+        cells += (double)(k.static_speed - comp_u(r[c], y[c], k.u_max));
+  } else {
+    for (int v0 = 0; v0 < n; v0 += QCHUNK) {
+      float sp[QCHUNK];
+#pragma unroll
+      for (int i = 0; i < QCHUNK; ++i)
+        sp[i] = ld<float>(st.vel, st.vi(l, min(v0 + i, n - 1)));
+#pragma unroll
+      for (int i = 0; i < QCHUNK; ++i)
+        if (v0 + i < n) vehs += (double)(k.static_speed - sp[i]);
+    }
+  }
+  s.red_sum[l] = cells; s.red_cnt[l] = g.is_macro ? g.num_cell : 0;
+  s.red_sum[rows + l] = vehs; s.red_cnt[rows + l] = g.is_macro ? 0 : n;
+}
+
+// One thread a lane. Every load the lane's verdicts need before their
+// first store is issued in the set-up: the requests, the capacitor slot's
+// candidates, the arbitration's winners (Picked); the static terms load
+// their cells or vehicles ahead of the sums (static_terms). The forward's
+// emit and absorb counts are two barriers' counts (__syncthreads_count);
+// the derivative counts nothing and has no barrier.
 template <class S>
 __global__ void shard_D3(ShardArgs a) {
-  DHTS_DYNAMIC_SMEM(smem_raw);
   const Dims& d = a.d;
   const Consts& c = a.k;
   const int L = d.L, K = d.K, n = a.n, t = a.t;
   SH_CLOCK(const bool clk = (int)threadIdx.x == shard_clock_lane;
            long long sh_t0 = sh_now(); long long sh_p = sh_t0;)
-  int* ev = nullptr;
-  size_t off_s = 0;
-  carve(&ev, 2 * n, smem_raw, off_s);
   Block<S> k = block_of<S>(a);
+  bool emit = false, absorb = false;
   if (k.lane) {
     const int gl = k.gl, j = k.j;
+    auto clampL = [&](int q) { return min(max(q, 0), L - 1); };
     const float* fv = a.gF_v + (size_t)k.e * F_ROWS * L;
     const float* fd = k.dual ? a.gF_d + (size_t)k.e * F_ROWS * L : nullptr;
     const int* gI = a.gI + (size_t)k.e * I_ROWS * L;
@@ -1006,9 +1096,6 @@ __global__ void shard_D3(ShardArgs a) {
     auto row = [&](int r) {
       return RowS<S>{fv + r * L, fd ? fd + r * L : nullptr};
     };
-    const ConvRows<S> s{gV, gV + L, row(F_ULAST), row(F_CAP), row(F_HPOS),
-                        row(F_HVEL), row(F_HA), fv + F_HLEN * L,
-                        fv + F_AMAX * L, gI + I_RID * L, gI + I_RIDX * L};
     const int* pr = a.pred + (size_t)k.e * 4 * n + j;
     Request<S> q;
     q.mn = gI[I_MN * L + gl];
@@ -1019,29 +1106,35 @@ __global__ void shard_D3(ShardArgs a) {
     q.slot = -1;
     for (int r = 0; r < K; ++r) {
       const int nq = k.sc.lane_i[(8 + K + r) * L + gl];
-      if (nq >= 0 && nq == q.mn) { q.slot = r; break; }
+      if (q.slot < 0 && nq >= 0 && nq == q.mn) q.slot = r;
     }
+    const int mn_c = clampL(q.mn), hn_c = clampL(q.hnext);
+    const ConvRows<S, Picked> s{
+        pick(gV, gl, mn_c, hn_c), pick(gV + L, gl, mn_c, hn_c),
+        row(F_ULAST), row(F_CAP), row(F_HPOS), row(F_HVEL), row(F_HA),
+        fv + F_HLEN * L, fv + F_AMAX * L, gI + I_RID * L, gI + I_RIDX * L};
     q.cap_v = q.slot >= 0 ? s.cap_val[gl] : S(0.0f);
     SH_ADD(clk, SH_D3_SETUP, sh_p);
     const Verdict vd = convert<S>(k.st, s, k.sc, k.g, q, d, c, gl);
     SH_ADD(clk, SH_D3_CONVERT, sh_p);
-    ev[j] = vd.is_emit ? 1 : 0;
-    ev[n + j] = (vd.exit_none || vd.dep_win) ? 1 : 0;
+    emit = vd.is_emit;
+    absorb = vd.exit_none || vd.dep_win;
     // this lane's static running-mean terms, after the conversion (rows of
     // n lanes, addressed by global id)
-    TermRows terms{a.ss + (size_t)k.e * 2 * n - a.off,
-                   a.ssn + (size_t)k.e * 2 * n - a.off};
-    static_partials<S>(k.st, terms, k.g, n, gl, vd.n, c);
+    const TermRows terms{a.ss + (size_t)k.e * 2 * n - a.off,
+                         a.ssn + (size_t)k.e * 2 * n - a.off};
+    static_terms(k.st, terms, k.g, n, gl, vd.n, c);
     SH_ADD(clk, SH_D3_STATIC, sh_p);
     SH_CLOCK(if (blockIdx.x == 0) shard_lane_cycles[j] += sh_now() - sh_t0;)
   }
-  __syncthreads();
-  if (threadIdx.x == 0 && !k.dual) {
-    int emit = 0, absorb = 0;
-    for (int q = 0; q < n; ++q) { emit += ev[q]; absorb += ev[n + q]; }
-    int* out = a.events + ((size_t)k.e * d.T + t) * 3;
-    out[1] = emit;
-    out[2] = absorb;
+  if (!k.dual) {
+    const int n_emit = __syncthreads_count(emit);
+    const int n_absorb = __syncthreads_count(absorb);
+    if (threadIdx.x == 0) {
+      int* out = a.events + ((size_t)k.e * d.T + t) * 3;
+      out[1] = n_emit;
+      out[2] = n_absorb;
+    }
   }
   SH_ADD(clk, SH_D3_COUNT, sh_p);
   SH_ADD(clk, SH_D3_TOTAL, sh_t0);
@@ -1051,7 +1144,6 @@ __global__ void shard_D3(ShardArgs a) {
 // itscp_step.cuh's lane_queue with the loads of each chunk of QCHUNK cells
 // or vehicles issued before its arithmetic (the same operations in the same
 // order): a chunk's state, and a macro lane's cell speeds
-constexpr int QCHUNK = 8;
 template <class S>
 struct QueueChunk {
   S x[QCHUNK], u[QCHUNK];  // the cells' densities and speeds; the speeds
@@ -1257,25 +1349,22 @@ __global__ void shard_Q(ShardArgs a) {
   }
 }
 
-// dynamic shared memory of a body's block
+// dynamic shared memory of a body's block (B, C, E, Q; the others take
+// none)
 template <class S>
-size_t smem_of(int body, int L, int n) {
+size_t smem_of(int body, const Dims& d) {
+  const int L = d.L;
   size_t off = 0;
   char* none = nullptr;
   if (body == BODY_B) {
     S* s = nullptr;
-    int* i = nullptr;
-    carve(&s, L, none, off);
-    carve(&i, n, none, off);
+    carve(&s, 2 * d.n_inter, none, off);
   } else if (body == BODY_C) {
     float* f = nullptr;
     double* x = nullptr;
     carve(&f, 1, none, off);
     carve(&f, MAX_WARPS, none, off);
     carve(&x, L, none, off);
-  } else if (body == BODY_D3) {
-    int* i = nullptr;
-    carve(&i, 2 * n, none, off);
   } else if (body == BODY_E) {
     float* f = nullptr;
     double* x = nullptr;
@@ -1380,12 +1469,11 @@ int c_threads_a_lane(const ShardArgs& a, size_t smem) {
 template <class S, class Kernel, class... X>
 int run(Kernel kernel, int body, const ShardArgs& a, int repeat,
         void* stream, int threads, X... x) {
-  // B, C, E and Q size their shared memory by the scene's L (a step's
-  // gathered signals; the folds' staged terms; Q's tile of whole rows):
-  // within the 48 KB a block takes without opting in up to thousands of
-  // lanes (10.4 KB, 10.5 KB, 20.7 KB and 46.7 KB for a Dual B, C, E and Q
-  // at the 9x9 scene's 1,296)
-  const size_t smem = smem_of<S>(body, a.d.L, a.n);
+  // C, E and Q size their shared memory by the scene's L (the folds'
+  // staged terms; Q's tile of whole rows): within the 48 KB a block takes
+  // without opting in up to thousands of lanes (10.5 KB, 20.7 KB and 46.7
+  // KB for a Dual C, E and Q at the 9x9 scene's 1,296)
+  const size_t smem = smem_of<S>(body, a.d);
   if (smem > (size_t)Q_SMEM) return 1;  // cudaErrorInvalidValue
   const int blocks = body == BODY_Q ? a.N * q_tiles(a.d.T, a.d.L) : a.N;
   for (int r = 0; r < repeat; ++r) {
@@ -1439,8 +1527,7 @@ int launch_itscp_shard(int body, int dual, const void* args, int repeat,
       (!dual && a->dbuf && dual_ok) || repeat < 1)
     return 1;
   const int r = repeat, nt = (a->n + WARP - 1) / WARP * WARP;
-  const size_t smem_c = dual ? smem_of<Dual>(BODY_C, d.L, a->n)
-                             : smem_of<float>(BODY_C, d.L, a->n);
+  const size_t smem_c = smem_of<float>(BODY_C, d);
   const int G = body != BODY_C ? 1
                 : dual         ? c_threads_a_lane<Dual>(*a, smem_c)
                                : c_threads_a_lane<float>(*a, smem_c);

@@ -1206,17 +1206,19 @@ class ShardRun:
 
     def checked_dual_step(self, t: int, bodies=("C", "E"), rtol=1e-5,
                           atol=1e-5, value_tol=(0.0, 0.0)):
-        """Step t of a derivative with each launch of ``bodies`` (C, E)
-        held against its plain body under forward-mode AD on the same dual
-        inputs: integers equal, values allclose(*value_tol) (equal by
+        """Step t of a derivative with each launch of ``bodies`` (any of B,
+        C, D3, E) held against its plain body under forward-mode AD on the
+        same dual inputs (the outputs a derivative writes: no events, no
+        wave): integers equal, values allclose(*value_tol) (equal by
         default), tangents allclose(rtol, atol * the output's largest
         reference tangent). Returns ``{body: max_abs_tangent_err}`` and
         raises ``AssertionError`` naming the first output that
         differs."""
         import torch.autograd.forward_ad as fwad
 
-        if not self.dual or not set(bodies) <= {"C", "E"}:
-            raise ValueError("the dual check runs C and E of a derivative")
+        if not self.dual or not set(bodies) <= {"B", "C", "D3", "E"}:
+            raise ValueError("the dual check runs B, C, D3 and E of a "
+                             "derivative")
         errs = {}
 
         def parts(x):
@@ -1251,7 +1253,7 @@ class ShardRun:
                     refs = [{k: tuple(parts(x) for x in v) if k == "carry"
                              else parts(v)
                              for k, v in self.plain(body, i, t).items()
-                             if k != "wave"}
+                             if k not in ("wave", "n_inj", "events")}
                             for i in range(len(self.shards))]
                 self.launch(body, t)
                 for i, ref in enumerate(refs):
@@ -1270,17 +1272,23 @@ class ShardRun:
         return errs
 
     def _dual_written(self, body: str, i: int, t: int) -> dict:
-        """What C or E of step t wrote on shard i of a derivative:
+        """What B, C, D3 or E of step t wrote on shard i of a derivative:
         ``{output: (values, tangents or None)}``."""
         _, p_n, b, _ = self.shards[i]
         carry, sg_ms, ss_ms = k6.unpack(p_n, b["fbuf"], b["ibuf"])
         tans = k6.unpack(p_n, b["dbuf"], b["ibuf"])[0]
         carry = tuple((x, tans[j] if j in k6.CARRY_DIFF else None)
                       for j, x in enumerate(carry))
+        if body == "B":
+            return dict(carry=carry, bc=(b["bc_v"], b["bc_d"]),
+                        sg=(b["sg"], None))
         if body == "C":
             return dict(carry=carry, sg_ms=(sg_ms, None),
                         sumF=(b["sumF_v"], b["sumF_d"]),
                         sumI=(b["sumI"], None))
+        if body == "D3":
+            return dict(carry=carry, ss=(b["ss"], None),
+                        ssn=(b["ssn"], None))
         return dict(carry=carry, ss_ms=(ss_ms, None),
                     q2=(b["q_v"][:, t], b["q_d"][:, t]))
 
