@@ -82,8 +82,12 @@ __device__ __forceinline__ float min_of(float a, float b) {
 
 // max/min with a tie splitting the tangent 0.5/0.5 (jnp.maximum, and
 // torch.maximum between tensors)
-__device__ __forceinline__ float vmax(float a, float b) { return max_of(a, b); }
-__device__ __forceinline__ float vmin(float a, float b) { return min_of(a, b); }
+__device__ __forceinline__ float vmax(float a, float b) {
+  return max_of(a, b);
+}
+__device__ __forceinline__ float vmin(float a, float b) {
+  return min_of(a, b);
+}
 __device__ __forceinline__ Dual vmax(Dual a, Dual b) {
   return Dual(max_of(a.v, b.v),
               a.v > b.v ? a.d : (a.v < b.v ? b.d : 0.5f * (a.d + b.d)));
@@ -96,13 +100,50 @@ __device__ __forceinline__ float vabs(float a) { return fabsf(a); }
 __device__ __forceinline__ Dual vabs(Dual a) {
   return Dual(fabsf(a.v), a.v > 0.0f ? a.d : (a.v < 0.0f ? -a.d : 0.0f));
 }
-__device__ __forceinline__ float vsqrt(float a) { return sqrtf(a); }
-__device__ __forceinline__ Dual vsqrt(Dual a) {
-  const float r = sqrtf(a.v);
-  return Dual(r, a.d == 0.0f ? 0.0f : a.d / (2.0f * r));
-}
 __device__ __forceinline__ float detached(float x) { return x; }
 __device__ __forceinline__ Dual detached(Dual x) { return Dual(x.v); }
+
+// A clamp's result `a` read by a root or a division: the root or quotient
+// is taken of `clean`, fmaxf's result of the same operands (a's value
+// unless that is NaN, and never NaN itself), and a NaN a given back; so
+// the compiler knows the argument positive and normal, drops the root's
+// and the quotient's slow paths and shares them between calls, as it did
+// when the clamp was fmaxf (without DHTS_KEEP_NAN it still is, and `clean`
+// is a's value)
+__device__ __forceinline__ float with_nan(float a, float v) {
+#ifdef DHTS_KEEP_NAN
+  return a != a ? a : v;
+#else
+  (void)a;
+  return v;
+#endif
+}
+// vsqrt(a)
+__device__ __forceinline__ float vsqrt_of(float a, float clean) {
+  return with_nan(a, sqrtf(clean));
+}
+__device__ __forceinline__ Dual vsqrt_of(Dual a, float clean) {
+  const float r = sqrtf(clean);
+  return Dual(with_nan(a.v, r), a.d == 0.0f ? 0.0f : a.d / (2.0f * r));
+}
+// 1 / vsqrt(a)
+__device__ __forceinline__ float vrsqrt_of(float a, float clean) {
+  return with_nan(a, 1.0f / sqrtf(clean));
+}
+__device__ __forceinline__ Dual vrsqrt_of(Dual a, float clean) {
+  const float r = sqrtf(clean);
+  const float rd = a.d == 0.0f ? 0.0f : a.d / (2.0f * r);
+  const float q = 1.0f / r;
+  return Dual(with_nan(a.v, q), (0.0f - q * rd) / r);
+}
+// y / b
+__device__ __forceinline__ float vdiv_by(float y, float b, float clean) {
+  return with_nan(b, y / clean);
+}
+__device__ __forceinline__ Dual vdiv_by(Dual y, Dual b, float clean) {
+  const float q = y.v / clean;
+  return Dual(with_nan(b.v, q), (y.d - q * b.d) / clean);
+}
 
 // ---------------------------------------------------------------------------
 // soft gates and gradient plumbing (dhts_torch.ops.dmath)
@@ -163,14 +204,16 @@ __host__ __device__ inline void carve(T** p, size_t n, char* base,
 
 template <class S>
 __device__ __forceinline__ S u_eq(S r, float u_max) {
+  const float clean = fmaxf(val(r), 0.0f) + EPS;
   r = vmax(r, S(0.0f));
-  return S(u_max) * (S(1.0f) - vsqrt(r + S(EPS)));
+  return S(u_max) * (S(1.0f) - vsqrt_of(r + S(EPS), clean));
 }
 
 template <class S>
 __device__ __forceinline__ S u_eq_prime(S r, float u_max) {
+  const float clean = fmaxf(val(r), EPS);
   r = vmax(r, S(EPS));
-  return S(-(u_max * 0.5f)) * (S(1.0f) / vsqrt(r));
+  return S(-(u_max * 0.5f)) * vrsqrt_of(r, clean);
 }
 
 template <class S>
@@ -180,8 +223,9 @@ __device__ __forceinline__ S comp_y(S r, S u, float u_max) {
 
 template <class S>
 __device__ __forceinline__ S comp_u(S r, S y, float u_max) {
+  const float clean = fmaxf(val(r), EPS);
   r = vmax(r, S(EPS));
-  return y / r + u_eq(r, u_max);
+  return vdiv_by(y, r, clean) + u_eq(r, u_max);
 }
 
 template <class S>
@@ -200,7 +244,7 @@ __device__ __forceinline__ void riemann(S rl, S yl, S ul, S rr, S ur,
                                         float& wave) {
   const S u_eq_l = u_eq(rl, u_max);
   const S lam0_l = lambda0(rl, ul, u_max);
-  const S r_l_pow = vsqrt(vmax(rl, S(EPS)));
+  const S r_l_pow = vsqrt_of(vmax(rl, S(EPS)), fmaxf(val(rl), EPS));
 
   const S tm = r_l_pow + (ul - ur) / S(u_max);
   const S r_m = tm * tm;
@@ -224,7 +268,9 @@ __device__ __forceinline__ void riemann(S rl, S yl, S ul, S rr, S ur,
   taken = taken || shock;
   const bool rare = !taken && (val(u_vac) > val(ur));
 
-  const S shock_speed = (flux_r_m - rl * ul) / vmax(r_m - rl, S(EPS));
+  const S dr = r_m - rl;
+  const S shock_speed = vdiv_by(flux_r_m - rl * ul, vmax(dr, S(EPS)),
+                                fmaxf(val(dr), EPS));
   const S half_lam_m = (lam0_l + lam0_m) * S(0.5f);
   const S half_lam_vac = (lam0_l + u_vac) * S(0.5f);
 
@@ -281,13 +327,14 @@ __device__ __forceinline__ bool idm_step(S p, S sp, S pdel, S sdel,
                                          float idm_den, float dt, S& new_p,
                                          S& new_v) {
   if (val(pdel) < 0.0f) { pdel = 0.0f; sdel = 0.0f; }
+  const float pclean = fmaxf(val(pdel), EPS);
   pdel = vmax(pdel, S(EPS));
   const S os = vmax((S(min_space) + sp * S(time_pref)) +
                         (sp * sdel) / S(idm_den),
                     S(0.0f));
   const S q = sp / S(tgt);
   const S q2 = q * q;
-  const S z = os / pdel;
+  const S z = vdiv_by(os, pdel, pclean);
   const S acc_raw = S(amax) * ((S(1.0f) - q2 * q2) - z * z);
   const S acc_floor = -sp / S(dt);
   const S acc = vmax(acc_raw, acc_floor);
