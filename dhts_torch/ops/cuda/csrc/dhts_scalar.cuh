@@ -103,22 +103,22 @@ __device__ __forceinline__ Dual vabs(Dual a) {
 __device__ __forceinline__ float detached(float x) { return x; }
 __device__ __forceinline__ Dual detached(Dual x) { return Dual(x.v); }
 
-// A clamp's result `a` read by a root or a division: the root or quotient
-// is taken of `clean`, fmaxf's result of the same operands (a's value
-// unless that is NaN, and never NaN itself), and a NaN a given back; so
-// the compiler knows the argument positive and normal, drops the root's
-// and the quotient's slow paths and shares them between calls, as it did
-// when the clamp was fmaxf (without DHTS_KEEP_NAN it still is, and `clean`
-// is a's value)
-__device__ __forceinline__ float with_nan(float a, float v) {
-#ifdef DHTS_KEEP_NAN
-  return a != a ? a : v;
-#else
-  (void)a;
-  return v;
-#endif
+__device__ __forceinline__ float vsqrt(float a) { return sqrtf(a); }
+__device__ __forceinline__ Dual vsqrt(Dual a) {
+  const float r = sqrtf(a.v);
+  return Dual(r, a.d == 0.0f ? 0.0f : a.d / (2.0f * r));
 }
-// vsqrt(a)
+
+// vsqrt(a), 1 / vsqrt(a) and y / b of a clamp's result a or b. With
+// DHTS_KEEP_NAN the root or quotient is taken of `clean`, fmaxf's result
+// of the clamp's operands (a's or b's value unless that is NaN, and never
+// NaN itself), and a NaN a or b given back: the compiler then shares equal
+// roots between calls as it did when the clamp was fmaxf. Without it they
+// are the plain operations.
+#ifdef DHTS_KEEP_NAN
+__device__ __forceinline__ float with_nan(float a, float v) {
+  return a != a ? a : v;
+}
 __device__ __forceinline__ float vsqrt_of(float a, float clean) {
   return with_nan(a, sqrtf(clean));
 }
@@ -126,7 +126,6 @@ __device__ __forceinline__ Dual vsqrt_of(Dual a, float clean) {
   const float r = sqrtf(clean);
   return Dual(with_nan(a.v, r), a.d == 0.0f ? 0.0f : a.d / (2.0f * r));
 }
-// 1 / vsqrt(a)
 __device__ __forceinline__ float vrsqrt_of(float a, float clean) {
   return with_nan(a, 1.0f / sqrtf(clean));
 }
@@ -136,7 +135,6 @@ __device__ __forceinline__ Dual vrsqrt_of(Dual a, float clean) {
   const float q = 1.0f / r;
   return Dual(with_nan(a.v, q), (0.0f - q * rd) / r);
 }
-// y / b
 __device__ __forceinline__ float vdiv_by(float y, float b, float clean) {
   return with_nan(b, y / clean);
 }
@@ -144,6 +142,20 @@ __device__ __forceinline__ Dual vdiv_by(Dual y, Dual b, float clean) {
   const float q = y.v / clean;
   return Dual(with_nan(b.v, q), (y.d - q * b.d) / clean);
 }
+#else
+template <class S>
+__device__ __forceinline__ S vsqrt_of(S a, float) {
+  return vsqrt(a);
+}
+template <class S>
+__device__ __forceinline__ S vrsqrt_of(S a, float) {
+  return S(1.0f) / vsqrt(a);
+}
+template <class S>
+__device__ __forceinline__ S vdiv_by(S y, S b, float) {
+  return y / b;
+}
+#endif
 
 // ---------------------------------------------------------------------------
 // soft gates and gradient plumbing (dhts_torch.ops.dmath)

@@ -179,11 +179,25 @@ __device__ __forceinline__ void put_row(float* v, float* d, size_t i,
   d[i] = x.d;
 }
 
+// The gathered arbitration rows (best, dep_best) at the three lanes convert
+// reads them at (the lane's own, its next lane's and its head's next
+// lane's), loaded before convert's first store
+struct Picked {
+  int at[3], v[3];
+  __device__ int operator[](int i) const {
+    return i == at[0] ? v[0] : (i == at[1] ? v[1] : v[2]);
+  }
+};
+__device__ __forceinline__ Picked pick(const int* row, int l, int mn_c,
+                                      int hn_c) {
+  return Picked{{l, mn_c, hn_c}, {row[l], row[mn_c], row[hn_c]}};
+}
+
 // what convert() reads of the gathered rows (the STEP kernel's shared
-// summaries); `Best`: how it reads the arbitration's winners
-template <class S, class Best = const int*>
+// summaries)
+template <class S>
 struct ConvRows {
-  Best best, dep_best;
+  Picked best, dep_best;
   RowS<S> u_last, cap_val, hs_pos, hs_vel, hs_a;
   const float *hs_len, *hs_par;  // hs_par: rows F_AMAX.. at stride L
   const int *hs_rid, *hs_ridx;
@@ -470,11 +484,12 @@ __global__ void shard_A(ShardArgs a) {
 // and direction (lane_signal's gate; 1 for a lane no signal controls), which
 // the block fills in one round before a barrier while each lane's first
 // loads are in flight (a table of every lane's signal, L entries, took a
-// third of B). Loads are issued ahead of the branches that read them: the
-// ghosts' gathered edge cells with the neighbour's kind, the leader walk's
-// first lane (the head's next) with the blend's route lanes. The forward's
-// injection count is a barrier's count (__syncthreads_count); the
-// derivative counts nothing.
+// third of B). Loads are issued ahead of what they wait for: the head's
+// fields before the injection (which only shifts them, or puts the new
+// vehicle at the head of an empty lane), the ghosts' gathered edge cells
+// with the neighbour's kind, the leader walk's first lane (the head's
+// next) with the blend's route lanes. The forward's injection count is a
+// barrier's count (__syncthreads_count); the derivative counts nothing.
 template <class S>
 __global__ void shard_B(ShardArgs a) {
   DHTS_DYNAMIC_SMEM(smem_raw);
@@ -508,6 +523,20 @@ __global__ void shard_B(ShardArgs a) {
   const int gl = k.gl;
   const int mp = k.lane ? a.mprev[t * L + gl] : -1;
   const int mn = k.lane ? a.mnext[t * L + gl] : -1;
+  // the head before this step's injection
+  auto& st = k.st;
+  const int cnt0 = k.lane ? st.count[gl] : 0;
+  const int hi0 = st.vi(gl, min(max(cnt0 - 1, 0), V - 1));
+  S hpos = 0.0f, hvel = 0.0f;
+  float hlen = 0.0f;
+  int hrid = -1, hridx = 0;
+  if (k.lane) {
+    hpos = ld<S>(st.pos, hi0);
+    hvel = ld<S>(st.vel, hi0);
+    hlen = st.par[5][hi0];
+    hrid = st.rid[hi0];
+    hridx = st.ridx[hi0];
+  }
   const int threads = (n + WARP - 1) / WARP * WARP;  // the block's
   for (int i = threadIdx.x; i < 2 * d.n_inter; i += threads) {
     LaneGeom gi;
@@ -520,17 +549,21 @@ __global__ void shard_B(ShardArgs a) {
   SH_ADD(clk, SH_B_SIGNALS, sh_p);
   int injected = 0;
   if (k.lane) {
-    auto& st = k.st;
     const LaneGeom& g = k.g;
     const float incoming = g.has_prev ? -1.0f : a.sched[t * L + gl];
-    // apply the injection of this lane's gathered bit
+    // apply the injection of this lane's gathered bit; into an empty lane,
+    // the new vehicle is the head
     if (g_inj(gl)) {
       const int pool_idx = min(max(d.P - st.inj_left[gl], 0), d.P - 1);
       st.insert_tail(gl, V, S(0.0f), S(0.0f), S(c.veh_len), nullptr,
                      gl * d.P + pool_idx, 0);
-      st.count[gl] += 1;
+      st.count[gl] = cnt0 + 1;
       st.inj_left[gl] -= 1;
       injected = 1;
+      if (cnt0 == 0) {
+        hpos = 0.0f; hvel = 0.0f; hlen = st.dflt[5];
+        hrid = gl * d.P + pool_idx; hridx = 0;
+      }
     }
 
     // macro ghosts from the neighbours' gathered edge cells, and the
@@ -556,13 +589,7 @@ __global__ void shard_B(ShardArgs a) {
     const S gr_u = use_r ? r_u : S(c.u_max);
     SH_ADD(clk, SH_B_GHOSTS, sh_p);
 
-    // the head (after this step's injection)
-    const int cnt = st.count[gl];
-    const bool exists = cnt > 0;
-    const int hi = st.vi(gl, min(max(cnt - 1, 0), V - 1));
-    const S hpos = ld<S>(st.pos, hi), hvel = ld<S>(st.vel, hi);
-    const float hlen = st.par[5][hi];
-    const int hrid = st.rid[hi], hridx = st.ridx[hi];
+    const bool exists = cnt0 + injected > 0;
     // the signal the head sees, blended over its previous, current and next
     // route lane
     const int prev_l = route_at(sc.inj, sc.emit, hrid, hridx - 1, d);
@@ -1017,20 +1044,6 @@ __global__ void shard_D2(ShardArgs a) {
 }
 
 // ===== D3: verdicts, removals, inserts, deposits, static-mean terms =====
-// The gathered arbitration rows (best, dep_best) at the three lanes convert
-// reads them at (the lane's own, its next lane's and its head's next
-// lane's), loaded before convert's first store
-struct Picked {
-  int at[3], v[3];
-  __device__ int operator[](int i) const {
-    return i == at[0] ? v[0] : (i == at[1] ? v[1] : v[2]);
-  }
-};
-__device__ __forceinline__ Picked pick(const int* row, int l, int mn_c,
-                                      int hn_c) {
-  return Picked{{l, mn_c, hn_c}, {row[l], row[mn_c], row[hn_c]}};
-}
-
 // E's queue chunks and D3's static terms take QCHUNK vehicles at a time
 constexpr int QCHUNK = 8;
 
@@ -1109,7 +1122,7 @@ __global__ void shard_D3(ShardArgs a) {
       if (q.slot < 0 && nq >= 0 && nq == q.mn) q.slot = r;
     }
     const int mn_c = clampL(q.mn), hn_c = clampL(q.hnext);
-    const ConvRows<S, Picked> s{
+    const ConvRows<S> s{
         pick(gV, gl, mn_c, hn_c), pick(gV + L, gl, mn_c, hn_c),
         row(F_ULAST), row(F_CAP), row(F_HPOS), row(F_HVEL), row(F_HA),
         fv + F_HLEN * L, fv + F_AMAX * L, gI + I_RID * L, gI + I_RIDX * L};

@@ -1,9 +1,8 @@
-"""The lane-sharded step's B, C, D3 and E of another tree and of this
+"""The lane-sharded step's A, B, C, D3 and E of another tree and of this
 checkout, in alternating pairs on one card; the sharded episodes of both against each
 other; the SASS of both trees' kernels.
 
     python tools/shard_timing.py --parent build/parent [--pairs 10]
-        [--bodies B,C,D3,E]
     python tools/shard_timing.py --compare build/parent
     python tools/shard_timing.py --parent build/parent --sass
 
@@ -22,9 +21,9 @@ library to the quiet step after 100.
 
 ``--parent`` times, in each of ``--pairs`` pairs, the parent, this
 checkout, this checkout, the parent; each visit takes every case's ms a
-launch of shard 0's bodies ``--bodies`` (default B, C, D3 and E; any of
-A-E; ``shard_clock.timed_ms``: 50 launches back to back between CUDA
-events, the state restored before each, median of ``--repeats``). Then as many pairs of this checkout's C with its lanes one
+launch of shard 0's A, B, C, D3 and E (``shard_clock.timed_ms``: 50
+launches back to back between CUDA events, the state restored before
+each, median of ``--repeats``). Then as many pairs of this checkout's C with its lanes one
 thread each (its source built with ``-DDHTS_SHARD_ONE_THREAD``) and split
 where they fit. Prints one JSON
 line: the card's name and power limit, each pair's ms (the mean of its
@@ -57,7 +56,7 @@ sys.path.insert(0, str(ROOT / "tools"))
 SHARDS = (4, 2)
 BATCHES = (1, 4)
 KINDS = ("hard", "soft", "dual")
-BODIES = ("B", "C", "D3", "E")
+BODIES = ("A", "B", "C", "D3", "E")
 
 
 def libraries(parent: Path):
@@ -180,7 +179,6 @@ def main(argv=None) -> int:
     p.add_argument("--pairs", type=int, default=10)
     p.add_argument("--repeats", type=int, default=5)
     p.add_argument("--sass", action="store_true")
-    p.add_argument("--bodies", default=",".join(BODIES))
     args = p.parse_args(argv)
     tree = args.parent or args.compare
     if tree is None:
@@ -219,7 +217,7 @@ def main(argv=None) -> int:
     rec["pairs"] = args.pairs
     rec["parent_vs_this"] = pairs(
         quiet, (("parent", libs["parent"]), ("this", this)), args.pairs,
-        args.repeats, tuple(args.bodies.split(",")))
+        args.repeats)
     # C's lanes one thread each against the split, in this checkout
     rec["one_thread_vs_split"] = pairs(
         quiet, (("one_thread", one_thread_library()), ("split", this)),
