@@ -100,14 +100,13 @@ __device__ __forceinline__ float vabs(float a) { return fabsf(a); }
 __device__ __forceinline__ Dual vabs(Dual a) {
   return Dual(fabsf(a.v), a.v > 0.0f ? a.d : (a.v < 0.0f ? -a.d : 0.0f));
 }
-__device__ __forceinline__ float detached(float x) { return x; }
-__device__ __forceinline__ Dual detached(Dual x) { return Dual(x.v); }
-
 __device__ __forceinline__ float vsqrt(float a) { return sqrtf(a); }
 __device__ __forceinline__ Dual vsqrt(Dual a) {
   const float r = sqrtf(a.v);
   return Dual(r, a.d == 0.0f ? 0.0f : a.d / (2.0f * r));
 }
+__device__ __forceinline__ float detached(float x) { return x; }
+__device__ __forceinline__ Dual detached(Dual x) { return Dual(x.v); }
 
 // vsqrt(a), 1 / vsqrt(a) and y / b of a clamp's result a or b. With
 // DHTS_KEEP_NAN the root or quotient is taken of `clean`, fmaxf's result
