@@ -52,64 +52,48 @@ __device__ __forceinline__ float val(Dual x) { return x.v; }
 __device__ __forceinline__ float tangent(float) { return 0.0f; }
 __device__ __forceinline__ float tangent(Dual x) { return x.d; }
 
-// The float max and min of every clamp. With N (the ITSCP step's kernels,
-// whose sources define DHTS_KEEP_NAN through itscp_step.cuh, on inputs that
-// hold a NaN or an infinity: see riemann and idm_step) a NaN operand gives
-// NaN, as torch.maximum and jnp.maximum do: PTX max.NaN / min.NaN (sm_80
-// and later, one instruction as fmaxf). Without it fmaxf / fminf, which
-// return the other operand (the rollouts' kernels, K2 and K3, always).
-#ifdef DHTS_KEEP_NAN
-constexpr bool KEEP_NAN = true;
-#else
-constexpr bool KEEP_NAN = false;
-#endif
-template <bool N = KEEP_NAN>
+// The float max and min of every clamp. A source that defines
+// DHTS_KEEP_NAN (the ITSCP step's kernels, through itscp_step.cuh) keeps a
+// NaN operand, as torch.maximum and jnp.maximum do: PTX max.NaN / min.NaN
+// (sm_80 and later, one instruction as fmaxf). The rollouts' kernels (K2,
+// K3) take fmaxf / fminf, which return the other operand.
 __device__ __forceinline__ float max_of(float a, float b) {
-  if constexpr (!N) {
-    return fmaxf(a, b);
-  } else {
-#ifdef DHTS_CPU_EMULATION
-    return a != a || b != b ? a + b : fmaxf(a, b);
+#if !defined(DHTS_KEEP_NAN)
+  return fmaxf(a, b);
+#elif defined(DHTS_CPU_EMULATION)
+  return a != a || b != b ? a + b : fmaxf(a, b);
 #else
-    float r;
-    asm("max.NaN.f32 %0, %1, %2;" : "=f"(r) : "f"(a), "f"(b));
-    return r;
+  float r;
+  asm("max.NaN.f32 %0, %1, %2;" : "=f"(r) : "f"(a), "f"(b));
+  return r;
 #endif
-  }
 }
-template <bool N = KEEP_NAN>
 __device__ __forceinline__ float min_of(float a, float b) {
-  if constexpr (!N) {
-    return fminf(a, b);
-  } else {
-#ifdef DHTS_CPU_EMULATION
-    return a != a || b != b ? a + b : fminf(a, b);
+#if !defined(DHTS_KEEP_NAN)
+  return fminf(a, b);
+#elif defined(DHTS_CPU_EMULATION)
+  return a != a || b != b ? a + b : fminf(a, b);
 #else
-    float r;
-    asm("min.NaN.f32 %0, %1, %2;" : "=f"(r) : "f"(a), "f"(b));
-    return r;
+  float r;
+  asm("min.NaN.f32 %0, %1, %2;" : "=f"(r) : "f"(a), "f"(b));
+  return r;
 #endif
-  }
 }
 
 // max/min with a tie splitting the tangent 0.5/0.5 (jnp.maximum, and
 // torch.maximum between tensors)
-template <bool N = KEEP_NAN>
 __device__ __forceinline__ float vmax(float a, float b) {
-  return max_of<N>(a, b);
+  return max_of(a, b);
 }
-template <bool N = KEEP_NAN>
 __device__ __forceinline__ float vmin(float a, float b) {
-  return min_of<N>(a, b);
+  return min_of(a, b);
 }
-template <bool N = KEEP_NAN>
 __device__ __forceinline__ Dual vmax(Dual a, Dual b) {
-  return Dual(max_of<N>(a.v, b.v),
+  return Dual(max_of(a.v, b.v),
               a.v > b.v ? a.d : (a.v < b.v ? b.d : 0.5f * (a.d + b.d)));
 }
-template <bool N = KEEP_NAN>
 __device__ __forceinline__ Dual vmin(Dual a, Dual b) {
-  return Dual(min_of<N>(a.v, b.v),
+  return Dual(min_of(a.v, b.v),
               a.v < b.v ? a.d : (a.v > b.v ? b.d : 0.5f * (a.d + b.d)));
 }
 __device__ __forceinline__ float vabs(float a) { return fabsf(a); }
@@ -124,65 +108,53 @@ __device__ __forceinline__ Dual vsqrt(Dual a) {
 __device__ __forceinline__ float detached(float x) { return x; }
 __device__ __forceinline__ Dual detached(Dual x) { return Dual(x.v); }
 
-// vsqrt(a), 1 / vsqrt(a) and y / b of a clamp's result a or b. With N the
-// root or quotient is taken of `clean`, fmaxf's result of the clamp's
-// operands (a's or b's value unless that is NaN, and never NaN itself),
-// and a NaN a or b given back: the compiler then shares equal roots
-// between calls as it does after fmaxf. Without N they are the plain
-// operations.
+// vsqrt(a), 1 / vsqrt(a) and y / b of a clamp's result a or b. With
+// DHTS_KEEP_NAN the root or quotient is taken of `clean`, fmaxf's result
+// of the clamp's operands (a's or b's value unless that is NaN, and never
+// NaN itself), and a NaN a or b given back: the compiler then shares equal
+// roots between calls as it did when the clamp was fmaxf. Without it they
+// are the plain operations.
+#ifdef DHTS_KEEP_NAN
 __device__ __forceinline__ float with_nan(float a, float v) {
   return a != a ? a : v;
 }
-template <bool N = KEEP_NAN>
 __device__ __forceinline__ float vsqrt_of(float a, float clean) {
-  if constexpr (!N) return vsqrt(a);
-  else return with_nan(a, sqrtf(clean));
+  return with_nan(a, sqrtf(clean));
 }
-template <bool N = KEEP_NAN>
 __device__ __forceinline__ Dual vsqrt_of(Dual a, float clean) {
-  if constexpr (!N) {
-    return vsqrt(a);
-  } else {
-    const float r = sqrtf(clean);
-    return Dual(with_nan(a.v, r), a.d == 0.0f ? 0.0f : a.d / (2.0f * r));
-  }
+  const float r = sqrtf(clean);
+  return Dual(with_nan(a.v, r), a.d == 0.0f ? 0.0f : a.d / (2.0f * r));
 }
-template <bool N = KEEP_NAN>
 __device__ __forceinline__ float vrsqrt_of(float a, float clean) {
-  if constexpr (!N) return 1.0f / vsqrt(a);
-  else return with_nan(a, 1.0f / sqrtf(clean));
+  return with_nan(a, 1.0f / sqrtf(clean));
 }
-template <bool N = KEEP_NAN>
 __device__ __forceinline__ Dual vrsqrt_of(Dual a, float clean) {
-  if constexpr (!N) {
-    return Dual(1.0f) / vsqrt(a);
-  } else {
-    const float r = sqrtf(clean);
-    const float rd = a.d == 0.0f ? 0.0f : a.d / (2.0f * r);
-    const float q = 1.0f / r;
-    return Dual(with_nan(a.v, q), (0.0f - q * rd) / r);
-  }
+  const float r = sqrtf(clean);
+  const float rd = a.d == 0.0f ? 0.0f : a.d / (2.0f * r);
+  const float q = 1.0f / r;
+  return Dual(with_nan(a.v, q), (0.0f - q * rd) / r);
 }
-template <bool N = KEEP_NAN>
 __device__ __forceinline__ float vdiv_by(float y, float b, float clean) {
-  if constexpr (!N) return y / b;
-  else return with_nan(b, y / clean);
+  return with_nan(b, y / clean);
 }
-template <bool N = KEEP_NAN>
 __device__ __forceinline__ Dual vdiv_by(Dual y, Dual b, float clean) {
-  if constexpr (!N) {
-    return y / b;
-  } else {
-    const float q = y.v / clean;
-    return Dual(with_nan(b.v, q), (y.d - q * b.d) / clean);
-  }
+  const float q = y.v / clean;
+  return Dual(with_nan(b.v, q), (y.d - q * b.d) / clean);
 }
-// whether every value of x... is finite (x - x is 0 for a finite x, NaN
-// for a NaN or an infinity)
-template <class... X>
-__device__ __forceinline__ bool all_finite(X... x) {
-  return ((val(x) - val(x)) + ...) == 0.0f;
+#else
+template <class S>
+__device__ __forceinline__ S vsqrt_of(S a, float) {
+  return vsqrt(a);
 }
+template <class S>
+__device__ __forceinline__ S vrsqrt_of(S a, float) {
+  return S(1.0f) / vsqrt(a);
+}
+template <class S>
+__device__ __forceinline__ S vdiv_by(S y, S b, float) {
+  return y / b;
+}
+#endif
 
 // ---------------------------------------------------------------------------
 // soft gates and gradient plumbing (dhts_torch.ops.dmath)
@@ -241,56 +213,54 @@ __host__ __device__ inline void carve(T** p, size_t n, char* base,
 // ARZ physics (dhts_torch.ops.arz)
 // ---------------------------------------------------------------------------
 
-template <class S, bool N = KEEP_NAN>
+template <class S>
 __device__ __forceinline__ S u_eq(S r, float u_max) {
   const float clean = fmaxf(val(r), 0.0f) + EPS;
-  r = vmax<N>(r, S(0.0f));
-  return S(u_max) * (S(1.0f) - vsqrt_of<N>(r + S(EPS), clean));
+  r = vmax(r, S(0.0f));
+  return S(u_max) * (S(1.0f) - vsqrt_of(r + S(EPS), clean));
 }
 
-template <class S, bool N = KEEP_NAN>
+template <class S>
 __device__ __forceinline__ S u_eq_prime(S r, float u_max) {
   const float clean = fmaxf(val(r), EPS);
-  r = vmax<N>(r, S(EPS));
-  return S(-(u_max * 0.5f)) * vrsqrt_of<N>(r, clean);
+  r = vmax(r, S(EPS));
+  return S(-(u_max * 0.5f)) * vrsqrt_of(r, clean);
 }
 
-template <class S, bool N = KEEP_NAN>
+template <class S>
 __device__ __forceinline__ S comp_y(S r, S u, float u_max) {
-  return r * (u - u_eq<S, N>(r, u_max));
+  return r * (u - u_eq(r, u_max));
 }
 
-template <class S, bool N = KEEP_NAN>
+template <class S>
 __device__ __forceinline__ S comp_u(S r, S y, float u_max) {
   const float clean = fmaxf(val(r), EPS);
-  r = vmax<N>(r, S(EPS));
-  return vdiv_by<N>(y, r, clean) + u_eq<S, N>(r, u_max);
+  r = vmax(r, S(EPS));
+  return vdiv_by(y, r, clean) + u_eq(r, u_max);
 }
 
-template <class S, bool N = KEEP_NAN>
+template <class S>
 __device__ __forceinline__ S lambda0(S r, S u, float u_max) {
-  return u + r * u_eq_prime<S, N>(r, u_max);
+  return u + r * u_eq_prime(r, u_max);
 }
 
 // exact ARZ Riemann solver (dhts_torch.ops.arz.riemann_solve): interface
 // fluxes, and the interface's largest wave speed (a value). `rare_den` is
 // (GAMMA + 1) * u_max and `third` GAMMA / (GAMMA + 1), each rounded once
-// from double, as the plain version's Python constants are. N: the clamps
-// keep a NaN (riemann below picks it by the inputs).
-template <class S, bool N>
-__device__ __forceinline__ void riemann_n(S rl, S yl, S ul, S rr, S ur,
-                                          float u_max, float rare_den,
-                                          float third, S& fr, S& fy,
-                                          float& wave) {
-  const S u_eq_l = u_eq<S, N>(rl, u_max);
-  const S lam0_l = lambda0<S, N>(rl, ul, u_max);
-  const S r_l_pow =
-      vsqrt_of<N>(vmax<N>(rl, S(EPS)), fmaxf(val(rl), EPS));
+// from double, as the plain version's Python constants are.
+template <class S>
+__device__ __forceinline__ void riemann(S rl, S yl, S ul, S rr, S ur,
+                                        float u_max, float rare_den,
+                                        float third, S& fr, S& fy,
+                                        float& wave) {
+  const S u_eq_l = u_eq(rl, u_max);
+  const S lam0_l = lambda0(rl, ul, u_max);
+  const S r_l_pow = vsqrt_of(vmax(rl, S(EPS)), fmaxf(val(rl), EPS));
 
   const S tm = r_l_pow + (ul - ur) / S(u_max);
   const S r_m = tm * tm;
   const S u_m = ur;
-  const S lam0_m = lambda0<S, N>(r_m, u_m, u_max);
+  const S lam0_m = lambda0(r_m, u_m, u_max);
   const S flux_r_m = r_m * u_m;
 
   const S u_vac = (S(u_max) + ul) - u_eq_l;
@@ -310,8 +280,8 @@ __device__ __forceinline__ void riemann_n(S rl, S yl, S ul, S rr, S ur,
   const bool rare = !taken && (val(u_vac) > val(ur));
 
   const S dr = r_m - rl;
-  const S shock_speed = vdiv_by<N>(flux_r_m - rl * ul, vmax<N>(dr, S(EPS)),
-                                   fmaxf(val(dr), EPS));
+  const S shock_speed = vdiv_by(flux_r_m - rl * ul, vmax(dr, S(EPS)),
+                                fmaxf(val(dr), EPS));
   const S half_lam_m = (lam0_l + lam0_m) * S(0.5f);
   const S half_lam_vac = (lam0_l + u_vac) * S(0.5f);
 
@@ -342,26 +312,10 @@ __device__ __forceinline__ void riemann_n(S rl, S yl, S ul, S rr, S ur,
   const S r0 = c == 1 ? r_m : (c == 2 ? r_c : rl);
   const S u0 = c == 1 ? u_m : (c == 2 ? u_c : ul);
   S y0 = yl;
-  if (c != 0) y0 = comp_y<S, N>(r0, u0, u_max);
+  if (c != 0) y0 = comp_y(r0, u0, u_max);
   fr = r0 * u0;
   fy = y0 * u0;
-  wave = max_of<N>(fabsf(speed0), fabsf(speed1));
-}
-// With DHTS_KEEP_NAN, finite inputs take the solver whose clamps are fmaxf
-// (no NaN can arise in it from finite inputs short of an overflow, so the
-// two agree; the compiler simplifies fmaxf's clamps better), others the one
-// whose clamps keep a NaN
-template <class S>
-__device__ __forceinline__ void riemann(S rl, S yl, S ul, S rr, S ur,
-                                        float u_max, float rare_den,
-                                        float third, S& fr, S& fy,
-                                        float& wave) {
-  if (KEEP_NAN && !all_finite(rl, yl, ul, rr, ur))
-    riemann_n<S, KEEP_NAN>(rl, yl, ul, rr, ur, u_max, rare_den, third, fr,
-                           fy, wave);
-  else
-    riemann_n<S, false>(rl, yl, ul, rr, ur, u_max, rare_den, third, fr, fy,
-                        wave);
+  wave = max_of(fabsf(speed0), fabsf(speed1));
 }
 
 // ---------------------------------------------------------------------------
@@ -377,43 +331,29 @@ __device__ __forceinline__ void riemann(S rl, S yl, S ul, S rr, S ur,
 // sp + dt * (-sp / dt), does not depend on sp: its tangent is 0 (summing
 // the tangents would leave a rounding residue of sp's; the plain version
 // detaches the same speed). Returns whether the floor stopped the vehicle.
-// N: the clamps keep a NaN (idm_step below picks it by the inputs).
-template <class S, bool N>
-__device__ __forceinline__ bool idm_step_n(S p, S sp, S pdel, S sdel,
-                                           float amax, float tgt,
-                                           float min_space, float time_pref,
-                                           float idm_den, float dt,
-                                           S& new_p, S& new_v) {
-  if (val(pdel) < 0.0f) { pdel = 0.0f; sdel = 0.0f; }
-  const float pclean = fmaxf(val(pdel), EPS);
-  pdel = vmax<N>(pdel, S(EPS));
-  const S os = vmax<N>((S(min_space) + sp * S(time_pref)) +
-                           (sp * sdel) / S(idm_den),
-                       S(0.0f));
-  const S q = sp / S(tgt);
-  const S q2 = q * q;
-  const S z = vdiv_by<N>(os, pdel, pclean);
-  const S acc_raw = S(amax) * ((S(1.0f) - q2 * q2) - z * z);
-  const S acc_floor = -sp / S(dt);
-  const S acc = vmax<N>(acc_raw, acc_floor);
-  new_p = p + S(dt) * sp;
-  const S nv = sp + S(dt) * acc;
-  const bool floored = val(acc_raw) < val(acc_floor);
-  new_v = floored ? detached(nv) : nv;
-  return floored;
-}
-// as riemann: finite inputs take fmaxf's clamps
 template <class S>
 __device__ __forceinline__ bool idm_step(S p, S sp, S pdel, S sdel,
                                          float amax, float tgt,
                                          float min_space, float time_pref,
                                          float idm_den, float dt, S& new_p,
                                          S& new_v) {
-  if (KEEP_NAN && !all_finite(p, sp, pdel, sdel))
-    return idm_step_n<S, KEEP_NAN>(p, sp, pdel, sdel, amax, tgt, min_space,
-                                   time_pref, idm_den, dt, new_p, new_v);
-  return idm_step_n<S, false>(p, sp, pdel, sdel, amax, tgt, min_space,
-                              time_pref, idm_den, dt, new_p, new_v);
+  if (val(pdel) < 0.0f) { pdel = 0.0f; sdel = 0.0f; }
+  const float pclean = fmaxf(val(pdel), EPS);
+  pdel = vmax(pdel, S(EPS));
+  const S os = vmax((S(min_space) + sp * S(time_pref)) +
+                        (sp * sdel) / S(idm_den),
+                    S(0.0f));
+  const S q = sp / S(tgt);
+  const S q2 = q * q;
+  const S z = vdiv_by(os, pdel, pclean);
+  const S acc_raw = S(amax) * ((S(1.0f) - q2 * q2) - z * z);
+  const S acc_floor = -sp / S(dt);
+  const S acc = vmax(acc_raw, acc_floor);
+  new_p = p + S(dt) * sp;
+  const S nv = sp + S(dt) * acc;
+  const bool floored = val(acc_raw) < val(acc_floor);
+  new_v = floored ? detached(nv) : nv;
+  return floored;
 }
 
 }  // namespace
