@@ -53,6 +53,49 @@
 
 namespace {
 
+// Cycle stamps (a build with -DDHTS_K4_CLOCK; python -m
+// dhts_torch.ops.cuda.k4_clock): thread 0 of block 0 (lane 0, which also
+// folds the lanes' sums) reads the clock at the end of each part of a step
+// and adds the cycles since its last stamp to that part: its lane's
+// signal, its edges, the wait at the barrier after them, its ghosts, its
+// Godunov walk, its static partials, the wait after the update, its fold
+// of the running mean, the wait after it, its lane queue, the wait before
+// the queue sum and its queue sum. K4_STEPS counts the steps stamped.
+// Without the macro the stamps compile to nothing.
+enum K4Part {
+  K4_SIGNALS, K4_EDGES, K4_WAIT_EDGES, K4_GHOSTS, K4_GODUNOV, K4_STATIC,
+  K4_WAIT_UPDATE, K4_MEAN_FOLD, K4_WAIT_MEAN, K4_QUEUE, K4_WAIT_QUEUE,
+  K4_QUEUE_SUM, K4_STEPS, K4_PARTS
+};
+#ifdef DHTS_K4_CLOCK
+__device__ long long k4_cycles[K4_PARTS];
+// the SM's clock, read by a volatile asm with a memory clobber: the
+// compiler keeps it in order with the barriers
+__device__ __forceinline__ long long k4_now() {
+#ifdef DHTS_CPU_EMULATION
+  return clock64();
+#else
+  long long t;
+  asm volatile("mov.u64 %0, %%clock64;" : "=l"(t)::"memory");
+  return t;
+#endif
+}
+#define K4_CLOCK(...) __VA_ARGS__
+// the cycles since `t` into `part`, and `t` moved to now, on the stamping
+// thread
+#define K4_ADD(part, t)                        \
+  do {                                         \
+    if (k4_clk) {                              \
+      const long long k4_t = k4_now();         \
+      k4_cycles[part] += k4_t - (t);           \
+      (t) = k4_t;                              \
+    }                                          \
+  } while (0)
+#else
+#define K4_CLOCK(...)
+#define K4_ADD(part, t) (void)0
+#endif
+
 template <class S>
 struct Smem {
   S *r, *y, *sig, *r_last, *u_last, *r_first, *u_first, *red_q;
@@ -166,6 +209,8 @@ __global__ void itscp_macro_episode_kernel(
   float qsum = 0.0f;
   double grad = 0.0;
   __syncthreads();
+  K4_CLOCK(const bool k4_clk = threadIdx.x == 0 && blockIdx.x == 0;
+           long long k4_p = k4_now();)
 
   for (int t = 0; t < d.T; ++t) {
     const int tl = t * L + l;
@@ -174,19 +219,26 @@ __global__ void itscp_macro_episode_kernel(
     if (lane) {
       s.sig[l] = lane_signal<S>(action, prog, d, k, g, t, a_seed);
       incoming = g.has_prev ? -1.0f : sched[tl];
+      K4_ADD(K4_SIGNALS, k4_p);
       publish_edges<S>(st, s, l, last, u_max);
+      K4_ADD(K4_EDGES, k4_p);
     }
     __syncthreads();
+    K4_ADD(K4_WAIT_EDGES, k4_p);
 
     // ---- ghosts and the Godunov update (:172-210); each lane reads the
     // others' edges and signals and writes only its own cells
     if (lane) {
       const Ghosts<S> gh = ghosts<S>(s, sc, g, L, l, mprev[tl], mnext[tl],
                                      incoming, SOFT, k);
+      K4_ADD(K4_GHOSTS, k4_p);
       godunov_lane<S>(st, g, l, C, gh, k);
+      K4_ADD(K4_GODUNOV, k4_p);
       static_partials<S>(st, s, g, L, l, 0, k);
+      K4_ADD(K4_STATIC, k4_p);
     }
     __syncthreads();
+    K4_ADD(K4_WAIT_UPDATE, k4_p);
 
     // ---- the static running mean, detached (:212-217)
     if (threadIdx.x == 0) {
@@ -199,15 +251,19 @@ __global__ void itscp_macro_episode_kernel(
       s.ms[0] = s.ms[0] + (float)tot;
       s.ms[1] = s.ms[1] + (float)cnt;
       s.ms[2] = sharpness(16.0f, s.ms[0] / s.ms[1]);
+      K4_ADD(K4_MEAN_FOLD, k4_p);
     }
     __syncthreads();
+    K4_ADD(K4_WAIT_MEAN, k4_p);
 
     // ---- soft queue of each lane (:218-222), summed in lane order
     if (lane) {
       const S q_lane = lane_queue<S>(st, g, l, 0, SOFT, s.ms[2], k);
       s.red_q[l] = q_lane * q_lane;
+      K4_ADD(K4_QUEUE, k4_p);
     }
     __syncthreads();
+    K4_ADD(K4_WAIT_QUEUE, k4_p);
     if (threadIdx.x == 0) {
       double qv = 0.0, qd = 0.0;
       for (int j = 0; j < L; ++j) {
@@ -218,6 +274,8 @@ __global__ void itscp_macro_episode_kernel(
       qsum += val(queue);
       if (q_weight) grad += (double)q_weight[t] * (double)tangent(queue);
       if (out_queues) out_queues[t] = val(queue);
+      K4_ADD(K4_QUEUE_SUM, k4_p);
+      K4_CLOCK(if (k4_clk) k4_cycles[K4_STEPS] += 1;)
     }
     // the next step's first writes touch none of the reduced arrays
   }
@@ -326,5 +384,28 @@ int launch_itscp_macro_episode_bwd(
       consts(u_max, dt, veh_len, static_speed, rare_den, third, gate32),
       stream);
 }
+
+#ifdef DHTS_K4_CLOCK
+// The cycle stamps summed since the last reset, k4_cycles[K4_PARTS] (see
+// K4Part), into host memory `out`; `reset` zeroes them first. Returns the
+// CUDA error code (0: success).
+int itscp_macro_episode_clock(long long* out, int reset) {
+#ifdef DHTS_CPU_EMULATION
+  for (int i = 0; i < K4_PARTS; ++i) {
+    if (reset) k4_cycles[i] = 0;
+    out[i] = k4_cycles[i];
+  }
+  return 0;
+#else
+  if (reset) {
+    const long long zero[K4_PARTS] = {};
+    const cudaError_t err = cudaMemcpyToSymbol(k4_cycles, zero, sizeof(zero));
+    if (err != cudaSuccess) return (int)err;
+  }
+  return (int)cudaMemcpyFromSymbol(out, k4_cycles,
+                                   sizeof(long long) * K4_PARTS);
+#endif
+}
+#endif
 
 }  // extern "C"
