@@ -101,11 +101,14 @@ phase prints one JSON line with its wall seconds:
                preset in macro mode (L = 144, C = 4, T = 600), actions 0.3
                and 0.7, from the empty state and a seeded one: forward
                against the plain version on the card (reward rel <= 1e-5,
-               queues abs <= 1e-4), the action, r0 and y0 gradients against
-               its autograd (cosine > 0.999, allclose(rtol 2e-2, atol 2e-3
-               * max|g|), finite, nonzero, padded cells exactly 0), one case
-               with a loss on queues[t]; the plain episodes ran in the gloo
-               ranks (``plain_submit``)
+               queues abs <= 1e-4), the reverse sweep's action, r0 and y0
+               gradients against its autograd (cosine > 0.999,
+               allclose(rtol 2e-2, atol 2e-3 * max|g|), finite, nonzero,
+               padded cells exactly 0) and against the forward-mode
+               derivative (cosine > 0.9999, the same allclose), over the
+               saved trajectory bit-equal to replaying it, one case with a
+               loss on queues[t]; the plain episodes ran in the gloo ranks
+               (``plain_submit``)
 17. ``k4_vs_scan``  K4 against the port's eager soft scan episode at the
                macro preset: reward rel 2e-4, queues rtol 2e-3 atol 1e-5,
                action gradient rtol 1e-2 atol 1e-5
@@ -113,13 +116,17 @@ phase prints one JSON line with its wall seconds:
                same reward and queue tolerances
 19. ``k4_train``  the caller: a seeded controller (256, 256) takes 3 Adam
                steps at lr 1e-4 through K4 at the macro preset; losses
-               finite, parameters changed, K4's forward and backward
-               launched 3 times each, the backward the action's blocks only
-20. ``k4_timing``  K4 forward, backward with the action alone and with all
-               three gradients, ms per launch at both scenes (median of 5
-               runs of 20 launches back to back) with their bounds, and the
-               plain version's ms (median of the k4_vs_plain runs, each
-               timed in a gloo rank beside the others)
+               finite, parameters changed, K4's forward (saving the
+               trajectory) and its reverse sweep launched 3 times each, one
+               block a launch
+20. ``k4_timing``  K4 forward, the forward saving the trajectory, the
+               reverse sweep over it (the action alone and all three
+               gradients) and replaying it, and the forward-mode derivative
+               with the action alone and with all three gradients, ms per
+               launch at both scenes (median of 5 runs of 20 launches back
+               to back) with their bounds, and the plain version's ms
+               (median of the k4_vs_plain runs, each timed in a gloo rank
+               beside the others)
 21. ``shard_vs_plain``  the sharded forward at the preset, hard and soft,
                B = 1, on S = 4 ranks: at every 50th step each rank holds the
                inputs of its seven launches through the plain bodies on the
@@ -1631,17 +1638,19 @@ def k4_plain_run(plan, ins, w):
 
 
 def check_k4_plain(scenes, cases, plain) -> dict:
-    """K4's forward and backward (all three gradients) against the plain
-    version on the card, case by case (:func:`k4_cases`), the plain
-    episodes from the ranks (``plain``). Returns the largest errors and the
-    plain version's ms (median of the scene's four runs: the forward with
-    its graph, and forward plus backward). Raises on a failed check."""
+    """K4's forward and reverse sweep (all three gradients) against the
+    plain version on the card, case by case (:func:`k4_cases`), the plain
+    episodes from the ranks (``plain``); the sweep also against the
+    forward-mode derivative, and over the saved trajectory against
+    replaying it. Returns the largest errors and the plain version's ms
+    (median of the scene's four runs: the forward with its graph, and
+    forward plus backward). Raises on a failed check."""
     import torch
 
     from dhts_torch.ops.cuda import itscp_macro_episode as k4
 
     checks, plain_ms = [], {}
-    fwd_err = bwd_err = 0.0
+    fwd_err = bwd_err = tangent_err = 0.0
     ok = True
     for name, (env, fn) in scenes.items():
         plan = fn.plan
@@ -1650,10 +1659,15 @@ def check_k4_plain(scenes, cases, plain) -> dict:
         for key, (scene, action, seeded, ins, w) in cases.items():
             if scene != name:
                 continue
-            kr, kq = k4.macro_episode_fwd(plan, *ins)
-            kg = k4.macro_episode_bwd(plan, w, *ins)
+            kr, kq, traj = k4.macro_episode_fwd(plan, *ins, trajectory=True)
+            kg = k4.macro_episode_bwd(plan, w, *ins, traj=traj)
+            replayed = k4.macro_episode_bwd(plan, w, *ins)
+            kt = k4.macro_episode_tangents(plan, w, *ins)
             (pr, pq, *pg), (ms_fwd, ms_bwd) = plain[key]
             kr, kq, kg = kr.cpu(), kq.cpu(), [g.cpu() for g in kg]
+            kt = [g.cpu() for g in kt]
+            rec_replay = all(torch.equal(a.cpu(), b) for a, b in
+                             zip(replayed, kg))
             t_fwd.append(ms_fwd)
             t_bwd.append(ms_bwd)
             rel = abs(float(kr) - float(pr)) / abs(float(pr))
@@ -1664,10 +1678,11 @@ def check_k4_plain(scenes, cases, plain) -> dict:
                        reward_kernel=float(kr),
                        reward_plain=float(pr), reward_rel_err=rel,
                        queues_max_abs_err=q_err,
-                       finite=bool(torch.isfinite(kq).all()))
+                       finite=bool(torch.isfinite(kq).all()),
+                       sweep_saved_equals_replayed=rec_replay)
             c_ok = (rel <= 1e-5 and q_err <= 1e-4 and rec["finite"] and
-                    tuple(kq.shape) == (plan.T,))
-            for gname, a, b in zip(("action", "r0", "y0"), kg, pg):
+                    tuple(kq.shape) == (plan.T,) and rec_replay)
+            for gname, a, b, tg in zip(("action", "r0", "y0"), kg, pg, kt):
                 pad_zero = gname == "action" or \
                     float(a[pad].abs().max()) == 0.0
                 a, b = a.double().flatten(), b.double().flatten()
@@ -1677,10 +1692,18 @@ def check_k4_plain(scenes, cases, plain) -> dict:
                 g = dict(cos=cosine(a, b), max_abs_err=err,
                          max_abs_ref=scale, padded_zero=pad_zero,
                          finite=bool(torch.isfinite(a).all()))
+                tg = tg.double().flatten()
+                t_scale = float(tg.abs().max())
+                g["cos_vs_tangents"] = cosine(a, tg)
+                g["max_abs_err_vs_tangents"] = float((a - tg).abs().max())
+                tangent_err = max(tangent_err, g["max_abs_err_vs_tangents"])
                 g["ok"] = (g["finite"] and scale > 0 and pad_zero and
                            g["cos"] > 0.999 and
                            bool(torch.allclose(a, b, rtol=2e-2,
-                                               atol=2e-3 * scale)))
+                                               atol=2e-3 * scale)) and
+                           g["cos_vs_tangents"] > 0.9999 and
+                           bool(torch.allclose(a, tg, rtol=2e-2,
+                                               atol=2e-3 * t_scale)))
                 rec[f"grad_{gname}"] = g
                 c_ok = c_ok and g["ok"]
             checks.append(dict(rec, ok=c_ok))
@@ -1690,11 +1713,15 @@ def check_k4_plain(scenes, cases, plain) -> dict:
     report(checks=checks, plain_ms=plain_ms,
            tolerance=dict(reward_rel=1e-5, queues_abs=1e-4,
                           grads="cos > 0.999, allclose(rtol 2e-2, atol "
-                                "2e-3 * max|g_plain|), padded cells 0"),
+                                "2e-3 * max|g_plain|), padded cells 0",
+                          grads_vs_tangents="cos > 0.9999, allclose(rtol "
+                                            "2e-2, atol 2e-3 * max|g|)",
+                          sweep_saved_vs_replayed="bit-equal"),
            status="ok" if ok else "FAIL")
     if not ok:
         raise SystemExit("k4_vs_plain failed")
-    return dict(fwd_err=fwd_err, bwd_err=bwd_err, plain_ms=plain_ms)
+    return dict(fwd_err=fwd_err, bwd_err=bwd_err, tangent_err=tangent_err,
+                plain_ms=plain_ms)
 
 
 def check_k4_scan(env, fn):
@@ -1785,8 +1812,8 @@ def run_k4_train(env, fn) -> dict:
     1e-4 on the macro preset, each on a fresh scenario (seeds 3, 4, 5):
     observation -> controller -> squash -> K4 from the empty state ->
     -reward -> backward. K4's launches, counted from 0 here, must be 3
-    forward and 3 backward, the backward launching the action's blocks
-    only. Raises on a failed check."""
+    forward and 3 reverse sweeps of one block each. Raises on a failed
+    check."""
     import torch
 
     from dhts_torch.apps.control.controller import (init_controller,
@@ -1820,7 +1847,7 @@ def run_k4_train(env, fn) -> dict:
     launches = dict(fwd=k4.macro_episode_fwd.launches,
                     bwd=k4.macro_episode_bwd.launches,
                     bwd_blocks=k4.macro_episode_bwd.blocks)
-    expected = dict(fwd=3, bwd=3, bwd_blocks=3 * plan.n_action)
+    expected = dict(fwd=3, bwd=3, bwd_blocks=3)
     changed = any(not torch.equal(a, b.detach()) for a, b in
                   zip(before, model.parameters()))
     ok = (launches == expected and changed and
@@ -1833,57 +1860,90 @@ def run_k4_train(env, fn) -> dict:
 
 
 def time_k4(scenes, plain_ms) -> dict:
-    """K4's forward, its backward with the action alone and with all three
-    gradients, at both scenes from the empty state: ms per launch (CUDA
-    events, median of 5 runs of 20 launches back to back, after two
-    warm-up launches), each with its bound; the plain version's ms from
-    the k4_vs_plain runs. Timing launches are not the main path's: the
-    counters are restored."""
+    """K4's launches at both scenes from the empty state: the forward, the
+    forward saving the trajectory, the reverse sweep over it (the action
+    alone and all three gradients: the same launch) and replaying it, and
+    the forward-mode derivative with the action alone and with all three
+    gradients; ms per launch (CUDA events, median of 5 runs of 20 launches
+    back to back, after two warm-up launches), each with its bound; the
+    plain version's ms from the k4_vs_plain runs. Timing launches are not
+    the main path's: the counters are restored."""
     import torch
 
     from dhts_torch.ops.cuda import itscp_macro_episode as k4
 
-    saved = (k4.macro_episode_fwd.launches, k4.macro_episode_bwd.launches,
-             k4.macro_episode_bwd.blocks)
-    ms, bounds, smem = {}, {}, {}
+    counters = (k4.macro_episode_fwd, k4.macro_episode_bwd,
+                k4.macro_episode_tangents)
+    saved = [(f.launches, getattr(f, "blocks", 0)) for f in counters]
+    ms, bounds, smem, lane_threads = {}, {}, {}, {}
     lib = k4._library()
+    action = (True, False, False)
     for name, (env, fn) in scenes.items():
         plan = fn.plan
         ins = k4_inputs(env, plan, 0.5, False)
         w = torch.full((plan.T,), -1.0, device=env.device)
+        traj = k4.macro_episode_fwd(plan, *ins, trajectory=True)[2]
         runs = {"fwd": lambda: k4.macro_episode_fwd(plan, *ins),
+                "fwd_save": lambda: k4.macro_episode_fwd(
+                    plan, *ins, trajectory=True),
                 "bwd_action": lambda: k4.macro_episode_bwd(
-                    plan, w, *ins, needs=(True, False, False)),
-                "bwd_all": lambda: k4.macro_episode_bwd(plan, w, *ins)}
+                    plan, w, *ins, needs=action, traj=traj),
+                "bwd_all": lambda: k4.macro_episode_bwd(plan, w, *ins,
+                                                        traj=traj),
+                "bwd_replay": lambda: k4.macro_episode_bwd(plan, w, *ins),
+                "tangents_action": lambda: k4.macro_episode_tangents(
+                    plan, w, *ins, needs=action),
+                "tangents_all": lambda: k4.macro_episode_tangents(
+                    plan, w, *ins)}
         for fn_run in runs.values():
             fn_run()
             fn_run()
         torch.cuda.synchronize()
         ms[name] = {k: cuda_ms(f, 5, launches=20) for k, f in runs.items()}
         # bytes: each input read once (the six inputs and the scene's
-        # tables), each output written once; operations: the Riemann
-        # solves (num_cell + 1 per lane) and cell updates of the valid
-        # cells, T steps, 3x for the backward's one vector-Jacobian
-        # product (whichever gradients it returns)
+        # tables), each output written once (the trajectory too where the
+        # forward saves it, and read once by the sweep over it);
+        # operations: the Riemann solves (num_cell + 1 per lane) and cell
+        # updates of the valid cells, T steps, 3x for one vector-Jacobian
+        # product (whichever gradients it returns; the replay's forward once
+        # more)
         n_valid, L, C, T = int(plan.cells.numel()), plan.L, plan.C, plan.T
         ops = T * ((n_valid + L) * OPS_PER_INTERFACE + n_valid * OPS_PER_CELL)
         in_bytes = sum(x.numel() * x.element_size() for x in
                        (*ins, plan.prog, plan.lane_i, plan.lane_f))
         na = plan.n_action * 4
+        traj_bytes = (2 * L * C + 1) * T * 4
+        grads = na + 2 * L * C * 4
         work = {"fwd": (in_bytes + (1 + T) * 4, ops),
-                "bwd_action": (in_bytes + T * 4 + na,
+                "fwd_save": (in_bytes + (1 + T) * 4 + traj_bytes, ops),
+                "bwd_action": (in_bytes + T * 4 + traj_bytes + grads,
                                ops * VJP_OPS_MULTIPLE),
-                "bwd_all": (in_bytes + T * 4 + n_valid * 4 + na +
-                            2 * L * C * 4, ops * VJP_OPS_MULTIPLE)}
+                "bwd_all": (in_bytes + T * 4 + traj_bytes + grads,
+                            ops * VJP_OPS_MULTIPLE),
+                "bwd_replay": (in_bytes + T * 4 + grads,
+                               ops * (VJP_OPS_MULTIPLE + 1)),
+                "tangents_action": (in_bytes + T * 4 + na,
+                                    ops * VJP_OPS_MULTIPLE),
+                "tangents_all": (in_bytes + T * 4 + n_valid * 4 + na +
+                                 2 * L * C * 4, ops * VJP_OPS_MULTIPLE)}
         bounds[name] = {k: bound_of(*v) for k, v in work.items()}
         smem[name] = dict(fwd=lib.itscp_macro_episode_smem(L, C, 0),
-                          bwd=lib.itscp_macro_episode_smem(L, C, 1))
-    (k4.macro_episode_fwd.launches, k4.macro_episode_bwd.launches,
-     k4.macro_episode_bwd.blocks) = saved
+                          tangents=lib.itscp_macro_episode_smem(L, C, 1),
+                          bwd=lib.itscp_macro_episode_smem(L, C, 2))
+        lane_threads[name] = {
+            k: lib.itscp_macro_episode_lane_threads(L, C, kid) for k, kid in
+            (("fwd", k4.KERNEL_FWD), ("tangents", k4.KERNEL_TANGENTS),
+             ("bwd", k4.KERNEL_REVERSE))}
+    for f, (n, b) in zip(counters, saved):
+        f.launches = n
+        if hasattr(f, "blocks"):
+            f.blocks = b
     return dict(ms=ms, bounds=bounds, plain_ms=plain_ms, library_ms=None,
-                smem_bytes=smem,
-                blocks={n: dict(fwd=1, bwd_action=fn.plan.n_action,
-                                bwd_all=fn.plan.n_action +
+                smem_bytes=smem, lane_threads=lane_threads,
+                blocks={n: dict(fwd=1, fwd_save=1, bwd_action=1, bwd_all=1,
+                                bwd_replay=1,
+                                tangents_action=fn.plan.n_action,
+                                tangents_all=fn.plan.n_action +
                                 2 * int(fn.plan.cells.numel()))
                         for n, (_, fn) in scenes.items()},
                 ms_over_bound={n: {k: ms[n][k] / bounds[n][k]["bound_ms"]
@@ -2862,26 +2922,34 @@ def main() -> int:
                 ms_soft_by_batch=spatial_times["ms"]["fwd_soft"],
                 ms_soft_per_episode=spatial_times["ms_per_episode"][
                     "fwd_soft"])
-    # K4 at the macro preset, the shape of the k4_train phase (the
-    # backward with the action alone, as training asks)
+    # K4 at the macro preset, the shape of the k4_train phase: the forward
+    # that saves the trajectory, and the reverse sweep over it (the action
+    # alone, as training asks; all three gradients take the same launch);
+    # beside them the forward without the trajectory, the sweep replaying
+    # it and the forward-mode derivative that k4_vs_plain holds it against
     from dhts_torch.ops.cuda import itscp_macro_episode as k4
 
     main_scene = "macro_preset"
-    for key, timed, replaces, err in (
-            ("fwd", "fwd", k4.REPLACES_FWD, k4_check["fwd_err"]),
-            ("bwd", "bwd_action", k4.REPLACES_BWD, k4_check["bwd_err"])):
+    k4_ms = k4_times["ms"][main_scene]
+    for key, timed, replaces, err, extra in (
+            ("fwd", "fwd_save", k4.REPLACES_FWD, k4_check["fwd_err"],
+             {"ms_without_trajectory": k4_ms["fwd"]}),
+            ("bwd", "bwd_action", k4.REPLACES_BWD, k4_check["bwd_err"],
+             {"ms_replay": k4_ms["bwd_replay"],
+              "ms_all_gradients": k4_ms["bwd_all"],
+              "ms_forward_mode_action": k4_ms["tangents_action"],
+              "ms_forward_mode_all": k4_ms["tangents_all"],
+              "max_abs_err_vs_forward_mode": k4_check["tangent_err"]})):
         b = k4_times["bounds"][main_scene][timed]
         kernels.append({
             "name": f"itscp_macro_episode_{key}", "route": "cuda",
             "source": k4.SOURCE, "replaces": replaces,
             "launches": k4_launches[key], "max_abs_err": err,
-            "ms": k4_times["ms"][main_scene][timed],
+            "ms": k4_ms[timed],
             "plain_ms": k4_check["plain_ms"][main_scene][key],
             "bound_ms": b["bound_ms"], "bound_by": b["bound_by"],
-            "library_ms": None, "scene": main_scene,
-            "ms_by_scene": {n: {k: v for k, v in m.items()
-                                if k.startswith(key)}
-                            for n, m in k4_times["ms"].items()}})
+            "library_ms": None, "scene": main_scene, **extra,
+            "ms_by_scene": k4_times["ms"]})
     # K6's per-shard bodies at S = 4, B = 1, the CLI's episodes per launch
     from dhts_torch.ops.cuda import itscp_spatial_shard as ks
 

@@ -1,5 +1,7 @@
-// Fused all-macro ITSCP episode for Hopper (sm_90a): forward and its
-// gradient with respect to the action and the initial state.
+// Fused all-macro ITSCP episode for Hopper (sm_90a): the forward, its
+// reverse-mode gradient with respect to the action and the initial state,
+// and a forward-mode derivative that the tests hold the reverse one
+// against.
 //
 // Replaces the TPU kernel K4,
 // dhts/ops/pallas/itscp_episode.py::make_fused_itscp_macro_episode:
@@ -8,64 +10,100 @@
 //     scene (every lane ARZ) with soft signal gates from the phase action,
 //     signal-blended ghost cells, the Godunov update of every lane and the
 //     RMS-sharpened soft queue reward; returns (qsum, queues[T]) and the
-//     wrapper makes reward = -qsum;
+//     wrapper makes reward = -qsum; given a trajectory buffer it also
+//     stores the JAX kernel's residuals (:231-254): the state before each
+//     step and the step's detached sharpness;
 //   * backward (bwd_kernel :279, pallas_call :307): the vector-Jacobian
 //     product of (qsum, queues) with respect to the action [n_phases,
-//     n_inter] and the initial state r0, y0 [L, C].
+//     n_inter] and the initial state r0, y0 [L, C], by the JAX kernel's
+//     reverse sweep over that trajectory (:270-300: the vjp of one step at
+//     :293, accumulating the action's).
 // Its specification is the plain PyTorch version beside its wrapper
 // (dhts_torch/ops/cuda/itscp_macro_episode.py::plain_macro_episode): every
 // value is computed with the same IEEE float32 operations in the same
 // order (-fmad=false, no fast math), sums over lanes in float64 in lane
 // order, rounded once, so the forward agrees with it bit for bit.
 //
-// Design. What K4 computes, not its TPU layout: K4 pads to [8, 128k] and
-// does every cross-lane read as a one-hot matrix product; here one block
-// runs an episode, one thread a lane, on true sizes. The state r, y [L, C]
-// lives in shared memory (2 x 288 floats at the 3x3 preset); a cross-lane
-// read is an indexed load of the per-lane edge summaries. A step is the
-// per-lane phases of itscp_step.cuh that K4's step shares with K1's macro
-// lanes, in soft gate mode (signal, edge cells, ghosts, Godunov update,
-// the static running mean's partials and the lane queue), with four
-// barriers: after the signals and edges are published, after the lanes'
-// update, after the running mean is folded, and before the lane queues are
-// summed. Thread 0 folds and sums in lane order: deterministic.
+// The block. One block runs an episode on true sizes (K4 pads to [8,
+// 128k] and does every cross-lane read as a one-hot matrix product). G
+// threads run a lane: thread r solves the Riemann problems of interfaces
+// r, r + G, ... and updates cells r, r + G, ... (G = C + 1 where the block
+// holds it: one solve a thread); P = 32 / G lanes share a warp, so a
+// lane's threads never straddle two warps and exchange their fluxes
+// through shared memory behind a __syncwarp. A reduction warp after the
+// lane warps does the lane sums in lane order (itscp_step.cuh's
+// static_partials and lane_queue, split: a lane's threads write their
+// cells' terms, the warp adds each lane's in cell order and the lanes' in
+// lane order). A step's 2 n_inter signal gates (one per intersection and
+// direction) are one table, filled in one round; a lane reads its own gate
+// and its upstream lane's from it. The state r, y [L, C] lives in shared
+// memory. The operations are those of itscp_step.cuh's macro phases in
+// soft mode (signal, edges, ghosts, godunov_lane, static_partials,
+// lane_queue), so the forward is bit-equal to PR 16's one thread a lane.
 //
-// Backward: forward-mode tangents, as K1's and K2's backwards. The episode
-// is a template on its scalar type (float, or Dual in dhts_scalar.cuh);
-// block b seeds one input entry (an action entry, or a valid cell of r0 or
-// y0, in that order; only the groups the caller asks for are launched) and
-// writes
-//     grad[entry] = sum_t w[t] d(queue_t)/d(entry),
-// with w[t] = g_qsum + g_queues[t] (K4's ep_bwd, :284), the TPU kernel's vector-Jacobian product, from the forward's inputs
-// alone: no trajectory is stored, no step is transposed. Cells beyond a
-// lane's num_cell are never seeded (K4 pins them to the right ghost each
-// step, so their gradient is exactly 0). The running mean that sharpens
-// the queue gates is detached, as in K4.
+// Forward step, on named barriers: the lanes publish their edge cells and
+// the gate table and meet (BAR_LANES, lane warps only); each lane takes its
+// ghosts, updates its cells and writes its static terms (BAR_TERMS: the
+// lanes arrive, the warp waits); the warp folds the running mean and
+// releases its sharpness (BAR_MEAN: the warp arrives, the lanes wait: the
+// queue's gate needs it); the lanes write their queue terms (BAR_QUEUE)
+// and go on to the next step while the warp sums this step's queue.
 //
-// Bound. The inputs and outputs are a few hundred KB, and the T steps' ARZ
-// float32 operations take under a microsecond at the card's peak: the
-// kernel is latency-bound, a chain of T dependent steps, each four block
-// barriers, a walk over the lane's cells and two serial reductions over
-// the lanes by one thread, in one block of L threads (131 of 132 SMs idle
-// in the forward).
+// Reverse sweep (one block, all three gradients, t = T - 1 down to 0):
+// each step is recomputed from the saved state with the same float
+// operations (so the same Riemann cases and clamps), and the cotangents of
+// the state (gr, gy [L, C]) and of the action are pulled back through it.
+// Each interface's Riemann partials come from one pass of the solver in
+// DualN<4> (the same solver as the forward's: the value and four tangents,
+// seeded on left r, y, u and right u; the right density only picks a case)
+// and are transposed by the thread that solved it; every other partial
+// (speeds, ghost states, the queue term) likewise from DualN<2>, so a tie
+// splits as in the Dual derivative. A lane's ghost cotangents go to the
+// lanes it read: each reader writes them into its own slots, and each
+// publishing lane gathers the slots that name it, its G threads scanning
+// G chunks of the lanes, in lane order within a chunk and the chunks in
+// order (no float atomics: two launches give the same bits). The signals'
+// cotangents reach action[phase, inter] through the reduction warp's
+// lane-order fold, double-buffered by step parity. The running mean is
+// detached, as in K4; cells beyond num_cell are never written and get
+// exactly 0. Without a saved trajectory the same launch first runs the
+// forward into one (the wrapper's scratch).
+//
+// The forward-mode derivative: the forward body in Dual (dhts_scalar.cuh),
+// one block per seeded input entry (an action entry, or a valid cell of r0
+// or y0), writing sum_t w[t] d(queue_t)/d(entry) (K4's ep_bwd, :284).
+//
+// Bound. The inputs and outputs are a few hundred KB (the trajectory 0.67
+// MB at the macro preset, 2.8 MB at 3x3 macro), and the T steps' float32
+// operations take under a microsecond at the card's peak: the kernel is
+// latency-bound, a chain of T dependent steps in one block (131 of 132 SMs
+// idle), each a Riemann solve deep, plus its barriers and the lane sums.
 
 #include "itscp_step.cuh"
 
 namespace {
 
 // Cycle stamps (a build with -DDHTS_K4_CLOCK; python -m
-// dhts_torch.ops.cuda.k4_clock): thread 0 of block 0 (lane 0, which also
-// folds the lanes' sums) reads the clock at the end of each part of a step
-// and adds the cycles since its last stamp to that part: its lane's
-// signal, its edges, the wait at the barrier after them, its ghosts, its
-// Godunov walk, its static partials, the wait after the update, its fold
-// of the running mean, the wait after it, its lane queue, the wait before
-// the queue sum and its queue sum. K4_STEPS counts the steps stamped.
-// Without the macro the stamps compile to nothing.
+// dhts_torch.ops.cuda.k4_clock), in block 0. The forward: lane 0's first
+// thread adds its cycles to its parts (its share of the gate table and the
+// trajectory's stores, its edges, the wait for the other lanes' edges, its
+// ghosts, its Riemann solve and cell update, its static terms, its wait for
+// the running mean, its queue terms), the reduction warp's first thread to
+// its own (its wait for the static terms, the mean's fold, its wait for
+// the queue terms, the queue's sum). The reverse sweep: lane 0's first
+// thread its loads (the saved cells, the gates, the edges), its wait for
+// the edges, its ghosts and Riemann partials, its queue terms, its
+// transposes (interfaces, cells, ghosts), its wait for the slots, its
+// gather and edge partials, its wait for the action fold's buffer; the
+// reduction warp's first thread the fold and its wait. K4_STEPS and
+// K4_R_STEPS count the steps stamped. Without the macro the stamps compile
+// to nothing.
 enum K4Part {
   K4_SIGNALS, K4_EDGES, K4_WAIT_EDGES, K4_GHOSTS, K4_GODUNOV, K4_STATIC,
   K4_WAIT_UPDATE, K4_MEAN_FOLD, K4_WAIT_MEAN, K4_QUEUE, K4_WAIT_QUEUE,
-  K4_QUEUE_SUM, K4_STEPS, K4_PARTS
+  K4_QUEUE_SUM, K4_STEPS, K4_R_LOAD, K4_R_WAIT_EDGES, K4_R_RIEMANN,
+  K4_R_TERMS, K4_R_TRANSPOSE, K4_R_WAIT_SLOTS, K4_R_GATHER, K4_R_WAIT_EMPTY,
+  K4_R_FOLD, K4_R_WAIT_FULL, K4_R_STEPS, K4_PARTS
 };
 #ifdef DHTS_K4_CLOCK
 __device__ long long k4_cycles[K4_PARTS];
@@ -81,45 +119,229 @@ __device__ __forceinline__ long long k4_now() {
 #endif
 }
 #define K4_CLOCK(...) __VA_ARGS__
-// the cycles since `t` into `part`, and `t` moved to now, on the stamping
-// thread
-#define K4_ADD(part, t)                        \
-  do {                                         \
-    if (k4_clk) {                              \
-      const long long k4_t = k4_now();         \
-      k4_cycles[part] += k4_t - (t);           \
-      (t) = k4_t;                              \
-    }                                          \
+// the cycles since `t` into `part`, and `t` moved to now, where `who`
+#define K4_ADD(who, part, t)                  \
+  do {                                        \
+    if (who) {                                \
+      const long long k4_t = k4_now();        \
+      k4_cycles[part] += k4_t - (t);          \
+      (t) = k4_t;                             \
+    }                                         \
   } while (0)
 #else
 #define K4_CLOCK(...)
-#define K4_ADD(part, t) (void)0
+#define K4_ADD(who, part, t) (void)0
 #endif
 
-template <class S>
-struct Smem {
-  S *r, *y, *sig, *r_last, *u_last, *r_first, *u_first, *red_q;
-  double* red_sum;  // [2 L] static running-mean partials (static_partials)
-  int* red_cnt;     // [2 L]
-  float* ms;        // running mean (sum, count) and its gate constant
-};
+constexpr int WARP = 32;
+constexpr unsigned FULL_MASK = 0xffffffffu;
+constexpr int MAX_THREADS = 1024;
+// named barriers (0 is __syncthreads): the lane warps' own; the forward's
+// static terms, running mean and queue terms; the sweep's action terms by
+// step parity, full and empty
+constexpr int BAR_LANES = 1, BAR_TERMS = 2, BAR_MEAN = 3, BAR_QUEUE = 4;
+constexpr int BAR_GA_FULL = 5, BAR_GA_EMPTY = 7;
 
-template <class S>
-__host__ __device__ inline size_t smem_bytes(int L, int C, Smem<S>* s,
-                                             char* base) {
-  size_t off = 0;
-  Smem<S> dummy;
-  Smem<S>* t = s ? s : &dummy;
-  char* b = s ? base : nullptr;
-  const size_t LC = (size_t)L * C;
-  carve(&t->r, LC, b, off); carve(&t->y, LC, b, off);
-  carve(&t->sig, L, b, off); carve(&t->r_last, L, b, off);
-  carve(&t->u_last, L, b, off); carve(&t->r_first, L, b, off);
-  carve(&t->u_first, L, b, off); carve(&t->red_q, L, b, off);
-  carve(&t->red_sum, 2 * L, b, off); carve(&t->red_cnt, 2 * L, b, off);
-  carve(&t->ms, 3, b, off);
-  return off;
+// PTX named barriers (the host build has its own, cpu_emulation.h): wait
+// at, or only arrive at, barrier `id`, which completes when `count` threads
+// have reached it. A warp must reach one converged (bar.sync and bar.arrive
+// are .aligned), hence the __syncwarp() before each.
+#ifdef DHTS_CPU_EMULATION
+#define CONVERGE() (void)0
+#else
+#define CONVERGE() __syncwarp()
+__device__ __forceinline__ void bar_sync(int id, int count) {
+  asm volatile("bar.sync %0, %1;" ::"r"(id), "r"(count) : "memory");
 }
+__device__ __forceinline__ void bar_arrive(int id, int count) {
+  asm volatile("bar.arrive %0, %1;" ::"r"(id), "r"(count) : "memory");
+}
+#endif
+
+// ---------------------------------------------------------------------------
+// dual numbers with N tangents, for a function's partials in one pass
+// ---------------------------------------------------------------------------
+
+// Each operation computes its value with the float operation of the
+// forward (so a pass follows the forward's Riemann cases and clamps) and
+// its tangents by Dual's rules (dhts_scalar.cuh: a tie of a max or min
+// splits 0.5 / 0.5, a root of a zero tangent has a zero tangent), a
+// tangent's division by a value as a product with its reciprocal.
+template <int N>
+struct DualN {
+  float v, d[N];
+  __device__ DualN() {}
+  __device__ DualN(float v_) : v(v_) {
+#pragma unroll
+    for (int k = 0; k < N; ++k) d[k] = 0.0f;
+  }
+  // the value x with tangent 1 in direction k
+  __device__ static DualN seed(float x, int k) {
+    DualN o(x);
+    o.d[k] = 1.0f;
+    return o;
+  }
+};
+using D2 = DualN<2>;
+using D4 = DualN<4>;
+
+template <int N>
+__device__ __forceinline__ float val(const DualN<N>& x) {
+  return x.v;
+}
+template <int N>
+__device__ __forceinline__ DualN<N> operator+(DualN<N> a, DualN<N> b) {
+  DualN<N> o;
+  o.v = a.v + b.v;
+#pragma unroll
+  for (int k = 0; k < N; ++k) o.d[k] = a.d[k] + b.d[k];
+  return o;
+}
+template <int N>
+__device__ __forceinline__ DualN<N> operator-(DualN<N> a, DualN<N> b) {
+  DualN<N> o;
+  o.v = a.v - b.v;
+#pragma unroll
+  for (int k = 0; k < N; ++k) o.d[k] = a.d[k] - b.d[k];
+  return o;
+}
+template <int N>
+__device__ __forceinline__ DualN<N> operator-(DualN<N> a) {
+  DualN<N> o;
+  o.v = -a.v;
+#pragma unroll
+  for (int k = 0; k < N; ++k) o.d[k] = -a.d[k];
+  return o;
+}
+template <int N>
+__device__ __forceinline__ DualN<N> operator*(DualN<N> a, DualN<N> b) {
+  DualN<N> o;
+  o.v = a.v * b.v;
+#pragma unroll
+  for (int k = 0; k < N; ++k) o.d[k] = a.d[k] * b.v + a.v * b.d[k];
+  return o;
+}
+template <int N>
+__device__ __forceinline__ DualN<N> operator/(DualN<N> a, DualN<N> b) {
+  DualN<N> o;
+  o.v = a.v / b.v;
+  const float inv = 1.0f / b.v;
+#pragma unroll
+  for (int k = 0; k < N; ++k) o.d[k] = (a.d[k] - o.v * b.d[k]) * inv;
+  return o;
+}
+template <int N>
+__device__ __forceinline__ DualN<N> vmax(DualN<N> a, DualN<N> b) {
+  DualN<N> o;
+  o.v = max_of(a.v, b.v);
+#pragma unroll
+  for (int k = 0; k < N; ++k)
+    o.d[k] = a.v > b.v ? a.d[k]
+                       : (a.v < b.v ? b.d[k] : 0.5f * (a.d[k] + b.d[k]));
+  return o;
+}
+template <int N>
+__device__ __forceinline__ DualN<N> vmin(DualN<N> a, DualN<N> b) {
+  DualN<N> o;
+  o.v = min_of(a.v, b.v);
+#pragma unroll
+  for (int k = 0; k < N; ++k)
+    o.d[k] = a.v < b.v ? a.d[k]
+                       : (a.v > b.v ? b.d[k] : 0.5f * (a.d[k] + b.d[k]));
+  return o;
+}
+// the root, reciprocal root and quotient of a clamp's result (as Dual's,
+// with DHTS_KEEP_NAN: of `clean`, the NaN put back)
+template <int N>
+__device__ __forceinline__ DualN<N> vsqrt_of(DualN<N> a, float clean) {
+  const float r = sqrtf(clean);
+  const float h = 1.0f / (2.0f * r);
+  DualN<N> o;
+  o.v = with_nan(a.v, r);
+#pragma unroll
+  for (int k = 0; k < N; ++k) o.d[k] = a.d[k] == 0.0f ? 0.0f : a.d[k] * h;
+  return o;
+}
+template <int N>
+__device__ __forceinline__ DualN<N> vrsqrt_of(DualN<N> a, float clean) {
+  const float r = sqrtf(clean);
+  const float h = 1.0f / (2.0f * r);
+  const float q = 1.0f / r;
+  DualN<N> o;
+  o.v = with_nan(a.v, q);
+#pragma unroll
+  for (int k = 0; k < N; ++k) {
+    const float rd = a.d[k] == 0.0f ? 0.0f : a.d[k] * h;
+    o.d[k] = (0.0f - q * rd) * q;
+  }
+  return o;
+}
+template <int N>
+__device__ __forceinline__ DualN<N> vdiv_by(DualN<N> y, DualN<N> b,
+                                            float clean) {
+  const float q = y.v / clean;
+  const float inv = 1.0f / clean;
+  DualN<N> o;
+  o.v = with_nan(b.v, q);
+#pragma unroll
+  for (int k = 0; k < N; ++k) o.d[k] = (y.d[k] - q * b.d[k]) * inv;
+  return o;
+}
+template <int N>
+__device__ __forceinline__ DualN<N> vsigmoid(DualN<N> z) {
+  const float y = vsigmoid(z.v);
+  DualN<N> o;
+  o.v = y;
+#pragma unroll
+  for (int k = 0; k < N; ++k) o.d[k] = z.d[k] * (y * (1.0f - y));
+  return o;
+}
+
+// ---------------------------------------------------------------------------
+// the block
+// ---------------------------------------------------------------------------
+
+// How a launch lays out its block: G threads a lane, P = 32 / G lanes a
+// warp, NL threads of lane warps (whole warps), and the reduction warp
+// after them.
+struct Geo {
+  int G, P, NL;
+};
+__host__ __device__ inline Geo geo_of(int L, int G) {
+  Geo g;
+  g.G = G;
+  g.P = WARP / G;
+  g.NL = ((L + g.P - 1) / g.P) * WARP;
+  return g;
+}
+
+// This thread's lane l and its place r in the lane's group; `lane` false
+// for the lane warps' spare threads and the reduction warp.
+struct Me {
+  int l, r;
+  bool lane;
+};
+__device__ __forceinline__ Me me_of(const Geo& geo, int L) {
+  const int tid = threadIdx.x, wl = tid % WARP;
+  Me m;
+  m.l = (tid / WARP) * geo.P + wl / geo.G;
+  m.r = wl % geo.G;
+  m.lane = tid < geo.NL && wl < geo.P * geo.G && m.l < L;
+  if (!m.lane) m.l = 0;
+  return m;
+}
+
+struct Args {
+  const float *action, *sched, *r0, *y0, *prog, *lane_f, *q_weight;
+  const int *mnext, *mprev, *lane_i, *cells;
+  float *out_reward, *out_queues, *out_grad;
+  // [T, 2, L, C] the state before each step (r, then y) and [T] each
+  // step's sharpness: written by a saving forward, read by the sweep
+  float *traj, *sharp;
+  int n_a, n_r, n_y;  // the forward-mode derivative's seeds
+  Dims d;
+  Consts k;
+};
 
 template <class S>
 __device__ __forceinline__ S seeded(float x, bool) {
@@ -142,179 +364,880 @@ __device__ __forceinline__ Dual rounded<Dual>(double v, double d) {
   return Dual((float)v, (float)d);
 }
 
-// The episode's seeds: blocks [0, n_a) seed action entry b, the next n_r
-// the r0 cell cells[b - n_a], the next n_y the y0 cell cells[b - n_a -
-// n_r]; the forward (one block) seeds nothing.
-struct Seeds {
-  const int* cells;  // valid cells l * C + c
-  int n_a, n_r, n_y;
+// ((0 + x_0) + x_1) + ... in index order, the loads 8 terms ahead of the
+// adds
+__device__ __forceinline__ double chain(const double* x, int n) {
+  double s = 0.0;
+  int j = 0;
+  for (; j + 8 <= n; j += 8) {
+    double v[8];
+#pragma unroll
+    for (int i = 0; i < 8; ++i) v[i] = x[j + i];
+#pragma unroll
+    for (int i = 0; i < 8; ++i) s += v[i];
+  }
+  for (; j < n; ++j) s += x[j];
+  return s;
+}
+
+// the gate of intersection q / 2 in direction q % 2 (1: west-east) at step
+// t: soft(a - progress) or soft(progress - a) (itscp_step.cuh's
+// lane_signal in soft mode)
+template <class S>
+__device__ __forceinline__ S gate_at(S a, float progress, int q,
+                                     float gate32) {
+  return soft((q & 1) ? a - S(progress) : S(progress) - a, gate32);
+}
+
+// the ghost cells of lane l (itscp_step.cuh's ghosts in soft mode; every
+// lane of K4 is macro): `edge` [4][L] holds every lane's first cell and
+// speed, and its last cell and speed; sig_l and sig_p are the lane's and
+// its routed predecessor's signals
+template <class S>
+__device__ __forceinline__ Ghosts<S> lane_ghosts(const S* edge, int L,
+                                                 const LaneGeom& g, int mp,
+                                                 int mn, float incoming,
+                                                 S sig_l, S sig_p,
+                                                 const Consts& k) {
+  auto clampL = [&](int j) { return min(max(j, 0), L - 1); };
+  const float u_max = k.u_max;
+  const int adjp = g.num_prev == 1 ? g.prev0 : mp;
+  const int adjp_c = clampL(adjp);
+  const bool use_l = (g.num_prev > 0) && (adjp >= 0);
+  S gl_r = use_l ? edge[2 * L + adjp_c] : S(0.0f);
+  S gl_u = use_l ? edge[3 * L + adjp_c] : S(u_max);
+  if (!g.has_prev) { gl_r = incoming; gl_u = u_eq(S(incoming), u_max); }
+  const S prev_sig = !g.has_prev ? S(1.0f) : (mp < 0 ? S(0.0f) : sig_p);
+  Ghosts<S> o;
+  o.bl_r = gl_r * prev_sig;
+  o.bl_u = gl_u * prev_sig + S(u_max) * (S(1.0f) - prev_sig);
+  const int adjn = g.num_next == 1 ? g.next0 : mn;
+  const int adjn_c = clampL(adjn);
+  const bool use_r = (g.num_next > 0) && (adjn >= 0);
+  const S gr_r = use_r ? edge[adjn_c] : S(0.0f);
+  const S gr_u = use_r ? edge[L + adjn_c] : S(u_max);
+  const S sg = soft(sig_l - S(0.5f), k.gate32);
+  o.br_r = gr_r * sg + S(1.0f) * (S(1.0f) - sg);
+  o.br_u = gr_u * sg;
+  return o;
+}
+
+// cell q of lane l for its interfaces: the state, or the right ghost
+// beyond the lane's cells
+template <class S>
+__device__ __forceinline__ void cell_of(const S* r, const S* y, int l,
+                                        int C, int nc, int q, S br_r,
+                                        S right_y, S& rq, S& yq) {
+  const bool in = q >= 0 && q < C && q < nc;
+  rq = in ? r[l * C + q] : br_r;
+  yq = in ? y[l * C + q] : right_y;
+}
+
+// ---------------------------------------------------------------------------
+// the forward (float; Dual for the forward-mode derivative)
+// ---------------------------------------------------------------------------
+
+template <class S>
+struct FwdSmem {
+  S *r, *y;     // [L C] the state
+  S *fr, *fy;   // [L (C + 1)] the interfaces' fluxes
+  S* edge;      // [4 L] first cell, its speed, last cell, its speed
+  S* gate;      // [2 L] the step's gates (2 n_inter of them)
+  S* q_term;    // [L C] the cells' queue terms
+  double* st_term;  // [L C] the cells' static terms
+  double* stage;    // [2 L] the warp's lane terms
+  int *gidx, *ncell;  // [L] the lane's gate (-1: none), its cells
+  float* ms;          // the step's sharpness, for the lanes
 };
 
-// One episode per block. S = float: the forward (outputs -qsum and
-// queues). S = Dual: the backward; block b writes out_grad at its seed's
-// entry: [0, NA) the action, [NA, NA + LC) r0, [NA + LC, NA + 2 LC) y0.
 template <class S>
-__global__ void itscp_macro_episode_kernel(
-    const float* __restrict__ action, const float* __restrict__ sched,
-    const int* __restrict__ mnext, const int* __restrict__ mprev,
-    const float* __restrict__ r0, const float* __restrict__ y0,
-    const float* __restrict__ prog, const int* __restrict__ lane_i,
-    const float* __restrict__ lane_f, float* __restrict__ out_reward,
-    float* __restrict__ out_queues, const float* __restrict__ q_weight,
-    float* __restrict__ out_grad, Seeds sd, Dims d, Consts k) {
-  DHTS_DYNAMIC_SMEM(smem_raw);
-  Smem<S> s;
-  smem_bytes<S>(d.L, d.C, &s, smem_raw);
+__host__ __device__ inline size_t fwd_smem(int L, int C, FwdSmem<S>* s,
+                                           char* base) {
+  size_t off = 0;
+  FwdSmem<S> dummy;
+  FwdSmem<S>* t = s ? s : &dummy;
+  char* b = s ? base : nullptr;
+  const size_t LC = (size_t)L * C, LI = (size_t)L * (C + 1);
+  carve(&t->r, LC, b, off); carve(&t->y, LC, b, off);
+  carve(&t->fr, LI, b, off); carve(&t->fy, LI, b, off);
+  carve(&t->edge, 4 * (size_t)L, b, off);
+  carve(&t->gate, 2 * (size_t)L, b, off);
+  carve(&t->q_term, LC, b, off);
+  carve(&t->st_term, LC, b, off);
+  carve(&t->stage, 2 * (size_t)L, b, off);
+  carve(&t->gidx, L, b, off); carve(&t->ncell, L, b, off);
+  carve(&t->ms, 1, b, off);
+  return off;
+}
 
-  const int L = d.L, C = d.C, K = d.K;
-  const int LC = L * C;
-  const int l = threadIdx.x;
-  const bool lane = l < L;
+template <class S>
+__device__ __forceinline__ S sig_of(const FwdSmem<S>& s, int j) {
+  const int q = s.gidx[j];
+  return q < 0 ? S(1.0f) : s.gate[q];
+}
+
+// One episode (the block's threads all call it). The lanes' part.
+template <class S>
+__device__ __forceinline__ void forward_lanes(const Args& a, const Geo& geo,
+                                              FwdSmem<S>& s, const Me& m,
+                                              const LaneGeom& g,
+                                              int a_seed) {
+  const Dims& d = a.d;
+  const Consts& k = a.k;
+  const int L = d.L, C = d.C, G = geo.G, NB = geo.NL + WARP;
+  const int l = m.l, r = m.r, nc = g.num_cell;
+  const int last = min(max(nc - 1, 0), C - 1);
   const float u_max = k.u_max;
-  const Scene sc{lane_i, lane_f, nullptr, nullptr};
-  LaneState<S, S*, false> st{s.r, s.y, nullptr, nullptr, nullptr, nullptr,
-                             {nullptr, nullptr, nullptr, nullptr, nullptr,
-                              nullptr},
-                             nullptr, nullptr, nullptr, nullptr, nullptr,
-                             C, 1, 0, 1, 0, 1};
-
-  // this block's seed
-  const int b = blockIdx.x;
-  int a_seed = -1, r_seed = -1, y_seed = -1, out_at = -1;
-  if (sizeof(S) != sizeof(float)) {
-    const int NA = d.n_phases * d.n_inter;
-    if (b < sd.n_a) {
-      a_seed = b;
-      out_at = b;
-    } else if (b < sd.n_a + sd.n_r) {
-      r_seed = sd.cells[b - sd.n_a];
-      out_at = NA + r_seed;
-    } else {
-      y_seed = sd.cells[b - sd.n_a - sd.n_r];
-      out_at = NA + LC + y_seed;
-    }
-  }
-
-  const LaneGeom g = lane ? lane_geom(sc, L, K, l) : LaneGeom();
-  const int last = min(max(g.num_cell - 1, 0), C - 1);
-  if (lane) {
-    for (int c = 0; c < C; ++c) {
-      const int i = l * C + c;
-      s.r[i] = seeded<S>(r0[i], i == r_seed);
-      s.y[i] = seeded<S>(y0[i], i == y_seed);
-    }
-  }
-  if (threadIdx.x == 0)
-    for (int i = 0; i < 3; ++i) s.ms[i] = 0.0f;
-  float qsum = 0.0f;
-  double grad = 0.0;
-  __syncthreads();
-  K4_CLOCK(const bool k4_clk = threadIdx.x == 0 && blockIdx.x == 0;
+  const float coeff = k.dt / g.cell_len;
+  auto clampL = [&](int j) { return min(max(j, 0), L - 1); };
+  K4_CLOCK(const bool clk = threadIdx.x == 0 && blockIdx.x == 0;
            long long k4_p = k4_now();)
-
   for (int t = 0; t < d.T; ++t) {
     const int tl = t * L + l;
-    // ---- signals and edge cells (K4 :150-170)
-    float incoming = -1.0f;
-    if (lane) {
-      s.sig[l] = lane_signal<S>(action, prog, d, k, g, t, a_seed);
-      incoming = g.has_prev ? -1.0f : sched[tl];
-      K4_ADD(K4_SIGNALS, k4_p);
-      publish_edges<S>(st, s, l, last, u_max);
-      K4_ADD(K4_EDGES, k4_p);
+    // ---- the step's gate table and the lanes' edge cells (K4 :150-170)
+    const int phase = min(t / d.nsf, d.n_phases - 1);
+    const float progress = a.prog[t % d.nsf];
+    for (int q = threadIdx.x; q < 2 * d.n_inter; q += geo.NL) {
+      const int ai = phase * d.n_inter + (q >> 1);
+      s.gate[q] = gate_at<S>(action_at<S>(a.action[ai], ai == a_seed),
+                             progress, q, k.gate32);
     }
-    __syncthreads();
-    K4_ADD(K4_WAIT_EDGES, k4_p);
-
-    // ---- ghosts and the Godunov update (:172-210); each lane reads the
-    // others' edges and signals and writes only its own cells
-    if (lane) {
-      const Ghosts<S> gh = ghosts<S>(s, sc, g, L, l, mprev[tl], mnext[tl],
-                                     incoming, SOFT, k);
-      K4_ADD(K4_GHOSTS, k4_p);
-      godunov_lane<S>(st, g, l, C, gh, k);
-      K4_ADD(K4_GODUNOV, k4_p);
-      static_partials<S>(st, s, g, L, l, 0, k);
-      K4_ADD(K4_STATIC, k4_p);
-    }
-    __syncthreads();
-    K4_ADD(K4_WAIT_UPDATE, k4_p);
-
-    // ---- the static running mean, detached (:212-217)
-    if (threadIdx.x == 0) {
-      double tot = 0.0;
-      int cnt = 0;
-      for (int j = 0; j < L; ++j) {
-        tot += s.red_sum[j];
-        cnt += s.red_cnt[j];
+    if (m.lane && a.traj) {
+      float* tr = a.traj + (size_t)2 * t * L * C + (size_t)l * C;
+      for (int c = r; c < C; c += G) {
+        tr[c] = val(s.r[l * C + c]);
+        tr[(size_t)L * C + c] = val(s.y[l * C + c]);
       }
-      s.ms[0] = s.ms[0] + (float)tot;
-      s.ms[1] = s.ms[1] + (float)cnt;
-      s.ms[2] = sharpness(16.0f, s.ms[0] / s.ms[1]);
-      K4_ADD(K4_MEAN_FOLD, k4_p);
     }
-    __syncthreads();
-    K4_ADD(K4_WAIT_MEAN, k4_p);
-
-    // ---- soft queue of each lane (:218-222), summed in lane order
-    if (lane) {
-      const S q_lane = lane_queue<S>(st, g, l, 0, SOFT, s.ms[2], k);
-      s.red_q[l] = q_lane * q_lane;
-      K4_ADD(K4_QUEUE, k4_p);
-    }
-    __syncthreads();
-    K4_ADD(K4_WAIT_QUEUE, k4_p);
-    if (threadIdx.x == 0) {
-      double qv = 0.0, qd = 0.0;
-      for (int j = 0; j < L; ++j) {
-        qv += (double)val(s.red_q[j]);
-        qd += (double)tangent(s.red_q[j]);
+    K4_ADD(clk, K4_SIGNALS, k4_p);
+    if (m.lane) {
+      if (r == 0) {
+        const S rf = s.r[l * C];
+        s.edge[l] = rf;
+        s.edge[L + l] = comp_u(rf, s.y[l * C], u_max);
       }
-      const S queue = rounded<S>(qv, qd) * S(k.dt);
-      qsum += val(queue);
-      if (q_weight) grad += (double)q_weight[t] * (double)tangent(queue);
-      if (out_queues) out_queues[t] = val(queue);
-      K4_ADD(K4_QUEUE_SUM, k4_p);
-      K4_CLOCK(if (k4_clk) k4_cycles[K4_STEPS] += 1;)
+      if (r == last % G) {
+        const S rl = s.r[l * C + last];
+        s.edge[2 * L + l] = rl;
+        s.edge[3 * L + l] = comp_u(rl, s.y[l * C + last], u_max);
+      }
     }
-    // the next step's first writes touch none of the reduced arrays
+    K4_ADD(clk, K4_EDGES, k4_p);
+    CONVERGE();
+    bar_sync(BAR_LANES, geo.NL);
+    K4_ADD(clk, K4_WAIT_EDGES, k4_p);
+
+    // ---- ghosts and the Godunov update (:172-210): thread r solves
+    // interfaces r, r + G, ... and updates cells r, r + G, ...
+    if (m.lane) {
+      const int mp = a.mprev[tl], mn = a.mnext[tl];
+      const float incoming = g.has_prev ? -1.0f : a.sched[tl];
+      const Ghosts<S> gh =
+          lane_ghosts<S>(s.edge, L, g, mp, mn, incoming, sig_of(s, l),
+                         sig_of(s, clampL(mp)), k);
+      K4_ADD(clk, K4_GHOSTS, k4_p);
+      const S right_y = comp_y(gh.br_r, gh.br_u, u_max);
+      const S left_y = comp_y(gh.bl_r, gh.bl_u, u_max);
+      for (int i = r; i <= C; i += G) {
+        S rl, yl, rc, yc;
+        cell_of(s.r, s.y, l, C, nc, i - 1, gh.br_r, right_y, rl, yl);
+        cell_of(s.r, s.y, l, C, nc, i, gh.br_r, right_y, rc, yc);
+        const S ul = comp_u(rl, yl, u_max), ur = comp_u(rc, yc, u_max);
+        const bool first = i == 0, end = i == C;
+        S fr, fy;
+        float wave;
+        riemann(first ? gh.bl_r : rl, first ? left_y : yl,
+                first ? gh.bl_u : ul, end ? gh.br_r : rc, end ? gh.br_u : ur,
+                u_max, k.rare_den, k.third, fr, fy, wave);
+        s.fr[l * (C + 1) + i] = fr;
+        s.fy[l * (C + 1) + i] = fy;
+      }
+    }
+    __syncwarp();  // the group's fluxes, and every read of its cells
+    if (m.lane) {
+      for (int c = r; c < C && c < nc; c += G) {
+        const int i = l * C + c, f = l * (C + 1) + c;
+        const S rc = s.r[i], yc = s.y[i];
+        s.r[i] = rc + (s.fr[f] - s.fr[f + 1]) * S(coeff);
+        s.y[i] = yc + (s.fy[f] - s.fy[f + 1]) * S(coeff);
+      }
+      K4_ADD(clk, K4_GODUNOV, k4_p);
+      // ---- the static running mean's terms (:212-217)
+      for (int c = r; c < C && c < nc; c += G) {
+        const int i = l * C + c;
+        const S u = comp_u(s.r[i], s.y[i], u_max);
+        s.st_term[i] = (double)(k.static_speed - val(u));
+      }
+      K4_ADD(clk, K4_STATIC, k4_p);
+    }
+    CONVERGE();
+    bar_arrive(BAR_TERMS, NB);
+    CONVERGE();
+    bar_sync(BAR_MEAN, NB);
+    K4_ADD(clk, K4_WAIT_MEAN, k4_p);
+
+    // ---- the soft queue's terms (:218-222)
+    if (m.lane) {
+      const float c_st = s.ms[0];
+      for (int c = r; c < C && c < nc; c += G) {
+        const int i = l * C + c;
+        const S rc = s.r[i];
+        const S u = comp_u(rc, s.y[i], u_max);
+        const S stat = soft(S(k.static_speed) - u, c_st);
+        s.q_term[i] = stat * ((rc * S(g.cell_len)) / S(k.veh_len));
+      }
+    }
+    K4_ADD(clk, K4_QUEUE, k4_p);
+    K4_CLOCK(if (clk) k4_cycles[K4_STEPS] += 1;)
+    CONVERGE();
+    bar_arrive(BAR_QUEUE, NB);
   }
-  if (threadIdx.x == 0) {
-    if (out_reward) out_reward[0] = -qsum;
-    if (out_grad) out_grad[out_at] = (float)grad;
+}
+
+// The reduction warp's part: each step, the running mean's fold (each
+// lane's static terms in cell order, the lanes in lane order, float64) and
+// its sharpness for the lanes; then the queue, sum_l (q_l)^2 with q_l the
+// lane's queue terms in cell order in S, the lanes in lane order in
+// float64 rounded once, times dt.
+template <class S>
+__device__ __forceinline__ void forward_warp(const Args& a, const Geo& geo,
+                                             FwdSmem<S>& s, int out_at) {
+  const Dims& d = a.d;
+  const int L = d.L, C = d.C, NB = geo.NL + WARP;
+  const int wl = threadIdx.x % WARP;
+  float ms_sum = 0.0f, ms_cnt = 0.0f, qsum = 0.0f;
+  double grad = 0.0;
+  K4_CLOCK(const bool clk = wl == 0 && blockIdx.x == 0;
+           long long k4_p = k4_now();)
+  for (int t = 0; t < d.T; ++t) {
+    CONVERGE();  // lane 0 may still be in its sum of the last step
+    bar_sync(BAR_TERMS, NB);
+    K4_ADD(clk, K4_WAIT_UPDATE, k4_p);
+    int cnt = 0;
+    for (int j = wl; j < L; j += WARP) {
+      const int n = s.ncell[j];
+      double sj = 0.0;
+      for (int c = 0; c < n; ++c) sj += s.st_term[j * C + c];
+      s.stage[j] = sj;
+      cnt += n;
+    }
+    for (int o = WARP / 2; o > 0; o >>= 1)
+      cnt += __shfl_down_sync(FULL_MASK, cnt, o);
+    __syncwarp();  // the staged terms, for lane 0's chain
+    if (wl == 0) {
+      const double tot = chain(s.stage, L);
+      ms_sum = ms_sum + (float)tot;
+      ms_cnt = ms_cnt + (float)cnt;
+      const float c_st = sharpness(16.0f, ms_sum / ms_cnt);
+      s.ms[0] = c_st;
+      if (a.sharp) a.sharp[t] = c_st;
+    }
+    K4_ADD(clk, K4_MEAN_FOLD, k4_p);
+    CONVERGE();
+    bar_arrive(BAR_MEAN, NB);
+    CONVERGE();
+    bar_sync(BAR_QUEUE, NB);
+    K4_ADD(clk, K4_WAIT_QUEUE, k4_p);
+    for (int j = wl; j < L; j += WARP) {
+      const int n = s.ncell[j];
+      S q = 0.0f;
+      for (int c = 0; c < n; ++c) q = q + s.q_term[j * C + c];
+      const S q2 = q * q;
+      s.stage[j] = (double)val(q2);
+      s.stage[L + j] = (double)tangent(q2);
+    }
+    __syncwarp();
+    if (wl == 0) {
+      const double qv = chain(s.stage, L);
+      const double qd = sizeof(S) == sizeof(float) ? 0.0
+                                                   : chain(s.stage + L, L);
+      const S queue = rounded<S>(qv, qd) * S(a.k.dt);
+      qsum += val(queue);
+      if (a.q_weight) grad += (double)a.q_weight[t] * (double)tangent(queue);
+      if (a.out_queues) a.out_queues[t] = val(queue);
+    }
+    K4_ADD(clk, K4_QUEUE_SUM, k4_p);
+  }
+  if (wl == 0) {
+    if (a.out_reward) a.out_reward[0] = -qsum;
+    if (a.out_grad && out_at >= 0) a.out_grad[out_at] = (float)grad;
   }
 }
 
 template <class S>
-int launch(int blocks, const float* action, const float* sched,
-           const int* mnext, const int* mprev, const float* r0,
-           const float* y0, const float* prog, const int* lane_i,
-           const float* lane_f, float* out_reward, float* out_queues,
-           const float* q_weight, float* out_grad, const Seeds& sd,
-           const Dims& d, const Consts& k, void* stream) {
-  if (d.L < 1 || d.L > 1024 || d.C < 1 || d.C > MAXC || d.K < 1 ||
-      d.T < 0 || d.nsf < 1 || d.n_phases < 1 || d.n_inter < 1 || blocks < 1)
-    return 1;  // cudaErrorInvalidValue
-  const size_t smem = smem_bytes<S>(d.L, d.C, nullptr, nullptr);
-  const int threads = ((d.L + 31) / 32) * 32;
+__device__ __forceinline__ void forward_body(const Args& a, const Geo& geo,
+                                             char* smem, int a_seed,
+                                             int r_seed, int y_seed,
+                                             int out_at) {
+  FwdSmem<S> s;
+  fwd_smem<S>(a.d.L, a.d.C, &s, smem);
+  const int L = a.d.L, C = a.d.C, G = geo.G;
+  const Me m = me_of(geo, L);
+  const Scene sc{a.lane_i, a.lane_f, nullptr, nullptr};
+  const LaneGeom g = m.lane ? lane_geom(sc, L, a.d.K, m.l) : LaneGeom();
+  if (m.lane) {
+    for (int c = m.r; c < C; c += G) {
+      const int i = m.l * C + c;
+      s.r[i] = seeded<S>(a.r0[i], i == r_seed);
+      s.y[i] = seeded<S>(a.y0[i], i == y_seed);
+    }
+    if (m.r == 0) {
+      s.gidx[m.l] = g.approaching ? 2 * g.inter + (g.is_we ? 1 : 0) : -1;
+      s.ncell[m.l] = g.num_cell;
+    }
+  }
+  __syncthreads();
+  if ((int)threadIdx.x >= geo.NL)
+    forward_warp<S>(a, geo, s, out_at);
+  else
+    forward_lanes<S>(a, geo, s, m, g, a_seed);
+}
+
+// The largest block each kernel is compiled for, which bounds its
+// registers: the forward's 72 let the 3x3 preset's 800 threads (5 a lane)
+// run as one block; the derivative's and the sweep's 128 let 512 (3 a
+// lane there).
+template <class S>
+struct MaxThreads {
+  static constexpr int value = 896;
+};
+template <>
+struct MaxThreads<Dual> {
+  static constexpr int value = 512;
+};
+constexpr int REVERSE_MAX_THREADS = 512;
+
+// One episode per block. S = float: the forward (outputs -qsum and
+// queues, and the trajectory if a.traj). S = Dual: the forward-mode
+// derivative; block b seeds action entry b (b < n_a), the r0 cell
+// cells[b - n_a] (next n_r), or the y0 cell cells[b - n_a - n_r], and
+// writes out_grad at that entry: [0, NA) the action, [NA, NA + LC) r0,
+// [NA + LC, NA + 2 LC) y0.
+template <class S>
+__global__ void
+#ifndef DHTS_CPU_EMULATION
+__launch_bounds__(MaxThreads<S>::value)
+#endif
+itscp_macro_episode_kernel(Args a, Geo geo) {
+  DHTS_DYNAMIC_SMEM(smem_raw);
+  int a_seed = -1, r_seed = -1, y_seed = -1, out_at = -1;
+  if (sizeof(S) != sizeof(float)) {
+    const int b = blockIdx.x;
+    const int NA = a.d.n_phases * a.d.n_inter, LC = a.d.L * a.d.C;
+    if (b < a.n_a) {
+      a_seed = b;
+      out_at = b;
+    } else if (b < a.n_a + a.n_r) {
+      r_seed = a.cells[b - a.n_a];
+      out_at = NA + r_seed;
+    } else {
+      y_seed = a.cells[b - a.n_a - a.n_r];
+      out_at = NA + LC + y_seed;
+    }
+  }
+  forward_body<S>(a, geo, smem_raw, a_seed, r_seed, y_seed, out_at);
+}
+
+// ---------------------------------------------------------------------------
+// the reverse sweep
+// ---------------------------------------------------------------------------
+
+struct RevSmem {
+  float *r, *y;    // [L C] the saved state of the step
+  float *gr, *gy;  // [L C] the state's cotangents
+  float *fr, *fy;  // [L (C + 1)] the interfaces' fluxes
+  float* jac;      // [L (C + 1) 8] d(fr, fy) / d(left r, y, u; right u)
+  float *tr, *ty;  // [L C] the queue term's partials in the new r, y
+  float* qt;       // [L C] the queue terms
+  float* il;       // [3 L (C + 1)] an interface's left inputs' cotangents
+  float* ir;       // [L (C + 1)] its right speed's cotangent
+  float* edge;     // [4 L] first cell, its speed, last cell, its speed
+  float* gate;     // [4 L] the step's gates, then their derivatives
+  float* slot;     // [5 L] what a lane hands back: the last edge's r and
+                   // u, the first edge's r and u, the upstream signal
+  float* gsig;     // [L] the lane's own signal's cotangent
+  float* part;     // [5 L G] the group threads' partial sums
+  float* ga;       // [2 L] the lanes' action terms by step parity
+  int* tgt;        // [2][L] by step parity: the lanes whose last edge,
+                   // first edge and signal the lane read, each plus 1 (0:
+                   // none) in 10 bits
+  int* gidx;       // [L]
+  int* members;    // [n_inter + 1 + L] each intersection's gated lanes in
+                   // lane order: offsets, then the lanes
+  double* acc;        // [n_phases n_inter] the action's gradient
+};
+
+__host__ __device__ inline size_t rev_smem(const Dims& d, int G, RevSmem* s,
+                                           char* base) {
+  size_t off = 0;
+  RevSmem dummy;
+  RevSmem* t = s ? s : &dummy;
+  char* b = s ? base : nullptr;
+  const size_t L = d.L, LC = L * d.C, LI = L * (d.C + 1);
+  carve(&t->r, LC, b, off); carve(&t->y, LC, b, off);
+  carve(&t->gr, LC, b, off); carve(&t->gy, LC, b, off);
+  carve(&t->fr, LI, b, off); carve(&t->fy, LI, b, off);
+  carve(&t->jac, 8 * LI, b, off);
+  carve(&t->tr, LC, b, off); carve(&t->ty, LC, b, off);
+  carve(&t->qt, LC, b, off);
+  carve(&t->il, 3 * LI, b, off); carve(&t->ir, LI, b, off);
+  carve(&t->edge, 4 * L, b, off); carve(&t->gate, 4 * L, b, off);
+  carve(&t->slot, 5 * L, b, off); carve(&t->gsig, L, b, off);
+  carve(&t->part, 5 * L * G, b, off); carve(&t->ga, 2 * L, b, off);
+  carve(&t->tgt, 2 * L, b, off);
+  carve(&t->gidx, L, b, off);
+  carve(&t->members, (size_t)d.n_inter + 1 + L, b, off);
+  carve(&t->acc, (size_t)d.n_phases * d.n_inter, b, off);
+  return off;
+}
+
+// The lanes' part of the sweep. At step t: (1) each lane loads its saved
+// cells, the block fills the step's gates (values and derivatives), the
+// lanes publish their edges and the lanes they read; (2) each lane
+// recomputes its ghosts and fluxes (the Riemann partials in one DualN<4>
+// pass an interface), its new cells and queue terms, and pulls the
+// cotangents back: the queue's into the new cells, the cells' into the
+// fluxes, the fluxes' into the interfaces' inputs, those into the cells
+// before the step and the ghosts, the ghosts' into its slots; (3) each
+// lane gathers the slots that name it into its edges and its signal, and
+// its signal's cotangent times the gate's derivative goes to the warp.
+__device__ __forceinline__ void reverse_lanes(const Args& a, const Geo& geo,
+                                              RevSmem& s, const Me& m,
+                                              const LaneGeom& g) {
+  const Dims& d = a.d;
+  const Consts& k = a.k;
+  const int L = d.L, C = d.C, G = geo.G, NB = geo.NL + WARP;
+  const int CI = C + 1, LC = L * C, LI = L * CI;
+  const int l = m.l, r = m.r, nc = g.num_cell;
+  const int last = min(max(nc - 1, 0), C - 1);
+  const float u_max = k.u_max;
+  const float coeff = k.dt / g.cell_len;
+  auto clampL = [&](int j) { return min(max(j, 0), L - 1); };
+  K4_CLOCK(const bool clk = threadIdx.x == 0 && blockIdx.x == 0;
+           long long k4_p = k4_now();)
+  for (int t = d.T - 1; t >= 0; --t) {
+    const int par = t & 1, tl = t * L + l;
+    int* tgt = s.tgt + par * L;  // read in (3) while a lane ahead writes
+                                 // the next step's
+    const int mp = m.lane ? a.mprev[tl] : -1;
+    const int mn = m.lane ? a.mnext[tl] : -1;
+    // ---- (1) the saved cells, the gates, the edges and the targets
+    const int phase = min(t / d.nsf, d.n_phases - 1);
+    const float progress = a.prog[t % d.nsf];
+    for (int q = threadIdx.x; q < 2 * d.n_inter; q += geo.NL) {
+      const int ai = phase * d.n_inter + (q >> 1);
+      const Dual gv = gate_at<Dual>(Dual(a.action[ai], 1.0f), progress, q,
+                                    k.gate32);
+      s.gate[q] = gv.v;
+      s.gate[2 * L + q] = gv.d;
+    }
+    const int adjp = g.num_prev == 1 ? g.prev0 : mp;
+    const int adjn = g.num_next == 1 ? g.next0 : mn;
+    const bool use_l = g.has_prev && g.num_prev > 0 && adjp >= 0;
+    const bool use_r = g.num_next > 0 && adjn >= 0;
+    if (m.lane) {
+      const float* tr = a.traj + (size_t)2 * t * L * C + (size_t)l * C;
+      for (int c = r; c < C; c += G) {
+        s.r[l * C + c] = tr[c];
+        s.y[l * C + c] = tr[(size_t)L * C + c];
+      }
+      if (r == 0) {
+        const float rf = tr[0];
+        s.edge[l] = rf;
+        s.edge[L + l] = comp_u(rf, tr[(size_t)L * C], u_max);
+        tgt[l] = (use_l ? clampL(adjp) + 1 : 0) |
+                 (use_r ? clampL(adjn) + 1 : 0) << 10 |
+                 (g.has_prev && mp >= 0 ? clampL(mp) + 1 : 0) << 20;
+      }
+      if (r == last % G) {
+        const float rl = tr[last];
+        s.edge[2 * L + l] = rl;
+        s.edge[3 * L + l] = comp_u(rl, tr[(size_t)L * C + last], u_max);
+      }
+    }
+    K4_ADD(clk, K4_R_LOAD, k4_p);
+    CONVERGE();
+    bar_sync(BAR_LANES, geo.NL);
+    K4_ADD(clk, K4_R_WAIT_EDGES, k4_p);
+
+    // ---- (2) the step again, and its transpose
+    // the ghosts (lane_ghosts' values), with what their transpose needs
+    const float sig_l = s.gidx[l] < 0 ? 1.0f : s.gate[s.gidx[l]];
+    // d sig_l / d action, read before the barrier: a lane ahead fills the
+    // next step's gates after it
+    const float dsig = s.gidx[l] < 0 ? 0.0f : s.gate[2 * L + s.gidx[l]];
+    const int mp_c = clampL(mp);
+    const float sig_p = s.gidx[mp_c] < 0 ? 1.0f : s.gate[s.gidx[mp_c]];
+    float gl_r = use_l ? s.edge[2 * L + clampL(adjp)] : 0.0f;
+    float gl_u = use_l ? s.edge[3 * L + clampL(adjp)] : u_max;
+    if (!g.has_prev) {
+      const float incoming = a.sched[tl];
+      gl_r = incoming;
+      gl_u = u_eq(incoming, u_max);
+    }
+    const float ps = !g.has_prev ? 1.0f : (mp < 0 ? 0.0f : sig_p);
+    const float bl_r = gl_r * ps;
+    const float bl_u = gl_u * ps + u_max * (1.0f - ps);
+    const float gr_r = use_r ? s.edge[clampL(adjn)] : 0.0f;
+    const float gr_u = use_r ? s.edge[L + clampL(adjn)] : u_max;
+    const Dual sgd = soft(Dual(sig_l, 1.0f) - Dual(0.5f), k.gate32);
+    const float sg = sgd.v;
+    const float br_r = gr_r * sg + 1.0f * (1.0f - sg);
+    const float br_u = gr_u * sg;
+    const D2 ly = comp_y(D2::seed(bl_r, 0), D2::seed(bl_u, 1), u_max);
+    const D2 ry = comp_y(D2::seed(br_r, 0), D2::seed(br_u, 1), u_max);
+    if (m.lane) {
+      for (int i = r; i <= C; i += G) {
+        float rl, yl, rc, yc;
+        cell_of(s.r, s.y, l, C, nc, i - 1, br_r, ry.v, rl, yl);
+        cell_of(s.r, s.y, l, C, nc, i, br_r, ry.v, rc, yc);
+        const bool first = i == 0, end = i == C;
+        const float ul = first ? bl_u : comp_u(rl, yl, u_max);
+        const float ur = end ? br_u : comp_u(rc, yc, u_max);
+        D4 fr, fy;
+        float wave;
+        riemann(D4::seed(first ? bl_r : rl, 0), D4::seed(first ? ly.v : yl, 1),
+                D4::seed(ul, 2), D4(end ? br_r : rc), D4::seed(ur, 3), u_max,
+                k.rare_den, k.third, fr, fy, wave);
+        const int f = l * CI + i;
+        s.fr[f] = fr.v;
+        s.fy[f] = fy.v;
+#pragma unroll
+        for (int q = 0; q < 4; ++q) {
+          s.jac[f * 8 + q] = fr.d[q];
+          s.jac[f * 8 + 4 + q] = fy.d[q];
+        }
+      }
+    }
+    K4_ADD(clk, K4_R_RIEMANN, k4_p);
+    __syncwarp();  // the group's fluxes
+    if (m.lane) {
+      // the new cells and their queue terms, with the terms' partials
+      const float c_st = a.sharp[t];
+      for (int c = r; c < C && c < nc; c += G) {
+        const int i = l * C + c, f = l * CI + c;
+        const float rn = s.r[i] + (s.fr[f] - s.fr[f + 1]) * coeff;
+        const float yn = s.y[i] + (s.fy[f] - s.fy[f + 1]) * coeff;
+        const D2 rd = D2::seed(rn, 0);
+        const D2 u = comp_u(rd, D2::seed(yn, 1), u_max);
+        const D2 term = soft(D2(k.static_speed) - u, c_st) *
+                        ((rd * D2(g.cell_len)) / D2(k.veh_len));
+        s.qt[i] = term.v;
+        s.tr[i] = term.d[0];
+        s.ty[i] = term.d[1];
+      }
+    }
+    __syncwarp();  // the group's terms
+    if (m.lane) {
+      // the queue's cotangent: w dt on q_l^2, 2 w dt q_l on q_l
+      float q = 0.0f;
+      for (int c = 0; c < nc; ++c) q = q + s.qt[l * C + c];
+      const float gq = (a.q_weight[t] * k.dt) * q;
+      const float gql = gq + gq;
+      for (int c = r; c < C && c < nc; c += G) {
+        const int i = l * C + c;
+        s.gr[i] = s.gr[i] + gql * s.tr[i];
+        s.gy[i] = s.gy[i] + gql * s.ty[i];
+      }
+    }
+    K4_ADD(clk, K4_R_TERMS, k4_p);
+    __syncwarp();  // the new cells' cotangents
+    if (m.lane) {
+      // interface i's fluxes: +coeff on cell i's update, -coeff on cell
+      // i - 1's; pulled back to the interface's inputs
+      for (int i = r; i <= C; i += G) {
+        const bool in_i = i < nc, in_m = i >= 1 && i - 1 < nc;
+        const float gcr = (in_i ? s.gr[l * C + i] : 0.0f) * coeff -
+                          (in_m ? s.gr[l * C + i - 1] : 0.0f) * coeff;
+        const float gcy = (in_i ? s.gy[l * C + i] : 0.0f) * coeff -
+                          (in_m ? s.gy[l * C + i - 1] : 0.0f) * coeff;
+        const int f = l * CI + i;
+        const float* J = s.jac + f * 8;
+        s.il[f] = J[0] * gcr + J[4] * gcy;
+        s.il[LI + f] = J[1] * gcr + J[5] * gcy;
+        s.il[2 * LI + f] = J[2] * gcr + J[6] * gcy;
+        s.ir[f] = J[3] * gcr + J[7] * gcy;
+      }
+    }
+    __syncwarp();  // the interfaces' inputs' cotangents
+    if (m.lane) {
+      // a cell's: its update's own term, its right interface's left input
+      // and its left interface's right speed; the speed's into r and y. A
+      // cell beyond the lane's is the right ghost.
+      float gb[5] = {0.0f, 0.0f, 0.0f, 0.0f, 0.0f};  // bl_r, bl_u, br_r,
+                                                     // br_u, right_y
+      for (int c = r; c < C; c += G) {
+        const int i = l * C + c, f = l * CI + c;
+        const bool in = c < nc;
+        const float gu = s.il[2 * LI + f + 1] + s.ir[f];
+        const D2 u = comp_u(D2::seed(in ? s.r[i] : br_r, 0),
+                            D2::seed(in ? s.y[i] : ry.v, 1), u_max);
+        const float g_r = ((in ? s.gr[i] : 0.0f) + s.il[f + 1]) + u.d[0] * gu;
+        const float g_y =
+            ((in ? s.gy[i] : 0.0f) + s.il[LI + f + 1]) + u.d[1] * gu;
+        if (in) {
+          s.gr[i] = g_r;
+          s.gy[i] = g_y;
+        } else {
+          gb[2] += g_r;
+          gb[4] += g_y;
+        }
+      }
+      if (r == 0) {  // interface 0's left input: the left ghost
+        const int f = l * CI;
+        gb[0] = s.il[f] + ly.d[0] * s.il[LI + f];
+        gb[1] = s.il[2 * LI + f] + ly.d[1] * s.il[LI + f];
+      }
+      if (C % G == r) gb[3] += s.ir[l * CI + C];  // interface C's: br_u
+#pragma unroll
+      for (int q = 0; q < 5; ++q) s.part[(l * G + r) * 5 + q] = gb[q];
+    }
+    __syncwarp();  // the group's shares of the ghosts'
+    if (m.lane && r == 0) {
+      float e[5] = {0.0f, 0.0f, 0.0f, 0.0f, 0.0f};
+      for (int j = 0; j < G; ++j)
+#pragma unroll
+        for (int q = 0; q < 5; ++q) e[q] += s.part[(l * G + j) * 5 + q];
+      const float g_brr = e[2] + ry.d[0] * e[4];
+      const float g_bru = e[3] + ry.d[1] * e[4];
+      // br_r = gr_r sg + (1 - sg), br_u = gr_u sg
+      s.gsig[l] = sgd.d * (g_brr * (gr_r - 1.0f) + g_bru * gr_u);
+      s.slot[2 * L + l] = g_brr * sg;
+      s.slot[3 * L + l] = g_bru * sg;
+      // bl_r = gl_r ps, bl_u = gl_u ps + u_max (1 - ps)
+      s.slot[l] = e[0] * ps;
+      s.slot[L + l] = e[1] * ps;
+      s.slot[4 * L + l] = e[0] * gl_r + e[1] * (gl_u - u_max);
+    }
+    K4_ADD(clk, K4_R_TRANSPOSE, k4_p);
+    CONVERGE();
+    bar_sync(BAR_LANES, geo.NL);
+    K4_ADD(clk, K4_R_WAIT_SLOTS, k4_p);
+
+    // ---- (3) the readers' cotangents into the edges and the signal
+    float ga = 0.0f;
+    if (m.lane) {
+      const int ch = (L + G - 1) / G, j0 = r * ch, j1 = min(L, j0 + ch);
+      const int me = l + 1;
+      float e[5] = {0.0f, 0.0f, 0.0f, 0.0f, 0.0f};
+      for (int j = j0; j < j1; j += 4) {
+        int pk[4];
+#pragma unroll
+        for (int u = 0; u < 4; ++u) pk[u] = j + u < j1 ? tgt[j + u] : 0;
+#pragma unroll
+        for (int u = 0; u < 4; ++u) {
+          const int q = j + u;
+          if ((pk[u] & 1023) == me) {
+            e[0] += s.slot[q];
+            e[1] += s.slot[L + q];
+          }
+          if ((pk[u] >> 10 & 1023) == me) {
+            e[2] += s.slot[2 * L + q];
+            e[3] += s.slot[3 * L + q];
+          }
+          if ((pk[u] >> 20 & 1023) == me) e[4] += s.slot[4 * L + q];
+        }
+      }
+#pragma unroll
+      for (int q = 0; q < 5; ++q) s.part[(l * G + r) * 5 + q] = e[q];
+    }
+    __syncwarp();  // the chunks
+    if (m.lane) {
+      float e[5] = {0.0f, 0.0f, 0.0f, 0.0f, 0.0f};
+      for (int j = 0; j < G; ++j)
+#pragma unroll
+        for (int q = 0; q < 5; ++q) e[q] += s.part[(l * G + j) * 5 + q];
+      if (r == 0 && nc > 0) {  // the first edge: r[l, 0] and its speed
+        const int i = l * C;
+        const D2 u = comp_u(D2::seed(s.r[i], 0), D2::seed(s.y[i], 1), u_max);
+        s.gr[i] = (s.gr[i] + e[2]) + u.d[0] * e[3];
+        s.gy[i] = s.gy[i] + u.d[1] * e[3];
+      }
+      if (r == last % G && nc > 0) {  // the last edge
+        const int i = l * C + last;
+        const D2 u = comp_u(D2::seed(s.r[i], 0), D2::seed(s.y[i], 1), u_max);
+        s.gr[i] = (s.gr[i] + e[0]) + u.d[0] * e[1];
+        s.gy[i] = s.gy[i] + u.d[1] * e[1];
+      }
+      if (r == 0) ga = s.gidx[l] < 0 ? 0.0f : dsig * (s.gsig[l] + e[4]);
+    }
+    K4_ADD(clk, K4_R_GATHER, k4_p);
+    if (t <= d.T - 3) {  // the warp has folded step t + 2's terms
+      CONVERGE();
+      bar_sync(BAR_GA_EMPTY + par, NB);
+    }
+    K4_ADD(clk, K4_R_WAIT_EMPTY, k4_p);
+    K4_CLOCK(if (clk) k4_cycles[K4_R_STEPS] += 1;)
+    if (m.lane && r == 0) s.ga[par * L + l] = ga;
+    CONVERGE();
+    bar_arrive(BAR_GA_FULL + par, NB);
+  }
+}
+
+// The reduction warp's part of the sweep: each step's action terms into
+// action[phase, inter], each intersection's gated lanes in lane order
+// (s.members), in float64.
+__device__ __forceinline__ void reverse_warp(const Args& a, const Geo& geo,
+                                             RevSmem& s) {
+  const Dims& d = a.d;
+  const int L = d.L, NB = geo.NL + WARP;
+  const int wl = threadIdx.x % WARP;
+  K4_CLOCK(const bool clk = wl == 0 && blockIdx.x == 0;
+           long long k4_p = k4_now();)
+  for (int t = d.T - 1; t >= 0; --t) {
+    const int par = t & 1;
+    CONVERGE();
+    bar_sync(BAR_GA_FULL + par, NB);
+    K4_ADD(clk, K4_R_WAIT_FULL, k4_p);
+    const int phase = min(t / d.nsf, d.n_phases - 1);
+    const float* ga = s.ga + par * L;
+    const int* lanes = s.members + d.n_inter + 1;
+    for (int ii = wl; ii < d.n_inter; ii += WARP) {
+      double acc = s.acc[phase * d.n_inter + ii];
+      const int k1 = s.members[ii + 1];
+      int k = s.members[ii];
+      for (; k + 4 <= k1; k += 4) {
+        float x[4];
+#pragma unroll
+        for (int u = 0; u < 4; ++u) x[u] = ga[lanes[k + u]];
+#pragma unroll
+        for (int u = 0; u < 4; ++u) acc += (double)x[u];
+      }
+      for (; k < k1; ++k) acc += (double)ga[lanes[k]];
+      s.acc[phase * d.n_inter + ii] = acc;
+    }
+    K4_ADD(clk, K4_R_FOLD, k4_p);
+    if (t >= 2) {  // the lanes write this parity's terms again at t - 2
+      CONVERGE();
+      bar_arrive(BAR_GA_EMPTY + par, NB);
+    }
+  }
+}
+
+// One block: the reverse sweep over a.traj and a.sharp, after filling them
+// by the forward first where `replay`; writes out_grad [NA + 2 LC]
+// entirely.
+__global__ void
+#ifndef DHTS_CPU_EMULATION
+__launch_bounds__(REVERSE_MAX_THREADS)
+#endif
+itscp_macro_episode_reverse(Args a, Geo geo, int replay) {
+  DHTS_DYNAMIC_SMEM(smem_raw);
+  const Dims& d = a.d;
+  const int L = d.L, C = d.C, LC = L * C, NB = geo.NL + WARP;
+  const int NA = d.n_phases * d.n_inter;
+  const int tid = threadIdx.x;
+  if (replay) {
+    Args f = a;
+    f.out_reward = f.out_queues = f.out_grad = nullptr;
+    f.q_weight = nullptr;
+    forward_body<float>(f, geo, smem_raw, -1, -1, -1, -1);
+    __syncthreads();
+  }
+  RevSmem s;
+  rev_smem(d, geo.G, &s, smem_raw);
+  const Me m = me_of(geo, L);
+  const Scene sc{a.lane_i, a.lane_f, nullptr, nullptr};
+  const LaneGeom g = m.lane ? lane_geom(sc, L, d.K, m.l) : LaneGeom();
+  for (int i = tid; i < LC; i += NB) {
+    s.gr[i] = 0.0f;
+    s.gy[i] = 0.0f;
+  }
+  for (int i = tid; i < NA; i += NB) s.acc[i] = 0.0;
+  if (m.lane && m.r == 0)
+    s.gidx[m.l] = g.approaching ? 2 * g.inter + (g.is_we ? 1 : 0) : -1;
+  __syncthreads();
+  if (tid == geo.NL) {  // the reduction warp's first thread: the members
+    int* off = s.members;
+    int* lanes = s.members + d.n_inter + 1;
+    int n = 0;
+    for (int ii = 0; ii < d.n_inter; ++ii) {
+      off[ii] = n;
+      for (int j = 0; j < L; ++j)
+        if (s.gidx[j] >= 0 && (s.gidx[j] >> 1) == ii) lanes[n++] = j;
+    }
+    off[d.n_inter] = n;
+  }
+  __syncthreads();
+  if (tid >= geo.NL)
+    reverse_warp(a, geo, s);
+  else
+    reverse_lanes(a, geo, s, m, g);
+  __syncthreads();
+  for (int i = tid; i < LC; i += NB) {
+    a.out_grad[NA + i] = s.gr[i];
+    a.out_grad[NA + LC + i] = s.gy[i];
+  }
+  for (int i = tid; i < NA; i += NB) a.out_grad[i] = (float)s.acc[i];
+}
+
+// ---------------------------------------------------------------------------
+// launchers
+// ---------------------------------------------------------------------------
+
+bool sizes_ok(const Dims& d) {
+  return d.L >= 1 && d.L <= MAX_THREADS - WARP && d.C >= 1 && d.C <= MAXC &&
+         d.K >= 1 && d.T >= 0 && d.nsf >= 1 && d.n_phases >= 1 &&
+         d.n_inter >= 1 && d.n_inter <= d.L;
+}
+
+// The largest block a kernel can take (its registers), MAX_THREADS on the
+// host.
+template <class Kernel>
+int max_threads_of(Kernel kernel) {
+#ifdef DHTS_CPU_EMULATION
+  (void)kernel;
+  return MAX_THREADS;
+#else
+  cudaFuncAttributes attr;
+  if (cudaFuncGetAttributes(&attr, kernel) != cudaSuccess) return 0;
+  return attr.maxThreadsPerBlock;
+#endif
+}
+
+// Threads a lane: the fewest interfaces a thread (ceil((C + 1) / G)), and
+// the fewest threads for that, whose block the kernel can take; 0 if none
+// (a build with -DDHTS_K4_LANE_THREADS=n takes min(n, C + 1)).
+int lane_threads(int max_threads, int L, int C) {
+#ifdef DHTS_K4_LANE_THREADS
+  const int G = min(DHTS_K4_LANE_THREADS, C + 1);
+  return geo_of(L, G).NL + WARP <= max_threads ? G : 0;
+#else
+  for (int per = 1; per <= C + 1; ++per) {
+    const int G = (C + 1 + per - 1) / per;
+    if (geo_of(L, G).NL + WARP <= max_threads) return G;
+  }
+  return 0;
+#endif
+}
+
+template <class Kernel, class... X>
+int launch_block(Kernel kernel, int blocks, const Geo& geo, size_t smem,
+                 void* stream, X... args) {
+  const int threads = geo.NL + WARP;
 #ifdef DHTS_CPU_EMULATION
   (void)stream;
-  dhts_emu::launch(blocks, threads, smem, itscp_macro_episode_kernel<S>,
-                   action, sched, mnext, mprev, r0, y0, prog, lane_i,
-                   lane_f, out_reward, out_queues, q_weight, out_grad, sd,
-                   d, k);
+  dhts_emu::launch(blocks, threads, smem, kernel, args...);
   return 0;
 #else
   cudaError_t err = cudaFuncSetAttribute(
-      itscp_macro_episode_kernel<S>,
-      cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
   if (err != cudaSuccess) return (int)err;
-  itscp_macro_episode_kernel<S><<<blocks, threads, smem,
-                                  (cudaStream_t)stream>>>(
-      action, sched, mnext, mprev, r0, y0, prog, lane_i, lane_f, out_reward,
-      out_queues, q_weight, out_grad, sd, d, k);
+  kernel<<<blocks, threads, smem, (cudaStream_t)stream>>>(args...);
   return (int)cudaGetLastError();
 #endif
+}
+
+template <class S>
+int launch_forward(int blocks, const Args& a, void* stream) {
+  if (!sizes_ok(a.d) || blocks < 1) return 1;  // cudaErrorInvalidValue
+  const int G = lane_threads(
+      max_threads_of(itscp_macro_episode_kernel<S>), a.d.L, a.d.C);
+  if (G < 1) return 1;
+  const Geo geo = geo_of(a.d.L, G);
+  return launch_block(itscp_macro_episode_kernel<S>, blocks, geo,
+                      fwd_smem<S>(a.d.L, a.d.C, nullptr, nullptr), stream,
+                      a, geo);
 }
 
 Dims dims(int T, int L, int C, int K, int nsf, int n_phases, int n_inter) {
@@ -333,15 +1256,43 @@ Consts consts(float u_max, float dt, float veh_len, float static_speed,
   return k;
 }
 
+Args args_of(const float* action, const float* sched, const int* mnext,
+             const int* mprev, const float* r0, const float* y0,
+             const float* prog, const int* lane_i, const float* lane_f,
+             const Dims& d, const Consts& k) {
+  Args a{};
+  a.action = action; a.sched = sched; a.mnext = mnext; a.mprev = mprev;
+  a.r0 = r0; a.y0 = y0; a.prog = prog; a.lane_i = lane_i; a.lane_f = lane_f;
+  a.d = d;
+  a.k = k;
+  return a;
+}
+
 }  // namespace
 
 extern "C" {
 
-// Dynamic shared memory of the forward (tangent = 0) or the backward
-// (tangent = 1) for these sizes (bytes).
-size_t itscp_macro_episode_smem(int L, int C, int tangent) {
-  return tangent ? smem_bytes<Dual>(L, C, nullptr, nullptr)
-                 : smem_bytes<float>(L, C, nullptr, nullptr);
+// Dynamic shared memory (bytes) of the forward (kernel 0), the
+// forward-mode derivative (1) or the reverse sweep (2, with the threads a
+// lane it takes) for these sizes.
+size_t itscp_macro_episode_smem(int L, int C, int kernel) {
+  if (kernel == 0) return fwd_smem<float>(L, C, nullptr, nullptr);
+  if (kernel == 1) return fwd_smem<Dual>(L, C, nullptr, nullptr);
+  Dims d = dims(1, L, C, 1, 1, 1, L);
+  const int G = lane_threads(max_threads_of(itscp_macro_episode_reverse), L,
+                             C);
+  const size_t rev = rev_smem(d, G > 0 ? G : 1, nullptr, nullptr);
+  const size_t fwd = fwd_smem<float>(L, C, nullptr, nullptr);
+  return rev > fwd ? rev : fwd;
+}
+
+// The threads a lane that kernel 0, 1 or 2 (as above) takes for these
+// sizes (0: none fits).
+int itscp_macro_episode_lane_threads(int L, int C, int kernel) {
+  const int mt = kernel == 0 ? max_threads_of(itscp_macro_episode_kernel<float>)
+               : kernel == 1 ? max_threads_of(itscp_macro_episode_kernel<Dual>)
+                             : max_threads_of(itscp_macro_episode_reverse);
+  return lane_threads(mt, L, C);
 }
 
 // Forward: one episode; out_reward[0] = -sum(queues), out_queues[T].
@@ -353,18 +1304,43 @@ int launch_itscp_macro_episode_fwd(
     float* out_queues, int T, int L, int C, int K, int nsf, int n_phases,
     int n_inter, float u_max, float dt, float veh_len, float static_speed,
     float rare_den, float third, float gate32, void* stream) {
-  return launch<float>(
-      1, action, sched, mnext, mprev, r0, y0, prog, lane_i, lane_f,
-      out_reward, out_queues, nullptr, nullptr, Seeds{nullptr, 0, 0, 0},
-      dims(T, L, C, K, nsf, n_phases, n_inter),
-      consts(u_max, dt, veh_len, static_speed, rare_den, third, gate32),
-      stream);
+  Args a = args_of(action, sched, mnext, mprev, r0, y0, prog, lane_i, lane_f,
+                   dims(T, L, C, K, nsf, n_phases, n_inter),
+                   consts(u_max, dt, veh_len, static_speed, rare_den, third,
+                          gate32));
+  a.out_reward = out_reward;
+  a.out_queues = out_queues;
+  return launch_forward<float>(1, a, stream);
 }
 
-// Backward: out_grad[n_phases * n_inter + 2 L C] (zeroed by the caller)
-// gets sum_t q_weight[t] * d(queue_t)/d(entry) at the n_a action entries,
-// the n_r cells of r0 and the n_y cells of y0 named by `cells`, one block
-// each; the other entries are not written. Returns cudaGetLastError().
+// The forward that also stores the trajectory: traj [T, 2, L, C] (the
+// state before each step, r then y) and sharp [T] (each step's detached
+// sharpness), which launch_itscp_macro_episode_reverse reads.
+int launch_itscp_macro_episode_fwd_traj(
+    const float* action, const float* sched, const int* mnext,
+    const int* mprev, const float* r0, const float* y0, const float* prog,
+    const int* lane_i, const float* lane_f, float* out_reward,
+    float* out_queues, float* traj, float* sharp, int T, int L, int C, int K,
+    int nsf, int n_phases, int n_inter, float u_max, float dt, float veh_len,
+    float static_speed, float rare_den, float third, float gate32,
+    void* stream) {
+  if (!traj || !sharp) return 1;
+  Args a = args_of(action, sched, mnext, mprev, r0, y0, prog, lane_i, lane_f,
+                   dims(T, L, C, K, nsf, n_phases, n_inter),
+                   consts(u_max, dt, veh_len, static_speed, rare_den, third,
+                          gate32));
+  a.out_reward = out_reward;
+  a.out_queues = out_queues;
+  a.traj = traj;
+  a.sharp = sharp;
+  return launch_forward<float>(1, a, stream);
+}
+
+// Forward-mode derivative: out_grad[n_phases * n_inter + 2 L C] (zeroed by
+// the caller) gets sum_t q_weight[t] * d(queue_t)/d(entry) at the n_a
+// action entries, the n_r cells of r0 and the n_y cells of y0 named by
+// `cells`, one block each; the other entries are not written. Returns
+// cudaGetLastError().
 int launch_itscp_macro_episode_bwd(
     const float* action, const float* sched, const int* mnext,
     const int* mprev, const float* r0, const float* y0, const float* prog,
@@ -374,15 +1350,51 @@ int launch_itscp_macro_episode_bwd(
     float u_max, float dt, float veh_len, float static_speed,
     float rare_den, float third, float gate32, void* stream) {
   if (n_a < 0 || n_a > n_phases * n_inter || n_r < 0 || n_y < 0 ||
-      n_r > L * C || n_y > L * C)
+      n_r > L * C || n_y > L * C || n_a + n_r + n_y < 1)
     return 1;
-  const Seeds sd{cells, n_a, n_r, n_y};
-  return launch<Dual>(
-      n_a + n_r + n_y, action, sched, mnext, mprev, r0, y0, prog, lane_i,
-      lane_f, nullptr, nullptr, q_weight, out_grad, sd,
-      dims(T, L, C, K, nsf, n_phases, n_inter),
-      consts(u_max, dt, veh_len, static_speed, rare_den, third, gate32),
-      stream);
+  Args a = args_of(action, sched, mnext, mprev, r0, y0, prog, lane_i, lane_f,
+                   dims(T, L, C, K, nsf, n_phases, n_inter),
+                   consts(u_max, dt, veh_len, static_speed, rare_den, third,
+                          gate32));
+  a.cells = cells;
+  a.q_weight = q_weight;
+  a.out_grad = out_grad;
+  a.n_a = n_a; a.n_r = n_r; a.n_y = n_y;
+  return launch_forward<Dual>(n_a + n_r + n_y, a, stream);
+}
+
+// Reverse sweep, one block: out_grad[n_phases * n_inter + 2 L C] gets the
+// gradient of sum_t q_weight[t] * queue_t with respect to the action, r0
+// and y0 (every entry written; cells beyond a lane's num_cell 0), over the
+// trajectory traj, sharp of launch_itscp_macro_episode_fwd_traj on the
+// same inputs, or, with `replay`, over one the launch first writes there.
+// Returns cudaGetLastError().
+int launch_itscp_macro_episode_reverse(
+    const float* action, const float* sched, const int* mnext,
+    const int* mprev, const float* r0, const float* y0, const float* prog,
+    const int* lane_i, const float* lane_f, const float* q_weight,
+    float* traj, float* sharp, float* out_grad, int T, int L, int C, int K,
+    int nsf, int n_phases, int n_inter, int replay, float u_max, float dt,
+    float veh_len, float static_speed, float rare_den, float third,
+    float gate32, void* stream) {
+  if (!q_weight || !out_grad || (T > 0 && (!traj || !sharp))) return 1;
+  Args a = args_of(action, sched, mnext, mprev, r0, y0, prog, lane_i, lane_f,
+                   dims(T, L, C, K, nsf, n_phases, n_inter),
+                   consts(u_max, dt, veh_len, static_speed, rare_den, third,
+                          gate32));
+  a.q_weight = q_weight;
+  a.out_grad = out_grad;
+  a.traj = traj;
+  a.sharp = sharp;
+  if (!sizes_ok(a.d)) return 1;
+  const int G = lane_threads(max_threads_of(itscp_macro_episode_reverse), L,
+                             C);
+  if (G < 1) return 1;
+  const Geo geo = geo_of(L, G);
+  const size_t rev = rev_smem(a.d, G, nullptr, nullptr);
+  const size_t fwd = replay ? fwd_smem<float>(L, C, nullptr, nullptr) : 0;
+  return launch_block(itscp_macro_episode_reverse, 1, geo,
+                      rev > fwd ? rev : fwd, stream, a, geo, replay);
 }
 
 #ifdef DHTS_K4_CLOCK

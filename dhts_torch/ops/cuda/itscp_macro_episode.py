@@ -13,7 +13,13 @@ and ``y0``.
   ``csrc/itscp_macro_episode.cu`` (built with ``nvcc`` by
   :mod:`dhts_torch.ops.cuda._build`, bound with ``ctypes``) and counts the
   launch in its ``launches``; on CPU tensors each calls its plain version.
-  There is no fallback from the card to the plain version.
+  There is no fallback from the card to the plain version. The forward can
+  save the trajectory (``trajectory=True``: the state before each step and
+  each step's detached sharpness, the JAX kernel's residuals), and the
+  backward is one block's reverse sweep over it, or over one it replays
+  first. :func:`macro_episode_tangents` launches the forward-mode
+  derivative (one block per input entry), which the tests hold the sweep
+  against.
 * :func:`plain_macro_episode` is the plain PyTorch version of the forward:
   K4's ``step`` (``itscp_episode.py:148-224``) and loop (``:239-249``) on
   the true sizes ``[L, C]``, and the kernel's specification, op for op.
@@ -22,10 +28,10 @@ and ``y0``.
   kernel, which sums the same way, agrees with it bit for bit.
   :func:`plain_macro_episode_bwd` is autograd through it.
 * :class:`MacroEpisodeFunction` is the ``torch.autograd.Function`` around
-  the two wrappers. The backward kernel takes forward-mode tangents from
-  the forward's inputs (one block per action entry and per valid cell of
-  ``r0`` and ``y0``), so the inputs are all the Function saves, and it
-  launches only the groups of blocks whose input needs a gradient.
+  the two wrappers: its forward saves the trajectory when an input needs a
+  gradient, and its backward is the reverse sweep over it, which gives
+  the action's, ``r0``'s and ``y0``'s gradients in one launch; it returns
+  the requested ones.
 * :func:`make_fused_itscp_macro_episode` is the JAX package's factory, with
   the same signature (plus the device) and return value:
   ``fn(action2d, schedule, mnext, mprev, r0, y0) -> (reward, queues[T])``.
@@ -250,6 +256,40 @@ def plain_macro_episode(plan: MacroEpisodePlan, action2d, schedule, mnext,
     return -qsum, torch.stack(queues)
 
 
+class Trajectory(NamedTuple):
+    """What the saving forward stores for the reverse sweep: the state
+    before each step (``[T, 2, L, C]``, r then y; cells beyond a lane's
+    ``num_cell`` keep ``r0``'s and ``y0``'s values, which nothing reads) and
+    each step's detached sharpness ``16 / max(|mean|, 1e-6)`` (``[T]``)."""
+
+    states: torch.Tensor
+    sharpness: torch.Tensor
+
+
+def plain_macro_trajectory(plan: MacroEpisodePlan, action2d, schedule, mnext,
+                           mprev, r0, y0) -> Trajectory:
+    """Plain version of the saved trajectory (the kernel stores the same
+    bits)."""
+    dev = action2d.device
+    g = geometry(plan, dev)
+    r, y, ms = r0, y0, rms.init_mean_state(dev)
+    states, sharp = [], []
+    with torch.no_grad():
+        for t in range(plan.T):
+            states.append(torch.stack([torch.where(g.cmask, r, r0),
+                                       torch.where(g.cmask, y, y0)]))
+            out = plain_macro_step(plan, g, r, y, ms, t, action2d,
+                                   schedule[t], mnext[t], mprev[t])
+            r, y, ms = out.r, out.y, out.ms
+            sharp.append(arz.rdiv(16.0, maximum(torch.abs(
+                ms.total / ms.count), 1e-6)))
+    T, L, C = plan.T, plan.L, plan.C
+    if not states:
+        return Trajectory(torch.zeros((0, 2, L, C), device=dev),
+                          torch.zeros((0,), device=dev))
+    return Trajectory(torch.stack(states), torch.stack(sharp).reshape(T))
+
+
 def plain_macro_episode_bwd(plan: MacroEpisodePlan, q_weight, action2d,
                             schedule, mnext, mprev, r0, y0,
                             needs=(True, True, True)):
@@ -269,24 +309,40 @@ def plain_macro_episode_bwd(plan: MacroEpisodePlan, q_weight, action2d,
 
 
 # the launchers: nine input pointers (the six inputs, prog, lane_i, lane_f),
-# then the forward's two outputs or the backward's cells, q_weight and
-# gradient; the sizes (T, L, C, K, nsf, n_phases, n_inter, and the
-# backward's three seed counts); seven floats; the stream
-_ARGTYPES_FWD = [ctypes.c_void_p] * 11 + [ctypes.c_int] * 7 + \
-    [ctypes.c_float] * 7 + [ctypes.c_void_p]
-_ARGTYPES_BWD = [ctypes.c_void_p] * 12 + [ctypes.c_int] * 10 + \
-    [ctypes.c_float] * 7 + [ctypes.c_void_p]
+# then the forward's outputs (reward, queues; and the trajectory's states and
+# sharpness), the derivative's cells, q_weight and gradient, or the sweep's
+# q_weight, trajectory and gradient; the sizes (T, L, C, K, nsf, n_phases,
+# n_inter; the derivative's three seed counts, the sweep's replay flag);
+# seven floats; the stream
+_FLOATS = [ctypes.c_float] * 7 + [ctypes.c_void_p]
+_ARGTYPES = {
+    "launch_itscp_macro_episode_fwd":
+        [ctypes.c_void_p] * 11 + [ctypes.c_int] * 7 + _FLOATS,
+    "launch_itscp_macro_episode_fwd_traj":
+        [ctypes.c_void_p] * 13 + [ctypes.c_int] * 7 + _FLOATS,
+    "launch_itscp_macro_episode_bwd":
+        [ctypes.c_void_p] * 12 + [ctypes.c_int] * 10 + _FLOATS,
+    "launch_itscp_macro_episode_reverse":
+        [ctypes.c_void_p] * 13 + [ctypes.c_int] * 8 + _FLOATS}
+# the kernels of the queries: the forward, the forward-mode derivative, the
+# reverse sweep
+KERNEL_FWD, KERNEL_TANGENTS, KERNEL_REVERSE = 0, 1, 2
 
 
 def bind(lib: ctypes.CDLL) -> ctypes.CDLL:
     """Declare the launchers' C signatures on a loaded library (the card's
-    build or the host build of the same source)."""
-    for fn, types in ((lib.launch_itscp_macro_episode_fwd, _ARGTYPES_FWD),
-                      (lib.launch_itscp_macro_episode_bwd, _ARGTYPES_BWD)):
-        fn.argtypes = types
-        fn.restype = ctypes.c_int
+    build or the host build of the same source; a library built from an
+    older source gets those of the launchers it has)."""
+    for name, types in _ARGTYPES.items():
+        if hasattr(lib, name):
+            fn = getattr(lib, name)
+            fn.argtypes = types
+            fn.restype = ctypes.c_int
     lib.itscp_macro_episode_smem.argtypes = [ctypes.c_int] * 3
     lib.itscp_macro_episode_smem.restype = ctypes.c_size_t
+    if hasattr(lib, "itscp_macro_episode_lane_threads"):
+        lib.itscp_macro_episode_lane_threads.argtypes = [ctypes.c_int] * 3
+        lib.itscp_macro_episode_lane_threads.restype = ctypes.c_int
     return lib
 
 
@@ -309,17 +365,20 @@ def seed_counts(plan: MacroEpisodePlan, needs) -> tuple:
 
 
 def kernel_args(plan: MacroEpisodePlan, inputs, outputs, stream,
-                seeds=None) -> tuple:
+                seeds=None, replay=None) -> tuple:
     """A C launcher's arguments: the six inputs, the plan's tables and the
-    outputs as pointers (the forward's ``(reward, queues)``, or the
-    backward's ``(q_weight, grad)`` after the plan's cells), the sizes, the
-    backward's ``seeds`` counts ``(n_a, n_r, n_y)``, the constants."""
+    outputs as pointers (the forward's ``(reward, queues)`` and, saving,
+    ``(states, sharpness)``; the derivative's ``(q_weight, grad)`` after
+    the plan's cells; the sweep's ``(q_weight, states, sharpness, grad)``),
+    the sizes, the derivative's ``seeds`` counts ``(n_a, n_r, n_y)`` or the
+    sweep's ``replay`` flag, the constants."""
     tensors = (*inputs, plan.prog, plan.lane_i, plan.lane_f)
     if seeds is not None:
         tensors += (plan.cells,)
     ptrs = [ctypes.c_void_p(x.data_ptr()) for x in (*tensors, *outputs)]
     ints = (plan.T, plan.L, plan.C, plan.K, plan.nsf, plan.n_phases,
-            plan.n_inter, *(seeds or ()))
+            plan.n_inter, *(seeds or ()),
+            *(() if replay is None else (int(replay),)))
     return (*ptrs, *ints, *plan.floats, ctypes.c_void_p(stream))
 
 
@@ -339,40 +398,71 @@ def _check_inputs(plan: MacroEpisodePlan, inputs):
     return dev
 
 
-def macro_episode_fwd(plan: MacroEpisodePlan, action2d, schedule, mnext,
-                      mprev, r0, y0):
-    """``(-qsum, queues[T])`` of one episode, without a graph for autograd
-    (that is :class:`MacroEpisodeFunction`).
+def new_trajectory(plan: MacroEpisodePlan, dev) -> Trajectory:
+    """Uninitialised buffers of a trajectory on ``dev``."""
+    return Trajectory(
+        torch.empty((plan.T, 2, plan.L, plan.C), dtype=torch.float32,
+                    device=dev),
+        torch.empty((plan.T,), dtype=torch.float32, device=dev))
 
-    CPU tensors go to :func:`plain_macro_episode`; CUDA tensors launch the
-    kernel (one launch, one block, counted in ``launches``) or raise.
+
+def macro_episode_fwd(plan: MacroEpisodePlan, action2d, schedule, mnext,
+                      mprev, r0, y0, trajectory: bool = False):
+    """``(-qsum, queues[T])`` of one episode, without a graph for autograd
+    (that is :class:`MacroEpisodeFunction`); ``trajectory``: also the
+    :class:`Trajectory` that :func:`macro_episode_bwd` sweeps over.
+
+    CPU tensors go to :func:`plain_macro_episode` (and
+    :func:`plain_macro_trajectory`); CUDA tensors launch the kernel (one
+    launch, one block, counted in ``launches``) or raise.
     """
     inputs = (action2d, schedule, mnext, mprev, r0, y0)
     if _launch.device_of(action2d).type == "cpu":
-        return plain_macro_episode(plan, *inputs)
+        out = plain_macro_episode(plan, *inputs)
+        return (*out, plain_macro_trajectory(plan, *inputs)) if trajectory \
+            else out
     dev = _check_inputs(plan, inputs)
     reward = torch.empty((), dtype=torch.float32, device=dev)
     queues = torch.empty((plan.T,), dtype=torch.float32, device=dev)
-    err = _library().launch_itscp_macro_episode_fwd(*kernel_args(
-        plan, inputs, (reward, queues), _launch.stream(dev)))
+    stream = _launch.stream(dev)
+    lib = _library()
+    if trajectory:
+        traj = new_trajectory(plan, dev)
+        err = lib.launch_itscp_macro_episode_fwd_traj(*kernel_args(
+            plan, inputs, (reward, queues, *traj), stream))
+    else:
+        err = lib.launch_itscp_macro_episode_fwd(*kernel_args(
+            plan, inputs, (reward, queues), stream))
     _launch.raise_on(err, "itscp_macro_episode forward")
     macro_episode_fwd.launches += 1
-    return reward, queues
+    return (reward, queues, traj) if trajectory else (reward, queues)
 
 
 macro_episode_fwd.launches = 0
 
 
+def _grad_parts(plan: MacroEpisodePlan, grad, needs) -> tuple:
+    NA, LC = plan.n_action, plan.L * plan.C
+    parts = (grad[:NA].view(plan.n_phases, plan.n_inter),
+             grad[NA:NA + LC].view(plan.L, plan.C),
+             grad[NA + LC:].view(plan.L, plan.C))
+    return tuple(p if n else None for p, n in zip(parts, needs))
+
+
 def macro_episode_bwd(plan: MacroEpisodePlan, q_weight, action2d, schedule,
-                      mnext, mprev, r0, y0, needs=(True, True, True)):
+                      mnext, mprev, r0, y0, needs=(True, True, True),
+                      traj: Trajectory | None = None):
     """``sum_t q_weight[t] d(queues[t])`` pulled back to ``(g_action2d,
     g_r0[L, C], g_y0[L, C])``; an input not in ``needs`` gets None, and
-    cells beyond a lane's ``num_cell`` get exactly 0.
+    cells beyond a lane's ``num_cell`` get exactly 0. ``traj``: the
+    :class:`Trajectory` of ``macro_episode_fwd(..., trajectory=True)`` on
+    these inputs.
 
     CPU tensors go to :func:`plain_macro_episode_bwd`; CUDA tensors launch
-    the backward kernel (one launch of one block per action entry and per
-    valid cell of each requested input; the blocks launched are added to
-    ``blocks``) or raise.
+    the reverse sweep (one launch of one block, whatever ``needs`` asks
+    for, counted in ``launches`` and ``blocks``) over ``traj`` or, without
+    it, over a trajectory the same launch first replays into scratch; or
+    raise.
     """
     inputs = (action2d, schedule, mnext, mprev, r0, y0)
     needs = tuple(bool(n) for n in needs)
@@ -382,40 +472,84 @@ def macro_episode_bwd(plan: MacroEpisodePlan, q_weight, action2d, schedule,
         return (None, None, None)
     dev = _check_inputs(plan, inputs)
     _launch.check("q_weight", q_weight, (plan.T,), torch.float32, dev)
-    NA, LC = plan.n_action, plan.L * plan.C
-    grad = torch.zeros((NA + 2 * LC,), dtype=torch.float32, device=dev)
-    seeds = seed_counts(plan, needs)
-    err = _library().launch_itscp_macro_episode_bwd(*kernel_args(
-        plan, inputs, (q_weight, grad), _launch.stream(dev), seeds))
-    _launch.raise_on(err, "itscp_macro_episode backward")
+    replay = traj is None
+    if replay:
+        traj = new_trajectory(plan, dev)
+    else:
+        _launch.check("traj.states", traj.states,
+                      (plan.T, 2, plan.L, plan.C), torch.float32, dev)
+        _launch.check("traj.sharpness", traj.sharpness, (plan.T,),
+                      torch.float32, dev)
+    grad = torch.empty((plan.n_action + 2 * plan.L * plan.C,),
+                       dtype=torch.float32, device=dev)
+    err = _library().launch_itscp_macro_episode_reverse(*kernel_args(
+        plan, inputs, (q_weight, *traj, grad), _launch.stream(dev),
+        replay=replay))
+    _launch.raise_on(err, "itscp_macro_episode reverse sweep")
     macro_episode_bwd.launches += 1
-    macro_episode_bwd.blocks += sum(seeds)
-    parts = (grad[:NA].view(plan.n_phases, plan.n_inter),
-             grad[NA:NA + LC].view(plan.L, plan.C),
-             grad[NA + LC:].view(plan.L, plan.C))
-    return tuple(p if n else None for p, n in zip(parts, needs))
+    macro_episode_bwd.blocks += 1
+    return _grad_parts(plan, grad, needs)
 
 
 macro_episode_bwd.launches = 0
 macro_episode_bwd.blocks = 0
 
 
+def macro_episode_tangents(plan: MacroEpisodePlan, q_weight, action2d,
+                           schedule, mnext, mprev, r0, y0,
+                           needs=(True, True, True)):
+    """:func:`macro_episode_bwd`'s gradients by forward-mode tangents: one
+    block of the forward body in dual numbers per action entry and per
+    valid cell of each requested input (the blocks are added to
+    ``blocks``), an independent derivative to hold the sweep against.
+
+    CPU tensors go to :func:`plain_macro_episode_bwd`; CUDA tensors launch
+    the kernel or raise.
+    """
+    inputs = (action2d, schedule, mnext, mprev, r0, y0)
+    needs = tuple(bool(n) for n in needs)
+    if _launch.device_of(action2d).type == "cpu":
+        return plain_macro_episode_bwd(plan, q_weight, *inputs, needs=needs)
+    if not any(needs):
+        return (None, None, None)
+    dev = _check_inputs(plan, inputs)
+    _launch.check("q_weight", q_weight, (plan.T,), torch.float32, dev)
+    grad = torch.zeros((plan.n_action + 2 * plan.L * plan.C,),
+                       dtype=torch.float32, device=dev)
+    seeds = seed_counts(plan, needs)
+    err = _library().launch_itscp_macro_episode_bwd(*kernel_args(
+        plan, inputs, (q_weight, grad), _launch.stream(dev), seeds))
+    _launch.raise_on(err, "itscp_macro_episode forward-mode derivative")
+    macro_episode_tangents.launches += 1
+    macro_episode_tangents.blocks += sum(seeds)
+    return _grad_parts(plan, grad, needs)
+
+
+macro_episode_tangents.launches = 0
+macro_episode_tangents.blocks = 0
+
+
 class MacroEpisodeFunction(torch.autograd.Function):
     """``apply(action2d, r0, y0, plan, schedule, mnext, mprev) -> (reward,
     queues[T])`` with the backward of :func:`macro_episode_bwd` for the
-    inputs among ``(action2d, r0, y0)`` that need a gradient."""
+    inputs among ``(action2d, r0, y0)`` that need a gradient: on the card
+    the forward saves the trajectory and the backward sweeps over it."""
 
     @staticmethod
     def forward(ctx, action2d, r0, y0, plan, schedule, mnext, mprev):
-        reward, queues = macro_episode_fwd(plan, action2d, schedule, mnext,
-                                           mprev, r0, y0)
+        save = any(ctx.needs_input_grad[:3]) and \
+            _launch.device_of(action2d).type != "cpu"
+        out = macro_episode_fwd(plan, action2d, schedule, mnext, mprev, r0,
+                                y0, trajectory=save)
         ctx.plan = plan
-        ctx.save_for_backward(action2d, r0, y0, schedule, mnext, mprev)
-        return reward, queues
+        ctx.saved_trajectory = save
+        ctx.save_for_backward(action2d, r0, y0, schedule, mnext, mprev,
+                              *(out[2] if save else ()))
+        return out[0], out[1]
 
     @staticmethod
     def backward(ctx, g_reward, g_queues):
-        action2d, r0, y0, schedule, mnext, mprev = ctx.saved_tensors
+        action2d, r0, y0, schedule, mnext, mprev, *traj = ctx.saved_tensors
         plan = ctx.plan
         # loss cotangent per queue: reward = -sum(queues)
         w = torch.zeros((plan.T,), dtype=torch.float32,
@@ -424,9 +558,10 @@ class MacroEpisodeFunction(torch.autograd.Function):
             w = w + g_queues
         if g_reward is not None:
             w = w - g_reward
-        grads = macro_episode_bwd(plan, w.contiguous(), action2d, schedule,
-                                  mnext, mprev, r0, y0,
-                                  needs=ctx.needs_input_grad[:3])
+        grads = macro_episode_bwd(
+            plan, w.contiguous(), action2d, schedule, mnext, mprev, r0, y0,
+            needs=ctx.needs_input_grad[:3],
+            traj=Trajectory(*traj) if ctx.saved_trajectory else None)
         return (*grads, None, None, None, None)
 
 

@@ -4,17 +4,20 @@
 
 Builds ``csrc/itscp_macro_episode.cu`` with ``-DDHTS_K4_CLOCK`` (the parts
 of a step that its ``K4Part`` names, each stamped by the thread that does
-it: see the source) and runs one episode of K4's two scenes on the card:
-the macro preset of ``run_itscp_macro.sh`` (L = 40, C = 7, T = 300) and the
-3x3 preset of ``run_itscp_hybrid.sh`` in macro mode (L = 144, C = 4, T =
-600), problem 1, seed 3, action 0.5, from the empty state, through each
-kernel: the forward (``float``) and the forward-mode derivative (``Dual``;
-one block, seeding action entry 0). Prints one JSON line per kernel and
-scene: the cycles per step of each part, the clocked launch's ms and the
-unstamped build's ms (CUDA events, median of ``--repeats`` runs of 5
-launches back to back), and whether the stamped and unstamped outputs are
-bit-equal (the stamps change nothing). Then the card's name, power limit
-and SM clocks. Needs one CUDA device.
+it: lane 0's first thread on the lanes' path, the reduction warp's first
+thread beside it; see the source) and runs one episode of K4's two scenes
+on the card: the macro preset of ``run_itscp_macro.sh`` (L = 40, C = 7, T =
+300) and the 3x3 preset of ``run_itscp_hybrid.sh`` in macro mode (L = 144,
+C = 4, T = 600), problem 1, seed 3, action 0.5, from the empty state,
+through each kernel: the forward (``float``), the forward-mode derivative
+(``Dual``; one block, seeding action entry 0) and the reverse sweep over
+the forward's saved trajectory. Prints one JSON line per kernel and scene:
+the threads a lane, the cycles per step of each part (the lanes' path and
+the warp's apart), the clocked launch's ms and the unstamped build's ms
+(CUDA events, median of ``--repeats`` runs of 5 launches back to back),
+and whether the stamped and unstamped outputs are bit-equal (the stamps
+change nothing). Then the card's name, power limit and SM clocks. Needs
+one CUDA device.
 """
 
 from __future__ import annotations
@@ -30,10 +33,18 @@ from dhts_torch.ops.cuda import _build, _clock, _launch
 from dhts_torch.ops.cuda import itscp_macro_episode as k4
 from dhts_torch.ops.cuda.k1_clock import PRESET
 
-# csrc/itscp_macro_episode.cu's K4Part, in order
+# csrc/itscp_macro_episode.cu's K4Part, in order: the forward's, then the
+# reverse sweep's
 PARTS = ("signals", "edges", "wait_edges", "ghosts", "godunov",
          "static_partials", "wait_update", "mean_fold", "wait_mean",
-         "lane_queue", "wait_queue", "queue_sum", "steps")
+         "lane_queue", "wait_queue", "queue_sum", "steps", "reverse_load",
+         "reverse_wait_edges", "reverse_riemann", "reverse_terms",
+         "reverse_transpose", "reverse_wait_slots", "reverse_gather",
+         "reverse_wait_empty", "reverse_fold", "reverse_wait_full",
+         "reverse_steps")
+# the reduction warp's parts (the rest are the lanes' path)
+WARP_PARTS = ("wait_update", "mean_fold", "wait_queue", "queue_sum",
+              "reverse_fold", "reverse_wait_full")
 READER = "itscp_macro_episode_clock"
 # the macro preset of run_itscp_macro.sh and the 3x3 preset in macro mode
 SCENES = {
@@ -72,18 +83,25 @@ def scene_inputs(cfg, dev, action: float = 0.5):
 
 
 def kernels(plan, ins, dev) -> dict:
-    """``{kernel: (launcher, outputs, args)}``: the forward, and the
-    derivative's block of action entry 0."""
+    """``{kernel: (launcher, outputs, args, query id)}``: the forward, the
+    derivative's block of action entry 0, and the reverse sweep over the
+    forward's trajectory (saved here first)."""
     T = plan.T
     w = torch.full((T,), -1.0, device=dev)
     grad = torch.zeros(plan.n_action + 2 * plan.L * plan.C, device=dev)
+    rgrad = torch.empty_like(grad)
     stream = _launch.stream(dev)
     fwd_out = (torch.empty((), device=dev), torch.empty(T, device=dev))
+    traj = k4.macro_episode_fwd(plan, *ins, trajectory=True)[2]
     return {
         "fwd": ("launch_itscp_macro_episode_fwd", fwd_out,
-                k4.kernel_args(plan, ins, fwd_out, stream)),
+                k4.kernel_args(plan, ins, fwd_out, stream), k4.KERNEL_FWD),
         "dual": ("launch_itscp_macro_episode_bwd", (grad,),
-                 k4.kernel_args(plan, ins, (w, grad), stream, (1, 0, 0)))}
+                 k4.kernel_args(plan, ins, (w, grad), stream, (1, 0, 0)),
+                 k4.KERNEL_TANGENTS),
+        "reverse": ("launch_itscp_macro_episode_reverse", (rgrad,),
+                    k4.kernel_args(plan, ins, (w, *traj, rgrad), stream,
+                                   replay=False), k4.KERNEL_REVERSE)}
 
 
 def main() -> int:
@@ -98,11 +116,14 @@ def main() -> int:
     ok = True
     for scene, cfg in SCENES.items():
         plan, ins = scene_inputs(cfg, dev)
-        for name, (launcher, outs, kargs) in kernels(plan, ins, dev).items():
+        for name, (launcher, outs, kargs, kid) in kernels(plan, ins,
+                                                          dev).items():
             calls = {"ms_clocked": lambda: getattr(clocked, launcher)(*kargs),
                      "ms": lambda: getattr(plain, launcher)(*kargs)}
             rec = {"kernel": name, "scene": scene, "T": plan.T, "L": plan.L,
-                   "C": plan.C}
+                   "C": plan.C, "lane_threads":
+                   plain.itscp_macro_episode_lane_threads(plan.L, plan.C,
+                                                          kid)}
             results = {}
             for key, call in calls.items():
                 for x in outs:
@@ -119,10 +140,16 @@ def main() -> int:
             _launch.raise_on(calls["ms_clocked"](), name)
             torch.cuda.synchronize()
             cyc = read_cycles(clocked)
-            steps = max(cyc.pop("steps"), 1)
+            rev = name == "reverse"
+            steps = max(cyc.pop("reverse_steps" if rev else "steps"), 1)
+            cyc = {p: c for p, c in cyc.items()
+                   if p.startswith("reverse_") == rev and p != "steps"}
             rec["steps_stamped"] = steps
             rec["cycles_per_step"] = {p: c / steps for p, c in cyc.items()}
-            rec["cycles_per_step_total"] = sum(cyc.values()) / steps
+            rec["cycles_per_step_lanes_path"] = sum(
+                c for p, c in cyc.items() if p not in WARP_PARTS) / steps
+            rec["cycles_per_step_warp"] = sum(
+                c for p, c in cyc.items() if p in WARP_PARTS) / steps
             rec["us_per_step"] = rec["ms"] * 1e3 / plan.T
             print(json.dumps(rec), flush=True)
     smi = subprocess.run(
