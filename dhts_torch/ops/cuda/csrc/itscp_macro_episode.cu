@@ -85,12 +85,15 @@ namespace {
 
 // Cycle stamps (a build with -DDHTS_K4_CLOCK; python -m
 // dhts_torch.ops.cuda.k4_clock), in block 0. The forward: lane 0's first
-// thread adds its cycles to its parts (its share of the gate table and the
-// trajectory's stores, its edges, the wait for the other lanes' edges, its
-// ghosts, its Riemann solve and cell update, its static terms, its wait for
-// the running mean, its queue terms), the reduction warp's first thread to
-// its own (its wait for the static terms, the mean's fold, its wait for
-// the queue terms, the queue's sum). The reverse sweep: lane 0's first
+// thread adds its cycles to its parts (its share of a gate table and the
+// trajectory's stores, the wait for the other lanes' edges, its ghosts,
+// its Riemann solve, its cells' update with their static terms and the
+// next edges, its wait for the last step's sharpness and queue buffer,
+// its queue terms), the mean warp's first thread to its own (its wait for
+// the static terms, the mean's fold) and the queue warp's (its wait for
+// the queue terms, the queue's sum). A clock read right after a named
+// barrier can issue before the barrier releases it, so a wait may show up
+// in the next part. The reverse sweep: lane 0's first
 // thread its loads (the saved cells, the gates, the edges), its wait for
 // the edges, its ghosts and Riemann partials, its queue terms, its
 // transposes (interfaces, cells, ghosts), its wait for the slots, its
@@ -99,7 +102,7 @@ namespace {
 // K4_R_STEPS count the steps stamped. Without the macro the stamps compile
 // to nothing.
 enum K4Part {
-  K4_SIGNALS, K4_EDGES, K4_WAIT_EDGES, K4_GHOSTS, K4_GODUNOV, K4_STATIC,
+  K4_SIGNALS, K4_WAIT_EDGES, K4_GHOSTS, K4_GODUNOV, K4_STATIC,
   K4_WAIT_UPDATE, K4_MEAN_FOLD, K4_WAIT_MEAN, K4_QUEUE, K4_WAIT_QUEUE,
   K4_QUEUE_SUM, K4_STEPS, K4_R_LOAD, K4_R_WAIT_EDGES, K4_R_RIEMANN,
   K4_R_TERMS, K4_R_TRANSPOSE, K4_R_WAIT_SLOTS, K4_R_GATHER, K4_R_WAIT_EMPTY,
@@ -136,11 +139,13 @@ __device__ __forceinline__ long long k4_now() {
 constexpr int WARP = 32;
 constexpr unsigned FULL_MASK = 0xffffffffu;
 constexpr int MAX_THREADS = 1024;
+constexpr int RED_WARPS = 2;  // reduction warps after the lane warps
 // named barriers (0 is __syncthreads): the lane warps' own; the forward's
-// static terms, running mean and queue terms; the sweep's action terms by
-// step parity, full and empty
-constexpr int BAR_LANES = 1, BAR_TERMS = 2, BAR_MEAN = 3, BAR_QUEUE = 4;
-constexpr int BAR_GA_FULL = 5, BAR_GA_EMPTY = 7;
+// static terms and running mean; its queue terms by step parity, full and
+// empty; the sweep's action terms by step parity, full and empty
+constexpr int BAR_LANES = 1, BAR_TERMS = 2, BAR_MEAN = 3;
+constexpr int BAR_QUEUE_FULL = 4, BAR_QUEUE_EMPTY = 6;
+constexpr int BAR_GA_FULL = 8, BAR_GA_EMPTY = 10;
 
 // PTX named barriers (the host build has its own, cpu_emulation.h): wait
 // at, or only arrive at, barrier `id`, which completes when `count` threads
@@ -302,8 +307,9 @@ __device__ __forceinline__ DualN<N> vsigmoid(DualN<N> z) {
 // ---------------------------------------------------------------------------
 
 // How a launch lays out its block: G threads a lane, P = 32 / G lanes a
-// warp, NL threads of lane warps (whole warps), and the reduction warp
-// after them.
+// warp, NL threads of lane warps (whole warps), and two reduction warps
+// after them (the forward's mean and queue; the sweep's action fold and
+// one that waits).
 struct Geo {
   int G, P, NL;
 };
@@ -391,13 +397,13 @@ __device__ __forceinline__ S gate_at(S a, float progress, int q,
 
 // the ghost cells of lane l (itscp_step.cuh's ghosts in soft mode; every
 // lane of K4 is macro): `edge` [4][L] holds every lane's first cell and
-// speed, and its last cell and speed; sig_l and sig_p are the lane's and
-// its routed predecessor's signals
+// speed, and its last cell and speed; sig_p is the routed predecessor's
+// signal and sg the lane's own soft gate soft(sig_l - 0.5, gate32)
 template <class S>
 __device__ __forceinline__ Ghosts<S> lane_ghosts(const S* edge, int L,
                                                  const LaneGeom& g, int mp,
                                                  int mn, float incoming,
-                                                 S sig_l, S sig_p,
+                                                 S sig_p, S sg,
                                                  const Consts& k) {
   auto clampL = [&](int j) { return min(max(j, 0), L - 1); };
   const float u_max = k.u_max;
@@ -416,7 +422,6 @@ __device__ __forceinline__ Ghosts<S> lane_ghosts(const S* edge, int L,
   const bool use_r = (g.num_next > 0) && (adjn >= 0);
   const S gr_r = use_r ? edge[adjn_c] : S(0.0f);
   const S gr_u = use_r ? edge[L + adjn_c] : S(u_max);
-  const S sg = soft(sig_l - S(0.5f), k.gate32);
   o.br_r = gr_r * sg + S(1.0f) * (S(1.0f) - sg);
   o.br_u = gr_u * sg;
   return o;
@@ -437,46 +442,59 @@ __device__ __forceinline__ void cell_of(const S* r, const S* y, int l,
 // the forward (float; Dual for the forward-mode derivative)
 // ---------------------------------------------------------------------------
 
+// steps of a gate table: the gates of CH steps are filled in one round,
+// into one of two buffers by chunk parity (a lane may still read the last
+// chunk's while another fills the next)
+constexpr int CH = 16;
+
 template <class S>
 struct FwdSmem {
   S *r, *y;     // [L C] the state
   S *fr, *fy;   // [L (C + 1)] the interfaces' fluxes
-  S* edge;      // [4 L] first cell, its speed, last cell, its speed
-  S* gate;      // [2 L] the step's gates (2 n_inter of them)
-  S* q_term;    // [L C] the cells' queue terms
-  double* st_term;  // [L C] the cells' static terms
-  double* stage;    // [2 L] the warp's lane terms
-  int *gidx, *ncell;  // [L] the lane's gate (-1: none), its cells
-  float* ms;          // the step's sharpness, for the lanes
+  S* edge;      // [2][4 L] by step parity: first cell, its speed, last
+                // cell, its speed
+  S *gate, *sg;  // [2][CH][2 n_inter] by chunk parity: the gates, and the
+                 // right ghost's soft gate of each; sg[2 CH 2 n_inter]:
+                 // that of a lane without a signal
+  S *qr, *qu;    // [2][L C] by step parity: the new cells and their speeds,
+                 // for the queue terms a step later
+  S* q_term;     // [2][L C] the cells' queue terms
+  double* st_term;  // [2][L C] the cells' static terms
+  double *stage_m, *stage_q;  // [L], [2 L] the warps' lane terms
+  int *gidx, *ncell;          // [L] the lane's gate (-1: none), its cells
+  float* sharp;               // [2] the steps' sharpness, for the lanes
 };
 
 template <class S>
-__host__ __device__ inline size_t fwd_smem(int L, int C, FwdSmem<S>* s,
-                                           char* base) {
+__host__ __device__ inline size_t fwd_smem(int L, int C, int n_inter,
+                                           FwdSmem<S>* s, char* base) {
   size_t off = 0;
   FwdSmem<S> dummy;
   FwdSmem<S>* t = s ? s : &dummy;
   char* b = s ? base : nullptr;
   const size_t LC = (size_t)L * C, LI = (size_t)L * (C + 1);
+  const size_t NG = 2 * (size_t)CH * 2 * n_inter;
   carve(&t->r, LC, b, off); carve(&t->y, LC, b, off);
   carve(&t->fr, LI, b, off); carve(&t->fy, LI, b, off);
-  carve(&t->edge, 4 * (size_t)L, b, off);
-  carve(&t->gate, 2 * (size_t)L, b, off);
-  carve(&t->q_term, LC, b, off);
-  carve(&t->st_term, LC, b, off);
-  carve(&t->stage, 2 * (size_t)L, b, off);
+  carve(&t->edge, 8 * (size_t)L, b, off);
+  carve(&t->gate, NG, b, off); carve(&t->sg, NG + 1, b, off);
+  carve(&t->qr, 2 * LC, b, off); carve(&t->qu, 2 * LC, b, off);
+  carve(&t->q_term, 2 * LC, b, off);
+  carve(&t->st_term, 2 * LC, b, off);
+  carve(&t->stage_m, L, b, off); carve(&t->stage_q, 2 * (size_t)L, b, off);
   carve(&t->gidx, L, b, off); carve(&t->ncell, L, b, off);
-  carve(&t->ms, 1, b, off);
+  carve(&t->sharp, 2, b, off);
   return off;
 }
 
-template <class S>
-__device__ __forceinline__ S sig_of(const FwdSmem<S>& s, int j) {
-  const int q = s.gidx[j];
-  return q < 0 ? S(1.0f) : s.gate[q];
-}
-
-// One episode (the block's threads all call it). The lanes' part.
+// The lanes' part of an episode. Step t: fill the next CH steps' gates
+// (every CH steps) and store the trajectory's row; meet (BAR_LANES: every
+// lane's edges of the state before step t are published); take the ghosts,
+// solve the group's interfaces, update the group's cells; write their
+// static terms (BAR_TERMS), keep the new cells and speeds for the queue and
+// publish the new edges; then the queue terms of step t - 1 (after its
+// sharpness, BAR_MEAN, and its buffer's last sum, BAR_QUEUE_EMPTY; then
+// BAR_QUEUE_FULL), so that the running mean's fold overlaps a step.
 template <class S>
 __device__ __forceinline__ void forward_lanes(const Args& a, const Geo& geo,
                                               FwdSmem<S>& s, const Me& m,
@@ -485,6 +503,7 @@ __device__ __forceinline__ void forward_lanes(const Args& a, const Geo& geo,
   const Dims& d = a.d;
   const Consts& k = a.k;
   const int L = d.L, C = d.C, G = geo.G, NB = geo.NL + WARP;
+  const int LC = L * C, NG = 2 * d.n_inter;
   const int l = m.l, r = m.r, nc = g.num_cell;
   const int last = min(max(nc - 1, 0), C - 1);
   const float u_max = k.u_max;
@@ -492,15 +511,44 @@ __device__ __forceinline__ void forward_lanes(const Args& a, const Geo& geo,
   auto clampL = [&](int j) { return min(max(j, 0), L - 1); };
   K4_CLOCK(const bool clk = threadIdx.x == 0 && blockIdx.x == 0;
            long long k4_p = k4_now();)
+  // the queue terms of step tq (itscp_step.cuh's lane_queue, :218-222)
+  auto queue_terms = [&](int tq) {
+    const int p = tq & 1;
+    CONVERGE();
+    bar_sync(BAR_MEAN, NB);
+    if (tq >= 2) {  // the queue warp has summed step tq - 2's
+      CONVERGE();
+      bar_sync(BAR_QUEUE_EMPTY + p, NB);
+    }
+    K4_ADD(clk, K4_WAIT_MEAN, k4_p);
+    if (m.lane) {
+      const float c_st = s.sharp[p];
+      for (int c = r; c < C && c < nc; c += G) {
+        const int i = p * LC + l * C + c;
+        const S stat = soft(S(k.static_speed) - s.qu[i], c_st);
+        s.q_term[i] = stat * ((s.qr[i] * S(g.cell_len)) / S(k.veh_len));
+      }
+    }
+    K4_ADD(clk, K4_QUEUE, k4_p);
+    CONVERGE();
+    bar_arrive(BAR_QUEUE_FULL + p, NB);
+  };
   for (int t = 0; t < d.T; ++t) {
-    const int tl = t * L + l;
-    // ---- the step's gate table and the lanes' edge cells (K4 :150-170)
-    const int phase = min(t / d.nsf, d.n_phases - 1);
-    const float progress = a.prog[t % d.nsf];
-    for (int q = threadIdx.x; q < 2 * d.n_inter; q += geo.NL) {
-      const int ai = phase * d.n_inter + (q >> 1);
-      s.gate[q] = gate_at<S>(action_at<S>(a.action[ai], ai == a_seed),
-                             progress, q, k.gate32);
+    const int tl = t * L + l, par = t & 1;
+    // ---- the gates of steps t .. t + CH - 1 (K4 :150-160), the
+    // trajectory's row
+    const int tc = t % CH, gb = ((t / CH) & 1) * CH * NG;
+    if (tc == 0) {
+      for (int q = threadIdx.x; q < CH * NG; q += geo.NL) {
+        const int tt = t + q / NG, qq = q % NG;
+        if (tt >= d.T) break;
+        const int phase = min(tt / d.nsf, d.n_phases - 1);
+        const int ai = phase * d.n_inter + (qq >> 1);
+        const S gv = gate_at<S>(action_at<S>(a.action[ai], ai == a_seed),
+                                a.prog[tt % d.nsf], qq, k.gate32);
+        s.gate[gb + q] = gv;
+        s.sg[gb + q] = soft(gv - S(0.5f), k.gate32);
+      }
     }
     if (m.lane && a.traj) {
       float* tr = a.traj + (size_t)2 * t * L * C + (size_t)l * C;
@@ -510,31 +558,21 @@ __device__ __forceinline__ void forward_lanes(const Args& a, const Geo& geo,
       }
     }
     K4_ADD(clk, K4_SIGNALS, k4_p);
-    if (m.lane) {
-      if (r == 0) {
-        const S rf = s.r[l * C];
-        s.edge[l] = rf;
-        s.edge[L + l] = comp_u(rf, s.y[l * C], u_max);
-      }
-      if (r == last % G) {
-        const S rl = s.r[l * C + last];
-        s.edge[2 * L + l] = rl;
-        s.edge[3 * L + l] = comp_u(rl, s.y[l * C + last], u_max);
-      }
-    }
-    K4_ADD(clk, K4_EDGES, k4_p);
     CONVERGE();
     bar_sync(BAR_LANES, geo.NL);
     K4_ADD(clk, K4_WAIT_EDGES, k4_p);
 
-    // ---- ghosts and the Godunov update (:172-210): thread r solves
+    // ---- ghosts and the Godunov update (:162-210): thread r solves
     // interfaces r, r + G, ... and updates cells r, r + G, ...
     if (m.lane) {
       const int mp = a.mprev[tl], mn = a.mnext[tl];
       const float incoming = g.has_prev ? -1.0f : a.sched[tl];
-      const Ghosts<S> gh =
-          lane_ghosts<S>(s.edge, L, g, mp, mn, incoming, sig_of(s, l),
-                         sig_of(s, clampL(mp)), k);
+      const S* gt = s.gate + gb + tc * NG;
+      const int qp = s.gidx[clampL(mp)], ql = s.gidx[l];
+      const Ghosts<S> gh = lane_ghosts<S>(
+          s.edge + par * 4 * L, L, g, mp, mn, incoming,
+          qp < 0 ? S(1.0f) : gt[qp],
+          ql < 0 ? s.sg[2 * CH * NG] : s.sg[gb + tc * NG + ql], k);
       K4_ADD(clk, K4_GHOSTS, k4_p);
       const S right_y = comp_y(gh.br_r, gh.br_u, u_max);
       const S left_y = comp_y(gh.bl_r, gh.bl_u, u_max);
@@ -554,109 +592,118 @@ __device__ __forceinline__ void forward_lanes(const Args& a, const Geo& geo,
       }
     }
     __syncwarp();  // the group's fluxes, and every read of its cells
+    K4_ADD(clk, K4_GODUNOV, k4_p);
     if (m.lane) {
+      S* ed = s.edge + (par ^ 1) * 4 * L;
       for (int c = r; c < C && c < nc; c += G) {
         const int i = l * C + c, f = l * (C + 1) + c;
-        const S rc = s.r[i], yc = s.y[i];
-        s.r[i] = rc + (s.fr[f] - s.fr[f + 1]) * S(coeff);
-        s.y[i] = yc + (s.fy[f] - s.fy[f + 1]) * S(coeff);
+        const S rn = s.r[i] + (s.fr[f] - s.fr[f + 1]) * S(coeff);
+        const S yn = s.y[i] + (s.fy[f] - s.fy[f + 1]) * S(coeff);
+        s.r[i] = rn;
+        s.y[i] = yn;
+        // the static running mean's term (:212-217), the queue's cell and
+        // speed, the next step's edges
+        const S u = comp_u(rn, yn, u_max);
+        s.st_term[par * LC + i] = (double)(k.static_speed - val(u));
+        s.qr[par * LC + i] = rn;
+        s.qu[par * LC + i] = u;
+        if (c == 0) { ed[l] = rn; ed[L + l] = u; }
+        if (c == last) { ed[2 * L + l] = rn; ed[3 * L + l] = u; }
       }
-      K4_ADD(clk, K4_GODUNOV, k4_p);
-      // ---- the static running mean's terms (:212-217)
-      for (int c = r; c < C && c < nc; c += G) {
-        const int i = l * C + c;
-        const S u = comp_u(s.r[i], s.y[i], u_max);
-        s.st_term[i] = (double)(k.static_speed - val(u));
-      }
-      K4_ADD(clk, K4_STATIC, k4_p);
     }
     CONVERGE();
     bar_arrive(BAR_TERMS, NB);
-    CONVERGE();
-    bar_sync(BAR_MEAN, NB);
-    K4_ADD(clk, K4_WAIT_MEAN, k4_p);
-
-    // ---- the soft queue's terms (:218-222)
-    if (m.lane) {
-      const float c_st = s.ms[0];
-      for (int c = r; c < C && c < nc; c += G) {
-        const int i = l * C + c;
-        const S rc = s.r[i];
-        const S u = comp_u(rc, s.y[i], u_max);
-        const S stat = soft(S(k.static_speed) - u, c_st);
-        s.q_term[i] = stat * ((rc * S(g.cell_len)) / S(k.veh_len));
-      }
-    }
-    K4_ADD(clk, K4_QUEUE, k4_p);
+    K4_ADD(clk, K4_STATIC, k4_p);
+    if (t >= 1) queue_terms(t - 1);
     K4_CLOCK(if (clk) k4_cycles[K4_STEPS] += 1;)
-    CONVERGE();
-    bar_arrive(BAR_QUEUE, NB);
   }
+  if (d.T >= 1) queue_terms(d.T - 1);
 }
 
-// The reduction warp's part: each step, the running mean's fold (each
-// lane's static terms in cell order, the lanes in lane order, float64) and
-// its sharpness for the lanes; then the queue, sum_l (q_l)^2 with q_l the
-// lane's queue terms in cell order in S, the lanes in lane order in
-// float64 rounded once, times dt.
+// The running mean's warp: each step, the fold of the static terms (each
+// lane's in cell order, the lanes in lane order, float64) and its
+// sharpness for the lanes.
 template <class S>
-__device__ __forceinline__ void forward_warp(const Args& a, const Geo& geo,
-                                             FwdSmem<S>& s, int out_at) {
+__device__ __forceinline__ void mean_warp(const Args& a, const Geo& geo,
+                                          FwdSmem<S>& s) {
   const Dims& d = a.d;
   const int L = d.L, C = d.C, NB = geo.NL + WARP;
   const int wl = threadIdx.x % WARP;
-  float ms_sum = 0.0f, ms_cnt = 0.0f, qsum = 0.0f;
-  double grad = 0.0;
+  float ms_sum = 0.0f, ms_cnt = 0.0f;
   K4_CLOCK(const bool clk = wl == 0 && blockIdx.x == 0;
            long long k4_p = k4_now();)
   for (int t = 0; t < d.T; ++t) {
-    CONVERGE();  // lane 0 may still be in its sum of the last step
+    const double* terms = s.st_term + (t & 1) * L * C;
+    CONVERGE();
     bar_sync(BAR_TERMS, NB);
     K4_ADD(clk, K4_WAIT_UPDATE, k4_p);
     int cnt = 0;
     for (int j = wl; j < L; j += WARP) {
       const int n = s.ncell[j];
       double sj = 0.0;
-      for (int c = 0; c < n; ++c) sj += s.st_term[j * C + c];
-      s.stage[j] = sj;
+      for (int c = 0; c < n; ++c) sj += terms[j * C + c];
+      s.stage_m[j] = sj;
       cnt += n;
     }
     for (int o = WARP / 2; o > 0; o >>= 1)
       cnt += __shfl_down_sync(FULL_MASK, cnt, o);
     __syncwarp();  // the staged terms, for lane 0's chain
     if (wl == 0) {
-      const double tot = chain(s.stage, L);
-      ms_sum = ms_sum + (float)tot;
+      ms_sum = ms_sum + (float)chain(s.stage_m, L);
       ms_cnt = ms_cnt + (float)cnt;
       const float c_st = sharpness(16.0f, ms_sum / ms_cnt);
-      s.ms[0] = c_st;
+      s.sharp[t & 1] = c_st;
       if (a.sharp) a.sharp[t] = c_st;
     }
     K4_ADD(clk, K4_MEAN_FOLD, k4_p);
     CONVERGE();
     bar_arrive(BAR_MEAN, NB);
+  }
+}
+
+// The queue's warp: each step, sum_l (q_l)^2 with q_l the lane's queue
+// terms in cell order in S, the lanes in lane order in float64 rounded
+// once, times dt; the queues, their sum (the reward) and, in Dual, the
+// derivative sum_t w[t] d queue_t.
+template <class S>
+__device__ __forceinline__ void queue_warp(const Args& a, const Geo& geo,
+                                           FwdSmem<S>& s, int out_at) {
+  const Dims& d = a.d;
+  const int L = d.L, C = d.C, NB = geo.NL + WARP;
+  const int wl = threadIdx.x % WARP;
+  float qsum = 0.0f;
+  double grad = 0.0;
+  K4_CLOCK(const bool clk = wl == 0 && blockIdx.x == 0;
+           long long k4_p = k4_now();)
+  for (int t = 0; t < d.T; ++t) {
+    const int p = t & 1;
+    const S* terms = s.q_term + p * L * C;
     CONVERGE();
-    bar_sync(BAR_QUEUE, NB);
+    bar_sync(BAR_QUEUE_FULL + p, NB);
     K4_ADD(clk, K4_WAIT_QUEUE, k4_p);
     for (int j = wl; j < L; j += WARP) {
       const int n = s.ncell[j];
       S q = 0.0f;
-      for (int c = 0; c < n; ++c) q = q + s.q_term[j * C + c];
+      for (int c = 0; c < n; ++c) q = q + terms[j * C + c];
       const S q2 = q * q;
-      s.stage[j] = (double)val(q2);
-      s.stage[L + j] = (double)tangent(q2);
+      s.stage_q[j] = (double)val(q2);
+      s.stage_q[L + j] = (double)tangent(q2);
     }
     __syncwarp();
     if (wl == 0) {
-      const double qv = chain(s.stage, L);
-      const double qd = sizeof(S) == sizeof(float) ? 0.0
-                                                   : chain(s.stage + L, L);
+      const double qv = chain(s.stage_q, L);
+      const double qd = sizeof(S) == sizeof(float)
+                            ? 0.0 : chain(s.stage_q + L, L);
       const S queue = rounded<S>(qv, qd) * S(a.k.dt);
       qsum += val(queue);
       if (a.q_weight) grad += (double)a.q_weight[t] * (double)tangent(queue);
       if (a.out_queues) a.out_queues[t] = val(queue);
     }
     K4_ADD(clk, K4_QUEUE_SUM, k4_p);
+    if (t + 2 < d.T) {  // the lanes write this buffer again for t + 2
+      CONVERGE();
+      bar_arrive(BAR_QUEUE_EMPTY + p, NB);
+    }
   }
   if (wl == 0) {
     if (a.out_reward) a.out_reward[0] = -qsum;
@@ -670,7 +717,7 @@ __device__ __forceinline__ void forward_body(const Args& a, const Geo& geo,
                                              int r_seed, int y_seed,
                                              int out_at) {
   FwdSmem<S> s;
-  fwd_smem<S>(a.d.L, a.d.C, &s, smem);
+  fwd_smem<S>(a.d.L, a.d.C, a.d.n_inter, &s, smem);
   const int L = a.d.L, C = a.d.C, G = geo.G;
   const Me m = me_of(geo, L);
   const Scene sc{a.lane_i, a.lane_f, nullptr, nullptr};
@@ -686,26 +733,44 @@ __device__ __forceinline__ void forward_body(const Args& a, const Geo& geo,
       s.ncell[m.l] = g.num_cell;
     }
   }
+  if (threadIdx.x == 0)
+    s.sg[2 * CH * 2 * a.d.n_inter] = soft(S(1.0f) - S(0.5f), a.k.gate32);
   __syncthreads();
-  if ((int)threadIdx.x >= geo.NL)
-    forward_warp<S>(a, geo, s, out_at);
+  if (m.lane) {  // the initial state's edges, in both buffers (the state
+                 // of a lane without cells never changes)
+    const int last = min(max(g.num_cell - 1, 0), C - 1);
+    const S rf = s.r[m.l * C], rl = s.r[m.l * C + last];
+    const S uf = comp_u(rf, s.y[m.l * C], a.k.u_max);
+    const S ul = comp_u(rl, s.y[m.l * C + last], a.k.u_max);
+    for (int b = 0; b < 2 && m.r == 0; ++b) {
+      S* ed = s.edge + b * 4 * L;
+      ed[m.l] = rf; ed[L + m.l] = uf;
+      ed[2 * L + m.l] = rl; ed[3 * L + m.l] = ul;
+    }
+  }
+  __syncthreads();
+  const int tid = threadIdx.x;
+  if (tid >= geo.NL + WARP)
+    queue_warp<S>(a, geo, s, out_at);
+  else if (tid >= geo.NL)
+    mean_warp<S>(a, geo, s);
   else
     forward_lanes<S>(a, geo, s, m, g, a_seed);
 }
 
-// The largest block each kernel is compiled for, which bounds its
-// registers: the forward's 72 let the 3x3 preset's 800 threads (5 a lane)
-// run as one block; the derivative's and the sweep's 128 let 512 (3 a
-// lane there).
+// The largest block each forward kernel is compiled for, which bounds its
+// registers: the forward's 72 let the 3x3 preset's 832 threads (5 a lane)
+// run as one block; the derivative's 96 let 640 (3 a lane there). (The
+// sweep takes what its registers give: 2 threads a lane at the 3x3 preset;
+// 3 with spills ran at the same speed on an H100.)
 template <class S>
 struct MaxThreads {
   static constexpr int value = 896;
 };
 template <>
 struct MaxThreads<Dual> {
-  static constexpr int value = 512;
+  static constexpr int value = 640;
 };
-constexpr int REVERSE_MAX_THREADS = 512;
 
 // One episode per block. S = float: the forward (outputs -qsum and
 // queues, and the trajectory if a.traj). S = Dual: the forward-mode
@@ -752,7 +817,9 @@ struct RevSmem {
   float* il;       // [3 L (C + 1)] an interface's left inputs' cotangents
   float* ir;       // [L (C + 1)] its right speed's cotangent
   float* edge;     // [4 L] first cell, its speed, last cell, its speed
-  float* gate;     // [4 L] the step's gates, then their derivatives
+  float *gate, *dgate, *sgv, *dsg;  // [2][CH][2 n_inter] by chunk parity:
+                                    // the gates, their derivatives, the
+                                    // right ghost's soft gates and theirs
   float* slot;     // [5 L] what a lane hands back: the last edge's r and
                    // u, the first edge's r and u, the upstream signal
   float* gsig;     // [L] the lane's own signal's cotangent
@@ -781,7 +848,10 @@ __host__ __device__ inline size_t rev_smem(const Dims& d, int G, RevSmem* s,
   carve(&t->tr, LC, b, off); carve(&t->ty, LC, b, off);
   carve(&t->qt, LC, b, off);
   carve(&t->il, 3 * LI, b, off); carve(&t->ir, LI, b, off);
-  carve(&t->edge, 4 * L, b, off); carve(&t->gate, 4 * L, b, off);
+  const size_t NG = 2 * (size_t)CH * 2 * d.n_inter;
+  carve(&t->edge, 4 * L, b, off);
+  carve(&t->gate, NG, b, off); carve(&t->dgate, NG, b, off);
+  carve(&t->sgv, NG, b, off); carve(&t->dsg, NG, b, off);
   carve(&t->slot, 5 * L, b, off); carve(&t->gsig, L, b, off);
   carve(&t->part, 5 * L * G, b, off); carve(&t->ga, 2 * L, b, off);
   carve(&t->tgt, 2 * L, b, off);
@@ -807,7 +877,9 @@ __device__ __forceinline__ void reverse_lanes(const Args& a, const Geo& geo,
   const Dims& d = a.d;
   const Consts& k = a.k;
   const int L = d.L, C = d.C, G = geo.G, NB = geo.NL + WARP;
-  const int CI = C + 1, LC = L * C, LI = L * CI;
+  const int CI = C + 1, LC = L * C, LI = L * CI, NG = 2 * d.n_inter;
+  // the right ghost's soft gate of a lane without a signal (sig 1)
+  const Dual sg1 = soft(Dual(1.0f, 1.0f) - Dual(0.5f), k.gate32);
   const int l = m.l, r = m.r, nc = g.num_cell;
   const int last = min(max(nc - 1, 0), C - 1);
   const float u_max = k.u_max;
@@ -821,15 +893,22 @@ __device__ __forceinline__ void reverse_lanes(const Args& a, const Geo& geo,
                                  // the next step's
     const int mp = m.lane ? a.mprev[tl] : -1;
     const int mn = m.lane ? a.mnext[tl] : -1;
-    // ---- (1) the saved cells, the gates, the edges and the targets
-    const int phase = min(t / d.nsf, d.n_phases - 1);
-    const float progress = a.prog[t % d.nsf];
-    for (int q = threadIdx.x; q < 2 * d.n_inter; q += geo.NL) {
-      const int ai = phase * d.n_inter + (q >> 1);
-      const Dual gv = gate_at<Dual>(Dual(a.action[ai], 1.0f), progress, q,
-                                    k.gate32);
-      s.gate[q] = gv.v;
-      s.gate[2 * L + q] = gv.d;
+    // ---- (1) the gates (at the top of a chunk of CH steps: the chunk's),
+    // the saved cells, the edges and the targets
+    const int tc = t % CH, gb = ((t / CH) & 1) * CH * NG;
+    if (tc == CH - 1 || t == d.T - 1) {
+      for (int q = threadIdx.x; q < (tc + 1) * NG; q += geo.NL) {
+        const int tt = t - tc + q / NG, qq = q % NG;
+        const int phase = min(tt / d.nsf, d.n_phases - 1);
+        const int ai = phase * d.n_inter + (qq >> 1);
+        const Dual gv = gate_at<Dual>(Dual(a.action[ai], 1.0f),
+                                      a.prog[tt % d.nsf], qq, k.gate32);
+        const Dual sv = soft(Dual(gv.v, 1.0f) - Dual(0.5f), k.gate32);
+        s.gate[gb + q] = gv.v;
+        s.dgate[gb + q] = gv.d;
+        s.sgv[gb + q] = sv.v;
+        s.dsg[gb + q] = sv.d;
+      }
     }
     const int adjp = g.num_prev == 1 ? g.prev0 : mp;
     const int adjn = g.num_next == 1 ? g.next0 : mn;
@@ -862,12 +941,12 @@ __device__ __forceinline__ void reverse_lanes(const Args& a, const Geo& geo,
 
     // ---- (2) the step again, and its transpose
     // the ghosts (lane_ghosts' values), with what their transpose needs
-    const float sig_l = s.gidx[l] < 0 ? 1.0f : s.gate[s.gidx[l]];
-    // d sig_l / d action, read before the barrier: a lane ahead fills the
-    // next step's gates after it
-    const float dsig = s.gidx[l] < 0 ? 0.0f : s.gate[2 * L + s.gidx[l]];
-    const int mp_c = clampL(mp);
-    const float sig_p = s.gidx[mp_c] < 0 ? 1.0f : s.gate[s.gidx[mp_c]];
+    const int gl = gb + tc * NG + s.gidx[l], qp = s.gidx[clampL(mp)];
+    const bool signal = s.gidx[l] >= 0;
+    // d sig_l / d action, read before the barrier like every entry of the
+    // table
+    const float dsig = signal ? s.dgate[gl] : 0.0f;
+    const float sig_p = qp < 0 ? 1.0f : s.gate[gb + tc * NG + qp];
     float gl_r = use_l ? s.edge[2 * L + clampL(adjp)] : 0.0f;
     float gl_u = use_l ? s.edge[3 * L + clampL(adjp)] : u_max;
     if (!g.has_prev) {
@@ -880,8 +959,8 @@ __device__ __forceinline__ void reverse_lanes(const Args& a, const Geo& geo,
     const float bl_u = gl_u * ps + u_max * (1.0f - ps);
     const float gr_r = use_r ? s.edge[clampL(adjn)] : 0.0f;
     const float gr_u = use_r ? s.edge[L + clampL(adjn)] : u_max;
-    const Dual sgd = soft(Dual(sig_l, 1.0f) - Dual(0.5f), k.gate32);
-    const float sg = sgd.v;
+    const float sg = signal ? s.sgv[gl] : sg1.v;
+    const float dsg = signal ? s.dsg[gl] : sg1.d;
     const float br_r = gr_r * sg + 1.0f * (1.0f - sg);
     const float br_u = gr_u * sg;
     const D2 ly = comp_y(D2::seed(bl_r, 0), D2::seed(bl_u, 1), u_max);
@@ -1001,7 +1080,7 @@ __device__ __forceinline__ void reverse_lanes(const Args& a, const Geo& geo,
       const float g_brr = e[2] + ry.d[0] * e[4];
       const float g_bru = e[3] + ry.d[1] * e[4];
       // br_r = gr_r sg + (1 - sg), br_u = gr_u sg
-      s.gsig[l] = sgd.d * (g_brr * (gr_r - 1.0f) + g_bru * gr_u);
+      s.gsig[l] = dsg * (g_brr * (gr_r - 1.0f) + g_bru * gr_u);
       s.slot[2 * L + l] = g_brr * sg;
       s.slot[3 * L + l] = g_bru * sg;
       // bl_r = gl_r ps, bl_u = gl_u ps + u_max (1 - ps)
@@ -1117,14 +1196,11 @@ __device__ __forceinline__ void reverse_warp(const Args& a, const Geo& geo,
 // One block: the reverse sweep over a.traj and a.sharp, after filling them
 // by the forward first where `replay`; writes out_grad [NA + 2 LC]
 // entirely.
-__global__ void
-#ifndef DHTS_CPU_EMULATION
-__launch_bounds__(REVERSE_MAX_THREADS)
-#endif
-itscp_macro_episode_reverse(Args a, Geo geo, int replay) {
+__global__ void itscp_macro_episode_reverse(Args a, Geo geo, int replay) {
   DHTS_DYNAMIC_SMEM(smem_raw);
   const Dims& d = a.d;
-  const int L = d.L, C = d.C, LC = L * C, NB = geo.NL + WARP;
+  const int L = d.L, C = d.C, LC = L * C;
+  const int NT = geo.NL + RED_WARPS * WARP;  // the block's threads
   const int NA = d.n_phases * d.n_inter;
   const int tid = threadIdx.x;
   if (replay) {
@@ -1139,11 +1215,11 @@ itscp_macro_episode_reverse(Args a, Geo geo, int replay) {
   const Me m = me_of(geo, L);
   const Scene sc{a.lane_i, a.lane_f, nullptr, nullptr};
   const LaneGeom g = m.lane ? lane_geom(sc, L, d.K, m.l) : LaneGeom();
-  for (int i = tid; i < LC; i += NB) {
+  for (int i = tid; i < LC; i += NT) {
     s.gr[i] = 0.0f;
     s.gy[i] = 0.0f;
   }
-  for (int i = tid; i < NA; i += NB) s.acc[i] = 0.0;
+  for (int i = tid; i < NA; i += NT) s.acc[i] = 0.0;
   if (m.lane && m.r == 0)
     s.gidx[m.l] = g.approaching ? 2 * g.inter + (g.is_we ? 1 : 0) : -1;
   __syncthreads();
@@ -1159,16 +1235,18 @@ itscp_macro_episode_reverse(Args a, Geo geo, int replay) {
     off[d.n_inter] = n;
   }
   __syncthreads();
-  if (tid >= geo.NL)
+  if (tid >= geo.NL + WARP)
+    ;  // the second reduction warp has no part in the sweep
+  else if (tid >= geo.NL)
     reverse_warp(a, geo, s);
   else
     reverse_lanes(a, geo, s, m, g);
   __syncthreads();
-  for (int i = tid; i < LC; i += NB) {
+  for (int i = tid; i < LC; i += NT) {
     a.out_grad[NA + i] = s.gr[i];
     a.out_grad[NA + LC + i] = s.gy[i];
   }
-  for (int i = tid; i < NA; i += NB) a.out_grad[i] = (float)s.acc[i];
+  for (int i = tid; i < NA; i += NT) a.out_grad[i] = (float)s.acc[i];
 }
 
 // ---------------------------------------------------------------------------
@@ -1201,11 +1279,11 @@ int max_threads_of(Kernel kernel) {
 int lane_threads(int max_threads, int L, int C) {
 #ifdef DHTS_K4_LANE_THREADS
   const int G = min(DHTS_K4_LANE_THREADS, C + 1);
-  return geo_of(L, G).NL + WARP <= max_threads ? G : 0;
+  return geo_of(L, G).NL + RED_WARPS * WARP <= max_threads ? G : 0;
 #else
   for (int per = 1; per <= C + 1; ++per) {
     const int G = (C + 1 + per - 1) / per;
-    if (geo_of(L, G).NL + WARP <= max_threads) return G;
+    if (geo_of(L, G).NL + RED_WARPS * WARP <= max_threads) return G;
   }
   return 0;
 #endif
@@ -1214,7 +1292,7 @@ int lane_threads(int max_threads, int L, int C) {
 template <class Kernel, class... X>
 int launch_block(Kernel kernel, int blocks, const Geo& geo, size_t smem,
                  void* stream, X... args) {
-  const int threads = geo.NL + WARP;
+  const int threads = geo.NL + RED_WARPS * WARP;
 #ifdef DHTS_CPU_EMULATION
   (void)stream;
   dhts_emu::launch(blocks, threads, smem, kernel, args...);
@@ -1236,7 +1314,8 @@ int launch_forward(int blocks, const Args& a, void* stream) {
   if (G < 1) return 1;
   const Geo geo = geo_of(a.d.L, G);
   return launch_block(itscp_macro_episode_kernel<S>, blocks, geo,
-                      fwd_smem<S>(a.d.L, a.d.C, nullptr, nullptr), stream,
+                      fwd_smem<S>(a.d.L, a.d.C, a.d.n_inter, nullptr,
+                                  nullptr), stream,
                       a, geo);
 }
 
@@ -1276,13 +1355,14 @@ extern "C" {
 // forward-mode derivative (1) or the reverse sweep (2, with the threads a
 // lane it takes) for these sizes.
 size_t itscp_macro_episode_smem(int L, int C, int kernel) {
-  if (kernel == 0) return fwd_smem<float>(L, C, nullptr, nullptr);
-  if (kernel == 1) return fwd_smem<Dual>(L, C, nullptr, nullptr);
+  // (the gates' tables sized for n_inter = L, the most a launch takes)
+  if (kernel == 0) return fwd_smem<float>(L, C, L, nullptr, nullptr);
+  if (kernel == 1) return fwd_smem<Dual>(L, C, L, nullptr, nullptr);
   Dims d = dims(1, L, C, 1, 1, 1, L);
   const int G = lane_threads(max_threads_of(itscp_macro_episode_reverse), L,
                              C);
   const size_t rev = rev_smem(d, G > 0 ? G : 1, nullptr, nullptr);
-  const size_t fwd = fwd_smem<float>(L, C, nullptr, nullptr);
+  const size_t fwd = fwd_smem<float>(L, C, L, nullptr, nullptr);
   return rev > fwd ? rev : fwd;
 }
 
@@ -1392,7 +1472,8 @@ int launch_itscp_macro_episode_reverse(
   if (G < 1) return 1;
   const Geo geo = geo_of(L, G);
   const size_t rev = rev_smem(a.d, G, nullptr, nullptr);
-  const size_t fwd = replay ? fwd_smem<float>(L, C, nullptr, nullptr) : 0;
+  const size_t fwd =
+      replay ? fwd_smem<float>(L, C, n_inter, nullptr, nullptr) : 0;
   return launch_block(itscp_macro_episode_reverse, 1, geo,
                       rev > fwd ? rev : fwd, stream, a, geo, replay);
 }

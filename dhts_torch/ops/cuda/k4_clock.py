@@ -35,7 +35,7 @@ from dhts_torch.ops.cuda.k1_clock import PRESET
 
 # csrc/itscp_macro_episode.cu's K4Part, in order: the forward's, then the
 # reverse sweep's
-PARTS = ("signals", "edges", "wait_edges", "ghosts", "godunov",
+PARTS = ("signals", "wait_edges", "ghosts", "godunov",
          "static_partials", "wait_update", "mean_fold", "wait_mean",
          "lane_queue", "wait_queue", "queue_sum", "steps", "reverse_load",
          "reverse_wait_edges", "reverse_riemann", "reverse_terms",
