@@ -71,9 +71,7 @@
 // order (no float atomics: two launches give the same bits). The signals'
 // cotangents reach action[phase, inter] through the first reduction
 // warp's lane-order fold, double-buffered by step parity (the second has no
-// part in the sweep). A step takes one block barrier: step t - 1's edges
-// and targets are published before the barrier that releases step t's
-// slots. The running mean is
+// part in the sweep). The running mean is
 // detached, as in K4; cells beyond num_cell are never written and get
 // exactly 0. Without a saved trajectory the same launch first runs the
 // forward into one (the wrapper's scratch).
@@ -102,18 +100,18 @@ namespace {
 // the static terms, the mean's fold) and the queue warp's (its wait for
 // the queue terms, the queue's sum). A clock read right after a named
 // barrier can issue before the barrier releases it, so a wait may show up
-// in the next part. The reverse sweep: lane 0's first thread its ghosts
-// and Riemann partials, its queue terms, its transposes (interfaces,
-// cells, ghosts), its loads of the next step (the saved cells, the gates,
-// the edges), its wait for the slots and edges, its gather and edge
-// partials, its wait for the action fold's buffer; the reduction warp's
-// first thread the fold and its wait. K4_STEPS and
+// in the next part. The reverse sweep: lane 0's first
+// thread its loads (the saved cells, the gates, the edges), its wait for
+// the edges, its ghosts and Riemann partials, its queue terms, its
+// transposes (interfaces, cells, ghosts), its wait for the slots, its
+// gather and edge partials, its wait for the action fold's buffer; the
+// reduction warp's first thread the fold and its wait. K4_STEPS and
 // K4_R_STEPS count the steps stamped. Without the macro the stamps compile
 // to nothing.
 enum K4Part {
   K4_SIGNALS, K4_WAIT_EDGES, K4_GHOSTS, K4_GODUNOV, K4_STATIC,
   K4_WAIT_UPDATE, K4_MEAN_FOLD, K4_WAIT_MEAN, K4_QUEUE, K4_WAIT_QUEUE,
-  K4_QUEUE_SUM, K4_STEPS, K4_R_LOAD, K4_R_RIEMANN,
+  K4_QUEUE_SUM, K4_STEPS, K4_R_LOAD, K4_R_WAIT_EDGES, K4_R_RIEMANN,
   K4_R_TERMS, K4_R_TRANSPOSE, K4_R_WAIT_SLOTS, K4_R_GATHER, K4_R_WAIT_EMPTY,
   K4_R_FOLD, K4_R_WAIT_FULL, K4_R_STEPS, K4_PARTS
 };
@@ -825,18 +823,16 @@ struct RevSmem {
   float* qt;       // [L C] the queue terms
   float* il;       // [3 L (C + 1)] an interface's left inputs' cotangents
   float* ir;       // [L (C + 1)] its right speed's cotangent
-  float* edge;     // [2][4 L] by step parity: first cell, its speed, last
-                   // cell, its speed
+  float* edge;     // [4 L] first cell, its speed, last cell, its speed
   float *gate, *dgate, *sgv, *dsg;  // [2][CH][2 n_inter] by chunk parity:
                                     // the gates, their derivatives, the
                                     // right ghost's soft gates and theirs
-  float* slot;     // [2][5 L] by step parity: what a lane hands back: the
-                   // last edge's r and u, the first edge's r and u, the
-                   // upstream signal
+  float* slot;     // [5 L] what a lane hands back: the last edge's r and
+                   // u, the first edge's r and u, the upstream signal
   float* gsig;     // [L] the lane's own signal's cotangent
   float* part;     // [5 L G] the group threads' partial sums
   float* ga;       // [2 L] the lanes' action terms by step parity
-  int* tgt;        // [3][L] by step mod 3: the lanes whose last edge,
+  int* tgt;        // [2][L] by step parity: the lanes whose last edge,
                    // first edge and signal the lane read, each plus 1 (0:
                    // none) in 10 bits
   int* gidx;       // [L]
@@ -860,30 +856,28 @@ __host__ __device__ inline size_t rev_smem(const Dims& d, int G, RevSmem* s,
   carve(&t->qt, LC, b, off);
   carve(&t->il, 3 * LI, b, off); carve(&t->ir, LI, b, off);
   const size_t NG = 2 * (size_t)CH * 2 * d.n_inter;
-  carve(&t->edge, 8 * L, b, off);
+  carve(&t->edge, 4 * L, b, off);
   carve(&t->gate, NG, b, off); carve(&t->dgate, NG, b, off);
   carve(&t->sgv, NG, b, off); carve(&t->dsg, NG, b, off);
-  carve(&t->slot, 10 * L, b, off); carve(&t->gsig, L, b, off);
+  carve(&t->slot, 5 * L, b, off); carve(&t->gsig, L, b, off);
   carve(&t->part, 5 * L * G, b, off); carve(&t->ga, 2 * L, b, off);
-  carve(&t->tgt, 3 * L, b, off);
+  carve(&t->tgt, 2 * L, b, off);
   carve(&t->gidx, L, b, off);
   carve(&t->members, (size_t)d.n_inter + 1 + L, b, off);
   carve(&t->acc, (size_t)d.n_phases * d.n_inter, b, off);
   return off;
 }
 
-// The lanes' part of the sweep. At step t: (2) each lane recomputes its
-// ghosts and fluxes (the Riemann partials in one DualN<4> pass an
-// interface), its new cells and queue terms, and pulls the cotangents
-// back: the queue's into the new cells, the cells' into the fluxes, the
-// fluxes' into the interfaces' inputs, those into the cells before the
-// step and the ghosts, the ghosts' into its slots; (1) of step t - 1:
-// each lane loads its saved cells (a step ahead into registers), the block
-// fills the gates (a table every CH steps: values and derivatives), the
-// lanes publish their edges and the lanes they read; one barrier; (3) each
-// lane gathers step t's slots that name it into its edges and its signal,
-// and its signal's cotangent times the gate's derivative goes to the warp.
-// Step T - 1's (1) comes before the loop.
+// The lanes' part of the sweep. At step t: (1) each lane loads its saved
+// cells, the block fills the step's gates (values and derivatives), the
+// lanes publish their edges and the lanes they read; (2) each lane
+// recomputes its ghosts and fluxes (the Riemann partials in one DualN<4>
+// pass an interface), its new cells and queue terms, and pulls the
+// cotangents back: the queue's into the new cells, the cells' into the
+// fluxes, the fluxes' into the interfaces' inputs, those into the cells
+// before the step and the ghosts, the ghosts' into its slots; (3) each
+// lane gathers the slots that name it into its edges and its signal, and
+// its signal's cotangent times the gate's derivative goes to the warp.
 __device__ __forceinline__ void reverse_lanes(const Args& a, const Geo& geo,
                                               RevSmem& s, const Me& m,
                                               const LaneGeom& g) {
@@ -898,28 +892,16 @@ __device__ __forceinline__ void reverse_lanes(const Args& a, const Geo& geo,
   const float u_max = k.u_max;
   const float coeff = k.dt / g.cell_len;
   auto clampL = [&](int j) { return min(max(j, 0), L - 1); };
-  // the saved row of this thread's first PF cells (r, r + G, ...), loaded a
-  // step ahead; a thread of more cells loads the others in their step
-  constexpr int PF = 4;
-  float pr[PF], py[PF];
-  auto prefetch = [&](int t) {
-    const float* tr = a.traj + (size_t)2 * t * L * C + (size_t)l * C;
-#pragma unroll
-    for (int q = 0; q < PF; ++q) {
-      const int c = r + q * G;
-      if (m.lane && c < C) {
-        pr[q] = tr[c];
-        py[q] = tr[(size_t)L * C + c];
-      }
-    }
-  };
-  // (1) of step t: the gates (at the top of a chunk of CH steps, the
-  // chunk's), the saved cells, the edges (by step parity: a lane reads
-  // step t + 1's in (2) while another publishes these), the lanes read (in
-  // three buffers: a lane still gathers step t + 1's in (3)); the edges'
-  // speeds with their partials in the cells' r and y into uf, ul (for the
-  // readers' cotangents in (3))
-  auto load_step = [&](int t, D2& uf, D2& ul) {
+  K4_CLOCK(const bool clk = threadIdx.x == 0 && blockIdx.x == 0;
+           long long k4_p = k4_now();)
+  for (int t = d.T - 1; t >= 0; --t) {
+    const int par = t & 1, tl = t * L + l;
+    int* tgt = s.tgt + par * L;  // read in (3) while a lane ahead writes
+                                 // the next step's
+    const int mp = m.lane ? a.mprev[tl] : -1;
+    const int mn = m.lane ? a.mnext[tl] : -1;
+    // ---- (1) the gates (at the top of a chunk of CH steps: the chunk's),
+    // the saved cells, the edges and the targets
     const int tc = t % CH, gb = ((t / CH) & 1) * CH * NG;
     if (tc == CH - 1 || t == d.T - 1) {
       for (int q = threadIdx.x; q < (tc + 1) * NG; q += geo.NL) {
@@ -935,65 +917,34 @@ __device__ __forceinline__ void reverse_lanes(const Args& a, const Geo& geo,
         s.dsg[gb + q] = sv.d;
       }
     }
-    if (m.lane) {
-      const float* tr = a.traj + (size_t)2 * t * L * C + (size_t)l * C;
-#pragma unroll
-      for (int q = 0; q < PF; ++q) {
-        const int c = r + q * G;
-        if (c < C) {
-          s.r[l * C + c] = pr[q];
-          s.y[l * C + c] = py[q];
-        }
-      }
-      for (int c = r + PF * G; c < C; c += G) {
-        s.r[l * C + c] = tr[c];
-        s.y[l * C + c] = tr[(size_t)L * C + c];
-      }
-      float* edge = s.edge + (t & 1) * 4 * L;
-      if (r == 0) {
-        const int mp = a.mprev[t * L + l], mn = a.mnext[t * L + l];
-        const int adjp = g.num_prev == 1 ? g.prev0 : mp;
-        const int adjn = g.num_next == 1 ? g.next0 : mn;
-        const bool use_l = g.has_prev && g.num_prev > 0 && adjp >= 0;
-        const bool use_r = g.num_next > 0 && adjn >= 0;
-        const float rf = s.r[l * C];
-        uf = comp_u(D2::seed(rf, 0), D2::seed(s.y[l * C], 1), u_max);
-        edge[l] = rf;
-        edge[L + l] = uf.v;
-        s.tgt[(t % 3) * L + l] =
-            (use_l ? clampL(adjp) + 1 : 0) |
-            (use_r ? clampL(adjn) + 1 : 0) << 10 |
-            (g.has_prev && mp >= 0 ? clampL(mp) + 1 : 0) << 20;
-      }
-      if (r == last % G) {
-        const float rl = s.r[l * C + last];
-        ul = comp_u(D2::seed(rl, 0), D2::seed(s.y[l * C + last], 1), u_max);
-        edge[2 * L + l] = rl;
-        edge[3 * L + l] = ul.v;
-      }
-    }
-    if (t > 0) prefetch(t - 1);
-  };
-  D2 ue_first(0.0f), ue_last(0.0f);
-  if (d.T > 0) {
-    prefetch(d.T - 1);
-    load_step(d.T - 1, ue_first, ue_last);
-    CONVERGE();
-    bar_sync(BAR_LANES, geo.NL);
-  }
-  K4_CLOCK(const bool clk = threadIdx.x == 0 && blockIdx.x == 0;
-           long long k4_p = k4_now();)
-  for (int t = d.T - 1; t >= 0; --t) {
-    const int par = t & 1, tl = t * L + l;
-    const int tc = t % CH, gb = ((t / CH) & 1) * CH * NG;
-    const int mp = m.lane ? a.mprev[tl] : -1;
-    const int mn = m.lane ? a.mnext[tl] : -1;
     const int adjp = g.num_prev == 1 ? g.prev0 : mp;
     const int adjn = g.num_next == 1 ? g.next0 : mn;
     const bool use_l = g.has_prev && g.num_prev > 0 && adjp >= 0;
     const bool use_r = g.num_next > 0 && adjn >= 0;
-    const float* edge = s.edge + par * 4 * L;
-    float* slot = s.slot + par * 5 * L;
+    if (m.lane) {
+      const float* tr = a.traj + (size_t)2 * t * L * C + (size_t)l * C;
+      for (int c = r; c < C; c += G) {
+        s.r[l * C + c] = tr[c];
+        s.y[l * C + c] = tr[(size_t)L * C + c];
+      }
+      if (r == 0) {
+        const float rf = tr[0];
+        s.edge[l] = rf;
+        s.edge[L + l] = comp_u(rf, tr[(size_t)L * C], u_max);
+        tgt[l] = (use_l ? clampL(adjp) + 1 : 0) |
+                 (use_r ? clampL(adjn) + 1 : 0) << 10 |
+                 (g.has_prev && mp >= 0 ? clampL(mp) + 1 : 0) << 20;
+      }
+      if (r == last % G) {
+        const float rl = tr[last];
+        s.edge[2 * L + l] = rl;
+        s.edge[3 * L + l] = comp_u(rl, tr[(size_t)L * C + last], u_max);
+      }
+    }
+    K4_ADD(clk, K4_R_LOAD, k4_p);
+    CONVERGE();
+    bar_sync(BAR_LANES, geo.NL);
+    K4_ADD(clk, K4_R_WAIT_EDGES, k4_p);
 
     // ---- (2) the step again, and its transpose
     // the ghosts (lane_ghosts' values), with what their transpose needs
@@ -1003,8 +954,8 @@ __device__ __forceinline__ void reverse_lanes(const Args& a, const Geo& geo,
     // table
     const float dsig = signal ? s.dgate[gl] : 0.0f;
     const float sig_p = qp < 0 ? 1.0f : s.gate[gb + tc * NG + qp];
-    float gl_r = use_l ? edge[2 * L + clampL(adjp)] : 0.0f;
-    float gl_u = use_l ? edge[3 * L + clampL(adjp)] : u_max;
+    float gl_r = use_l ? s.edge[2 * L + clampL(adjp)] : 0.0f;
+    float gl_u = use_l ? s.edge[3 * L + clampL(adjp)] : u_max;
     if (!g.has_prev) {
       const float incoming = a.sched[tl];
       gl_r = incoming;
@@ -1013,8 +964,8 @@ __device__ __forceinline__ void reverse_lanes(const Args& a, const Geo& geo,
     const float ps = !g.has_prev ? 1.0f : (mp < 0 ? 0.0f : sig_p);
     const float bl_r = gl_r * ps;
     const float bl_u = gl_u * ps + u_max * (1.0f - ps);
-    const float gr_r = use_r ? edge[clampL(adjn)] : 0.0f;
-    const float gr_u = use_r ? edge[L + clampL(adjn)] : u_max;
+    const float gr_r = use_r ? s.edge[clampL(adjn)] : 0.0f;
+    const float gr_u = use_r ? s.edge[L + clampL(adjn)] : u_max;
     const float sg = signal ? s.sgv[gl] : sg1.v;
     const float dsg = signal ? s.dsg[gl] : sg1.d;
     const float br_r = gr_r * sg + 1.0f * (1.0f - sg);
@@ -1137,19 +1088,14 @@ __device__ __forceinline__ void reverse_lanes(const Args& a, const Geo& geo,
       const float g_bru = e[3] + ry.d[1] * e[4];
       // br_r = gr_r sg + (1 - sg), br_u = gr_u sg
       s.gsig[l] = dsg * (g_brr * (gr_r - 1.0f) + g_bru * gr_u);
-      slot[2 * L + l] = g_brr * sg;
-      slot[3 * L + l] = g_bru * sg;
+      s.slot[2 * L + l] = g_brr * sg;
+      s.slot[3 * L + l] = g_bru * sg;
       // bl_r = gl_r ps, bl_u = gl_u ps + u_max (1 - ps)
-      slot[l] = e[0] * ps;
-      slot[L + l] = e[1] * ps;
-      slot[4 * L + l] = e[0] * gl_r + e[1] * (gl_u - u_max);
+      s.slot[l] = e[0] * ps;
+      s.slot[L + l] = e[1] * ps;
+      s.slot[4 * L + l] = e[0] * gl_r + e[1] * (gl_u - u_max);
     }
     K4_ADD(clk, K4_R_TRANSPOSE, k4_p);
-    // (1) of step t - 1, then one barrier for both: step t's slots and
-    // step t - 1's edges
-    D2 next_first(0.0f), next_last(0.0f);
-    if (t > 0) load_step(t - 1, next_first, next_last);
-    K4_ADD(clk, K4_R_LOAD, k4_p);
     CONVERGE();
     bar_sync(BAR_LANES, geo.NL);
     K4_ADD(clk, K4_R_WAIT_SLOTS, k4_p);
@@ -1157,7 +1103,6 @@ __device__ __forceinline__ void reverse_lanes(const Args& a, const Geo& geo,
     // ---- (3) the readers' cotangents into the edges and the signal
     float ga = 0.0f;
     if (m.lane) {
-      const int* tgt = s.tgt + (t % 3) * L;
       const int ch = (L + G - 1) / G, j0 = r * ch, j1 = min(L, j0 + ch);
       const int me = l + 1;
       float e[5] = {0.0f, 0.0f, 0.0f, 0.0f, 0.0f};
@@ -1169,14 +1114,14 @@ __device__ __forceinline__ void reverse_lanes(const Args& a, const Geo& geo,
         for (int u = 0; u < 4; ++u) {
           const int q = j + u;
           if ((pk[u] & 1023) == me) {
-            e[0] += slot[q];
-            e[1] += slot[L + q];
+            e[0] += s.slot[q];
+            e[1] += s.slot[L + q];
           }
           if ((pk[u] >> 10 & 1023) == me) {
-            e[2] += slot[2 * L + q];
-            e[3] += slot[3 * L + q];
+            e[2] += s.slot[2 * L + q];
+            e[3] += s.slot[3 * L + q];
           }
-          if ((pk[u] >> 20 & 1023) == me) e[4] += slot[4 * L + q];
+          if ((pk[u] >> 20 & 1023) == me) e[4] += s.slot[4 * L + q];
         }
       }
 #pragma unroll
@@ -1190,13 +1135,15 @@ __device__ __forceinline__ void reverse_lanes(const Args& a, const Geo& geo,
         for (int q = 0; q < 5; ++q) e[q] += s.part[(l * G + j) * 5 + q];
       if (r == 0 && nc > 0) {  // the first edge: r[l, 0] and its speed
         const int i = l * C;
-        s.gr[i] = (s.gr[i] + e[2]) + ue_first.d[0] * e[3];
-        s.gy[i] = s.gy[i] + ue_first.d[1] * e[3];
+        const D2 u = comp_u(D2::seed(s.r[i], 0), D2::seed(s.y[i], 1), u_max);
+        s.gr[i] = (s.gr[i] + e[2]) + u.d[0] * e[3];
+        s.gy[i] = s.gy[i] + u.d[1] * e[3];
       }
       if (r == last % G && nc > 0) {  // the last edge
         const int i = l * C + last;
-        s.gr[i] = (s.gr[i] + e[0]) + ue_last.d[0] * e[1];
-        s.gy[i] = s.gy[i] + ue_last.d[1] * e[1];
+        const D2 u = comp_u(D2::seed(s.r[i], 0), D2::seed(s.y[i], 1), u_max);
+        s.gr[i] = (s.gr[i] + e[0]) + u.d[0] * e[1];
+        s.gy[i] = s.gy[i] + u.d[1] * e[1];
       }
       if (r == 0) ga = s.gidx[l] < 0 ? 0.0f : dsig * (s.gsig[l] + e[4]);
     }
@@ -1210,8 +1157,6 @@ __device__ __forceinline__ void reverse_lanes(const Args& a, const Geo& geo,
     if (m.lane && r == 0) s.ga[par * L + l] = ga;
     CONVERGE();
     bar_arrive(BAR_GA_FULL + par, NB);
-    ue_first = next_first;
-    ue_last = next_last;
   }
 }
 

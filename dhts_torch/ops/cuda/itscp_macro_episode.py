@@ -266,6 +266,14 @@ class Trajectory(NamedTuple):
     sharpness: torch.Tensor
 
 
+def new_trajectory(plan: MacroEpisodePlan, dev) -> Trajectory:
+    """Uninitialised buffers of a trajectory on ``dev``."""
+    return Trajectory(
+        torch.empty((plan.T, 2, plan.L, plan.C), dtype=torch.float32,
+                    device=dev),
+        torch.empty((plan.T,), dtype=torch.float32, device=dev))
+
+
 def plain_macro_trajectory(plan: MacroEpisodePlan, action2d, schedule, mnext,
                            mprev, r0, y0) -> Trajectory:
     """Plain version of the saved trajectory (the kernel stores the same
@@ -273,21 +281,17 @@ def plain_macro_trajectory(plan: MacroEpisodePlan, action2d, schedule, mnext,
     dev = action2d.device
     g = geometry(plan, dev)
     r, y, ms = r0, y0, rms.init_mean_state(dev)
-    states, sharp = [], []
+    traj = new_trajectory(plan, dev)
     with torch.no_grad():
         for t in range(plan.T):
-            states.append(torch.stack([torch.where(g.cmask, r, r0),
-                                       torch.where(g.cmask, y, y0)]))
+            traj.states[t, 0] = torch.where(g.cmask, r, r0)
+            traj.states[t, 1] = torch.where(g.cmask, y, y0)
             out = plain_macro_step(plan, g, r, y, ms, t, action2d,
                                    schedule[t], mnext[t], mprev[t])
             r, y, ms = out.r, out.y, out.ms
-            sharp.append(arz.rdiv(16.0, maximum(torch.abs(
-                ms.total / ms.count), 1e-6)))
-    T, L, C = plan.T, plan.L, plan.C
-    if not states:
-        return Trajectory(torch.zeros((0, 2, L, C), device=dev),
-                          torch.zeros((0,), device=dev))
-    return Trajectory(torch.stack(states), torch.stack(sharp).reshape(T))
+            traj.sharpness[t] = arz.rdiv(16.0, maximum(torch.abs(
+                ms.total / ms.count), 1e-6))
+    return traj
 
 
 def plain_macro_episode_bwd(plan: MacroEpisodePlan, q_weight, action2d,
@@ -396,14 +400,6 @@ def _check_inputs(plan: MacroEpisodePlan, inputs):
             raise ValueError(f"plan.{name} is on "
                              f"{getattr(plan, name).device}, expected {dev}")
     return dev
-
-
-def new_trajectory(plan: MacroEpisodePlan, dev) -> Trajectory:
-    """Uninitialised buffers of a trajectory on ``dev``."""
-    return Trajectory(
-        torch.empty((plan.T, 2, plan.L, plan.C), dtype=torch.float32,
-                    device=dev),
-        torch.empty((plan.T,), dtype=torch.float32, device=dev))
 
 
 def macro_episode_fwd(plan: MacroEpisodePlan, action2d, schedule, mnext,

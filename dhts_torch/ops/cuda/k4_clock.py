@@ -38,7 +38,7 @@ from dhts_torch.ops.cuda.k1_clock import PRESET
 PARTS = ("signals", "wait_edges", "ghosts", "godunov",
          "static_partials", "wait_update", "mean_fold", "wait_mean",
          "lane_queue", "wait_queue", "queue_sum", "steps", "reverse_load",
-         "reverse_riemann", "reverse_terms",
+         "reverse_wait_edges", "reverse_riemann", "reverse_terms",
          "reverse_transpose", "reverse_wait_slots", "reverse_gather",
          "reverse_wait_empty", "reverse_fold", "reverse_wait_full",
          "reverse_steps")
