@@ -41,7 +41,7 @@
 // upstream lane's from it. The state r, y [L, C] lives in shared memory.
 // The operations are those of itscp_step.cuh's macro phases in soft mode
 // (signal, edges, ghosts, godunov_lane, static_partials, lane_queue), so
-// the forward is bit-equal to PR 16's one thread a lane.
+// the forward gives the bits of one thread a lane running those phases.
 //
 // Forward step t, on named barriers: the lanes meet (BAR_LANES, lane warps
 // only: every edge of the state before step t is published); each lane
