@@ -117,8 +117,8 @@ phase prints one JSON line with its wall seconds:
 19. ``k4_train``  the caller: a seeded controller (256, 256) takes 3 Adam
                steps at lr 1e-4 through K4 at the macro preset; losses
                finite, parameters changed, K4's forward (saving the
-               trajectory) and its reverse sweep launched 3 times each, one
-               block a launch
+               trajectory) and its reverse sweep launched 3 times each (a
+               grid of one block), the forward-mode blocks never
 20. ``k4_timing``  K4 forward, the forward saving the trajectory, the
                reverse sweep over it (the action alone and all three
                gradients) and replaying it, and the forward-mode derivative
@@ -1812,8 +1812,8 @@ def run_k4_train(env, fn) -> dict:
     1e-4 on the macro preset, each on a fresh scenario (seeds 3, 4, 5):
     observation -> controller -> squash -> K4 from the empty state ->
     -reward -> backward. K4's launches, counted from 0 here, must be 3
-    forward and 3 reverse sweeps of one block each. Raises on a failed
-    check."""
+    forward and 3 reverse sweeps (the C launcher's grid is one block), and
+    no forward-mode blocks. Raises on a failed check."""
     import torch
 
     from dhts_torch.apps.control.controller import (init_controller,
@@ -1830,7 +1830,7 @@ def run_k4_train(env, fn) -> dict:
     zero = torch.zeros((plan.L, plan.C), device=dev)
     k4.macro_episode_fwd.launches = 0
     k4.macro_episode_bwd.launches = 0
-    k4.macro_episode_bwd.blocks = 0
+    k4.macro_episode_tangents.launches = 0
     losses = []
     for seed in (3, 4, 5):
         obs = torch.as_tensor(env.reset(seed), device=dev)
@@ -1846,8 +1846,8 @@ def run_k4_train(env, fn) -> dict:
     torch.cuda.synchronize()
     launches = dict(fwd=k4.macro_episode_fwd.launches,
                     bwd=k4.macro_episode_bwd.launches,
-                    bwd_blocks=k4.macro_episode_bwd.blocks)
-    expected = dict(fwd=3, bwd=3, bwd_blocks=3)
+                    tangents=k4.macro_episode_tangents.launches)
+    expected = dict(fwd=3, bwd=3, tangents=0)
     changed = any(not torch.equal(a, b.detach()) for a, b in
                   zip(before, model.parameters()))
     ok = (launches == expected and changed and
@@ -1927,13 +1927,12 @@ def time_k4(scenes, plain_ms) -> dict:
                 "tangents_all": (in_bytes + T * 4 + n_valid * 4 + na +
                                  2 * L * C * 4, ops * VJP_OPS_MULTIPLE)}
         bounds[name] = {k: bound_of(*v) for k, v in work.items()}
-        smem[name] = dict(fwd=lib.itscp_macro_episode_smem(L, C, 0),
-                          tangents=lib.itscp_macro_episode_smem(L, C, 1),
-                          bwd=lib.itscp_macro_episode_smem(L, C, 2))
-        lane_threads[name] = {
-            k: lib.itscp_macro_episode_lane_threads(L, C, kid) for k, kid in
-            (("fwd", k4.KERNEL_FWD), ("tangents", k4.KERNEL_TANGENTS),
-             ("bwd", k4.KERNEL_REVERSE))}
+        kids = (("fwd", k4.KERNEL_FWD), ("tangents", k4.KERNEL_TANGENTS),
+                ("bwd", k4.KERNEL_REVERSE))
+        smem[name] = {k: lib.itscp_macro_episode_smem(L, C, kid)
+                      for k, kid in kids}
+        lane_threads[name] = {k: k4.lane_threads(lib, plan, kid)
+                              for k, kid in kids}
     for f, (n, b) in zip(counters, saved):
         f.launches = n
         if hasattr(f, "blocks"):

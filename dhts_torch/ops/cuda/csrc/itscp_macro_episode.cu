@@ -80,6 +80,14 @@
 // one block per seeded input entry (an action entry, or a valid cell of r0
 // or y0), writing sum_t w[t] d(queue_t)/d(entry) (K4's ep_bwd, :284).
 //
+// Scenes. A launch takes up to 832 lanes (one thread a lane in the
+// forward's 896 threads). Where a block's shared memory cannot hold the
+// state (the forward beyond about 700 lanes at C = 4 and 480 at C = 7, the
+// sweep beyond about 400 and 280), the float forward and the sweep keep it
+// in global memory that the launcher allocates, so the backward takes every
+// scene the forward takes; the forward-mode derivative stays in shared
+// memory and refuses the larger scenes.
+//
 // Bound. The inputs and outputs are a few hundred KB (the trajectory 0.67
 // MB at the macro preset, 2.8 MB at 3x3 macro), and the T steps' float32
 // operations take under a microsecond at the card's peak: the kernel is
@@ -765,11 +773,17 @@ __device__ __forceinline__ void forward_body(const Args& a, const Geo& geo,
     forward_lanes<S>(a, geo, s, m, g, a_seed);
 }
 
-// The largest block each forward kernel is compiled for, which bounds its
+// The largest block each kernel is compiled for, which bounds its
 // registers: the forward's 72 let the 3x3 preset's 832 threads (5 a lane)
-// run as one block; the derivative's 96 let 640 (3 a lane there). (The
-// sweep takes what its registers give: 2 threads a lane at the 3x3 preset;
-// 3 with spills ran at the same speed on an H100.)
+// run as one block, and at one thread a lane 832 lanes; the derivative's
+// 96 let 640 (3 a lane there; 576 lanes). The sweep comes in two: the
+// narrow one keeps the registers it wants (about 160: 384 threads, 2 a
+// lane at the 3x3 preset, 320 lanes at most); the wide one is held to the
+// forward's block, spilling, for the scenes the narrow one cannot take.
+// The float forward and the wide sweep keep their state in global memory
+// where a block's shared memory cannot hold it (the forward in a second
+// instantiation, so that the first keeps its shared-memory addressing).
+// So both take every scene of up to 832 lanes.
 template <class S>
 struct MaxThreads {
   static constexpr int value = 896;
@@ -778,20 +792,23 @@ template <>
 struct MaxThreads<Dual> {
   static constexpr int value = 640;
 };
+constexpr int REV_NARROW = 384, REV_WIDE = MaxThreads<float>::value;
 
 // One episode per block. S = float: the forward (outputs -qsum and
 // queues, and the trajectory if a.traj). S = Dual: the forward-mode
 // derivative; block b seeds action entry b (b < n_a), the r0 cell
 // cells[b - n_a] (next n_r), or the y0 cell cells[b - n_a - n_r], and
 // writes out_grad at that entry: [0, NA) the action, [NA, NA + LC) r0,
-// [NA + LC, NA + 2 LC) y0.
-template <class S>
+// [NA + LC, NA + 2 LC) y0. GLOBAL (one block): the state in `scratch`
+// (global memory), not in shared memory.
+template <class S, bool GLOBAL>
 __global__ void
 #ifndef DHTS_CPU_EMULATION
 __launch_bounds__(MaxThreads<S>::value)
 #endif
-itscp_macro_episode_kernel(Args a, Geo geo) {
+itscp_macro_episode_kernel(Args a, Geo geo, char* scratch) {
   DHTS_DYNAMIC_SMEM(smem_raw);
+  char* const base = GLOBAL ? scratch : smem_raw;
   int a_seed = -1, r_seed = -1, y_seed = -1, out_at = -1;
   if (sizeof(S) != sizeof(float)) {
     const int b = blockIdx.x;
@@ -807,7 +824,7 @@ itscp_macro_episode_kernel(Args a, Geo geo) {
       out_at = NA + LC + y_seed;
     }
   }
-  forward_body<S>(a, geo, smem_raw, a_seed, r_seed, y_seed, out_at);
+  forward_body<S>(a, geo, base, a_seed, r_seed, y_seed, out_at);
 }
 
 // ---------------------------------------------------------------------------
@@ -1202,9 +1219,17 @@ __device__ __forceinline__ void reverse_warp(const Args& a, const Geo& geo,
 
 // One block: the reverse sweep over a.traj and a.sharp, after filling them
 // by the forward first where `replay`; writes out_grad [NA + 2 LC]
-// entirely.
-__global__ void itscp_macro_episode_reverse(Args a, Geo geo, int replay) {
+// entirely. MAXT: the block it is compiled for (REV_NARROW or REV_WIDE);
+// the wide one keeps its state in `scratch` (global memory) where that is
+// given, else in shared memory.
+template <int MAXT>
+__global__ void
+#ifndef DHTS_CPU_EMULATION
+__launch_bounds__(MAXT)
+#endif
+itscp_macro_episode_reverse(Args a, Geo geo, int replay, char* scratch) {
   DHTS_DYNAMIC_SMEM(smem_raw);
+  char* const base = MAXT == REV_WIDE && scratch ? scratch : smem_raw;
   const Dims& d = a.d;
   const int L = d.L, C = d.C, LC = L * C;
   const int NT = geo.NL + RED_WARPS * WARP;  // the block's threads
@@ -1214,11 +1239,11 @@ __global__ void itscp_macro_episode_reverse(Args a, Geo geo, int replay) {
     Args f = a;
     f.out_reward = f.out_queues = f.out_grad = nullptr;
     f.q_weight = nullptr;
-    forward_body<float>(f, geo, smem_raw, -1, -1, -1, -1);
+    forward_body<float>(f, geo, base, -1, -1, -1, -1);
     __syncthreads();
   }
   RevSmem s;
-  rev_smem(d, geo.G, &s, smem_raw);
+  rev_smem(d, geo.G, &s, base);
   const Me m = me_of(geo, L);
   const Scene sc{a.lane_i, a.lane_f, nullptr, nullptr};
   const LaneGeom g = m.lane ? lane_geom(sc, L, d.K, m.l) : LaneGeom();
@@ -1266,17 +1291,33 @@ bool sizes_ok(const Dims& d) {
          d.n_inter >= 1 && d.n_inter <= d.L;
 }
 
-// The largest block a kernel can take (its registers), MAX_THREADS on the
-// host.
+// The largest block a kernel can take (its registers); on the host the
+// block it is compiled for, `bound`.
 template <class Kernel>
-int max_threads_of(Kernel kernel) {
+int max_threads_of(Kernel kernel, int bound) {
 #ifdef DHTS_CPU_EMULATION
   (void)kernel;
-  return MAX_THREADS;
+  return bound;
 #else
+  (void)bound;
   cudaFuncAttributes attr;
   if (cudaFuncGetAttributes(&attr, kernel) != cudaSuccess) return 0;
   return attr.maxThreadsPerBlock;
+#endif
+}
+
+// The most dynamic shared memory a block may take: the device's opt-in
+// limit; on the host an H100's (227 KB).
+size_t max_smem() {
+#ifdef DHTS_CPU_EMULATION
+  return 227 * 1024;
+#else
+  int dev, optin;
+  if (cudaGetDevice(&dev) != cudaSuccess ||
+      cudaDeviceGetAttribute(&optin, cudaDevAttrMaxSharedMemoryPerBlockOptin,
+                             dev) != cudaSuccess)
+    return 0;
+  return (size_t)optin;
 #endif
 }
 
@@ -1313,17 +1354,93 @@ int launch_block(Kernel kernel, int blocks, const Geo& geo, size_t smem,
 #endif
 }
 
+// A launch's kernel, threads a lane (0: no block of the kernel fits the
+// scene), the bytes of its state and whether they go to global memory (the
+// float forward's and the wide sweep's, where shared memory cannot hold
+// them) or shared memory.
+template <class Kernel>
+struct Fit {
+  Kernel kernel;
+  int G;
+  size_t smem;
+  bool global;
+};
+
+// The forward's (S = float) or the forward-mode derivative's (S = Dual,
+// shared memory only).
+template <class S>
+Fit<void (*)(Args, Geo, char*)> forward_fit(const Dims& d) {
+  Fit<void (*)(Args, Geo, char*)> f{
+      itscp_macro_episode_kernel<S, false>, 0,
+      fwd_smem<S>(d.L, d.C, d.n_inter, nullptr, nullptr), false};
+  if (!sizes_ok(d)) return f;
+  if (f.smem > max_smem()) {
+    if (sizeof(S) != sizeof(float)) return f;
+    f.kernel = itscp_macro_episode_kernel<float, true>;
+    f.global = true;
+  }
+  f.G = lane_threads(max_threads_of(f.kernel, MaxThreads<S>::value), d.L,
+                     d.C);
+  return f;
+}
+
+// The sweep's: the narrow kernel where its block and shared memory hold
+// the scene, else the wide one, its state in global memory where shared
+// memory cannot hold it; `replay` adds the forward's state.
+Fit<void (*)(Args, Geo, int, char*)> sweep_fit(const Dims& d, int replay) {
+  Fit<void (*)(Args, Geo, int, char*)> f{
+      itscp_macro_episode_reverse<REV_NARROW>, 0, 0, false};
+  if (!sizes_ok(d)) return f;
+  const auto bytes = [&](int G) {
+    const size_t rev = rev_smem(d, G, nullptr, nullptr);
+    const size_t fwd =
+        replay ? fwd_smem<float>(d.L, d.C, d.n_inter, nullptr, nullptr) : 0;
+    return rev > fwd ? rev : fwd;
+  };
+  f.G = lane_threads(max_threads_of(f.kernel, REV_NARROW), d.L, d.C);
+  f.smem = bytes(f.G > 0 ? f.G : 1);
+  if (f.G > 0 && f.smem <= max_smem()) return f;
+  f.kernel = itscp_macro_episode_reverse<REV_WIDE>;
+  f.G = lane_threads(max_threads_of(f.kernel, REV_WIDE), d.L, d.C);
+  f.smem = bytes(f.G > 0 ? f.G : 1);
+  f.global = f.smem > max_smem();
+  return f;
+}
+
+// One launch of `f` on `blocks` blocks (one where its state goes to global
+// memory, allocated and freed in stream order); the kernel's last argument
+// is that state, or null.
+template <class Kernel, class... X>
+int launch_fit(const Fit<Kernel>& f, int blocks, const Geo& geo,
+               void* stream, X... args) {
+  if (f.G < 1 || blocks < 1 || (f.global && blocks != 1))
+    return 1;  // cudaErrorInvalidValue
+  if (!f.global)
+    return launch_block(f.kernel, blocks, geo, f.smem, stream, args...,
+                        (char*)nullptr);
+  char* scratch = nullptr;
+#ifdef DHTS_CPU_EMULATION
+  scratch = (char*)malloc(f.smem);
+  if (!scratch) return 2;  // cudaErrorMemoryAllocation
+  const int err = launch_block(f.kernel, 1, geo, 0, stream, args..., scratch);
+  free(scratch);
+  return err;
+#else
+  cudaError_t err =
+      cudaMallocAsync((void**)&scratch, f.smem, (cudaStream_t)stream);
+  if (err != cudaSuccess) return (int)err;
+  const int launched =
+      launch_block(f.kernel, 1, geo, 0, stream, args..., scratch);
+  err = cudaFreeAsync(scratch, (cudaStream_t)stream);
+  return launched ? launched : (int)err;
+#endif
+}
+
 template <class S>
 int launch_forward(int blocks, const Args& a, void* stream) {
-  if (!sizes_ok(a.d) || blocks < 1) return 1;  // cudaErrorInvalidValue
-  const int G = lane_threads(
-      max_threads_of(itscp_macro_episode_kernel<S>), a.d.L, a.d.C);
-  if (G < 1) return 1;
-  const Geo geo = geo_of(a.d.L, G);
-  return launch_block(itscp_macro_episode_kernel<S>, blocks, geo,
-                      fwd_smem<S>(a.d.L, a.d.C, a.d.n_inter, nullptr,
-                                  nullptr), stream,
-                      a, geo);
+  const auto f = forward_fit<S>(a.d);
+  const Geo geo = geo_of(a.d.L, f.G > 0 ? f.G : 1);
+  return launch_fit(f, blocks, geo, stream, a, geo);
 }
 
 Dims dims(int T, int L, int C, int K, int nsf, int n_phases, int n_inter) {
@@ -1358,28 +1475,27 @@ Args args_of(const float* action, const float* sched, const int* mnext,
 
 extern "C" {
 
-// Dynamic shared memory (bytes) of the forward (kernel 0), the
-// forward-mode derivative (1) or the reverse sweep (2, with the threads a
-// lane it takes) for these sizes.
+// The bytes of the state of the forward (kernel 0), the forward-mode
+// derivative (1) or the reverse sweep (2, replaying) for these sizes: its
+// dynamic shared memory, or the global memory that takes its place.
 size_t itscp_macro_episode_smem(int L, int C, int kernel) {
   // (the gates' tables sized for n_inter = L, the most a launch takes)
-  if (kernel == 0) return fwd_smem<float>(L, C, L, nullptr, nullptr);
-  if (kernel == 1) return fwd_smem<Dual>(L, C, L, nullptr, nullptr);
-  Dims d = dims(1, L, C, 1, 1, 1, L);
-  const int G = lane_threads(max_threads_of(itscp_macro_episode_reverse), L,
-                             C);
-  const size_t rev = rev_smem(d, G > 0 ? G : 1, nullptr, nullptr);
-  const size_t fwd = fwd_smem<float>(L, C, L, nullptr, nullptr);
-  return rev > fwd ? rev : fwd;
+  const Dims d = dims(1, L, C, 1, 1, 1, L);
+  return kernel == 0   ? forward_fit<float>(d).smem
+         : kernel == 1 ? forward_fit<Dual>(d).smem
+                       : sweep_fit(d, 1).smem;
 }
 
-// The threads a lane that kernel 0, 1 or 2 (as above) takes for these
-// sizes (0: none fits).
-int itscp_macro_episode_lane_threads(int L, int C, int kernel) {
-  const int mt = kernel == 0 ? max_threads_of(itscp_macro_episode_kernel<float>)
-               : kernel == 1 ? max_threads_of(itscp_macro_episode_kernel<Dual>)
-                             : max_threads_of(itscp_macro_episode_reverse);
-  return lane_threads(mt, L, C);
+// The threads a lane that kernel 0, 1 or 2 (as above) takes for a scene of
+// these sizes; 0 where no block of it fits (the forward kernels: by their
+// threads or shared memory; the sweep: by its threads), and the launcher
+// returns 1.
+int itscp_macro_episode_lane_threads(int L, int C, int n_phases, int n_inter,
+                                     int kernel) {
+  const Dims d = dims(1, L, C, 1, 1, n_phases, n_inter);
+  return kernel == 0   ? forward_fit<float>(d).G
+         : kernel == 1 ? forward_fit<Dual>(d).G
+                       : sweep_fit(d, 0).G;
 }
 
 // Forward: one episode; out_reward[0] = -sum(queues), out_queues[T].
@@ -1473,16 +1589,9 @@ int launch_itscp_macro_episode_reverse(
   a.out_grad = out_grad;
   a.traj = traj;
   a.sharp = sharp;
-  if (!sizes_ok(a.d)) return 1;
-  const int G = lane_threads(max_threads_of(itscp_macro_episode_reverse), L,
-                             C);
-  if (G < 1) return 1;
-  const Geo geo = geo_of(L, G);
-  const size_t rev = rev_smem(a.d, G, nullptr, nullptr);
-  const size_t fwd =
-      replay ? fwd_smem<float>(L, C, n_inter, nullptr, nullptr) : 0;
-  return launch_block(itscp_macro_episode_reverse, 1, geo,
-                      rev > fwd ? rev : fwd, stream, a, geo, replay);
+  const auto f = sweep_fit(a.d, replay);
+  const Geo geo = geo_of(L, f.G > 0 ? f.G : 1);
+  return launch_fit(f, 1, geo, stream, a, geo, replay);
 }
 
 #ifdef DHTS_K4_CLOCK

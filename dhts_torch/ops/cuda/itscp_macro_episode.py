@@ -334,20 +334,27 @@ KERNEL_FWD, KERNEL_TANGENTS, KERNEL_REVERSE = 0, 1, 2
 
 
 def bind(lib: ctypes.CDLL) -> ctypes.CDLL:
-    """Declare the launchers' C signatures on a loaded library (the card's
-    build or the host build of the same source; a library built from an
-    older source gets those of the launchers it has)."""
+    """Declare the launchers' and the queries' C signatures on a loaded
+    library (the card's build or the host build of the same source)."""
     for name, types in _ARGTYPES.items():
-        if hasattr(lib, name):
-            fn = getattr(lib, name)
-            fn.argtypes = types
-            fn.restype = ctypes.c_int
+        fn = getattr(lib, name)
+        fn.argtypes = types
+        fn.restype = ctypes.c_int
     lib.itscp_macro_episode_smem.argtypes = [ctypes.c_int] * 3
     lib.itscp_macro_episode_smem.restype = ctypes.c_size_t
-    if hasattr(lib, "itscp_macro_episode_lane_threads"):
-        lib.itscp_macro_episode_lane_threads.argtypes = [ctypes.c_int] * 3
-        lib.itscp_macro_episode_lane_threads.restype = ctypes.c_int
+    lib.itscp_macro_episode_lane_threads.argtypes = [ctypes.c_int] * 5
+    lib.itscp_macro_episode_lane_threads.restype = ctypes.c_int
     return lib
+
+
+def lane_threads(lib: ctypes.CDLL, plan: MacroEpisodePlan,
+                 kernel: int) -> int:
+    """The threads a lane that ``kernel`` (``KERNEL_*``) of ``lib`` takes
+    for the plan's scene; 0 where its launcher refuses the scene (the
+    forward kernels: their block's threads or shared memory cannot hold
+    it; the sweep: its threads)."""
+    return lib.itscp_macro_episode_lane_threads(
+        plan.L, plan.C, plan.n_phases, plan.n_inter, kernel)
 
 
 def _library() -> ctypes.CDLL:
@@ -456,9 +463,10 @@ def macro_episode_bwd(plan: MacroEpisodePlan, q_weight, action2d, schedule,
 
     CPU tensors go to :func:`plain_macro_episode_bwd`; CUDA tensors launch
     the reverse sweep (one launch of one block, whatever ``needs`` asks
-    for, counted in ``launches`` and ``blocks``) over ``traj`` or, without
-    it, over a trajectory the same launch first replays into scratch; or
-    raise.
+    for, counted in ``launches``) over ``traj`` or, without it, over a
+    trajectory the same launch first replays into scratch; or raise. Its
+    state lives in shared memory, or in global memory allocated for the
+    launch where the scene is too large for that.
     """
     inputs = (action2d, schedule, mnext, mprev, r0, y0)
     needs = tuple(bool(n) for n in needs)
@@ -483,12 +491,10 @@ def macro_episode_bwd(plan: MacroEpisodePlan, q_weight, action2d, schedule,
         replay=replay))
     _launch.raise_on(err, "itscp_macro_episode reverse sweep")
     macro_episode_bwd.launches += 1
-    macro_episode_bwd.blocks += 1
     return _grad_parts(plan, grad, needs)
 
 
 macro_episode_bwd.launches = 0
-macro_episode_bwd.blocks = 0
 
 
 def macro_episode_tangents(plan: MacroEpisodePlan, q_weight, action2d,
@@ -529,7 +535,8 @@ class MacroEpisodeFunction(torch.autograd.Function):
     """``apply(action2d, r0, y0, plan, schedule, mnext, mprev) -> (reward,
     queues[T])`` with the backward of :func:`macro_episode_bwd` for the
     inputs among ``(action2d, r0, y0)`` that need a gradient: on the card
-    the forward saves the trajectory and the backward sweeps over it."""
+    the forward saves the trajectory and the backward sweeps over it (the
+    sweep takes every scene the forward takes)."""
 
     @staticmethod
     def forward(ctx, action2d, r0, y0, plan, schedule, mnext, mprev):

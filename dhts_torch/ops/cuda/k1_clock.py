@@ -46,20 +46,26 @@ PRESET = dict(num_intersection=3, num_lane=1, lane_length=5, speed_limit=60,
 
 
 def clocked_library():
-    """The clocked build, its launchers bound, and its stamp reader."""
-    lib = k1.bind(ctypes.CDLL(str(_build.build(
+    """The clocked build, its launchers bound."""
+    return k1.bind(ctypes.CDLL(str(_build.build(
         "itscp_hybrid_episode", defines=("DHTS_K1_CLOCK",)))))
-    lib.itscp_hybrid_episode_clock.argtypes = [ctypes.c_void_p, ctypes.c_int]
-    lib.itscp_hybrid_episode_clock.restype = ctypes.c_int
-    return lib
+
+
+def stamps(lib, reader: str, n: int, reset: bool = False) -> list[int]:
+    """The ``n`` stamps that a clocked build's ``int reader(long long* out,
+    int reset)`` summed since the last reset (``reset``: zero them
+    first)."""
+    fn = getattr(lib, reader)
+    fn.argtypes = [ctypes.c_void_p, ctypes.c_int]
+    fn.restype = ctypes.c_int
+    buf = (ctypes.c_longlong * n)()
+    _launch.raise_on(fn(buf, int(reset)), reader)
+    return list(buf)
 
 
 def read_cycles(lib, reset: bool = False) -> list[int]:
     """The stamps of the last clocked launch (``reset``: zero them)."""
-    buf = (ctypes.c_longlong * len(PHASES))()
-    _launch.raise_on(lib.itscp_hybrid_episode_clock(buf, int(reset)),
-                     "k1 clock")
-    return list(buf)
+    return stamps(lib, "itscp_hybrid_episode_clock", len(PHASES), reset)
 
 
 def preset_inputs(dev, action: float = 0.5):
@@ -94,6 +100,8 @@ def runs(plan_hard, plan_soft, ins, dev):
 
 
 def events_ms(fn, repeats: int, launches: int = 5) -> float:
+    """Median ms of one ``fn()`` over ``repeats`` runs, each timed by CUDA
+    events around ``launches`` calls back to back."""
     times = []
     for _ in range(repeats):
         start = torch.cuda.Event(enable_timing=True)

@@ -20,7 +20,13 @@ macro mode (L = 144, C = 4, T = 600), from the empty and a seeded state:
   entry and a NaN initial cell (``tests/test_torch_card_nan_gate.py``'s
   cases);
 * the factory: one forward launch and one reverse launch of one block for
-  all three gradients.
+  all three gradients, and no forward-mode blocks.
+
+Besides the two scenes, the larger three that only the wide sweep takes:
+the 5x5 grid of ``run_itscp_5x5.sh`` in macro mode (L = 400, C = 4) and the
+macro preset's lanes on the 3x3 grid (L = 360, C = 7; the sweep's state in
+global memory, and no forward-mode block fits it) and on the 4x4 grid (L =
+640, C = 7; the forward's state in global memory too).
 
 ``tests/test_torch_k4_redesign_host.py`` imports the helpers here. This
 file imports nothing of JAX::
@@ -51,7 +57,18 @@ PRESET = dict(num_intersection=1, num_lane=3, lane_length=30.0,
 GRID3 = dict(num_intersection=3, num_lane=1, lane_length=5.0,
              speed_limit=60.0, policy_length=20, signal_length=4,
              random_seed=3, mode="macro")
-SCENES = {"small": SMALL, "preset": PRESET, "grid3": GRID3}
+# the larger scenes: the 5x5 grid of run_itscp_5x5.sh in macro mode (L =
+# 400, C = 4: the wide sweep, its state in shared memory), and the macro
+# preset's three lanes of 30 m on the 3x3 grid (L = 360, C = 7: the wide
+# sweep, its state in global memory) and on the 4x4 grid (L = 640, C = 7:
+# the forward's state in global memory too)
+GRID5 = dict(GRID3, num_intersection=5)
+PRESET_GRID3 = dict(PRESET, num_intersection=3)
+PRESET_GRID4 = dict(PRESET, num_intersection=4)
+SCENES = {"small": SMALL, "preset": PRESET, "grid3": GRID3, "grid5": GRID5,
+          "preset_grid3": PRESET_GRID3, "preset_grid4": PRESET_GRID4}
+# the most dynamic shared memory an H100's block takes (the opt-in limit)
+H100_SMEM = 227 * 1024
 
 
 def case(cfg, seeded, device="cpu", seed=5, T=None):
@@ -125,7 +142,7 @@ def card():
     return torch.device("cuda")
 
 
-CARD_SCENES = ["preset", "grid3"]
+CARD_SCENES = ["preset", "grid3", "grid5", "preset_grid3", "preset_grid4"]
 
 
 @pytest.mark.parametrize("seeded", [False, True], ids=["empty", "seeded"])
@@ -154,10 +171,11 @@ def test_reverse_sweep_matches_autograd_and_tangents(card, scene, seeded):
     again = k4.macro_episode_bwd(plan, w, *ins, traj=traj)
     replayed = k4.macro_episode_bwd(plan, w, *ins)
     ref = k4.plain_macro_episode_bwd(plan, w, *ins)
-    tangents = k4.macro_episode_tangents(plan, w, *ins)
     torch.cuda.synchronize()
     check_gradients(plan, got, ref)
-    check_gradients(plan, got, tangents)
+    # the forward-mode derivative where its block fits the scene
+    if k4.lane_threads(k4._library(), plan, k4.KERNEL_TANGENTS):
+        check_gradients(plan, got, k4.macro_episode_tangents(plan, w, *ins))
     assert all(same_bits(a, b) for a, b in zip(got, again))
     assert all(same_bits(a, b) for a, b in zip(got, replayed))
 
@@ -175,20 +193,25 @@ def test_reverse_sweep_nan_positions_equal_autograd(card, nan):
     assert any(bool(torch.isnan(g).any()) for g in got)
 
 
-def test_factory_takes_one_reverse_block(card):
-    plan, (a, sched, mnext, mprev, r0, y0) = case(PRESET, True, card)
+@pytest.mark.parametrize("scene", ["preset", "grid5", "preset_grid3",
+                                   "preset_grid4"])
+def test_factory_takes_one_reverse_block(card, scene):
+    cfg = SCENES[scene]
+    plan, (a, sched, mnext, mprev, r0, y0) = case(cfg, True, card)
     fn = k4.make_fused_itscp_macro_episode
-    env = ItscpEnv(config=PRESET, schedule_fn=problem.problem_1, device=card)
+    env = ItscpEnv(config=cfg, schedule_fn=problem.problem_1, device=card)
     env.reset()
     fn = fn(env.spec, env.meta, env.config)
     n_f, n_b = k4.macro_episode_fwd.launches, k4.macro_episode_bwd.launches
-    blocks = k4.macro_episode_bwd.blocks
+    n_t = k4.macro_episode_tangents.launches
     leaves = [x.clone().requires_grad_(True) for x in (a, r0, y0)]
     reward, queues = fn(leaves[0], sched, mnext, mprev, leaves[1], leaves[2])
     (-reward).backward()
+    # one forward and one sweep (a grid of one block), no forward-mode
+    # blocks
     assert k4.macro_episode_fwd.launches == n_f + 1
     assert k4.macro_episode_bwd.launches == n_b + 1
-    assert k4.macro_episode_bwd.blocks == blocks + 1
+    assert k4.macro_episode_tangents.launches == n_t
     # the loss -reward = sum(queues): a weight of 1 a step
     w = torch.ones((plan.T,), device=card)
     ref = k4.plain_macro_episode_bwd(plan, w, a, sched, mnext, mprev, r0, y0)

@@ -110,20 +110,22 @@ def test_factory_launches_only_the_requested_blocks(scene):
     plan = fn.plan
     a, sched, mnext, mprev, r0, y0 = inputs(env, plan, 0.4, True)
     n_f, n_b = k4.macro_episode_fwd.launches, k4.macro_episode_bwd.launches
-    blocks = k4.macro_episode_bwd.blocks
+    blocks = k4.macro_episode_tangents.blocks
     a = a.requires_grad_(True)
     reward, _ = fn(a, sched, mnext, mprev, r0, y0)
     reward.backward()
     assert k4.macro_episode_fwd.launches == n_f + 1
-    # the reverse sweep: one launch of one block, whatever is asked for
+    # the reverse sweep: one launch (a grid of one block), whatever is
+    # asked for, and none of the forward-mode blocks
     assert k4.macro_episode_bwd.launches == n_b + 1
-    assert k4.macro_episode_bwd.blocks == blocks + 1
+    assert k4.macro_episode_tangents.blocks == blocks
     g_a = a.grad.clone()
     a.grad = None
     r0 = r0.clone().requires_grad_(True)
     reward, _ = fn(a, sched, mnext, mprev, r0, y0)
     reward.backward()
-    assert k4.macro_episode_bwd.blocks == blocks + 2
+    assert k4.macro_episode_bwd.launches == n_b + 2
+    assert k4.macro_episode_tangents.blocks == blocks
     assert torch.equal(a.grad, g_a)
     assert r0.grad is not None and torch.isfinite(r0.grad).all()
 

@@ -33,11 +33,12 @@ import ctypes
 import pytest
 import torch
 
-from dhts_torch.ops.cuda import _build, _clock, k4_clock
+from dhts_torch.ops.cuda import _build, k4_clock
 from dhts_torch.ops.cuda import itscp_macro_episode as k4
 from tests.test_torch_card_k4_redesign import (
-    GRID3, PRESET, SMALL, case, check_gradient, check_gradients,
-    nan_positions_equal, same_bits, weights)
+    GRID3, GRID5, H100_SMEM, PRESET, PRESET_GRID3, PRESET_GRID4, SMALL, case,
+    check_gradient, check_gradients, nan_positions_equal, same_bits,
+    weights)
 from tests.test_torch_card_nan_gate import k4_case, same
 
 torch.set_num_threads(1)
@@ -45,6 +46,11 @@ torch.set_num_threads(1)
 # the scenes and the steps the host runs of each
 CASES = {"small": (SMALL, None), "preset": (PRESET, None),
          "grid3": (GRID3, 60)}
+# the scenes only the wide sweep takes: blocks of 864, 800 and 704 fibers
+LARGE = {"grid5": (GRID5, 20), "preset_grid3": (PRESET_GRID3, 20),
+         "preset_grid4": (PRESET_GRID4, 20)}
+SCENES_ALL = {"preset": PRESET, "grid3": GRID3, "grid5": GRID5,
+              "preset_grid3": PRESET_GRID3, "preset_grid4": PRESET_GRID4}
 
 
 @pytest.fixture(scope="module")
@@ -60,7 +66,6 @@ def builds(tmp_path_factory):
                 "itscp_macro_episode", out, defines=defines))))
     except RuntimeError as err:
         pytest.skip(f"no host build of the kernel source: {err}")
-    _clock.bind_reader(libs["clock"], k4_clock.READER)
     return libs
 
 
@@ -179,8 +184,7 @@ def test_reverse_sweep_nan_positions_equal_autograd(lib, nan, replay):
 def test_other_lane_layouts_agree(builds, variant, scene):
     cfg, T = CASES[scene]
     plan, ins = case(cfg, True, T=T)
-    G = builds[variant].itscp_macro_episode_lane_threads(
-        plan.L, plan.C, k4.KERNEL_REVERSE)
+    G = k4.lane_threads(builds[variant], plan, k4.KERNEL_REVERSE)
     assert G == (1 if variant == "one" else 3)
     reward, queues, traj = forward(builds[variant], plan, ins, True)
     ref_r, ref_q = k4.plain_macro_episode(plan, *ins)
@@ -192,12 +196,48 @@ def test_other_lane_layouts_agree(builds, variant, scene):
     check_gradients(plan, got, k4.plain_macro_episode_bwd(plan, w, *ins))
 
 
-def test_lane_threads_of_the_scenes(lib):
-    for cfg, G in ((PRESET, 8), (GRID3, 5)):
-        plan, _ = case(cfg, False)
-        for kernel in (k4.KERNEL_FWD, k4.KERNEL_TANGENTS, k4.KERNEL_REVERSE):
-            assert lib.itscp_macro_episode_lane_threads(
-                plan.L, plan.C, kernel) == G
+@pytest.mark.parametrize("scene, threads", [
+    ("preset", (8, 8, 8)), ("grid3", (5, 3, 2)), ("grid5", (2, 1, 2)),
+    ("preset_grid3", (2, 0, 2)), ("preset_grid4", (1, 0, 1))],
+    ids=["preset", "grid3", "grid5", "preset_grid3", "preset_grid4"])
+def test_lane_threads_of_the_scenes(lib, scene, threads):
+    """The threads a lane of the forward, the forward-mode derivative and
+    the sweep, as on the card: the narrow sweep's 384 threads hold the
+    3x3 preset at 2 a lane; only the wide one takes the larger scenes; the
+    derivative's shared memory cannot hold the preset's lanes on the 3x3
+    and 4x4 grids."""
+    plan, _ = case(dict(SCENES_ALL[scene]), False)
+    assert tuple(k4.lane_threads(lib, plan, kernel) for kernel in
+                 (k4.KERNEL_FWD, k4.KERNEL_TANGENTS,
+                  k4.KERNEL_REVERSE)) == threads
+
+
+@pytest.mark.parametrize("scene", list(LARGE))
+def test_large_scenes_forward_and_sweep(lib, scene):
+    """The scenes the narrow sweep cannot take (the wide one, its state in
+    shared memory at the 5x5 grid, in global memory for the preset's lanes
+    on the 3x3 and 4x4 grids, where the 4x4 grid's forward keeps its state
+    in global memory too): the forward bit-equal to the plain version, the
+    sweep over the saved trajectory against autograd of it and bit-equal
+    to replaying."""
+    cfg, T = LARGE[scene]
+    plan, ins = case(cfg, True, T=T)
+    if scene != "grid5":  # more than a block's shared memory
+        assert lib.itscp_macro_episode_smem(plan.L, plan.C,
+                                            k4.KERNEL_REVERSE) > H100_SMEM
+    if scene == "preset_grid4":
+        assert lib.itscp_macro_episode_smem(plan.L, plan.C,
+                                            k4.KERNEL_FWD) > H100_SMEM
+    reward, queues, traj = forward(lib, plan, ins, trajectory=True)
+    ref_r, ref_q = k4.plain_macro_episode(plan, *ins)
+    assert torch.equal(reward, ref_r) and torch.equal(queues, ref_q)
+    assert torch.equal(traj.states,
+                       k4.plain_macro_trajectory(plan, *ins).states)
+    w = weights(plan.T)
+    got = sweep(lib, plan, ins, w, traj)
+    check_gradients(plan, got, k4.plain_macro_episode_bwd(plan, w, *ins))
+    replayed = sweep(lib, plan, ins, w)
+    assert all(same_bits(a, b) for a, b in zip(got, replayed))
 
 
 def test_clock_build_is_bit_equal_and_stamps_every_part(builds):

@@ -51,16 +51,30 @@ sys.path.insert(0, str(ROOT))
 sys.path.insert(0, str(ROOT / "tools"))
 
 
+def bind_k4_launchers(lib: ctypes.CDLL) -> ctypes.CDLL:
+    """Declare the K4 launchers that ``lib`` exports, with this checkout's
+    signatures (a tree from before the reverse sweep has only the forward
+    and the forward-mode blocks; the two have kept their signatures)."""
+    from dhts_torch.ops.cuda import itscp_macro_episode as k4
+
+    for name, types in k4._ARGTYPES.items():
+        if hasattr(lib, name):
+            fn = getattr(lib, name)
+            fn.argtypes = types
+            fn.restype = ctypes.c_int
+    return lib
+
+
 def libraries(tree: Path) -> dict:
-    """``{kernel: library}`` of TREE's K1 and K4 sources, bound."""
+    """``{kernel: library}`` of TREE's K1 and K4 sources, their launchers
+    bound."""
     from k3_timing import build_tree
 
     from dhts_torch.ops.cuda import itscp_hybrid_episode as k1
-    from dhts_torch.ops.cuda import itscp_macro_episode as k4
 
     return {"k1": k1.bind(ctypes.CDLL(str(build_tree(
                 tree, "itscp_hybrid_episode")))),
-            "k4": k4.bind(ctypes.CDLL(str(build_tree(
+            "k4": bind_k4_launchers(ctypes.CDLL(str(build_tree(
                 tree, "itscp_macro_episode"))))}
 
 
