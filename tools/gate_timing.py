@@ -14,10 +14,10 @@ one process through the same C launchers (the same signatures since the
 NaN repair). The cases: K1 at the 3x3 hybrid preset of
 ``run_itscp_hybrid.sh`` (T = 600, 144 lanes, action 0.5, one episode a
 launch; ``tools/k1_timing.py``'s inputs) hard, soft and backward; K4 at the
-macro preset of ``run_itscp_macro.sh`` and the 3x3 preset in macro mode
-(action 0.5, empty state; ``chip_smoke.py``'s ``k4_timing`` inputs): the
-forward, and each tree's backward for the action alone and for all three
-gradients (a tree with ``launch_itscp_macro_episode_reverse`` takes its
+macro preset of ``run_itscp_macro.sh``, the 3x3 preset and the 5x5 grid of
+``run_itscp_5x5.sh`` in macro mode (action 0.5, empty state;
+``chip_smoke.py``'s ``k4_timing`` inputs): the forward, and each tree's
+backward for the action alone and for all three gradients (a tree with ``launch_itscp_macro_episode_reverse`` takes its
 reverse sweep over the saved trajectory, which the autograd Function runs;
 an older one its forward-mode blocks). Cases that only this checkout has
 (the forward saving the trajectory, the sweep replaying it) are timed in
@@ -29,7 +29,7 @@ launches back to back, median of ``--repeats``). Prints one JSON line: the
 card's name and power limit, the medians and interquartile ranges of both
 arms, and how many pairs this checkout won.
 
-``--compare``: K4's reward and queues of both trees at both scenes, from
+``--compare``: K4's reward and queues of both trees at its scenes, from
 the empty and a seeded state (``chip_smoke.py``'s ``k4_inputs``), and the
 largest difference (0: bit-equal); this checkout's gradients (action, r0,
 y0) against the parent's backward with all three: cosine and
@@ -63,6 +63,17 @@ def bind_k4_launchers(lib: ctypes.CDLL) -> ctypes.CDLL:
             fn.argtypes = types
             fn.restype = ctypes.c_int
     return lib
+
+
+def k4_scenes() -> dict:
+    """K4's scenes: ``chip_smoke.py``'s two and the 5x5 grid of
+    ``run_itscp_5x5.sh`` in macro mode (400 lanes: this tree's wide
+    sweep)."""
+    import chip_smoke
+
+    return {**chip_smoke.K4_SCENES,
+            "grid5_macro": dict(chip_smoke.PRESET, mode="macro",
+                                random_seed=3, num_intersection=5)}
 
 
 def libraries(tree: Path) -> dict:
@@ -160,7 +171,7 @@ def cases(dev) -> dict:
         "k1_bwd": lambda L: L["k1"].launch_itscp_hybrid_episode_bwd(
             *k1.kernel_args(soft, ins, (w, grad), stream))}
     k4_cases = {}
-    for name, cfg in chip_smoke.K4_SCENES.items():
+    for name, cfg in k4_scenes().items():
         kenv, fn = chip_smoke.k4_scene(cfg, dev)
         k4_cases[name] = (fn.plan, chip_smoke.k4_inputs(kenv, fn.plan, 0.5,
                                                          False))
@@ -194,7 +205,7 @@ def compare(parent: Path) -> dict:
     stream = _launch.stream(dev)
     libs = {"parent": libraries(parent)["k4"], "this": libraries(ROOT)["k4"]}
     out, ok = {}, True
-    for name, cfg in chip_smoke.K4_SCENES.items():
+    for name, cfg in k4_scenes().items():
         kenv, fn = chip_smoke.k4_scene(cfg, dev)
         for seeded in (False, True):
             ins = chip_smoke.k4_inputs(kenv, fn.plan, 0.5, seeded)
