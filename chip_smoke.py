@@ -15,8 +15,8 @@ step), and the all-macro ITSCP episode of ``run_itscp_macro.sh`` through
 K4's forward and backward kernels (the action, r0 and y0 gradients), which
 a controller trains through, and the 3x3 preset's training on the
 lane-sharded fused spatial step (``run --mesh 1,4 --mesh_fused``: K6's
-per-shard bodies A, B, C, D1, D2, D3, E and K5's stop-gradient op, four
-gloo ranks that share the card, spawned once after the build with a
+per-shard bodies A, B, C, D3 (JAX's D1, D2 and D3 in one launch) and E,
+four gloo ranks that share the card, spawned once after the build with a
 ``FileStore`` in a temporary directory and kept for the slice's phases,
 with two more for the S = 2 check; a rank that fails or outlives its
 time fails the run), and K1's scenario batch: B episodes in one launch, the
@@ -129,8 +129,9 @@ phase prints one JSON line with its wall seconds:
                beside the others)
 21. ``shard_vs_plain``  the sharded forward at the preset, hard and soft,
                B = 1, on S = 4 ranks: at every 50th step each rank holds the
-               inputs of its seven launches through the plain bodies on the
-               card (integers equal, floats allclose(rtol 1e-6, atol 1e-6));
+               inputs of its five launches through their plain versions on
+               the card (D3's: ``plain_body_D``, the whole conversion;
+               integers equal, floats allclose(rtol 1e-6, atol 1e-6));
                the Q kernel's queues bit-equal to ``plain_queues`` of the
                same gathered rows; each episode at S = 4 and S = 2 against
                the single-shard STEP kernel's on the same draws (run once,
@@ -138,10 +139,15 @@ phase prints one JSON line with its wall seconds:
                0; the ranks' draws and scene agree; the host-staged gloo
                time per collective call
 22. ``shard_bwd_vs_plain``  the sharded derivative (S = 4 in the ranks, S = 2
-               in this process, T = 600) against the STEP derivative
+               and 4 in this process, T = 600) against the STEP derivative
                (bit-equal, cosine > 0.99999, allclose(rtol 2e-2, atol 2e-3
                * max|g|), finite; its Q kernel bit-equal to
-               ``plain_gradient`` of the same gathered tangent rows) and
+               ``plain_gradient`` of the same gathered tangent rows; in
+               this process at S = 2 and at the main path's S = 4 the
+               ``Dual`` D3 launches of steps 107, 307 and 507 against
+               ``plain_body_D`` under forward-mode AD on the card, values
+               allclose(rtol 1e-6, atol 1e-6), tangents allclose(rtol
+               1e-5, atol 1e-5 * the largest)) and
                over the first 60 steps against the plain forward-mode
                derivative (one shard); both references run once, in this
                process, while the ranks work
@@ -151,12 +157,13 @@ phase prints one JSON line with its wall seconds:
                finite and equal on every rank, parameters equal on every
                rank afterwards, each body's launches, counted from 0 on each
                rank, T per forward episode (train step and evaluation) and
-               T per train step for the derivative (D1, D2: also T per
-               train step, run on the derivative's values), Q once per
-               episode; the collectives as derived (per step 4 gathers and
-               2 sums in soft mode, 1 sum in hard mode; per episode the
-               queues' gather and the events' and waves' reductions)
-24. ``shard_timing``  each body's ms per launch at S = 4, B = 1 and 4, and
+               T per train step for the derivative, no D1 or D2 launch, Q
+               once per episode; the collectives as derived (per step 2
+               gathers and 2 sums in soft mode, 1 sum in hard mode; per
+               episode the queues' gather and the events' and waves'
+               reductions)
+24. ``shard_timing``  each body's ms per launch at S = 4, B = 1 and 4 (D3's
+               the whole conversion), and
                of the derivative's bodies (CUDA events, median of 5 runs of
                50 launches back to back of one shard's kernel at a quiet
                step, its gathered rows in place: no collective inside), the
@@ -164,7 +171,7 @@ phase prints one JSON line with its wall seconds:
                gathered q^2 rows with its plain ms and the library's (one
                PyTorch call, 50 back to back, as Q's launches); the wall ms
                of an
-               unchecked sharded step (from ``shard_vs_plain``: seven
+               unchecked sharded step (from ``shard_vs_plain``: five
                launches and the collectives between them, host-staged gloo,
                not a collective number of the card)
 25. ``timing``  each K1 kernel's ms per launch (CUDA events, median of 10
@@ -173,7 +180,9 @@ phase prints one JSON line with its wall seconds:
                K2 and K3 forward and backward ms at B = 1, 12, 128 (median
                of 5 runs of 20 launches back to back) with their bounds,
                and their plain versions' ms at B = 1
-26. ``kernels`` the per-kernel record (launches, error, times, bound)
+26. ``kernels`` the per-kernel record (launches, error, times, bound); K6's
+               D3 rows name D1's and D2's ``pallas_call`` sites in
+               ``replaces`` too: D3's launch does their work
 
 Slice 8 (K1 with B episodes per launch; a scene wider than one block on the
 sharded step) adds, where they run:
@@ -1100,7 +1109,7 @@ def _shard_fwd_rank(rank, S, check_every):
                 for body, e in run.checked_step(t, 1e-6, 1e-6).items():
                     out["errors"][body] = max(out["errors"].get(body, 0.0), e)
                 continue
-            # wall time of an unchecked step: seven launches and the
+            # wall time of an unchecked step: five launches and the
             # collectives between them (host-staged gloo, not the card's)
             t1 = time.perf_counter()
             run.step(t)
@@ -1216,6 +1225,9 @@ def _shard_bwd_inputs(env):
     return (plan, ins, wf), (plan._replace(T=T), ins60, w60)
 
 
+SHARD_BWD_CHECKS = (107, 307, 507)  # the derivative's D3 held at these
+
+
 def _shard_bwd_rank(rank, S):
     """One rank of ``shard_bwd_vs_plain``: the sharded derivative at T =
     600 (its Q kernel against ``plain_gradient`` of the same gathered
@@ -1244,7 +1256,11 @@ def _shard_bwd_rank(rank, S):
 def check_shard_bwd(ranks) -> dict:
     """``shard_bwd_vs_plain``: the ranks' derivatives against the STEP
     derivative and the plain forward-mode derivative (one shard), both run
-    once here while the ranks work; raises on a failure."""
+    once here while the ranks work, as are the derivatives on S = 2 and on
+    the main path's S = 4 shards, whose ``Dual`` D3 launches of
+    ``SHARD_BWD_CHECKS`` are held against ``plain_body_D`` under
+    forward-mode AD (``checked_dual_step`` raises on a difference); raises
+    on a failure."""
     import torch
 
     from dhts_torch.ops.cuda import itscp_spatial_shard as ks
@@ -1254,9 +1270,19 @@ def check_shard_bwd(ranks) -> dict:
     env = preset_env(torch.device("cuda"))
     (plan, ins, wf), (p60, ins60, w60) = _shard_bwd_inputs(env)
     ref = k6.spatial_episode_bwd(plan, wf, *ins).cpu()
-    # the derivative on S = 2 shards in this process
-    two = ks.ShardRun(plan, ks.LaneComm(plan.L, ks.shards_of(plan.L, 2)),
-                      ins, dual=True).run().gradient(wf).cpu()
+    # the derivative on S = 2 and 4 shards in this process, its D3 checked
+    local, d3_err = {}, {}
+    for S in (2, SHARDS):
+        run = ks.ShardRun(plan, ks.LaneComm(plan.L, ks.shards_of(plan.L, S)),
+                          ins, dual=True)
+        d3_err[S] = 0.0
+        for t in range(plan.T):
+            if t in SHARD_BWD_CHECKS:
+                d3_err[S] = max(d3_err[S], run.checked_dual_step(
+                    t, ("D3",), value_tol=(1e-6, 1e-6)).get("D3", 0.0))
+            else:
+                run.step(t)
+        local[S] = run.gradient(wf).cpu()
     torch.cuda.synchronize()
     t0 = time.perf_counter()
     ref60 = ks.plain_sharded_episode_bwd(p60, ks.LaneComm.whole(p60.L), w60,
@@ -1274,8 +1300,8 @@ def check_shard_bwd(ranks) -> dict:
                     close=bool(torch.allclose(g, r, rtol=2e-2,
                                               atol=2e-3 * scale)), **extra)
 
-    s2 = versus(two, ref, T=plan.T, S=2)
-    ok, recs = s2["bit_equal"], []
+    in_process = {S: versus(g, ref, T=plan.T, S=S) for S, g in local.items()}
+    ok, recs = all(r["bit_equal"] for r in in_process.values()), []
     for o in outs:
         a = versus(o["grad"], ref, T=plan.T,
                    wall_s_host_staged_gloo=o["wall_s"])
@@ -1285,24 +1311,32 @@ def check_shard_bwd(ranks) -> dict:
               b["cos"] > 0.99999 and b["close"] and b["max_abs_ref"] > 0 and
               o["q_kernel_equal"])
         recs.append((a, b))
-    report(S=SHARDS, vs_step_derivative=recs[0][0], S2_vs_step_derivative=s2,
+    report(S=SHARDS, vs_step_derivative=recs[0][0],
+           in_process_vs_step_derivative=in_process,
            vs_plain_forward_mode=recs[0][1],
            q_kernel_max_abs_err=max(o["q_kernel_max_abs_err"] for o in outs),
+           d3_checked_steps=SHARD_BWD_CHECKS,
+           d3_max_abs_tangent_err_by_shards=d3_err,
            ranks_equal=all(torch.equal(o["grad"], outs[0]["grad"])
                            for o in outs),
            tolerance=dict(vs_step="bit-equal at S = 4 (the ranks) and S = "
-                                  "2 (this process); cos > 0.99999, "
+                                  "2 and 4 (this process); cos > 0.99999, "
                                   "allclose(rtol 2e-2, atol 2e-3 * max|g|)",
                           vs_plain="first 60 steps: cos > 0.99999, the same "
                                    "allclose",
                           q_kernel="bit-equal to plain_gradient of the same "
-                                   "gathered tangent rows"),
+                                   "gathered tangent rows",
+                          d3="values allclose(rtol 1e-6, atol 1e-6), "
+                             "tangents allclose(rtol 1e-5, atol 1e-5 * the "
+                             "largest) against plain_body_D under "
+                             "forward-mode AD"),
            status="ok" if ok else "FAIL")
     if not ok:
         raise SystemExit("shard_bwd_vs_plain failed")
     return dict(max_abs_err=max(max(a["max_abs_err"], b["max_abs_err"])
                                 for a, b in recs),
-                q_max_abs_err=max(o["q_kernel_max_abs_err"] for o in outs))
+                q_max_abs_err=max(o["q_kernel_max_abs_err"] for o in outs),
+                d3_tangent_err=max(d3_err.values()))
 
 
 def _shard_train_rank(rank, S, argv):
@@ -1335,21 +1369,20 @@ def run_shard_train(ranks, log_root: str) -> dict:
     evals = [r["reward_eval"] for r in rows if "reward_eval" in r]
     T, steps = outs[0]["T"], len(outs[0]["losses"])
     # forward episodes: one per train step and per evaluation; derivative
-    # episodes: one per train step, whose dual rows run D1 and D2's float
-    # kernels on their values (D1 and D2 have no derivative kernel)
+    # episodes: one per train step; D3's launch does D1's and D2's work
     fwd_eps, bwd_eps = steps + len(evals), steps
     expected = {b: T * fwd_eps for b in ("A", "B", "C", "D3", "E")}
-    expected.update({b: T * (fwd_eps + bwd_eps) for b in ("D1", "D2")})
     expected.update({f"{b}_bwd": T * bwd_eps
                      for b in ("A", "B", "C", "D3", "E")})
     # Q: once per episode
     expected.update(Q=fwd_eps, Q_bwd=bwd_eps)
-    # collectives: per step 4 gathers and the running means' sums (the
-    # signal mean's in soft mode only: train steps soft, evaluations hard);
+    # collectives: per step 2 gathers (gA; gF with gI) and the running
+    # means' sums (the signal mean's in soft mode only: train steps soft,
+    # evaluations hard);
     # per forward episode the queues' gather, the events' psum and the
     # waves' pmax; per derivative episode the tangents' gather
     expected_coll = {
-        "all_gather": 4 * T * (fwd_eps + bwd_eps),
+        "all_gather": 2 * T * (fwd_eps + bwd_eps),
         "psum": (2 * T * (steps + bwd_eps) + T * len(evals) + 2 * fwd_eps +
                  bwd_eps),
         "pmax": fwd_eps}
@@ -1402,8 +1435,8 @@ def _plain_call(run, body: str, t: int):
 
 def shard_body_work(plan, env, body: str, N: int, n: int, dual: bool):
     """``(bytes, operations)`` one launch of ``body`` must move and do for N
-    rows of a shard of n lanes at the 3x3 preset: the rows and state it
-    reads once and writes once (float entries 4 bytes, twice in a
+    rows of a shard of n lanes at the 3x3 preset: the rows, scene and state
+    it reads once and writes once (float entries 4 bytes, twice in a
     derivative for value and tangent; the static-mean terms 8 + 4), the
     shard's share of the macro cells standing for the state a body touches
     (the vehicles present are few and not counted); the operations of C's
@@ -1423,18 +1456,23 @@ def shard_body_work(plan, env, body: str, N: int, n: int, dual: bool):
         # written; out 15 + 4 rows
         "C": 10 * n * f + 2 * L * 4 + cells * 2 * 2 * f + n * K * f +
              15 * n * f + 4 * n * 4,
-        # D1: C's rows it reads, the destinations' gathered rows; out 7
-        "D1": 6 * n * 4 + 3 * L * 4 + n * 4 + 7 * n * 4,
-        # D2: the gathered wants and next lanes, predecessor table; out 2
-        "D2": 4 * L * 4 + K * n * 4 + 2 * n * 4,
-        # D3: the gathered post-physics and verdict rows, wants, cells for
-        # the static terms; out the terms
-        "D3": 15 * L * f + 6 * L * 4 + 4 * n * 4 + cells * 2 * f +
-              2 * n * (8 + 4),
+        # D3, the whole conversion at the timed (quiet) step: the want
+        # table reads the values of 6 gathered rows (count, capacitor, the
+        # head's position and length, the tail's position and length) and
+        # 2 int rows (mn, hnext) at every lane; no lane takes a vehicle in
+        # there, so convert reads no source lane's rows (the head's
+        # speeds, acceleration and parameters, the route rows), only each
+        # lane's own capacitor, whose value the table has read (its
+        # tangent in a derivative); the cells for the static terms; out
+        # the terms
+        "D3": 6 * L * 4 + 2 * L * 4 + (n * 4 if dual else 0) +
+              cells * 2 * f + 2 * n * (8 + 4),
         # E: the gathered terms, the cells; out one row entry per step
         "E": 2 * L * (8 + 4) + cells * 2 * f + n * f,
     }[body]
     shared = 4 * (8 + 2 * K) * n + 4 * 2 * n  # the shard's lane tables
+    if body == "D3":  # every lane's kind and length, for the wants
+        shared += 2 * L * 4
     ops = 0.0
     if body == "C":
         ops = N * macro * ((C + 1) * OPS_PER_INTERFACE + C * OPS_PER_CELL)
@@ -1483,8 +1521,6 @@ def time_shard(env) -> dict:
                     bufs[k].copy_(v)
 
             for body in ks.BODIES:
-                if dual and body not in ks.DUAL_BODIES:
-                    continue
                 key = f"{body}_bwd" if dual else body
                 restore()
                 # 50 launches back to back in one call of the launcher,
@@ -2954,26 +2990,31 @@ def main() -> int:
 
     pallas_call = {"fwd": k6.REPLACES_FWD, "bwd": k6.REPLACES_BWD,
                    "sg": ks.REPLACES_SG}
-    for body in ks.KERNELS + tuple(f"{b}_bwd" for b in ks.DUAL_KERNELS):
+    for body in ks.KERNELS + tuple(f"{b}_bwd" for b in ks.KERNELS):
         name = body.split("_")[0]
-        wrap = ("bwd" if body.endswith("_bwd") else
-                "sg" if name in ("D1", "D2") else "fwd")
+        dual = body.endswith("_bwd")
         b1 = shard_times["bounds"][body][1]
         err = (shard_bwd["q_max_abs_err"] if body == "Q_bwd" else
-               shard_bwd["max_abs_err"] if wrap == "bwd" else
+               shard_bwd["d3_tangent_err"] if body == "D3_bwd" else
+               shard_bwd["max_abs_err"] if dual else
                shard_fwd["errors"].get(name, 0.0))
-        kernels.append({
-            "name": f"itscp_spatial_shard_{name}_"
-                    f"{'bwd' if wrap == 'bwd' else 'fwd'}",
+        also = ks.ALSO_REPLACES.get(name, ())
+        row = {
+            "name": f"itscp_spatial_shard_{name}_{'bwd' if dual else 'fwd'}",
             "route": "cuda", "source": ks.SOURCE,
-            "replaces": ks.REPLACES[name], "pallas_call": pallas_call[wrap],
+            # D3's launch also does JAX's D1 and D2, which reach K5's
+            # stop-gradient pallas_call in the forward and the derivative
+            "replaces": "; ".join(ks.REPLACES[x] for x in (name, *also)),
+            "pallas_call": pallas_call["bwd" if dual else "fwd"],
+            **({"pallas_call_also": pallas_call["sg"]} if also else {}),
             "launches": shard_launches[body],
             "max_abs_err": err, "ms": shard_times["ms"][body][1],
             "plain_ms": shard_times["plain_ms"][body],
             "bound_ms": b1["bound_ms"], "bound_by": b1["bound_by"],
             "library_ms": shard_times["library_ms"].get(body),
             "batch": 1, "shards": SHARDS,
-            "ms_by_batch": shard_times["ms"][body]})
+            "ms_by_batch": shard_times["ms"][body]}
+        kernels.append(row)
     # K1's batched launches at K1_BATCH episodes, the packed Trainer's
     # (packed_train), against the plain version's episodes
     # (k1_batch_vs_plain; it loops over them: its ms is their sum)

@@ -1291,21 +1291,6 @@ bool sizes_ok(const Dims& d) {
          d.n_inter >= 1 && d.n_inter <= d.L;
 }
 
-// The largest block a kernel can take (its registers); on the host the
-// block it is compiled for, `bound`.
-template <class Kernel>
-int max_threads_of(Kernel kernel, int bound) {
-#ifdef DHTS_CPU_EMULATION
-  (void)kernel;
-  return bound;
-#else
-  (void)bound;
-  cudaFuncAttributes attr;
-  if (cudaFuncGetAttributes(&attr, kernel) != cudaSuccess) return 0;
-  return attr.maxThreadsPerBlock;
-#endif
-}
-
 // The most dynamic shared memory a block may take: the device's opt-in
 // limit; on the host an H100's (227 KB).
 size_t max_smem() {

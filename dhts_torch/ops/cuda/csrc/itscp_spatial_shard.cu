@@ -7,11 +7,13 @@
 // body_C (:440), body_D1 (:544), body_D2 (:592), body_D3 (:621) and body_E
 // (:847), wrapped at :883-919 by make_dkernel (A, B, C, D3, E;
 // dhts/ops/pallas/dkernel.py: forward pallas_call at :63, backward at :91)
-// and make_kernel_sg (D1, D2; :154). A further kernel, Q, does body_E's lane
+// and make_kernel_sg (D1, D2; :154). D3's launch does the work of D1, D2
+// and D3 (below). A further kernel, Q, does body_E's lane
 // sum of q^2 (:861-865) once per episode over the gathered rows, and in a
 // derivative the loss weights' sum over the steps. The specification is the plain PyTorch
 // bodies beside the wrapper (dhts_torch/ops/cuda/itscp_spatial_shard.py::
-// plain_body_A ... plain_body_E): every per-lane value is computed with the
+// plain_body_A ... plain_body_E; D3's is plain_body_D, the composition of
+// plain_body_D1, _D2 and _D3): every per-lane value is computed with the
 // same IEEE operations in the same order (-fmad=false, no fast math), so
 // carries, summaries and events agree bit for bit.
 //
@@ -39,6 +41,14 @@
 // MAX_LANES lanes. In hard mode the signal mean sharpens nothing, and a
 // split lane axis does not gather its terms (C then leaves it as it is), as
 // JAX's sharded step; nothing waits for E's static mean in hard mode.
+//
+// The conversion needs no collective between C's gathered rows and its
+// verdicts: JAX splits it into D1 (each source's wants), a gather, D2 (each
+// destination's lowest wanting predecessor), a gather and D3 to keep its
+// one-hot gathers at O(L l_loc) a device, but on the card a load is
+// indexed. D3's block computes every lane's wants from the gathered rows
+// into a table in shared memory, and each lane arbitrates at the three
+// lanes it reads a verdict of (its own, its next lane, its head's next).
 //
 // C spreads a lane over SPLIT threads where it fits (one Riemann solve or
 // a few vehicles a thread, the fluxes handed on by shuffles): a macro
@@ -85,14 +95,9 @@ struct ShardArgs {
   float* sumF_d;
   int* sumI;            // C: [N, 4, n]
   float* waves;         // C: [N, T] the shard's largest wave speed
-  const float* gF_v;    // D1, D3: [N, 15, L]
+  const float* gF_v;    // D3: [N, 15, L]
   const float* gF_d;
-  const int* gI;        // D1, D2, D3: [N, 4, L]
-  int* wrow;            // D1: [N, 3, n]
-  int* pred;            // D1: [N, 4, n]
-  const int* gW;        // D2: [N, 3, L]
-  int* bd;              // D2: [N, 2, n]
-  const int* gV;        // D3: [N, 2, L]
+  const int* gI;        // D3: [N, 4, L]
   double* ss;           // D3: [N, 2, n] static-mean terms
   int* ssn;             // D3: [N, 2, n] their counts
   const double* gss;    // E: [N, 2, L]
@@ -113,7 +118,7 @@ constexpr int A_ROWS = 9, BC_ROWS = 10, F_ROWS = 15, I_ROWS = 4;
 enum { F_RLAST, F_ULAST, F_COUNT, F_TPOS, F_TLEN, F_CAP, F_HPOS, F_HVEL,
        F_HLEN, F_HA, F_AMAX };
 enum { I_MN, I_RIDX, I_HNEXT, I_RID };
-enum { BODY_A, BODY_B, BODY_C, BODY_D1, BODY_D2, BODY_D3, BODY_E, BODY_Q };
+enum { BODY_A, BODY_B, BODY_C, BODY_D3, BODY_E, BODY_Q };
 // Q's block: Q_THREADS threads load a tile of up to Q_TILE steps of a row,
 // [steps, L] floats at a row stride of L | 1 floats in shared memory (odd:
 // the tile's threads, one per step, read a lane's column from distinct
@@ -179,19 +184,15 @@ __device__ __forceinline__ void put_row(float* v, float* d, size_t i,
   d[i] = x.d;
 }
 
-// The gathered arbitration rows (best, dep_best) at the three lanes convert
-// reads them at (the lane's own, its next lane's and its head's next
-// lane's), loaded before convert's first store
+// An arbitration verdict (best or dep_best) at the three lanes convert
+// reads it at (the lane's own, its next lane's and its head's next
+// lane's), computed before convert's first store
 struct Picked {
   int at[3], v[3];
   __device__ int operator[](int i) const {
     return i == at[0] ? v[0] : (i == at[1] ? v[1] : v[2]);
   }
 };
-__device__ __forceinline__ Picked pick(const int* row, int l, int mn_c,
-                                      int hn_c) {
-  return Picked{{l, mn_c, hn_c}, {row[l], row[mn_c], row[hn_c]}};
-}
 
 // what convert() reads of the gathered rows (the STEP kernel's shared
 // summaries)
@@ -282,19 +283,21 @@ __device__ __forceinline__ Block<S> lane_block_of(const ShardArgs& a,
 // local lane shard_clock_lane's thread (0 unless the host sets it):
 // block set-up, the signals, the injection and the ghosts, the head's
 // blend, the leader walk, the rows out and the injection count with any
-// wait for the other lanes (B); set-up, convert, static_partials and the
-// emit and absorb counts with any wait (D3). Each lane's first thread in
-// block 0 adds its lane's own cycles to shard_lane_cycles[local lane]: its
-// update's in C (Godunov, or the blend and IDM, after any wait), its whole
-// path before the count in B and D3. The last four counts are the C, E, B
-// and D3 launches stamped. Without the macro the stamps compile to
-// nothing.
+// wait for the other lanes (B); set-up, its share of the want table, the
+// wait at the table's barrier, the arbitration, convert, static_partials
+// and the emit and absorb counts with any wait (D3). Each lane's first
+// thread in block 0 adds its lane's own cycles to shard_lane_cycles[local
+// lane]: its update's in C (Godunov, or the blend and IDM, after any
+// wait), its whole path before the count in B and D3. The last four counts
+// are the C, E, B and D3 launches stamped. Without the macro the stamps
+// compile to nothing.
 enum ShardPart {
   SH_C_FOLD, SH_C_WAIT, SH_C_LANE, SH_C_ROWS, SH_C_END_WAIT, SH_C_WAVE,
   SH_C_TOTAL, SH_E_FOLD, SH_E_WAIT, SH_E_QUEUE, SH_E_STORE, SH_E_TOTAL,
   SH_B_SETUP, SH_B_SIGNALS, SH_B_GHOSTS, SH_B_BLEND, SH_B_WALK, SH_B_ROWS,
-  SH_B_COUNT, SH_B_TOTAL, SH_D3_SETUP, SH_D3_CONVERT, SH_D3_STATIC,
-  SH_D3_COUNT, SH_D3_TOTAL, SH_PARTS
+  SH_B_COUNT, SH_B_TOTAL, SH_D3_SETUP, SH_D3_TABLE, SH_D3_WAIT,
+  SH_D3_ARBITRATE, SH_D3_CONVERT, SH_D3_STATIC, SH_D3_COUNT, SH_D3_TOTAL,
+  SH_PARTS
 };
 // the launches stamped, after the parts
 enum ShardLaunch { SH_N_C, SH_N_E, SH_N_B, SH_N_D3, SH_LAUNCHES };
@@ -985,65 +988,7 @@ shard_C_split(ShardArgs a, Geo geo) {
   body_C<S, SPLIT>(a, geo);
 }
 
-// ================ D1: wants at the gathered destinations ================
-__global__ void shard_D1(ShardArgs a) {
-  Block<float> k = block_of<float>(a);
-  if (!k.lane) return;
-  const Dims& d = a.d;
-  const Consts& c = a.k;
-  const int L = d.L, n = a.n, j = k.j;
-  const LaneGeom& g = k.g;
-  const Scene& sc = k.sc;
-  auto clampL = [&](int q) { return min(max(q, 0), L - 1); };
-  const float* gF = a.gF_v + (size_t)k.e * F_ROWS * L;
-  const float* sF = a.sumF_v + (size_t)k.e * F_ROWS * n;
-  const int* sI = a.sumI + (size_t)k.e * I_ROWS * n;
-  const int mn = sI[I_MN * n + j], hnext = sI[I_HNEXT * n + j];
-  const int mn_c = clampL(mn), hn_c = clampL(hnext);
-  const bool next_is_micro = g.is_macro && mn >= 0 && !sc.macro_at(mn_c);
-  const int dest_n = mn >= 0 ? (int)gF[F_COUNT * L + mn_c] : 0;
-  const float free_n =
-      dest_n > 0 ? gF[F_TPOS * L + mn_c] - 0.5f * gF[F_TLEN * L + mn_c]
-                 : (mn >= 0 ? sc.length_at(mn_c) : 0.0f);
-  const bool want_emit = next_is_micro && sF[F_CAP * n + j] >= c.veh_len &&
-                         free_n >= c.veh_len && dest_n < d.V;
-  const bool exists = k.st.count[k.gl] > 0;
-  const float hpos = sF[F_HPOS * n + j], hlen = sF[F_HLEN * n + j];
-  const bool past_end = exists && hpos >= g.length;
-  const bool hn_macro = hnext >= 0 && sc.macro_at(hn_c);
-  const bool hn_micro = hnext >= 0 && !hn_macro;
-  const bool exit_none = past_end && hnext < 0;
-  const bool want_tr =
-      past_end && hn_micro && (int)gF[F_COUNT * L + hn_c] < d.V;
-  const bool want_dep = exists && hn_macro && hpos > g.length + hlen;
-  int* w = a.wrow + (size_t)k.e * 3 * n + j;
-  w[0] = want_emit ? 1 : 0;
-  w[n] = want_tr ? hnext : -2;
-  w[2 * n] = want_dep ? hnext : -2;
-  int* p = a.pred + (size_t)k.e * 4 * n + j;
-  p[0] = exit_none; p[n] = want_emit; p[2 * n] = want_tr; p[3 * n] = want_dep;
-}
-
-// ===== D2: arbitration (pull: each local destination, lowest source) =====
-__global__ void shard_D2(ShardArgs a) {
-  const int n = a.n, j = threadIdx.x, e = blockIdx.x;
-  if (j >= n) return;
-  const int L = a.d.L, K = a.d.K, gl = a.off + j;
-  const int* gW = a.gW + (size_t)e * 3 * L;
-  const int* gI = a.gI + (size_t)e * I_ROWS * L;
-  int best = L, dep_best = L;
-  for (int q = 0; q < K; ++q) {
-    const int pk = a.lane_i[(8 + q) * L + gl];
-    if (pk < 0) continue;
-    if ((gW[pk] != 0 && gI[I_MN * L + pk] == gl) || gW[L + pk] == gl)
-      best = min(best, pk);
-    if (gW[2 * L + pk] == gl) dep_best = min(dep_best, pk);
-  }
-  a.bd[(size_t)e * 2 * n + j] = best;
-  a.bd[(size_t)e * 2 * n + n + j] = dep_best;
-}
-
-// ===== D3: verdicts, removals, inserts, deposits, static-mean terms =====
+// == D3: wants, arbitration, verdicts, inserts, deposits, static terms ==
 // E's queue chunks and D3's static terms take QCHUNK vehicles at a time
 constexpr int QCHUNK = 8;
 
@@ -1084,50 +1029,215 @@ __device__ __forceinline__ void static_terms(const St& st, const TermRows& s,
   s.red_sum[rows + l] = vehs; s.red_cnt[rows + l] = g.is_macro ? 0 : n;
 }
 
-// One thread a lane. Every load the lane's verdicts need before their
-// first store is issued in the set-up: the requests, the capacitor slot's
-// candidates, the arbitration's winners (Picked); the static terms load
-// their cells or vehicles ahead of the sums (static_terms). The forward's
-// emit and absorb counts are two barriers' counts (__syncthreads_count);
-// the derivative counts nothing and has no barrier.
+// D3's table of every lane's wants in shared memory, 3 L ints: the emit
+// target (the lane's next lane where the lane wants to emit a vehicle from
+// its capacitor into it, else NO_WANT), the transfer target (its head's
+// next lane where it wants to hand its head on; EXITS where its head
+// leaves the network; else NO_WANT) and the deposit target (its head's
+// next lane where it wants to deposit its head's mass, else NO_WANT)
+constexpr int NO_WANT = -2, EXITS = -3;
+struct Wants {
+  int *emit, *tr, *dep;
+};
+
+// a lane's row of the table
+struct Want {
+  int emit, tr, dep;
+};
+
+// Lane i's row of the table: body_D1's wants (plain_body_D1) from the
+// gathered post-physics rows (the lane's count is C's row F_COUNT) and the
+// scene's lane tables (`li` is lane_i, `lf` lane_f). Every load is issued
+// before the first test: the destinations' rows at clamped indices, in
+// range whatever the lane wants.
+__device__ __forceinline__ Want want_of(const float* __restrict__ fv,
+                                       const int* __restrict__ gI,
+                                       const int* __restrict__ li,
+                                       const float* __restrict__ lf,
+                                       const Dims& d, const Consts& c,
+                                       int i) {
+  const int L = d.L;
+  const int mn = gI[I_MN * L + i], hn = gI[I_HNEXT * L + i];
+  const int mn_c = min(max(mn, 0), L - 1), hn_c = min(max(hn, 0), L - 1);
+  const int cnt = (int)fv[F_COUNT * L + i];
+  const float cap = fv[F_CAP * L + i], hpos = fv[F_HPOS * L + i];
+  const float hlen = fv[F_HLEN * L + i], len = lf[i];
+  const bool macro = li[i] != 0;
+  const int mn_n = (int)fv[F_COUNT * L + mn_c];
+  const float tpos = fv[F_TPOS * L + mn_c], tlen = fv[F_TLEN * L + mn_c];
+  const float mn_len = lf[mn_c];
+  const bool mn_macro = li[mn_c] != 0;
+  const int hn_n = (int)fv[F_COUNT * L + hn_c];
+  const bool hn_macro_at = li[hn_c] != 0;
+  const bool next_is_micro = macro && mn >= 0 && !mn_macro;
+  const int dest_n = mn >= 0 ? mn_n : 0;
+  const float free_n =
+      dest_n > 0 ? tpos - 0.5f * tlen : (mn >= 0 ? mn_len : 0.0f);
+  const bool want_emit = next_is_micro && cap >= c.veh_len &&
+                         free_n >= c.veh_len && dest_n < d.V;
+  const bool exists = cnt > 0;
+  const bool past_end = exists && hpos >= len;
+  const bool hn_macro = hn >= 0 && hn_macro_at;
+  const bool hn_micro = hn >= 0 && !hn_macro;
+  const bool want_tr = past_end && hn_micro && hn_n < d.V;
+  const bool want_dep = exists && hn_macro && hpos > len + hlen;
+  return {want_emit ? mn : NO_WANT,
+          want_tr ? hn : (past_end && hn < 0 ? EXITS : NO_WANT),
+          want_dep ? hn : NO_WANT};
+}
+
+// The block's `threads` fill the table, TABLE_U lanes a thread at a time
+// (j, j + threads, ...; one where the block has a thread a lane), all
+// their loads before the first store: a block of 1,024 threads fills a
+// scene of up to 4,096 lanes in one round of loads.
+constexpr int TABLE_U = 4;
+__device__ __forceinline__ void fill_wants(const Wants& w, const float* fv,
+                                           const int* gI, const Scene& sc,
+                                           const Dims& d, const Consts& c,
+                                           int threads) {
+  const int L = d.L;
+  for (int i0 = threadIdx.x; i0 < L; i0 += TABLE_U * threads) {
+    Want v[TABLE_U];
+#pragma unroll
+    for (int u = 0; u < TABLE_U; ++u) {
+      const int i = i0 + u * threads;
+      if (i < L) v[u] = want_of(fv, gI, sc.lane_i, sc.lane_f, d, c, i);
+    }
+#pragma unroll
+    for (int u = 0; u < TABLE_U; ++u) {
+      const int i = i0 + u * threads;
+      if (i < L) {
+        w.emit[i] = v[u].emit;
+        w.tr[i] = v[u].tr;
+        w.dep[i] = v[u].dep;
+      }
+    }
+  }
+}
+
+// A lane's predecessors (lane_i rows 8 .. 8 + K), the first KP loaded
+// into registers ahead of the table (-1 past K)
+constexpr int KP = 4;
+struct Preds {
+  int p[KP];
+};
+__device__ __forceinline__ Preds preds_of(const int* lane_i, int L, int K,
+                                          int l) {
+  Preds o;
+#pragma unroll
+  for (int q = 0; q < KP; ++q) o.p[q] = q < K ? lane_i[(8 + q) * L + l] : -1;
+  return o;
+}
+
+// body_D2's pull arbitration at lane l over the table: the lowest
+// predecessor that wants to emit or hand its head into l, and the lowest
+// that wants to deposit into it (L for none; plain_body_D2). `pr`: l's
+// preloaded predecessors; any past KP are loaded here.
+struct Win {
+  int best, dep;
+};
+__device__ __forceinline__ Win arbitrate_at(const Wants& w, const Preds& pr,
+                                            const int* lane_i, int L, int K,
+                                            int l) {
+  Win o{L, L};
+  auto take = [&](int pk) {
+    if (pk < 0) return;
+    if (w.emit[pk] == l || w.tr[pk] == l) o.best = min(o.best, pk);
+    if (w.dep[pk] == l) o.dep = min(o.dep, pk);
+  };
+#pragma unroll
+  for (int q = 0; q < KP; ++q) take(pr.p[q]);
+  for (int q = KP; q < K; ++q) take(lane_i[(8 + q) * L + l]);
+  return o;
+}
+
+// The conversion: body_D1, body_D2 and body_D3 of the step (plain_body_D).
+// One thread a lane, and where the scene has more lanes than the shard,
+// more threads for the table (`threads` in all; d3_threads). Each lane
+// first issues the loads of its own set-up (its next lanes, the capacitor
+// slot's candidates and value, the predecessors of the three lanes it may
+// arbitrate at), then the block fills the want table, every lane of the
+// scene strided over its threads (coalesced loads of the gathered rows),
+// and waits at one barrier. Then each lane arbitrates in shared memory where it reads a
+// verdict: at its own lane (its insert and deposit), at its next lane if
+// it wants to emit and at its head's next lane if it wants to hand on or
+// deposit its head (Picked); convert() and static_terms() are those of
+// the three-launch conversion, the static terms loading their cells or
+// vehicles ahead of the sums. The forward's emit and absorb counts are two
+// barriers' counts (__syncthreads_count); the derivative counts nothing
+// and builds its table from the gathered values.
 template <class S>
-__global__ void shard_D3(ShardArgs a) {
+__global__ void shard_D3(ShardArgs a, int threads) {
+  DHTS_DYNAMIC_SMEM(smem_raw);
   const Dims& d = a.d;
   const Consts& c = a.k;
   const int L = d.L, K = d.K, n = a.n, t = a.t;
   SH_CLOCK(const bool clk = (int)threadIdx.x == shard_clock_lane;
            long long sh_t0 = sh_now(); long long sh_p = sh_t0;)
+  Wants w;
+  size_t off_s = 0;
+  carve(&w.emit, L, smem_raw, off_s);
+  carve(&w.tr, L, smem_raw, off_s);
+  carve(&w.dep, L, smem_raw, off_s);
   Block<S> k = block_of<S>(a);
-  bool emit = false, absorb = false;
-  if (k.lane) {
-    const int gl = k.gl, j = k.j;
-    auto clampL = [&](int q) { return min(max(q, 0), L - 1); };
-    const float* fv = a.gF_v + (size_t)k.e * F_ROWS * L;
-    const float* fd = k.dual ? a.gF_d + (size_t)k.e * F_ROWS * L : nullptr;
-    const int* gI = a.gI + (size_t)k.e * I_ROWS * L;
-    const int* gV = a.gV + (size_t)k.e * 2 * L;
-    auto row = [&](int r) {
-      return RowS<S>{fv + r * L, fd ? fd + r * L : nullptr};
-    };
-    const int* pr = a.pred + (size_t)k.e * 4 * n + j;
-    Request<S> q;
-    q.mn = gI[I_MN * L + gl];
-    q.hnext = gI[I_HNEXT * L + gl];
-    q.exit_none = pr[0] != 0;
-    q.want = (pr[n] ? W_EMIT : 0) | (pr[2 * n] ? W_TRANSFER : 0) |
-             (pr[3 * n] ? W_DEPOSIT : 0);
-    q.slot = -1;
+  auto clampL = [&](int q) { return min(max(q, 0), L - 1); };
+  const float* fv = a.gF_v + (size_t)k.e * F_ROWS * L;
+  const float* fd = k.dual ? a.gF_d + (size_t)k.e * F_ROWS * L : nullptr;
+  const int* gI = a.gI + (size_t)k.e * I_ROWS * L;
+  const int gl = k.gl;
+  Request<S> q;
+  q.mn = k.lane ? gI[I_MN * L + gl] : -1;
+  q.hnext = k.lane ? gI[I_HNEXT * L + gl] : -1;
+  q.slot = -1;
+  if (k.lane)
     for (int r = 0; r < K; ++r) {
       const int nq = k.sc.lane_i[(8 + K + r) * L + gl];
       if (q.slot < 0 && nq >= 0 && nq == q.mn) q.slot = r;
     }
-    const int mn_c = clampL(q.mn), hn_c = clampL(q.hnext);
+  const int mn_c = clampL(q.mn), hn_c = clampL(q.hnext);
+  const int* li = k.sc.lane_i;
+  auto row = [&](int r) {
+    return RowS<S>{fv + r * L, fd ? fd + r * L : nullptr};
+  };
+  Preds pr_own, pr_mn, pr_hn;
+  if (k.lane) {
+    q.cap_v = q.slot >= 0 ? row(F_CAP)[gl] : S(0.0f);
+    pr_own = preds_of(li, L, K, gl);
+    pr_mn = preds_of(li, L, K, mn_c);
+    pr_hn = preds_of(li, L, K, hn_c);
+  }
+  SH_ADD(clk, SH_D3_SETUP, sh_p);
+  fill_wants(w, fv, gI, k.sc, d, c, threads);
+  SH_ADD(clk, SH_D3_TABLE, sh_p);
+  CONVERGE();
+  __syncthreads();
+  SH_ADD(clk, SH_D3_WAIT, sh_p);
+  bool emit = false, absorb = false;
+  if (k.lane) {
+    const int tr = w.tr[gl];
+    q.exit_none = tr == EXITS;
+    q.want = (w.emit[gl] != NO_WANT ? W_EMIT : 0) |
+             (tr >= 0 ? W_TRANSFER : 0) |
+             (w.dep[gl] != NO_WANT ? W_DEPOSIT : 0);
+    // the verdicts convert() reads: at the lane itself always, at a next
+    // lane only where the lane wants into it (else no lane matches: -1)
+    const Win own = arbitrate_at(w, pr_own, li, L, K, gl);
+    Win at_mn{L, L}, at_hn{L, L};
+    int pm = -1, ph = -1;
+    if (q.want & W_EMIT) {
+      at_mn = arbitrate_at(w, pr_mn, li, L, K, mn_c);
+      pm = mn_c;
+    }
+    if (q.want & (W_TRANSFER | W_DEPOSIT)) {
+      at_hn = arbitrate_at(w, pr_hn, li, L, K, hn_c);
+      ph = hn_c;
+    }
     const ConvRows<S> s{
-        pick(gV, gl, mn_c, hn_c), pick(gV + L, gl, mn_c, hn_c),
+        Picked{{gl, pm, ph}, {own.best, at_mn.best, at_hn.best}},
+        Picked{{gl, pm, ph}, {own.dep, at_mn.dep, at_hn.dep}},
         row(F_ULAST), row(F_CAP), row(F_HPOS), row(F_HVEL), row(F_HA),
         fv + F_HLEN * L, fv + F_AMAX * L, gI + I_RID * L, gI + I_RIDX * L};
-    q.cap_v = q.slot >= 0 ? s.cap_val[gl] : S(0.0f);
-    SH_ADD(clk, SH_D3_SETUP, sh_p);
+    SH_ADD(clk, SH_D3_ARBITRATE, sh_p);
     const Verdict vd = convert<S>(k.st, s, k.sc, k.g, q, d, c, gl);
     SH_ADD(clk, SH_D3_CONVERT, sh_p);
     emit = vd.is_emit;
@@ -1138,7 +1248,8 @@ __global__ void shard_D3(ShardArgs a) {
                          a.ssn + (size_t)k.e * 2 * n - a.off};
     static_terms(k.st, terms, k.g, n, gl, vd.n, c);
     SH_ADD(clk, SH_D3_STATIC, sh_p);
-    SH_CLOCK(if (blockIdx.x == 0) shard_lane_cycles[j] += sh_now() - sh_t0;)
+    SH_CLOCK(if (blockIdx.x == 0) shard_lane_cycles[k.j] +=
+             sh_now() - sh_t0;)
   }
   if (!k.dual) {
     const int n_emit = __syncthreads_count(emit);
@@ -1362,8 +1473,7 @@ __global__ void shard_Q(ShardArgs a) {
   }
 }
 
-// dynamic shared memory of a body's block (B, C, E, Q; the others take
-// none)
+// dynamic shared memory of a body's block (B, C, D3, E, Q; A takes none)
 template <class S>
 size_t smem_of(int body, const Dims& d) {
   const int L = d.L;
@@ -1378,6 +1488,9 @@ size_t smem_of(int body, const Dims& d) {
     carve(&f, 1, none, off);
     carve(&f, MAX_WARPS, none, off);
     carve(&x, L, none, off);
+  } else if (body == BODY_D3) {
+    int* i = nullptr;
+    carve(&i, 3 * (size_t)L, none, off);  // the want table
   } else if (body == BODY_E) {
     float* f = nullptr;
     double* x = nullptr;
@@ -1431,6 +1544,18 @@ int blocks_per_sm(Kernel kernel, int threads, size_t smem) {
 #endif
 }
 
+// D3's block: its lanes' threads and, where the scene has more lanes than
+// the shard, more threads for the want table, up to a lane a thread, as
+// many as the kernel's registers let a block take (its lanes' at least:
+// a launch that cannot hold them fails)
+template <class Kernel>
+int d3_threads(Kernel kernel, const ShardArgs& a) {
+  const int lanes = (a.n + WARP - 1) / WARP * WARP;
+  const int table = (max(a.n, a.d.L) + WARP - 1) / WARP * WARP;
+  const int cap = max_threads_of(kernel, MAX_THREADS) / WARP * WARP;
+  return max(lanes, min(table, min(cap, MAX_THREADS)));
+}
+
 // the card's SMs (1 in the host build)
 int sm_count() {
 #ifdef DHTS_CPU_EMULATION
@@ -1482,10 +1607,11 @@ int c_threads_a_lane(const ShardArgs& a, size_t smem) {
 template <class S, class Kernel, class... X>
 int run(Kernel kernel, int body, const ShardArgs& a, int repeat,
         void* stream, int threads, X... x) {
-  // C, E and Q size their shared memory by the scene's L (the folds'
-  // staged terms; Q's tile of whole rows): within the 48 KB a block takes
-  // without opting in up to thousands of lanes (10.5 KB, 20.7 KB and 46.7
-  // KB for a Dual C, E and Q at the 9x9 scene's 1,296)
+  // C, D3, E and Q size their shared memory by the scene's L (the folds'
+  // staged terms; D3's want table; Q's tile of whole rows): within the 48
+  // KB a block takes without opting in up to thousands of lanes (10.5 KB,
+  // 15.6 KB, 20.7 KB and 46.7 KB for a Dual C, D3, E and Q at the 9x9
+  // scene's 1,296). A larger scene is refused, not run another way.
   const size_t smem = smem_of<S>(body, a.d);
   if (smem > (size_t)Q_SMEM) return 1;  // cudaErrorInvalidValue
   const int blocks = body == BODY_Q ? a.N * q_tiles(a.d.T, a.d.L) : a.N;
@@ -1509,9 +1635,9 @@ extern "C" {
 // sizeof(ShardArgs), for the wrapper to check its ctypes mirror
 size_t itscp_shard_args_size() { return sizeof(ShardArgs); }
 
-// Launch body `body` (0..6: A, B, C, D1, D2, D3, E) of step a->t on the
-// a->N rows of one shard, in `Dual` when `dual` (A, B, C, D3, E; the rows
-// are then B * n_act dual episodes), or (7: Q) the episode's queues from the
+// Launch body `body` (0..4: A, B, C, D3, E; D3 the whole conversion) of
+// step a->t on the a->N rows of one shard, in `Dual` when `dual` (the rows
+// are then B * n_act dual episodes), or (5: Q) the episode's queues from the
 // gathered rows a->gq, and with `dual` the gradient's terms a->grad from
 // their tangents; `repeat` times back to back (1 on the
 // main path; a timing asks for more, so that the host's cost of a launch
@@ -1519,25 +1645,26 @@ size_t itscp_shard_args_size() { return sizeof(ShardArgs); }
 // struct's type has internal linkage, and a function with C linkage must
 // not name it). Returns cudaGetLastError() of the launches, or 1
 // (cudaErrorInvalidValue) for arguments it refuses, such as a shard of more
-// than MAX_LANES (992) lanes.
+// than MAX_LANES (992) lanes or a scene whose D3 want table overruns 48 KB
+// of shared memory (more than 4,096 lanes).
 int launch_itscp_shard(int body, int dual, const void* args, int repeat,
                        void* stream) {
   const ShardArgs* a = static_cast<const ShardArgs*>(args);
   const Dims& d = a->d;
-  const bool dual_ok = body == BODY_A || body == BODY_B || body == BODY_C ||
-                       body == BODY_D3 || body == BODY_E || body == BODY_Q;
   if (body == BODY_Q &&
       (!a->gq || !a->queues ||
        (dual && (!a->grad || !a->q_weight || !a->q_count)) ||
        (!dual && a->grad)))
     return 1;
   if (body == BODY_C && d.mode != HARD && !a->gsg) return 1;
-  if (body < BODY_A || body > BODY_Q || (dual && !dual_ok) || a->N < 1 ||
+  if (body == BODY_D3 && (!a->gF_v || !a->gI || (dual && !a->gF_d)))
+    return 1;
+  if (body < BODY_A || body > BODY_Q || a->N < 1 ||
       a->n < 1 || a->n > MAX_LANES || a->off < 0 || a->off + a->n > d.L ||
       d.C < 1 || d.C > MAXC || d.V < 1 || d.R < 1 ||
       d.K < 1 || d.mode < HARD || d.mode > SOFT || a->t < 0 ||
       a->t >= d.T || (dual && (d.mode == HARD || !a->dbuf)) ||
-      (!dual && a->dbuf && dual_ok) || repeat < 1)
+      (!dual && a->dbuf) || repeat < 1)
     return 1;
   const int r = repeat, nt = (a->n + WARP - 1) / WARP * WARP;
   const size_t smem_c = smem_of<float>(BODY_C, d);
@@ -1555,8 +1682,10 @@ int launch_itscp_shard(int body, int dual, const void* args, int repeat,
                    ? run<Dual>(shard_C_split<Dual>, body, *a, r, stream, gt,
                                g)
                    : run<Dual>(shard_C<Dual>, body, *a, r, stream, gt, g);
-      case BODY_D3:
-        return run<Dual>(shard_D3<Dual>, body, *a, r, stream, nt);
+      case BODY_D3: {
+        const int t3 = d3_threads(shard_D3<Dual>, *a);
+        return run<Dual>(shard_D3<Dual>, body, *a, r, stream, t3, t3);
+      }
       case BODY_E:
         return run<Dual>(shard_E<Dual>, body, *a, r, stream, gt, g);
       default:
@@ -1571,10 +1700,10 @@ int launch_itscp_shard(int body, int dual, const void* args, int repeat,
                  ? run<float>(shard_C_split<float>, body, *a, r, stream, gt,
                               g)
                  : run<float>(shard_C<float>, body, *a, r, stream, gt, g);
-    case BODY_D1: return run<float>(shard_D1, body, *a, r, stream, nt);
-    case BODY_D2: return run<float>(shard_D2, body, *a, r, stream, nt);
-    case BODY_D3:
-      return run<float>(shard_D3<float>, body, *a, r, stream, nt);
+    case BODY_D3: {
+      const int t3 = d3_threads(shard_D3<float>, *a);
+      return run<float>(shard_D3<float>, body, *a, r, stream, t3, t3);
+    }
     case BODY_E: return run<float>(shard_E<float>, body, *a, r, stream, gt, g);
     default: return run<float>(shard_Q, body, *a, r, stream, Q_THREADS);
   }

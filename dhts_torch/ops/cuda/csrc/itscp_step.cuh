@@ -617,4 +617,31 @@ __device__ __forceinline__ S lane_queue(const St& st, const LaneGeom& g,
   return q;
 }
 
+// The most threads a block of `kernel` takes (its registers decide), asked
+// of the runtime once for each kernel; 0 where the query fails (a launch
+// that needs more threads then fails). The host build: `bound`, the block
+// the caller compiled the kernel for.
+template <class Kernel>
+int max_threads_of(Kernel kernel, int bound) {
+#ifdef DHTS_CPU_EMULATION
+  (void)kernel;
+  return bound;
+#else
+  (void)bound;
+  constexpr int KNOWN = 8;
+  static Kernel known[KNOWN];
+  static int threads[KNOWN];
+  static int n_known = 0;
+  for (int i = 0; i < n_known; ++i)
+    if (known[i] == kernel) return threads[i];
+  cudaFuncAttributes attr;
+  if (cudaFuncGetAttributes(&attr, kernel) != cudaSuccess) return 0;
+  if (n_known < KNOWN) {
+    known[n_known] = kernel;
+    threads[n_known++] = attr.maxThreadsPerBlock;
+  }
+  return attr.maxThreadsPerBlock;
+#endif
+}
+
 }  // namespace

@@ -30,9 +30,11 @@ every device, its derivative launcher choosing the plain forward-mode
 version on CPU tensors.
 
 :func:`make_kernel_sg` is the stop-gradient op (``dkernel.py:127-161``,
-``pallas_call`` at ``:154``) of the sharded step's wholly discrete phases
-D1 and D2: float inputs and outputs are detached, CUDA tensors launch the
-kernel, CPU tensors run the plain body; there is no backward.
+``pallas_call`` at ``:154``) that JAX puts around the sharded step's wholly
+discrete phases D1 and D2: float inputs and outputs are detached, CUDA
+tensors launch the kernel, CPU tensors run the plain body; there is no
+backward. The port's sharded step needs it no more: D3's launch does D1's
+and D2's work (:mod:`dhts_torch.ops.cuda.itscp_spatial_shard`).
 """
 
 from __future__ import annotations

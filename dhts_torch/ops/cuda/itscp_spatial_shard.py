@@ -1,6 +1,6 @@
 """Fused spatial step of the ITSCP hybrid episode with the lanes sharded:
 kernel K6's per-shard bodies A, B, C, D1, D2, D3 and E between collectives
-over the lane axis, K5's stop-gradient op around D1 and D2, and K5's
+over the lane axis (D1, D2 and D3 as one launch, D3's), and K5's
 derivative around the episode.
 
 Port of the ``n_shard > 1`` part of
@@ -23,16 +23,22 @@ C     signal blend, Godunov and IDM, flux capacitors; post-physics rows
       its ``route_h [R]``, the head's route id: the port's vehicles hold
       route ids into the shared route table)
       --- all_gather -> gF, gI ---
-D1    wants of the local sources at the gathered destinations:
-      ``wrow [3]`` (emit bit, transfer and deposit targets), ``pred [4]``
-      --- all_gather -> gW ---
-D2    arbitration: each local destination takes its lowest wanting
-      predecessor: ``best``, ``dep_best`` ``[2]``
-      --- all_gather -> gV ---
-D3    verdicts, removals, inserts, deposits; per-lane static-mean terms
+D     the conversion, one launch (D3's): JAX's D1, D2 and D3 and the two
+      gathers between them. Every lane's wants from the gathered rows
+      (D1: emit, transfer or deposit target), each destination's lowest
+      wanting predecessor (D2: ``best``, ``dep_best``), then the local
+      lanes' verdicts, removals, inserts, deposits (D3); per-lane
+      static-mean terms
       --- psum (gathered, summed in lane order) -> ss_ms ---
 E     the lanes' squared soft queues ``q^2`` (one row per step)
 ====  ===================================================================
+
+A step is five launches, two gathers and two sums in soft mode (one sum
+in hard mode on a split lane axis). JAX gathers the wants (``gW``) and
+the arbitration (``gV``) between D1, D2 and D3 to keep its one-hot
+gathers at O(L l_loc) a device; every input of D1 and D2 is in the rows
+gathered after C or in the scene, so the port computes them where D3
+reads them.
 
 Per episode the lanes' ``q^2`` rows are gathered once and summed in lane
 order (on the card by a kernel of its own, Q), and the event counts and
@@ -47,9 +53,11 @@ the single-shard episode at any shard count, every rank holds the same
 values without a broadcast, and the controller's parameters stay
 replicated without a gradient all-reduce.
 
-* ``plain_body_A`` ... ``plain_body_E`` are the plain PyTorch bodies,
-  :func:`plain_shard_step` composes them over this process's shards with a
-  :class:`LaneComm` gathering between them (the single-shard
+* ``plain_body_A`` ... ``plain_body_E`` are the plain PyTorch bodies
+  (JAX's seven; :func:`plain_body_D` composes D1, D2 and D3 over the
+  gathered rows), :func:`plain_shard_step` composes them over this
+  process's shards with a :class:`LaneComm` gathering between them (the
+  single-shard
   ``plain_spatial_step`` is this composition on one shard, whose gathers
   are identities), and :func:`plain_sharded_episode` /
   :func:`plain_sharded_episode_bwd` run an episode and its forward-mode
@@ -57,8 +65,8 @@ replicated without a gradient all-reduce.
   tangent rows gathered together).
 * :class:`ShardRun` launches the hand-written kernels of
   ``csrc/itscp_spatial_shard.cu`` (one launch per body and step, one block
-  per episode, one thread per local lane; a ``Dual`` variant of A, B, C,
-  D3 and E with one block per episode and action entry; Q once per
+  per episode, one thread per local lane; a ``Dual`` variant of each with
+  one block per episode and action entry; Q once per
   episode, one block per tile of up to 32 steps of a row) between the
   same gathers; each launch counts in
   :data:`launches`. :data:`STEP` describes each body once: its plain
@@ -80,7 +88,7 @@ import torch
 from dhts_torch.ops import arz, dmath, idm
 from dhts_torch.ops.cuda import _launch
 from dhts_torch.ops.cuda import itscp_spatial_step as k6
-from dhts_torch.ops.cuda.dkernel import make_dkernel, make_kernel_sg
+from dhts_torch.ops.cuda.dkernel import make_dkernel
 from dhts_torch.ops.dmath import soft_sigmoid
 from dhts_torch.parallel import collectives
 
@@ -92,22 +100,22 @@ REPLACES = {"A": f"{PALLAS}:279", "B": f"{PALLAS}:302", "C": f"{PALLAS}:440",
 # the pallas_call each body reaches: K5's make_dkernel forward and
 # backward, and make_kernel_sg for D1 and D2
 REPLACES_SG = "dhts/ops/pallas/dkernel.py:154"
+# the TPU kernels whose work a body's launch does besides its own: D3's
+# does D1's and D2's
+ALSO_REPLACES = {"D3": ("D1", "D2")}
 HARD = k6.HARD
 # a shard's lanes: one thread each, and C's and E's reduction warp beside
 # them, in a block of 1,024 threads (MAX_LANES in the kernels' source)
 MAX_LANES = k6.MAX_LANES - 32
 
-BODIES = ("A", "B", "C", "D1", "D2", "D3", "E")
-DUAL_BODIES = ("A", "B", "C", "D3", "E")  # D1, D2 are wholly discrete
+BODIES = ("A", "B", "C", "D3", "E")
 # the kernels: the bodies, and Q, body_E's lane sum of q^2 (:861-865) once
 # per episode over the gathered rows (in a derivative, with the loss
-# weights' sum over the steps)
+# weights' sum over the steps); each has a `Dual` variant
 KERNELS = BODIES + ("Q",)
-DUAL_KERNELS = DUAL_BODIES + ("Q",)
 REPLACES["Q"] = f"{PALLAS}:861"
 # launches per kernel: forward "A" ... "Q", derivative "A_bwd" ... "Q_bwd"
-launches = {**{b: 0 for b in KERNELS},
-            **{f"{b}_bwd": 0 for b in DUAL_KERNELS}}
+launches = {**{b: 0 for b in KERNELS}, **{f"{b}_bwd": 0 for b in KERNELS}}
 
 # rows of the summaries (JAX's names and order)
 A_ROWS = ("r_first", "u_first", "r_last", "u_last", "count", "tail_pos",
@@ -615,6 +623,32 @@ def plain_body_D3(plan, g, lg, carry, gF, gI, gV, pred, bd, sumI) -> OutD3:
     return OutD3(carry, ss, ssn.to(torch.int32), ev)
 
 
+def plain_arbitration(plan, g, gF, gI):
+    """The conversion's wants and arbitration over the whole scene from the
+    gathered post-physics rows: :func:`plain_body_D1` at every lane (the
+    lane's count is C's row ``F_COUNT``), then :func:`plain_body_D2` at
+    every lane. Returns ``pred [B, 4, L]`` (exit, emit, transfer, deposit)
+    and ``gV [B, 2, L]`` (``best``, ``dep_best``; L for none): what JAX
+    gathers as D1's and D2's outputs."""
+    # plain_body_D1 reads only the carry's count (entry 11) of the carry
+    count = gF[:, F_COUNT].detach().to(torch.int32)
+    wrow, pred = plain_body_D1(plan, g, g, (None,) * 11 + (count,), gF, gI,
+                               gF, gI)
+    return pred, plain_body_D2(plan, g, gI, wrow)
+
+
+def plain_body_D(plan, g, lg, carry, gF, gI) -> OutD3:
+    """Plain version of the D3 kernel: JAX's D1, D2 and D3 of the shard's
+    lanes from the rows gathered after C alone (:func:`plain_arbitration`
+    over the whole scene, then :func:`plain_body_D3` with its rows in place
+    of the gathered ``gW`` and ``gV``): bit-equal to the three bodies with
+    their two gathers."""
+    pred, gV = plain_arbitration(plan, g, gF, gI)
+    cols = lambda x: x[..., lg.gid]
+    return plain_body_D3(plan, g, lg, carry, gF, gI, gV, cols(pred),
+                         cols(gV), cols(gI))
+
+
 def fold_ss(plan, ss_ms, gss, gssn):
     """The static running mean after this step's gathered terms (``gss [B,
     2, L]`` float64, ``gssn`` their counts), and the queue's sigmoid
@@ -744,9 +778,10 @@ def plain_shard_step(plan, g, comm: LaneComm, states, t: int, action2d,
                      rand_t, sched_t, mnext_t, mprev_t, routes):
     """One step of this process's shards (``states[i] = (carry, sg_ms,
     ss_ms)`` of shard ``comm.shards[i]``) through the plain bodies, the
-    gathers of ``comm`` between them. ``rand_t [B, L]`` and the scene rows
-    ``[L]`` are the whole scene's. Returns one :class:`ShardOut` per
-    shard."""
+    gathers of ``comm`` between them: the kernels' five bodies (A, B, C,
+    :func:`plain_body_D`, E), two gathers and two sums (one in hard mode
+    on a split lane axis). ``rand_t [B, L]`` and the scene rows ``[L]``
+    are the whole scene's. Returns one :class:`ShardOut` per shard."""
     lgs = [local_geometry(g, s) for s in comm.shards]
     cols = [s.cols for s in comm.shards]
     sumA = [plain_body_A(plan, lg, st[0], rand_t[:, c], sched_t[c])
@@ -762,14 +797,8 @@ def plain_shard_step(plan, g, comm: LaneComm, states, t: int, action2d,
     outC = [plain_body_C(plan, g, lg, o.carry, o.bc, c_sig, mnext_t[c],
                          routes) for lg, o, c in zip(lgs, outB, cols)]
     gF, gI = comm.gather([[o.sumF, o.sumI] for o in outC])
-    outD1 = [plain_body_D1(plan, g, lg, o.carry, o.sumF, o.sumI, gF, gI)
+    outD3 = [plain_body_D(plan, g, lg, o.carry, gF, gI)
              for lg, o in zip(lgs, outC)]
-    (gW,) = comm.gather([[w] for w, _ in outD1])
-    bds = [plain_body_D2(plan, lg, gI, gW) for lg in lgs]
-    (gV,) = comm.gather([[bd] for bd in bds])
-    outD3 = [plain_body_D3(plan, g, lg, o.carry, gF, gI, gV, pred, bd,
-                           o.sumI)
-             for lg, o, (_, pred), bd in zip(lgs, outC, outD1, bds)]
     gss, gssn = comm.gather([[o.ss, o.ssn] for o in outD3], "psum")
     ss_ms, c_st = fold_ss(plan, states[0][2], gss, gssn)
     return [ShardOut(d3.carry, sg_ms, ss_ms,
@@ -897,17 +926,15 @@ def plain_sharded_episode_bwd(plan, comm, q_weight, action2d, rand, sched,
 PTRS = ("fbuf", "dbuf", "ibuf", "action", "rand", "sched", "mnext", "mprev",
         "routes", "prog", "lane_i", "lane_f", "sumA_v", "sumA_d", "gA_v",
         "gA_d", "bc_v", "bc_d", "sg", "events", "gsg", "sumF_v", "sumF_d",
-        "sumI", "waves", "gF_v", "gF_d", "gI", "wrow", "pred", "gW", "bd",
-        "gV", "ss", "ssn", "gss", "gssn", "q_v", "q_d", "gq", "queues",
-        "q_weight", "grad", "q_count")
+        "sumI", "waves", "gF_v", "gF_d", "gI", "ss", "ssn", "gss", "gssn",
+        "q_v", "q_d", "gq", "queues", "q_weight", "grad", "q_count")
 # the pointers to this step's gathered rows and Q's weights (set before
 # every launch; the others are fixed for a ShardRun)
-GATHERED = ("gA_v", "gA_d", "gsg", "gF_v", "gF_d", "gI", "gW", "gV", "gss",
-            "gssn", "gq", "q_weight")
+GATHERED = ("gA_v", "gA_d", "gsg", "gF_v", "gF_d", "gI", "gss", "gssn", "gq",
+            "q_weight")
 # the gathered name of a local row where it is not "g" + its name
 GATHERED_AS = {"sumA_v": "gA_v", "sumA_d": "gA_d", "sumF_v": "gF_v",
-               "sumF_d": "gF_d", "wrow": "gW", "bd": "gV", "q_v": "gq",
-               "q_d": "gq", "sumI": "gI"}
+               "sumF_d": "gF_d", "q_v": "gq", "q_d": "gq", "sumI": "gI"}
 DIMS = ("T", "L", "C", "V", "R", "P", "P2", "K", "W", "nsf", "n_phases",
         "n_inter", "mode")
 CONSTS = ("u_max", "dt", "veh_len", "static_speed", "rare_den", "third",
@@ -954,9 +981,7 @@ class ShardRun:
 
     ``lib`` is the kernels' library: the card's build for CUDA tensors
     (default), or the host build of the same source for CPU tensors (the
-    tests). D1 and D2 run through K5's stop-gradient op
-    (:func:`make_kernel_sg`: the kernel on CUDA tensors, the plain body on
-    CPU tensors). Each launch counts in :data:`launches`. The step is
+    tests). Each launch counts in :data:`launches`. The step is
     :data:`STEP`, one entry per body."""
 
     def __init__(self, plan, comm: LaneComm, inputs, dual: bool, lib=None):
@@ -994,9 +1019,6 @@ class ShardRun:
                 sg=torch.zeros((N, 2, s.n), **f32),
                 sumF_v=torch.zeros((N, N_F, s.n), **f32),
                 sumI=torch.zeros((N, N_I, s.n), **i32),
-                wrow=torch.zeros((N, 3, s.n), **i32),
-                pred=torch.zeros((N, 4, s.n), **i32),
-                bd=torch.zeros((N, 2, s.n), **i32),
                 ss=torch.zeros((N, 2, s.n), dtype=torch.float64, device=dev),
                 ssn=torch.zeros((N, 2, s.n), **i32),
                 q_v=torch.zeros((N, T, s.n), **f32),
@@ -1024,64 +1046,24 @@ class ShardRun:
                     setattr(args, name, x.data_ptr())
             self.shards.append((s, p_n, bufs, args))
         self.g = {}  # this step's gathered rows (and Q's weights)
-        self.sg_ops = [self._sg_ops(i) for i in range(len(self.shards))]
-
-    def _sg_ops(self, i):
-        """K5's stop-gradient ops of shard i: D1 ``(fbuf, ibuf, sumF, sumI,
-        gF, gI) -> (wrow, pred)`` and D2 ``(gI, gW) -> (bd,)``."""
-        plan, g = self.plan, self.geom
-        s, p_n, bufs, _ = self.shards[i]
-        lg = local_geometry(g, s)
-
-        def d1_body(fbuf, ibuf, sumF, sumI, gF, gI):
-            carry = k6.unpack(p_n, fbuf, ibuf)[0]
-            return plain_body_D1(plan, g, lg, carry, sumF, sumI, gF, gI)
-
-        def d1_kernel(*_):
-            self.launch("D1", self._t, [i])
-            return bufs["wrow"], bufs["pred"]
-
-        def d2_kernel(*_):
-            self.launch("D2", self._t, [i])
-            return (bufs["bd"],)
-
-        return {"D1": make_kernel_sg(d1_body, d1_kernel, name="spatialD1"),
-                "D2": make_kernel_sg(
-                    lambda gI, gW: (plain_body_D2(plan, lg, gI, gW),),
-                    d2_kernel, name="spatialD2")}
 
     def launch(self, body: str, t: int, which=None, repeat: int = 1):
         """Launch ``body``'s kernel (one of :data:`KERNELS`) for step t on
         the local shards ``which`` (default all), reading this step's
         gathered rows; ``repeat`` times back to back (a timing's
         launches)."""
-        dual = self.dual and body in DUAL_KERNELS
         for i in range(len(self.shards)) if which is None else which:
             _, _, bufs, args = self.shards[i]
             args.t = t
             for name in GATHERED:
                 x = self.g.get(name)
                 setattr(args, name, None if x is None else x.data_ptr())
-            err = self.lib.launch_itscp_shard(KERNELS.index(body), int(dual),
+            err = self.lib.launch_itscp_shard(KERNELS.index(body),
+                                              int(self.dual),
                                               ctypes.byref(args), repeat,
                                               ctypes.c_void_p(self.stream))
             _launch.raise_on(err, f"itscp_spatial_shard {body}")
-            launches[f"{body}_bwd" if dual else body] += repeat
-
-    def _sg(self, body: str, t: int):
-        self._t = t
-        for i, (_, _, bufs, _) in enumerate(self.shards):
-            if body == "D1":
-                outs = self.sg_ops[i]["D1"](
-                    bufs["fbuf"], bufs["ibuf"], bufs["sumF_v"],
-                    bufs["sumI"], self.g["gF_v"], self.g["gI"])
-                names = ("wrow", "pred")
-            else:
-                outs = self.sg_ops[i]["D2"](self.g["gI"], self.g["gW"])
-                names = ("bd",)
-            for name, o in zip(names, outs):
-                if o.data_ptr() != bufs[name].data_ptr():
-                    bufs[name].copy_(o)
+            launches[f"{body}_bwd" if self.dual else body] += repeat
 
     def gather(self, names, kind="all_gather"):
         """Gather the local rows ``names`` (with their tangent rows in the
@@ -1106,14 +1088,11 @@ class ShardRun:
         return STEP[body].gather
 
     def step(self, t: int):
-        """Step t: the seven bodies on every local shard and the gathers
-        between them (five gathers and two sums in soft modes)."""
+        """Step t: the five launches on every local shard and the gathers
+        between them (two gathers and two sums in soft modes)."""
         self.g = {}
         for body, spec in STEP.items():
-            if body in ("D1", "D2"):
-                self._sg(body, t)
-            else:
-                self.launch(body, t)
+            self.launch(body, t)
             names = self.gathers_after(body)
             if names:
                 self.gather(names, spec.kind)
@@ -1160,12 +1139,16 @@ class ShardRun:
         :meth:`view`): ``{output: tensor}``."""
         return STEP[body].plain(self.view(i, t, state))
 
-    def checked_step(self, t: int, rtol: float = 0.0, atol: float = 0.0):
-        """Step t of a forward with every launch (D1 and D2 as kernels too)
-        held against its plain body on the same inputs, output by output as
+    def checked_step(self, t: int, rtol: float = 0.0, atol: float = 0.0,
+                     edit=None):
+        """Step t of a forward with every launch held against its plain
+        version on the same inputs, output by output as
         :data:`STEP` names them: integers equal, floats allclose(rtol,
-        atol). Returns ``{body: max_abs_err}`` and raises
-        ``AssertionError`` naming the first output that differs."""
+        atol). ``edit(run, body)``, where given, is called after each
+        body's launch and the gathers after it (a test's hook: it may
+        change the gathered rows and the state the next launch reads).
+        Returns ``{body: max_abs_err}`` and raises ``AssertionError``
+        naming the first output that differs."""
         if self.dual:
             raise ValueError("the check runs the forward")
         errs = {}
@@ -1202,18 +1185,20 @@ class ShardRun:
             names = self.gathers_after(body)
             if names:
                 self.gather(names, spec.kind)
+            if edit is not None:
+                edit(self, body)
         return errs
 
     def checked_dual_step(self, t: int, bodies=("C", "E"), rtol=1e-5,
-                          atol=1e-5, value_tol=(0.0, 0.0)):
+                          atol=1e-5, value_tol=(0.0, 0.0), edit=None):
         """Step t of a derivative with each launch of ``bodies`` (any of B,
         C, D3, E) held against its plain body under forward-mode AD on the
         same dual inputs (the outputs a derivative writes: no events, no
         wave): integers equal, values allclose(*value_tol) (equal by
         default), tangents allclose(rtol, atol * the output's largest
-        reference tangent). Returns ``{body: max_abs_tangent_err}`` and
-        raises ``AssertionError`` naming the first output that
-        differs."""
+        reference tangent). ``edit``: as for :meth:`checked_step`. Returns
+        ``{body: max_abs_tangent_err}`` and raises ``AssertionError`` naming
+        the first output that differs."""
         import torch.autograd.forward_ad as fwad
 
         if not self.dual or not set(bodies) <= {"B", "C", "D3", "E"}:
@@ -1246,9 +1231,7 @@ class ShardRun:
 
         self.g = {}
         for body, spec in STEP.items():
-            if body in ("D1", "D2"):
-                self._sg(body, t)
-            elif body in bodies:
+            if body in bodies:
                 with torch.no_grad(), fwad.dual_level():
                     refs = [{k: tuple(parts(x) for x in v) if k == "carry"
                              else parts(v)
@@ -1269,6 +1252,8 @@ class ShardRun:
             names = self.gathers_after(body)
             if names:
                 self.gather(names, spec.kind)
+            if edit is not None:
+                edit(self, body)
         return errs
 
     def _dual_written(self, body: str, i: int, t: int) -> dict:
@@ -1374,9 +1359,8 @@ def _plain_C(v: ShardView):
 
 
 def _plain_D3(v: ShardView):
-    o = plain_body_D3(v.plan, v.g, v.lg, v.carry, v.dual(v.G, "gF_v"),
-                      v.G["gI"], v.G["gV"], v.b["pred"], v.b["bd"],
-                      v.b["sumI"])
+    o = plain_body_D(v.plan, v.g, v.lg, v.carry, v.dual(v.G, "gF_v"),
+                     v.G["gI"])
     return dict(carry=o.carry, ss=o.ss, ssn=o.ssn, events=o.ev[:, :2])
 
 
@@ -1403,15 +1387,6 @@ STEP = {
         lambda v: dict(carry=v.now()[0], sg_ms=v.now()[1],
                        sumF=v.b["sumF_v"], sumI=v.b["sumI"],
                        wave=v.b["waves"][:, v.t]), ("sumF_v", "sumI")),
-    "D1": BodySpec(
-        lambda v: dict(zip(("wrow", "pred"), plain_body_D1(
-            v.plan, v.g, v.lg, v.carry, v.b["sumF_v"], v.b["sumI"],
-            v.G["gF_v"], v.G["gI"]))),
-        lambda v: dict(wrow=v.b["wrow"], pred=v.b["pred"]), ("wrow",)),
-    "D2": BodySpec(
-        lambda v: dict(bd=plain_body_D2(v.plan, v.lg, v.G["gI"],
-                                        v.G["gW"])),
-        lambda v: dict(bd=v.b["bd"]), ("bd",)),
     "D3": BodySpec(
         _plain_D3,
         lambda v: dict(carry=v.now()[0], ss=v.b["ss"], ssn=v.b["ssn"],
@@ -1454,7 +1429,7 @@ def shard_episode_fwd(plan, comm, action2d, rand, sched, mnext, mprev,
     """``(queues[B, T], events[B, T, 3], max_wave[B, T])`` of B episodes
     from the empty state over this process's shards (every rank the whole
     result). CPU tensors run :func:`plain_sharded_episode`; CUDA tensors
-    launch the seven forward kernels once per step each, counted in
+    launch the five forward kernels once per step each, counted in
     :data:`launches`, or raise."""
     inputs = (action2d, rand, sched, mnext, mprev, routes)
     dev = _check(plan, comm, inputs, False)
@@ -1470,7 +1445,7 @@ def shard_episode_bwd(plan, comm, q_weight, action2d, rand, sched, mnext,
     d(queues[b, t]) / d(action2d)`` of the soft episodes, on every rank.
     CPU tensors run :func:`plain_sharded_episode_bwd`; CUDA tensors launch
     the ``Dual`` kernels of A, B, C, D3, E (one block per episode and
-    action entry) and the float kernels of D1, D2 once per step each."""
+    action entry) once per step each."""
     inputs = (action2d, rand, sched, mnext, mprev, routes)
     dev = _check(plan, comm, inputs, True)
     _launch.check("q_weight", q_weight, (rand.shape[0], plan.T),

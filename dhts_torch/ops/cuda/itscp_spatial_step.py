@@ -291,7 +291,7 @@ def lane_signals(plan, action2d, t: int, soft: bool, g: Geometry):
 def plain_spatial_step(plan, carry, sg_ms, ss_ms, t: int, action2d, rand_t,
                        sched_t, mnext_t, mprev_t, routes, g=None) -> StepOut:
     """One step of B episodes (``body_STEP``): the composition of the plain
-    per-shard bodies A, B, C, D1, D2, D3 and E of
+    per-shard bodies A, B, C, D (JAX's D1, D2 and D3) and E of
     :mod:`dhts_torch.ops.cuda.itscp_spatial_shard` on one shard holding
     every lane, whose gathers are identities: injection, signal-blended
     ghosts and the leader walk, Godunov and IDM physics, the flux

@@ -11,8 +11,9 @@ wave maximum in C; its way to its gates (set-up, first cells, any wait),
 its lane's queue and the store in E; on the path of one lane's thread its
 set-up, its signals, the injection and ghosts, the head's blend, the
 leader walk, the rows out and the injection count (with any wait for the
-other lanes) in B, and its set-up, ``convert``, ``static_partials`` and
-the emit and absorb counts in D3; the whole launch; each lane its own
+other lanes) in B, and its set-up, its share of the want table, its wait
+at the table's barrier, its arbitration, ``convert``, ``static_partials``
+and the emit and absorb counts in D3; the whole launch; each lane its own
 update's cycles in C, its whole path before the count in B and D3) and
 runs the 3x3 hybrid preset
 of ``run_itscp_hybrid.sh`` (T = 600, 144 lanes, S = 4 shards of 36 lanes,
@@ -54,8 +55,8 @@ from dhts_torch.ops.cuda import spatial_clock
 PARTS = ("C_fold", "C_wait", "C_lane", "C_rows", "C_end_wait", "C_wave",
          "C_total", "E_fold", "E_wait", "E_queue", "E_store", "E_total",
          "B_setup", "B_signals", "B_ghosts", "B_blend", "B_walk", "B_rows",
-         "B_count", "B_total", "D3_setup", "D3_convert", "D3_static",
-         "D3_count", "D3_total")
+         "B_count", "B_total", "D3_setup", "D3_table", "D3_wait",
+         "D3_arbitrate", "D3_convert", "D3_static", "D3_count", "D3_total")
 LAUNCHED = ("C", "E", "B", "D3")
 BODIES = ("B", "C", "D3", "E")
 SHARDS, WARM = 4, 100
@@ -96,14 +97,17 @@ def read_lane_cycles(lib, n: int, reset: bool = False) -> list[int]:
 def quiet_step(run: ks.ShardRun, t0: int) -> int:
     """Step a ShardRun of one process (all shards local) from t0 to the
     first step without an injection, a conversion want or an arbitrated
-    insert or deposit, and return it: every body can be relaunched there
-    on that step's inputs without growing a lane's vehicles."""
+    insert or deposit (:func:`ks.plain_arbitration` of the step's gathered
+    rows), and return it: every body can be relaunched there on that
+    step's inputs without growing a lane's vehicles."""
     for t in range(t0, run.plan.T):
         run.step(t)
-        if all(float(b["sumA_v"][:, 8].sum()) == 0.0 and
-               int(b["pred"].abs().sum()) == 0 and
-               bool((b["bd"] == run.plan.L).all())
-               for _, _, b, _ in run.shards):
+        pred, verdicts = ks.plain_arbitration(run.plan, run.geom,
+                                              run.g["gF_v"], run.g["gI"])
+        if (int(pred.abs().sum()) == 0 and
+                bool((verdicts == run.plan.L).all()) and
+                all(float(b["sumA_v"][:, 8].sum()) == 0.0
+                    for _, _, b, _ in run.shards)):
             return t
     raise RuntimeError("no quiet step to time the bodies at")
 

@@ -226,7 +226,7 @@ def test_stamped_b_d3_equal_unstamped(libs, kind, S):
         parts = rec["cycles_per_launch"]
         assert rec["launches_stamped"] == 2 and rec["clock_lane"] == lane
         path = [v for k, v in parts.items() if k != f"{body}_total"]
-        assert len(path) == (7 if body == "B" else 4)
+        assert len(path) == 7  # B's parts; D3's with its table's three
         assert min(path) >= 0 and 0 < sum(path) <= parts[f"{body}_total"]
         lanes = rec[f"{body}_lane_cycles_per_launch"]
         assert sum(v["lanes"] for v in lanes.values()) == q.shard.n

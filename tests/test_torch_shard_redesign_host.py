@@ -217,9 +217,7 @@ def test_folds_on_hard_terms(libs, kind, how):
         [FOLD_CASES[kind](rng, plan.L) for _ in range(B)]))
     run.g = {}
     for body, spec in ks.STEP.items():
-        if body in ("D1", "D2"):
-            run._sg(body, t)
-        elif body in ("C", "E"):
+        if body in ("C", "E"):
             before = [(tuple(x.clone() for x in c), sg.clone(), ss.clone())
                       for c, sg, ss in map(run.carry,
                                            range(len(run.shards)))]

@@ -12,7 +12,10 @@ the single-shard step.
   single-shard episode is run to that step and its carry converted to JAX's
   padded per-shard layout (lanes to 128, cells and vehicles to 8; routes by
   content). The steps are chosen around the scene's first emission,
-  deposit and transfer (asserted). Integers (counts, route contents,
+  deposit and transfer (asserted). The port's fused conversion
+  (``plain_body_D``: D1, D2 and D3 from the rows gathered after C, the D3
+  kernel's plain version) equals its three bodies with their gathers bit
+  for bit, carry, terms and events. Integers (counts, route contents,
   indices, wants, arbitration verdicts, events) must be equal; floats pass
   allclose(rtol 1e-6, atol 5e-6), the tolerance of
   ``test_torch_spatial_step.py`` (the two sum in different orders; XLA may
@@ -348,6 +351,11 @@ def test_bodies_match_jax_bodies(cfg, differentiable, S):
         pD3 = [ks.plain_body_D3(plan, g, lgs[s], pc[s], gF_p, gI_p, gV_p,
                                 pD1[s][1], pD2[s], pC[s].sumI)
                for s in range(S)]
+        for s in range(S):
+            fused = ks.plain_body_D(plan, g, lgs[s], pc[s], gF_p, gI_p)
+            for a, b in zip(fused.carry + fused[1:], pD3[s].carry +
+                            pD3[s][1:]):
+                assert torch.equal(a, b), ("plain_body_D", s)
         for s in range(S):
             jo, po = jD3[s], pD3[s]
             for j, name in enumerate(k6.CNAMES[:15] + ("cursor",)):

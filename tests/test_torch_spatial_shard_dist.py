@@ -11,7 +11,7 @@ In one spawn per shard count (S = 2, 4), every rank:
 * runs the sharded episode through ``make_fused_spatial_episode`` on a
   ``(1, S)`` mesh, hard and soft: queues, events and wave maxima bit-equal
   to the one-process single-shard episode on every rank; the collectives
-  per step are 4 lane gathers (gA; gF with gI; gW; gV) and 2 sums of
+  per step are 2 lane gathers (gA; gF with gI) and 2 sums of
   per-lane terms (the running means; hard mode skips the signal mean's,
   as JAX does), and per episode one gather-and-sum of the queues, one
   psum of the events and one pmax;
@@ -184,10 +184,10 @@ def test_sharded_episode_gradient_and_train_step_across_ranks(S):
         assert torch.equal(o["soft"][0], soft_ref[0][0].detach()), r
         assert torch.equal(o["soft"][1], soft_ref[1][0]), r
         assert torch.equal(o["soft"][2], soft_ref[2][0].amax()), r
-        assert o["counts"] == {"all_gather": 4 * T, "psum": 2 * T + 2,
+        assert o["counts"] == {"all_gather": 2 * T, "psum": 2 * T + 2,
                                "pmax": 1}, o["counts"]
         # hard mode skips the signal mean's sum (JAX: ``if diff``)
-        assert o["hard_counts"] == {"all_gather": 4 * T, "psum": T + 2,
+        assert o["hard_counts"] == {"all_gather": 2 * T, "psum": T + 2,
                                     "pmax": 1}, o["hard_counts"]
         assert torch.equal(o["grad"], grad_ref), r
         assert o["loss"] == outs[0]["loss"]

@@ -7,8 +7,9 @@ one after another) and driven through the same C launcher and the same
 ``ShardRun`` as on the card, S shards in one process with in-process
 gathers.
 
-* Forward, hard and soft: every launch of the seven bodies (D1 and D2 as
-  kernels too) equals its plain body on the same inputs bit for bit
+* Forward, hard and soft: every launch of the five bodies (D3's the whole
+  conversion, held against ``plain_body_D``) equals its plain version on
+  the same inputs bit for bit
   (``ShardRun.checked_step``: carries, summary rows, events), and the whole
   episode's queues, events and wave maxima equal the single-shard plain
   episode's bit for bit.
@@ -103,13 +104,13 @@ def test_forward_launches_match_plain_bodies(libs, cfg, S, every,
     assert torch.equal(waves, ref[2])
     tot = events.sum((0, 1))
     assert int(tot[0] if cfg is MICRO_CFG else tot[1]) > 0
-    # every launch of the forward counted; D1, D2 launched as kernels in the
-    # checked steps (the other steps ran K5's stop-gradient op, whose CPU
-    # branch is the plain body)
+    # every launch of the forward counted, checked steps or not: five a
+    # step and shard (D3's the conversion: no D1 or D2 launch)
+    assert 0 < checked <= plan.T
     launched = {k: ks.launches[k] - before[k] for k in before}
     for body in ("A", "B", "C", "D3", "E"):
         assert launched[body] == S * plan.T
-    assert launched["D1"] == launched["D2"] == S * checked
+    assert "D1" not in launched and "D2" not in launched
     assert launched["Q"] == 1  # the queues, once per episode
 
 
@@ -236,7 +237,8 @@ def test_launcher_refuses_bad_launches(libs):
         ks.KERNELS.index(body), dual, ctypes.byref(args), repeat, None)
     assert call("A", 0) == 0 and call("A", 0, 3) == 0
     assert call("A", 0, 0) != 0  # no launch
-    assert call("D1", 1) != 0  # D1 has no derivative
+    assert lib.launch_itscp_shard(len(ks.KERNELS), 0, ctypes.byref(args),
+                                  1, None) != 0  # no such body
     assert call("A", 1) != 0  # no tangent buffer
     assert call("Q", 0) != 0  # no gathered rows
     assert call("Q", 1) != 0  # a derivative without tangents and weights

@@ -70,10 +70,11 @@ def build_tree(tree: Path, name: str) -> Path:
     return out
 
 
-def sass_digest(lib: Path) -> dict:
+def sass_digest(lib: Path, params: bool = True) -> dict:
     """``{kernel: {"instructions": n, "sha256": digest}}`` of a library; a
     kernel's mangled name without its anonymous namespace's tag, which
-    differs between two trees' builds."""
+    differs between two trees' builds. Without ``params`` every offset into
+    the kernel's parameters (``c[0x0][...]``) is blanked first."""
     from dhts_torch.ops.cuda import _build
 
     cuobjdump = Path(_build.find_nvcc()).with_name("cuobjdump")
@@ -90,13 +91,19 @@ def sass_digest(lib: Path) -> dict:
             continue
         ins = re.match(r"\s*/\*[0-9a-f]{4,}\*/\s*(.*?)\s*;", line)
         if name and ins:
-            out[name].append(ins.group(1))
+            text = ins.group(1)
+            if not params:
+                text = re.sub(r"c\[0x0\]\[0x[0-9a-f]+\]", "c[0x0][.]",
+                              text)
+            out[name].append(text)
     return {k: {"instructions": len(v),
                 "sha256": hashlib.sha256("\n".join(v).encode()).hexdigest()}
             for k, v in out.items()}
 
 
-def sass(parent: Path) -> dict:
+def sass(parent: Path, params: bool = True) -> dict:
+    """Both trees' digests of every kernel (:func:`sass_digest`) and the
+    kernels whose digests differ."""
     from concurrent.futures import ThreadPoolExecutor
 
     from dhts_torch.ops.cuda import _build
@@ -105,8 +112,8 @@ def sass(parent: Path) -> dict:
     jobs = [(t, n) for t in (ROOT, parent) for n in names]
     with ThreadPoolExecutor(max_workers=len(jobs)) as pool:
         libs = dict(zip(jobs, pool.map(lambda j: build_tree(*j), jobs)))
-    mine = {n: sass_digest(libs[ROOT, n]) for n in names}
-    theirs = {n: sass_digest(libs[parent, n]) for n in names}
+    mine = {n: sass_digest(libs[ROOT, n], params) for n in names}
+    theirs = {n: sass_digest(libs[parent, n], params) for n in names}
     equal = {n: {k: theirs[n].get(k) == d for k, d in mine[n].items()}
              for n in names}
     return {"unequal": [f"{n}: {k}" for n in names for k, e in
