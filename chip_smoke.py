@@ -15,7 +15,8 @@ step), and the all-macro ITSCP episode of ``run_itscp_macro.sh`` through
 K4's forward and backward kernels (the action, r0 and y0 gradients), which
 a controller trains through, and the 3x3 preset's training on the
 lane-sharded fused spatial step (``run --mesh 1,4 --mesh_fused``: K6's
-per-shard bodies A, B, C, D3 (JAX's D1, D2 and D3 in one launch) and E,
+per-shard bodies A (step 0 only), B, C, D3 (JAX's D1, D2 and D3 in one
+launch, and the next step's A rows) and E,
 four gloo ranks that share the card, spawned once after the build with a
 ``FileStore`` in a temporary directory and kept for the slice's phases,
 with two more for the S = 2 check; a rank that fails or outlives its
@@ -129,9 +130,11 @@ phase prints one JSON line with its wall seconds:
                beside the others)
 21. ``shard_vs_plain``  the sharded forward at the preset, hard and soft,
                B = 1, on S = 4 ranks: at every 50th step each rank holds the
-               inputs of its five launches through their plain versions on
-               the card (D3's: ``plain_body_D``, the whole conversion;
-               integers equal, floats allclose(rtol 1e-6, atol 1e-6));
+               inputs of its launches through their plain versions on
+               the card (D3's: ``plain_body_D``, the whole conversion, and
+               ``plain_body_A`` on its carry with the next step's draws:
+               the next step's A rows; integers equal, floats
+               allclose(rtol 1e-6, atol 1e-6));
                the Q kernel's queues bit-equal to ``plain_queues`` of the
                same gathered rows; each episode at S = 4 and S = 2 against
                the single-shard STEP kernel's on the same draws (run once,
@@ -145,7 +148,8 @@ phase prints one JSON line with its wall seconds:
                ``plain_gradient`` of the same gathered tangent rows; in
                this process at S = 2 and at the main path's S = 4 the
                ``Dual`` D3 launches of steps 107, 307 and 507 against
-               ``plain_body_D`` under forward-mode AD on the card, values
+               ``plain_body_D`` and the next step's ``plain_body_A`` under
+               forward-mode AD on the card, values
                allclose(rtol 1e-6, atol 1e-6), tangents allclose(rtol
                1e-5, atol 1e-5 * the largest)) and
                over the first 60 steps against the plain forward-mode
@@ -157,11 +161,12 @@ phase prints one JSON line with its wall seconds:
                finite and equal on every rank, parameters equal on every
                rank afterwards, each body's launches, counted from 0 on each
                rank, T per forward episode (train step and evaluation) and
-               T per train step for the derivative, no D1 or D2 launch, Q
-               once per episode; the collectives as derived (per step 2
-               gathers and 2 sums in soft mode, 1 sum in hard mode; per
-               episode the queues' gather and the events' and waves'
-               reductions)
+               T per train step for the derivative, A and Q once per
+               episode, no D1 or D2 launch; the collectives as derived (per
+               step 1 gather and 2 sums in soft mode, 1 sum in hard mode,
+               the next step's A rows riding in the static terms' sum; per
+               episode A's gather at step 0, the queues' gather and the
+               events' and waves' reductions)
 24. ``shard_timing``  each body's ms per launch at S = 4, B = 1 and 4 (D3's
                the whole conversion), and
                of the derivative's bodies (CUDA events, median of 5 runs of
@@ -171,7 +176,7 @@ phase prints one JSON line with its wall seconds:
                gathered q^2 rows with its plain ms and the library's (one
                PyTorch call, 50 back to back, as Q's launches); the wall ms
                of an
-               unchecked sharded step (from ``shard_vs_plain``: five
+               unchecked sharded step (from ``shard_vs_plain``: four
                launches and the collectives between them, host-staged gloo,
                not a collective number of the card)
 25. ``timing``  each K1 kernel's ms per launch (CUDA events, median of 10
@@ -181,8 +186,9 @@ phase prints one JSON line with its wall seconds:
                of 5 runs of 20 launches back to back) with their bounds,
                and their plain versions' ms at B = 1
 26. ``kernels`` the per-kernel record (launches, error, times, bound); K6's
-               D3 rows name D1's and D2's ``pallas_call`` sites in
-               ``replaces`` too: D3's launch does their work
+               D3 rows name D1's, D2's and A's ``pallas_call`` sites in
+               ``replaces`` too: D3's launch does their work (A's for the
+               next step; A's own launch is step 0's, once an episode)
 
 Slice 8 (K1 with B episodes per launch; a scene wider than one block on the
 sharded step) adds, where they run:
@@ -1079,7 +1085,7 @@ def _lane_comm(plan, S, rank):
 
 def _shard_fwd_rank(rank, S, check_every):
     """One rank of ``shard_vs_plain``: the sharded forward, hard and soft,
-    B = 1, every ``check_every``-th step's seven launches held against the
+    B = 1, every ``check_every``-th step's launches held against the
     plain bodies on the card (``checked_step`` raises on a difference), and
     the Q kernel's queues against ``plain_queues`` of the same gathered
     rows; returns the episode for the parent to hold against the STEP
@@ -1109,7 +1115,7 @@ def _shard_fwd_rank(rank, S, check_every):
                 for body, e in run.checked_step(t, 1e-6, 1e-6).items():
                     out["errors"][body] = max(out["errors"].get(body, 0.0), e)
                 continue
-            # wall time of an unchecked step: five launches and the
+            # wall time of an unchecked step: four launches and the
             # collectives between them (host-staged gloo, not the card's)
             t1 = time.perf_counter()
             run.step(t)
@@ -1357,6 +1363,8 @@ def _shard_train_rank(rank, S, argv):
 def run_shard_train(ranks, log_root: str) -> dict:
     """``run --mesh 1,4 --mesh_fused`` at the run_itscp_hybrid.sh flags
     in the 4 ranks of ``ranks``; raises on a failed check."""
+    from dhts_torch.ops.cuda import itscp_spatial_shard as ks
+
     argv = ["--mode", "hybrid", "--problem", "1", "--n_trial", "1",
             "--n_intersection", "3", "--n_lane", "1", "--lane_length", "5",
             "--speed_limit", "60", "--simulation_length", "20",
@@ -1369,20 +1377,22 @@ def run_shard_train(ranks, log_root: str) -> dict:
     evals = [r["reward_eval"] for r in rows if "reward_eval" in r]
     T, steps = outs[0]["T"], len(outs[0]["losses"])
     # forward episodes: one per train step and per evaluation; derivative
-    # episodes: one per train step; D3's launch does D1's and D2's work
+    # episodes: one per train step; D3's launch does D1's and D2's work and
+    # writes the next step's A rows
     fwd_eps, bwd_eps = steps + len(evals), steps
-    expected = {b: T * fwd_eps for b in ("A", "B", "C", "D3", "E")}
-    expected.update({f"{b}_bwd": T * bwd_eps
-                     for b in ("A", "B", "C", "D3", "E")})
-    # Q: once per episode
-    expected.update(Q=fwd_eps, Q_bwd=bwd_eps)
-    # collectives: per step 2 gathers (gA; gF with gI) and the running
-    # means' sums (the signal mean's in soft mode only: train steps soft,
-    # evaluations hard);
-    # per forward episode the queues' gather, the events' psum and the
-    # waves' pmax; per derivative episode the tangents' gather
+    expected = {b: T * fwd_eps for b in ks.EVERY_STEP}
+    expected.update({f"{b}_bwd": T * bwd_eps for b in ks.EVERY_STEP})
+    # A (step 0's rows) and Q: once per episode
+    expected.update(A=fwd_eps, A_bwd=bwd_eps, Q=fwd_eps, Q_bwd=bwd_eps)
+    # collectives: per step 1 gather (gF with gI) and the running means'
+    # sums (the signal mean's in soft mode only: train steps soft,
+    # evaluations hard; the static terms' carries the next step's A rows);
+    # per episode A's gather at step 0; per forward episode the queues'
+    # gather, the events' psum and the waves' pmax; per derivative
+    # episode the tangents' gather: 2T + 1 calls between the bodies of a
+    # hard episode, 3T + 1 of a soft one
     expected_coll = {
-        "all_gather": 2 * T * (fwd_eps + bwd_eps),
+        "all_gather": (T + 1) * (fwd_eps + bwd_eps),
         "psum": (2 * T * (steps + bwd_eps) + T * len(evals) + 2 * fwd_eps +
                  bwd_eps),
         "pmax": fwd_eps}
@@ -1464,9 +1474,12 @@ def shard_body_work(plan, env, body: str, N: int, n: int, dual: bool):
         # speeds, acceleration and parameters, the route rows), only each
         # lane's own capacitor, whose value the table has read (its
         # tangent in a derivative); the cells for the static terms; out
-        # the terms
+        # the terms; and the next step's A rows from the carry it left (as
+        # A's: the counters, the tail, the draw and schedule; the edge
+        # cells are among the cells above), out 9 rows
         "D3": 6 * L * 4 + 2 * L * 4 + (n * 4 if dual else 0) +
-              cells * 2 * f + 2 * n * (8 + 4),
+              cells * 2 * f + 2 * n * (8 + 4) + n * (4 * 4 + 2 * 4) +
+              9 * n * f,
         # E: the gathered terms, the cells; out one row entry per step
         "E": 2 * L * (8 + 4) + cells * 2 * f + n * f,
     }[body]
@@ -3014,6 +3027,9 @@ def main() -> int:
             "library_ms": shard_times["library_ms"].get(body),
             "batch": 1, "shards": SHARDS,
             "ms_by_batch": shard_times["ms"][body]}
+        if name == "A":
+            row["launched"] = ("once an episode, for step 0: D3's launch "
+                               "writes the later steps' A rows")
         kernels.append(row)
     # K1's batched launches at K1_BATCH episodes, the packed Trainer's
     # (packed_train), against the plain version's episodes

@@ -8,7 +8,8 @@
 // (:847), wrapped at :883-919 by make_dkernel (A, B, C, D3, E;
 // dhts/ops/pallas/dkernel.py: forward pallas_call at :63, backward at :91)
 // and make_kernel_sg (D1, D2; :154). D3's launch does the work of D1, D2
-// and D3 (below). A further kernel, Q, does body_E's lane
+// and D3, and of the next step's A (below): A launches once an episode,
+// for step 0. A further kernel, Q, does body_E's lane
 // sum of q^2 (:861-865) once per episode over the gathered rows, and in a
 // derivative the loss weights' sum over the steps. The specification is the plain PyTorch
 // bodies beside the wrapper (dhts_torch/ops/cuda/itscp_spatial_shard.py::
@@ -49,6 +50,14 @@
 // indexed. D3's block computes every lane's wants from the gathered rows
 // into a table in shared memory, and each lane arbitrates at the three
 // lanes it reads a verdict of (its own, its next lane, its head's next).
+//
+// A reads only its own lane's carry, and D3 is the last body of a step that
+// writes a lane's carry (E writes only the static mean), by the lane's own
+// thread: so D3 of step t ends with each lane writing step t + 1's A rows
+// from the carry its conversion left, with step t + 1's draw and schedule,
+// by A's own operations (a_rows), and the wrapper gathers them with D3's
+// static-mean terms in one collective. A step from step 1 on is four
+// launches (B, C, D3, E).
 //
 // C spreads a lane over SPLIT threads where it fits (one Riemann solve or
 // a few vehicles a thread, the fluxes handed on by shuffles): a macro
@@ -284,8 +293,10 @@ __device__ __forceinline__ Block<S> lane_block_of(const ShardArgs& a,
 // block set-up, the signals, the injection and the ghosts, the head's
 // blend, the leader walk, the rows out and the injection count with any
 // wait for the other lanes (B); set-up, its share of the want table, the
-// wait at the table's barrier, the arbitration, convert, static_partials
-// and the emit and absorb counts with any wait (D3). Each lane's first
+// wait at the table's barrier, the arbitration, convert, static_partials,
+// the next step's A rows (their loads and arithmetic, which the unstamped
+// build issues ahead of static_partials', and their stores after it) and
+// the emit and absorb counts with any wait (D3). Each lane's first
 // thread in block 0 adds its lane's own cycles to shard_lane_cycles[local
 // lane]: its update's in C (Godunov, or the blend and IDM, after any
 // wait), its whole path before the count in B and D3. The last four counts
@@ -296,7 +307,8 @@ enum ShardPart {
   SH_C_TOTAL, SH_E_FOLD, SH_E_WAIT, SH_E_QUEUE, SH_E_STORE, SH_E_TOTAL,
   SH_B_SETUP, SH_B_SIGNALS, SH_B_GHOSTS, SH_B_BLEND, SH_B_WALK, SH_B_ROWS,
   SH_B_COUNT, SH_B_TOTAL, SH_D3_SETUP, SH_D3_TABLE, SH_D3_WAIT,
-  SH_D3_ARBITRATE, SH_D3_CONVERT, SH_D3_STATIC, SH_D3_COUNT, SH_D3_TOTAL,
+  SH_D3_ARBITRATE, SH_D3_CONVERT, SH_D3_STATIC, SH_D3_NEXT_A, SH_D3_COUNT,
+  SH_D3_TOTAL,
   SH_PARTS
 };
 // the launches stamped, after the parts
@@ -451,14 +463,24 @@ __device__ __forceinline__ Fold<K> warp_fold(int n, Get get, double* stage,
 }
 
 // ======================= A: pre-physics summary ==========================
+// A lane's 9 rows of body_A for step t from its carry as it stands: its
+// first and last cell (density, speed), its vehicle count, its tail's
+// position, speed and length, and its injection bit (step t's draw and
+// schedule). shard_A writes step 0's; from step 1 on, D3 of step t - 1
+// writes step t's (below), from the carry its conversion left: no step
+// changes a lane's carry between its D3 and the next step's A.
 template <class S>
-__global__ void shard_A(ShardArgs a) {
-  Block<S> k = block_of<S>(a);
-  if (!k.lane) return;
+struct ARows {
+  S r[A_ROWS];
+};
+
+template <class S>
+__device__ __forceinline__ ARows<S> a_rows(const ShardArgs& a,
+                                           const Block<S>& k, int t) {
   const Dims& d = a.d;
   const Consts& c = a.k;
-  const int L = d.L, gl = k.gl, t = a.t;
-  auto& st = k.st;
+  const int L = d.L, gl = k.gl;
+  const auto& st = k.st;
   const LaneGeom& g = k.g;
   const int last = min(max(g.num_cell - 1, 0), d.C - 1);
   const float incoming = g.has_prev ? -1.0f : a.sched[t * L + gl];
@@ -473,12 +495,26 @@ __global__ void shard_A(ShardArgs a) {
   const bool inj = !g.has_prev && !g.is_macro &&
                    (free_sp > 0.5f * c.veh_len) && (draw < incoming) &&
                    (st.inj_left[gl] > 0) && (cnt < d.V);
+  return ARows<S>{{rf, uf, rl, ul, S((float)cnt), ld<S>(st.pos, i0),
+                   ld<S>(st.vel, i0), S(st.param(5, i0)),
+                   S(inj ? 1.0f : 0.0f)}};
+}
+
+template <class S>
+__device__ __forceinline__ void put_a_rows(const ShardArgs& a,
+                                           const Block<S>& k,
+                                           const ARows<S>& rows) {
   const size_t base = (size_t)k.e * A_ROWS * a.n + k.j;
-  const S rows[A_ROWS] = {rf, uf, rl, ul, S((float)cnt), ld<S>(st.pos, i0),
-                          ld<S>(st.vel, i0), S(st.param(5, i0)),
-                          S(inj ? 1.0f : 0.0f)};
   for (int r = 0; r < A_ROWS; ++r)
-    put_row(a.sumA_v, a.sumA_d, base + (size_t)r * a.n, rows[r]);
+    put_row(a.sumA_v, a.sumA_d, base + (size_t)r * a.n, rows.r[r]);
+}
+
+// Step 0's rows, once an episode
+template <class S>
+__global__ void shard_A(ShardArgs a) {
+  Block<S> k = block_of<S>(a);
+  if (!k.lane) return;
+  put_a_rows(a, k, a_rows(a, k, a.t));
 }
 
 // ============ B: injection, ghosts, leader walk, the head's signal =========
@@ -1163,7 +1199,11 @@ __device__ __forceinline__ Win arbitrate_at(const Wants& w, const Preds& pr,
 // it wants to emit and at its head's next lane if it wants to hand on or
 // deposit its head (Picked); convert() and static_terms() are those of
 // the three-launch conversion, the static terms loading their cells or
-// vehicles ahead of the sums. The forward's emit and absorb counts are two
+// vehicles ahead of the sums. Before the last step each lane then writes
+// the next step's A rows (a_rows, their loads issued before the static
+// terms'; the row D3's one-shard gather hands B as gA is this buffer,
+// which B of this step has read before D3 launches, in stream order).
+// The forward's emit and absorb counts are two
 // barriers' counts (__syncthreads_count); the derivative counts nothing
 // and builds its table from the gathered values.
 template <class S>
@@ -1242,12 +1282,22 @@ __global__ void shard_D3(ShardArgs a, int threads) {
     SH_ADD(clk, SH_D3_CONVERT, sh_p);
     emit = vd.is_emit;
     absorb = vd.exit_none || vd.dep_win;
+    // the next step's A rows of this lane from the carry the conversion
+    // left, their loads issued ahead of the static terms' (the cells and
+    // the tail's speed they share, the tail's other fields, the counters,
+    // the draw and the schedule)
+    const bool next_a = t + 1 < d.T;
+    ARows<S> nxt;
+    if (next_a) nxt = a_rows(a, k, t + 1);
+    SH_ADD(clk, SH_D3_NEXT_A, sh_p);
     // this lane's static running-mean terms, after the conversion (rows of
     // n lanes, addressed by global id)
     const TermRows terms{a.ss + (size_t)k.e * 2 * n - a.off,
                          a.ssn + (size_t)k.e * 2 * n - a.off};
     static_terms(k.st, terms, k.g, n, gl, vd.n, c);
     SH_ADD(clk, SH_D3_STATIC, sh_p);
+    if (next_a) put_a_rows(a, k, nxt);
+    SH_ADD(clk, SH_D3_NEXT_A, sh_p);
     SH_CLOCK(if (blockIdx.x == 0) shard_lane_cycles[k.j] +=
              sh_now() - sh_t0;)
   }
@@ -1635,7 +1685,8 @@ extern "C" {
 // sizeof(ShardArgs), for the wrapper to check its ctypes mirror
 size_t itscp_shard_args_size() { return sizeof(ShardArgs); }
 
-// Launch body `body` (0..4: A, B, C, D3, E; D3 the whole conversion) of
+// Launch body `body` (0..4: A, B, C, D3, E; D3 the whole conversion and,
+// before the last step, the next step's A rows; A for step 0) of
 // step a->t on the a->N rows of one shard, in `Dual` when `dual` (the rows
 // are then B * n_act dual episodes), or (5: Q) the episode's queues from the
 // gathered rows a->gq, and with `dual` the gradient's terms a->grad from

@@ -1,7 +1,7 @@
 """Fused spatial step of the ITSCP hybrid episode with the lanes sharded:
 kernel K6's per-shard bodies A, B, C, D1, D2, D3 and E between collectives
-over the lane axis (D1, D2 and D3 as one launch, D3's), and K5's
-derivative around the episode.
+over the lane axis (D1, D2 and D3 as one launch, D3's, which also writes
+the next step's A rows), and K5's derivative around the episode.
 
 Port of the ``n_shard > 1`` part of
 :mod:`dhts.ops.pallas.itscp_spatial_step` (``body_A`` ... ``body_E`` and
@@ -13,7 +13,8 @@ the true sizes (no padding; where JAX compares with its padded width, the
 port uses L):
 
 ====  ===================================================================
-A     pre-physics summary ``sumA [9]``: edge cells, tail, injection bit
+A     pre-physics summary ``sumA [9]``: edge cells, tail, injection bit;
+      launched for step 0 only (from step 1 on D3 writes it, below)
       --- all_gather -> gA ---
 B     injection; signal-blended macro ghosts; the leader walk over the
       gathered tails; the head's signal; per-lane signal terms ``sg [2]``
@@ -28,17 +29,24 @@ D     the conversion, one launch (D3's): JAX's D1, D2 and D3 and the two
       (D1: emit, transfer or deposit target), each destination's lowest
       wanting predecessor (D2: ``best``, ``dep_best``), then the local
       lanes' verdicts, removals, inserts, deposits (D3); per-lane
-      static-mean terms
-      --- psum (gathered, summed in lane order) -> ss_ms ---
+      static-mean terms; before the last step, the next step's A rows
+      from the carry the conversion left
+      --- psum (gathered, summed in lane order) -> ss_ms; with the
+          next step's A rows -> its gA ---
 E     the lanes' squared soft queues ``q^2`` (one row per step)
 ====  ===================================================================
 
-A step is five launches, two gathers and two sums in soft mode (one sum
-in hard mode on a split lane axis). JAX gathers the wants (``gW``) and
+From step 1 on a step is four launches (B, C, D3, E), one gather and two
+sums in soft mode (one sum in hard mode on a split lane axis); step 0
+also launches A and gathers its rows. JAX gathers the wants (``gW``) and
 the arbitration (``gV``) between D1, D2 and D3 to keep its one-hot
 gathers at O(L l_loc) a device; every input of D1 and D2 is in the rows
 gathered after C or in the scene, so the port computes them where D3
-reads them.
+reads them. A reads only its own lane's carry, which nothing after D3
+changes (E writes only the static mean), so D3's lane thread writes the
+next step's A rows and they travel in the collective of D3's terms: an
+episode of T steps makes 2T + 1 collective calls between the bodies in
+hard mode on a split lane axis and 3T + 1 in soft mode.
 
 Per episode the lanes' ``q^2`` rows are gathered once and summed in lane
 order (on the card by a kernel of its own, Q), and the event counts and
@@ -56,17 +64,19 @@ replicated without a gradient all-reduce.
 * ``plain_body_A`` ... ``plain_body_E`` are the plain PyTorch bodies
   (JAX's seven; :func:`plain_body_D` composes D1, D2 and D3 over the
   gathered rows), :func:`plain_shard_step` composes them over this
-  process's shards with a :class:`LaneComm` gathering between them (the
-  single-shard
-  ``plain_spatial_step`` is this composition on one shard, whose gathers
-  are identities), and :func:`plain_sharded_episode` /
+  process's shards with a :class:`LaneComm` gathering between them, on
+  the kernels' schedule (it takes the step's gathered A rows and returns
+  the next step's; the single-shard ``plain_spatial_step`` is this
+  composition on one shard, whose gathers are identities), and
+  :func:`plain_sharded_episode` /
   :func:`plain_sharded_episode_bwd` run an episode and its forward-mode
   derivative (the bodies under ``torch.autograd.forward_ad``, primal and
   tangent rows gathered together).
 * :class:`ShardRun` launches the hand-written kernels of
-  ``csrc/itscp_spatial_shard.cu`` (one launch per body and step, one block
-  per episode, one thread per local lane; a ``Dual`` variant of each with
-  one block per episode and action entry; Q once per
+  ``csrc/itscp_spatial_shard.cu`` (one launch per body and step, A's at
+  step 0 only, one block per episode, one thread per local lane; a
+  ``Dual`` variant of each with one block per episode and action entry;
+  Q once per
   episode, one block per tile of up to 32 steps of a row) between the
   same gathers; each launch counts in
   :data:`launches`. :data:`STEP` describes each body once: its plain
@@ -101,14 +111,17 @@ REPLACES = {"A": f"{PALLAS}:279", "B": f"{PALLAS}:302", "C": f"{PALLAS}:440",
 # backward, and make_kernel_sg for D1 and D2
 REPLACES_SG = "dhts/ops/pallas/dkernel.py:154"
 # the TPU kernels whose work a body's launch does besides its own: D3's
-# does D1's and D2's
-ALSO_REPLACES = {"D3": ("D1", "D2")}
+# does D1's and D2's, and A's for the next step (A launches for step 0)
+ALSO_REPLACES = {"D3": ("D1", "D2", "A")}
 HARD = k6.HARD
 # a shard's lanes: one thread each, and C's and E's reduction warp beside
 # them, in a block of 1,024 threads (MAX_LANES in the kernels' source)
 MAX_LANES = k6.MAX_LANES - 32
 
 BODIES = ("A", "B", "C", "D3", "E")
+# the bodies launched at every step; A only where no step before wrote and
+# gathered the step's A rows (step 0)
+EVERY_STEP = BODIES[1:]
 # the kernels: the bodies, and Q, body_E's lane sum of q^2 (:861-865) once
 # per episode over the gathered rows (in a derivative, with the loss
 # weights' sum over the steps); each has a `Dual` variant
@@ -763,6 +776,10 @@ class ShardOut(NamedTuple):
     ev: torch.Tensor  # [B, 3]
     wave: torch.Tensor  # f32[B]
     floor_hits: torch.Tensor  # [B]
+    # the next step's A rows gathered over the lane axis [B, 9, L] (the
+    # same tensor in every local shard's), where the step was given the
+    # next step's draws
+    gA_next: torch.Tensor = None
 
 
 def gathers_sg(plan, comm: LaneComm) -> bool:
@@ -775,18 +792,26 @@ def gathers_sg(plan, comm: LaneComm) -> bool:
 
 
 def plain_shard_step(plan, g, comm: LaneComm, states, t: int, action2d,
-                     rand_t, sched_t, mnext_t, mprev_t, routes):
+                     rand_t, sched_t, mnext_t, mprev_t, routes, gA=None,
+                     rand_n=None, sched_n=None):
     """One step of this process's shards (``states[i] = (carry, sg_ms,
     ss_ms)`` of shard ``comm.shards[i]``) through the plain bodies, the
-    gathers of ``comm`` between them: the kernels' five bodies (A, B, C,
-    :func:`plain_body_D`, E), two gathers and two sums (one in hard mode
-    on a split lane axis). ``rand_t [B, L]`` and the scene rows ``[L]``
-    are the whole scene's. Returns one :class:`ShardOut` per shard."""
+    gathers of ``comm`` between them, on the kernels' schedule: ``gA``,
+    this step's A rows as the step before gathered them (None: A and its
+    gather here, as at step 0), then B, C, :func:`plain_body_D` and E, one
+    gather (``gF``, ``gI``) and two sums (one in hard mode on a split lane
+    axis). Given step t + 1's draws ``rand_n [B, L]`` and schedule
+    ``sched_n [L]``, the static terms' gather also carries the next
+    step's A rows (:func:`plain_body_A` on D3's carry), returned as each
+    :class:`ShardOut`'s ``gA_next``. ``rand_t [B, L]`` and the scene rows
+    ``[L]`` are the whole scene's. Returns one :class:`ShardOut` per
+    shard."""
     lgs = [local_geometry(g, s) for s in comm.shards]
     cols = [s.cols for s in comm.shards]
-    sumA = [plain_body_A(plan, lg, st[0], rand_t[:, c], sched_t[c])
-            for lg, st, c in zip(lgs, states, cols)]
-    (gA,) = comm.gather([[x] for x in sumA])
+    if gA is None:
+        (gA,) = comm.gather([[plain_body_A(plan, lg, st[0], rand_t[:, c],
+                                           sched_t[c])]
+                             for lg, st, c in zip(lgs, states, cols)])
     outB = [plain_body_B(plan, g, lg, st[0], gA, action2d, t, mnext_t[c],
                          mprev_t[c], sched_t[c], routes)
             for lg, st, c in zip(lgs, states, cols)]
@@ -799,11 +824,17 @@ def plain_shard_step(plan, g, comm: LaneComm, states, t: int, action2d,
     gF, gI = comm.gather([[o.sumF, o.sumI] for o in outC])
     outD3 = [plain_body_D(plan, g, lg, o.carry, gF, gI)
              for lg, o in zip(lgs, outC)]
-    gss, gssn = comm.gather([[o.ss, o.ssn] for o in outD3], "psum")
+    rows = [[o.ss, o.ssn] for o in outD3]
+    if rand_n is not None:
+        rows = [r + [plain_body_A(plan, lg, o.carry, rand_n[:, c],
+                                  sched_n[c])]
+                for r, lg, o, c in zip(rows, lgs, outD3, cols)]
+    gss, gssn, *ahead = comm.gather(rows, "psum")
     ss_ms, c_st = fold_ss(plan, states[0][2], gss, gssn)
+    gA_next = ahead[0] if ahead else None
     return [ShardOut(d3.carry, sg_ms, ss_ms,
                      plain_body_E(plan, lg, d3.carry, c_st), b.n_inj, d3.ev,
-                     c.wave, c.floor_hits)
+                     c.wave, c.floor_hits, gA_next)
             for lg, b, c, d3 in zip(lgs, outB, outC, outD3)]
 
 
@@ -825,11 +856,14 @@ def _run_plain(plan, comm, action2d, rand, sched, mnext, mprev, routes,
     g = k6.geometry(plan, rand.device)
     states = initial_states(plan, comm, rand.shape[0], rand.device)
     q2s, evs, waves = [], [], []
+    gA = None
     for t in range(plan.T):
+        ahead = (rand[:, t + 1], sched[t + 1]) if t + 1 < plan.T else ()
         outs = plain_shard_step(plan, g, comm, states, t, action2d,
                                 rand[:, t], sched[t], mnext[t], mprev[t],
-                                routes)
+                                routes, gA, *ahead)
         states = [(o.carry, o.sg_ms, o.ss_ms) for o in outs]
+        gA = outs[0].gA_next
         if tangents:
             q2 = [fwad.unpack_dual(o.q2).tangent for o in outs]
             q2 = [torch.zeros_like(fwad.unpack_dual(o.q2).primal)
@@ -982,7 +1016,10 @@ class ShardRun:
     ``lib`` is the kernels' library: the card's build for CUDA tensors
     (default), or the host build of the same source for CPU tensors (the
     tests). Each launch counts in :data:`launches`. The step is
-    :data:`STEP`, one entry per body."""
+    :data:`STEP`, one entry per body: step 0 launches A, B, C, D3 and E,
+    a later step :data:`EVERY_STEP` on the A rows that D3 of the step
+    before wrote and gathered, which the run holds between the steps
+    (:meth:`begin`)."""
 
     def __init__(self, plan, comm: LaneComm, inputs, dual: bool, lib=None):
         action2d, rand, sched, mnext, mprev, routes = inputs
@@ -1046,6 +1083,9 @@ class ShardRun:
                     setattr(args, name, x.data_ptr())
             self.shards.append((s, p_n, bufs, args))
         self.g = {}  # this step's gathered rows (and Q's weights)
+        # the next step's A rows, gathered with D3's static terms, and the
+        # step they are for
+        self.g_next, self.t_next = {}, None
 
     def launch(self, body: str, t: int, which=None, repeat: int = 1):
         """Launch ``body``'s kernel (one of :data:`KERNELS`) for step t on
@@ -1065,37 +1105,60 @@ class ShardRun:
             _launch.raise_on(err, f"itscp_spatial_shard {body}")
             launches[f"{body}_bwd" if self.dual else body] += repeat
 
-    def gather(self, names, kind="all_gather"):
+    def gather(self, names, kind="all_gather", ahead=()):
         """Gather the local rows ``names`` (with their tangent rows in the
-        derivative) into this step's gathered rows: ``sumA_v`` -> ``gA_v``,
-        ``sg`` -> ``gsg``, ``q_v`` -> ``gq``."""
-        full = []
+        derivative) in one collective into this step's gathered rows:
+        ``sumA_v`` -> ``gA_v``, ``sg`` -> ``gsg``, ``q_v`` -> ``gq``; those
+        of ``ahead`` (A's rows that D3 wrote) into the next step's,
+        :attr:`g_next`."""
+        full, into = [], []
         for name in names:
-            full.append(name)
+            dest = self.g_next if name in ahead else self.g
             tan = name[:-2] + "_d" if name.endswith("_v") else None
-            if self.dual and tan is not None:
-                full.append(tan)
+            for x in (name, tan) if self.dual and tan else (name,):
+                full.append(x)
+                into.append(dest)
         parts = [[bufs[x] for x in full] for _, _, bufs, _ in self.shards]
         out = self.comm.gather(parts, kind)
-        for x, y in zip(full, out):
-            self.g[GATHERED_AS.get(x, "g" + x)] = y.contiguous()
+        for x, y, dest in zip(full, out, into):
+            dest[GATHERED_AS.get(x, "g" + x)] = y.contiguous()
 
-    def gathers_after(self, body: str) -> tuple:
-        """The local rows gathered after ``body`` in this run (B's signal
-        terms only where :func:`gathers_sg`)."""
-        if body == "B" and not self.sg_gathered:
-            return ()
-        return STEP[body].gather
+    def begin(self, t: int) -> tuple:
+        """Start step t: its gathered rows are the A rows that D3 of step t
+        - 1 wrote and gathered, where the run holds them. Returns the
+        bodies step t launches: :data:`EVERY_STEP`, after A where the run
+        holds no A rows of step t (step 0, or a step not after the last
+        one run)."""
+        held = self.t_next == t
+        self.g = self.g_next if held else {}
+        self.drop_ahead()
+        return EVERY_STEP if held else BODIES
+
+    def drop_ahead(self):
+        """Forget the A rows held for the next step: after an edit of the
+        carry between two steps, the next step launches A on the carry as
+        it stands."""
+        self.g_next, self.t_next = {}, None
+
+    def after(self, body: str, t: int):
+        """The gather after ``body``'s launch of step t: :data:`STEP`'s
+        (B's signal terms only where :func:`gathers_sg`) and, after D3
+        before the last step, the next step's A rows in the same
+        collective."""
+        spec = STEP[body]
+        names = () if body == "B" and not self.sg_gathered else spec.gather
+        ahead = spec.ahead if t + 1 < self.plan.T else ()
+        if names or ahead:
+            self.gather(names + ahead, spec.kind, ahead)
+        if ahead:
+            self.t_next = t + 1
 
     def step(self, t: int):
-        """Step t: the five launches on every local shard and the gathers
-        between them (two gathers and two sums in soft modes)."""
-        self.g = {}
-        for body, spec in STEP.items():
+        """Step t: its launches on every local shard and the gathers
+        between them (:meth:`begin`, :meth:`after`)."""
+        for body in self.begin(t):
             self.launch(body, t)
-            names = self.gathers_after(body)
-            if names:
-                self.gather(names, spec.kind)
+            self.after(body, t)
 
     def run(self):
         for t in range(self.plan.T):
@@ -1129,10 +1192,13 @@ class ShardRun:
                           for j, (x, d) in enumerate(zip(carry, tans)))
             action, seeds, rand = dual_rows(plan, a2, rand)
             a2 = fwad.make_dual(action, seeds)
+        nxt = t + 1 < plan.T
         return ShardView(self, b, self.g, plan, self.geom,
                          local_geometry(self.geom, s), t, i, carry, sg, ss,
                          a2, rand[:, t, c], sched[t, c], mnext[t, c],
-                         mprev[t, c], routes)
+                         mprev[t, c], routes,
+                         rand[:, t + 1, c] if nxt else None,
+                         sched[t + 1, c] if nxt else None)
 
     def plain(self, body: str, i: int, t: int, state=None) -> dict:
         """``body``'s plain version on shard i's inputs of step t (see
@@ -1169,22 +1235,19 @@ class ShardRun:
             carry, sg, ss = self.carry(i)
             return tuple(x.clone() for x in carry), sg.clone(), ss.clone()
 
-        self.g = {}
-        for body, spec in STEP.items():
+        for body in self.begin(t):
             before = [snap(i) for i in range(len(self.shards))]
             self.launch(body, t)
             for i in range(len(self.shards)):
                 ref = self.plain(body, i, t, before[i])
-                got = spec.written(self.view(i, t))
+                got = STEP[body].written(self.view(i, t))
                 for name, r in ref.items():
                     if name == "carry":
                         for cn, a, b in zip(k6.CNAMES, r, got[name]):
                             same(body, cn, a, b)
                     else:
                         same(body, name, r, got[name])
-            names = self.gathers_after(body)
-            if names:
-                self.gather(names, spec.kind)
+            self.after(body, t)
             if edit is not None:
                 edit(self, body)
         return errs
@@ -1229,8 +1292,7 @@ class ShardRun:
                 raise AssertionError(f"step {t}, body {body}: {name} "
                                      f"tangents differ from its plain body")
 
-        self.g = {}
-        for body, spec in STEP.items():
+        for body in self.begin(t):
             if body in bodies:
                 with torch.no_grad(), fwad.dual_level():
                     refs = [{k: tuple(parts(x) for x in v) if k == "carry"
@@ -1249,9 +1311,7 @@ class ShardRun:
                             same(body, name, r, got[name])
             else:
                 self.launch(body, t)
-            names = self.gathers_after(body)
-            if names:
-                self.gather(names, spec.kind)
+            self.after(body, t)
             if edit is not None:
                 edit(self, body)
         return errs
@@ -1272,8 +1332,10 @@ class ShardRun:
                         sumF=(b["sumF_v"], b["sumF_d"]),
                         sumI=(b["sumI"], None))
         if body == "D3":
+            ahead = ({"sumA": (b["sumA_v"], b["sumA_d"])}
+                     if t + 1 < self.plan.T else {})
             return dict(carry=carry, ss=(b["ss"], None),
-                        ssn=(b["ssn"], None))
+                        ssn=(b["ssn"], None), **ahead)
         return dict(carry=carry, ss_ms=(ss_ms, None),
                     q2=(b["q_v"][:, t], b["q_d"][:, t]))
 
@@ -1323,6 +1385,9 @@ class ShardView(NamedTuple):
     mnext_t: torch.Tensor
     mprev_t: torch.Tensor
     routes: torch.Tensor
+    # step t + 1's draws and schedule (None at the last step)
+    rand_n: torch.Tensor
+    sched_n: torch.Tensor
 
     def dual(self, rows: dict, name: str):
         """``rows[name]``, with its tangents ``rows[name[:-2] + "_d"]`` as a
@@ -1339,13 +1404,16 @@ class ShardView(NamedTuple):
 
 class BodySpec(NamedTuple):
     """One body of the step: its plain version on a :class:`ShardView`
-    (``{output: tensor}``), where its kernel wrote the same outputs, and the
-    local rows gathered after it over the lane axis, by kind."""
+    (``{output: tensor}``), where its kernel wrote the same outputs, the
+    local rows gathered after it over the lane axis, by kind, and those it
+    wrote for the next step, gathered in the same call before the last
+    step."""
 
     plain: object
     written: object
     gather: tuple
     kind: str = "all_gather"
+    ahead: tuple = ()
 
 
 def _plain_C(v: ShardView):
@@ -1361,7 +1429,19 @@ def _plain_C(v: ShardView):
 def _plain_D3(v: ShardView):
     o = plain_body_D(v.plan, v.g, v.lg, v.carry, v.dual(v.G, "gF_v"),
                      v.G["gI"])
-    return dict(carry=o.carry, ss=o.ss, ssn=o.ssn, events=o.ev[:, :2])
+    out = dict(carry=o.carry, ss=o.ss, ssn=o.ssn, events=o.ev[:, :2])
+    if v.rand_n is not None:  # the next step's A rows, from D3's carry
+        out["sumA"] = plain_body_A(v.plan, v.lg, o.carry, v.rand_n,
+                                   v.sched_n)
+    return out
+
+
+def _written_D3(v: ShardView):
+    out = dict(carry=v.now()[0], ss=v.b["ss"], ssn=v.b["ssn"],
+               events=v.b["events"][:, v.t, 1:])
+    if v.rand_n is not None:
+        out["sumA"] = v.b["sumA_v"]
+    return out
 
 
 def _plain_E(v: ShardView):
@@ -1370,7 +1450,8 @@ def _plain_E(v: ShardView):
                 q2=plain_body_E(v.plan, v.lg, v.carry, c_st))
 
 
-# the step, body by body in launch order; ``written`` reads a forward run
+# the step, body by body in launch order (A at step 0 only: D3 writes
+# the later steps' A rows); ``written`` reads a forward run
 STEP = {
     "A": BodySpec(
         lambda v: dict(sumA=plain_body_A(v.plan, v.lg, v.carry, v.rand_t,
@@ -1387,11 +1468,8 @@ STEP = {
         lambda v: dict(carry=v.now()[0], sg_ms=v.now()[1],
                        sumF=v.b["sumF_v"], sumI=v.b["sumI"],
                        wave=v.b["waves"][:, v.t]), ("sumF_v", "sumI")),
-    "D3": BodySpec(
-        _plain_D3,
-        lambda v: dict(carry=v.now()[0], ss=v.b["ss"], ssn=v.b["ssn"],
-                       events=v.b["events"][:, v.t, 1:]), ("ss", "ssn"),
-        "psum"),
+    "D3": BodySpec(_plain_D3, _written_D3, ("ss", "ssn"), "psum",
+                   ("sumA_v",)),
     "E": BodySpec(
         _plain_E,
         lambda v: dict(carry=v.now()[0], ss_ms=v.now()[2],
@@ -1429,8 +1507,8 @@ def shard_episode_fwd(plan, comm, action2d, rand, sched, mnext, mprev,
     """``(queues[B, T], events[B, T, 3], max_wave[B, T])`` of B episodes
     from the empty state over this process's shards (every rank the whole
     result). CPU tensors run :func:`plain_sharded_episode`; CUDA tensors
-    launch the five forward kernels once per step each, counted in
-    :data:`launches`, or raise."""
+    launch the forward kernels (A once, B, C, D3 and E once per step),
+    counted in :data:`launches`, or raise."""
     inputs = (action2d, rand, sched, mnext, mprev, routes)
     dev = _check(plan, comm, inputs, False)
     if _launch.device_of(rand).type == "cpu":
@@ -1444,8 +1522,8 @@ def shard_episode_bwd(plan, comm, q_weight, action2d, rand, sched, mnext,
     """``grad[n_phases, n_inter] = sum_{b,t} q_weight[b, t] *
     d(queues[b, t]) / d(action2d)`` of the soft episodes, on every rank.
     CPU tensors run :func:`plain_sharded_episode_bwd`; CUDA tensors launch
-    the ``Dual`` kernels of A, B, C, D3, E (one block per episode and
-    action entry) once per step each."""
+    the ``Dual`` kernels (one block per episode and action entry) of A
+    once and of B, C, D3 and E once per step."""
     inputs = (action2d, rand, sched, mnext, mprev, routes)
     dev = _check(plan, comm, inputs, True)
     _launch.check("q_weight", q_weight, (rand.shape[0], plan.T),

@@ -12,7 +12,9 @@ its lane's queue and the store in E; on the path of one lane's thread its
 set-up, its signals, the injection and ghosts, the head's blend, the
 leader walk, the rows out and the injection count (with any wait for the
 other lanes) in B, and its set-up, its share of the want table, its wait
-at the table's barrier, its arbitration, ``convert``, ``static_partials``
+at the table's barrier, its arbitration, ``convert``, ``static_partials``,
+the next step's A rows (``next_A``: their loads and arithmetic, which the
+unstamped build issues ahead of ``static_partials``', and their stores)
 and the emit and absorb counts in D3; the whole launch; each lane its own
 update's cycles in C, its whole path before the count in B and D3) and
 runs the 3x3 hybrid preset
@@ -56,7 +58,8 @@ PARTS = ("C_fold", "C_wait", "C_lane", "C_rows", "C_end_wait", "C_wave",
          "C_total", "E_fold", "E_wait", "E_queue", "E_store", "E_total",
          "B_setup", "B_signals", "B_ghosts", "B_blend", "B_walk", "B_rows",
          "B_count", "B_total", "D3_setup", "D3_table", "D3_wait",
-         "D3_arbitrate", "D3_convert", "D3_static", "D3_count", "D3_total")
+         "D3_arbitrate", "D3_convert", "D3_static", "D3_next_A", "D3_count",
+         "D3_total")
 LAUNCHED = ("C", "E", "B", "D3")
 BODIES = ("B", "C", "D3", "E")
 SHARDS, WARM = 4, 100
@@ -96,18 +99,20 @@ def read_lane_cycles(lib, n: int, reset: bool = False) -> list[int]:
 
 def quiet_step(run: ks.ShardRun, t0: int) -> int:
     """Step a ShardRun of one process (all shards local) from t0 to the
-    first step without an injection, a conversion want or an arbitrated
-    insert or deposit (:func:`ks.plain_arbitration` of the step's gathered
-    rows), and return it: every body can be relaunched there on that
-    step's inputs without growing a lane's vehicles."""
-    for t in range(t0, run.plan.T):
+    first step before the last without an injection (the step's gathered A
+    rows, read before the step: D3 rewrites A's buffer), a conversion want
+    or an arbitrated insert or deposit (:func:`ks.plain_arbitration` of the
+    step's gathered rows), and return it: every body can be relaunched
+    there on that step's inputs without growing a lane's vehicles, D3
+    writing the next step's A rows as it does on the main path."""
+    for t in range(t0, run.plan.T - 1):
+        held = run.g_next.get("gA_v") if run.t_next == t else None
+        injects = held is None or float(held[:, 8].sum()) != 0.0
         run.step(t)
         pred, verdicts = ks.plain_arbitration(run.plan, run.geom,
                                               run.g["gF_v"], run.g["gI"])
-        if (int(pred.abs().sum()) == 0 and
-                bool((verdicts == run.plan.L).all()) and
-                all(float(b["sumA_v"][:, 8].sum()) == 0.0
-                    for _, _, b, _ in run.shards)):
+        if (not injects and int(pred.abs().sum()) == 0 and
+                bool((verdicts == run.plan.L).all())):
             return t
     raise RuntimeError("no quiet step to time the bodies at")
 

@@ -122,11 +122,15 @@ def comm_of(L, shards):
     return ks.LaneComm(L, [ks.Shard(off, n) for off, n in shards])
 
 
-def shard_run(lib, scene, shards, soft, b, dual=False, steps=None):
+def shard_run(lib, scene, shards, soft, b, dual=False, steps=None,
+              own_inputs=False):
     """A ShardRun of ``scene`` at its first step: each shard's packed carry
     the plain state's (a derivative's B * n_act rows each their episode's,
-    tangents 0). Returns the run and its first step."""
+    tangents 0); ``own_inputs``: over copies of the cached inputs, which a
+    test may then edit. Returns the run and its first step."""
     plan, inputs, t0, state = case(scene, soft, b, steps)
+    if own_inputs:
+        inputs = tuple(x.clone() for x in inputs)
     run = ks.ShardRun(plan, comm_of(plan.L, shards), inputs, dual=dual,
                       lib=lib)
     if state is not None:
@@ -226,7 +230,8 @@ def test_stamped_b_d3_equal_unstamped(libs, kind, S):
         parts = rec["cycles_per_launch"]
         assert rec["launches_stamped"] == 2 and rec["clock_lane"] == lane
         path = [v for k, v in parts.items() if k != f"{body}_total"]
-        assert len(path) == 7  # B's parts; D3's with its table's three
+        # B's parts; D3's with its table's three and the next step's A rows
+        assert len(path) == (7 if body == "B" else 8)
         assert min(path) >= 0 and 0 < sum(path) <= parts[f"{body}_total"]
         lanes = rec[f"{body}_lane_cycles_per_launch"]
         assert sum(v["lanes"] for v in lanes.values()) == q.shard.n

@@ -1,14 +1,21 @@
-"""The lane-sharded step's conversion as one body, on the CPU:
-``plain_body_D`` (JAX's D1, D2 and D3 from the rows gathered after C alone,
-the plain version of the D3 launch) inside ``plain_shard_step`` against
-the seven-body composition it replaces, :func:`seven_body_step` (D1, a
-gather of the wants, D2, a gather of the arbitration, D3: JAX's
-``step_sharded``; ``tests/test_torch_spatial_shard.py`` holds the three
-bodies and ``plain_body_D`` against JAX's bodies).
+"""The lane-sharded step's conversion as one body, and the next step's A
+rows written by it, on the CPU: ``plain_body_D`` (JAX's D1, D2 and D3 from
+the rows gathered after C alone, the plain version of the D3 launch)
+inside ``plain_shard_step`` on the kernels' schedule (the step's A rows
+as the step before gathered them with its static terms) against the
+seven-body composition it replaces, :func:`seven_body_step` (A and its
+gather, D1, a gather of the wants, D2, a gather of the arbitration, D3:
+JAX's ``step_sharded``; ``tests/test_torch_spatial_shard.py`` holds the
+three bodies and ``plain_body_D`` against JAX's bodies), and against the
+step with A launched at every step, :func:`a_every_step` (the schedule
+before D3 wrote the next step's A rows).
 
-* Both steps from the same state, step after step, S = 2 and 4 local
-  shards (no process group), hard and soft, B = 1 and 4: carries, running
-  means, squared queues, events and wave maxima bit-equal. Over the steps
+* The three steps from the same state, step after step through the
+  scene's last step, S = 2 and 4 local shards (no process group), hard
+  and soft, B = 1 and 4: carries, running means, squared queues, events
+  and wave maxima bit-equal, and the A rows each step starts from equal
+  to those A gathers at the step (their injection row > 0 at some step
+  of a scene that injects; none after the last step). Over the steps
   where the conversion works: the micro scene's steps 0-39 (injections,
   then transfers and exits), the hybrid scene's 116-159 from the plain
   state at 116 (emissions; in soft mode deposits), and steps 140-172 of
@@ -16,9 +23,11 @@ bodies and ``plain_body_D`` against JAX's bodies).
   emissions, transfers, deposits) from its plain state at 140
   (``tests/test_torch_shard_conversion_preset.py``). Each kind of event
   the scene has is asserted to happen (> 0).
-* The step's collectives: ``plain_shard_step`` gathers twice (``gA``;
-  ``gF`` with ``gI``) and sums twice (the running means' terms; once in
-  hard mode on a split lane axis), the seven-body step gathers four times.
+* The step's collectives: ``plain_shard_step`` gathers once (``gF``
+  with ``gI``) and sums twice (the running means' terms, the next step's
+  A rows with the static terms; once in hard mode on a split lane axis),
+  plus A's gather at the first step; :func:`a_every_step` gathers twice,
+  the seven-body step four times.
 * ``plain_arbitration`` equals the seven-body step's gathered wants and
   verdicts at every lane.
 
@@ -71,6 +80,37 @@ class CountingComm(ks.LaneComm):
     def gather(self, parts, kind="all_gather"):
         self.calls[kind] += 1
         return super().gather(parts, kind)
+
+
+def a_every_step(plan, g, comm, states, t, action2d, rand_t, sched_t,
+                 mnext_t, mprev_t, routes):
+    """The step with A launched and gathered at every step: the five
+    bodies (A, B, C, ``plain_body_D``, E), two gathers and two sums (one
+    in hard mode on a split lane axis). Returns ``plain_shard_step``'s
+    outputs and the step's gathered A rows."""
+    lgs = [ks.local_geometry(g, s) for s in comm.shards]
+    cols = [s.cols for s in comm.shards]
+    sumA = [ks.plain_body_A(plan, lg, st[0], rand_t[:, c], sched_t[c])
+            for lg, st, c in zip(lgs, states, cols)]
+    (gA,) = comm.gather([[x] for x in sumA])
+    outB = [ks.plain_body_B(plan, g, lg, st[0], gA, action2d, t, mnext_t[c],
+                            mprev_t[c], sched_t[c], routes)
+            for lg, st, c in zip(lgs, states, cols)]
+    sg_ms, c_sig = states[0][1], None
+    if ks.gathers_sg(plan, comm):
+        (gsg,) = comm.gather([[o.sg] for o in outB], "psum")
+        sg_ms, c_sig = ks.fold_sg(plan, sg_ms, gsg)
+    outC = [ks.plain_body_C(plan, g, lg, o.carry, o.bc, c_sig, mnext_t[c],
+                            routes) for lg, o, c in zip(lgs, outB, cols)]
+    gF, gI = comm.gather([[o.sumF, o.sumI] for o in outC])
+    outD3 = [ks.plain_body_D(plan, g, lg, o.carry, gF, gI)
+             for lg, o in zip(lgs, outC)]
+    gss, gssn = comm.gather([[o.ss, o.ssn] for o in outD3], "psum")
+    ss_ms, c_st = ks.fold_ss(plan, states[0][2], gss, gssn)
+    return [ks.ShardOut(d3.carry, sg_ms, ss_ms,
+                        ks.plain_body_E(plan, lg, d3.carry, c_st), b.n_inj,
+                        d3.ev, c.wave, c.floor_hits)
+            for lg, b, c, d3 in zip(lgs, outB, outC, outD3)], gA
 
 
 def seven_body_step(plan, g, comm, states, t, action2d, rand_t, sched_t,
@@ -149,25 +189,34 @@ def local_states(state, comm):
 
 
 def check_lockstep(name, S, mode, B):
-    """Both steps from the same state over the scene's steps; raises on a
-    difference or a missing event."""
+    """The three steps from the same state over the scene's steps; raises
+    on a difference or a missing event."""
     plan, inputs, t0, state = scene(name, mode == "soft", B)
     action, rand, sched, mnext, mprev, routes = inputs
     g = k6.geometry(plan, "cpu")
     shards = ks.shards_of(plan.L, S)
-    fused, seven = CountingComm(plan.L, shards), CountingComm(plan.L, shards)
+    fused, every, seven = (CountingComm(plan.L, shards) for _ in range(3))
     states = local_states(state, fused)
     seen = dict.fromkeys(EVENTS, 0)
+    gA, inject_rows = None, 0.0
     with torch.no_grad():
         for t in range(t0, plan.T):
             args = (t, action, rand[:, t], sched[t], mnext[t], mprev[t],
                     routes)
-            got = ks.plain_shard_step(plan, g, fused, states, *args)
+            ahead = (rand[:, t + 1], sched[t + 1]) if t + 1 < plan.T else ()
+            got = ks.plain_shard_step(plan, g, fused, states, *args, gA,
+                                      *ahead)
+            ref_a, gA_every = a_every_step(plan, g, every, states, *args)
             ref, (pred, gV, gF, gI), deposits = seven_body_step(
                 plan, g, seven, states, *args)
-            for a, r in zip(got, ref):
-                for x, y in zip(a.carry + a[1:], r.carry + r[1:]):
-                    assert torch.equal(x, y), t
+            # the A rows the step started from (step t0: gathered in it)
+            if gA is not None:
+                assert torch.equal(gA, gA_every), t
+                inject_rows += float(gA[:, 8].sum())
+            for a, r, e in zip(got, ref, ref_a):
+                for x, y, z in zip(a.carry + a[1:8], r.carry + r[1:8],
+                                   e.carry + e[1:8]):
+                    assert torch.equal(x, y) and torch.equal(x, z), t
             # the whole scene's wants and verdicts as the seven bodies
             # gathered them
             p_all, v_all = ks.plain_arbitration(plan, g, gF, gI)
@@ -178,10 +227,15 @@ def check_lockstep(name, S, mode, B):
                                      int(ev[2]), deposits]):
                 seen[k] += v
             states = [(o.carry, o.sg_ms, o.ss_ms) for o in got]
+            gA = got[0].gA_next
+    assert gA is None  # the last step gathers no A rows
     steps = plan.T - t0
     sums = steps * (2 if mode == "soft" else 1)
-    assert fused.calls == {"all_gather": 2 * steps, "psum": sums}
+    assert fused.calls == {"all_gather": steps + 1, "psum": sums}
+    assert every.calls == {"all_gather": 2 * steps, "psum": sums}
     assert seven.calls == {"all_gather": 4 * steps, "psum": sums}
+    if "injected" in SCENES[name][3]:
+        assert inject_rows > 0
     must = SCENES[name][3]
     if name == "hybrid" and mode == "hard":  # no deposit in its window
         must = ("emitted", "transferred")

@@ -215,8 +215,8 @@ def test_folds_on_hard_terms(libs, kind, how):
     rng = np.random.default_rng(3)
     terms = lambda: torch.as_tensor(np.stack(
         [FOLD_CASES[kind](rng, plan.L) for _ in range(B)]))
-    run.g = {}
-    for body, spec in ks.STEP.items():
+    for body in run.begin(t):
+        spec = ks.STEP[body]
         if body in ("C", "E"):
             before = [(tuple(x.clone() for x in c), sg.clone(), ss.clone())
                       for c, sg, ss in map(run.carry,
@@ -233,9 +233,7 @@ def test_folds_on_hard_terms(libs, kind, how):
                         assert same(a, b), (body, name)
         else:
             run.launch(body, t)
-        names = run.gathers_after(body)
-        if names:
-            run.gather(names, spec.kind)
+        run.after(body, t)
         if body == "B":
             run.g["gsg"][:, 0] = terms().to(torch.float32)
         elif body == "D3":

@@ -184,10 +184,13 @@ def test_sharded_episode_gradient_and_train_step_across_ranks(S):
         assert torch.equal(o["soft"][0], soft_ref[0][0].detach()), r
         assert torch.equal(o["soft"][1], soft_ref[1][0]), r
         assert torch.equal(o["soft"][2], soft_ref[2][0].amax()), r
-        assert o["counts"] == {"all_gather": 2 * T, "psum": 2 * T + 2,
+        # per step the post-physics rows' gather and the two sums (the
+        # next step's A rows ride in the static terms' gather), and A's
+        # gather once, at step 0: 3T + 1 calls between the bodies
+        assert o["counts"] == {"all_gather": T + 1, "psum": 2 * T + 2,
                                "pmax": 1}, o["counts"]
-        # hard mode skips the signal mean's sum (JAX: ``if diff``)
-        assert o["hard_counts"] == {"all_gather": 2 * T, "psum": T + 2,
+        # hard mode skips the signal mean's sum (JAX: ``if diff``): 2T + 1
+        assert o["hard_counts"] == {"all_gather": T + 1, "psum": T + 2,
                                     "pmax": 1}, o["hard_counts"]
         assert torch.equal(o["grad"], grad_ref), r
         assert o["loss"] == outs[0]["loss"]

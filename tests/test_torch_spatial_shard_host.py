@@ -104,12 +104,14 @@ def test_forward_launches_match_plain_bodies(libs, cfg, S, every,
     assert torch.equal(waves, ref[2])
     tot = events.sum((0, 1))
     assert int(tot[0] if cfg is MICRO_CFG else tot[1]) > 0
-    # every launch of the forward counted, checked steps or not: five a
-    # step and shard (D3's the conversion: no D1 or D2 launch)
+    # every launch of the forward counted, checked steps or not: four a
+    # step and shard (D3's the conversion and the next step's A rows: no
+    # D1 or D2 launch) and A once an episode and shard (step 0)
     assert 0 < checked <= plan.T
     launched = {k: ks.launches[k] - before[k] for k in before}
-    for body in ("A", "B", "C", "D3", "E"):
+    for body in ("B", "C", "D3", "E"):
         assert launched[body] == S * plan.T
+    assert launched["A"] == S
     assert "D1" not in launched and "D2" not in launched
     assert launched["Q"] == 1  # the queues, once per episode
 

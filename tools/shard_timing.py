@@ -28,7 +28,12 @@ launch of each body of shard 0 that the tree launches
 (``shard_clock.timed_ms``: 50 launches back to back between CUDA events,
 the state restored before each, median of ``--repeats``), and sums each
 tree's conversion (``conversion``: D1, D2 and D3 where the tree launches
-them apart, D3 where D3's launch does all three). Then ``step_wall``: S = 4
+them apart, D3 where D3's launch does all three), its conversion with A
+where the tree launches A at every step (``a_conversion``: the parent's A
+and D3 against this checkout's D3, which writes the next step's A rows)
+and all its launches of a step after the first (``step_launches``: the
+bodies of the module's ``EVERY_STEP``, every body where it has none).
+Then ``step_wall``: S = 4
 gloo ranks that share the card run each tree's unchecked forward steps 0 to
 ``--steps`` - 1 of the preset (B = 1, hard and soft, ``chip_smoke.py``'s
 ``shard_vs_plain`` draws), in the same order of visits, and report the
@@ -50,7 +55,10 @@ trees compute the same bits.
 ``csrc/*.cu`` of both trees and the kernels whose digests differ (see
 ``tools/k3_timing.py``), and the same with every kernel-parameter offset
 (``c[0x0][...]``) blanked: a kernel that differs only there reads the
-same fields of an argument struct that lost or gained others.
+same fields of an argument struct that lost or gained others; and the
+registers a thread of each kernel of both trees'
+``itscp_spatial_shard.cu`` takes (``cuobjdump -res-usage``: the count
+``cudaFuncGetAttributes`` reports).
 """
 
 from __future__ import annotations
@@ -99,6 +107,36 @@ def libraries(parent: Path) -> dict:
     return {"parent": (mod, mod.bind(ctypes.CDLL(str(build_tree(
                 parent, "itscp_spatial_shard"))))),
             "this": (ks, ks._library())}
+
+
+def registers(tree: Path) -> dict:
+    """``{kernel: registers a thread}`` of TREE's
+    ``itscp_spatial_shard.cu`` (``cuobjdump -res-usage``; the kernel's
+    mangled name without its anonymous namespace's tag)."""
+    import re
+    import subprocess
+
+    from k3_timing import build_tree
+
+    from dhts_torch.ops.cuda import _build
+
+    cuobjdump = Path(_build.find_nvcc()).with_name("cuobjdump")
+    text = subprocess.run([str(cuobjdump), "-res-usage",
+                           str(build_tree(tree, "itscp_spatial_shard"))],
+                          capture_output=True, text=True, check=True,
+                          timeout=300).stdout
+    out, name = {}, None
+    for line in text.splitlines():
+        m = re.search(r"Function (\S+):", line)
+        if m:
+            name = re.sub(r"_GLOBAL__N__\w+?_cu_[0-9a-f]{8}", "(anon)",
+                          m.group(1))
+            continue
+        m = re.search(r"REG:(\d+)", line)
+        if name and m:
+            out[name] = int(m.group(1))
+            name = None
+    return out
 
 
 def one_thread_library():
@@ -245,7 +283,8 @@ def launch_pairs(quiet, libs, n_pairs: int, repeats: int,
                 shard_clock.timed_ms(q, lib, body, 5, 1)
 
     def visit(arm):
-        lib = libs[arm][1]
+        mod, lib = libs[arm]
+        every = getattr(mod, "EVERY_STEP", mod.BODIES)
         out = {}
         for (kind, S, B), q in quiet[arm].items():
             case = f"{kind}_S{S}_B{B}"
@@ -256,6 +295,11 @@ def launch_pairs(quiet, libs, n_pairs: int, repeats: int,
                 out[f"conversion_{case}"] = sum(
                     out[f"{b}_{case}"] for b in CONVERSION
                     if f"{b}_{case}" in out)
+                out[f"a_conversion_{case}"] = sum(
+                    out[f"{b}_{case}"] for b in ("A",) + CONVERSION
+                    if b in every and f"{b}_{case}" in out)
+                out[f"step_launches_{case}"] = sum(
+                    out[f"{b}_{case}"] for b in every)
         return out
 
     return pair_up(visit, list(libs), n_pairs)
@@ -333,7 +377,9 @@ def main(argv=None) -> int:
 
         print(json.dumps({"tree": str(ROOT), "parent": str(tree),
                           **sass(tree), "unequal_params_blanked": sass(
-                              tree, params=False)["unequal"]}), flush=True)
+                              tree, params=False)["unequal"],
+                          "registers": registers(ROOT),
+                          "parent_registers": registers(tree)}), flush=True)
         return 0
     import torch
 
