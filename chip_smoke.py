@@ -225,6 +225,38 @@ sharded step) adds, where they run:
   and each launch's bound; the ``kernels`` line gains K1's rows at B = 4
   (``packed_train``'s launches).
 
+Slice 17 (K1 on grids wider than one block: ``run_itscp_5x5.sh``'s flags
+on the 5x5, 7x7 and 9x9 grids, 400, 784 and 1,296 lanes) adds:
+
+* in ``plain_submit``: the grids at policy_length 5 (T = 150: every
+  grid emits vehicles; at T = 60 none has an event yet) and at the
+  script's T = 600, and 22 plain episodes for the gloo ranks;
+* after ``k1_batch_vs_plain``, ``k1_wide_vs_plain``: on each grid K1's
+  forward (hard and soft; ``st`` at 5x5 and 9x9) against the plain
+  version (events equal, reward rel 1e-5, queues abs 1e-4, vehicles
+  emitted) and its backward (soft; ``st`` at 5x5 and 9x9) against
+  autograd of the plain version (cosine > 0.999, allclose(rtol 2e-2,
+  atol 2e-3 * max|g|), finite, nonzero), at T = 150, and at T = 600 on
+  the timing's inputs the launches the main path makes there (on every
+  grid the hard and soft forward and the backward), with the same
+  standards; in the layout ``make_plan`` picks (5x5: forward in shared
+  memory, backward global; 7x7 global; 9x9 global, two lanes a thread);
+  at 5x5 one launch of four episodes, hard, soft and the backward,
+  bit-equal to four single launches;
+* ``train_5x5``: ``python -m dhts_torch.apps.control.itscp.run`` with the
+  script's flags (T = 600), two Adam steps (``--n_episode 1``) with an
+  evaluation each: K1's launches, counted from 0 here, one soft forward
+  and one backward a step and one hard forward an evaluation, and no call
+  of the plain version;
+* ``serve_train_wide``: at 7x7 and 9x9 (T = 600) a seeded controller's
+  hard episode and one Trainer step, one launch each, counted from 0;
+* ``k1_wide_timing``: K1's hard, soft and backward ms per launch on each
+  grid at T = 600 (CUDA events around 3 launches back to back, median of
+  5), the bounds and the layouts; the ``kernels`` line gains a row for
+  each grid and launch, its launches from ``train_5x5`` and
+  ``serve_train_wide``, its error and plain ms from ``k1_wide_vs_plain``
+  at T = 600 on the same inputs.
+
 then the card's name and power limit, and as the last line
 ``{"ok": true, "device": {...}}``. Any failure exits non-zero without that
 line; a watchdog ends a run that hangs. Needs one CUDA device.
@@ -2111,14 +2143,20 @@ def _plain_rank(rank, S, jobs, first):
                                   job["w"].to(dev))
             continue
         mode = job["gate_mode"]
-        if mode not in _rank_envs:
-            cfg = dict(PRESET, random_seed=3)
-            if mode is not None:
-                cfg["gate_mode"] = mode
-            _rank_envs[mode] = ItscpEnv(config=cfg, device=dev,
-                                        schedule_fn=problem.problem_1)
-            _rank_envs[mode].reset()
-        plan = _rank_envs[mode].fused_plan(job["differentiable"])
+        if job.get("grid"):  # slice 17's wide grids, T = 150 or 600
+            key = ("wide", job["grid"], job["policy"])
+            if key not in _rank_envs:
+                _rank_envs[key] = wide_env(job["grid"], job["policy"], dev)
+            plan = wide_plan(_rank_envs[key], mode or "hard")
+        else:
+            if mode not in _rank_envs:
+                cfg = dict(PRESET, random_seed=3)
+                if mode is not None:
+                    cfg["gate_mode"] = mode
+                _rank_envs[mode] = ItscpEnv(config=cfg, device=dev,
+                                            schedule_fn=problem.problem_1)
+                _rank_envs[mode].reset()
+            plan = _rank_envs[mode].fused_plan(job["differentiable"])
         ins = [x.to(dev) for x in job["inputs"]]
         torch.cuda.synchronize()
         t0 = time.perf_counter()
@@ -2454,6 +2492,367 @@ def check_shard9(ranks) -> dict:
     return errors
 
 
+# Slice 17: K1 on the hybrid grids of run_itscp_5x5.sh's flags (lane length
+# 5, 60 m/s, 30 Hz, signal length 4, problem 1), 5x5, 7x7 and 9x9 (400,
+# 784, 1,296 lanes), wider than one block's shared memory or threads.
+WIDE_GRIDS = (5, 7, 9)
+WIDE = dict(num_lane=1, lane_length=5, speed_limit=60, signal_length=4,
+            simulation_frequency=30, mode="hybrid", use_fused_episode=True,
+            random_seed=3)
+# the checks' episodes: policy_length 5, T = 150, where every grid emits
+# vehicles (at T = 60 none has an event yet); the timing's and the
+# training's: the script's T = 600
+WIDE_CHECK_POLICY = 5
+WIDE_POLICY = 20
+# what k1_wide_vs_plain holds against the plain version, by grid
+WIDE_FWD_MODES = {5: ("hard", "soft", "st"), 7: ("hard", "soft"),
+                  9: ("hard", "soft", "st")}
+WIDE_BWD_MODES = {5: ("soft", "st"), 7: ("soft",), 9: ("soft", "st")}
+# the layouts make_plan picks: (lanes a thread, (forward, backward))
+WIDE_LAYOUTS = {5: (1, ("shared", "global")), 7: (1, ("global", "global")),
+                9: (2, ("global", "global"))}
+WIDE_BATCH = 4  # 5x5 episodes of one launch against single launches
+# the main path's own launches, held against the plain version at its T =
+# 600 on the timing's inputs: train_5x5's (5x5: the soft forward and the
+# backward, the evaluations' hard forward) and serve_train_wide's (7x7
+# and 9x9: the hard episode, the Trainer step's soft forward and backward)
+WIDE_MAIN_FWD = ("hard", "soft")
+WIDE_MAIN_BWD = ("soft",)
+WIDE_TIMING_SEED = 5
+
+
+def wide_env(n: int, policy_length: int, dev):
+    """The n x n grid at ``run_itscp_5x5.sh``'s flags, reset (seed 3)."""
+    from dhts_torch.apps.control.itscp import problem
+    from dhts_torch.apps.control.itscp.env import ItscpEnv
+
+    env = ItscpEnv(config=dict(WIDE, num_intersection=n,
+                               policy_length=policy_length),
+                   schedule_fn=problem.problem_1, device=dev)
+    env.reset()
+    return env
+
+
+def wide_plan(env, mode: str):
+    """K1's plan of ``env`` in gate mode ``mode`` (hard, soft or st)."""
+    from dhts_torch.ops.cuda import itscp_hybrid_episode as k1
+
+    p = env.fused_plan(mode != "hard")
+    if mode != "st":
+        return p
+    return k1.make_plan(env.spec, env.meta, dict(env.config, gate_mode="st"),
+                        p.V, p.R, p.P, p.P2, window=p.W, differentiable=True)
+
+
+def wide_inputs(env, seed: int):
+    """K1's inputs of one episode of ``env``: a seeded action in [0.3,
+    0.7] and a seeded draw."""
+    import torch
+
+    gen = torch.Generator(device=env.device)
+    gen.manual_seed(seed)
+    action = torch.as_tensor(np.random.default_rng(seed).uniform(
+        0.3, 0.7, (env.n_phases, env.action_size() // env.n_phases)),
+        dtype=torch.float32, device=env.device)
+    return (action, env.data.schedule, env.data.mroute_next,
+            env.data.mroute_prev, env.draw_rand(gen), env.data.inj_routes,
+            env.base_state.route_pool)
+
+
+def wide_weights(T: int, dev):
+    """The backward's seeded loss weights ``[T]``."""
+    import torch
+
+    return torch.as_tensor(np.random.default_rng(0).uniform(-1.0, 1.0, T),
+                           dtype=torch.float32, device=dev)
+
+
+def wide_plain_jobs(envs, long_envs) -> dict:
+    """The plain episodes ``k1_wide_vs_plain`` holds K1 against, as jobs
+    for the gloo ranks, the longest first: the main path's at T = 600
+    (``long_envs``, the timing's inputs), then T = 150's (``envs``)."""
+    jobs = {}
+    for n in WIDE_GRIDS[::-1]:
+        env = long_envs[n]
+        for mode in WIDE_MAIN_BWD:
+            jobs[f"wide{n}_T600_bwd_{mode}"] = dict(
+                k1_plain_job(mode, True, wide_inputs(env, WIDE_TIMING_SEED),
+                             wide_weights(env.num_timestep, env.device)),
+                grid=n, policy=WIDE_POLICY)
+    for n in WIDE_GRIDS:
+        for mode in WIDE_MAIN_FWD:
+            jobs[f"wide{n}_T600_fwd_{mode}"] = dict(
+                k1_plain_job(mode, mode != "hard",
+                             wide_inputs(long_envs[n], WIDE_TIMING_SEED)),
+                grid=n, policy=WIDE_POLICY)
+    for n in WIDE_GRIDS[::-1]:
+        env = envs[n]
+        for mode in WIDE_BWD_MODES[n]:
+            jobs[f"wide{n}_bwd_{mode}"] = dict(
+                k1_plain_job(mode, True, wide_inputs(env, 4),
+                             wide_weights(env.num_timestep, env.device)),
+                grid=n, policy=WIDE_CHECK_POLICY)
+    for n in WIDE_GRIDS:
+        for mode in WIDE_FWD_MODES[n]:
+            jobs[f"wide{n}_fwd_{mode}"] = dict(
+                k1_plain_job(mode, mode != "hard",
+                             wide_inputs(envs[n], 3)),
+                grid=n, policy=WIDE_CHECK_POLICY)
+    return jobs
+
+
+def check_k1_wide(envs, long_envs, plain) -> dict:
+    """``k1_wide_vs_plain``: on each grid K1's forward against the plain
+    version (events equal, reward rel 1e-5, queues abs 1e-4, vehicles
+    emitted) and its backward against autograd of the plain version
+    (cosine > 0.999, allclose(rtol 2e-2, atol 2e-3 * max|g|), finite,
+    nonzero), in the layout make_plan picked: at T = 150 (``envs``) hard,
+    soft and st; at the main path's T = 600 (``long_envs``, the timing's
+    inputs) its launches, WIDE_MAIN_FWD and WIDE_MAIN_BWD; at 5x5 a launch
+    of WIDE_BATCH episodes, hard, soft and the backward, bit-equal to
+    single launches. The launches are not counted. Returns the largest
+    errors and the plain version's ms by T; raises on a failure."""
+    import torch
+
+    from dhts_torch.ops.cuda import itscp_hybrid_episode as k1
+
+    kfn, kfn_bwd = k1.itscp_hybrid_episode_fwd, k1.itscp_hybrid_episode_bwd
+    counts = (dict(kfn.launches), kfn_bwd.launches)
+    checks, ok = [], True
+    errors = {T: {} for T in (150, 600)}
+    plain_ms = {T: {} for T in (150, 600)}
+
+    def forward(n, env, mode, seed, name):
+        plan = wide_plan(env, mode)
+        kr, kq, ke = (x.cpu() for x in kfn(plan, *wide_inputs(env, seed)))
+        (pr, pq, pe), ms = plain[name]
+        rel = abs(float(kr) - float(pr)) / max(abs(float(pr)), 1e-30)
+        q_err = float((kq - pq).abs().max())
+        key = "fwd" if mode == "hard" else "fwd_soft"
+        err = errors[plan.T].setdefault(n, {})
+        err[key] = max(err.get(key, 0.0), q_err, abs(float(kr) - float(pr)))
+        plain_ms[plan.T].setdefault(n, {}).setdefault(key, ms)
+        tot = pe[:, :7].sum(0).tolist()
+        rec = dict(grid=f"{n}x{n}", gate_mode=mode, L=plan.L, T=plan.T,
+                   lanes_per_thread=plan.lanes_per_thread,
+                   placement=plan.placement[0], events_equal=bool(torch.equal(ke, pe)),
+                   reward_kernel=float(kr), reward_plain=float(pr),
+                   reward_rel_err=rel, queues_max_abs_err=q_err,
+                   emitted=tot[1], transferred=tot[3],
+                   plain_ms=ms, finite=bool(torch.isfinite(kq).all()))
+        checks.append(rec)
+        return (rec["events_equal"] and rel <= 1e-5 and q_err <= 1e-4 and
+                tot[1] >= 1 and rec["finite"] and
+                (plan.lanes_per_thread, plan.placement) == WIDE_LAYOUTS[n])
+
+    def backward(n, env, mode, seed, name):
+        plan = wide_plan(env, mode)
+        w = wide_weights(env.num_timestep, env.device)
+        got = kfn_bwd(plan, w, *wide_inputs(env, seed)).cpu().double()
+        (ref,), ms = plain[name]
+        got, ref = got.flatten(), ref.double().flatten()
+        cos = float(got @ ref / (got.norm() * ref.norm()))
+        abs_err = float((got - ref).abs().max())
+        err = errors[plan.T].setdefault(n, {})
+        err["bwd"] = max(err.get("bwd", 0.0), abs_err)
+        plain_ms[plan.T].setdefault(n, {}).setdefault("bwd", ms)
+        close = bool(torch.allclose(got, ref, rtol=2e-2,
+                                    atol=2e-3 * float(ref.abs().max())))
+        rec = dict(grid=f"{n}x{n}", gate_mode=mode, direction="bwd",
+                   T=plan.T, lanes_per_thread=plan.lanes_per_thread,
+                   placement=plan.placement[1], cos=cos,
+                   max_abs_err=abs_err, max_abs_ref=float(ref.abs().max()),
+                   plain_ms=ms, norm=float(got.norm()),
+                   finite=bool(torch.isfinite(got).all()))
+        checks.append(rec)
+        return cos > 0.999 and close and rec["finite"] and rec["norm"] > 0
+
+    for n in WIDE_GRIDS:
+        for mode in WIDE_FWD_MODES[n]:
+            ok = forward(n, envs[n], mode, 3, f"wide{n}_fwd_{mode}") and ok
+        for mode in WIDE_BWD_MODES[n]:
+            ok = backward(n, envs[n], mode, 4, f"wide{n}_bwd_{mode}") and ok
+        for mode in WIDE_MAIN_FWD:
+            ok = forward(n, long_envs[n], mode, WIDE_TIMING_SEED,
+                         f"wide{n}_T600_fwd_{mode}") and ok
+        for mode in WIDE_MAIN_BWD:
+            ok = backward(n, long_envs[n], mode, WIDE_TIMING_SEED,
+                          f"wide{n}_T600_bwd_{mode}") and ok
+    # a launch of WIDE_BATCH 5x5 episodes against single launches
+    env, B = envs[5], WIDE_BATCH
+    rows = [wide_inputs(env, 10 + e) for e in range(B)]
+    stacked = tuple(torch.stack([r[i] for r in rows]) if i in (0, 4)
+                    else rows[0][i] for i in range(7))
+    wb = torch.as_tensor(np.random.default_rng(1).uniform(
+        -1.0, 1.0, (B, env.num_timestep)), dtype=torch.float32,
+        device=env.device)
+    batch_equal = {}
+    for mode in ("hard", "soft", "bwd"):
+        plan = wide_plan(env, "soft" if mode == "bwd" else mode)
+        if mode == "bwd":
+            batch = (kfn_bwd(plan, wb, *stacked),)
+            singles = [(kfn_bwd(plan, wb[e].contiguous(), *rows[e]),)
+                       for e in range(B)]
+        else:
+            batch = kfn(plan, *stacked)
+            singles = [kfn(plan, *rows[e]) for e in range(B)]
+        batch_equal[mode] = all(torch.equal(x[e], y)
+                                for e in range(B)
+                                for x, y in zip(batch, singles[e]))
+        ok = ok and batch_equal[mode]
+    kfn.launches.update(counts[0])
+    kfn_bwd.launches = counts[1]
+    report(checks=checks, batch_equal_to_single_launches=batch_equal,
+           batch=B, errors_by_T=errors,
+           tolerance=dict(events="exact", reward_rel=1e-5, queues_abs=1e-4,
+                          cos=0.999, rtol=2e-2, atol="2e-3 * max|g_plain|",
+                          batch="bit-equal"),
+           status="ok" if ok else "FAIL")
+    if not ok:
+        raise SystemExit("k1_wide_vs_plain failed")
+    return dict(errors=errors, plain_ms=plain_ms)
+
+
+def run_train_5x5(log_root: str) -> tuple:
+    """``train_5x5``: the training CLI with ``run_itscp_5x5.sh``'s flags,
+    two Adam steps (``--n_episode 1``: the CLI trains one epoch more) with
+    an evaluation each; K1's launches, counted from 0 here, one soft
+    forward and one backward per step and one hard forward per
+    evaluation, and no call of the plain version. Returns the launches.
+    Raises on a failed check."""
+    from dhts_torch.apps.control.itscp import run
+    from dhts_torch.ops.cuda import itscp_hybrid_episode as k1
+
+    argv = ["--mode", "hybrid", "--problem", "1", "--n_trial", "1",
+            "--n_intersection", "5", "--n_lane", "1", "--lane_length", "5",
+            "--speed_limit", "60", "--simulation_length", "20",
+            "--signal_length", "4", "--n_episode", "1", "--lr", "1e-4",
+            "--seed", "21", "--fused_episode", "--log_root", log_root]
+    kfn, kfn_bwd = k1.itscp_hybrid_episode_fwd, k1.itscp_hybrid_episode_bwd
+    plain_calls = {"plain_episode": 0, "plain_episode_bwd": 0}
+    originals = {name: getattr(k1, name) for name in plain_calls}
+
+    def counted(name):
+        def call(*args, **kwargs):
+            plain_calls[name] += 1
+            return originals[name](*args, **kwargs)
+        return call
+
+    kfn.launches.update(dict.fromkeys(kfn.launches, 0))
+    kfn_bwd.launches = 0
+    for name in plain_calls:
+        setattr(k1, name, counted(name))
+    try:
+        ((trainer, _),) = run.main(argv)
+    finally:
+        for name, fn in originals.items():
+            setattr(k1, name, fn)
+    launches = dict(fwd=kfn.launches[k1.HARD],
+                    fwd_soft=kfn.launches[k1.SOFT] + kfn.launches[k1.ST],
+                    bwd=kfn_bwd.launches)
+    (metrics,) = Path(log_root).glob("hybrid_*/trial_0/metrics.jsonl")
+    rows = [json.loads(x) for x in metrics.read_text().splitlines()]
+    losses = [r["loss_train"] for r in rows if "loss_train" in r]
+    evals = [r["reward_eval"] for r in rows if "reward_eval" in r]
+    plan = trainer.env.fused_plan(True)
+    expected = dict(fwd=len(evals), fwd_soft=len(losses), bwd=len(losses))
+    ok = (len(losses) == 2 and len(evals) == 2 and launches == expected and
+          not any(plain_calls.values()) and plan.L == 400 and
+          all(math.isfinite(x) for x in losses + evals))
+    report(argv=argv, losses=losses, eval_rewards=evals, launches=launches,
+           expected_launches=expected, plain_calls=plain_calls, L=plan.L,
+           T=plan.T, lanes_per_thread=plan.lanes_per_thread,
+           placement=plan.placement, status="ok" if ok else "FAIL")
+    if not ok:
+        raise SystemExit("train_5x5 failed")
+    return launches
+
+
+def drive_wide(env) -> dict:
+    """``serve_train_wide``'s drive of one grid (T = 600): a seeded
+    controller's hard episode through ``env.episode``, then one Trainer
+    step; K1's launches counted from 0 here: one each. Raises on a failed
+    check."""
+    import torch
+
+    from dhts_torch.apps.control.controller import (init_controller,
+                                                     squash_action)
+    from dhts_torch.apps.control.trainer import Trainer
+    from dhts_torch.ops.cuda import itscp_hybrid_episode as k1
+
+    kfn, kfn_bwd = k1.itscp_hybrid_episode_fwd, k1.itscp_hybrid_episode_bwd
+    kfn.launches.update(dict.fromkeys(kfn.launches, 0))
+    kfn_bwd.launches = 0
+    dev = env.device
+    model = init_controller(torch.Generator().manual_seed(0),
+                            env.observation_size(), env.action_size(),
+                            device=dev)
+    low, high = env.action_bounds()
+    obs = env.reset(3)
+    with torch.no_grad():
+        action = squash_action(model(torch.as_tensor(obs, device=dev)),
+                               low, high)
+    g = torch.Generator(device=dev)
+    g.manual_seed(3)
+    res = env.episode(action, differentiable=False, generator=g)
+    loss = Trainer(env, lr=1e-4, seed=3).train_step(1)
+    torch.cuda.synchronize()
+    launches = dict(fwd=kfn.launches[k1.HARD],
+                    fwd_soft=kfn.launches[k1.SOFT] + kfn.launches[k1.ST],
+                    bwd=kfn_bwd.launches)
+    rec = dict(L=env.spec.num_lanes, T=env.num_timestep,
+               reward=float(res.reward), emitted=int(res.emitted),
+               loss=loss, launches=launches)
+    if not (launches == dict(fwd=1, fwd_soft=1, bwd=1) and
+            math.isfinite(loss) and bool(torch.isfinite(res.reward))):
+        report(**rec, status="FAIL")
+        raise SystemExit(f"serve_train_wide failed: {rec}")
+    return rec
+
+
+def time_k1_wide(envs) -> dict:
+    """``k1_wide_timing``: K1's hard, soft and backward ms per launch on
+    each grid at T = 600 (``envs``, the inputs k1_wide_vs_plain held
+    there): CUDA events around 3 launches back to back, median of 5 after
+    a warm-up; each launch's bound and layout. The launches are not
+    counted."""
+    import torch
+
+    from dhts_torch.ops.cuda import itscp_hybrid_episode as k1
+
+    kfn, kfn_bwd = k1.itscp_hybrid_episode_fwd, k1.itscp_hybrid_episode_bwd
+    counts = (dict(kfn.launches), kfn_bwd.launches)
+    ms, bounds, layout = {}, {}, {}
+    for n in WIDE_GRIDS:
+        env = envs[n]
+        hard, soft = env.fused_plan(False), env.fused_plan(True)
+        ins = wide_inputs(env, WIDE_TIMING_SEED)
+        w = wide_weights(env.num_timestep, env.device)
+        runs = {"fwd": lambda: kfn(hard, *ins),
+                "fwd_soft": lambda: kfn(soft, *ins),
+                "bwd": lambda: kfn_bwd(soft, w, *ins)}
+        for fn in runs.values():
+            fn()
+        torch.cuda.synchronize()
+        ms[n] = {key: cuda_ms(fn, 5, 3) for key, fn in runs.items()}
+        T, n_act = hard.T, hard.n_phases * hard.n_inter
+        in_bytes = sum(x.numel() * x.element_size() for x in
+                       (*ins, hard.prog, hard.lane_i, hard.lane_f))
+        out_bytes = (1 + T + 8 * T) * 4
+        ops = T * int(env.spec.is_macro.sum()) * (
+            (hard.C + 1) * OPS_PER_INTERFACE + hard.C * OPS_PER_CELL)
+        bounds[n] = {"fwd": bound_of(in_bytes + out_bytes, ops),
+                     "fwd_soft": bound_of(in_bytes + out_bytes, ops),
+                     "bwd": bound_of(in_bytes + 4 * T + 4 * n_act,
+                                     ops * VJP_OPS_MULTIPLE)}
+        layout[n] = dict(L=hard.L, lanes_per_thread=soft.lanes_per_thread,
+                         placement=dict(zip(("forward", "backward"),
+                                            soft.placement)))
+    kfn.launches.update(counts[0])
+    kfn_bwd.launches = counts[1]
+    return dict(ms=ms, bounds=bounds, layout=layout)
+
+
 def main() -> int:
     if not (HERE / "dhts_torch" / "ops" / "cuda" / "csrc").is_dir():
         print("chip_smoke.py: the dhts_torch package is not beside this "
@@ -2557,7 +2956,11 @@ def main() -> int:
     bins = k1_batch_inputs(benv, K1_BATCH, 5)
     bw = torch.full((K1_BATCH, T), -1.0, device=dev)
     bplan = benv.fused_plan(False)
-    jobs = {}  # the longest first
+    # slice 17's wide grids at the checks' T = 150 and the main path's T =
+    # 600 (the timing's too)
+    wide_envs = {n: wide_env(n, WIDE_CHECK_POLICY, dev) for n in WIDE_GRIDS}
+    long_envs = {n: wide_env(n, WIDE_POLICY, dev) for n in WIDE_GRIDS}
+    jobs = wide_plain_jobs(wide_envs, long_envs)  # the longest first
     for mode in ("soft", "st"):
         jobs[f"bwd_{mode}"] = k1_plain_job(mode, True, bwd_inputs, w)
     for e in range(K1_BATCH):
@@ -2773,6 +3176,24 @@ def main() -> int:
     # ---- slice 8: the batched launches against the plain version
     phase("k1_batch_vs_plain")
     batch_plain = check_k1_batch_plain(benv, bins, bw, plain_out)
+
+    # ---- slice 17: K1 on the 5x5, 7x7 and 9x9 grids
+    t_slice17 = time.perf_counter()
+    phase("k1_wide_vs_plain")
+    wide_check = check_k1_wide(wide_envs, long_envs, plain_out)
+    with tempfile.TemporaryDirectory() as log_root:
+        phase("train_5x5")
+        wide_launches = {5: run_train_5x5(log_root)}
+    phase("serve_train_wide")
+    drives = []
+    for n in WIDE_GRIDS[1:]:
+        drives.append(drive_wide(wide_env(n, WIDE_POLICY, dev)))
+        wide_launches[n] = drives[-1]["launches"]
+    report(drives=drives)
+    phase("k1_wide_timing")
+    wide_times = time_k1_wide(long_envs)
+    report(**wide_times, nvidia_smi=smi)
+    slice17_seconds = time.perf_counter() - t_slice17
 
     # ---- 12-15. slice 4: training on the fused spatial step (mesh 1,1)
     t_slice4 = time.perf_counter()
@@ -3053,10 +3474,32 @@ def main() -> int:
             "bound_ms": b["bound_ms"], "bound_by": b["bound_by"],
             "library_ms": None, "batch": K1_BATCH,
             "ms_by_batch": k1_batch_times["ms"][key]})
+    # K1 on the wide grids at T = 600, B = 1: the launches of train_5x5
+    # and serve_train_wide; the error and the plain version's ms from
+    # k1_wide_vs_plain on the same inputs at T = 600
+    for n in WIDE_GRIDS:
+        lay = wide_times["layout"][n]
+        for key, replaces in (("fwd", k1.REPLACES_FWD),
+                              ("fwd_soft", k1.REPLACES_FWD),
+                              ("bwd", k1.REPLACES_BWD)):
+            b = wide_times["bounds"][n][key]
+            kernels.append({
+                "name": f"itscp_hybrid_episode_{key}_{n}x{n}",
+                "route": "cuda", "source": k1.SOURCE, "replaces": replaces,
+                "launches": wide_launches[n][key],
+                "max_abs_err": wide_check["errors"][600][n][key],
+                "ms": wide_times["ms"][n][key],
+                "plain_ms": wide_check["plain_ms"][600][n][key],
+                "bound_ms": b["bound_ms"], "bound_by": b["bound_by"],
+                "library_ms": None, "scene": f"{n}x{n}", "L": lay["L"],
+                "T": WIDE_POLICY * 30,
+                "lanes_per_thread": lay["lanes_per_thread"],
+                "placement": lay["placement"][
+                    "backward" if key == "bwd" else "forward"]})
     report(total_seconds=time.perf_counter() - t_start,
            slice3_seconds=slice3_seconds, slice4_seconds=slice4_seconds,
            slice5_seconds=slice5_seconds, slice6_seconds=slice6_seconds,
-           slice8_seconds=slice8_seconds)
+           slice8_seconds=slice8_seconds, slice17_seconds=slice17_seconds)
     print(json.dumps({"kernels": kernels}), flush=True)
     print(smi, flush=True)
     print(json.dumps({"ok": True, "device": {

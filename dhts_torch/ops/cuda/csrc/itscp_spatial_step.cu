@@ -17,6 +17,8 @@
 // Design. One launch runs the n_steps steps of a launcher call: one thread
 // block per episode (forward), one thread per lane, the block looping over
 // the steps (no block reads another's state, so no step needs the grid).
+// A block of more threads than the kernel's registers allow (the 5x5 and
+// 7x7 grids) runs the same code bounded to 64 registers a thread.
 // Between calls the carry is packed per episode as one float row (r, y [C,
 // L]; pos, vel, av and six vehicle parameters [V, L]; cap [K, L]; the
 // signal and static running-mean sums) and one int row (count [L]; route id
@@ -876,6 +878,19 @@ constexpr auto kernel_of() {
   else
     return spatial_step_dual_kernel;
 }
+// Both bounded to a block of MAX_WARPS warps (at most 64 registers a
+// thread), for the scenes with more lane warps than the registers of the
+// kernels above let one block hold (the 5x5 grid's 448 threads, the 7x7
+// grid's 832); launch() takes them there only.
+template <class S>
+__global__ void
+#ifndef DHTS_CPU_EMULATION
+__launch_bounds__(MAX_WARPS * WARP)
+#endif
+spatial_step_bounded_kernel(Ptrs p, Dims d, Consts k, int t0, int n_steps,
+                            int carry, int red) {
+  spatial_steps<S>(p, d, k, t0, n_steps, carry, red);
+}
 
 // the most dynamic shared memory a block may take (the card's opt-in
 // limit), and a smaller cap set for tests (< 0: none); whether a block
@@ -901,26 +916,34 @@ int launch(int blocks, const Ptrs& p, const Dims& d, const Consts& k,
   const int lanes = ((d.L + WARP - 1) / WARP) * WARP;
   const int red = reduction_warp && lanes + WARP <= MAX_WARPS * WARP;
   const int threads = lanes + (red ? WARP : 0);
-  constexpr auto kernel = kernel_of<S>();
 #ifdef DHTS_CPU_EMULATION
+  constexpr auto kernel = kernel_of<S>();
   (void)stream;
   const int carry = smem_cap < 0 || (long long)full <= smem_cap;
   dhts_emu::launch(blocks, threads, carry ? full : lean, kernel, p, d, k,
                    t0, n_steps, carry, red);
   return 0;
 #else
-  static int sms = 0, optin = 0;
+  static int sms = 0, optin = 0, max_threads = 0;
   cudaError_t err;
   if (!sms) {
     int dev;
+    cudaFuncAttributes attr;
     if ((err = cudaGetDevice(&dev)) != cudaSuccess) return (int)err;
     if ((err = cudaDeviceGetAttribute(
              &sms, cudaDevAttrMultiProcessorCount, dev)) != cudaSuccess ||
         (err = cudaDeviceGetAttribute(
              &optin, cudaDevAttrMaxSharedMemoryPerBlockOptin, dev)) !=
-            cudaSuccess)
+            cudaSuccess ||
+        (err = cudaFuncGetAttributes(&attr, kernel_of<S>())) != cudaSuccess)
       return (int)err;
+    max_threads = attr.maxThreadsPerBlock;
   }
+  // the block's threads beyond what the unbounded kernel's registers
+  // allow: the bounded kernel
+  const auto kernel = threads <= max_threads
+                          ? kernel_of<S>()
+                          : &spatial_step_bounded_kernel<S>;
   const long long cap = smem_cap < 0 ? optin : smem_cap;
   // the last choice, kept for calls of the same shapes
   static long long last_key[4] = {-1, 0, 0, 0};

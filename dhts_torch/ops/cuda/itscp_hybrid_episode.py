@@ -14,6 +14,14 @@ action.
   launch in its ``launches`` (the forward's per gate mode); on CPU tensors
   each calls its plain version. There is no fallback from the card to the
   plain version.
+* :func:`make_plan` picks how a scene runs (:func:`choose_layout`): one
+  lane a thread with the state in shared memory where one block holds it
+  (the 3x3 grid, the 5x5 grid's forward), else the state's per-lane arrays
+  in a workspace in global memory (the 5x5 grid's backward, the 7x7 and
+  9x9 grids) and, past 1,024 threads, two lanes a thread (9x9). On the
+  card the library decides what fits from its kernels' attributes; the
+  plan records the choice (``lanes_per_thread``, ``placement``); a scene
+  that no layout takes raises, naming its sizes.
 * :func:`plain_episode` is the plain PyTorch version of the forward: the
   eager ``boundary_and_step`` of :mod:`dhts_torch.apps.control.itscp.env`
   in a Python loop over T, each step vectorised over lanes, cells and
@@ -71,15 +79,103 @@ def leader_window(is_macro, routes) -> int:
     return int((c - latched).max()) + 1
 
 
-def lane_layout(is_macro) -> np.ndarray:
+def lane_layout(is_macro, lanes_per_thread: int = 1) -> np.ndarray:
     """K1's lane threads: the lane each thread runs, the macro lanes first
     and then the micro lanes, each group padded with -1 (an idle thread)
-    to whole warps of 32, so that no warp runs both kinds of lane."""
+    to whole warps of 32, so that no warp runs both kinds of lane. With
+    ``lanes_per_thread`` k, thread i of ``n = ceil(warps / k) * 32`` runs
+    the lanes at i, n + i, ... (rows of ``[k, n]``, flattened, -1 past the
+    end): each row of a thread warp is one warp of the list above."""
     is_macro = np.asarray(is_macro).astype(bool)
     out = []
     for group in (np.flatnonzero(is_macro), np.flatnonzero(~is_macro)):
         out += [*group.tolist(), *[-1] * (-len(group) % 32)]
+    k = int(lanes_per_thread)
+    n = -(-len(out) // 32 // k) * 32 if out else 0
+    out += [-1] * (k * n - len(out))
     return np.asarray(out, dtype=np.int32)
+
+
+# Where a block keeps its state: "shared" (every array in shared memory, one
+# lane a thread) or "global" (the arrays of C, V or K entries a lane in a
+# workspace in global memory, the per-lane summaries in shared memory)
+PLACEMENTS = ("shared", "global")
+MAX_THREADS = 1024  # threads a block
+MAX_LANES_PER_THREAD = 2
+# A CPU plan's record of the layout a card would take (on the card the
+# library chooses it from its kernels' attributes): an H100 block's opt-in
+# shared memory
+H100_SMEM_PER_BLOCK = 232448
+# smem_bytes' arrays in csrc/itscp_hybrid_episode.cu, as (entries, element
+# bytes, arrays): entries "C", "V" or "K" a lane, 1 or 2 a lane, or "parts"
+# (the warps' partial sums, 3 x 32); element bytes 0 for the scalar (float
+# forward, Dual backward). The state's arrays go to the workspace in the
+# global placement, the summaries' stay in shared memory.
+_STATE = (("C", 0, 2), ("V", 0, 3), ("K", 0, 1), ("V", 4, 2))
+_SUMMARIES = ((1, 0, 10), (2, 0, 1), (2, 4, 2), (2, 8, 1), (2, 4, 1),
+              ("parts", 8, 1), ("parts", 4, 1), (1, 4, 10))
+
+
+def block_bytes(L: int, C: int, V: int, K: int, tangent: bool,
+                placement: str) -> tuple[int, int]:
+    """``(shared memory, workspace)`` bytes of one block of the forward
+    (``tangent`` False) or the backward at these sizes, each array rounded
+    up to 16 bytes; the workspace is 0 in shared memory. The library's
+    ``itscp_hybrid_episode_smem_at`` reckons the same; this copy serves a
+    CPU plan, which has no library."""
+    entries = {"C": L * C, "V": L * V, "K": L * K, 1: L, 2: 2 * L,
+               "parts": 3 * 32}
+    scalar = 8 if tangent else 4
+
+    def total(arrays):
+        return sum(n * -(-entries[e] * (size or scalar) // 16) * 16
+                   for e, size, n in arrays)
+
+    state, summaries = total(_STATE), total(_SUMMARIES)
+    if placement == "shared":
+        return state + summaries, 0
+    return summaries, state
+
+
+class Layout(NamedTuple):
+    """How K1 runs a scene: lanes a thread (0: more than the kernel takes)
+    and the placement of the forward's and the backward's state (None: no
+    placement fits)."""
+
+    lanes_per_thread: int
+    placement: tuple  # (forward, backward): "shared", "global" or None
+
+
+def choose_layout(is_macro, C: int, V: int, K: int, device=None,
+                  lanes_per_thread: int | None = None) -> Layout:
+    """The fewest lanes a thread whose lane threads and reduction warp make
+    at most 1,024 threads (or ``lanes_per_thread``), and for each direction
+    the state in shared memory where one lane a thread allows it and the
+    block fits, else in global memory where that block fits. On a CUDA
+    ``device`` the library decides what fits from its kernels' attributes
+    (their registers' threads a block) and the device's opt-in shared
+    memory (``itscp_hybrid_episode_placement``); elsewhere the plan records
+    what an H100 block's shared memory holds."""
+    L = len(np.asarray(is_macro))
+    lpt = lanes_per_thread or next(
+        (k for k in range(1, MAX_LANES_PER_THREAD + 1)
+         if len(lane_layout(is_macro, k)) // k + 32 <= MAX_THREADS), 0)
+    if not lpt:
+        return Layout(0, (None, None))
+    lane_threads = len(lane_layout(is_macro, lpt)) // lpt
+    if device is not None and torch.device(device).type == "cuda":
+        lib = _library()
+        return Layout(lpt, tuple(
+            PLACEMENTS[c] if c >= 0 else None for c in (
+                lib.itscp_hybrid_episode_placement(L, C, V, K, tangent,
+                                                   lane_threads, lpt)
+                for tangent in (0, 1))))
+    placement = []
+    for tangent in (False, True):
+        fit = [p for p in PLACEMENTS if (lpt == 1 or p == "global") and
+               block_bytes(L, C, V, K, tangent, p)[0] <= H100_SMEM_PER_BLOCK]
+        placement.append(fit[0] if fit else None)
+    return Layout(lpt, tuple(placement))
 
 
 class EpisodePlan(NamedTuple):
@@ -107,11 +203,20 @@ class EpisodePlan(NamedTuple):
     n_inter: int
     mode: int  # HARD, SOFT or ST
     floats: tuple  # the kernel's float arguments, in order
+    # choose_layout's, unless make_plan was told otherwise; lane_perm is
+    # lane_layout at lanes_per_thread
+    lanes_per_thread: int = 1
+    placement: tuple = ("shared", "shared")  # (forward, backward)
 
 
 def make_plan(spec, meta, config, V: int, R: int, P: int, P_emit: int,
-              window: int | None = None,
-              differentiable: bool = False) -> EpisodePlan:
+              window: int | None = None, differentiable: bool = False,
+              lanes_per_thread: int | None = None,
+              placement: tuple | None = None) -> EpisodePlan:
+    """The plan of a scene. ``lanes_per_thread`` and ``placement`` (the
+    forward's and the backward's, each "shared" or "global") replace
+    :func:`choose_layout`'s choice where given (tests force a layout
+    through them)."""
     from dhts_torch.apps.control.itscp.env import signal_progress_table
 
     dev = spec.device
@@ -145,7 +250,19 @@ def make_plan(spec, meta, config, V: int, R: int, P: int, P_emit: int,
     mode = HARD
     if differentiable:
         mode = ST if str(config.get("gate_mode", "soft")) == "st" else SOFT
-    lane_perm = torch.as_tensor(lane_layout(spec.is_macro.cpu().numpy()),
+    is_macro = spec.is_macro.cpu().numpy()
+    if not 0 <= (lanes_per_thread or 0) <= MAX_LANES_PER_THREAD:
+        raise ValueError(f"no such layout: {lanes_per_thread} lanes a "
+                         "thread")
+    layout = choose_layout(is_macro, C, int(V), K, dev, lanes_per_thread)
+    lpt = layout.lanes_per_thread
+    placement = tuple(placement or layout.placement)
+    if any(p not in (*PLACEMENTS, None) or (p == "shared" and lpt != 1)
+           for p in placement):
+        raise ValueError(f"no such layout: {lpt} lanes a thread, "
+                         f"placement {placement} (shared memory takes one "
+                         "lane a thread)")
+    lane_perm = torch.as_tensor(lane_layout(is_macro, max(lpt, 1)),
                                 device=dev)
     return EpisodePlan(
         spec=spec, meta=meta, config=dict(config), lane_i=lane_i,
@@ -153,7 +270,27 @@ def make_plan(spec, meta, config, V: int, R: int, P: int, P_emit: int,
         prog=torch.as_tensor(signal_progress_table(nsf), device=dev),
         T=T, L=L, C=C, V=int(V), R=int(R), P=int(P), P2=int(P_emit), K=K,
         W=W, nsf=nsf, n_phases=n_phases, n_inter=n_inter, mode=mode,
-        floats=floats)
+        floats=floats, lanes_per_thread=lpt, placement=placement)
+
+
+def check_layout(plan: EpisodePlan, tangent: bool) -> str:
+    """The placement of the forward's (``tangent`` False) or the
+    backward's state; raises, naming the scene's sizes, where the kernel
+    cannot take the scene."""
+    where = plan.placement[int(tangent)]
+    if plan.lanes_per_thread and where is not None:
+        return where
+    slots = len(lane_layout(plan.spec.is_macro.cpu().numpy()))
+    need = {p: block_bytes(plan.L, plan.C, plan.V, plan.K, tangent, p)[0]
+            for p in PLACEMENTS}
+    raise ValueError(
+        f"K1's {'backward' if tangent else 'forward'} cannot take this "
+        f"scene: L = {plan.L} lanes ({slots} lane slots in warps of one "
+        f"kind), C = {plan.C}, V = {plan.V}, K = {plan.K}; it takes at most "
+        f"{MAX_LANES_PER_THREAD} lanes a thread and {MAX_THREADS} threads, "
+        f"and a block's shared memory ({H100_SMEM_PER_BLOCK} bytes on an "
+        f"H100), where this scene needs {need['shared']} bytes (state in "
+        f"shared memory) or {need['global']} (state in global memory)")
 
 
 EPISODE_INPUTS = ("action2d", "schedule", "mnext", "mprev", "rand",
@@ -244,9 +381,11 @@ def plain_episode_bwd(plan: EpisodePlan, q_weight, action2d, *inputs):
 
 _PTRS_FWD, _PTRS_BWD = 14, 13  # pointer arguments of the two launchers
 # the episode count and the eight episode strides, the sizes, gate mode and
-# lane threads, the constants
+# lane threads, the constants, the stream; lanes a thread, placement and
+# workspace
 _TAIL = ([ctypes.c_int] + [ctypes.c_longlong] * 8 + [ctypes.c_int] * 14 +
-         [ctypes.c_float] * 13 + [ctypes.c_void_p])
+         [ctypes.c_float] * 13 + [ctypes.c_void_p] +
+         [ctypes.c_int] * 2 + [ctypes.c_void_p])
 _ARGTYPES = [ctypes.c_void_p] * _PTRS_FWD + _TAIL
 _ARGTYPES_BWD = [ctypes.c_void_p] * _PTRS_BWD + _TAIL
 
@@ -260,6 +399,11 @@ def bind(lib: ctypes.CDLL) -> ctypes.CDLL:
         fn.restype = ctypes.c_int
     lib.itscp_hybrid_episode_smem.argtypes = [ctypes.c_int] * 5
     lib.itscp_hybrid_episode_smem.restype = ctypes.c_size_t
+    lib.itscp_hybrid_episode_smem_at.argtypes = [ctypes.c_int] * 6 + [
+        ctypes.POINTER(ctypes.c_size_t)]
+    lib.itscp_hybrid_episode_smem_at.restype = ctypes.c_size_t
+    lib.itscp_hybrid_episode_placement.argtypes = [ctypes.c_int] * 7
+    lib.itscp_hybrid_episode_placement.restype = ctypes.c_int
     lib.itscp_hybrid_episode_blocks_per_sm.argtypes = [ctypes.c_int] * 6
     lib.itscp_hybrid_episode_blocks_per_sm.restype = ctypes.c_int
     return lib
@@ -274,23 +418,52 @@ def _library() -> ctypes.CDLL:
     return lib
 
 
+class _Buffer:
+    """A tensor passed to a C launcher as its address (``ctypes`` takes
+    ``_as_parameter_``): the argument tuple keeps the tensor alive for the
+    call. None passes a null pointer."""
+
+    def __init__(self, x):
+        self.tensor = x
+        self._as_parameter_ = ctypes.c_void_p(
+            None if x is None else x.data_ptr())
+
+
 def kernel_args(plan: EpisodePlan, inputs, outputs, stream, B: int = 1,
-                strides=(0,) * 8) -> tuple:
+                strides=(0,) * 8, lib=None) -> tuple:
     """A C launcher's arguments: the seven inputs of the episode, the plan's
     tables (``lane_perm`` last) and the outputs as pointers, then the
     episode count ``B`` and each input's stride between episodes in
     elements (:func:`episode_rows`; 0: shared, the backward's ``q_weight``
-    last), the plan's sizes, gate mode and lane threads, and constants. The forward's outputs are ``(reward[B], queues[B,
-    T], events[B, T, 8])``, the backward's ``(q_weight, grad[B, n_phases,
-    n_inter])``."""
+    last), the plan's sizes, gate mode and lane threads, constants and
+    ``stream``, then its lanes a thread, the direction's placement (0
+    shared, 1 global) and the workspace: ``B`` (times ``n_phases *
+    n_inter`` backward) blocks of the bytes that ``lib`` (default: the
+    card's build) reckons a block (``itscp_hybrid_episode_smem_at``),
+    allocated here on the inputs' device (None in shared memory). The
+    forward's outputs are ``(reward[B], queues[B, T], events[B, T, 8])``,
+    the backward's ``(q_weight, grad[B, n_phases, n_inter])``."""
+    tangent = len(outputs) == 2
+    where = check_layout(plan, tangent)
     ptrs = [ctypes.c_void_p(x.data_ptr()) for x in
             (*inputs, plan.prog, plan.lane_i, plan.lane_f, plan.lane_perm,
              *outputs)]
+    lpt = plan.lanes_per_thread
     ints = (plan.T, plan.L, plan.C, plan.V, plan.R, plan.P, plan.P2, plan.K,
             plan.W, plan.nsf, plan.n_phases, plan.n_inter, plan.mode,
-            plan.lane_perm.numel())
+            plan.lane_perm.numel() // lpt)
+    workspace = None
+    if where == "global":
+        blocks = int(B) * (plan.n_phases * plan.n_inter if tangent else 1)
+        nbytes = ctypes.c_size_t()
+        (lib or _library()).itscp_hybrid_episode_smem_at(
+            plan.L, plan.C, plan.V, plan.K, int(tangent),
+            PLACEMENTS.index(where), ctypes.byref(nbytes))
+        workspace = torch.empty(blocks * nbytes.value, dtype=torch.uint8,
+                                device=inputs[0].device)
     return (*ptrs, int(B), *(int(x) for x in strides), *ints, *plan.floats,
-            ctypes.c_void_p(stream))
+            ctypes.c_void_p(stream), lpt, PLACEMENTS.index(where),
+            _Buffer(workspace))
 
 
 def episode_rows(plan: EpisodePlan, inputs, B: int | None):
@@ -465,6 +638,10 @@ def make_fused_itscp_episode(spec, meta, config, V: int, R: int, P: int,
     """
     plan = make_plan(spec, meta, config, V, R, P, P_emit, window,
                      differentiable)
+    if plan.lane_i.device.type != "cpu":  # no fallback: a scene K1 takes
+        check_layout(plan, False)
+        if differentiable:
+            check_layout(plan, True)
 
     def fn(action2d, schedule, mnext, mprev, rand, inj_routes, emit_routes,
            with_events: bool = False):

@@ -1,29 +1,45 @@
 """K1's hard, soft and backward milliseconds per launch at the 3x3 hybrid
 preset of ``run_itscp_hybrid.sh`` (T = 600, 144 lanes, one episode per
-launch, action 0.5), on the card, with the ``dhts_torch`` package of a
-given checkout: the ``timing`` phase of ``chip_smoke.py`` (its preset and
-its ``cuda_ms``) for another tree, so that two trees can be timed in turns
-in one call on one card::
+launch, action 0.5), or with ``--scene 5x5|7x7|9x9`` at the same flags on
+the wider grids of ``run_itscp_5x5.sh`` (400, 784, 1,296 lanes), on the
+card, with the ``dhts_torch`` package of a given checkout: the ``timing``
+phase of ``chip_smoke.py`` (its preset and its ``cuda_ms``) for another
+tree, so that two trees can be timed in turns in one call on one card::
 
     for i in 1 2 3 4 5; do for t in ../parent . . ../parent; do
         python tools/k1_timing.py $t; done; done
 
 ``TREE`` (default: this checkout) gives the package; the preset and the
-timer are this checkout's. Prints one JSON line: the tree, the card's name
-and power limit, and the median of ``--repeats`` CUDA-event timings of
-each launch after two warm-up launches, alone (``ms``: the wrapper's host
-time before the launch counts, as in ``timing``) and five back to back
-(``ms_back_to_back``: the host enqueues the next launch while the card
-runs the last, so the kernel's own time); with ``--batches 1,4,8,32``
-also each launch of B episodes of ``chip_smoke.py``'s four scenarios
-(alone, after a warm-up; ``k1_batch_timing``'s inputs) and fwd+bwd
-episodes per second at each B.
+timer are this checkout's. Prints one JSON line: the tree, the scene, its
+layout (lanes a thread, the forward's and the backward's placement), the
+card's name and power limit, and the median of ``--repeats`` CUDA-event
+timings of each launch after two warm-up launches, alone (``ms``: the
+wrapper's host time before the launch counts, as in ``timing``) and, at
+the 3x3 preset, five back to back (``ms_back_to_back``: the host enqueues
+the next launch while the card runs the last, so the kernel's own time);
+with ``--batches 1,4,8,32`` also each launch of B episodes of
+``chip_smoke.py``'s four scenarios (alone, after a warm-up;
+``k1_batch_timing``'s inputs) and fwd+bwd episodes per second at each B.
 
-``--sass`` prints instead, for each instantiation of K1's kernel in TREE's
+``--parent TREE`` times TREE's K1 and this checkout's in one process
+instead: TREE's ``csrc/itscp_hybrid_episode.cu`` built with this
+checkout's flags (``tools/k3_timing.py``'s ``build_tree``) beside this
+checkout's library, both called through this checkout's ``kernel_args``
+(the arguments after the stream, lanes a thread, placement and workspace,
+are ones an older launcher ignores; the 3x3 preset's layout is one lane a
+thread in shared memory, the only one an older library has), in
+``--pairs`` pairs of visits (the parent, this checkout, this checkout,
+the parent), each visit every launch's ms (CUDA events around five
+launches back to back, median of ``--repeats``); prints the medians and
+interquartile ranges of both arms and how many pairs this checkout won.
+
+``--sass`` prints instead, for each instantiation of K1's kernels in TREE's
 build, its SASS instruction count and the SHA-256 of its instructions
 (``cuobjdump -sass``, addresses and encodings dropped), and ptxas's lines
 of registers and stack: equal digests of two trees mean the same machine
-code.
+code. The shared-memory kernel is named by its scalar type and
+``+episodes`` for an episode axis in its parameters, the wide kernel (the
+state in global memory) as ``wide<scalar, lanes a thread>``.
 
 ``--compare TREE`` prints instead the largest absolute difference between
 TREE's K1 and this checkout's on the same inputs: reward, queues and
@@ -36,9 +52,12 @@ outputs come from a child process (``--dump``).
 from __future__ import annotations
 
 import argparse
+import ctypes
 import json
 import sys
 from pathlib import Path
+
+import numpy as np
 
 ROOT = Path(__file__).resolve().parents[1]
 
@@ -65,9 +84,13 @@ def sass_digest() -> dict:
         if m:
             fn = m.group(1)
             name = None
+            scalar = "Dual" if "Dual" in fn else "float"
             if "itscp_hybrid_episode_kernel" in fn:
-                name = ("Dual" if "Dual" in fn else "float") + (
-                    "+episodes" if "Episodes" in fn else "")
+                name = scalar + ("+episodes" if "Episodes" in fn else "")
+                out[name] = []
+            wide = re.search(r"itscp_hybrid_episode_wide.*?Li(\d)E", fn)
+            if wide:
+                name = f"wide<{scalar}, {wide.group(1)}>"
                 out[name] = []
             continue
         ins = re.match(r"\s*/\*[0-9a-f]{4,}\*/\s*(.*?)\s*;", line)
@@ -111,15 +134,98 @@ def compare(mine: dict, theirs: dict) -> dict:
     return out
 
 
+SCENES = ("3x3", "5x5", "7x7", "9x9")
+
+
+def scene_config(chip_smoke, scene: str) -> dict:
+    """The preset's flags on the ``scene`` grid (seed 3)."""
+    return dict(chip_smoke.PRESET, num_intersection=int(scene[0]),
+                random_seed=3)
+
+
+def bind_launchers(lib):
+    """Declare K1's two launchers on ``lib`` (a tree's build) with this
+    checkout's signatures."""
+    from dhts_torch.ops.cuda import itscp_hybrid_episode as k1
+
+    for fn, types in ((lib.launch_itscp_hybrid_episode_fwd, k1._ARGTYPES),
+                      (lib.launch_itscp_hybrid_episode_bwd,
+                       k1._ARGTYPES_BWD)):
+        fn.argtypes, fn.restype = types, ctypes.c_int
+    return lib
+
+
+def parent_pairs(chip_smoke, parent: Path, env, ins, pairs: int,
+                 repeats: int) -> dict:
+    """``--parent``: both libraries' launches in alternating visits."""
+    import torch
+
+    sys.path.insert(0, str(ROOT / "tools"))
+    from k3_timing import build_tree
+
+    from dhts_torch.ops.cuda import _launch
+    from dhts_torch.ops.cuda import itscp_hybrid_episode as k1
+
+    dev = ins[0].device
+    stream = _launch.stream(dev)
+    hard, soft = env.fused_plan(False), env.fused_plan(True)
+    libs = {"parent": bind_launchers(ctypes.CDLL(str(build_tree(
+                parent, "itscp_hybrid_episode")))),
+            "this": k1._library()}
+    out = (torch.empty((), device=dev), torch.empty(hard.T, device=dev),
+           torch.empty(hard.T, 8, device=dev))
+    w = torch.full((hard.T,), -1.0, device=dev)
+    grad = torch.empty(soft.n_phases, soft.n_inter, device=dev)
+    cases = {
+        "fwd": lambda L: L.launch_itscp_hybrid_episode_fwd(
+            *k1.kernel_args(hard, ins, out, stream)),
+        "fwd_soft": lambda L: L.launch_itscp_hybrid_episode_fwd(
+            *k1.kernel_args(soft, ins, out, stream)),
+        "bwd": lambda L: L.launch_itscp_hybrid_episode_bwd(
+            *k1.kernel_args(soft, ins, (w, grad), stream))}
+
+    def call(case, lib):
+        _launch.raise_on(cases[case](lib), f"k1 {case}")
+
+    for lib in libs.values():
+        for case in cases:
+            call(case, lib)
+    torch.cuda.synchronize()
+    ms = {arm: {c: [] for c in cases} for arm in libs}
+    won = dict.fromkeys(cases, 0)
+    for _ in range(pairs):
+        visit = {arm: {c: [] for c in cases} for arm in libs}
+        for arm in ("parent", "this", "this", "parent"):
+            for c in cases:
+                t = chip_smoke.cuda_ms(lambda: call(c, libs[arm]), repeats,
+                                       5)
+                visit[arm][c].append(t)
+                ms[arm][c].append(t)
+        for c in cases:
+            won[c] += sum(visit["this"][c]) < sum(visit["parent"][c])
+
+    def stats(xs):
+        q = np.percentile(xs, [25, 50, 75])
+        return {"median": float(q[1]), "iqr": float(q[2] - q[0])}
+
+    return {arm: {c: stats(v) for c, v in d.items()}
+            for arm, d in ms.items()} | {"this_won": won, "pairs": pairs}
+
+
 def main(argv=None) -> int:
     p = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     p.add_argument("tree", nargs="?", default=str(ROOT))
+    p.add_argument("--scene", choices=SCENES, default="3x3")
     p.add_argument("--repeats", type=int, default=10)
     p.add_argument("--sass", action="store_true")
     p.add_argument("--batches", metavar="B,B,...",
                    help="also time B episodes per launch of the batch's "
                         "scenarios (single launches)")
     p.add_argument("--compare", metavar="TREE")
+    p.add_argument("--parent", metavar="TREE",
+                   help="time TREE's K1 against this checkout's in "
+                        "alternating pairs, in one process")
+    p.add_argument("--pairs", type=int, default=10)
     p.add_argument("--dump", metavar="PATH", help=argparse.SUPPRESS)
     args = p.parse_args(argv)
     if args.compare:
@@ -153,7 +259,7 @@ def main(argv=None) -> int:
         print("k1_timing.py needs a CUDA device", file=sys.stderr)
         return 1
     dev = torch.device("cuda")
-    env = ItscpEnv(config=dict(chip_smoke.PRESET, random_seed=3),
+    env = ItscpEnv(config=scene_config(chip_smoke, args.scene),
                    schedule_fn=problem.problem_1, device=dev)
     env.reset(3)
     hard, soft = env.fused_plan(False), env.fused_plan(True)
@@ -176,6 +282,16 @@ def main(argv=None) -> int:
                           "max_abs_diff": compare(mine, theirs)}),
               flush=True)
         return 0
+    layout = {"lanes_per_thread": getattr(soft, "lanes_per_thread", 1),
+              "placement": getattr(soft, "placement", ("shared",) * 2)}
+    if args.parent:
+        rec = parent_pairs(chip_smoke, Path(args.parent), env, ins,
+                           args.pairs, args.repeats)
+        print(json.dumps({"tree": str(ROOT), "parent": args.parent,
+                          "scene": args.scene, **layout,
+                          "nvidia_smi": chip_smoke.nvidia_smi(), **rec}),
+              flush=True)
+        return 0
     w = torch.full((hard.T,), -1.0, device=dev)
     runs = {"fwd": lambda: k1.itscp_hybrid_episode_fwd(hard, *ins),
             "fwd_soft": lambda: k1.itscp_hybrid_episode_fwd(soft, *ins),
@@ -185,10 +301,11 @@ def main(argv=None) -> int:
         fn()
     torch.cuda.synchronize()
     ms = {k: chip_smoke.cuda_ms(fn, args.repeats) for k, fn in runs.items()}
-    b2b = {k: chip_smoke.cuda_ms(fn, args.repeats, 5)
-           for k, fn in runs.items()}
-    rec = {"tree": args.tree, "nvidia_smi": chip_smoke.nvidia_smi(),
-           "ms": ms, "ms_back_to_back": b2b}
+    rec = {"tree": args.tree, "scene": args.scene, **layout,
+           "nvidia_smi": chip_smoke.nvidia_smi(), "ms": ms}
+    if args.scene == "3x3":
+        rec["ms_back_to_back"] = {k: chip_smoke.cuda_ms(fn, args.repeats, 5)
+                                  for k, fn in runs.items()}
     if args.batches:
         benv = chip_smoke.batch_env(dev)
         bhard, bsoft = benv.fused_plan(False), benv.fused_plan(True)
